@@ -1,0 +1,112 @@
+"""Transformer building blocks as ``nn.Module``s.
+
+Port of ``mxnet_tpu/models/transformer.py`` (the decoder side).  Each
+layer keeps the reference's parameter layout — ``Dense`` weights are
+(out, in), LayerNorm carries ``gamma``/``beta`` — so weights carry over
+name for name (``models/convert.py``).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..base import MXNetError
+from ..ops.attention import flash_attention
+from ..ops.nn import activation, embedding, fully_connected, layer_norm
+
+__all__ = ["Dense", "LayerNorm", "Embedding", "MultiHeadAttention",
+           "PositionwiseFFN", "TransformerDecoderCell"]
+
+
+def _empty(shape, device, dtype):
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class Dense(nn.Module):
+    """y = act(x W^T + b), weight (units, in_units)."""
+
+    def __init__(self, units, in_units, activation=None, use_bias=True,
+                 device=None, dtype=None):
+        super().__init__()
+        self.weight = _empty((units, in_units), device, dtype)
+        self.bias = _empty((units,), device, dtype) if use_bias else None
+        self.act_type = activation
+
+    def forward(self, x):
+        y = fully_connected(x, self.weight, self.bias)
+        return activation(y, self.act_type) if self.act_type else y
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, units, eps=1e-5, device=None, dtype=None):
+        super().__init__()
+        self.gamma = _empty((units,), device, dtype)
+        self.beta = _empty((units,), device, dtype)
+        self.eps = eps
+
+    def forward(self, x):
+        return layer_norm(x, self.gamma, self.beta, self.eps)
+
+
+class Embedding(nn.Module):
+    def __init__(self, input_dim, output_dim, device=None, dtype=None):
+        super().__init__()
+        self.weight = _empty((input_dim, output_dim), device, dtype)
+
+    def forward(self, idx):
+        return embedding(idx, self.weight)
+
+
+class MultiHeadAttention(nn.Module):
+    """Fused-QKV multi-head self-attention over (batch, seq, units)."""
+
+    def __init__(self, units, num_heads, causal=False, device=None,
+                 dtype=None):
+        super().__init__()
+        if units % num_heads:
+            raise MXNetError(f"units {units} not divisible by "
+                             f"num_heads {num_heads}")
+        self.units, self.heads, self.causal = units, num_heads, causal
+        self.qkv = Dense(3 * units, units, device=device, dtype=dtype)
+        self.proj = Dense(units, units, device=device, dtype=dtype)
+
+    def forward(self, x, mask=None):
+        B, L, U = x.shape
+        H, D = self.heads, self.units // self.heads
+        qkv = self.qkv(x).reshape(B, L, 3, H, D).permute(2, 0, 3, 1, 4)
+        out = flash_attention(qkv[0], qkv[1], qkv[2], mask,
+                              causal=self.causal)
+        return self.proj(out.permute(0, 2, 1, 3).reshape(B, L, U))
+
+
+class PositionwiseFFN(nn.Module):
+    """units -> hidden (GELU, tanh form) -> units."""
+
+    def __init__(self, units, hidden_size, activation="gelu", device=None,
+                 dtype=None):
+        super().__init__()
+        self.fc1 = Dense(hidden_size, units, activation=activation,
+                         device=device, dtype=dtype)
+        self.fc2 = Dense(units, hidden_size, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.fc2(self.fc1(x))
+
+
+class TransformerDecoderCell(nn.Module):
+    """Pre-norm causal layer: x + attn(ln1(x)); x + ffn(ln2(x))."""
+
+    def __init__(self, units, hidden_size, num_heads, device=None,
+                 dtype=None):
+        super().__init__()
+        self.ln1 = LayerNorm(units, device=device, dtype=dtype)
+        self.attn = MultiHeadAttention(units, num_heads, causal=True,
+                                       device=device, dtype=dtype)
+        self.ln2 = LayerNorm(units, device=device, dtype=dtype)
+        self.ffn = PositionwiseFFN(units, hidden_size, device=device,
+                                   dtype=dtype)
+
+    def forward(self, x, mask=None):
+        x = x + self.attn(self.ln1(x), mask)
+        return x + self.ffn(self.ln2(x))

@@ -1,0 +1,62 @@
+"""Structure of the PyTorch port: it imports neither JAX nor the JAX
+package, its entry points refuse to run on a host without CUDA unless
+asked for the CPU, and its kernels are built for sm_90a."""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from mxnet_tpu_torch import _build
+from mxnet_tpu_torch.base import MXNetError
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "mxnet_tpu_torch").rglob("*.py")) + \
+    [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from mxnet_tpu_torch import resolve_device
+    from mxnet_tpu_torch.models import GPT, GPTConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        GPT(GPTConfig(num_layers=1, units=8, num_heads=2, hidden_size=8,
+                      vocab_size=11, max_length=8))
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_nvcc_command_targets_sm90a():
+    cmd = _build.nvcc_command("csrc/q8_matvec.cu", "out.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-shared" in cmd and "-O3" in cmd
+    for name in _build.KERNELS:
+        assert (_build.CSRC / f"{name}.cu").exists()
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.os.path, "exists",
+                        lambda p: False)
+    with pytest.raises(MXNetError, match="nvcc not found"):
+        _build._nvcc()
