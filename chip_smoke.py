@@ -15,12 +15,18 @@ Phases (each fails the run by raising; there is no CPU path):
 3. K4 (``q8_matvec``) against its plain version in bf16 at the five
    GPT-2-small decode shapes with 8 rows, with kernel, plain, library
    (``x @ wt.to(bf16)``) and bound times;
-4. K1 (flash forward) against its plain version in bf16 at the prefill
-   shape the serving run gives it (8 rows, 12 heads, 1024 tokens, head
-   dim 64, causal), and once more with a key mask and dropout, with
-   kernel, plain, library (``scaled_dot_product_attention``) and bound
-   times;
-5. serving: GPT-2 small at full width in bf16 (seeded random weights)
+4. K1 (flash forward) against its plain version in bf16 at the shape
+   the serving prefill and the training step give it (8 rows, 12 heads,
+   1024 tokens, head dim 64, causal), and once more with a key mask and
+   dropout, with kernel, plain, library (``scaled_dot_product_attention``)
+   and bound times;
+5. K2 and K3 (flash backward: dq; dk, dv, dbias) against their plain
+   versions in bf16 at the training shape, and at 2 x 12 x 640 with a
+   key mask, dbias and dropout 0.1, with kernel, plain and bound times,
+   and K1+K2+K3 forward and backward beside ``scaled_dot_product_attention``
+   forward and backward (the library's backward alone is K2's and K3's
+   library time);
+6. serving: GPT-2 small at full width in bf16 (seeded random weights)
    through ``DecodeServer(weights="int8", pool_sizes=(4, 8))`` — six
    ragged greedy requests, the 700-token one arriving after the others
    were admitted, so its wave runs K1 (a 1024 bucket); every decode
@@ -29,7 +35,21 @@ Phases (each fails the run by raising; there is no CPU path):
    then once more under ``torch.profiler`` for the device time by
    kernel, then the same weights in float32 in one wave, held the same
    way;
-6. one ``{"kernels": [...]}`` line, the card line, and as the last line
+7. training, the second slice's path: GPT-2 small at full width in
+   bf16 with dropout 0.1, 8 x 1024 tokens, ``parallel.SPMDTrainer`` with
+   AdamW (multi-precision), one ``step`` then ``run_steps`` over 19 more
+   of the same batch; every layer runs K1 forward and K2/K3 backward, so
+   each launches exactly 12 times a step; the losses must be finite,
+   start near ln(vocab) and fall; tokens/s, ms per step and peak memory;
+   then two more steps under ``torch.profiler``, device time by kernel
+   and by group (attention kernels, GEMMs, the rest);
+8. one f32 AdamW step of a 2-layer GPT-2-width model at 1 x 1024 on the
+   card (kernels) held against the same step on the CPU (plain
+   versions), loss and updated weights;
+9. BERT-base as ``bench.py`` trains it (seq 128, batch 64, bf16, AdamW
+   1e-4; its attention takes the plain path, no kernel): five steps,
+   finite and falling losses, tokens/s;
+10. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -213,7 +233,122 @@ def check_k1(cfg, B):
 
 
 # --------------------------------------------------------------------------- #
-# phase 5: serving
+# phase 5: K2 / K3
+# --------------------------------------------------------------------------- #
+
+def _causal_pairs(L, Lk, causal):
+    return sum(min(qp + 1, Lk) for qp in range(L)) if causal else L * Lk
+
+
+def check_k23(cfg, B):
+    """K2 and K3 against their plain versions (f32 outputs: tolerance
+    2e-3 of each output's magnitude, as the two sum the same products in
+    other orders), their times and bounds, and K1+K2+K3 forward and
+    backward beside the library's attention."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import attention as pa
+
+    H = cfg.num_heads
+    D = cfg.units // H
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    results = []
+    cases = [("train_causal", B, 1024, 1024, True, False, 0.0),
+             ("ragged_kmask_dropout", 2, 640, 640, False, True, 0.1)]
+    for name, b, L, Lk, causal, masked, rate in cases:
+        q, k, v = (torch.randn((b, H, n, D), generator=gen, device="cuda")
+                   .bfloat16() for n in (L, Lk, Lk))
+        g = torch.randn((b, H, L, D), generator=gen,
+                        device="cuda").bfloat16()
+        km = None
+        if masked:
+            km = torch.zeros((b, 1, Lk), device="cuda")
+            km[0, 0, Lk - 50:] = -1e30
+            km[1, 0, Lk - 7:] = -1e30
+        scale = D ** -0.5
+        out, lse = pa.flash_fwd(q, k, v, scale, causal, km, 1234, rate)
+        delta = (out.float() * g.float()).sum(-1)
+        args = (q, k, v, g, lse, delta, scale, causal, km, 1234, rate)
+        dq = pa.flash_bwd_dq(*args)
+        dk, dv, db = pa.flash_bwd_dkv(*args, need_dbias=masked)
+        rdq = pa.flash_bwd_dq_plain(*args)
+        rdk, rdv, rdb = pa.flash_bwd_dkv_plain(*args, need_dbias=masked)
+        torch.cuda.synchronize()
+        errs = {}
+        for what, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
+                               ("dv", dv, rdv), ("dbias", db, rdb)):
+            if ref is None:
+                continue
+            err = (got - ref).abs().max().item()
+            tol = 2e-3 * max(1.0, ref.abs().max().item())
+            if not torch.isfinite(got).all() or err > tol:
+                fail(f"K2/K3 {name} {what}: max_abs_err {err} > {tol}")
+            errs[what] = (err, tol)
+        pairs = b * H * _causal_pairs(L, Lk, causal)
+        in_bytes = 2 * b * H * D * (2 * L + 2 * Lk) + 8 * b * H * L + \
+            (0 if km is None else 4 * b * Lk)
+        k2_bms, k2_by = bound_ms(in_bytes + 4 * b * H * L * D,
+                                 6 * D * pairs)
+        k3_bms, k3_by = bound_ms(in_bytes + 8 * b * H * Lk * D +
+                                 (4 * b * H * Lk if masked else 0),
+                                 8 * D * pairs)
+        k2_ms = cuda_ms(lambda i: pa.flash_bwd_dq(*args), 20)
+        k3_ms = cuda_ms(lambda i: pa.flash_bwd_dkv(*args,
+                                                   need_dbias=masked), 20)
+        k2_plain = cuda_ms(lambda i: pa.flash_bwd_dq_plain(*args), 5)
+        k3_plain = cuda_ms(lambda i: pa.flash_bwd_dkv_plain(
+            *args, need_dbias=masked), 5)
+        # forward + backward: K1+K2+K3 through the autograd Function, and
+        # the library's attention through autograd; the library's
+        # backward alone (its dq, dk, dv) is K2's and K3's yardstick
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        bias = None if km is None else km.reshape(b, 1, 1, Lk)
+        mask4 = None if km is None else bias.bfloat16()
+
+        def ours(i):
+            o = pa._FlashAttention.apply(*leaves, bias, scale, causal, 1234,
+                                         rate)
+            torch.autograd.grad(o, leaves, g)
+
+        def sdpa(i):
+            o = F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask4, dropout_p=rate, is_causal=causal)
+            torch.autograd.grad(o, leaves, g)
+
+        o_lib = F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask4, dropout_p=rate, is_causal=causal)
+        fb_ms = cuda_ms(ours, 10)
+        lib_fb_ms = cuda_ms(sdpa, 10)
+        lib_bwd_ms = cuda_ms(lambda i: torch.autograd.grad(
+            o_lib, leaves, g, retain_graph=True), 10)
+        del o_lib
+        row = dict(case=name, B=b, H=H, L=L, Lk=Lk, D=D, causal=causal,
+                   mask=masked, dropout=rate,
+                   max_abs_err={w: e for w, (e, _) in errs.items()},
+                   tol={w: t for w, (_, t) in errs.items()},
+                   k2=dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bms,
+                           bound_by=k2_by, library_ms=lib_bwd_ms),
+                   k3=dict(ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bms,
+                           bound_by=k3_by, library_ms=lib_bwd_ms),
+                   fwd_bwd_ms=fb_ms, library_fwd_bwd_ms=lib_fb_ms)
+        print(f"K2/K3 {name} B={b} H={H} L={L} Lk={Lk} D={D} causal="
+              f"{causal} mask={masked} dropout={rate}: max_abs_err "
+              + " ".join(f"{w}={e:.3e} (tol {t:.3e})"
+                         for w, (e, t) in errs.items()), flush=True)
+        print(f"K2 {name}: kernel_ms={k2_ms:.5f} plain_ms={k2_plain:.5f} "
+              f"bound_ms={k2_bms:.5f} ({k2_by}); K3 {name}: kernel_ms="
+              f"{k3_ms:.5f} plain_ms={k3_plain:.5f} bound_ms={k3_bms:.5f} "
+              f"({k3_by}); library backward (dq, dk, dv) ms="
+              f"{lib_bwd_ms:.5f}", flush=True)
+        print(f"attention fwd+bwd {name}: K1+K2+K3 ms={fb_ms:.5f} "
+              f"scaled_dot_product_attention ms={lib_fb_ms:.5f}",
+              flush=True)
+        results.append(row)
+    return results
+
+
+# --------------------------------------------------------------------------- #
+# phase 6: serving
 # --------------------------------------------------------------------------- #
 
 PROMPT_LENS = (7, 100, 700, 33, 250, 512)
@@ -322,11 +457,11 @@ def check_serving(model, cfg):
     return run
 
 
-def profile_serving(model, cfg):
-    """Where the serving run's device time goes: the same six requests
-    once more (one wave) under ``torch.profiler``, kernel time summed by
-    name.  The profiler's host overhead makes this run slower than the
-    timed one, so only its shares are read, never its rate."""
+def _profiled(fn):
+    """Run ``fn()`` under ``torch.profiler``; returns the device time by
+    kernel name (us), the busy sum and the window (us).  The profiler's
+    host overhead makes the window slower than an unprofiled run, so
+    only its shares are read, never its rate."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -334,7 +469,7 @@ def profile_serving(model, cfg):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(model, cfg, counted=False)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -345,19 +480,30 @@ def profile_serving(model, cfg):
         if us is None:
             us = ev.self_cuda_time_total
         by_name[ev.key] = by_name.get(ev.key, 0.0) + us
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return by_name, sum(by_name.values()), wall_us
+
+
+def report_profile(what, by_name, busy, wall_us, top=8):
     if busy <= 0:
-        print("profile: the profiler recorded no device time (not measured)",
-              flush=True)
+        print(f"{what}: the profiler recorded no device time (not "
+              "measured)", flush=True)
         return dict(device_us=None)
-    print(f"profile: device busy {busy / wall_us:.4f} of the profiled "
+    print(f"{what}: device busy {busy / wall_us:.4f} of the profiled "
           f"window ({busy:.0f} of {wall_us:.0f} us)", flush=True)
-    for name, us in top:
-        print(f"profile: {us / busy:.4f} {us:.0f} us {name[:90]}",
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    for name, us in ranked:
+        print(f"{what}: {us / busy:.4f} {us:.0f} us {name[:90]}",
               flush=True)
     return dict(device_us=busy, window_us=wall_us,
-                top=[dict(name=n, us=u) for n, u in top])
+                top=[dict(name=n, us=u) for n, u in ranked])
+
+
+def profile_serving(model, cfg):
+    """Where the serving run's device time goes: the same six requests
+    once more (one wave) under ``torch.profiler``, kernel time summed by
+    name."""
+    return report_profile("profile", *_profiled(
+        lambda: serve(model, cfg, counted=False)))
 
 
 def check_serving_f32(cfg):
@@ -373,6 +519,214 @@ def check_serving_f32(cfg):
     model.initialize(0.02, seed=0)
     prompts, toks, _ = serve(model, cfg, counted=False)
     return check_streams(model, cfg, prompts, toks, "serve_f32")
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: training (the second slice's path)
+# --------------------------------------------------------------------------- #
+
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 1024, 20
+
+
+def check_training(cfg):
+    """GPT-2 small, bf16, dropout 0.1, AdamW (multi-precision) on one
+    repeated batch: ``step`` once, then ``run_steps`` over the rest.  The
+    launch counts are set to 0 just before and read just after."""
+    import math
+
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import gluon, parallel, random
+    from mxnet_tpu_torch.models import gpt2_small
+    from mxnet_tpu_torch.ops import attention as pa
+
+    random.seed(0)
+    model, _ = gpt2_small(dtype=torch.bfloat16, dropout=0.1)
+    model.initialize(0.02, seed=0)
+    rs = np.random.RandomState(8)
+    data = torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                      (TRAIN_B, TRAIN_T)), device="cuda")
+    label = torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                       (TRAIN_B, TRAIN_T)), device="cuda")
+    trainer = parallel.SPMDTrainer(
+        model, gluon.loss.SoftmaxCrossEntropyLoss(), "adamw",
+        {"learning_rate": 1e-4, "wd": 0.01, "multi_precision": True})
+    rest = TRAIN_STEPS - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (pa.flash_fwd, pa.flash_bwd_dq, pa.flash_bwd_dkv):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    first = trainer.step(data, label)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    more = trainer.run_steps(data[None].expand(rest, -1, -1),
+                             label[None].expand(rest, -1, -1))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"flash_fwd": pa.flash_fwd.launches,
+                "flash_bwd_dq": pa.flash_bwd_dq.launches,
+                "flash_bwd_dkv": pa.flash_bwd_dkv.launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(first)] + [float(x) for x in more.float().cpu()]
+    step_ms = (t2 - t1) / rest * 1e3
+    tok_s = rest * TRAIN_B * TRAIN_T / (t2 - t1)
+    print(f"train: gpt2_small bf16 dropout 0.1, B={TRAIN_B} T={TRAIN_T}, "
+          f"{TRAIN_STEPS} steps; losses {[round(x, 4) for x in losses]}",
+          flush=True)
+    print(f"train: tokens/s={tok_s:.2f} ms/step={step_ms:.3f} (steps 2-"
+          f"{TRAIN_STEPS}; first step {(t1 - t0) * 1e3:.3f} ms) "
+          f"max_memory_allocated={peak} launches {launches}", flush=True)
+    expect = cfg.num_layers * TRAIN_STEPS
+    for name, n in launches.items():
+        if n != expect:
+            fail(f"training launched {name} {n} times, expected "
+                 f"{cfg.num_layers} per step x {TRAIN_STEPS} = {expect}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"training losses not finite: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        fail(f"first loss {losses[0]} is not within 0.5 of ln(vocab) "
+             f"{math.log(cfg.vocab_size)}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fail(f"training loss did not fall: {losses}")
+    # where a step's device time goes: two more steps, profiled, with the
+    # kernel time grouped into attention (K1/K2/K3), GEMMs and the rest
+    by_name, busy, wall_us = _profiled(lambda: trainer.run_steps(
+        data[None].expand(2, -1, -1), label[None].expand(2, -1, -1)))
+    prof = report_profile("train profile", by_name, busy, wall_us, top=10)
+    groups = {"attention kernels": ("flash_",),
+              "GEMMs": ("gemm", "gemv", "xmma", "cutlass", "nvjet",
+                        "sm90_")}
+    shares = {g: sum(us for n, us in by_name.items()
+                     if any(k in n for k in keys))
+              for g, keys in groups.items()}
+    shares["other"] = busy - sum(shares.values())
+    if busy > 0:
+        print("train profile: by group " + ", ".join(
+            f"{g} {us / busy:.4f} ({us / 2e3:.3f} ms/step)"
+            for g, us in shares.items()), flush=True)
+    prof["groups_us"] = shares
+    del trainer, model
+    torch.cuda.empty_cache()
+    return dict(losses=losses, tokens_per_s=tok_s, ms_per_step=step_ms,
+                first_step_ms=(t1 - t0) * 1e3, max_memory_allocated=peak,
+                launches=launches, profile=prof)
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: one training step on the card against the CPU
+# --------------------------------------------------------------------------- #
+
+CPU_LR = 1e-4
+
+
+def check_training_vs_cpu():
+    """A 2-layer GPT-2-width model (768 units, 12 heads, vocab 50257),
+    f32, dropout 0, one AdamW step at 1 x 1024 on the card (K1/K2/K3) and
+    on the CPU (their plain versions) from the same weights.  Loss: 1e-4
+    relative.  Weights: Adam's first step moves each weight by about
+    ``lr`` times the sign of its gradient, so a weight whose gradient is
+    near zero may move differently on the two sides (by at most about
+    2 lr); every weight must agree within 2.5 lr, and at most 1% of them
+    by more than lr / 100."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.models import gpt2_small
+
+    cpu, _ = gpt2_small(device="cpu", num_layers=2, dtype=torch.float32)
+    cpu.initialize(0.02, seed=3)
+    card, _ = gpt2_small(num_layers=2, dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(9)
+    data = rs.randint(0, 50257, (1, TRAIN_T))
+    label = rs.randint(0, 50257, (1, TRAIN_T))
+    losses = []
+    for model in (card, cpu):
+        trainer = parallel.SPMDTrainer(
+            model, gluon.loss.SoftmaxCrossEntropyLoss(), "adamw",
+            {"learning_rate": CPU_LR, "wd": 0.01})
+        losses.append(float(trainer.step(data, label)))
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    worst, n_far, n_all = 0.0, 0, 0
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        d = (a.detach().cpu() - b.detach()).abs()
+        worst = max(worst, d.max().item())
+        n_far += int((d > CPU_LR / 100).sum())
+        n_all += d.numel()
+    share = n_far / n_all
+    print(f"train vs cpu: 2-layer f32 step, loss card {losses[0]:.6f} cpu "
+          f"{losses[1]:.6f} (rel {rel:.3e}, tol 1e-4); weights max_abs_diff "
+          f"{worst:.3e} (tol {2.5 * CPU_LR:.1e}), share beyond lr/100 "
+          f"{share:.3e} (tol 1e-2)", flush=True)
+    if rel > 1e-4 or worst > 2.5 * CPU_LR or share > 1e-2:
+        fail("the card's training step disagrees with the CPU's")
+    del card
+    torch.cuda.empty_cache()
+    return dict(loss_card=losses[0], loss_cpu=losses[1], loss_rel=rel,
+                weight_max_abs_diff=worst, share_beyond_lr_100=share)
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: BERT-base, bench.py's configuration (no kernel)
+# --------------------------------------------------------------------------- #
+
+def check_bert():
+    import math
+
+    import numpy as np
+    import torch
+    from torch import nn
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.models import bert_base
+    from mxnet_tpu_torch.ops import attention as pa
+
+    B, T, steps = 64, 128, 5
+    bert, cfg = bert_base(use_pooler=False, use_mlm=True, vocab_size=30528,
+                          max_length=T, dtype=torch.bfloat16)
+    bert.initialize(0.02, seed=0)
+
+    class MLMHeadOnly(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.bert = bert
+
+        def forward(self, tokens):
+            return self.bert(tokens)[-1]
+
+    rs = np.random.RandomState(0)
+    data = torch.as_tensor(rs.randint(0, cfg.vocab_size, (B, T)),
+                           device="cuda")
+    label = torch.as_tensor(rs.randint(0, cfg.vocab_size, (B, T)),
+                            device="cuda")
+    trainer = parallel.SPMDTrainer(MLMHeadOnly(),
+                                   gluon.loss.SoftmaxCrossEntropyLoss(),
+                                   "adamw", {"learning_rate": 1e-4})
+    for fn in (pa.flash_fwd, pa.flash_bwd_dq, pa.flash_bwd_dkv):
+        fn.launches = 0
+    first = trainer.step(data, label)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    more = trainer.run_steps(data[None].expand(steps - 1, -1, -1),
+                             label[None].expand(steps - 1, -1, -1))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses = [float(first)] + [float(x) for x in more.float().cpu()]
+    kernels = pa.flash_fwd.launches + pa.flash_bwd_dq.launches + \
+        pa.flash_bwd_dkv.launches
+    tok_s = (steps - 1) * B * T / dt
+    print(f"bert: bert_base bf16 (vocab {cfg.vocab_size}), B={B} T={T}, "
+          f"{steps} steps; losses {[round(x, 4) for x in losses]}; "
+          f"tokens/s={tok_s:.2f} ms/step={dt / (steps - 1) * 1e3:.3f} "
+          f"(steps 2-{steps}); attention kernel launches {kernels} (seq "
+          f"{T} takes the plain path, as in the reference)", flush=True)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"BERT losses not finite and falling: {losses}")
+    del trainer, bert
+    torch.cuda.empty_cache()
+    return dict(losses=losses, tokens_per_s=tok_s,
+                ms_per_step=dt / (steps - 1) * 1e3, kernel_launches=kernels)
 
 
 def main():
@@ -413,11 +767,28 @@ def main():
 
     k4 = check_k4(cfg)
     k1 = check_k1(cfg, B=8)
+    k23 = check_k23(cfg, B=8)
     srv = check_serving(model, cfg)
     srv["profile"] = profile_serving(model, cfg)
     del model
     torch.cuda.empty_cache()
     srv["agreement_f32"] = check_serving_f32(cfg)
+    torch.cuda.empty_cache()
+    train = check_training(cfg)
+    train["vs_cpu"] = check_training_vs_cpu()
+    bert = check_bert()
+
+    def backward_row(name, key, outputs, replaces):
+        main = k23[0][key]
+        return dict(name=name, route="cuda",
+                    source="mxnet_tpu_torch/csrc/flash_bwd.cu",
+                    replaces=replaces, launches=train["launches"][name],
+                    max_abs_err=max(e for r in k23
+                                    for w, e in r["max_abs_err"].items()
+                                    if w in outputs),
+                    ms=main["ms"], plain_ms=main["plain_ms"],
+                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                    library_ms=main["library_ms"])
 
     kernels = [
         dict(name="q8_matvec", route="cuda",
@@ -430,16 +801,21 @@ def main():
         dict(name="flash_fwd", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_fwd.cu",
              replaces="mxnet_tpu/ops/attention.py:226",
-             launches=srv["launches"]["flash_fwd"],
+             launches=train["launches"]["flash_fwd"],
              max_abs_err=max(r["max_abs_err"] for r in k1), ms=k1[0]["ms"],
              plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
              bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"]),
+        backward_row("flash_bwd_dq", "k2", ("dq",),
+                     "mxnet_tpu/ops/attention.py:369"),
+        backward_row("flash_bwd_dkv", "k3", ("dk", "dv", "dbias"),
+                     "mxnet_tpu/ops/attention.py:479"),
     ]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
-        json.dump(dict(card=card, build_s=secs, k4=k4, k1=k1, serve=srv,
-                       kernels=kernels), fh, indent=1, default=str)
+        json.dump(dict(card=card, build_s=secs, k4=k4, k1=k1, k23=k23,
+                       serve=srv, train=train, bert=bert, kernels=kernels),
+                  fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

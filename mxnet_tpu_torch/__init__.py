@@ -10,7 +10,10 @@ passes ``device="cpu"``.
 
 The first slice is serving: ``models.gpt`` + ``models.decoding`` +
 ``serve.DecodeServer`` with int8 weights (kernels ``q8_matvec`` and the
-flash-attention forward).
+flash-attention forward).  The second is training: ``gluon`` (losses,
+``Trainer``), ``optimizer``, ``parallel.SPMDTrainer``, ``random`` and
+``models.bert``, with the flash-attention backward kernels behind a
+``torch.autograd.Function``.
 """
 __version__ = "0.1.0"
 
@@ -19,11 +22,14 @@ from importlib import import_module as _imp
 from .base import MXNetError
 from .device import resolve_device
 
-__all__ = ["MXNetError", "resolve_device", "ops", "models", "serve"]
+_SUBPACKAGES = ("ops", "models", "serve", "gluon", "optimizer", "parallel",
+                "random")
+
+__all__ = ["MXNetError", "resolve_device", *_SUBPACKAGES]
 
 
 def __getattr__(name):
-    if name in ("ops", "models", "serve"):
+    if name in _SUBPACKAGES:
         mod = _imp("." + name, __name__)
         globals()[name] = mod
         return mod

@@ -159,7 +159,8 @@ class _DecodeEngine:
             o = flash_attention(q, k, v, None, scale=self.scale,
                                 causal=True)
             x = x + blk.attn.proj(o.permute(0, 2, 1, 3).reshape(B, P, U))
-            x = x + blk.ffn(blk.ln2(x))
+            # the FFN's own projections: no dropout while serving
+            x = x + blk.ffn.fc2(blk.ffn.fc1(blk.ln2(x)))
         if last_index is None:
             x_last = x[:, -1]
         else:

@@ -2,7 +2,9 @@
 
 Port of ``mxnet_tpu/models/gpt.py``: pre-norm blocks over the
 ``flash_attention`` op, fused QKV, and an LM head tied to the token
-embedding.  Parameters are created on the card unless ``device="cpu"``.
+embedding (one parameter, so its gradient sums both uses).  Parameters
+are created on the card unless ``device="cpu"``.  ``config.dropout``
+(embedding, attention and residual dropout) applies in training mode.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .transformer import Embedding, LayerNorm, TransformerDecoderCell
+from .transformer import (Dropout, Embedding, LayerNorm,
+                          TransformerDecoderCell, initialize)
 
 __all__ = ["GPTConfig", "GPT", "gpt2_small", "gpt2_medium", "gpt2_large"]
 
@@ -25,6 +28,7 @@ class GPTConfig:
     units: int = 768
     num_heads: int = 12
     hidden_size: int = 3072
+    dropout: float = 0.0
     dtype: str = "float32"
 
 
@@ -46,9 +50,10 @@ class GPT(nn.Module):
         dt = _torch_dtype(dtype if dtype is not None else c.dtype)
         self.wte = Embedding(c.vocab_size, c.units, dev, dt)
         self.wpe = Embedding(c.max_length, c.units, dev, dt)
+        self.drop = Dropout(c.dropout) if c.dropout else None
         self.blocks = nn.ModuleList(
             TransformerDecoderCell(c.units, c.hidden_size, c.num_heads,
-                                   dev, dt)
+                                   c.dropout, dev, dt)
             for _ in range(c.num_layers))
         self.ln_f = LayerNorm(c.units, device=dev, dtype=dt)
 
@@ -60,27 +65,16 @@ class GPT(nn.Module):
     def dtype(self):
         return self.wte.weight.dtype
 
-    @torch.no_grad()
     def initialize(self, std=0.02, seed=0):
-        """Seeded ``Normal(std)`` init, by the reference initializer's
-        name rules: weights normal, biases and betas zero, gammas one."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        for name, p in self.named_parameters():
-            if name.endswith("gamma"):
-                p.fill_(1.0)
-            elif name.endswith(("bias", "beta")):
-                p.zero_()
-            else:
-                p.copy_(torch.randn(p.shape, generator=gen,
-                                    device=self.device,
-                                    dtype=torch.float32) * std)
-        return self
+        """Seeded ``Normal(std)`` init (``transformer.initialize``)."""
+        return initialize(self, std, seed)
 
-    @torch.no_grad()
     def forward(self, tokens):
         B, L = tokens.shape
         pos = torch.arange(L, device=tokens.device)
         x = self.wte(tokens) + self.wpe(pos)[None]
+        if self.drop is not None:
+            x = self.drop(x)
         for blk in self.blocks:
             x = blk(x)
         x = self.ln_f(x)

@@ -5,7 +5,8 @@ PyTorch port against the JAX package, float32 on the CPU.
   interpret mode — causal, key mask, dropout — on out AND lse (1e-5);
 - the dropout position hash bit for bit;
 - ``_plain_attn``, ``rope`` and the ``flash_attention`` op (whose long
-  rows take K1 in the port and the blockwise scan in JAX);
+  rows take K1 in the port and the blockwise scan in JAX), in inference
+  and with ``training=True``;
 - the CUDA kernel vs its plain version on the card (``cuda`` marker)."""
 import numpy as onp
 import pytest
@@ -139,9 +140,13 @@ def test_flash_attention_op_matches_jax(L, masked):
 
 
 def test_training_raises():
-    q, k, v = (t(a) for a in _qkv(1, 1, 8, 8, 8))
-    with pytest.raises(MXNetError, match="training slice"):
-        pa.flash_attention(q, k, v, training=True)
+    """``training=True`` no longer raises: without dropout it returns the
+    inference forward's value, on the plain path and the kernel path."""
+    for L in (8, 600):
+        q, k, v = (t(a) for a in _qkv(1, 2, L, L, 8))
+        got = pa.flash_attention(q, k, v, causal=True, training=True)
+        ref = pa.flash_attention(q, k, v, causal=True, training=False)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
 def test_wrapper_rejects_bad_inputs():

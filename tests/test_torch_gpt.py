@@ -24,7 +24,7 @@ def test_forward_matches_jax(pair, B, L):
     ref = net(mx.nd.array(toks, dtype="int32")).asnumpy()
     got = model(torch.as_tensor(toks))
     assert got.shape == (B, L, 97)
-    onp.testing.assert_allclose(got.numpy(), ref, **LOGIT_TOL)
+    onp.testing.assert_allclose(got.detach().numpy(), ref, **LOGIT_TOL)
 
 
 def test_convert_carries_every_parameter(pair):
@@ -37,7 +37,8 @@ def test_convert_carries_every_parameter(pair):
     wq = net.collect_params()
     key = next(k for k in wq if k.endswith("h1_attn_qkv_weight"))
     onp.testing.assert_array_equal(
-        model.blocks[1].attn.qkv.weight.numpy(), wq[key].data().asnumpy())
+        model.blocks[1].attn.qkv.weight.detach().numpy(),
+        wq[key].data().asnumpy())
 
 
 def test_convert_rejects_unknown_and_missing(pair):

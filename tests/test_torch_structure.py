@@ -34,7 +34,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from mxnet_tpu_torch import resolve_device
-    from mxnet_tpu_torch.models import GPT, GPTConfig
+    from mxnet_tpu_torch.models import BERTConfig, BERTModel, GPT, GPTConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="CUDA is not available"):
@@ -42,6 +42,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(MXNetError, match="CUDA is not available"):
         GPT(GPTConfig(num_layers=1, units=8, num_heads=2, hidden_size=8,
                       vocab_size=11, max_length=8))
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        BERTModel(BERTConfig(num_layers=1, units=8, num_heads=2,
+                             hidden_size=8, vocab_size=11, max_length=8))
     assert resolve_device("cpu").type == "cpu"
 
 
