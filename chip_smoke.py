@@ -49,7 +49,28 @@ Phases (each fails the run by raising; there is no CPU path):
 9. BERT-base as ``bench.py`` trains it (seq 128, batch 64, bf16, AdamW
    1e-4; its attention takes the plain path, no kernel): five steps,
    finite and falling losses, tokens/s;
-10. one ``{"kernels": [...]}`` line, the card line, and as the last line
+10. K5 (the fused decode step, ``ops.decode_fused.decode_step``) against
+   its plain version in bf16, native and int8 streams, at four shapes:
+   GPT-2 small (12 layers, B=4, T=768) at position 700 and at position
+   0, Llama-7B widths (2 layers, B=1, T=64) and its grouped-query variant
+   (8 KV heads, 2 layers, B=2); the output and the written K/V column
+   within 6 bf16 steps of their magnitude, the rest of the caches bit for
+   bit; K5 ms a token beside its byte bound, the plain version's ms and
+   the port's unfused step's (no single PyTorch call computes K5's
+   function, so the unfused step is its yardstick);
+11. the third slice's path: GPT-2 small through ``kv_generate(fused=
+   "on")``, 4 x 640-token prompts and 128 new tokens, greedy, native and
+   int8: K5 launched 127 times a run, K1 12 times, K4 (the int8 head) 127
+   times; tokens/s beside ``fused="off"``; agreement with the unfused
+   step teacher-forced (the unfused step fed the fused stream's tokens
+   must predict its next token >= 0.9 of the time); one ``prefill=
+   "scan"`` run (1 x 64 + 64, K5 launched 127 times); one profiled fused
+   step (K5, and no GEMM or attention kernel between the embedding and
+   ``ln_f``);
+12. Llama-7B at full depth (32 layers, bf16), 1 x 32 + 32 tokens, native
+   and int8: K5 launched 31 times each, tokens/s fused and unfused,
+   teacher-forced agreement >= 0.9;
+13. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -729,6 +750,329 @@ def check_bert():
                 ms_per_step=dt / (steps - 1) * 1e3, kernel_launches=kernels)
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: K5, the fused decode step, against its plain version
+# --------------------------------------------------------------------------- #
+
+# tolerance: bf16 steps (ulps) at the output's largest magnitude.  K5 and
+# its plain version sum every projection in other orders and round each
+# to bf16, and each of up to 12 layers adds its residual in bf16, so a
+# one-step difference can compound; the largest measured on an H100 was
+# 4.0 steps (GPT-2 small, 12 layers, native, position 0)
+K5_STEPS = 6
+
+
+def _bf16_step(t):
+    """One bf16 step (ulp) at the largest magnitude of ``t``."""
+    import math
+
+    m = t.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 2.0 ** -133
+
+
+def _k5_bound(pack, cfg, B, pos):
+    """K5's least time for one token: the packed stream, the K/V rows at
+    positions <= pos, the new column and x in and out, over the memory
+    rate; or its operations over the bf16 peak, whichever is larger."""
+    NL = pack[2].shape[0]
+    H, U = cfg.num_heads, cfg.units
+    KV = getattr(cfg, "num_kv_heads", None) or H
+    D = U // H
+    nbytes = sum(t.numel() * t.element_size() for t in pack) + \
+        2 * NL * B * KV * (pos + 1) * D * 2 + 2 * B * U * 2
+    nops = 2 * B * pack[0].numel() + 4 * NL * B * H * D * (pos + 1)
+    return bound_ms(nbytes, nops)
+
+
+def check_k5(models):
+    """K5 against ``decode_step_plain`` at the four shapes, native and
+    int8, with its time, bound, plain time and the unfused step's."""
+    import torch
+    from mxnet_tpu_torch.models.decoding import _DecodeEngine, _fused_pack
+    from mxnet_tpu_torch.ops.decode_fused import (decode_step,
+                                                  decode_step_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for name, key, B, T, pos in (("gpt2_small", "gpt2", 4, 768, 700),
+                                 ("llama7b_2l", "llama", 1, 64, 40),
+                                 ("llama7b_gqa8_2l", "gqa", 2, 64, 40),
+                                 ("gpt2_small_pos0", "gpt2", 4, 768, 0)):
+        model = models[key]
+        cfg = model._cfg
+        for weights in ("native", "int8"):
+            eng = _DecodeEngine(model, 0.0, 0, weights, fused=True)
+            pack = _fused_pack(model, weights == "int8")
+            NL, KV, D = eng.NL, eng.KV, eng.D
+            act, eps = eng.act_t, eng.norm_eps[0]
+            tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                                device="cuda")
+            posv = torch.full((B,), pos, dtype=torch.int64, device="cuda")
+            x = eng.embed(tok, posv).contiguous()
+            kh, vh = ((torch.randn((NL, B, KV, T, D), generator=gen,
+                                   device="cuda") * 0.5).bfloat16()
+                      for _ in range(2))
+            kk, vk = kh.clone(), vh.clone()
+            got = decode_step(pos, x, pack, kk, vk, cfg, act, eps)[0]
+            ref, kr, vr = decode_step_plain(pos, x, pack, kh.clone(),
+                                            vh.clone(), cfg, act, eps)
+            torch.cuda.synchronize()
+            errs = {}
+            for what, a, b in (("x", got, ref),
+                               ("k", kk[:, :, :, pos], kr[:, :, :, pos]),
+                               ("v", vk[:, :, :, pos], vr[:, :, :, pos])):
+                err = (a.float() - b.float()).abs().max().item()
+                steps = err / _bf16_step(b)
+                if not torch.isfinite(a.float()).all() or steps > K5_STEPS:
+                    fail(f"K5 {name} {weights} {what}: max_abs_err {err} "
+                         f"= {steps} bf16 steps > {K5_STEPS}")
+                errs[what] = (err, steps)
+            rest = torch.ones(T, dtype=torch.bool, device="cuda")
+            rest[pos] = False
+            if not (torch.equal(kk[:, :, :, rest], kh[:, :, :, rest]) and
+                    torch.equal(vk[:, :, :, rest], vh[:, :, :, rest])):
+                fail(f"K5 {name} {weights}: cache entries other than "
+                     f"position {pos} changed")
+            ms = cuda_ms(lambda i: decode_step(pos, x, pack, kk, vk, cfg,
+                                               act, eps), 20)
+            plain = cuda_ms(lambda i: decode_step_plain(
+                pos, x, pack, kr, vr, cfg, act, eps), 3, warm=2)
+            fused_step = cuda_ms(lambda i: eng.fused_step(tok, pos, kk, vk),
+                                 20)
+            ueng = _DecodeEngine(model, 0.0, 0, weights)
+            kp, vp = (torch.zeros((NL, B + 1, KV, T, D), device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(2))
+            pt = torch.arange(B, device="cuda")[:, None]
+            unfused = cuda_ms(lambda i: ueng.paged_step(tok, posv, kp, vp,
+                                                        pt, T), 5)
+            bms, by = _k5_bound(pack, cfg, B, pos)
+            row = dict(shape=name, weights=weights, layers=NL, B=B, T=T,
+                       pos=pos, KV=KV, grid=decode_step.grid,
+                       max_abs_err=max(e for e, _ in errs.values()),
+                       bf16_steps={w: st for w, (_, st) in errs.items()},
+                       ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                       fused_step_ms=fused_step, unfused_step_ms=unfused)
+            rows.append(row)
+            print(f"K5 {name} {weights} NL={NL} B={B} T={T} pos={pos} "
+                  f"KV={KV} grid={decode_step.grid}: max_abs_err " +
+                  " ".join(f"{w}={e:.3e} ({st:.2f} steps)"
+                           for w, (e, st) in errs.items()) +
+                  f" (tol {K5_STEPS} bf16 steps); kernel_ms={ms:.5f} "
+                  f"bound_ms={bms:.5f} ({by}) plain_ms={plain:.5f} "
+                  f"fused_step_ms={fused_step:.5f} unfused_step_ms="
+                  f"{unfused:.5f}", flush=True)
+            del ueng, kp, vp
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# phases 11-12: kv_generate(fused="on"), GPT-2 small and Llama-7B
+# --------------------------------------------------------------------------- #
+
+def teacher_forced(model, prompts, stream, weights):
+    """Share of the fused stream's new tokens that the unfused step
+    predicts when fed the stream's own earlier tokens (greedy): the
+    prefill's argmax against the first new token, then one unfused step
+    per position.  A single flip does not cascade here, as it does in a
+    whole-stream comparison."""
+    import torch
+    from mxnet_tpu_torch.models.decoding import _DecodeEngine
+
+    eng = _DecodeEngine(model, 0.0, 0, weights)
+    B, P = prompts.shape
+    total = stream.shape[1]
+    s = torch.as_tensor(stream, device="cuda").long()
+    logits, knew, vnew = eng.prefill(s[:, :P])
+    shape = (eng.NL, B + 1, eng.KV, total, eng.D)
+    kp, vp = (torch.zeros(shape, dtype=eng.cdtype, device="cuda")
+              for _ in range(2))
+    kp[:, :B, :, :P] = knew
+    vp[:, :B, :, :P] = vnew
+    pt = torch.arange(B, device="cuda")[:, None]
+    preds = [logits.argmax(-1)]
+    for t in range(P, total - 1):
+        posv = torch.full((B,), t, dtype=torch.int64, device="cuda")
+        preds.append(eng.paged_step(s[:, t], posv, kp, vp, pt,
+                                    total).argmax(-1))
+    return (torch.stack(preds, 1) == s[:, P:]).float().mean().item()
+
+
+def _reset_counts():
+    from mxnet_tpu_torch.ops.attention import flash_fwd
+    from mxnet_tpu_torch.ops.decode_fused import decode_step
+    from mxnet_tpu_torch.ops.q8_matvec import q8_matvec
+
+    for fn in (decode_step, flash_fwd, q8_matvec):
+        fn.launches = 0
+
+
+def _counts():
+    from mxnet_tpu_torch.ops.attention import flash_fwd
+    from mxnet_tpu_torch.ops.decode_fused import decode_step
+    from mxnet_tpu_torch.ops.q8_matvec import q8_matvec
+
+    return {"decode_fused": decode_step.launches,
+            "flash_fwd": flash_fwd.launches,
+            "q8_matvec": q8_matvec.launches}
+
+
+def fused_run(what, model, prompts, new, weights, prefill, expect):
+    """One counted ``kv_generate(fused="on")`` run (counts set to 0 just
+    before, read just after) and the same request with ``fused="off"``;
+    checks the launch counts, the tokens and the teacher-forced
+    agreement.  ``expect``: the required launches by kernel name."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import kv_generate
+
+    B, P = prompts.shape
+    kw = dict(temperature=0.0, weights=weights, prefill=prefill)
+    # warm-up: pack, cuBLAS and allocator set-up stay off the clock
+    kv_generate(model, prompts[:, :8], 2, fused="on", **kw)
+    kv_generate(model, prompts[:, :8], 2, fused="off", **kw)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = kv_generate(model, prompts, new, fused="on", **kw)
+    torch.cuda.synchronize()
+    t_fused = time.perf_counter() - t0
+    launches = _counts()
+    t0 = time.perf_counter()
+    ref = kv_generate(model, prompts, new, fused="off", **kw)
+    torch.cuda.synchronize()
+    t_unfused = time.perf_counter() - t0
+    for k, n in expect.items():
+        if launches[k] != n:
+            fail(f"{what}: {k} launched {launches[k]} times, expected {n}")
+    vocab = model._cfg.vocab_size
+    if out.shape != (B, P + new) or not ((0 <= out) & (out < vocab)).all():
+        fail(f"{what}: output {out.shape} or tokens outside the vocab")
+    if not np.array_equal(out[:, :P], prompts):
+        fail(f"{what}: the prompt was not kept")
+    tf = teacher_forced(model, prompts, out, weights)
+    whole = float((out[:, P:] == ref[:, P:]).mean())
+    row = dict(weights=weights, prefill=prefill, B=B, P=P, new=new,
+               launches=launches, tokens_per_s=B * new / t_fused,
+               unfused_tokens_per_s=B * new / t_unfused,
+               ms_per_token=t_fused / (new - 1) * 1e3,
+               unfused_ms_per_token=t_unfused / (new - 1) * 1e3,
+               teacher_forced=tf, whole_stream_agreement=whole)
+    print(f"{what}: {weights} prefill={prefill} B={B} P={P} new={new} "
+          f"launches {launches}; tokens/s fused={row['tokens_per_s']:.2f} "
+          f"unfused={row['unfused_tokens_per_s']:.2f}; ms/token fused="
+          f"{row['ms_per_token']:.4f} unfused="
+          f"{row['unfused_ms_per_token']:.4f}; teacher-forced agreement="
+          f"{tf:.4f} (bar 0.9); whole-stream agreement={whole:.4f}",
+          flush=True)
+    if tf < 0.9:
+        fail(f"{what}: teacher-forced agreement {tf:.4f} < 0.9")
+    return row
+
+
+def check_fused_gpt2(model, cfg):
+    import numpy as np
+
+    rs = np.random.RandomState(12)
+    prompts = rs.randint(0, cfg.vocab_size, (4, 640))
+    L = cfg.num_layers
+    runs = {}
+    for weights in ("native", "int8"):
+        runs[weights] = fused_run(
+            "fused gpt2_small", model, prompts, 128, weights, "batched",
+            {"decode_fused": 127, "flash_fwd": L,
+             "q8_matvec": 127 if weights == "int8" else 0})
+    runs["scan"] = fused_run(
+        "fused gpt2_small", model, rs.randint(0, cfg.vocab_size, (1, 64)),
+        64, "native", "scan", {"decode_fused": 127, "flash_fwd": 0})
+    return runs
+
+
+def profile_fused(model):
+    """One fused GPT-2-small step from the embedding to ``ln_f`` under
+    ``torch.profiler``: K5 must be there, and no GEMM or attention
+    kernel."""
+    import torch
+    from mxnet_tpu_torch.models.decoding import _DecodeEngine
+    from mxnet_tpu_torch.ops.decode_fused import decode_step
+
+    eng = _DecodeEngine(model, 0.0, 0, "native", fused=True)
+    B, T, pos = 4, 768, 700
+    kc, vc = (torch.zeros((eng.NL, B, eng.KV, T, eng.D), device="cuda",
+                          dtype=torch.bfloat16) for _ in range(2))
+    tok = torch.zeros((B,), dtype=torch.int64, device="cuda")
+    posv = torch.full((B,), pos, dtype=torch.int64, device="cuda")
+
+    def layers():
+        x = eng.embed(tok, posv).contiguous()
+        x = decode_step(pos, x, eng.packed, kc, vc, model._cfg, eng.act_t,
+                        eng.norm_eps[0])[0]
+        return model.ln_f(x)
+
+    layers()
+    torch.cuda.synchronize()
+    by_name, busy, wall_us = _profiled(layers)
+    prof = report_profile("fused profile", by_name, busy, wall_us)
+    if busy <= 0:
+        fail("fused profile: the profiler recorded no device time")
+    if not any("decode_fused_kernel" in n for n in by_name):
+        fail(f"fused profile: no K5 kernel among {sorted(by_name)}")
+    bad = [n for n in by_name if any(
+        k in n.lower() for k in ("gemm", "gemv", "xmma", "cutlass", "nvjet",
+                                 "flash", "fmha", "attention"))]
+    if bad:
+        fail(f"fused profile: library GEMM/attention kernels inside the "
+             f"layer stack: {bad}")
+    prof["kernels"] = sorted(by_name)
+    return prof
+
+
+def check_llama7b():
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import llama_7b
+
+    t0 = time.perf_counter()
+    model, cfg = llama_7b(dtype=torch.bfloat16)
+    model.initialize(0.02, seed=0)
+    torch.cuda.synchronize()
+    print(f"llama_7b: {sum(p.numel() for p in model.parameters())} "
+          f"parameters, bf16, seeded Normal(0.02), built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = np.random.RandomState(13).randint(0, cfg.vocab_size, (1, 32))
+    runs = {}
+    for weights in ("native", "int8"):
+        runs[weights] = fused_run(
+            "fused llama_7b", model, prompts, 32, weights, "batched",
+            {"decode_fused": 31, "flash_fwd": 0,
+             "q8_matvec": 31 if weights == "int8" else 0})
+    # K5 alone at full depth (32 layers, B=1, position 40), int8 first:
+    # the model's pack cache holds the stream the last run built
+    from mxnet_tpu_torch.models.decoding import _DecodeEngine
+    from mxnet_tpu_torch.ops.decode_fused import decode_step
+
+    for weights in ("int8", "native"):
+        eng = _DecodeEngine(model, 0.0, 0, weights, fused=True)
+        kc, vc = (torch.zeros((eng.NL, 1, eng.KV, 64, eng.D), device="cuda",
+                              dtype=torch.bfloat16) for _ in range(2))
+        posv = torch.full((1,), 40, dtype=torch.int64, device="cuda")
+        x = eng.embed(torch.zeros((1,), dtype=torch.int64, device="cuda"),
+                      posv).contiguous()
+        ms = cuda_ms(lambda i: decode_step(40, x, eng.packed, kc, vc, cfg,
+                                           None, eng.norm_eps[0]), 10)
+        bms, by = _k5_bound(eng.packed, cfg, 1, 40)
+        runs[weights]["k5_full_depth"] = dict(ms=ms, bound_ms=bms,
+                                              bound_by=by)
+        print(f"K5 llama_7b {weights} NL=32 B=1 pos=40: kernel_ms={ms:.5f} "
+              f"bound_ms={bms:.5f} ({by})", flush=True)
+        del eng, kc, vc
+    runs["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"llama_7b: max_memory_allocated="
+          f"{runs['max_memory_allocated']}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main():
     try:
         import torch
@@ -778,6 +1122,23 @@ def main():
     train["vs_cpu"] = check_training_vs_cpu()
     bert = check_bert()
 
+    from mxnet_tpu_torch.models import llama_7b
+
+    gpt2, _ = gpt2_small(dtype=torch.bfloat16)
+    gpt2.initialize(0.02, seed=0)
+    llama2 = llama_7b(dtype=torch.bfloat16, num_layers=2)[0]
+    gqa2 = llama_7b(dtype=torch.bfloat16, num_layers=2, num_kv_heads=8)[0]
+    for m in (llama2, gqa2):
+        m.initialize(0.02, seed=1)
+    k5 = check_k5({"gpt2": gpt2, "llama": llama2, "gqa": gqa2})
+    del llama2, gqa2
+    torch.cuda.empty_cache()
+    fused = check_fused_gpt2(gpt2, cfg)
+    fused["profile"] = profile_fused(gpt2)
+    del gpt2
+    torch.cuda.empty_cache()
+    fused["llama_7b"] = check_llama7b()
+
     def backward_row(name, key, outputs, replaces):
         main = k23[0][key]
         return dict(name=name, route="cuda",
@@ -809,12 +1170,24 @@ def main():
                      "mxnet_tpu/ops/attention.py:369"),
         backward_row("flash_bwd_dkv", "k3", ("dk", "dv", "dbias"),
                      "mxnet_tpu/ops/attention.py:479"),
+        # K5: times at the GPT-2-small main-path shape (B=4, pos 700),
+        # native stream; no single PyTorch call computes its function, so
+        # library_ms is null and the unfused step stands beside it
+        dict(name="decode_fused", route="cuda",
+             source="mxnet_tpu_torch/csrc/decode_fused.cu",
+             replaces="mxnet_tpu/ops/decode_fused.py:605",
+             launches=fused["native"]["launches"]["decode_fused"],
+             max_abs_err=max(r["max_abs_err"] for r in k5), ms=k5[0]["ms"],
+             plain_ms=k5[0]["plain_ms"], bound_ms=k5[0]["bound_ms"],
+             bound_by=k5[0]["bound_by"], library_ms=None,
+             unfused_step_ms=k5[0]["unfused_step_ms"]),
     ]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
         json.dump(dict(card=card, build_s=secs, k4=k4, k1=k1, k23=k23,
-                       serve=srv, train=train, bert=bert, kernels=kernels),
+                       serve=srv, train=train, bert=bert, k5=k5,
+                       fused=fused, kernels=kernels),
                   fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -28,7 +28,7 @@ __all__ = ["KERNELS", "nvcc_command", "build", "load", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("q8_matvec", "flash_fwd", "flash_bwd")
+KERNELS = ("q8_matvec", "flash_fwd", "flash_bwd", "decode_fused")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

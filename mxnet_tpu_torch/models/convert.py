@@ -1,4 +1,5 @@
-"""Carry weights between an ``mxnet_tpu`` GPT or BERT and the port.
+"""Carry weights between an ``mxnet_tpu`` GPT, BERT or Llama and the
+port.
 
 ``arrays`` is ``{name: numpy array}`` as ``net.collect_params()`` names
 the reference's parameters (``gpt0_h0_attn_qkv_weight``,
@@ -18,8 +19,10 @@ import torch
 from ..base import MXNetError
 from .bert import BERTModel
 from .gpt import GPT
+from .llama import Llama
 
-__all__ = ["gpt_from_mxnet_tpu", "bert_from_mxnet_tpu", "arrays_from_port"]
+__all__ = ["gpt_from_mxnet_tpu", "bert_from_mxnet_tpu",
+           "llama_from_mxnet_tpu", "arrays_from_port"]
 
 _PREFIX = re.compile(r"^[a-z]+\d+_")
 _SUBLAYER = {"ln1": "ln1", "ln2": "ln2", "attn_qkv": "attn.qkv",
@@ -27,11 +30,19 @@ _SUBLAYER = {"ln1": "ln1", "ln2": "ln2", "attn_qkv": "attn.qkv",
              "ffn_fc2": "ffn.fc2"}
 _KINDS = "weight|bias|gamma|beta"
 
+_LLAMA_SUBLAYER = {"rms1": "rms1", "rms2": "rms2", "attn_q": "attn.q_proj",
+                   "attn_k": "attn.k_proj", "attn_v": "attn.v_proj",
+                   "attn_o": "attn.o_proj", "mlp_gate": "mlp.gate",
+                   "mlp_up": "mlp.up", "mlp_down": "mlp.down"}
+
 # per model: reference names of the top-level parameters -> port names,
-# the reference's layer prefix and the port's layer list
+# the reference's layer prefix, the port's layer list and the sublayers
 _GPT = dict(top={"wte_weight": "wte.weight", "wpe_weight": "wpe.weight",
                  "lnf_gamma": "ln_f.gamma", "lnf_beta": "ln_f.beta"},
-            layer="h", blocks="blocks")
+            layer="h", blocks="blocks", sub=_SUBLAYER)
+_LLAMA = dict(top={"wte_weight": "wte.weight", "rmsf_gamma": "ln_f.gamma",
+                   "head_weight": "head.weight"},
+              layer="h", blocks="blocks", sub=_LLAMA_SUBLAYER)
 _BERT = dict(top={"word_weight": "word_embed.weight",
                   "type_weight": "token_type_embed.weight",
                   "pos_weight": "position_embed.weight",
@@ -42,7 +53,7 @@ _BERT = dict(top={"word_weight": "word_embed.weight",
                   "mlmd_weight": "mlm_dense.weight",
                   "mlmd_bias": "mlm_dense.bias",
                   "mlmln_gamma": "mlm_ln.gamma", "mlmln_beta": "mlm_ln.beta"},
-             layer="layer", blocks="cells")
+             layer="layer", blocks="cells", sub=_SUBLAYER)
 
 
 def _port_name(name: str, spec) -> str:
@@ -50,9 +61,9 @@ def _port_name(name: str, spec) -> str:
     if short in spec["top"]:
         return spec["top"][short]
     m = re.match(rf"^{spec['layer']}(\d+)_(.+)_({_KINDS})$", short)
-    if m and m.group(2) in _SUBLAYER:
+    if m and m.group(2) in spec["sub"]:
         return (f"{spec['blocks']}.{m.group(1)}."
-                f"{_SUBLAYER[m.group(2)]}.{m.group(3)}")
+                f"{spec['sub'][m.group(2)]}.{m.group(3)}")
     raise MXNetError(f"no port parameter for reference parameter {name!r}")
 
 
@@ -63,7 +74,7 @@ def _ref_name(port: str, spec) -> str:
         if target == port:
             return short
     m = re.match(rf"^{spec['blocks']}\.(\d+)\.(.+)\.({_KINDS})$", port)
-    for ref, sub in _SUBLAYER.items():
+    for ref, sub in spec["sub"].items():
         if m and m.group(2) == sub:
             return f"{spec['layer']}{m.group(1)}_{ref}_{m.group(3)}"
     raise MXNetError(f"no reference parameter for port parameter {port!r}")
@@ -74,6 +85,8 @@ def _spec(model):
         return _GPT
     if isinstance(model, BERTModel):
         return _BERT
+    if isinstance(model, Llama):
+        return _LLAMA
     raise MXNetError(f"no weight map for {type(model).__name__}")
 
 
@@ -113,10 +126,16 @@ def bert_from_mxnet_tpu(cfg, arrays, use_pooler=True, use_mlm=True,
                            device=device, dtype=dtype), arrays)
 
 
+def llama_from_mxnet_tpu(cfg, arrays, device=None, dtype=None) -> Llama:
+    """A port ``Llama`` of config ``cfg`` holding the reference's
+    weights."""
+    return _load(Llama(cfg, device=device, dtype=dtype), arrays)
+
+
 def arrays_from_port(model, prefix="") -> dict:
     """``{prefix + reference name: f32 numpy array}`` of every parameter
-    of a port GPT or BERT (``prefix`` is the reference model's, e.g.
-    ``"gpt0_"``)."""
+    of a port GPT, BERT or Llama (``prefix`` is the reference model's,
+    e.g. ``"gpt0_"``)."""
     spec = _spec(model)
     return {prefix + _ref_name(name, spec):
             p.detach().float().cpu().numpy()

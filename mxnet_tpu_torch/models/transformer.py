@@ -16,9 +16,9 @@ from torch import nn
 from ..base import MXNetError
 from ..ops.attention import flash_attention
 from ..ops.nn import (activation, dropout, embedding, fully_connected,
-                      layer_norm)
+                      layer_norm, rms_norm)
 
-__all__ = ["Dense", "LayerNorm", "Embedding", "Dropout",
+__all__ = ["Dense", "LayerNorm", "RMSNorm", "Embedding", "Dropout",
            "MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
            "TransformerDecoderCell", "initialize"]
 
@@ -69,6 +69,18 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm(x, self.gamma, self.beta, self.eps)
+
+
+class RMSNorm(nn.Module):
+    """Root-mean-square norm (the Llama family's), ``gamma`` only."""
+
+    def __init__(self, units, eps=1e-6, device=None, dtype=None):
+        super().__init__()
+        self.gamma = _empty((units,), device, dtype)
+        self.eps = eps
+
+    def forward(self, x):
+        return rms_norm(x, self.gamma, self.eps)
 
 
 class Embedding(nn.Module):

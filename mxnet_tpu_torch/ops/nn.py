@@ -14,7 +14,8 @@ import torch.nn.functional as F
 from .. import random as _random
 from ..base import MXNetError
 
-__all__ = ["activation", "layer_norm", "fully_connected", "embedding",
+__all__ = ["activation", "layer_norm", "rms_norm", "fully_connected",
+           "embedding",
            "dropout", "log_softmax", "pick", "sparse_softmax_ce"]
 
 _ACTS = {
@@ -47,6 +48,15 @@ def layer_norm(x, gamma, beta, eps=1e-5):
     inv = torch.rsqrt(var + eps)
     out = (x32 - mean) * inv * gamma.to(x32.dtype) + beta.to(x32.dtype)
     return out.to(x.dtype)
+
+
+def rms_norm(x, gamma, eps=1e-6):
+    """RMSNorm over the last axis (the reference's ``RMSNorm`` op, the
+    Llama family's norm): ``x * rsqrt(mean(x²) + eps) * gamma``, computed
+    in f32 for bf16/f16 inputs and cast back once."""
+    x32 = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+    ms = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * gamma.to(x32.dtype)).to(x.dtype)
 
 
 def fully_connected(x, weight, bias=None):

@@ -85,7 +85,7 @@ def pool_state_init(progs):
     write index), ``tok`` (last token), ``active``, ``stop`` (retire
     position) and ``seed``."""
     e, S = progs.eng, progs.S
-    shape = (e.NL, progs.num_pages + 1, e.H, progs.page, e.D)
+    shape = (e.NL, progs.num_pages + 1, e.KV, progs.page, e.D)
     dev = e.device
     state = {"kp": torch.zeros(shape, dtype=e.cdtype, device=dev),
              "vp": torch.zeros(shape, dtype=e.cdtype, device=dev)}
@@ -144,7 +144,7 @@ class PoolPrograms:
     def page_bytes(self):
         """Device bytes of ONE page across all layers, K and V together."""
         e = self.eng
-        return 2 * e.NL * e.H * self.page * e.D * \
+        return 2 * e.NL * e.KV * self.page * e.D * \
             torch.empty((), dtype=e.cdtype).element_size()
 
     def pages_for(self, total_len):

@@ -203,6 +203,11 @@ class DecodeServer:
                 raise MXNetError(f"DecodeServer({name}={val!r}): "
                                  f"{_LATER_SLICE[name]} is not ported yet "
                                  "(a later slice of mxnet_tpu_torch.serve)")
+        if hasattr(model.blocks[0], "rms1"):
+            raise MXNetError("DecodeServer serves the GPT family only: "
+                             "Llama serving is not ported yet (a later "
+                             "slice of mxnet_tpu_torch.serve); use "
+                             "models.kv_generate for Llama")
         if kv_dtype not in (None, "native"):
             raise MXNetError(f"DecodeServer(kv_dtype={kv_dtype!r}): int8 KV "
                              "pages are not ported yet (a later slice)")

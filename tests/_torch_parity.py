@@ -62,3 +62,34 @@ def need_cuda():
                     "or pytest -m cuda there)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# llama_tiny widths with grouped-query attention (4 heads, 2 KV heads)
+LLAMA_SMALL = dict(vocab_size=97, max_length=64, num_layers=2, units=64,
+                   num_heads=4, num_kv_heads=2, hidden_size=128)
+
+
+def jax_llama(init=0.15, **over):
+    import mxnet_tpu as mx
+    from mxnet_tpu.models import Llama, LlamaConfig
+
+    mx.random.seed(0)
+    net = Llama(LlamaConfig(**{**LLAMA_SMALL, **over}))
+    net.initialize(mx.init.Normal(init))
+    # materialize the deferred parameters with one forward
+    net(mx.nd.array(onp.zeros((1, 2)), dtype="int32"))
+    return net
+
+
+def port_llama(net, dtype=None):
+    """The port's Llama holding ``net``'s weights, on the CPU."""
+    from mxnet_tpu_torch.models import LlamaConfig, llama_from_mxnet_tpu
+
+    c = net._cfg
+    cfg = LlamaConfig(vocab_size=c.vocab_size, max_length=c.max_length,
+                      num_layers=c.num_layers, units=c.units,
+                      num_heads=c.num_heads, num_kv_heads=c.num_kv_heads,
+                      hidden_size=c.hidden_size, rope_base=c.rope_base)
+    arrays = {k: onp.asarray(p.data().asnumpy(), onp.float32)
+              for k, p in net.collect_params().items()}
+    return llama_from_mxnet_tpu(cfg, arrays, device="cpu", dtype=dtype)

@@ -34,7 +34,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from mxnet_tpu_torch import resolve_device
-    from mxnet_tpu_torch.models import BERTConfig, BERTModel, GPT, GPTConfig
+    from mxnet_tpu_torch.models import (BERTConfig, BERTModel, GPT, GPTConfig,
+                                        Llama, LlamaConfig)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="CUDA is not available"):
@@ -45,7 +46,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(MXNetError, match="CUDA is not available"):
         BERTModel(BERTConfig(num_layers=1, units=8, num_heads=2,
                              hidden_size=8, vocab_size=11, max_length=8))
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        Llama(LlamaConfig(num_layers=1, units=8, num_heads=2,
+                          num_kv_heads=1, hidden_size=8, vocab_size=11,
+                          max_length=8))
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_new_modules_are_covered():
+    """The structure checks above reach the fused decode slice's
+    modules and kernel source."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"mxnet_tpu_torch/ops/decode_fused.py",
+            "mxnet_tpu_torch/models/llama.py"} <= names
+    assert "decode_fused" in _build.KERNELS
 
 
 def test_nvcc_command_targets_sm90a():
