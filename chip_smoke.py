@@ -70,7 +70,26 @@ Phases (each fails the run by raising; there is no CPU path):
 12. Llama-7B at full depth (32 layers, bf16), 1 x 32 + 32 tokens, native
    and int8: K5 launched 31 times each, tokens/s fused and unfused,
    teacher-forced agreement >= 0.9;
-13. one ``{"kernels": [...]}`` line, the card line, and as the last line
+13. K6 (the fused 1x1-convolution backward, ``ops.conv_fused.
+   conv1x1_bwd_pair``) against its plain version at the nine stride-1 1x1
+   shapes of ResNet-50 at batch 128 in bf16 and one in f32: dx within 2
+   bf16 steps (f32: 1e-5) of its magnitude, dW within 1e-3 (f32: 1e-5) of
+   its magnitude and bit for bit across two launches; K6 ms beside its
+   bound, the plain version's ms, cuDNN's backward
+   (``aten.convolution_backward``, one call for dx and dW: the library
+   time) and cuBLAS's two products;
+14. the fourth slice's path: ResNet-50 v1 (``get_resnet(1, 50,
+   classes=1000, layout="NHWC")``, Xavier, ``cast("bfloat16")``) trained
+   by ``parallel.SPMDTrainer`` with SGD (lr 0.1, momentum 0.9, wd 1e-4)
+   on one synthetic batch of 128 x 3 x 224 x 224, 20 steps, with
+   ``MXNET_FUSED_CONV_BWD=1``: K6 launched exactly 30 times a step, losses
+   finite, the first within 1.0 of ln(1000), falling; ms a step, images/s
+   and peak memory; then one profiled step, device time split among K6,
+   cuDNN convolutions, GEMMs, BatchNorm, the optimizer and the rest; then
+   the same 20 steps with the switch off (cuDNN's backward, no K6);
+15. one SGD step of a small bottleneck ResNet (f32, TF32 off) on the card
+   (K6) held against the same step on the CPU (its plain version);
+16. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -85,6 +104,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12              # f32 on the CUDA cores (no tensor cores)
 
 
 def fail(msg):
@@ -117,9 +137,9 @@ def cuda_ms(fn, iters, warm=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, nops):
+def bound_ms(nbytes, nops, ops_per_s=BF16_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / BF16_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1073,6 +1093,376 @@ def check_llama7b():
     return runs
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: K6, the fused 1x1-convolution backward, against its plain version
+# --------------------------------------------------------------------------- #
+
+RESNET_B = 128
+# ResNet-50 v1's stride-1 1x1 convolutions at batch 128: (spatial, Ci, Co,
+# launches a step).  Stage 1: the first block's conv1 (64 -> 64), the
+# other conv1s (256 -> 64), every conv3 and the downsample (64 -> 256);
+# stages 2-4: the conv3s and the conv1s of the blocks after the first
+# (those carry v1's stride 2).
+K6_SHAPES = [(56, 64, 64, 1), (56, 64, 256, 4), (56, 256, 64, 2),
+             (28, 128, 512, 4), (28, 512, 128, 3), (14, 256, 1024, 6),
+             (14, 1024, 256, 5), (7, 512, 2048, 3), (7, 2048, 512, 2)]
+K6_PER_STEP = sum(n for *_, n in K6_SHAPES)
+K6_DX_STEPS = 2                 # dx tolerance in bf16 steps (f32: 1e-5)
+K6_DW_REL = {"bfloat16": 1e-3, "float32": 1e-5}
+
+
+def _k6_case(s, ci, co, dtype, gen):
+    """One shape: errors, determinism, kernel / plain / library times and
+    the bound."""
+    import torch
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    dt = getattr(torch, dtype)
+    p = RESNET_B * s * s
+    x = torch.randn((p, ci), generator=gen, device="cuda").to(dt)
+    w = (torch.randn((co, ci), generator=gen, device="cuda") *
+         ci ** -0.5).to(dt)
+    dy = torch.randn((p, co), generator=gen, device="cuda").to(dt)
+    dx, dw = cf.conv1x1_bwd_pair(dy, x, w)
+    dx2, dw2 = cf.conv1x1_bwd_pair(dy, x, w)
+    rdx, rdw = cf.conv1x1_bwd_pair_plain(dy, x, w)
+    torch.cuda.synchronize()
+    dx_err = (dx.float() - rdx.float()).abs().max().item()
+    dw_err = (dw - rdw).abs().max().item()
+    dw_rel = dw_err / max(rdw.abs().max().item(), 1e-30)
+    if dtype == "bfloat16":
+        dx_steps = dx_err / _bf16_step(rdx)
+        dx_ok = dx_steps <= K6_DX_STEPS
+    else:
+        dx_steps = None
+        dx_ok = dx_err <= 1e-5 * rdx.abs().max().item()
+    what = f"K6 {s}x{s} {ci}->{co} {dtype}"
+    if not (torch.isfinite(dx.float()).all() and torch.isfinite(dw).all()):
+        fail(f"{what}: non-finite output")
+    if not dx_ok or dw_rel > K6_DW_REL[dtype]:
+        fail(f"{what}: dx max_abs_err {dx_err} ({dx_steps} bf16 steps), dW "
+             f"relative error {dw_rel} > {K6_DW_REL[dtype]}")
+    if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
+        fail(f"{what}: two launches differ")
+    ms = cuda_ms(lambda i: cf.conv1x1_bwd_pair(dy, x, w), 10)
+    plain = cuda_ms(lambda i: cf.conv1x1_bwd_pair_plain(dy, x, w), 3)
+    n = RESNET_B
+    # cuDNN on the same tensors, as NCHW views of channels-last memory
+    dy4 = dy.view(n, s, s, co).permute(0, 3, 1, 2)
+    x4 = x.view(n, s, s, ci).permute(0, 3, 1, 2)
+    w4 = w.view(co, ci, 1, 1).contiguous(memory_format=torch.channels_last)
+    lib = cuda_ms(lambda i: torch.ops.aten.convolution_backward(
+        dy4, x4, w4, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+        [True, True, False]), 10)
+    cublas = cuda_ms(lambda i: (dy @ w, dy.t() @ x), 10)
+    el = dy.element_size()
+    nbytes = el * (p * co + 2 * p * ci) + co * ci * (el + 4)
+    nops = 4 * p * ci * co
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    bms, by = bound_ms(nbytes, nops, rate)
+    print(f"{what} P={p}: dx max_abs_err={dx_err:.3e}"
+          + (f" ({dx_steps:.2f} bf16 steps)" if dx_steps is not None else "")
+          + f" dW rel_err={dw_rel:.3e} plan={cf.plan(p, ci, co)} "
+          f"kernel_ms={ms:.5f} bound_ms={bms:.5f} ({by}) plain_ms="
+          f"{plain:.5f} cudnn_ms={lib:.5f} cublas_pair_ms={cublas:.5f}",
+          flush=True)
+    return dict(s=s, ci=ci, co=co, P=p, dtype=dtype, dx_max_abs_err=dx_err,
+                dx_bf16_steps=dx_steps, dw_rel_err=dw_rel,
+                max_abs_err=max(dx_err, dw_err), ms=ms, plain_ms=plain,
+                library_ms=lib, cublas_ms=cublas, bound_ms=bms, bound_by=by,
+                bytes=nbytes, ops=nops, plan=cf.plan(p, ci, co))
+
+
+def check_k6():
+    """K6 at every stride-1 1x1 shape of ResNet-50's step (bf16) and at
+    stage 4's expand shape in f32; the per-step totals weight each shape
+    by its launches a step."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cublas_ms=0.0,
+                bytes=0, ops=0)
+    for s, ci, co, n in K6_SHAPES:
+        row = _k6_case(s, ci, co, "bfloat16", gen)
+        row["launches_per_step"] = n
+        rows.append(row)
+        for k in step:
+            step[k] += n * row[k]
+        torch.cuda.empty_cache()
+    step["bound_ms"], step["bound_by"] = bound_ms(step["bytes"],
+                                                  step["ops"])
+    step["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    f32 = _k6_case(7, 512, 2048, "float32", gen)
+    print(f"K6 per ResNet-50 step ({K6_PER_STEP} launches, bf16): "
+          f"kernel_ms={step['ms']:.5f} bound_ms={step['bound_ms']:.5f} "
+          f"({step['bound_by']}) plain_ms={step['plain_ms']:.5f} cudnn_ms="
+          f"{step['library_ms']:.5f} cublas_pair_ms={step['cublas_ms']:.5f}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return dict(shapes=rows, f32=f32, **step)
+
+
+# --------------------------------------------------------------------------- #
+# phase 14: ResNet-50 v1 training, the fourth slice's path
+# --------------------------------------------------------------------------- #
+
+RESNET_STEPS = 20
+RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+
+
+def _resnet50():
+    import torch
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+
+    net = get_resnet(1, 50, classes=1000, layout="NHWC")
+    net.initialize(initializer.Xavier(rnd_type="uniform", factor_type="avg",
+                                      magnitude=3), seed=0)
+    net.cast("bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    data = torch.rand((RESNET_B, 3, 224, 224), generator=gen,
+                      device="cuda").bfloat16()
+    label = torch.randint(0, 1000, (RESNET_B,), generator=gen,
+                          device="cuda")
+    return net, data, label
+
+
+def _resnet_profile(trainer, net, data, label):
+    """One profiled step: device time of K6, cuDNN's convolutions, the
+    GEMMs (the fused route's 1x1 forward and the classifier), BatchNorm
+    (its forward, ranged by hooks here, and its backward node), the
+    optimizer's updates (ranged around ``Optimizer.apply``) and the
+    rest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+
+    hooks = []
+    for m in net.modules():
+        if isinstance(m, BatchNorm):
+            def pre(mod, args):
+                mod._range = record_function("batch_norm")
+                mod._range.__enter__()
+
+            def post(mod, args, out):
+                mod._range.__exit__(None, None, None)
+
+            hooks += [m.register_forward_pre_hook(pre),
+                      m.register_forward_hook(post)]
+    opt = trainer.optimizer
+    plain_apply = opt.apply
+
+    def apply(*a, **k):
+        with record_function("optimizer"):
+            return plain_apply(*a, **k)
+
+    opt.apply = apply
+    try:
+        trainer.step(data, label)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.step(data, label)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        del opt.apply
+        for h in hooks:
+            h.remove()
+    # kernel time by name; then each kernel's time charged to the range
+    # (BatchNorm, optimizer) its launching op sits in, if any.  A range's
+    # own device-side row (its span, idle gaps included) is skipped.
+    ranges = {"batch_norm": 0.0, "optimizer": 0.0}
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.key not in ranges:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+
+    def range_of(ev):
+        while ev is not None:
+            if ev.name in ranges:
+                return ev.name
+            if "_BatchNormStatsBackward" in ev.name:
+                return "batch_norm"
+            ev = ev.cpu_parent
+        return None
+
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        name = range_of(ev)
+        if name is not None:
+            ranges[name] += sum(k.duration for k in ev.kernels
+                                if k.name not in ranges)
+    busy = sum(kernels.values())
+    prof_row = report_profile("resnet profile", kernels, busy, wall_us,
+                              top=25)
+    conv_keys = ("cudnn", "conv", "fprop", "dgrad", "wgrad", "implicit",
+                 "nchwtonhwc", "nhwctonchw")
+    gemm_keys = ("gemm", "gemv", "nvjet", "cutlass", "xmma")
+    groups = {"K6": 0.0, "cuDNN convolutions": 0.0, "GEMMs": 0.0}
+    for name, us in kernels.items():
+        low = name.lower()
+        if "conv1x1_bwd" in low or "sum_partials" in low:
+            groups["K6"] += us
+        elif any(k in low for k in conv_keys):
+            groups["cuDNN convolutions"] += us
+        elif any(k in low for k in gemm_keys):
+            groups["GEMMs"] += us
+    groups["BatchNorm"] = ranges["batch_norm"]
+    groups["optimizer"] = ranges["optimizer"]
+    groups["other"] = busy - sum(groups.values())
+    if busy > 0:
+        print("resnet profile: by group " + ", ".join(
+            f"{g} {us / busy:.4f} ({us / 1e3:.3f} ms)"
+            for g, us in groups.items())
+            + (" (BatchNorm and optimizer ranges recorded no device time: "
+               "not measured)" if not (ranges["batch_norm"] and
+                                       ranges["optimizer"]) else ""),
+            flush=True)
+    prof_row["groups_us"] = groups
+    return prof_row
+
+
+def train_resnet(fused):
+    """ResNet-50 v1 bf16 NHWC, 20 SGD steps on one repeated batch through
+    ``SPMDTrainer`` with ``MXNET_FUSED_CONV_BWD`` on or off.  The launch
+    counts are set to 0 just before the steps and read just after.
+    Returns the numbers and the trainer, net and batch."""
+    import torch
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1" if fused else "0"
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()   # what earlier phases still hold
+    net, data, label = _resnet50()
+    trainer = parallel.SPMDTrainer(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd", dict(RESNET_OPT))
+    rest = RESNET_STEPS - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    cf.conv1x1_bwd_pair.launches = 0
+    t0 = time.perf_counter()
+    first = trainer.step(data, label)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    more = trainer.run_steps(data[None].expand(rest, -1, -1, -1, -1),
+                             label[None].expand(rest, -1))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(_counts(), conv1x1_bwd=cf.conv1x1_bwd_pair.launches)
+    row = dict(losses=[float(first)] + [float(v) for v in
+                                        more.float().cpu()],
+               ms_per_step=(t2 - t1) / rest * 1e3,
+               images_per_s=rest * RESNET_B / (t2 - t1),
+               first_step_ms=(t1 - t0) * 1e3,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               allocated_at_start=start, launches=launches)
+    arm = "fused" if fused else "unfused"
+    print(f"resnet {arm}: resnet50_v1 NHWC bf16, B={RESNET_B} 224x224, "
+          f"{RESNET_STEPS} SGD steps; losses "
+          f"{[round(v, 4) for v in row['losses']]}", flush=True)
+    print(f"resnet {arm}: images/s={row['images_per_s']:.2f} ms/step="
+          f"{row['ms_per_step']:.3f} (steps 2-{RESNET_STEPS}; first step "
+          f"{row['first_step_ms']:.3f} ms) max_memory_allocated="
+          f"{row['max_memory_allocated']} ({row['max_memory_allocated'] - start}"
+          f" above the phase's start) launches {launches}", flush=True)
+    return row, (trainer, net, data, label)
+
+
+def check_resnet(fused):
+    """``train_resnet`` and its checks: with ``fused`` K6 ran exactly 30
+    times a step, without it never, and no other kernel ran; the losses
+    are finite, the first within 1.0 of ln(1000), and they fall."""
+    import math
+
+    import torch
+
+    row, held = train_resnet(fused)
+    arm = "fused" if fused else "unfused"
+    launches, losses = row["launches"], row["losses"]
+    expect = K6_PER_STEP * RESNET_STEPS if fused else 0
+    if launches["conv1x1_bwd"] != expect:
+        fail(f"resnet {arm}: K6 launched {launches['conv1x1_bwd']} times, "
+             f"expected {expect}")
+    if any(n for k, n in launches.items() if k != "conv1x1_bwd"):
+        fail(f"resnet {arm}: other kernels launched: {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"resnet {arm}: losses not finite: {losses}")
+    if abs(losses[0] - math.log(1000)) > 1.0:
+        fail(f"resnet {arm}: first loss {losses[0]} is not within 1.0 of "
+             f"ln(1000)")
+    if not losses[-1] < losses[0]:
+        fail(f"resnet {arm}: loss did not fall: {losses}")
+    if fused:
+        row["profile"] = _resnet_profile(*held)
+    del held
+    torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------------------------- #
+# phase 15: a small ResNet's f32 step on the card against the CPU
+# --------------------------------------------------------------------------- #
+
+def check_resnet_vs_cpu():
+    """``ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256],
+    classes=10, thumbnail=True, layout="NHWC")``, f32, TF32 off for cuDNN
+    and cuBLAS, batch 8 at 32x32, one SGD step with K6 on the card (6
+    launches) and its plain version on the CPU, from the same weights.
+    Tolerance 1e-4 (loss relative; weights and running statistics
+    absolute): both sides sum in f32 in other orders, and one step moves
+    a weight by lr (0.1) times its gradient."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import gluon, initializer, parallel
+    from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
+                                                        ResNetV1)
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    kw = dict(classes=10, thumbnail=True, layout="NHWC")
+    spec = ([1, 1, 1, 1], [16, 32, 64, 128, 256])
+    cpu = ResNetV1(BottleneckV1, *spec, device="cpu", **kw)
+    cpu.initialize(initializer.Xavier(magnitude=3), seed=3)
+    card = ResNetV1(BottleneckV1, *spec, **kw)
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(16)
+    data = rs.rand(8, 3, 32, 32).astype(np.float32)
+    label = rs.randint(0, 10, (8,))
+    losses = []
+    cf.conv1x1_bwd_pair.launches = 0
+    for model in (card, cpu):
+        trainer = parallel.SPMDTrainer(
+            model, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            dict(RESNET_OPT))
+        losses.append(float(trainer.step(data, label)))
+    launches = cf.conv1x1_bwd_pair.launches
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    worst = max((a.detach().cpu() - b.detach()).abs().max().item()
+                for a, b in zip(card.parameters(), cpu.parameters()))
+    print(f"resnet vs cpu: small bottleneck v1 f32 step, loss card "
+          f"{losses[0]:.6f} cpu {losses[1]:.6f} (rel {rel:.3e}, tol 1e-4); "
+          f"weights and running statistics max_abs_diff {worst:.3e} (tol "
+          f"1e-4); K6 launches {launches} (expected 6)", flush=True)
+    if launches != 6:
+        fail(f"resnet vs cpu: K6 launched {launches} times, expected 6")
+    if rel > 1e-4 or worst > 1e-4:
+        fail("the card's ResNet step disagrees with the CPU's")
+    del card
+    torch.cuda.empty_cache()
+    return dict(loss_card=losses[0], loss_cpu=losses[1], loss_rel=rel,
+                max_abs_diff=worst, launches=launches)
+
+
 def main():
     try:
         import torch
@@ -1139,6 +1529,10 @@ def main():
     torch.cuda.empty_cache()
     fused["llama_7b"] = check_llama7b()
 
+    k6 = check_k6()
+    vision = dict(fused=check_resnet(True), unfused=check_resnet(False),
+                  vs_cpu=check_resnet_vs_cpu())
+
     def backward_row(name, key, outputs, replaces):
         main = k23[0][key]
         return dict(name=name, route="cuda",
@@ -1181,13 +1575,23 @@ def main():
              plain_ms=k5[0]["plain_ms"], bound_ms=k5[0]["bound_ms"],
              bound_by=k5[0]["bound_by"], library_ms=None,
              unfused_step_ms=k5[0]["unfused_step_ms"]),
+        # K6: per ResNet-50 step (30 launches at nine shapes, bf16); the
+        # library call is cuDNN's backward (dx and dW in one call)
+        dict(name="conv1x1_bwd", route="cuda",
+             source="mxnet_tpu_torch/csrc/conv1x1_bwd.cu",
+             replaces="mxnet_tpu/ops/conv_fused.py:134",
+             launches=vision["fused"]["launches"]["conv1x1_bwd"],
+             max_abs_err=k6["max_abs_err"], ms=k6["ms"],
+             plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
+             bound_by=k6["bound_by"], library_ms=k6["library_ms"],
+             cublas_ms=k6["cublas_ms"]),
     ]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
         json.dump(dict(card=card, build_s=secs, k4=k4, k1=k1, k23=k23,
                        serve=srv, train=train, bert=bert, k5=k5,
-                       fused=fused, kernels=kernels),
+                       fused=fused, k6=k6, vision=vision, kernels=kernels),
                   fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

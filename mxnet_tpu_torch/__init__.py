@@ -13,7 +13,11 @@ The first slice is serving: ``models.gpt`` + ``models.decoding`` +
 flash-attention forward).  The second is training: ``gluon`` (losses,
 ``Trainer``), ``optimizer``, ``parallel.SPMDTrainer``, ``random`` and
 ``models.bert``, with the flash-attention backward kernels behind a
-``torch.autograd.Function``.
+``torch.autograd.Function``.  The third is the fused decode step
+(``kv_generate(fused="on")``, one kernel launch per token).  The fourth
+is vision training: ``gluon.nn`` convolution, pooling and BatchNorm
+layers, ``initializer`` and the model zoo's ResNet family, with the
+fused 1x1-convolution backward as a kernel.
 """
 __version__ = "0.1.0"
 
@@ -23,7 +27,7 @@ from .base import MXNetError
 from .device import resolve_device
 
 _SUBPACKAGES = ("ops", "models", "serve", "gluon", "optimizer", "parallel",
-                "random")
+                "random", "initializer")
 
 __all__ = ["MXNetError", "resolve_device", *_SUBPACKAGES]
 

@@ -1,5 +1,7 @@
-"""Gluon surface of the port: losses and the imperative ``Trainer``."""
-from . import loss
+"""Gluon surface of the port: losses, the imperative ``Trainer``, the
+layers of ``gluon.nn`` and the model zoo's ResNet family."""
+from . import loss, model_zoo, nn
+from .block import HybridBlock
 from .trainer import Trainer
 
-__all__ = ["loss", "Trainer"]
+__all__ = ["loss", "nn", "model_zoo", "HybridBlock", "Trainer"]

@@ -1,0 +1,5 @@
+"""Gluon model zoo of the port (``mxnet_tpu/gluon/model_zoo``)."""
+from . import vision
+from .vision import get_model
+
+__all__ = ["vision", "get_model"]

@@ -14,8 +14,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..base import torch_dtype
 from ..device import resolve_device
-from .gpt import _torch_dtype
 from .transformer import (Dense, Dropout, Embedding, LayerNorm,
                           TransformerEncoderCell, initialize)
 
@@ -45,7 +45,7 @@ class BERTModel(nn.Module):
         super().__init__()
         self._cfg = c = config
         dev = resolve_device(device)
-        dt = _torch_dtype(dtype if dtype is not None else c.dtype)
+        dt = torch_dtype(dtype if dtype is not None else c.dtype)
         self.word_embed = Embedding(c.vocab_size, c.units, dev, dt)
         self.token_type_embed = Embedding(c.type_vocab_size, c.units, dev,
                                           dt)

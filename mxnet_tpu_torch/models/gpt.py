@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..base import torch_dtype
 from ..device import resolve_device
 from .transformer import (Dropout, Embedding, LayerNorm,
                           TransformerDecoderCell, initialize)
@@ -32,13 +33,6 @@ class GPTConfig:
     dtype: str = "float32"
 
 
-def _torch_dtype(dtype):
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
-            "float16": torch.float16}[str(dtype)]
-
-
 class GPT(nn.Module):
     """Decoder-only transformer LM: tokens (B, L) -> logits (B, L, vocab).
     The LM head reuses the token embedding (weight tying)."""
@@ -47,7 +41,7 @@ class GPT(nn.Module):
         super().__init__()
         self._cfg = c = config
         dev = resolve_device(device)
-        dt = _torch_dtype(dtype if dtype is not None else c.dtype)
+        dt = torch_dtype(dtype if dtype is not None else c.dtype)
         self.wte = Embedding(c.vocab_size, c.units, dev, dt)
         self.wpe = Embedding(c.max_length, c.units, dev, dt)
         self.drop = Dropout(c.dropout) if c.dropout else None

@@ -14,10 +14,9 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 from ..device import resolve_device
 from ..ops.attention import flash_attention, rope
-from .gpt import _torch_dtype
 from .transformer import Dense, Embedding, RMSNorm, initialize
 
 __all__ = ["LlamaConfig", "Llama", "llama_tiny", "llama_7b"]
@@ -113,7 +112,7 @@ class Llama(nn.Module):
         super().__init__()
         self._cfg = c = config
         dev = resolve_device(device)
-        dt = _torch_dtype(dtype if dtype is not None else c.dtype)
+        dt = torch_dtype(dtype if dtype is not None else c.dtype)
         self.wte = Embedding(c.vocab_size, c.units, dev, dt)
         self.blocks = nn.ModuleList(LlamaCell(c, dev, dt)
                                     for _ in range(c.num_layers))

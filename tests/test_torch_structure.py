@@ -50,16 +50,31 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Llama(LlamaConfig(num_layers=1, units=8, num_heads=2,
                           num_kv_heads=1, hidden_size=8, vocab_size=11,
                           max_length=8))
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model, get_resnet
+
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        get_resnet(1, 50, classes=1000, layout="NHWC")
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        get_model("resnet18_v1")
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        nn.Conv2D(8, 3, in_channels=4)
     assert resolve_device("cpu").type == "cpu"
 
 
 def test_new_modules_are_covered():
-    """The structure checks above reach the fused decode slice's
-    modules and kernel source."""
+    """The structure checks above reach the fused decode and the vision
+    slices' modules and kernel sources."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"mxnet_tpu_torch/ops/decode_fused.py",
-            "mxnet_tpu_torch/models/llama.py"} <= names
-    assert "decode_fused" in _build.KERNELS
+            "mxnet_tpu_torch/models/llama.py",
+            "mxnet_tpu_torch/ops/conv_fused.py",
+            "mxnet_tpu_torch/initializer.py",
+            "mxnet_tpu_torch/gluon/block.py",
+            "mxnet_tpu_torch/gluon/nn/basic_layers.py",
+            "mxnet_tpu_torch/gluon/nn/conv_layers.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/resnet.py"} <= names
+    assert {"decode_fused", "conv1x1_bwd"} <= set(_build.KERNELS)
 
 
 def test_nvcc_command_targets_sm90a():
