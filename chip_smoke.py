@@ -64,8 +64,8 @@ Phases (each fails the run by raising; there is no CPU path):
    times; tokens/s beside ``fused="off"``; agreement with the unfused
    step teacher-forced (the unfused step fed the fused stream's tokens
    must predict its next token >= 0.9 of the time); one ``prefill=
-   "scan"`` run (1 x 64 + 64, K5 launched 127 times); one profiled fused
-   step (K5, and no GEMM or attention kernel between the embedding and
+   "scan"`` run (1 x 64 + 64, K5 launched 127 times); three profiled
+   fused steps (K5, and no GEMM or attention kernel between the embedding and
    ``ln_f``);
 12. Llama-7B at full depth (32 layers, bf16), 1 x 32 + 32 tokens, native
    and int8: K5 launched 31 times each, tokens/s fused and unfused,
@@ -89,12 +89,31 @@ Phases (each fails the run by raising; there is no CPU path):
    the same 20 steps with the switch off (cuDNN's backward, no K6);
 15. one SGD step of a small bottleneck ResNet (f32, TF32 off) on the card
    (K6) held against the same step on the CPU (its plain version);
-16. one ``{"kernels": [...]}`` line, the card line, and as the last line
+16. the fifth slice: K7 (``rtc.CudaModule``) compiles the user kernels of
+   ``tests/_torch_rtc_sources.py`` with NVRTC (cold, then from the CUBIN
+   cache); each (``gelu_fwd``/``gelu_bwd`` in bf16 and f32,
+   ``softmax_rows`` with 96 KB of dynamic shared memory, ``addmul``) is
+   held against its plain version at 8192 x 3072, element by element
+   (within 1e-6 of the output's largest magnitude, plus for bf16 one bf16
+   step of the element's own magnitude) and timed
+   beside its bound, its plain version and the PyTorch call of the same
+   function; 227 KB+ of shared memory is refused; host microseconds a
+   launch against a torch call; then the imperative path at GPT-2
+   small's MLP width, bf16 on ``mx.gpu(0)``: ``mx.nd.dot`` + bias, the
+   ``rtc_gelu`` custom op (one NVRTC kernel forward, one backward),
+   ``mx.nd.dot`` + bias, mean squared error under ``autograd.record()``,
+   ``backward()``, SGD by in-place ``NDArray`` updates, 10 steps of 8192
+   rows: ``rtc`` launched exactly 20 times, losses finite and falling, ms
+   a step, rows/s, peak memory, no step's buffers left for the cyclic
+   collector, three profiled steps by group; and one f32
+   step at 256 rows on the card against the CPU;
+17. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
 A copy of the results goes to ``chiprun_out/chip_smoke.json``.
 """
+import functools
 import json
 import os
 import subprocess
@@ -1008,9 +1027,10 @@ def check_fused_gpt2(model, cfg):
 
 
 def profile_fused(model):
-    """One fused GPT-2-small step from the embedding to ``ln_f`` under
-    ``torch.profiler``: K5 must be there, and no GEMM or attention
-    kernel."""
+    """Three fused GPT-2-small steps from the embedding to ``ln_f`` under
+    ``torch.profiler`` (the tracer can miss kernels of its window, and
+    once lost the only K5 of a one-step window): K5 must be there, and no
+    GEMM or attention kernel."""
     import torch
     from mxnet_tpu_torch.models.decoding import _DecodeEngine
     from mxnet_tpu_torch.ops.decode_fused import decode_step
@@ -1030,7 +1050,7 @@ def profile_fused(model):
 
     layers()
     torch.cuda.synchronize()
-    by_name, busy, wall_us = _profiled(layers)
+    by_name, busy, wall_us = _profiled(lambda: [layers() for _ in range(3)])
     prof = report_profile("fused profile", by_name, busy, wall_us)
     if busy <= 0:
         fail("fused profile: the profiler recorded no device time")
@@ -1463,6 +1483,338 @@ def check_resnet_vs_cpu():
                 max_abs_diff=worst, launches=launches)
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: K7 (rtc.CudaModule) and the imperative core, the fifth slice
+# --------------------------------------------------------------------------- #
+
+# GPT-2 small's MLP width at 8 x 1024 tokens
+MLP_ROWS, MLP_UNITS, MLP_HIDDEN = 8 * 1024, 768, 3072
+MLP_STEPS, MLP_LR = 10, 10.0
+# operations a value, for the bound (f32 math on the CUDA cores, tanh and
+# exp counted as one): gelu 9, its derivative 16, softmax 5, addmul 2
+RTC_OPS = {"gelu_fwd": 9, "gelu_bwd": 16, "softmax_rows": 5, "addmul": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _rtc_sources():
+    """The user kernels and their plain versions (``tests/
+    _torch_rtc_sources.py``, plain strings and functions, no imports),
+    loaded from its path once; ``tests/`` stays off ``sys.path``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_torch_rtc_sources",
+        os.path.join(HERE, "tests", "_torch_rtc_sources.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _rtc_case(name, k, args, grid, outs, plain, library, nbytes, n,
+              shared_mem=0):
+    """One user kernel at the path's shape: its error against the plain
+    version, element by element in units of ``err_units``'s tolerance (1e-6
+    of the output's largest magnitude, plus for bf16 one bf16 step of the
+    element's own magnitude; at most 1 passes), and kernel / plain /
+    library / bound times."""
+    import mxnet_tpu_torch as mx
+    import torch
+
+    nd = [mx.nd.from_torch(a) if isinstance(a, torch.Tensor) else a
+          for a in args]
+
+    def launch(i=0):
+        k.launch(nd, mx.gpu(0), grid, (256, 1, 1), shared_mem=shared_mem)
+
+    launch()
+    ref = plain()
+    torch.cuda.synchronize()
+    out = outs()
+    err = (out.float() - ref.float()).abs().max().item()
+    units = _rtc_sources().err_units(out, ref)
+    if not torch.isfinite(out.float()).all() or units > 1:
+        fail(f"rtc {name}: max_abs_err {err}, {units:.3f} of the tolerance "
+             "at the worst element")
+    ms = cuda_ms(launch, 20)
+    plain_ms = cuda_ms(lambda i: plain(), 10)
+    lib = cuda_ms(lambda i: library(), 20)
+    bms, by = bound_ms(nbytes, RTC_OPS[name.split("<")[0]] * n,
+                       F32_OPS_PER_S)
+    print(f"rtc {name} n={n}: max_abs_err={err:.3e} ({units:.3f} of the "
+          f"tolerance at the worst element) "
+          f"kernel_ms={ms:.5f} bound_ms={bms:.5f} ({by}) plain_ms="
+          f"{plain_ms:.5f} library_ms={lib:.5f}", flush=True)
+    return dict(name=name, n=n, max_abs_err=err, err_units=units, ms=ms,
+                plain_ms=plain_ms, library_ms=lib, bound_ms=bms,
+                bound_by=by, bytes=nbytes)
+
+
+def check_rtc():
+    """NVRTC compile of the user-kernel module, cold (the cache entry
+    removed first) and cached; each user kernel against its plain version
+    and timed beside its bound, its plain version and the PyTorch call of
+    the same function (a yardstick only: ``F.gelu(approximate="tanh")``,
+    its backward ``aten.gelu_backward``, ``torch.softmax``, ``torch.add(y,
+    x, alpha=2)``); the refusal of shared memory past 227 KB; and K7's own
+    cost, host microseconds a ``launch`` of a tiny ``addmul`` against one
+    torch elementwise call."""
+    import torch
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+
+    S = _rtc_sources()
+    key = rtc.cache_key(S.SOURCE, (), S.EXPORTS)
+    for suffix in (".cubin", ".json"):
+        (rtc.BUILD_DIR / f"{key}{suffix}").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(S.SOURCE, exports=S.EXPORTS)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = rtc.CudaModule(S.SOURCE, exports=S.EXPORTS)
+    cached = time.perf_counter() - t0
+    if mod.cached or not again.cached:
+        fail("rtc: the CUBIN cache did not behave (cold compile expected, "
+             "then a cached one)")
+    lib_path = rtc._libs["nvrtc"][0]._name
+    print(f"rtc: NVRTC {lib_path} compiled the user-kernel module "
+          f"({len(S.SOURCE)} bytes, {len(S.EXPORTS)} exports, {rtc.ARCH}) "
+          f"in {mod.compile_seconds:.3f} s ({cold:.3f} s with the load); "
+          f"from the cache in {cached:.4f} s", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    n = MLP_ROWS * MLP_HIDDEN
+    cases = []
+
+    def kernel(name, ct=None):
+        full = f"{name}<{ct}>" if ct else name
+        sig = S.SIGNATURES[name].format(T=ct)
+        return full, mod.get_kernel(full, sig)
+
+    for dt in (torch.bfloat16, torch.float32):
+        ct = S.CTYPES[str(dt)]
+        x = torch.randn(n, generator=gen, device="cuda").to(dt)
+        dy = torch.randn(n, generator=gen, device="cuda").to(dt)
+        y, dx = torch.empty_like(x), torch.empty_like(x)
+        grid = S.elementwise_grid(n, x.element_size())
+        el = x.element_size()
+        name, k = kernel("gelu_fwd", ct)
+        cases.append(_rtc_case(
+            name, k, [x, y, n], grid, lambda: y,
+            lambda: S.gelu_fwd_plain(x),
+            lambda: F.gelu(x, approximate="tanh"), 2 * n * el, n))
+        name, k = kernel("gelu_bwd", ct)
+        cases.append(_rtc_case(
+            name, k, [x, dy, dx, n], grid, lambda: dx,
+            lambda: S.gelu_bwd_plain(x, dy),
+            lambda: torch.ops.aten.gelu_backward(dy, x, approximate="tanh"),
+            3 * n * el, n))
+        del x, dy, y, dx
+    rows, cols, rpb = MLP_ROWS, MLP_HIDDEN, S.SOFTMAX_ROWS_PER_BLOCK
+    xs = torch.randn(rows, cols, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    ys = torch.empty_like(xs)
+    name, k = kernel("softmax_rows")
+    cases.append(_rtc_case(
+        name, k, [xs, ys, rows, cols, rpb], (-(-rows // rpb), 1, 1),
+        lambda: ys, lambda: S.softmax_rows_plain(xs),
+        lambda: torch.softmax(xs, -1), 2 * rows * cols * 2, rows * cols,
+        shared_mem=rpb * cols * 4))
+    try:
+        k.launch([mx.nd.from_torch(xs), mx.nd.from_torch(ys), rows, cols,
+                  19], mx.gpu(0), (-(-rows // 19), 1, 1), (256, 1, 1),
+                 shared_mem=19 * cols * 4)
+    except mx.MXNetError as e:
+        print(f"rtc softmax_rows: {19 * cols * 4} bytes of shared memory "
+              f"refused before launching ({e})", flush=True)
+    else:
+        fail("rtc: a launch past 227 KB of shared memory was not refused")
+    del xs, ys
+    a = torch.randn(n, generator=gen, device="cuda")
+    b = torch.randn(n, generator=gen, device="cuda")
+    o = torch.empty_like(a)
+    name, k = kernel("addmul")
+    cases.append(_rtc_case(
+        name, k, [a, b, o, n], S.elementwise_grid(n, 4),
+        lambda: o, lambda: S.addmul_plain(a, b),
+        lambda: torch.add(b, a, alpha=2.0), 3 * n * 4, n))
+    # K7's own cost: host time a launch, at a size where the card idles
+    small = [mx.nd.from_torch(t[:256]) for t in (a, b, o)]
+    iters = 2000
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / iters * 1e6
+
+    launch_us = host_us(lambda: k.launch(small + [256], mx.gpu(0),
+                                         (1, 1, 1), (256, 1, 1)))
+    ta, tb, to = (t[:256] for t in (a, b, o))
+    torch_us = host_us(lambda: torch.add(tb, ta, alpha=2.0, out=to))
+    print(f"rtc launch overhead: {launch_us:.2f} us of host time a "
+          f"CudaKernel.launch (addmul, 256 values) against {torch_us:.2f} "
+          f"us a torch.add", flush=True)
+    del a, b, o, small
+    torch.cuda.empty_cache()
+    return dict(compile_s=mod.compile_seconds, compile_and_load_s=cold,
+                cached_s=cached, nvrtc=lib_path, cases=cases,
+                launch_us=launch_us, torch_launch_us=torch_us)
+
+
+def _mlp_data(rows, dtype, ctx):
+    """The MLP block's arrays from a seeded numpy Normal(0.02) (x, w1,
+    w2; zero biases) and a fixed random target (a per-column mean plus
+    0.1 noise), made on ``ctx`` in ``dtype``."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+
+    rs = np.random.RandomState(5)
+    arrs = dict(x=rs.normal(0, 0.02, (rows, MLP_UNITS)),
+                w1=rs.normal(0, 0.02, (MLP_UNITS, MLP_HIDDEN)),
+                b1=np.zeros(MLP_HIDDEN),
+                w2=rs.normal(0, 0.02, (MLP_HIDDEN, MLP_UNITS)),
+                b2=np.zeros(MLP_UNITS))
+    arrs["t"] = rs.normal(0, 1, (1, MLP_UNITS)) + \
+        0.1 * rs.normal(0, 1, (rows, MLP_UNITS))
+    return {k: mx.nd.array(v, ctx=ctx, dtype=dtype) for k, v in arrs.items()}
+
+
+def _mlp_step(mx, p):
+    """One step of the slice's path: forward under ``autograd.record()``,
+    ``backward``, SGD through in-place ``NDArray`` updates."""
+    with mx.autograd.record():
+        h = mx.nd.dot(p["x"], p["w1"]) + p["b1"]
+        a = mx.nd.Custom(h, op_type="rtc_gelu")
+        y = mx.nd.dot(a, p["w2"]) + p["b2"]
+        loss = mx.nd.mean(mx.nd.square(y - p["t"]))
+    loss.backward()
+    for k in ("w1", "b1", "w2", "b2"):
+        p[k] -= MLP_LR * p[k].grad
+    return loss
+
+
+def check_imperative_mlp(op):
+    """The fifth slice's path at GPT-2 small's MLP width, bf16 on
+    ``mx.gpu(0)``: 10 steps, ``rtc`` launched exactly twice a step (the
+    custom op's ``gelu_fwd`` and ``gelu_bwd``); losses finite and falling;
+    ms a step, rows/s and peak memory above the phase's start; the steps
+    leave nothing for the cyclic collector (it frees less than one ``h``
+    afterwards); then three profiled steps, device time a step split into
+    GEMMs, the rtc kernels and the rest."""
+    import gc
+    import math
+
+    import torch
+    import mxnet_tpu_torch as mx
+
+    p = _mlp_data(MLP_ROWS, "bfloat16", mx.gpu(0))
+    for k in ("w1", "b1", "w2", "b2"):
+        p[k].attach_grad()
+    for name in ("gelu_fwd", "gelu_bwd"):     # compiled before the run
+        op.kernel(name, "__nv_bfloat16")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    for k in op.kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    losses = [_mlp_step(mx, p)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses += [_mlp_step(mx, p) for _ in range(MLP_STEPS - 1)]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = op.launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v.asnumpy()[0]) for v in losses]
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    cyclic = held - torch.cuda.memory_allocated()
+    step_ms = (t2 - t1) / (MLP_STEPS - 1) * 1e3
+    rows_s = MLP_ROWS * (MLP_STEPS - 1) / (t2 - t1)
+    print(f"mlp: imperative MLP block {MLP_ROWS} x {MLP_UNITS} -> "
+          f"{MLP_HIDDEN} -> {MLP_UNITS} bf16 on mx.gpu(0), GELU as the "
+          f"rtc_gelu custom op, SGD lr {MLP_LR}, {MLP_STEPS} steps; losses "
+          f"{[round(v, 6) for v in losses]}", flush=True)
+    print(f"mlp: ms/step={step_ms:.3f} rows/s={rows_s:.1f} (steps 2-"
+          f"{MLP_STEPS}; first step {(t1 - t0) * 1e3:.3f} ms) "
+          f"max_memory_allocated={peak} ({peak - start} above the phase's "
+          f"start) rtc launches {launches} (expected {2 * MLP_STEPS}); "
+          f"the cyclic collector then freed {cyclic} bytes", flush=True)
+    if cyclic >= MLP_ROWS * MLP_HIDDEN * 2:
+        fail(f"mlp: {cyclic} bytes of the steps' buffers waited for the "
+             "cyclic collector")
+    if launches != 2 * MLP_STEPS:
+        fail(f"mlp: rtc launched {launches} times, expected "
+             f"{2 * MLP_STEPS}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"mlp: losses not finite: {losses}")
+    if not (losses[-1] < losses[0] and
+            all(b <= a for a, b in zip(losses, losses[1:]))):
+        fail(f"mlp: losses did not fall: {losses}")
+    n_prof = 3
+    by_name, busy, wall_us = _profiled(
+        lambda: [_mlp_step(mx, p) for _ in range(n_prof)])
+    prof = report_profile("mlp profile", by_name, busy, wall_us, top=10)
+    groups = {"rtc kernels": ("gelu_",),
+              "GEMMs": ("gemm", "gemv", "xmma", "cutlass", "nvjet",
+                        "sm90_")}
+    shares = {g: sum(us for n, us in by_name.items()
+                     if any(k in n for k in keys))
+              for g, keys in groups.items()}
+    shares["other"] = busy - sum(shares.values())
+    if busy > 0:
+        print("mlp profile: by group " + ", ".join(
+            f"{g} {us / busy:.4f} ({us / n_prof / 1e3:.3f} ms/step)"
+            for g, us in shares.items()), flush=True)
+    prof["groups_us"] = shares
+    del p
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms_per_step=step_ms, rows_per_s=rows_s,
+                first_step_ms=(t1 - t0) * 1e3, max_memory_allocated=peak,
+                memory_above_start=peak - start, cyclic_bytes=cyclic,
+                launches=launches,
+                profile=prof)
+
+
+def check_imperative_vs_cpu():
+    """One f32 step of the same path at 256 rows (TF32 off) on the card
+    (the rtc kernels, f32 instantiations) and on the CPU (the custom op's
+    plain branch), from the same arrays: loss within 1e-5 relative,
+    updated weights within 1e-5 of their magnitude."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+
+    rows = 256
+    res = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        p = _mlp_data(rows, "float32", ctx)
+        for k in ("w1", "b1", "w2", "b2"):
+            p[k].attach_grad()
+        loss = _mlp_step(mx, p)
+        res[ctx.device_type] = (float(loss.asnumpy()[0]),
+                                {k: p[k].asnumpy() for k in
+                                 ("w1", "b1", "w2", "b2")})
+    (lg, wg), (lc, wc) = res["gpu"], res["cpu"]
+    rel = abs(lg - lc) / abs(lc)
+    worst = max(float(np.abs(wg[k] - wc[k]).max() /
+                      max(np.abs(wc[k]).max(), 1.0)) for k in wg)
+    print(f"mlp vs cpu: f32 step at {rows} rows, loss card {lg:.7f} cpu "
+          f"{lc:.7f} (rel {rel:.3e}, tol 1e-5); weights max diff "
+          f"{worst:.3e} of magnitude (tol 1e-5)", flush=True)
+    if rel > 1e-5 or worst > 1e-5:
+        fail("mlp vs cpu: the card's f32 step disagrees with the CPU's")
+    torch.cuda.empty_cache()
+    return dict(loss_card=lg, loss_cpu=lc, loss_rel=rel, weights_rel=worst)
+
+
 def main():
     try:
         import torch
@@ -1533,6 +1885,15 @@ def main():
     vision = dict(fused=check_resnet(True), unfused=check_resnet(False),
                   vs_cpu=check_resnet_vs_cpu())
 
+    import mxnet_tpu_torch as mx
+
+    rtc = check_rtc()
+    gelu_op = _rtc_sources().RtcGelu(mx, op_type="rtc_gelu").register()
+    mlp = check_imperative_mlp(gelu_op)
+    mlp["vs_cpu"] = check_imperative_vs_cpu()
+    gelu = next(c for c in rtc["cases"]
+                if c["name"] == "gelu_fwd<__nv_bfloat16>")
+
     def backward_row(name, key, outputs, replaces):
         main = k23[0][key]
         return dict(name=name, route="cuda",
@@ -1585,13 +1946,25 @@ def main():
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
              cublas_ms=k6["cublas_ms"]),
+        # K7: the runtime-compiled kernels' launcher; its launches on the
+        # MLP path (gelu_fwd and gelu_bwd, 2 a step), its times those of
+        # gelu_fwd<__nv_bfloat16> at the path's 8192 x 3072, the library
+        # call F.gelu(approximate="tanh")
+        dict(name="rtc", route="cuda", source="tests/_torch_rtc_sources.py",
+             launcher="mxnet_tpu_torch/rtc.py",
+             kernel="gelu_fwd<__nv_bfloat16>",
+             replaces="mxnet_tpu/rtc.py:29", launches=mlp["launches"],
+             max_abs_err=gelu["max_abs_err"], ms=gelu["ms"],
+             plain_ms=gelu["plain_ms"], bound_ms=gelu["bound_ms"],
+             bound_by=gelu["bound_by"], library_ms=gelu["library_ms"]),
     ]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
         json.dump(dict(card=card, build_s=secs, k4=k4, k1=k1, k23=k23,
                        serve=srv, train=train, bert=bert, k5=k5,
-                       fused=fused, k6=k6, vision=vision, kernels=kernels),
+                       fused=fused, k6=k6, vision=vision, rtc=rtc,
+                       mlp=mlp, kernels=kernels),
                   fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

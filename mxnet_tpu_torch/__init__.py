@@ -17,7 +17,12 @@ flash-attention forward).  The second is training: ``gluon`` (losses,
 (``kv_generate(fused="on")``, one kernel launch per token).  The fourth
 is vision training: ``gluon.nn`` convolution, pooling and BatchNorm
 layers, ``initializer`` and the model zoo's ResNet family, with the
-fused 1x1-convolution backward as a kernel.
+fused 1x1-convolution backward as a kernel.  The fifth is the
+imperative core: ``nd`` (``NDArray`` and the op registry), ``autograd``,
+``context`` (``cpu()``, ``gpu()``), ``operator`` (custom ops) and ``rtc``
+(CUDA kernels compiled at run time by NVRTC), so that ``import
+mxnet_tpu_torch as mx`` reads like the reference's ``import mxnet_tpu as
+mx``.
 """
 __version__ = "0.1.0"
 
@@ -27,9 +32,15 @@ from .base import MXNetError
 from .device import resolve_device
 
 _SUBPACKAGES = ("ops", "models", "serve", "gluon", "optimizer", "parallel",
-                "random", "initializer")
+                "random", "initializer", "ndarray", "autograd", "context",
+                "operator", "rtc")
+# names of the imperative core, taken from the module that holds them
+_FROM = {"nd": ("ndarray", None), "cpu": ("context", "cpu"),
+         "gpu": ("context", "gpu"), "Context": ("context", "Context"),
+         "current_context": ("context", "current_context"),
+         "num_gpus": ("context", "num_gpus")}
 
-__all__ = ["MXNetError", "resolve_device", *_SUBPACKAGES]
+__all__ = ["MXNetError", "resolve_device", *_SUBPACKAGES, *_FROM]
 
 
 def __getattr__(name):
@@ -37,5 +48,11 @@ def __getattr__(name):
         mod = _imp("." + name, __name__)
         globals()[name] = mod
         return mod
+    if name in _FROM:
+        mod_name, attr = _FROM[name]
+        mod = _imp("." + mod_name, __name__)
+        value = mod if attr is None else getattr(mod, attr)
+        globals()[name] = value
+        return value
     raise AttributeError(
         f"module 'mxnet_tpu_torch' has no attribute {name!r}")

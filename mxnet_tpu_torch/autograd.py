@@ -1,0 +1,302 @@
+"""Autograd over ``torch.autograd``.
+
+Counterpart of ``mxnet_tpu/autograd.py``.  The reference keeps its own
+tape of ``jax.vjp`` closures; here the tape is torch's graph.  What the
+port keeps of MXNet's semantics:
+
+- thread-local ``record``/``pause`` and ``train_mode``/``predict_mode``
+  flags; ops reach the graph only inside ``record()``
+  (``ops.registry.invoke``);
+- ``backward`` seeds every head with ones, whatever its shape, unless a
+  head gradient is given; gradients land in each variable's persistent
+  ``.grad`` following its ``grad_req`` (``ndarray._leaf``);
+- ``retain_graph=False`` frees the graph: a second ``backward`` through
+  it raises ``MXNetError`` (the reference's ``_FreedGraph``), and an array
+  whose graph was freed enters later ops as a constant;
+- ``grad`` returns gradients without touching ``.grad``;
+  ``create_graph=True`` raises, as in the reference;
+- ``Function``: user forward and backward on NDArrays, bridged by a
+  ``torch.autograd.Function``.
+
+``get_symbol`` raises as in the reference.  ``trace_value_and_grad``
+belongs to the fused train step, which is not ported yet.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+import torch
+
+from .base import MXNetError
+
+__all__ = [
+    "record", "pause", "train_mode", "predict_mode", "is_recording",
+    "is_training", "set_recording", "set_training", "mark_variables",
+    "backward", "grad", "Function", "get_symbol",
+]
+
+_STATE = threading.local()
+
+
+def _st():
+    if not hasattr(_STATE, "recording"):
+        _STATE.recording = False
+        _STATE.training = False
+    return _STATE
+
+
+def is_recording() -> bool:
+    return _st().recording
+
+
+def is_training() -> bool:
+    return _st().training
+
+
+def set_recording(flag: bool) -> bool:
+    st = _st()
+    prev, st.recording = st.recording, bool(flag)
+    return prev
+
+
+def set_training(flag: bool) -> bool:
+    st = _st()
+    prev, st.training = st.training, bool(flag)
+    return prev
+
+
+class _ScopeCtx:
+    def __init__(self, recording: Optional[bool], training: Optional[bool]):
+        self._rec, self._train = recording, training
+
+    def __enter__(self):
+        st = _st()
+        self._old = (st.recording, st.training)
+        if self._rec is not None:
+            st.recording = self._rec
+        if self._train is not None:
+            st.training = self._train
+        return self
+
+    def __exit__(self, *a):
+        st = _st()
+        st.recording, st.training = self._old
+
+
+def record(train_mode: bool = True):
+    """``with autograd.record():`` — turn on recording (+training mode)."""
+    return _ScopeCtx(True, train_mode)
+
+
+def pause(train_mode: bool = False):
+    return _ScopeCtx(False, train_mode)
+
+
+def train_mode():
+    return _ScopeCtx(None, True)
+
+
+def predict_mode():
+    return _ScopeCtx(None, False)
+
+
+_FREED = ("graph already freed: call backward(retain_graph=True) to "
+          "backprop through the same graph twice")
+
+
+def _seeds(heads, head_grads):
+    """The heads that reach the graph, with their head gradients (ones
+    where none is given, whatever the head's shape)."""
+    from .ndarray.ndarray import NDArray
+
+    heads = [heads] if isinstance(heads, NDArray) else list(heads)
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    elif isinstance(head_grads, NDArray):
+        head_grads = [head_grads]
+    else:
+        head_grads = list(head_grads)
+    if len(head_grads) != len(heads):
+        raise MXNetError("heads and head_grads length mismatch")
+    outs, seeds = [], []
+    for h, g in zip(heads, head_grads):
+        if h._freed:
+            raise MXNetError(_FREED)
+        t = h._data
+        if not t.requires_grad:
+            continue
+        outs.append(t)
+        seeds.append(torch.ones_like(t) if g is None
+                     else g._data.to(device=t.device, dtype=t.dtype))
+    return heads, outs, seeds
+
+
+# whether the backward running now keeps its graph.  Read by
+# ``_Bridge.backward``, which torch may run on its own device thread, so
+# it is process-wide rather than thread-local.
+_retaining = False
+
+
+def _run(fn, heads, retain_graph):
+    global _retaining
+    prev, _retaining = _retaining, retain_graph
+    try:
+        res = fn()
+    except RuntimeError as e:
+        if "second time" in str(e):
+            raise MXNetError(_FREED) from e
+        raise
+    finally:
+        _retaining = prev
+    if not retain_graph:
+        for h in heads:
+            if h._data.grad_fn is not None:
+                h._freed = True
+    return res
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """``mx.autograd.backward`` — gradients land in each variable's
+    ``.grad``."""
+    heads, outs, seeds = _seeds(heads, head_grads)
+    if not outs:
+        return
+    with pause(train_mode=train_mode):
+        _run(lambda: torch.autograd.backward(outs, seeds,
+                                             retain_graph=retain_graph),
+             heads, retain_graph)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """``mx.autograd.grad`` — the gradients of ``heads`` with respect to
+    ``variables`` (leaves or intermediates), leaving ``.grad`` as it
+    is.  ``create_graph`` (higher order) raises, as in the reference."""
+    from .ndarray.ndarray import NDArray
+
+    if create_graph:
+        raise MXNetError("create_graph=True (higher-order grad) is not "
+                         "supported")
+    single = isinstance(variables, NDArray)
+    targets = [variables] if single else list(variables)
+    if retain_graph is None:
+        retain_graph = create_graph
+    heads, outs, seeds = _seeds(heads, head_grads)
+    live = [t for t in targets if t._data.requires_grad]
+    got = []
+    if outs and live:
+        with pause(train_mode=train_mode):
+            got = _run(lambda: torch.autograd.grad(
+                outs, [t._data for t in live], seeds,
+                retain_graph=retain_graph, allow_unused=True),
+                heads, retain_graph)
+    by_id = {id(t): g for t, g in zip(live, got)}
+    res = []
+    for t in targets:
+        g = by_id.get(id(t))
+        res.append(NDArray(g.detach() if g is not None
+                           else torch.zeros_like(t._data.detach())))
+    return res[0] if single else res
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make arrays variables with the given gradient buffers (reference
+    ``MXAutogradMarkVariables``)."""
+    from .ndarray.ndarray import NDArray, _leaf
+
+    if isinstance(variables, NDArray):
+        variables, gradients = [variables], [gradients]
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, r in zip(variables, gradients, grad_reqs):
+        if r not in ("write", "add", "null"):
+            raise MXNetError(f"invalid grad_req {r}")
+        v._grad = g
+        v._grad_req = r
+        v._freed = False
+        v._data = _leaf(v._data, v) if r != "null" else v._data.detach()
+
+
+def get_symbol(x):
+    """The reference returns the recorded Symbol; the port has no
+    symbolic graph."""
+    raise MXNetError("get_symbol: tape-to-symbol export is not supported")
+
+
+# --------------------------------------------------------------------------- #
+# Custom Function
+# --------------------------------------------------------------------------- #
+
+class _Bridge(torch.autograd.Function):
+    """Runs a ``Function``'s forward and backward on NDArrays inside
+    torch's graph."""
+
+    @staticmethod
+    def forward(ctx, func, is_nd, *args):
+        from .ndarray.ndarray import NDArray
+
+        ins = [NDArray(a) if nd else a for a, nd in zip(args, is_nd)]
+        with pause(train_mode=is_training()):
+            out = func.forward(*ins)
+        ctx.func, ctx.is_nd = func, is_nd
+        ctx.multi = isinstance(out, (tuple, list))
+        outs = list(out) if ctx.multi else [out]
+        return tuple(o._data for o in outs) if ctx.multi else outs[0]._data
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray.ndarray import NDArray
+
+        func = ctx.func
+        if func is None:
+            raise MXNetError(_FREED)
+        if not _retaining:
+            # free the Function's state (a custom op's buffers) with the
+            # graph, as torch frees saved tensors
+            ctx.func = None
+        with pause():
+            res = func.backward(*(NDArray(g) for g in grads))
+        res = res if isinstance(res, (tuple, list)) else (res,)
+        it = iter(res)
+        in_grads = []
+        for nd in ctx.is_nd:
+            g = next(it, None) if nd else None
+            in_grads.append(g._data if isinstance(g, NDArray) else g)
+        return (None, None, *in_grads)
+
+
+class Function:
+    """User-defined differentiable function with an explicit backward
+    (reference ``mx.autograd.Function``)."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *arrays):
+        self._saved = arrays
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+
+        if not is_recording():
+            with pause(train_mode=is_training()):
+                return self.forward(*inputs)
+        is_nd = tuple(isinstance(a, NDArray) for a in inputs)
+        args = [a._data.detach() if nd and a._freed else
+                a._data if nd else a for a, nd in zip(inputs, is_nd)]
+        with torch.enable_grad():
+            res = _Bridge.apply(self, is_nd, *args)
+        if isinstance(res, tuple):
+            return [NDArray(r) for r in res]
+        return NDArray(res)

@@ -12,7 +12,7 @@ from mxnet_tpu_torch.base import MXNetError
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "mxnet_tpu_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py", REPO / "tests" / "_torch_rtc_sources.py"]
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
 
 
@@ -32,7 +32,7 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from mxnet_tpu_torch import resolve_device
     from mxnet_tpu_torch.models import (BERTConfig, BERTModel, GPT, GPTConfig,
                                         Llama, LlamaConfig)
@@ -59,13 +59,40 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         get_model("resnet18_v1")
     with pytest.raises(MXNetError, match="CUDA is not available"):
         nn.Conv2D(8, 3, in_channels=4)
+    import mxnet_tpu_torch as mx
+
+    # the imperative core: the default context is gpu(0)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.nd.array([1.0, 2.0])
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.nd.zeros((2, 3))
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.gpu()
+    params = str(tmp_path / "a.params")
+    mx.nd.save(params, [mx.nd.zeros((2,), ctx=mx.cpu())])
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.nd.load(params)
+    assert mx.nd.load(params, ctx=mx.cpu())[0].context == mx.cpu()
+    with pytest.raises(MXNetError, match="needs a CUDA card"):
+        mx.rtc.CudaModule('extern "C" __global__ void k() {}')
     assert resolve_device("cpu").type == "cpu"
+    assert mx.nd.zeros((2,), ctx=mx.cpu()).context == mx.cpu()
 
 
 def test_new_modules_are_covered():
-    """The structure checks above reach the fused decode and the vision
-    slices' modules and kernel sources."""
+    """The structure checks above reach the fused decode, the vision and
+    the imperative slices' modules and kernel sources."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"mxnet_tpu_torch/context.py",
+            "mxnet_tpu_torch/ndarray/ndarray.py",
+            "mxnet_tpu_torch/ndarray/serialization.py",
+            "mxnet_tpu_torch/ndarray/__init__.py",
+            "mxnet_tpu_torch/ops/registry.py",
+            "mxnet_tpu_torch/ops/defs.py",
+            "mxnet_tpu_torch/autograd.py",
+            "mxnet_tpu_torch/operator.py",
+            "mxnet_tpu_torch/rtc.py",
+            "tests/_torch_rtc_sources.py"} <= names
     assert {"mxnet_tpu_torch/ops/decode_fused.py",
             "mxnet_tpu_torch/models/llama.py",
             "mxnet_tpu_torch/ops/conv_fused.py",
