@@ -19,13 +19,16 @@ Phases (each fails the run by raising; there is no CPU path):
    the serving prefill and the training step give it (8 rows, 12 heads,
    1024 tokens, head dim 64, causal), and once more with a key mask and
    dropout, with kernel, plain, library (``scaled_dot_product_attention``)
-   and bound times;
+   and bound times; two launches must agree bit for bit; first the
+   design tag of the bf16 tensor-core kernel and its registers and
+   spills from this run's ptxas report;
 5. K2 and K3 (flash backward: dq; dk, dv, dbias) against their plain
    versions in bf16 at the training shape, and at 2 x 12 x 640 with a
    key mask, dbias and dropout 0.1, with kernel, plain and bound times,
    and K1+K2+K3 forward and backward beside ``scaled_dot_product_attention``
    forward and backward (the library's backward alone is K2's and K3's
-   library time);
+   library time); two launches must agree bit for bit; first K3's design
+   tag, registers and spills, as for K1;
 6. serving: GPT-2 small at full width in bf16 (seeded random weights)
    through ``DecodeServer(weights="int8", pool_sizes=(4, 8))`` — six
    ragged greedy requests, the 700-token one arriving after the others
@@ -162,6 +165,57 @@ def bound_ms(nbytes, nops, ops_per_s=BF16_OPS_PER_S):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def design_tag(lib_name, fn_name):
+    """The design string a kernel library reports for itself."""
+    import ctypes
+    from mxnet_tpu_torch import _build
+
+    fn = getattr(_build.load(lib_name), fn_name)
+    fn.restype = ctypes.c_char_p
+    return fn().decode()
+
+
+def ptxas_report(lib_name, kernel):
+    """Registers and spill bytes of each instantiation of ``kernel`` in
+    the ptxas report of this run's build of ``csrc/<lib_name>.cu``, by
+    its template argument (the padded head dim)."""
+    import re
+    from mxnet_tpu_torch import _build
+
+    rows, cur = {}, None
+    for line in _build.build_log.get(lib_name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            cur = None
+            if kernel in name:
+                dp = re.search(r"ILi(\d+)E", name)
+                cur = rows.setdefault(dp.group(1) if dp else name, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
+def report_design(what, lib_name, design_fn, kernel):
+    tag = design_tag(lib_name, design_fn)
+    regs = ptxas_report(lib_name, kernel)
+    print(f"{what} design: {tag}", flush=True)
+    print(f"{what} ptxas {kernel}: " + ("; ".join(
+        f"DP={dp} {r.get('registers')} registers, spill stores "
+        f"{r.get('spill_stores')} B, loads {r.get('spill_loads')} B"
+        for dp, r in sorted(regs.items())) or "not built in this run"),
+        flush=True)
+    return dict(design=tag, ptxas=regs)
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: K4
 # --------------------------------------------------------------------------- #
@@ -266,6 +320,10 @@ def check_k1(cfg, B):
                 lerr > 1e-3:
             fail(f"K1 {name}: out max_abs_err {err} (tol 2e-2), lse "
                  f"max_abs_err {lerr} (tol 1e-3)")
+        # no atomics: a second launch repeats out and lse bit for bit
+        out2, lse2 = flash_fwd(q, k, v, scale, causal, km, 1234, rate)
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            fail(f"K1 {name}: two launches differ")
         ms = cuda_ms(lambda i: flash_fwd(q, k, v, scale, causal, km, 1234,
                                          rate), 20)
         plain = cuda_ms(lambda i: flash_fwd_plain(q, k, v, scale, causal,
@@ -289,6 +347,7 @@ def check_k1(cfg, B):
                             max_abs_err=err, lse_err=lerr, ms=ms,
                             plain_ms=plain, library_ms=lib, bound_ms=bms,
                             bound_by=by))
+    print("K1 two launches equal bit for bit in every case", flush=True)
     return results
 
 
@@ -344,6 +403,13 @@ def check_k23(cfg, B):
             if not torch.isfinite(got).all() or err > tol:
                 fail(f"K2/K3 {name} {what}: max_abs_err {err} > {tol}")
             errs[what] = (err, tol)
+        # no atomics: second launches repeat dq, dk, dv, dbias bit for bit
+        again = (pa.flash_bwd_dq(*args),
+                 *pa.flash_bwd_dkv(*args, need_dbias=masked))
+        for what, x, y in zip(("dq", "dk", "dv", "dbias"),
+                              (dq, dk, dv, db), again):
+            if x is not None and not torch.equal(x, y):
+                fail(f"K2/K3 {name} {what}: two launches differ")
         pairs = b * H * _causal_pairs(L, Lk, causal)
         in_bytes = 2 * b * H * D * (2 * L + 2 * Lk) + 8 * b * H * L + \
             (0 if km is None else 4 * b * Lk)
@@ -401,8 +467,8 @@ def check_k23(cfg, B):
               f"({k3_by}); library backward (dq, dk, dv) ms="
               f"{lib_bwd_ms:.5f}", flush=True)
         print(f"attention fwd+bwd {name}: K1+K2+K3 ms={fb_ms:.5f} "
-              f"scaled_dot_product_attention ms={lib_fb_ms:.5f}",
-              flush=True)
+              f"scaled_dot_product_attention ms={lib_fb_ms:.5f}; two "
+              f"launches equal bit for bit", flush=True)
         results.append(row)
     return results
 
@@ -1852,7 +1918,11 @@ def main():
           " parameters, seeded Normal(0.02)", flush=True)
 
     k4 = check_k4(cfg)
+    k1_design = report_design("K1", "flash_fwd", "flash_fwd_design",
+                              "flash_fwd_mma_kernel")
     k1 = check_k1(cfg, B=8)
+    k3_design = report_design("K3", "flash_bwd", "flash_bwd_dkv_design",
+                              "flash_bwd_dkv_mma_kernel")
     k23 = check_k23(cfg, B=8)
     srv = check_serving(model, cfg)
     srv["profile"] = profile_serving(model, cfg)
@@ -1920,11 +1990,13 @@ def main():
              launches=train["launches"]["flash_fwd"],
              max_abs_err=max(r["max_abs_err"] for r in k1), ms=k1[0]["ms"],
              plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
-             bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"]),
+             bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"],
+             design=k1_design["design"]),
         backward_row("flash_bwd_dq", "k2", ("dq",),
                      "mxnet_tpu/ops/attention.py:369"),
-        backward_row("flash_bwd_dkv", "k3", ("dk", "dv", "dbias"),
-                     "mxnet_tpu/ops/attention.py:479"),
+        dict(backward_row("flash_bwd_dkv", "k3", ("dk", "dv", "dbias"),
+                          "mxnet_tpu/ops/attention.py:479"),
+             design=k3_design["design"]),
         # K5: times at the GPT-2-small main-path shape (B=4, pos 700),
         # native stream; no single PyTorch call computes its function, so
         # library_ms is null and the unfused step stands beside it
@@ -1962,6 +2034,7 @@ def main():
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
         json.dump(dict(card=card, build_s=secs, k4=k4, k1=k1, k23=k23,
+                       k1_design=k1_design, k3_design=k3_design,
                        serve=srv, train=train, bert=bert, k5=k5,
                        fused=fused, k6=k6, vision=vision, rtc=rtc,
                        mlp=mlp, kernels=kernels),

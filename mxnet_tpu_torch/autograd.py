@@ -11,8 +11,9 @@ port keeps of MXNet's semantics:
   head gradient is given; gradients land in each variable's persistent
   ``.grad`` following its ``grad_req`` (``ndarray._leaf``);
 - ``retain_graph=False`` frees the graph: a second ``backward`` through
-  it raises ``MXNetError`` (the reference's ``_FreedGraph``), and an array
-  whose graph was freed enters later ops as a constant;
+  it raises ``MXNetError`` (the reference's ``_FreedGraph``), and every
+  array the backward reached, heads and intermediates alike, enters
+  later ops as a constant;
 - ``grad`` returns gradients without touching ``.grad``;
   ``create_graph=True`` raises, as in the reference;
 - ``Function``: user forward and backward on NDArrays, bridged by a
@@ -150,10 +151,38 @@ def _run(fn, heads, retain_graph):
     finally:
         _retaining = prev
     if not retain_graph:
-        for h in heads:
-            if h._data.grad_fn is not None:
-                h._freed = True
+        _free(heads)
     return res
+
+
+def _free(heads):
+    """Mark freed every recorded array whose producing node the backward
+    from ``heads`` reached, as the reference marks each node it consumed:
+    the heads, and the intermediates still alive (``ndarray._RECORDED``)."""
+    from .ndarray.ndarray import _RECORDED
+
+    roots = []
+    for h in heads:
+        if h._data.grad_fn is not None:
+            h._freed = True
+            roots.append(h._data.grad_fn)
+            _RECORDED.pop(id(h), None)
+    # valuerefs() copies in one step: safe against another thread
+    # recording while this one walks
+    live = [a for a in (r() for r in _RECORDED.valuerefs())
+            if a is not None]
+    if not roots or not live:
+        return
+    seen, stack = set(), roots
+    while stack:
+        fn = stack.pop()
+        if fn not in seen:
+            seen.add(fn)
+            stack.extend(f for f, _ in fn.next_functions if f is not None)
+    for a in live:
+        if a._data.grad_fn in seen:
+            a._freed = True
+            _RECORDED.pop(id(a), None)
 
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):

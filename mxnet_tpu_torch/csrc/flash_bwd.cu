@@ -29,22 +29,45 @@
 // head K2 does 6*L*Lk*D and K3 8*L*Lk*D operations (fewer under the
 // causal skip) against about 4*(L + Lk)*D input bytes and 4*L*D (K2) or
 // 8*Lk*D (K3) bytes of f32 output, far above the card's ops-per-byte
-// ridge for tensor cores, but these kernels run on CUDA cores.
+// ridge, so the products belong on the tensor cores.
 //
-// What the design does about it: K2 is one block per (b*H + h, 64-row q
-// tile) that loops over 64-key k/v tiles up to the diagonal (the TPU
-// grid's sequential k axis becomes the loop); K3 is one block per (b*H +
-// h, 64-key tile) that loops over 64-row q tiles from the diagonal on.
-// Each keeps its own tile and the streamed tile in shared memory as f32,
-// so the (L, Lk) score matrix never reaches device memory.  Four threads
-// share one row (K2) or one key (K3): each computes 16 of the tile's 64
-// scores and dp values, and a quarter of the output columns
-// (interleaved, so shared-memory reads hit distinct banks).  This first
-// version multiplies with plain f32 FMAs on CUDA cores, far from the
-// tensor-core peak; mma/wgmma tiles and TMA loads are for a later change.
+// K3, bf16 (flash_bwd_dkv_mma_kernel, the path of every bf16 caller): one
+// block of four warps per (b*H + h, 64-key tile), each warp owning 16
+// keys; the key tiles with the most q tiles launch first (low
+// blockIdx.x).  The block's k and v tiles sit in shared memory in bf16
+// (with their mma A fragments in registers up to head dim 64); 64-row q
+// and do tiles and their lse and delta stream through a two-stage
+// cp.async ring, from the diagonal on under the causal mask.  S^T = k.q^T
+// and dP^T = v.do^T are mma.sync m16n8k16 tiles (bf16 in, f32 sums; q's
+// and do's B fragments by ldmatrix); masks, the dropout hash, p, dp and
+// ds run in registers on the accumulator fragment, in its own (key, q)
+// coordinates.  dV += P_drop^T.do and dK += dS^T.q take P_drop^T and dS^T
+// straight from the accumulators as A fragments (do's and q's B
+// fragments by ldmatrix.trans), each as a bf16 pair hi = bf16(x), lo =
+// bf16(x - hi), two products into one f32 accumulator: ~16 bits of the
+// f32 operand, so the kernel stays within the f32 plain version's
+// tolerance (1e-4 of each output's magnitude) where one bf16 rounding of
+// ds (2^-9) would not.  dbias is each key's sum of ds over q, kept per
+// lane and combined over the quad of lanes that share the key by
+// shuffles in a fixed order; dk is scaled once at the end.
+//
+// K2, and K3 in f32: one block per (b*H + h, 64-row q tile) for K2,
+// looping over 64-key k/v tiles up to the diagonal (the TPU grid's
+// sequential k axis becomes the loop), and per (b*H + h, 64-key tile)
+// for K3, looping over 64-row q tiles from the diagonal on.  Each keeps
+// its own tile and the streamed tile in shared memory as f32, so the (L,
+// Lk) score matrix never reaches device memory.  Four threads share one
+// row (K2) or one key (K3): each computes 16 of the tile's 64 scores and
+// dp values, and a quarter of the output columns (interleaved, so
+// shared-memory reads hit distinct banks), with scalar f32 FMAs on CUDA
+// cores.  K2 keeps that design in bf16 too, for now.  K3's f32 kernel
+// stays on CUDA cores on purpose: the f32 callers need 1e-4 agreement,
+// which a bf16 or TF32 product cannot give.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -308,6 +331,212 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K3 in bf16: tensor cores
+constexpr int kStages = 2;  // q/do tiles in flight
+
+template <int DP>
+constexpr size_t dkv_mma_smem_bytes() {
+  return mx_attn::tile_bytes<DP>() * (2 + 2 * kStages) +
+         sizeof(float) * 2 * kStages * kB;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(mx_attn::kThreads)
+    flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ g,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             const float* __restrict__ kmask,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             float* __restrict__ dbias, int H, int L,
+                             int Lk, int D, int nb_mask, float scale,
+                             int causal, uint32_t seed, uint32_t thresh,
+                             float inv_keep, int dropout) {
+  using namespace mx_attn;
+  static_assert(kB == kTileRows, "64-row tiles");
+  constexpr int SR = stride<DP>();
+  constexpr int KS = DP / 16;  // 16-deep steps over the head dim
+  constexpr int NO = DP / 8;   // 8-wide output n-tiles
+  constexpr bool kRegs = DP <= 64;  // k/v A fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + kB * SR;
+  __nv_bfloat16* Qs = Vs + kB * SR;             // [kStages][kB][SR]
+  __nv_bfloat16* Gs = Qs + kStages * kB * SR;   // [kStages][kB][SR]
+  float* Ls = reinterpret_cast<float*>(Gs + kStages * kB * SR);  // [kStages][kB]
+  float* Dl = Ls + kStages * kB;                                 // [kStages][kB]
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kB;
+  const int lane = threadIdx.x & 31;
+  const int rw = (threadIdx.x >> 5) * 16;  // this warp's keys in the tile
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int kpos[2] = {k0 + rw + gq, k0 + rw + gq + 8};
+  const bool key_ok[2] = {kpos[0] < Lk, kpos[1] < Lk};
+  const __nv_bfloat16* qb = q + (size_t)bh * L * D;
+  const __nv_bfloat16* gb = g + (size_t)bh * L * D;
+  const float* lb = lse + (size_t)bh * L;
+  const float* db = delta + (size_t)bh * L;
+  const float* km =
+      kmask ? kmask + (size_t)(nb_mask == 1 ? 0 : bh / H) * Lk : nullptr;
+  float kmv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) kmv[r] = (km && key_ok[r]) ? km[kpos[r]] : 0.f;
+
+  // causal block skip: q tiles wholly above the diagonal (every row
+  // before this block's first key) are never visited
+  const int qstart = causal ? k0 : 0;
+  const int nq = qstart < L ? (L - qstart + kB - 1) / kB : 0;
+  auto load_q = [&](int it) {
+    const int b = it % kStages, q0 = qstart + it * kB;
+    load_tile_async<DP>(Qs + b * kB * SR, qb, q0, L, D);
+    load_tile_async<DP>(Gs + b * kB * SR, gb, q0, L, D);
+    if (threadIdx.x < kB) {
+      const int r = q0 + threadIdx.x;
+      cp_async4(Ls + b * kB + threadIdx.x, r < L ? lb + r : lb, r < L);
+      cp_async4(Dl + b * kB + threadIdx.x, r < L ? db + r : db, r < L);
+    }
+  };
+  load_tile_async<DP>(Ks, k + (size_t)bh * Lk * D, k0, Lk, D);
+  load_tile_async<DP>(Vs, v + (size_t)bh * Lk * D, k0, Lk, D);
+  if (nq > 0) load_q(0);
+  cp_async_commit();
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  }
+  float dsum[2] = {0.f, 0.f};
+  uint32_t kf[kRegs ? KS : 1][4], vf[kRegs ? KS : 1][4];
+
+  for (int it = 0; it < nq; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    if (kRegs && it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < (kRegs ? KS : 1); ++ks) {
+        ldmatrix_a<DP>(kf[ks], Ks, rw, ks * 16);
+        ldmatrix_a<DP>(vf[ks], Vs, rw, ks * 16);
+      }
+    }
+    if (it + 1 < nq) {  // the next tile streams in behind this one
+      load_q(it + 1);
+      cp_async_commit();
+    }
+    const int b = it % kStages;
+    const __nv_bfloat16* Qt = Qs + b * kB * SR;
+    const __nv_bfloat16* Gt = Gs + b * kB * SR;
+    const float* Lt = Ls + b * kB;
+    const float* Dt = Dl + b * kB;
+    const int q0 = qstart + it * kB;
+
+    // S^T = k . q^T and dP^T = v . do^T: 16 keys x 64 q rows a warp
+    float st[8][4], dpt[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ka[4], va[4];
+      if (kRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ka[i] = kf[kRegs ? ks : 0][i];
+          va[i] = vf[kRegs ? ks : 0][i];
+        }
+      } else {
+        ldmatrix_a<DP>(ka, Ks, rw, ks * 16);
+        ldmatrix_a<DP>(va, Vs, rw, ks * 16);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bq[4], bg[4];
+        ldmatrix_b<DP>(bq, Qt, np * 16, ks * 16);
+        ldmatrix_b<DP>(bg, Gt, np * 16, ks * 16);
+        mma(st[2 * np], ka, bq[0], bq[1]);
+        mma(st[2 * np + 1], ka, bq[2], bq[3]);
+        mma(dpt[2 * np], va, bg[0], bg[1]);
+        mma(dpt[2 * np + 1], va, bg[2], bg[3]);
+      }
+    }
+
+    // p, p_drop and ds on the fragment: st becomes p_drop, dpt ds
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int c = n * 8 + 2 * t4 + (e & 1);
+        const int qpos = q0 + c;
+        float x = __fmul_rn(st[n][e], scale);  // rounded before the mask add
+        if (km) x += kmv[r];
+        const bool valid =
+            key_ok[r] && qpos < L && !(causal && qpos < kpos[r]);
+        const float p =
+            (!valid || x <= 0.5f * kNegInf) ? 0.f : expf(x - Lt[c]);
+        float dp = dpt[n][e], p_drop = p;
+        if (dropout) {
+          const bool keep = hash_bits(seed, (uint32_t)bh, (uint32_t)qpos,
+                                      (uint32_t)kpos[r]) >= thresh;
+          dp = keep ? dp * inv_keep : 0.f;
+          p_drop = keep ? p * inv_keep : 0.f;
+        }
+        const float ds = p * (dp - Dt[c]);
+        st[n][e] = p_drop;
+        dpt[n][e] = ds;
+        dsum[r] += ds;
+      }
+    }
+
+    // dV += P_drop^T . do and dK += dS^T . q, the A operands as hi + lo
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      acc_to_a(st[2 * kk], st[2 * kk + 1], ph, pl);
+      acc_to_a(dpt[2 * kk], dpt[2 * kk + 1], sh, sl);
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {
+        uint32_t bg[4], bq[4];
+        ldmatrix_b_trans<DP>(bg, Gt, kk * 16, dp * 16);
+        ldmatrix_b_trans<DP>(bq, Qt, kk * 16, dp * 16);
+        mma(dva[2 * dp], ph, bg[0], bg[1]);
+        mma(dva[2 * dp], pl, bg[0], bg[1]);
+        mma(dva[2 * dp + 1], ph, bg[2], bg[3]);
+        mma(dva[2 * dp + 1], pl, bg[2], bg[3]);
+        mma(dka[2 * dp], sh, bq[0], bq[1]);
+        mma(dka[2 * dp], sl, bq[0], bq[1]);
+        mma(dka[2 * dp + 1], sh, bq[2], bq[3]);
+        mma(dka[2 * dp + 1], sl, bq[2], bq[3]);
+      }
+    }
+  }
+
+  cp_async_wait<0>();  // nothing in flight at exit (an empty q range)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float ds_total = quad_sum(dsum[r]);  // every lane shuffles
+    if (!key_ok[r]) continue;
+    const size_t o = ((size_t)bh * Lk + kpos[r]) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int d = n * 8 + 2 * t4;
+      if (d < D) {
+        *reinterpret_cast<float2*>(dk + o + d) =
+            make_float2(scale * dka[n][2 * r], scale * dka[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv + o + d) =
+            make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+      }
+    }
+    if (dbias && t4 == 0) dbias[(size_t)bh * Lk + kpos[r]] = ds_total;
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *g;
   const float *lse, *delta, *kmask;
@@ -369,6 +598,34 @@ int dispatch_dq(const Args& a, float* dq) {
   return launch_dq<T, 128>(a, dq);
 }
 
+template <int DP>
+int launch_dkv_mma(const Args& a, float* dk, float* dv, float* dbias) {
+  constexpr size_t smem = dkv_mma_smem_bytes<DP>();
+  static bool attr_set = false;
+  const int e = set_smem(flash_bwd_dkv_mma_kernel<DP>, smem, &attr_set);
+  if (e) return e;
+  const dim3 grid((a.Lk + kB - 1) / kB, a.B * a.H);
+  flash_bwd_dkv_mma_kernel<DP><<<grid, mx_attn::kThreads, smem, a.st>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.g), a.lse, a.delta, a.kmask, dk,
+      dv, dbias, a.H, a.L, a.Lk, a.D, a.nb_mask, a.scale, a.causal, a.seed,
+      a.thresh, a.inv_keep, a.dropout);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_dkv_mma(const Args& a, float* dk, float* dv, float* dbias) {
+  // q, k, v and do are read by 16-byte copies
+  if (!mx_attn::aligned16(a.q) || !mx_attn::aligned16(a.k) ||
+      !mx_attn::aligned16(a.v) || !mx_attn::aligned16(a.g))
+    return (int)cudaErrorMisalignedAddress;
+  if (a.D <= 32) return launch_dkv_mma<32>(a, dk, dv, dbias);
+  if (a.D <= 64) return launch_dkv_mma<64>(a, dk, dv, dbias);
+  if (a.D <= 96) return launch_dkv_mma<96>(a, dk, dv, dbias);
+  return launch_dkv_mma<128>(a, dk, dv, dbias);
+}
+
 template <typename T>
 int dispatch_dkv(const Args& a, float* dk, float* dv, float* dbias) {
   if (a.D <= 32) return launch_dkv<T, 32>(a, dk, dv, dbias);
@@ -425,8 +682,16 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
   float* k_out = static_cast<float*>(dk);
   float* v_out = static_cast<float*>(dv);
   float* b_out = static_cast<float*>(dbias);
-  return is_bf16 ? dispatch_dkv<__nv_bfloat16>(a, k_out, v_out, b_out)
+  return is_bf16 ? dispatch_dkv_mma(a, k_out, v_out, b_out)
                  : dispatch_dkv<float>(a, k_out, v_out, b_out);
+}
+
+// the design K3's bf16 path runs, for reports
+extern "C" const char* flash_bwd_dkv_design() {
+  return "bf16: mma.sync m16n8k16 bf16->f32, 64-key x 64-q-row tiles, "
+         "4 warps x 16 keys, 2-stage cp.async q/do/lse/delta ring, k/v A "
+         "fragments in registers (head dim <= 64), P_drop and dS as bf16 "
+         "hi+lo pairs, dbias by quad shuffles; f32: CUDA-core FMAs";
 }
 
 extern "C" const char* mx_cuda_error_string(int err) {

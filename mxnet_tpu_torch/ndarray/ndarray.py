@@ -38,6 +38,12 @@ def _ops():
     return defs
 
 
+# every live array that a recorded op produced, by id, weakly: a backward
+# that frees its graph marks those it reached (``autograd._free``)
+_RECORDED: "weakref.WeakValueDictionary[int, NDArray]" = \
+    weakref.WeakValueDictionary()
+
+
 class NDArray:
     __slots__ = ("_data", "_grad", "_grad_req", "_freed", "__weakref__")
 
@@ -49,6 +55,8 @@ class NDArray:
         self._grad = None
         self._grad_req = "null"
         self._freed = False
+        if data.grad_fn is not None:
+            _RECORDED[id(self)] = self
 
     # ------------------------------------------------------------------ #
     # identity / metadata
@@ -156,6 +164,8 @@ class NDArray:
             data = _leaf(data, self)
         self._data = data
         self._freed = False
+        if data.grad_fn is not None:
+            _RECORDED[id(self)] = self
         return self
 
     # ------------------------------------------------------------------ #

@@ -164,7 +164,10 @@ def test_wrapper_rejects_bad_inputs():
 @pytest.mark.parametrize("L,Lk,D,causal,masked,rate",
                          [(1024, 1024, 64, True, False, 0.0),
                           (300, 333, 40, False, True, 0.1),
-                          (129, 129, 128, True, True, 0.0)])
+                          (129, 129, 128, True, True, 0.0),
+                          (257, 257, 32, True, False, 0.0),
+                          (200, 201, 96, False, True, 0.1),
+                          (77, 77, 64, True, True, 0.0)])
 def test_kernel_matches_plain_on_card(dtype, L, Lk, D, causal, masked,
                                       rate):
     need_cuda()

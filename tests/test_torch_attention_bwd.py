@@ -242,7 +242,10 @@ def test_backward_wrappers_reject_bad_inputs():
 @pytest.mark.parametrize("L,Lk,D,causal,masked,rate",
                          [(1024, 1024, 64, True, False, 0.0),
                           (300, 333, 40, False, True, 0.1),
-                          (129, 129, 128, True, True, 0.0)])
+                          (129, 129, 128, True, True, 0.0),
+                          (257, 257, 32, True, False, 0.0),
+                          (200, 201, 96, False, True, 0.1),
+                          (77, 77, 64, True, True, 0.0)])
 def test_kernels_match_plain_on_card(dtype, L, Lk, D, causal, masked,
                                      rate):
     need_cuda()
@@ -270,3 +273,24 @@ def test_kernels_match_plain_on_card(dtype, L, Lk, D, causal, masked,
             continue
         tol = 1e-4 * max(1.0, ref.abs().max().item())
         assert (got - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_repeat_bit_for_bit_on_card():
+    """The bf16 tensor-core K1 and K3 use no atomics: two launches on the
+    same inputs give the same out, lse, dk, dv and dbias bit for bit."""
+    need_cuda()
+    q, k, v, g = (t(a).cuda().bfloat16()
+                  for a in _inputs(2, 3, 333, 333, 64))
+    km = t(_kmask(2, 333, 4)).cuda()
+    args = (q, k, v, 64 ** -0.5, True, km, 99, 0.1)
+    out, lse = pa.flash_fwd(*args)
+    out2, lse2 = pa.flash_fwd(*args)
+    delta = (out.float() * g.float()).sum(-1)
+    bwd = (q, k, v, g, lse, delta, 64 ** -0.5, True, km, 99, 0.1)
+    first = pa.flash_bwd_dkv(*bwd, need_dbias=True)
+    second = pa.flash_bwd_dkv(*bwd, need_dbias=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

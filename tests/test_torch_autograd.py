@@ -185,6 +185,22 @@ def test_freed_array_enters_later_ops_as_constant(pkg):
     close(x.grad, [9.0])
 
 
+def test_freed_intermediate_enters_later_ops_as_constant(pkg):
+    m, err = pkg
+    x = m.nd.array([3.0])
+    x.attach_grad()
+    with m.autograd.record():
+        y = x * x
+        w = y * x
+    w.backward()                    # frees w's graph, y's node with it
+    with m.autograd.record():
+        z = y * x                   # y enters as the constant 9
+    z.backward()
+    close(x.grad, [9.0])
+    with pytest.raises(err):
+        y.backward()
+
+
 def test_retain_graph(pkg):
     m, _ = pkg
     x = m.nd.array([2.0])
