@@ -27,8 +27,8 @@ Phases (each fails the run by raising; there is no CPU path):
    key mask, dbias and dropout 0.1, with kernel, plain and bound times,
    and K1+K2+K3 forward and backward beside ``scaled_dot_product_attention``
    forward and backward (the library's backward alone is K2's and K3's
-   library time); two launches must agree bit for bit; first K3's design
-   tag, registers and spills, as for K1;
+   library time); two launches must agree bit for bit; first K2's and
+   K3's design tags, registers and spills, as for K1;
 6. serving: GPT-2 small at full width in bf16 (seeded random weights)
    through ``DecodeServer(weights="int8", pool_sizes=(4, 8))`` — six
    ragged greedy requests, the 700-token one arriving after the others
@@ -77,7 +77,8 @@ Phases (each fails the run by raising; there is no CPU path):
    conv1x1_bwd_pair``) against its plain version at the nine stride-1 1x1
    shapes of ResNet-50 at batch 128 in bf16 and one in f32: dx within 2
    bf16 steps (f32: 1e-5) of its magnitude, dW within 1e-3 (f32: 1e-5) of
-   its magnitude and bit for bit across two launches; K6 ms beside its
+   its magnitude, dx and dW bit for bit across two launches; first the
+   bf16 kernel's design tag, registers and spills; K6 ms beside its
    bound, the plain version's ms, cuDNN's backward
    (``aten.convolution_backward``, one call for dx and dW: the library
    time) and cuBLAS's two products;
@@ -178,7 +179,8 @@ def design_tag(lib_name, fn_name):
 def ptxas_report(lib_name, kernel):
     """Registers and spill bytes of each instantiation of ``kernel`` in
     the ptxas report of this run's build of ``csrc/<lib_name>.cu``, by
-    its template argument (the padded head dim)."""
+    its template argument (the padded head dim of the attention kernels,
+    K6's column tile)."""
     import re
     from mxnet_tpu_torch import _build
 
@@ -209,7 +211,7 @@ def report_design(what, lib_name, design_fn, kernel):
     regs = ptxas_report(lib_name, kernel)
     print(f"{what} design: {tag}", flush=True)
     print(f"{what} ptxas {kernel}: " + ("; ".join(
-        f"DP={dp} {r.get('registers')} registers, spill stores "
+        f"<{dp}> {r.get('registers')} registers, spill stores "
         f"{r.get('spill_stores')} B, loads {r.get('spill_loads')} B"
         for dp, r in sorted(regs.items())) or "not built in this run"),
         flush=True)
@@ -1248,7 +1250,7 @@ def _k6_case(s, ci, co, dtype, gen):
     bms, by = bound_ms(nbytes, nops, rate)
     print(f"{what} P={p}: dx max_abs_err={dx_err:.3e}"
           + (f" ({dx_steps:.2f} bf16 steps)" if dx_steps is not None else "")
-          + f" dW rel_err={dw_rel:.3e} plan={cf.plan(p, ci, co)} "
+          + f" dW rel_err={dw_rel:.3e} plan={cf.plan(p, ci, co, dt)} "
           f"kernel_ms={ms:.5f} bound_ms={bms:.5f} ({by}) plain_ms="
           f"{plain:.5f} cudnn_ms={lib:.5f} cublas_pair_ms={cublas:.5f}",
           flush=True)
@@ -1256,7 +1258,7 @@ def _k6_case(s, ci, co, dtype, gen):
                 dx_bf16_steps=dx_steps, dw_rel_err=dw_rel,
                 max_abs_err=max(dx_err, dw_err), ms=ms, plain_ms=plain,
                 library_ms=lib, cublas_ms=cublas, bound_ms=bms, bound_by=by,
-                bytes=nbytes, ops=nops, plan=cf.plan(p, ci, co))
+                bytes=nbytes, ops=nops, plan=cf.plan(p, ci, co, dt))
 
 
 def check_k6():
@@ -1921,6 +1923,8 @@ def main():
     k1_design = report_design("K1", "flash_fwd", "flash_fwd_design",
                               "flash_fwd_mma_kernel")
     k1 = check_k1(cfg, B=8)
+    k2_design = report_design("K2", "flash_bwd", "flash_bwd_dq_design",
+                              "flash_bwd_dq_mma_kernel")
     k3_design = report_design("K3", "flash_bwd", "flash_bwd_dkv_design",
                               "flash_bwd_dkv_mma_kernel")
     k23 = check_k23(cfg, B=8)
@@ -1951,6 +1955,8 @@ def main():
     torch.cuda.empty_cache()
     fused["llama_7b"] = check_llama7b()
 
+    k6_design = report_design("K6", "conv1x1_bwd", "conv1x1_bwd_design",
+                              "conv1x1_bwd_mma_kernel")
     k6 = check_k6()
     vision = dict(fused=check_resnet(True), unfused=check_resnet(False),
                   vs_cpu=check_resnet_vs_cpu())
@@ -1992,8 +1998,9 @@ def main():
              plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
              bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"],
              design=k1_design["design"]),
-        backward_row("flash_bwd_dq", "k2", ("dq",),
-                     "mxnet_tpu/ops/attention.py:369"),
+        dict(backward_row("flash_bwd_dq", "k2", ("dq",),
+                          "mxnet_tpu/ops/attention.py:369"),
+             design=k2_design["design"]),
         dict(backward_row("flash_bwd_dkv", "k3", ("dk", "dv", "dbias"),
                           "mxnet_tpu/ops/attention.py:479"),
              design=k3_design["design"]),
@@ -2017,7 +2024,7 @@ def main():
              max_abs_err=k6["max_abs_err"], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
-             cublas_ms=k6["cublas_ms"]),
+             cublas_ms=k6["cublas_ms"], design=k6_design["design"]),
         # K7: the runtime-compiled kernels' launcher; its launches on the
         # MLP path (gelu_fwd and gelu_bwd, 2 a step), its times those of
         # gelu_fwd<__nv_bfloat16> at the path's 8192 x 3072, the library
@@ -2034,7 +2041,8 @@ def main():
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
         json.dump(dict(card=card, build_s=secs, k4=k4, k1=k1, k23=k23,
-                       k1_design=k1_design, k3_design=k3_design,
+                       k1_design=k1_design, k2_design=k2_design,
+                       k3_design=k3_design, k6_design=k6_design,
                        serve=srv, train=train, bert=bert, k5=k5,
                        fused=fused, k6=k6, vision=vision, rtc=rtc,
                        mlp=mlp, kernels=kernels),

@@ -1,8 +1,9 @@
 // Flash-attention backward (flash-attention-2: recompute from lse).
 //
-// K2, flash_bwd_dq_kernel, replaces the TPU kernel
-// mxnet_tpu/ops/attention.py::_pallas_bwd_dq; K3, flash_bwd_dkv_kernel,
-// replaces mxnet_tpu/ops/attention.py::_pallas_bwd_dkv.  Both keep those
+// K2 (flash_bwd_dq_mma_kernel in bf16, flash_bwd_dq_kernel in f32)
+// replaces the TPU kernel mxnet_tpu/ops/attention.py::_pallas_bwd_dq; K3
+// (flash_bwd_dkv_mma_kernel, flash_bwd_dkv_kernel) replaces
+// mxnet_tpu/ops/attention.py::_pallas_bwd_dkv.  Both keep those
 // kernels' semantics exactly, as flash_fwd.cu (K1) does for the forward:
 // scores in f32, scaled, plus the optional (Nb, 1, Lk) additive key mask
 // (Nb = 1 or B), then the causal mask (qpos >= kpos) with -1e30;
@@ -51,7 +52,22 @@
 // lane and combined over the quad of lanes that share the key by
 // shuffles in a fixed order; dk is scaled once at the end.
 //
-// K2, and K3 in f32: one block per (b*H + h, 64-row q tile) for K2,
+// K2, bf16 (flash_bwd_dq_mma_kernel): K3's design turned around.  One
+// block of four warps per (b*H + h, 64-row q tile), each warp owning 16
+// rows; under the causal mask the q tiles with the most key tiles launch
+// first.  The block's q and do tiles sit in shared memory (their A
+// fragments in registers up to head dim 64) and each warp keeps lse and
+// delta of its two rows (g, g + 8) in registers; 64-key k and v tiles
+// stream through the two-stage cp.async ring, up to the diagonal under
+// the causal mask.  S = q.k^T and dP = do.v^T are mma.sync tiles (k's
+// and v's B fragments by ldmatrix); masks, the dropout hash, p and ds run
+// in registers in the accumulator's (q, key) coordinates, and dQ += dS.k
+// takes dS from the accumulators as a bf16 hi/lo A pair (k's B fragments
+// by ldmatrix.trans), for the same 1e-4 tolerance.  dq is scaled once and
+// written once in f32.  Three products and the lo half of a fourth
+// against K3's four and two halves.
+//
+// f32 (K2 and K3): one block per (b*H + h, 64-row q tile) for K2,
 // looping over 64-key k/v tiles up to the diagonal (the TPU grid's
 // sequential k axis becomes the loop), and per (b*H + h, 64-key tile)
 // for K3, looping over 64-row q tiles from the diagonal on.  Each keeps
@@ -60,9 +76,8 @@
 // row (K2) or one key (K3): each computes 16 of the tile's 64 scores and
 // dp values, and a quarter of the output columns (interleaved, so
 // shared-memory reads hit distinct banks), with scalar f32 FMAs on CUDA
-// cores.  K2 keeps that design in bf16 too, for now.  K3's f32 kernel
-// stays on CUDA cores on purpose: the f32 callers need 1e-4 agreement,
-// which a bf16 or TF32 product cannot give.
+// cores.  They stay on CUDA cores on purpose: the f32 callers need 1e-4
+// agreement, which a bf16 or TF32 product cannot give.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,11 +91,6 @@ constexpr int kThreads = 256;  // 4 threads per row (K2) or key (K3)
 constexpr int kCols = kB / 4;  // scores per thread per tile
 constexpr int kP = kB + 1;     // odd stride of the 64x64 tiles
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // the reference's dropout hash (mxnet_tpu/ops/attention.py::_hash_bits):
 // uint32 arithmetic wraps exactly as jnp.uint32 does
@@ -99,14 +109,14 @@ __device__ __forceinline__ uint32_t hash_bits(uint32_t seed, uint32_t bh,
 
 // rows [r0, r0 + kB) of a (n, D) matrix into a [kB][DP + 1] f32 tile,
 // zeros past n and past D
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int n, int D) {
+template <int DP>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int n, int D) {
   constexpr int S = DP + 1;
   for (int i = threadIdx.x; i < kB * DP; i += kThreads) {
     const int r = i / DP, d = i % DP;
     dst[r * S + d] =
-        (r0 + r < n && d < D) ? to_f32(src[(size_t)(r0 + r) * D + d]) : 0.f;
+        (r0 + r < n && d < D) ? src[(size_t)(r0 + r) * D + d] : 0.f;
   }
 }
 
@@ -121,10 +131,12 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 // K2.  DP: head dim padded up to a multiple of 32 (zeros in shared memory)
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ g,
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ g,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const float* __restrict__ kmask,
@@ -146,17 +158,17 @@ __global__ void __launch_bounds__(kThreads)
   const int quarter = threadIdx.x & 3;
   const int qpos = q0 + row;
   const bool row_ok = qpos < L;
-  const T* qb = q + (size_t)bh * L * D;
-  const T* gb = g + (size_t)bh * L * D;
-  const T* kb = k + (size_t)bh * Lk * D;
-  const T* vb = v + (size_t)bh * Lk * D;
+  const float* qb = q + (size_t)bh * L * D;
+  const float* gb = g + (size_t)bh * L * D;
+  const float* kb = k + (size_t)bh * Lk * D;
+  const float* vb = v + (size_t)bh * Lk * D;
   const float* km =
       kmask ? kmask + (size_t)(nb_mask == 1 ? 0 : bh / H) * Lk : nullptr;
   const float lse_r = row_ok ? lse[(size_t)bh * L + qpos] : 0.f;
   const float dlt_r = row_ok ? delta[(size_t)bh * L + qpos] : 0.f;
 
-  load_tile<T, DP>(Qs, qb, q0, L, D);
-  load_tile<T, DP>(Gs, gb, q0, L, D);
+  load_tile<DP>(Qs, qb, q0, L, D);
+  load_tile<DP>(Gs, gb, q0, L, D);
 
   float acc[DT];
 #pragma unroll
@@ -166,8 +178,8 @@ __global__ void __launch_bounds__(kThreads)
   const int kend = causal ? min(Lk, q0 + kB) : Lk;
   for (int k0 = 0; k0 < kend; k0 += kB) {
     __syncthreads();  // previous tile's readers are done
-    load_tile<T, DP>(Ks, kb, k0, Lk, D);
-    load_tile<T, DP>(Vs, vb, k0, Lk, D);
+    load_tile<DP>(Ks, kb, k0, Lk, D);
+    load_tile<DP>(Vs, vb, k0, Lk, D);
     __syncthreads();
 
 #pragma unroll 4
@@ -216,10 +228,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // K3
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ g,
+    flash_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ g,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const float* __restrict__ kmask,
@@ -246,16 +260,16 @@ __global__ void __launch_bounds__(kThreads)
   const int quarter = threadIdx.x & 3;
   const int kpos = k0 + key;
   const bool key_ok = kpos < Lk;
-  const T* qb = q + (size_t)bh * L * D;
-  const T* gb = g + (size_t)bh * L * D;
+  const float* qb = q + (size_t)bh * L * D;
+  const float* gb = g + (size_t)bh * L * D;
   const float* lb = lse + (size_t)bh * L;
   const float* db = delta + (size_t)bh * L;
   const float* km =
       kmask ? kmask + (size_t)(nb_mask == 1 ? 0 : bh / H) * Lk : nullptr;
   const float kmv = (km && key_ok) ? km[kpos] : 0.f;
 
-  load_tile<T, DP>(Ks, k + (size_t)bh * Lk * D, k0, Lk, D);
-  load_tile<T, DP>(Vs, v + (size_t)bh * Lk * D, k0, Lk, D);
+  load_tile<DP>(Ks, k + (size_t)bh * Lk * D, k0, Lk, D);
+  load_tile<DP>(Vs, v + (size_t)bh * Lk * D, k0, Lk, D);
 
   float dk_acc[DT], dv_acc[DT];
 #pragma unroll
@@ -267,8 +281,8 @@ __global__ void __launch_bounds__(kThreads)
   const int qstart = causal ? (k0 / kB) * kB : 0;
   for (int q0 = qstart; q0 < L; q0 += kB) {
     __syncthreads();  // previous tile's readers are done
-    load_tile<T, DP>(Qs, qb, q0, L, D);
-    load_tile<T, DP>(Gs, gb, q0, L, D);
+    load_tile<DP>(Qs, qb, q0, L, D);
+    load_tile<DP>(Gs, gb, q0, L, D);
     if (threadIdx.x < kB) {
       const int r = q0 + threadIdx.x;
       Ls[threadIdx.x] = r < L ? lb[r] : 0.f;
@@ -537,6 +551,184 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
   }
 }
 
+// K2 in bf16: tensor cores, K3's design turned around
+template <int DP>
+constexpr size_t dq_mma_smem_bytes() {
+  return mx_attn::tile_bytes<DP>() * (2 + 2 * kStages);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(mx_attn::kThreads)
+    flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const __nv_bfloat16* __restrict__ g,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const float* __restrict__ kmask,
+                            float* __restrict__ dq, int H, int L, int Lk,
+                            int D, int nb_mask, float scale, int causal,
+                            uint32_t seed, uint32_t thresh, float inv_keep,
+                            int dropout) {
+  using namespace mx_attn;
+  static_assert(kB == kTileRows, "64-row tiles");
+  constexpr int SR = stride<DP>();
+  constexpr int KS = DP / 16;  // 16-deep steps over the head dim
+  constexpr int NO = DP / 8;   // 8-wide output n-tiles
+  constexpr bool kRegs = DP <= 64;  // q/do A fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Gs = Qs + kB * SR;
+  __nv_bfloat16* Ks = Gs + kB * SR;            // [kStages][kB][SR]
+  __nv_bfloat16* Vs = Ks + kStages * kB * SR;  // [kStages][kB][SR]
+
+  const int bh = blockIdx.y;
+  // under the causal mask the q tiles with the most key tiles go first
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = tile * kB;
+  const int lane = threadIdx.x & 31;
+  const int rw = (threadIdx.x >> 5) * 16;  // this warp's rows in the tile
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int qpos[2] = {q0 + rw + gq, q0 + rw + gq + 8};
+  const bool row_ok[2] = {qpos[0] < L, qpos[1] < L};
+  const __nv_bfloat16* kb = k + (size_t)bh * Lk * D;
+  const __nv_bfloat16* vb = v + (size_t)bh * Lk * D;
+  const float* km =
+      kmask ? kmask + (size_t)(nb_mask == 1 ? 0 : bh / H) * Lk : nullptr;
+  float lse_r[2], dlt_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = row_ok[r] ? lse[(size_t)bh * L + qpos[r]] : 0.f;
+    dlt_r[r] = row_ok[r] ? delta[(size_t)bh * L + qpos[r]] : 0.f;
+  }
+
+  // causal block skip: k tiles wholly above the diagonal are never visited
+  const int kend = causal ? min(Lk, q0 + kB) : Lk;
+  const int nk = (kend + kB - 1) / kB;
+  load_tile_async<DP>(Qs, q + (size_t)bh * L * D, q0, L, D);
+  load_tile_async<DP>(Gs, g + (size_t)bh * L * D, q0, L, D);
+  if (nk > 0) {
+    load_tile_async<DP>(Ks, kb, 0, Lk, D);
+    load_tile_async<DP>(Vs, vb, 0, Lk, D);
+  }
+  cp_async_commit();
+
+  float dqa[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+  uint32_t qf[kRegs ? KS : 1][4], gf[kRegs ? KS : 1][4];
+
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    if (kRegs && it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < (kRegs ? KS : 1); ++ks) {
+        ldmatrix_a<DP>(qf[ks], Qs, rw, ks * 16);
+        ldmatrix_a<DP>(gf[ks], Gs, rw, ks * 16);
+      }
+    }
+    if (it + 1 < nk) {  // the next tile streams in behind this one
+      const int nb = (it + 1) % kStages;
+      load_tile_async<DP>(Ks + nb * kB * SR, kb, (it + 1) * kB, Lk, D);
+      load_tile_async<DP>(Vs + nb * kB * SR, vb, (it + 1) * kB, Lk, D);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* Kt = Ks + (it % kStages) * kB * SR;
+    const __nv_bfloat16* Vt = Vs + (it % kStages) * kB * SR;
+    const int k0 = it * kB;
+
+    // S = q . k^T and dP = do . v^T: 16 rows x 64 keys a warp
+    float st[8][4], dpt[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4], ga[4];
+      if (kRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = qf[kRegs ? ks : 0][i];
+          ga[i] = gf[kRegs ? ks : 0][i];
+        }
+      } else {
+        ldmatrix_a<DP>(qa, Qs, rw, ks * 16);
+        ldmatrix_a<DP>(ga, Gs, rw, ks * 16);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4], bv[4];
+        ldmatrix_b<DP>(bk, Kt, np * 16, ks * 16);
+        ldmatrix_b<DP>(bv, Vt, np * 16, ks * 16);
+        mma(st[2 * np], qa, bk[0], bk[1]);
+        mma(st[2 * np + 1], qa, bk[2], bk[3]);
+        mma(dpt[2 * np], ga, bv[0], bv[1]);
+        mma(dpt[2 * np + 1], ga, bv[2], bv[3]);
+      }
+    }
+
+    // p and ds on the fragment: dpt becomes ds
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k0 + n * 8 + 2 * t4 + (e & 1);
+        float x = __fmul_rn(st[n][e], scale);  // rounded before the mask add
+        if (kpos >= Lk) {
+          x = kNegInf;
+        } else {
+          if (km) x += km[kpos];
+          if (causal && qpos[r] < kpos) x = kNegInf;
+        }
+        const float p =
+            (!row_ok[r] || x <= 0.5f * kNegInf) ? 0.f : expf(x - lse_r[r]);
+        float dp = dpt[n][e];
+        if (dropout) {
+          const bool keep = hash_bits(seed, (uint32_t)bh, (uint32_t)qpos[r],
+                                      (uint32_t)kpos) >= thresh;
+          dp = keep ? dp * inv_keep : 0.f;
+        }
+        dpt[n][e] = p * (dp - dlt_r[r]);
+      }
+    }
+
+    // dQ += dS . k, the A operand as hi + lo
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t sh[4], sl[4];
+      acc_to_a(dpt[2 * kk], dpt[2 * kk + 1], sh, sl);
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {
+        uint32_t bk[4];
+        ldmatrix_b_trans<DP>(bk, Kt, kk * 16, dp * 16);
+        mma(dqa[2 * dp], sh, bk[0], bk[1]);
+        mma(dqa[2 * dp], sl, bk[0], bk[1]);
+        mma(dqa[2 * dp + 1], sh, bk[2], bk[3]);
+        mma(dqa[2 * dp + 1], sl, bk[2], bk[3]);
+      }
+    }
+  }
+
+  cp_async_wait<0>();  // nothing in flight at exit (an empty key range)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!row_ok[r]) continue;
+    float* out = dq + ((size_t)bh * L + qpos[r]) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int d = n * 8 + 2 * t4;
+      if (d < D)
+        *reinterpret_cast<float2*>(out + d) =
+            make_float2(scale * dqa[n][2 * r], scale * dqa[n][2 * r + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *g;
   const float *lse, *delta, *kmask;
@@ -559,43 +751,48 @@ int set_smem(Kernel kernel, size_t smem, bool* done) {
   return 0;
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch_dq(const Args& a, float* dq) {
   constexpr size_t smem = dq_smem_bytes<DP>();
   static bool attr_set = false;
-  const int e = set_smem(flash_bwd_dq_kernel<T, DP>, smem, &attr_set);
+  const int e = set_smem(flash_bwd_dq_kernel<DP>, smem, &attr_set);
   if (e) return e;
   const dim3 grid((a.L + kB - 1) / kB, a.B * a.H);
-  flash_bwd_dq_kernel<T, DP><<<grid, kThreads, smem, a.st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse,
+  flash_bwd_dq_kernel<DP><<<grid, kThreads, smem, a.st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.lse,
       a.delta, a.kmask, dq, a.H, a.L, a.Lk, a.D, a.nb_mask, a.scale,
       a.causal, a.seed, a.thresh, a.inv_keep, a.dropout);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch_dkv(const Args& a, float* dk, float* dv, float* dbias) {
   constexpr size_t smem = dkv_smem_bytes<DP>();
   static bool attr_set = false;
-  const int e = set_smem(flash_bwd_dkv_kernel<T, DP>, smem, &attr_set);
+  const int e = set_smem(flash_bwd_dkv_kernel<DP>, smem, &attr_set);
   if (e) return e;
   const dim3 grid((a.Lk + kB - 1) / kB, a.B * a.H);
-  flash_bwd_dkv_kernel<T, DP><<<grid, kThreads, smem, a.st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse,
+  flash_bwd_dkv_kernel<DP><<<grid, kThreads, smem, a.st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.lse,
       a.delta, a.kmask, dk, dv, dbias, a.H, a.L, a.Lk, a.D, a.nb_mask,
       a.scale, a.causal, a.seed, a.thresh, a.inv_keep, a.dropout);
   return (int)cudaGetLastError();
 }
 
 // DP: the head dim padded up to 32, 64, 96 or 128
-template <typename T>
 int dispatch_dq(const Args& a, float* dq) {
-  if (a.D <= 32) return launch_dq<T, 32>(a, dq);
-  if (a.D <= 64) return launch_dq<T, 64>(a, dq);
-  if (a.D <= 96) return launch_dq<T, 96>(a, dq);
-  return launch_dq<T, 128>(a, dq);
+  if (a.D <= 32) return launch_dq<32>(a, dq);
+  if (a.D <= 64) return launch_dq<64>(a, dq);
+  if (a.D <= 96) return launch_dq<96>(a, dq);
+  return launch_dq<128>(a, dq);
+}
+
+// q, k, v and do are read by 16-byte copies
+bool aligned_mma(const Args& a) {
+  return mx_attn::aligned16(a.q) && mx_attn::aligned16(a.k) &&
+         mx_attn::aligned16(a.v) && mx_attn::aligned16(a.g);
 }
 
 template <int DP>
@@ -616,22 +813,43 @@ int launch_dkv_mma(const Args& a, float* dk, float* dv, float* dbias) {
 }
 
 int dispatch_dkv_mma(const Args& a, float* dk, float* dv, float* dbias) {
-  // q, k, v and do are read by 16-byte copies
-  if (!mx_attn::aligned16(a.q) || !mx_attn::aligned16(a.k) ||
-      !mx_attn::aligned16(a.v) || !mx_attn::aligned16(a.g))
-    return (int)cudaErrorMisalignedAddress;
+  if (!aligned_mma(a)) return (int)cudaErrorMisalignedAddress;
   if (a.D <= 32) return launch_dkv_mma<32>(a, dk, dv, dbias);
   if (a.D <= 64) return launch_dkv_mma<64>(a, dk, dv, dbias);
   if (a.D <= 96) return launch_dkv_mma<96>(a, dk, dv, dbias);
   return launch_dkv_mma<128>(a, dk, dv, dbias);
 }
 
-template <typename T>
+template <int DP>
+int launch_dq_mma(const Args& a, float* dq) {
+  constexpr size_t smem = dq_mma_smem_bytes<DP>();
+  static bool attr_set = false;
+  const int e = set_smem(flash_bwd_dq_mma_kernel<DP>, smem, &attr_set);
+  if (e) return e;
+  const dim3 grid((a.L + kB - 1) / kB, a.B * a.H);
+  flash_bwd_dq_mma_kernel<DP><<<grid, mx_attn::kThreads, smem, a.st>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.g), a.lse, a.delta, a.kmask, dq,
+      a.H, a.L, a.Lk, a.D, a.nb_mask, a.scale, a.causal, a.seed, a.thresh,
+      a.inv_keep, a.dropout);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_dq_mma(const Args& a, float* dq) {
+  if (!aligned_mma(a)) return (int)cudaErrorMisalignedAddress;
+  if (a.D <= 32) return launch_dq_mma<32>(a, dq);
+  if (a.D <= 64) return launch_dq_mma<64>(a, dq);
+  if (a.D <= 96) return launch_dq_mma<96>(a, dq);
+  return launch_dq_mma<128>(a, dq);
+}
+
 int dispatch_dkv(const Args& a, float* dk, float* dv, float* dbias) {
-  if (a.D <= 32) return launch_dkv<T, 32>(a, dk, dv, dbias);
-  if (a.D <= 64) return launch_dkv<T, 64>(a, dk, dv, dbias);
-  if (a.D <= 96) return launch_dkv<T, 96>(a, dk, dv, dbias);
-  return launch_dkv<T, 128>(a, dk, dv, dbias);
+  if (a.D <= 32) return launch_dkv<32>(a, dk, dv, dbias);
+  if (a.D <= 64) return launch_dkv<64>(a, dk, dv, dbias);
+  if (a.D <= 96) return launch_dkv<96>(a, dk, dv, dbias);
+  return launch_dkv<128>(a, dk, dv, dbias);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* g,
@@ -662,8 +880,7 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                            nb_mask, scale, causal, seed, thresh, inv_keep,
                            dropout, stream);
   float* out = static_cast<float*>(dq);
-  return is_bf16 ? dispatch_dq<__nv_bfloat16>(a, out)
-                 : dispatch_dq<float>(a, out);
+  return is_bf16 ? dispatch_dq_mma(a, out) : dispatch_dq(a, out);
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
@@ -683,7 +900,16 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
   float* v_out = static_cast<float*>(dv);
   float* b_out = static_cast<float*>(dbias);
   return is_bf16 ? dispatch_dkv_mma(a, k_out, v_out, b_out)
-                 : dispatch_dkv<float>(a, k_out, v_out, b_out);
+                 : dispatch_dkv(a, k_out, v_out, b_out);
+}
+
+// the designs K2's and K3's bf16 paths run, for reports
+extern "C" const char* flash_bwd_dq_design() {
+  return "bf16: mma.sync m16n8k16 bf16->f32, 64-row q x 64-key tiles, "
+         "4 warps x 16 rows, q tiles with the most key tiles first, "
+         "2-stage cp.async k/v ring, q/do A fragments in registers (head "
+         "dim <= 64), dS as a bf16 hi+lo pair, dq written once; f32: "
+         "CUDA-core FMAs";
 }
 
 // the design K3's bf16 path runs, for reports

@@ -22,8 +22,9 @@ convolutions); whether the fused pass pays on the card is measured by
 ``chip_smoke.py`` with the switch on and off.  The gate keeps the
 reference's shape clauses and replaces its TPU clauses (the backend, the
 multi-chip mesh, the VMEM tile budget) with the kernel's own limits: bf16
-or f32, and at most ``MAX_CO`` output channels (the chunk's f32 dW
-partial lives in shared memory).
+or f32, and at most ``MAX_CO`` output channels (the f32 kernel's chunk
+partial of dW lives in shared memory; the bf16 kernel has no such limit,
+and the gate keeps one bound for both dtypes).
 """
 from __future__ import annotations
 
@@ -40,9 +41,11 @@ __all__ = ["conv1x1_nhwc", "conv1x1_bwd_pair", "conv1x1_bwd_pair_plain",
 
 MAX_CO = 4096               # output channels: a Co x 8 f32 partial <= 128 KB
 _PARTIAL_BYTES = 128 * 1024
-_TP = 64                    # P rows per tile (csrc/conv1x1_bwd.cu kTP)
-_TO = 32                    # output channels per slab (kTO)
-_TARGET_BLOCKS = 2 * 132    # two blocks' worth per SM of an H100
+_TP = 64                    # f32: P rows per tile (csrc/conv1x1_bwd.cu kTP)
+_TO = 32                    # f32: output channels per slab (kTO)
+_TARGET_BLOCKS = 2 * 132    # f32: two blocks' worth per SM of an H100
+_BK = 64                    # bf16: depth of a streamed slab (kBK)
+_SPLIT_ROWS = 2048          # bf16: about this many P rows a dW split
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -68,12 +71,22 @@ def fused_bwd_supported(shape_in, w_shape, stride, dilate, groups,
     return 1 <= co <= MAX_CO
 
 
-def plan(p: int, ci: int, co: int):
-    """The launch plan of K6: ``(tc, rows_per_chunk, nchunks)``.  ``tc``
-    is the Ci tile: the widest of 64/32/16/8 whose ``Co x tc`` f32 dW
-    partial fits 128 KB of shared memory, and no wider than Ci needs.
-    The chunks of 64-row P tiles fill about two blocks per SM, each
-    holding at least one tile."""
+def plan(p: int, ci: int, co: int, dtype=torch.float32):
+    """The launch plan of K6: ``(tc, rows_per_chunk, nchunks)``.
+
+    bf16 (the tensor-core kernel): ``tc`` is the column tile of both
+    GEMMs, 128, or 64 when Ci <= 64; dW is split over P into ``nchunks``
+    splits of ``rows_per_chunk`` rows (a multiple of 64, about 2048), so
+    that the split-K dW tiles fill the card beside the dx tiles.
+
+    f32: ``tc`` is the Ci tile, the widest of 64/32/16/8 whose ``Co x
+    tc`` f32 dW partial fits 128 KB of shared memory, and no wider than
+    Ci needs.  The chunks of 64-row P tiles fill about two blocks per SM,
+    each holding at least one tile."""
+    if dtype == torch.bfloat16:
+        nsplit = max(1, -(-p // _SPLIT_ROWS))
+        rows = -(-(-(-p // nsplit)) // _BK) * _BK
+        return (64 if ci <= 64 else 128), rows, -(-p // rows)
     co_pad = -(-co // _TO) * _TO
     tc = 64
     while tc > 8 and (co_pad * tc * 4 > _PARTIAL_BYTES or tc >= 2 * ci):
@@ -146,7 +159,7 @@ def conv1x1_bwd_pair(dy2, x2, w2):
     dw = torch.empty((co, ci), dtype=torch.float32, device=x2.device)
     if p == 0 or ci == 0 or co == 0:
         return dx, dw.zero_()
-    tc, rows, nchunks = plan(p, ci, co)
+    tc, rows, nchunks = plan(p, ci, co, x2.dtype)
     part = torch.empty((nchunks, co, ci) if nchunks > 1 else (0,),
                        dtype=torch.float32, device=x2.device)
     vec = 0

@@ -277,8 +277,9 @@ def test_kernels_match_plain_on_card(dtype, L, Lk, D, causal, masked,
 
 @pytest.mark.cuda
 def test_bf16_kernels_repeat_bit_for_bit_on_card():
-    """The bf16 tensor-core K1 and K3 use no atomics: two launches on the
-    same inputs give the same out, lse, dk, dv and dbias bit for bit."""
+    """The bf16 tensor-core K1, K2 and K3 use no atomics: two launches on
+    the same inputs give the same out, lse, dq, dk, dv and dbias bit for
+    bit."""
     need_cuda()
     q, k, v, g = (t(a).cuda().bfloat16()
                   for a in _inputs(2, 3, 333, 333, 64))
@@ -288,8 +289,9 @@ def test_bf16_kernels_repeat_bit_for_bit_on_card():
     out2, lse2 = pa.flash_fwd(*args)
     delta = (out.float() * g.float()).sum(-1)
     bwd = (q, k, v, g, lse, delta, 64 ** -0.5, True, km, 99, 0.1)
-    first = pa.flash_bwd_dkv(*bwd, need_dbias=True)
-    second = pa.flash_bwd_dkv(*bwd, need_dbias=True)
+    first = (pa.flash_bwd_dq(*bwd), *pa.flash_bwd_dkv(*bwd, need_dbias=True))
+    second = (pa.flash_bwd_dq(*bwd), *pa.flash_bwd_dkv(*bwd,
+                                                        need_dbias=True))
     torch.cuda.synchronize()
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     for a, b in zip(first, second):

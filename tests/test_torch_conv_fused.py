@@ -9,10 +9,12 @@ against the JAX package.
   reference's ``conv1x1_nhwc``, float32, 1e-5.
 - The gate: the port admits every configuration the reference admits;
   the reference's tile/VMEM clause is the only other difference.
-- The launch plan fits a block's shared memory and covers P.
+- The launch plan covers P: in f32 its tile fits a block's shared
+  memory; in bf16 its split-K grid fills an H100.
 - On the card (``cuda`` marker; skipped without one): the kernel against
   its plain version at ResNet-50's nine stride-1 1x1 shapes (batch 128)
-  and at ragged shapes, with dW bit for bit across two launches.
+  and at ragged shapes, with dx and dW bit for bit across two launches,
+  and across three at stage 4's split-K shape.
 """
 import itertools
 
@@ -177,11 +179,11 @@ def test_gate_refuses(monkeypatch, case):
         assert not ref_gate(s, w, st, dl, g)
 
 
-def _smem(is_bf16, co, tc):
-    """``conv1x1_bwd_smem_bytes`` of ``csrc/conv1x1_bwd.cu``."""
+def _smem(co, tc):
+    """``conv1x1_bwd_smem_bytes`` of ``csrc/conv1x1_bwd.cu`` (the f32
+    kernel's)."""
     co_pad = -(-co // 32) * 32
-    el = 2 if is_bf16 else 4
-    return co_pad * tc * 4 + el * (64 * (tc + 8) + 64 * 40 + 32 * (tc + 8))
+    return 4 * (co_pad * tc + 64 * (tc + 8) + 64 * 40 + 32 * (tc + 8))
 
 
 @pytest.mark.parametrize("p,ci,co", [(128 * s * s, ci, co)
@@ -189,14 +191,26 @@ def _smem(is_bf16, co, tc):
                          [(1, 1, 1), (77, 13, 4096), (100, 3000, 17)],
                          ids=str)
 def test_plan_fits_and_covers(p, ci, co):
+    """f32: the Ci tile's dW partial fits a block's shared memory; bf16:
+    the split-K grid of 128 x tc tiles fills an H100.  Both cover P."""
     tc, rows, nchunks = pc.plan(p, ci, co)
     assert tc in (8, 16, 32, 64) and rows % 64 == 0
     assert rows * nchunks >= p > rows * (nchunks - 1)
-    for bf in (True, False):
-        assert _smem(bf, co, tc) <= 232448
+    assert _smem(co, tc) <= 232448
     # at least one block per SM of an H100 where P and Ci allow it
     blocks = -(-ci // tc) * nchunks
     assert blocks >= min(132, -(-ci // tc) * -(-p // 64))
+
+    tc, rows, nchunks = pc.plan(p, ci, co, torch.bfloat16)
+    assert tc == (64 if ci <= 64 else 128) and rows % 64 == 0
+    assert rows * nchunks >= p > rows * (nchunks - 1)
+    # 128 x tc tiles of dx (P x Ci) and of each split of dW (Co x Ci); a
+    # split is long enough to pay for its f32 partial, and the grid fills
+    # an H100 twice over wherever P has that many row tiles
+    ntn = -(-ci // tc)
+    blocks = nchunks * -(-co // 128) * ntn + -(-p // 128) * ntn
+    assert nchunks == 1 or rows >= 1024
+    assert blocks >= min(2 * 132, -(-p // 128) * ntn)
 
 
 def test_plan_refuses_past_max_co():
@@ -262,6 +276,21 @@ def _check_on_card(p, ci, co, dtype):
 def test_kernel_matches_plain_resnet50(s, ci, co):
     need_cuda()
     _check_on_card(128 * s * s, ci, co, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_kernel_repeats_bit_for_bit_split_k():
+    """At stage 4's expand shape (P = 6272, 512 -> 2048) dW is summed over
+    several P splits by a second pass in split order: three launches give
+    the same dx and dW bit for bit."""
+    need_cuda()
+    p, ci, co = 6272, 512, 2048
+    assert pc.plan(p, ci, co, torch.bfloat16)[2] > 1
+    dy, x, w = _card_inputs(p, ci, co, torch.bfloat16, 5)
+    runs = [pc.conv1x1_bwd_pair(dy, x, w) for _ in range(3)]
+    torch.cuda.synchronize()
+    for dx, dw in runs[1:]:
+        assert torch.equal(dx, runs[0][0]) and torch.equal(dw, runs[0][1])
 
 
 @pytest.mark.cuda
