@@ -12,9 +12,16 @@ Phases (each fails the run by raising; there is no CPU path):
    versions;
 2. build every kernel from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once) and print the build seconds and ptxas reports;
-3. K4 (``q8_matvec``) against its plain version in bf16 at the five
-   GPT-2-small decode shapes with 8 rows, with kernel, plain, library
-   (``x @ wt.to(bf16)``) and bound times;
+3. K4 (``q8_matvec``): first its design tag and ptxas registers and
+   spills; then against its plain version in bf16 at the five
+   GPT-2-small decode shapes with the server's two pools (8 and 4 rows)
+   and at Llama-7B's shapes with 1 row (4096 x 4096, 4096 x 11008,
+   11008 x 4096, the 4096 x 32000 head), two launches bit for bit, with
+   kernel, plain, library (``x @ wt.to(bf16)``) and bound times; per
+   decode step for each pool; kernel and library by two timers,
+   ``cuda_ms`` (the calls as the host enqueues them, the figure of every
+   phase) and ``cuda_ms_queued`` (behind a spin kernel: the device's
+   share of it);
 4. K1 (flash forward) against its plain version in bf16 at the shape
    the serving prefill and the training step give it (8 rows, 12 heads,
    1024 tokens, head dim 64, causal), and once more with a key mask and
@@ -52,14 +59,16 @@ Phases (each fails the run by raising; there is no CPU path):
 9. BERT-base as ``bench.py`` trains it (seq 128, batch 64, bf16, AdamW
    1e-4; its attention takes the plain path, no kernel): five steps,
    finite and falling losses, tokens/s;
-10. K5 (the fused decode step, ``ops.decode_fused.decode_step``) against
-   its plain version in bf16, native and int8 streams, at four shapes:
-   GPT-2 small (12 layers, B=4, T=768) at position 700 and at position
-   0, Llama-7B widths (2 layers, B=1, T=64) and its grouped-query variant
-   (8 KV heads, 2 layers, B=2); the output and the written K/V column
-   within 6 bf16 steps of their magnitude, the rest of the caches bit for
-   bit; K5 ms a token beside its byte bound, the plain version's ms and
-   the port's unfused step's (no single PyTorch call computes K5's
+10. K5 (the fused decode step, ``ops.decode_fused.decode_step``): first
+   its design tag and registers; then against its plain version in bf16,
+   native and int8 streams, at four shapes: GPT-2 small (12 layers, B=4,
+   T=768) at position 700 and at position 0, Llama-7B widths (2 layers,
+   B=1, T=64) and its grouped-query variant (8 KV heads, 2 layers, B=2);
+   the output and the written K/V column within 6 bf16 steps of their
+   magnitude, the rest of the caches bit for bit, a second launch bit
+   for bit; K5 ms a token (by both timers) beside its byte bound, the
+   plain version's ms
+   and the port's unfused step's (no single PyTorch call computes K5's
    function, so the unfused step is its yardstick);
 11. the third slice's path: GPT-2 small through ``kv_generate(fused=
    "on")``, 4 x 640-token prompts and 128 new tokens, greedy, native and
@@ -72,7 +81,12 @@ Phases (each fails the run by raising; there is no CPU path):
    ``ln_f``);
 12. Llama-7B at full depth (32 layers, bf16), 1 x 32 + 32 tokens, native
    and int8: K5 launched 31 times each, tokens/s fused and unfused,
-   teacher-forced agreement >= 0.9;
+   teacher-forced agreement >= 0.9 (and, beside it, the agreement over
+   the positions whose unfused top-2 logit margin is ``TIE_STEPS`` bf16
+   steps or more, which rounding order cannot flip); K5 alone at full
+   depth; a fused
+   token split by CUDA events into the embedding, K5, ln_f + the head
+   (K4 with int8) and the argmax, beside the run's ms a token;
 13. K6 (the fused 1x1-convolution backward, ``ops.conv_fused.
    conv1x1_bwd_pair``) against its plain version at the nine stride-1 1x1
    shapes of ResNet-50 at batch 128 in bf16 and one in f32: dx within 2
@@ -144,7 +158,9 @@ def card_line():
 
 def cuda_ms(fn, iters, warm=3):
     """Mean device milliseconds of ``fn(i)`` over ``iters`` calls, timed
-    with CUDA events after ``warm`` untimed calls."""
+    with CUDA events after ``warm`` untimed calls.  The calls run as the
+    host enqueues them, so a call whose host side is slower than its
+    kernels (a decode matvec) is timed by the host."""
     import torch
 
     for i in range(warm):
@@ -158,6 +174,38 @@ def cuda_ms(fn, iters, warm=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_queued(fn, iters, warm=3, reps=3):
+    """Device milliseconds of one ``fn(i)`` with the host out of the way:
+    the median over ``reps`` runs of the mean over ``iters`` calls, timed
+    with CUDA events after ``warm`` untimed calls, each run enqueued while
+    a spin kernel holds the stream (for 1.5x the host's enqueue time plus
+    1 ms, at most 0.2 s), so the calls' kernels run back to back; the
+    median keeps a run the host stalled longer than the spin out.  Beside
+    ``cuda_ms`` it says how much of a call's time is its kernels'."""
+    import torch
+
+    for i in range(warm):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(0)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        # at most ~2 GHz
+        torch.cuda._sleep(int(min(0.2, 1.5 * host_s * iters + 1e-3) * 2e9))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            fn(i)
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return sorted(runs)[len(runs) // 2]
 
 
 def bound_ms(nbytes, nops, ops_per_s=BF16_OPS_PER_S):
@@ -176,11 +224,11 @@ def design_tag(lib_name, fn_name):
     return fn().decode()
 
 
-def ptxas_report(lib_name, kernel):
+def ptxas_report(lib_name, kernel, key=None):
     """Registers and spill bytes of each instantiation of ``kernel`` in
     the ptxas report of this run's build of ``csrc/<lib_name>.cu``, by
     its template argument (the padded head dim of the attention kernels,
-    K6's column tile)."""
+    K6's column tile), or by ``key(mangled name)`` where given."""
     import re
     from mxnet_tpu_torch import _build
 
@@ -192,7 +240,8 @@ def ptxas_report(lib_name, kernel):
             cur = None
             if kernel in name:
                 dp = re.search(r"ILi(\d+)E", name)
-                cur = rows.setdefault(dp.group(1) if dp else name, {})
+                k = key(name) if key else dp.group(1) if dp else name
+                cur = rows.setdefault(k, {})
             continue
         if cur is None:
             continue
@@ -206,9 +255,9 @@ def ptxas_report(lib_name, kernel):
     return rows
 
 
-def report_design(what, lib_name, design_fn, kernel):
+def report_design(what, lib_name, design_fn, kernel, key=None):
     tag = design_tag(lib_name, design_fn)
-    regs = ptxas_report(lib_name, kernel)
+    regs = ptxas_report(lib_name, kernel, key)
     print(f"{what} design: {tag}", flush=True)
     print(f"{what} ptxas {kernel}: " + ("; ".join(
         f"<{dp}> {r.get('registers')} registers, spill stores "
@@ -222,13 +271,81 @@ def report_design(what, lib_name, design_fn, kernel):
 # phase 3: K4
 # --------------------------------------------------------------------------- #
 
-def check_k4(cfg):
+def _k4_key(name):
+    """K4's ptxas row: row bucket, x dtype, 16-byte or byte loads, the
+    tensor-core or the FMA path."""
+    import re
+
+    m = re.search(r"ILi(\d+)E(.+?)Lb([01])ELb([01])E", name)
+    if not m:
+        return name
+    return (f"R={m.group(1)},{'bf16' if 'bfloat16' in m.group(2) else 'f32'}"
+            f",{'vec' if m.group(3) == '1' else 'bytes'}"
+            f",{'mma' if m.group(4) == '1' else 'fma'}")
+
+
+def _k4_case(name, S, K, O, has_bias, gen):
+    """One K4 shape: error against the plain version, two launches bit
+    for bit, kernel / plain / library times (kernel and library also with
+    the host out of the way, ``cuda_ms_queued``) and the bound."""
     import torch
     from mxnet_tpu_torch.ops.q8_matvec import q8_matvec, q8_matvec_plain
 
+    # enough weight copies to exceed the 50 MB L2: each timed launch
+    # streams its codes from device memory, as a decode step does
+    copies = max(2, -(-120_000_000 // (K * O)))
+    wts = [torch.randint(-127, 128, (K, O), generator=gen, device="cuda",
+                         dtype=torch.int8) for _ in range(copies)]
+    x = torch.randn((S, K), generator=gen, device="cuda").bfloat16()
+    s = (torch.rand((O,), generator=gen, device="cuda") + 0.5) * \
+        (2.0 / (127.0 * K ** 0.5))
+    b = torch.randn((O,), generator=gen, device="cuda") if has_bias else None
+    got = q8_matvec(x, wts[0], s, b)
+    again = q8_matvec(x, wts[0], s, b)
+    ref = q8_matvec_plain(x, wts[0], s, b)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    if not torch.isfinite(got).all() or err > tol:
+        fail(f"K4 {name} (S={S}, K={K}, O={O}): max_abs_err {err} > {tol}")
+    if not torch.equal(got, again):
+        fail(f"K4 {name} (S={S}, K={K}, O={O}): two launches differ")
+    n = len(wts)
+    ms = cuda_ms(lambda i: q8_matvec(x, wts[i % n], s, b), 50)
+    queued = cuda_ms_queued(lambda i: q8_matvec(x, wts[i % n], s, b), 50)
+    plain = cuda_ms(lambda i: q8_matvec_plain(x, wts[i % n], s, b), 10)
+    lib = cuda_ms(lambda i: x @ wts[i % n].to(torch.bfloat16), 10)
+    lib_queued = cuda_ms_queued(lambda i: x @ wts[i % n].to(torch.bfloat16),
+                                10)
+    nbytes = S * K * 2 + K * O + 4 * O * (2 if has_bias else 1) + 4 * S * O
+    nops = 2 * S * K * O
+    bms, by = bound_ms(nbytes, nops)
+    rows, blocks, slices = q8_matvec.last_plan
+    print(f"K4 {name:5s} S={S} K={K:5d} O={O:6d} plan rows={rows} blocks="
+          f"{blocks} slices={slices}: max_abs_err={err:.3e} (tol "
+          f"{tol:.3e}) bitwise repeat ok kernel_ms={ms:.5f} queued_ms="
+          f"{queued:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
+          f"library_queued_ms={lib_queued:.5f} bound_ms={bms:.5f} ({by}) "
+          f"kernel/bound={ms / bms:.2f} kernel/library={ms / lib:.3f} "
+          f"queued: kernel/library={queued / lib_queued:.3f}", flush=True)
+    del wts
+    return dict(shape=name, S=S, K=K, O=O, max_abs_err=err, tol=tol, ms=ms,
+                queued_ms=queued, plain_ms=plain, library_ms=lib,
+                library_queued_ms=lib_queued, bound_ms=bms, bound_by=by,
+                bytes=nbytes, ops=nops, plan=[rows, blocks, slices])
+
+
+def check_k4(cfg):
+    """K4 at GPT-2 small's five decode shapes with the server's two pools
+    (8 and 4 rows), summed per decode step; then at Llama-7B's shapes at
+    one row (the unfused int8 stream's seven projections and the fused
+    run's head).  Every shape: error, bitwise repeat, times, bound."""
+    import torch
+
+    design = report_design("K4", "q8_matvec", "q8_matvec_design",
+                           "q8_matvec_kernel", key=_k4_key)
     U, F, V = cfg.units, cfg.hidden_size, cfg.vocab_size
     Vp = -(-V // 128) * 128
-    S = 8
     # (name, K, O, has_bias, calls per decode step)
     shapes = [("qkv", U, 3 * U, True, cfg.num_layers),
               ("proj", U, U, True, cfg.num_layers),
@@ -236,57 +353,41 @@ def check_k4(cfg):
               ("fc2", F, U, True, cfg.num_layers),
               ("head", U, Vp, False, 1)]
     gen = torch.Generator(device="cuda").manual_seed(4)
-    rows, step = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                          bound_ms=0.0, bytes=0, ops=0)
-    max_err = 0.0
-    for name, K, O, has_bias, calls in shapes:
-        # enough weight copies to exceed the 50 MB L2: each timed launch
-        # streams its codes from device memory, as a decode step does
-        copies = max(2, -(-120_000_000 // (K * O)))
-        wts = [torch.randint(-127, 128, (K, O), generator=gen,
-                             device="cuda", dtype=torch.int8)
-               for _ in range(copies)]
-        x = torch.randn((S, K), generator=gen, device="cuda").bfloat16()
-        s = (torch.rand((O,), generator=gen, device="cuda") + 0.5) * \
-            (2.0 / (127.0 * K ** 0.5))
-        b = torch.randn((O,), generator=gen, device="cuda") \
-            if has_bias else None
-        got = q8_matvec(x, wts[0], s, b)
-        ref = q8_matvec_plain(x, wts[0], s, b)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        tol = 1e-4 * max(1.0, ref.abs().max().item())
-        if not torch.isfinite(got).all() or err > tol:
-            fail(f"K4 {name} (S={S}, K={K}, O={O}): max_abs_err {err} > "
-                 f"{tol}")
-        max_err = max(max_err, err)
-        n = len(wts)
-        ms = cuda_ms(lambda i: q8_matvec(x, wts[i % n], s, b), 50)
-        plain = cuda_ms(lambda i: q8_matvec_plain(x, wts[i % n], s, b), 10)
-        lib = cuda_ms(lambda i: x @ wts[i % n].to(torch.bfloat16), 10)
-        nbytes = S * K * 2 + K * O + 4 * O * (2 if has_bias else 1) + \
-            4 * S * O
-        nops = 2 * S * K * O
-        bms, by = bound_ms(nbytes, nops)
-        rows.append(dict(shape=name, S=S, K=K, O=O, max_abs_err=err,
-                         tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=bms, bound_by=by))
-        print(f"K4 {name:5s} S={S} K={K:5d} O={O:6d}: max_abs_err={err:.3e}"
-              f" (tol {tol:.3e}) kernel_ms={ms:.5f} plain_ms={plain:.5f} "
-              f"library_ms={lib:.5f} bound_ms={bms:.5f} ({by})", flush=True)
-        step["ms"] += calls * ms
-        step["plain_ms"] += calls * plain
-        step["library_ms"] += calls * lib
-        step["bytes"] += calls * nbytes
-        step["ops"] += calls * nops
-        del wts
-    step["bound_ms"], step["bound_by"] = bound_ms(step["bytes"],
-                                                  step["ops"])
-    print(f"K4 per decode step ({4 * cfg.num_layers + 1} launches, S={S}): "
-          f"kernel_ms={step['ms']:.5f} plain_ms={step['plain_ms']:.5f} "
-          f"library_ms={step['library_ms']:.5f} bound_ms="
-          f"{step['bound_ms']:.5f} ({step['bytes']} bytes)", flush=True)
-    return dict(max_abs_err=max_err, shapes=rows, **step)
+    out = dict(design=design, steps={}, shapes=[])
+    for S in (8, 4):
+        step = dict(ms=0.0, queued_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                    library_queued_ms=0.0, bytes=0, ops=0)
+        for name, K, O, has_bias, calls in shapes:
+            row = _k4_case(name, S, K, O, has_bias, gen)
+            out["shapes"].append(row)
+            for k in step:
+                step[k] += calls * row[k]
+        step["bound_ms"], step["bound_by"] = bound_ms(step["bytes"],
+                                                      step["ops"])
+        print(f"K4 per decode step ({4 * cfg.num_layers + 1} launches, "
+              f"S={S}): kernel_ms={step['ms']:.5f} queued_ms="
+              f"{step['queued_ms']:.5f} plain_ms={step['plain_ms']:.5f} "
+              f"library_ms={step['library_ms']:.5f} library_queued_ms="
+              f"{step['library_queued_ms']:.5f} bound_ms="
+              f"{step['bound_ms']:.5f} ({step['bytes']} bytes)", flush=True)
+        out["steps"][S] = step
+    for name, K, O in (("l7b_qkvo", 4096, 4096), ("l7b_gate_up", 4096, 11008),
+                       ("l7b_down", 11008, 4096), ("l7b_head", 4096, 32000)):
+        out["shapes"].append(_k4_case(name, 1, K, O, False, gen))
+        torch.cuda.empty_cache()
+    for timer, k, lk in (("cuda_ms", "ms", "library_ms"),
+                         ("cuda_ms_queued", "queued_ms",
+                          "library_queued_ms")):
+        slower = [f"{r['shape']} S={r['S']}" for r in out["shapes"]
+                  if r[k] > r[lk]]
+        print(f"K4 shapes slower than x @ wt.to(bf16) ({timer}): "
+              f"{slower or 'none'}", flush=True)
+    out["max_abs_err"] = max(r["max_abs_err"] for r in out["shapes"])
+    # the kernels line reads the 8-row pool's decode step
+    out.update({k: out["steps"][8][k] for k in
+                ("ms", "queued_ms", "plain_ms", "library_ms",
+                 "library_queued_ms", "bound_ms", "bound_by")})
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -899,6 +1000,8 @@ def check_k5(models):
     from mxnet_tpu_torch.ops.decode_fused import (decode_step,
                                                   decode_step_plain)
 
+    design = report_design("K5", "decode_fused", "decode_fused_design",
+                           "decode_fused_kernel")
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows = []
     for name, key, B, T, pos in (("gpt2_small", "gpt2", 4, 768, 700),
@@ -940,8 +1043,20 @@ def check_k5(models):
                     torch.equal(vk[:, :, :, rest], vh[:, :, :, rest])):
                 fail(f"K5 {name} {weights}: cache entries other than "
                      f"position {pos} changed")
+            # a second launch on the same inputs: x and the written column
+            # bit for bit
+            k2, v2 = kh.clone(), vh.clone()
+            again = decode_step(pos, x, pack, k2, v2, cfg, act, eps)[0]
+            torch.cuda.synchronize()
+            if not (torch.equal(got, again) and
+                    torch.equal(k2[:, :, :, pos], kk[:, :, :, pos]) and
+                    torch.equal(v2[:, :, :, pos], vk[:, :, :, pos])):
+                fail(f"K5 {name} {weights}: two launches differ")
+            del k2, v2
             ms = cuda_ms(lambda i: decode_step(pos, x, pack, kk, vk, cfg,
                                                act, eps), 20)
+            queued = cuda_ms_queued(lambda i: decode_step(
+                pos, x, pack, kk, vk, cfg, act, eps), 20)
             plain = cuda_ms(lambda i: decode_step_plain(
                 pos, x, pack, kr, vr, cfg, act, eps), 3, warm=2)
             fused_step = cuda_ms(lambda i: eng.fused_step(tok, pos, kk, vk),
@@ -955,33 +1070,44 @@ def check_k5(models):
             bms, by = _k5_bound(pack, cfg, B, pos)
             row = dict(shape=name, weights=weights, layers=NL, B=B, T=T,
                        pos=pos, KV=KV, grid=decode_step.grid,
+                       plan=decode_step.last_plan,
                        max_abs_err=max(e for e, _ in errs.values()),
                        bf16_steps={w: st for w, (_, st) in errs.items()},
-                       ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                       ms=ms, queued_ms=queued, plain_ms=plain,
+                       bound_ms=bms, bound_by=by,
                        fused_step_ms=fused_step, unfused_step_ms=unfused)
             rows.append(row)
             print(f"K5 {name} {weights} NL={NL} B={B} T={T} pos={pos} "
-                  f"KV={KV} grid={decode_step.grid}: max_abs_err " +
+                  f"KV={KV} grid={decode_step.grid} plan="
+                  f"{decode_step.last_plan}: bitwise repeat ok, max_abs_err " +
                   " ".join(f"{w}={e:.3e} ({st:.2f} steps)"
                            for w, (e, st) in errs.items()) +
                   f" (tol {K5_STEPS} bf16 steps); kernel_ms={ms:.5f} "
+                  f"queued_ms={queued:.5f} "
                   f"bound_ms={bms:.5f} ({by}) plain_ms={plain:.5f} "
                   f"fused_step_ms={fused_step:.5f} unfused_step_ms="
                   f"{unfused:.5f}", flush=True)
             del ueng, kp, vp
-    return rows
+    return rows, design
 
 
 # --------------------------------------------------------------------------- #
 # phases 11-12: kv_generate(fused="on"), GPT-2 small and Llama-7B
 # --------------------------------------------------------------------------- #
 
-def teacher_forced(model, prompts, stream, weights):
+TIE_STEPS = 2      # a top-2 logit margin below this many bf16 steps: a tie
+
+
+def teacher_forced(model, prompts, stream, weights, clear=None):
     """Share of the fused stream's new tokens that the unfused step
     predicts when fed the stream's own earlier tokens (greedy): the
     prefill's argmax against the first new token, then one unfused step
     per position.  A single flip does not cascade here, as it does in a
-    whole-stream comparison."""
+    whole-stream comparison.  Where ``clear`` (a dict) is given, it gets
+    the same share over the positions whose unfused top-2 logit margin is
+    at least ``TIE_STEPS`` bf16 steps of the top logit (``agreement``)
+    and their count (``positions``): rounding order alone cannot flip
+    those."""
     import torch
     from mxnet_tpu_torch.models.decoding import _DecodeEngine
 
@@ -996,12 +1122,20 @@ def teacher_forced(model, prompts, stream, weights):
     kp[:, :B, :, :P] = knew
     vp[:, :B, :, :P] = vnew
     pt = torch.arange(B, device="cuda")[:, None]
-    preds = [logits.argmax(-1)]
+    steps = [logits]
     for t in range(P, total - 1):
         posv = torch.full((B,), t, dtype=torch.int64, device="cuda")
-        preds.append(eng.paged_step(s[:, t], posv, kp, vp, pt,
-                                    total).argmax(-1))
-    return (torch.stack(preds, 1) == s[:, P:]).float().mean().item()
+        steps.append(eng.paged_step(s[:, t], posv, kp, vp, pt, total))
+    lg = torch.stack(steps, 1).float()                   # (B, new, V)
+    same = lg.argmax(-1) == s[:, P:]
+    if clear is not None:
+        top = lg.topk(2, dim=-1).values
+        wide = (top[..., 0] - top[..., 1]) >= \
+            TIE_STEPS * 2.0 ** -8 * top[..., 0].abs()
+        clear["positions"] = int(wide.sum().item())
+        clear["agreement"] = (same[wide].float().mean().item()
+                              if clear["positions"] else None)
+    return same.float().mean().item()
 
 
 def _reset_counts():
@@ -1056,20 +1190,24 @@ def fused_run(what, model, prompts, new, weights, prefill, expect):
         fail(f"{what}: output {out.shape} or tokens outside the vocab")
     if not np.array_equal(out[:, :P], prompts):
         fail(f"{what}: the prompt was not kept")
-    tf = teacher_forced(model, prompts, out, weights)
+    clear = {}
+    tf = teacher_forced(model, prompts, out, weights, clear)
     whole = float((out[:, P:] == ref[:, P:]).mean())
     row = dict(weights=weights, prefill=prefill, B=B, P=P, new=new,
                launches=launches, tokens_per_s=B * new / t_fused,
                unfused_tokens_per_s=B * new / t_unfused,
                ms_per_token=t_fused / (new - 1) * 1e3,
                unfused_ms_per_token=t_unfused / (new - 1) * 1e3,
-               teacher_forced=tf, whole_stream_agreement=whole)
+               teacher_forced=tf, whole_stream_agreement=whole,
+               teacher_forced_clear=clear)
     print(f"{what}: {weights} prefill={prefill} B={B} P={P} new={new} "
           f"launches {launches}; tokens/s fused={row['tokens_per_s']:.2f} "
           f"unfused={row['unfused_tokens_per_s']:.2f}; ms/token fused="
           f"{row['ms_per_token']:.4f} unfused="
           f"{row['unfused_ms_per_token']:.4f}; teacher-forced agreement="
-          f"{tf:.4f} (bar 0.9); whole-stream agreement={whole:.4f}",
+          f"{tf:.4f} (bar 0.9), over the {clear['positions']} positions "
+          f"with a top-2 margin of {TIE_STEPS}+ bf16 steps="
+          f"{clear['agreement']}; whole-stream agreement={whole:.4f}",
           flush=True)
     if tf < 0.9:
         fail(f"{what}: teacher-forced agreement {tf:.4f} < 0.9")
@@ -1134,6 +1272,56 @@ def profile_fused(model):
     return prof
 
 
+def split_fused_token(model, weights, ms_per_token, steps=10):
+    """Where a fused Llama-7B token's time goes: CUDA events around the
+    embedding, K5, ln_f + the head (K4 with int8) and the argmax of
+    ``steps`` greedy steps at position 40 (device ms each), beside the
+    ``kv_generate`` run's host-clock ms a token; the difference is host
+    time between the launches."""
+    import torch
+    from mxnet_tpu_torch.models.decoding import _DecodeEngine
+    from mxnet_tpu_torch.ops.decode_fused import decode_step
+
+    cfg = model._cfg
+    eng = _DecodeEngine(model, 0.0, 0, weights, fused=True)
+    kc, vc = (torch.zeros((eng.NL, 1, eng.KV, 64, eng.D), device="cuda",
+                          dtype=torch.bfloat16) for _ in range(2))
+    tok = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    posv = torch.full((1,), 40, dtype=torch.int64, device="cuda")
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
+          for _ in range(steps)]
+    for i in range(steps + 2):
+        e = ev[i - 2] if i >= 2 else None          # two untimed steps
+        if e:
+            e[0].record()
+        x = eng.embed(tok, posv).contiguous()
+        if e:
+            e[1].record()
+        x = decode_step(40, x, eng.packed, kc, vc, cfg, None,
+                        eng.norm_eps[0])[0]
+        if e:
+            e[2].record()
+        logits = eng.head_logits(model.ln_f(x))
+        if e:
+            e[3].record()
+        tok = logits.argmax(-1)
+        if e:
+            e[4].record()
+    torch.cuda.synchronize()
+    parts = {k: sum(e[j].elapsed_time(e[j + 1]) for e in ev) / steps
+             for j, k in enumerate(("embed", "k5", "head", "argmax"))}
+    device = sum(parts.values())
+    out = dict(parts, device_ms=device, ms_per_token=ms_per_token,
+               host_ms=ms_per_token - device)
+    print(f"llama_7b {weights} token split (device ms, {steps} steps at "
+          f"pos 40): " + " ".join(f"{k}={v:.4f}" for k, v in parts.items())
+          + f"; device {device:.4f} of {ms_per_token:.4f} ms a token "
+          f"(kv_generate, host clock): {ms_per_token - device:.4f} ms "
+          f"outside the kernels", flush=True)
+    del eng, kc, vc
+    return out
+
+
 def check_llama7b():
     import numpy as np
     import torch
@@ -1173,6 +1361,9 @@ def check_llama7b():
         print(f"K5 llama_7b {weights} NL=32 B=1 pos=40: kernel_ms={ms:.5f} "
               f"bound_ms={bms:.5f} ({by})", flush=True)
         del eng, kc, vc
+    for weights in ("native", "int8"):
+        runs[weights]["split"] = split_fused_token(
+            model, weights, runs[weights]["ms_per_token"])
     runs["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     print(f"llama_7b: max_memory_allocated="
           f"{runs['max_memory_allocated']}", flush=True)
@@ -1946,7 +2137,7 @@ def main():
     gqa2 = llama_7b(dtype=torch.bfloat16, num_layers=2, num_kv_heads=8)[0]
     for m in (llama2, gqa2):
         m.initialize(0.02, seed=1)
-    k5 = check_k5({"gpt2": gpt2, "llama": llama2, "gqa": gqa2})
+    k5, k5_design = check_k5({"gpt2": gpt2, "llama": llama2, "gqa": gqa2})
     del llama2, gqa2
     torch.cuda.empty_cache()
     fused = check_fused_gpt2(gpt2, cfg)
@@ -1989,7 +2180,10 @@ def main():
              launches=srv["launches"]["q8_matvec"],
              max_abs_err=k4["max_abs_err"], ms=k4["ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
-             bound_by=k4["bound_by"], library_ms=k4["library_ms"]),
+             bound_by=k4["bound_by"], library_ms=k4["library_ms"],
+             queued_ms=k4["queued_ms"],
+             library_queued_ms=k4["library_queued_ms"],
+             design=k4["design"]["design"]),
         dict(name="flash_fwd", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_fwd.cu",
              replaces="mxnet_tpu/ops/attention.py:226",
@@ -2014,7 +2208,9 @@ def main():
              max_abs_err=max(r["max_abs_err"] for r in k5), ms=k5[0]["ms"],
              plain_ms=k5[0]["plain_ms"], bound_ms=k5[0]["bound_ms"],
              bound_by=k5[0]["bound_by"], library_ms=None,
-             unfused_step_ms=k5[0]["unfused_step_ms"]),
+             queued_ms=k5[0]["queued_ms"],
+             unfused_step_ms=k5[0]["unfused_step_ms"],
+             design=k5_design["design"]),
         # K6: per ResNet-50 step (30 launches at nine shapes, bf16); the
         # library call is cuDNN's backward (dx and dW in one call)
         dict(name="conv1x1_bwd", route="cuda",
@@ -2043,6 +2239,7 @@ def main():
         json.dump(dict(card=card, build_s=secs, k4=k4, k1=k1, k23=k23,
                        k1_design=k1_design, k2_design=k2_design,
                        k3_design=k3_design, k6_design=k6_design,
+                       k5_design=k5_design,
                        serve=srv, train=train, bert=bert, k5=k5,
                        fused=fused, k6=k6, vision=vision, rtc=rtc,
                        mlp=mlp, kernels=kernels),

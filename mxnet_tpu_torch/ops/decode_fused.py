@@ -42,12 +42,14 @@ also requires the whole K/V cache of a layer (double-buffered) plus the
 stream block to fit a 12 MB TPU VMEM budget.  On the card the caches
 stay in device memory, so that budget measures nothing the kernel uses;
 the port checks the card kernel's own limits instead (head dim ≤ 128 and
-even, the kernel's shared memory within one block's 227 KB; the launch
-itself raises if the cooperative grid cannot be co-resident).
+even, and ``_gate_bytes`` of shared memory within one block's 227 KB,
+which ``layout`` fits the kernel into; the launch itself raises if the
+cooperative grid cannot be co-resident).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -58,15 +60,21 @@ from .nn import activation
 
 __all__ = ["fused_decode_supported", "pack_gpt_weights",
            "pack_llama_weights", "decode_step", "decode_step_plain",
-           "stacked_decode_supported"]
+           "stacked_decode_supported", "layout", "plan"]
 
-_THREADS = 256              # csrc/decode_fused.cu kThreads
-_COL_TILE = 32              # output columns per col-phase tile (kTN)
-_ROW_LANES = 64             # row lanes of a col-phase tile (kRL)
+_WARPS = 8                  # csrc/decode_fused.cu kWarps (256 threads)
+_G_MAX = 8                  # query heads of a KV group in one p.V pass
+_ROW_SLABS = 4              # F slabs of the fc2 / down span, at least
+_MIN_CHUNK = 16             # attention: positions a chunk, at least
+_COL_SLABS = 2              # K slabs of each column span
 # shared memory one H100 block may use, less 1 KB for the kernel's static
 # reduction buffer
 _SMEM_MAX = 232448 - 1024
+# dynamic shared memory that leaves room for two blocks a SM (228 KB a SM,
+# 1 KB reserved and 1 KB static a block)
+_SMEM_PAIR = 233472 // 2 - 2048
 _ROPE_ROWS: dict = {}       # (device, D, base or None) -> (D,) f32 on it
+_GRIDS: dict = {}           # (device, int8, shared bytes) -> cooperative grid
 
 
 def _pick_cw(u: int, f: int, kvd: int | None = None) -> int:
@@ -96,17 +104,119 @@ def _geometry(cfg):
     return u, f, h, kv
 
 
-def _smem_bytes(batch, u, f, h, kv, total, cw):
-    """Dynamic shared memory of one K5 block: the largest of its phases
-    (col tiles: the normalized input rows plus the row-lane partials;
-    attention: one KV head's query group, scores and p·V partials;
-    fc2/down rows: one chunk of the FFN activation)."""
-    d = u // h
-    g = h // kv
-    col = 4 * batch * u + 4 * _ROW_LANES * batch * _COL_TILE
-    attn = 4 * (g * total + g * d + max(_THREADS, g * d))
+def _col_tile(cw, quant):
+    """Output columns of a column-span item (csrc ``col_tile``): 8 lanes
+    of 16-byte loads, a 128-byte run of a chunk row (64 bf16 or 128 int8
+    weights), at most the chunk width."""
+    return min(8 * (16 if quant else 8), cw)
+
+
+def _gate_bytes(batch, u, h, kv, total, cw):
+    """The shared memory the gate holds against one block's 227 KB: the
+    column phases' input rows and (64, 32) tiles of row-lane partials a
+    batch row, one KV head's query group with its scores over ``total``
+    positions and p.V partials, one chunk of the FFN activation a batch
+    row.  This is the first kernel's layout, kept as the gate's rule so its
+    answers do not move with the kernel: ``layout`` fits the kernel into
+    every case the rule admits."""
+    d, g = u // h, h // kv
+    col = 4 * batch * u + 4 * 64 * batch * 32
+    attn = 4 * (g * total + g * d + max(256, g * d))
     row = 4 * batch * cw
     return max(col, attn, row)
+
+
+@functools.lru_cache(maxsize=None)
+def layout(batch, u, f, h, kv, total, cw, llama=False):
+    """The shared memory of one K5 block (csrc ``col_smem``, ``attn_work``,
+    ``phase_row``), for either stream, as a dict:
+
+    - ``stage``: the column phases stage their prelude rows (the norm's
+      gamma and LayerNorm's beta, two rows of U words, B rows of U bf16)
+      beside the normalized input rows and the warps' partial tiles;
+    - ``s_row``: the F slabs of the fc2/down span, whose largest slab of
+      the FFN activation (and of up for Llama) and its bias and scale
+      rows a block holds;
+    - ``gm``, ``pv_rows``: attention's query heads a p.V pass and the rows
+      its warps' partials are summed through, beside the scores of up to
+      ``total`` positions of the group's heads;
+    - ``smem``: the dynamic bytes, the largest phase's.
+
+    The budget is the bytes that leave two blocks a SM where the least
+    layout (no staging, a slab a chunk, one head a pass through one row)
+    fits them, else one block's; within it the layout stages where it
+    can and takes the fewest F slabs (at least 4), then the most heads a
+    pass and rows.  The least layout needs no more than ``_gate_bytes``
+    counts (or 61,440 bytes, for the fc2/down slab), so every case the
+    gate admits fits."""
+    d, g = u // h, h // kv
+    n_row = f // cw
+    parts = 2 if llama else 1
+    col = 4 * (batch * u + _WARPS * batch * _col_tile(cw, True))
+    staged = 4 * ((1 if llama else 2) * u + 2 * u + batch * u // 2)
+
+    def row(s):
+        return 4 * -(-n_row // s) * cw * parts * (batch + 2)
+
+    def attn(rows, gm):
+        return 4 * (g * total + max((g + 2) * d, rows * gm * d))
+
+    least = max(col, row(n_row), attn(1, 1))
+    budget = _SMEM_PAIR if least <= _SMEM_PAIR else _SMEM_MAX
+    s_row = next(s for s in range(min(n_row, _ROW_SLABS), n_row + 1)
+                 if row(s) <= budget or s == n_row)
+    gm, rows = next(((m, r) for m in range(min(g, _G_MAX), 0, -1)
+                     for r in (_WARPS, 4, 2, 1) if attn(r, m) <= budget),
+                    (1, 1))
+    stage = col + staged <= budget
+    return dict(stage=stage, s_row=s_row, gm=gm, pv_rows=rows,
+                smem=max(col + (staged if stage else 0), row(s_row),
+                         attn(rows, gm)))
+
+
+def _smem_bytes(batch, u, f, h, kv, total, cw, llama=False):
+    """Dynamic shared memory of one K5 block (``layout``)."""
+    return layout(batch, u, f, h, kv, total, cw, llama)["smem"]
+
+
+def plan(L, grid, pos):
+    """The work plan of one K5 launch on a grid of ``grid`` blocks, with
+    ``layout``'s entries:
+
+    - ``s_qkv``, ``s_proj``, ``s_ffn``: the K slabs of the column spans
+      (qkv, proj, fc1 | gate+up), two each (one below 32 rows).  Slab
+      counts that fill the grid's blocks were not faster on balance, and
+      every slab is a partial each consumer sums; the count also sets
+      the summation order, to which the Llama-7B fused stream's
+      teacher-forced check over near-tied bf16 logits is sensitive
+      (ROADMAP.md §3);
+    - ``s_row`` (``layout``), ``g_row``: the fc2/down span's F slabs (of
+      whole chunks) and groups of output rows, one item a block;
+    - ``nc``, ``lc``: the attention's position chunks of ``lc``
+      positions covering 0..pos, as many as give each (batch row, KV head)
+      its share of the grid (one item a block) but at least 16 positions a
+      chunk.  A second item for some blocks would double their path, so
+      the items stop short of the grid (240 of 264 at GPT-2 small, B=4);
+    - ``keep``: a block holds the scores of all its items (at most
+      ``T`` positions of the group's heads) across the barrier between
+      the two passes; where it cannot (more (batch row, KV head) pairs
+      than blocks, late in the cache), the second pass computes each
+      item's scores again.
+    """
+    lay = layout(L.B, L.U, L.F, L.H, L.KV, L.T, L.cw, L.llama)
+    slabs = max(1, min(_COL_SLABS, L.U // 16))
+    s_row = lay["s_row"]
+    bkv = L.B * L.KV
+    nc = 1 if bkv >= grid else max(1, min(grid // bkv,
+                                          -(-(pos + 1) // _MIN_CHUNK)))
+    lc = -(-(pos + 1) // nc)
+    nc = -(-(pos + 1) // lc)
+    slots = -(-(bkv * nc) // grid)
+    return dict(s_qkv=slabs, s_proj=slabs, s_ffn=slabs, s_row=s_row,
+                g_row=max(1, min(L.U, grid // s_row)), nc=nc, lc=lc,
+                keep=slots * lc <= L.T, gm=lay["gm"],
+                pv_rows=lay["pv_rows"], stage=lay["stage"],
+                smem=lay["smem"])
 
 
 def _is_bf16(dtype):
@@ -129,7 +239,7 @@ def fused_decode_supported(cfg, batch, total, dtype) -> bool:
         return False
     if d > 128 or d % 2:
         return False
-    return _smem_bytes(batch, u, f, h, kv, total, cw) <= _SMEM_MAX
+    return _gate_bytes(batch, u, h, kv, total, cw) <= _SMEM_MAX
 
 
 def _norm_eps(blk):
@@ -461,11 +571,29 @@ def _launcher():
     fn = lib.decode_fused_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # 15 device pointers, the host pointer of the grid size out, 19
-        # ints, eps, scale, the shared memory bytes and the stream
-        fn.argtypes = [p] * 16 + [i] * 19 + [f, f, i, p]
+        # 15 device pointers, 29 ints, eps, scale, the shared memory
+        # bytes and the stream
+        fn.argtypes = [p] * 15 + [i] * 29 + [f, f, i, p]
         fn.restype = ctypes.c_int
+        g = lib.decode_fused_grid
+        g.argtypes = [i, i, p]
+        g.restype = ctypes.c_int
     return lib, fn
+
+
+def _grid(lib, device, quant, smem):
+    """The cooperative grid of the kernel, asked of the CUDA runtime (the
+    shared memory attribute, the occupancy) once per (device, stream
+    type, shared memory bytes)."""
+    key = (device, quant, smem)
+    grid = _GRIDS.get(key)
+    if grid is None:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.decode_fused_grid(int(quant), smem, ctypes.addressof(n))
+        _build.check(lib, err, "decode_fused")
+        grid = _GRIDS[key] = n.value
+    return grid
 
 
 def _launch(pos, x, packed, kh, vh, cfg, L, act, eps):
@@ -487,17 +615,24 @@ def _launch(pos, x, packed, kh, vh, cfg, L, act, eps):
     if not 0 <= int(pos) < L.T:
         raise MXNetError(f"decode_step: pos {pos} outside the cache "
                          f"({L.T} positions)")
-    smem = _smem_bytes(L.B, L.U, L.F, L.H, L.KV, L.T, L.cw)
+    smem = _smem_bytes(L.B, L.U, L.F, L.H, L.KV, L.T, L.cw, L.llama)
     if smem > _SMEM_MAX:
         raise MXNetError(f"decode_step: {smem} bytes of shared memory a "
                          f"block exceed the card's {_SMEM_MAX}")
+    lib, fn = _launcher()
+    grid = _grid(lib, x.device, L.quant, smem)
+    pl = plan(L, grid, int(pos))
+    G = L.H // L.KV
+    items = L.B * L.KV * pl["nc"]
     spans = L.lo
-    row_lo, row_hi = spans["down" if L.llama else "fc2"]
-    n_row = row_hi - row_lo
-    # scratch, one buffer: qkv, o, x2, h (bf16) and the fc2/down partials
-    # (f32), each part 256-byte aligned
-    sizes = [2 * L.B * L.QS, 2 * L.B * L.U, 2 * L.B * L.U, 2 * L.B * L.F,
-             4 * n_row * L.B * L.U]
+    ffn_w = (2 if L.llama else 1) * L.F
+    # scratch, one buffer, each part 256-byte aligned: the residual x2
+    # (bf16), the column / row partials, the chunks' p.V partials and
+    # their max and sum (f32)
+    sizes = [2 * L.B * L.U,
+             4 * L.B * max(pl["s_qkv"] * L.QS, pl["s_ffn"] * ffn_w),
+             4 * L.B * L.U * max(pl["s_proj"], pl["s_row"]),
+             4 * pl["nc"] * L.B * L.U, 4 * items * G * 2]
     offs, tot = [], 0
     for n in sizes:
         offs.append(tot)
@@ -511,23 +646,24 @@ def _launch(pos, x, packed, kh, vh, cfg, L, act, eps):
         rope = _ROPE_ROWS[key] = torch.from_numpy(
             _rope_inv(cfg, L.D) if L.llama else
             np.zeros((L.D,), np.float32)).to(x.device)
-    grid = ctypes.c_int(0)
-    lib, fn = _launcher()
     with torch.cuda.device(x.device):
         err = fn(out.data_ptr(), wstream.data_ptr(), bstream.data_ptr(),
                  sstream.data_ptr(), norms.data_ptr(), bias2.data_ptr(),
                  s2.data_ptr(), rope.data_ptr(), kh.data_ptr(),
                  vh.data_ptr(), *(base + o for o in offs),
-                 ctypes.addressof(grid),
                  int(pos), int(L.quant), L.NL, L.B, L.U, L.F, L.H, L.KV,
                  L.D, L.T, L.cw, L.NC, spans["proj"][0],
                  spans["gate" if L.llama else "fc1"][0],
-                 spans["up"][0] if L.llama else 0, row_lo, n_row,
-                 int(L.llama), {None: 0, "gelu": 1, "relu": 2}[act],
-                 float(eps), float(1.0 / (L.D ** 0.5)), smem,
+                 spans["down" if L.llama else "fc2"][0], int(L.llama),
+                 {None: 0, "gelu": 1, "relu": 2}[act], pl["s_qkv"],
+                 pl["s_proj"], pl["s_ffn"], pl["s_row"], pl["g_row"],
+                 pl["nc"], pl["lc"], int(pl["keep"]), pl["gm"],
+                 pl["pv_rows"], int(pl["stage"]), grid, float(eps),
+                 float(1.0 / (L.D ** 0.5)), smem,
                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "decode_fused")
-    decode_step.grid = grid.value
+    decode_step.grid = grid
+    decode_step.last_plan = pl
     return out
 
 
@@ -553,3 +689,4 @@ def decode_step(pos, x, packed, kh, vh, cfg, act, eps):
 
 decode_step.launches = 0
 decode_step.grid = 0
+decode_step.last_plan = None

@@ -108,6 +108,198 @@ def test_gate_drops_only_the_vmem_clause(monkeypatch, fam, u, h, kv, f,
     assert P.fused_decode_supported(pcfg, batch, total, torch.bfloat16)
 
 
+# --------------------------------------------------------------------------- #
+# the kernel's work plan (CPU)
+# --------------------------------------------------------------------------- #
+
+# (family, units, heads, kv heads, hidden, batch, cache length)
+PLAN_CASES = [("gpt", 768, 12, None, 3072, 4, 768),      # GPT-2 small
+              ("llama", 4096, 32, 32, 11008, 1, 64),     # Llama-7B
+              ("llama", 4096, 32, 8, 11008, 2, 64),      # its GQA variant
+              ("gpt", 128, 4, None, 512, 3, 256)]        # the card tests'
+
+
+def _plan_layout(case, quant):
+    from types import SimpleNamespace
+
+    fam, u, h, kv, f, batch, total = case
+    cfg = _cfgs(fam, u, h, kv, f)[1]
+    cw, spans = P._schedule(cfg)
+    lo, nc = P._span_offsets(spans)
+    kvh = kv or h
+    return SimpleNamespace(B=batch, U=u, F=f, H=h, KV=kvh, D=u // h, T=total,
+                           cw=cw, quant=quant, llama=fam == "llama", lo=lo,
+                           NC=nc, QS=u + 2 * kvh * (u // h))
+
+
+@pytest.mark.parametrize("which", ["0", "1", "chunk-1", "chunk", "T-1"])
+@pytest.mark.parametrize("grid", [132, 264])
+@pytest.mark.parametrize("case", PLAN_CASES,
+                         ids=[f"{c[0]}-u{c[1]}-kv{c[3]}-b{c[5]}"
+                              for c in PLAN_CASES])
+def test_attention_chunks_cover_positions(case, grid, which):
+    """The position chunks of attention cover 0..pos exactly, none empty,
+    one item a block, no more chunks than 16 positions each would give,
+    each chunk's scores within the kernel's shared memory (the gate's
+    bound of one item's ``total`` positions)."""
+    L = _plan_layout(case, False)
+    lc0 = P.plan(L, grid, L.T - 1)["lc"]
+    pos = {"0": 0, "1": 1, "chunk-1": lc0 - 1, "chunk": lc0,
+           "T-1": L.T - 1}[which]
+    pl = P.plan(L, grid, pos)
+    nc, lc = pl["nc"], pl["lc"]
+    cover = [t for c in range(nc) for t in range(c * lc,
+                                                 min(pos + 1, (c + 1) * lc))]
+    assert cover == list(range(pos + 1))
+    assert (nc - 1) * lc < pos + 1                      # no empty chunk
+    assert L.B * L.KV * nc <= grid                      # one item a block
+    assert lc <= L.T
+    assert nc <= -(-(pos + 1) // 16)                    # 16 a chunk at most
+
+
+def _kernel_bytes(L, pl, quant):
+    """The bytes each phase of the kernel uses under plan ``pl`` (csrc
+    ``col_smem``, ``phase_row``, ``attn_work``): column, fc2/down,
+    attention."""
+    G, D = L.H // L.KV, L.D
+    n_row = L.F // L.cw
+    parts = 2 if L.llama else 1
+    col = 4 * (L.B * L.U + 8 * L.B * P._col_tile(L.cw, quant))
+    if pl["stage"]:
+        col += 4 * ((1 if L.llama else 2) * L.U + 2 * L.U +
+                    L.B * L.U // 2)
+    row = 4 * -(-n_row // pl["s_row"]) * L.cw * parts * (L.B + 2)
+    return col, row
+
+
+def _attn_bytes(L, pl, grid):
+    G, D = L.H // L.KV, L.D
+    slots = -(-(L.B * L.KV * pl["nc"]) // grid) if pl["keep"] else 1
+    return 4 * (slots * G * pl["lc"] + max((G + 2) * D,
+                                           pl["pv_rows"] * pl["gm"] * D))
+
+
+@pytest.mark.parametrize("grid", [132, 264])
+@pytest.mark.parametrize("quant", [False, True], ids=["native", "int8"])
+@pytest.mark.parametrize("case", PLAN_CASES,
+                         ids=[f"{c[0]}-u{c[1]}-kv{c[3]}-b{c[5]}"
+                              for c in PLAN_CASES])
+def test_weight_phase_plan(case, quant, grid):
+    """Each column span goes in two K slabs of 16-row steps and whole
+    128-byte column tiles, the fc2/down items are one a block, and at
+    these shapes the layout stages the prelude rows, takes 4 F slabs and
+    sums the p.V partials of the group's heads (up to 8) through 8 rows,
+    within two blocks' shared memory a SM."""
+    L = _plan_layout(case, quant)
+    pl = P.plan(L, grid, L.T - 1)
+    tn = P._col_tile(L.cw, quant)
+    ffn_w = (2 if L.llama else 1) * L.F
+    for width in (L.QS, L.U, ffn_w):
+        assert width % tn == 0 and L.cw % tn == 0
+        assert tn * (1 if quant else 2) == min(128, L.cw * (1 if quant
+                                                            else 2))
+    assert pl["s_qkv"] == pl["s_proj"] == pl["s_ffn"] == min(2, L.U // 16)
+    n_row = L.F // L.cw
+    assert pl["s_row"] == min(n_row, 4)
+    assert pl["s_row"] * pl["g_row"] <= grid and pl["g_row"] <= L.U
+    assert pl["stage"] and pl["pv_rows"] == 8
+    assert pl["gm"] == min(8, L.H // L.KV) and pl["keep"]
+    smem = P._smem_bytes(L.B, L.U, L.F, L.H, L.KV, L.T, L.cw, L.llama)
+    assert smem == pl["smem"]
+    assert max(*_kernel_bytes(L, pl, quant),
+               _attn_bytes(L, pl, grid)) <= smem <= P._SMEM_PAIR
+
+
+# (family, units, heads, kv heads, hidden): GPT-2 small to xl, Llama-7B,
+# Llama-3-8B, Llama-13B, a 70B-class GQA width, the card tests'
+SWEEP = [("gpt", 768, 12, None, 3072), ("gpt", 1024, 16, None, 4096),
+         ("gpt", 1280, 20, None, 5120), ("gpt", 1600, 25, None, 6400),
+         ("llama", 4096, 32, 32, 11008), ("llama", 4096, 32, 8, 14336),
+         ("llama", 5120, 40, 40, 13824), ("llama", 8192, 64, 8, 28672),
+         ("gpt", 128, 4, None, 512)]
+
+
+@pytest.mark.parametrize("case", SWEEP,
+                         ids=[f"{c[0]}-u{c[1]}-kv{c[3]}" for c in SWEEP])
+def test_every_case_the_gate_admits_fits_the_kernel(case):
+    """For every batch, cache length and position the gate admits, on a
+    grid of one or two blocks a SM: the launcher's shared memory is
+    within one block's, each phase of the plan fits in it (attention
+    keeping or recomputing its scores), the chunks cover 0..pos."""
+    from types import SimpleNamespace
+
+    fam, u, h, kv, f = case
+    cfg = _cfgs(fam, u, h, kv, f)[1]
+    cw, spans = P._schedule(cfg)
+    lo, nct = P._span_offsets(spans)
+    kvh = kv or h
+    admitted = 0
+    for batch in (1, 2, 3, 4):
+        for total in (64, 1024, 4096, 16384, 57000):
+            if not P.fused_decode_supported(cfg, batch, total,
+                                            torch.bfloat16):
+                continue
+            admitted += 1
+            L = SimpleNamespace(B=batch, U=u, F=f, H=h, KV=kvh, D=u // h,
+                                T=total, cw=cw, llama=fam == "llama",
+                                lo=lo, NC=nct)
+            smem = P._smem_bytes(batch, u, f, h, kvh, total, cw,
+                                 L.llama)
+            assert smem <= P._SMEM_MAX
+            for grid in (132, 264):
+                for pos in (0, 1, total // 2, total - 1):
+                    pl = P.plan(L, grid, pos)
+                    for quant in (False, True):
+                        assert max(_kernel_bytes(L, pl, quant)) <= smem
+                    assert _attn_bytes(L, pl, grid) <= smem
+                    assert pl["pv_rows"] in (1, 2, 4, 8)
+                    assert 1 <= pl["gm"] <= min(8, h // kvh)
+                    assert pl["s_qkv"] <= 16 and pl["lc"] <= total
+                    nc, lc = pl["nc"], pl["lc"]
+                    assert (nc - 1) * lc < pos + 1 <= nc * lc
+    assert admitted
+
+
+# (family, units, heads, kv heads, hidden, batch, cache length, admitted)
+WIDE_GATE_CASES = [
+    ("llama", 5120, 40, 40, 13824, 4, 4096, True),     # Llama-13B
+    ("llama", 8192, 64, 8, 28672, 4, 4096, True),      # 70B-class GQA
+    ("llama", 8192, 64, 8, 28672, 4, 8192, False),     # its scores
+    ("llama", 4096, 32, 32, 11008, 1, 57000, True),    # D 128, one head
+    ("llama", 4096, 32, 32, 11008, 1, 58000, False),   # a group
+    ("gpt", 16384, 128, None, 65536, 4, 64, False)]    # input rows
+
+
+@pytest.mark.parametrize("case", WIDE_GATE_CASES,
+                         ids=[f"{c[0]}-u{c[1]}-b{c[5]}-t{c[6]}"
+                              for c in WIDE_GATE_CASES])
+def test_gate_at_wide_configs(case):
+    """The gate's answers at wide configurations and long caches, on both
+    sides of its shared-memory rule; where it admits, the launch at the
+    last position fits the kernel on a grid of one block a SM, with more
+    (batch row, KV head) pairs than blocks for Llama-13B."""
+    from types import SimpleNamespace
+
+    fam, u, h, kv, f, batch, total, admitted = case
+    cfg = _cfgs(fam, u, h, kv, f)[1]
+    assert P.fused_decode_supported(cfg, batch, total,
+                                    torch.bfloat16) == admitted
+    if not admitted:
+        return
+    cw, spans = P._schedule(cfg)
+    lo, nct = P._span_offsets(spans)
+    L = SimpleNamespace(B=batch, U=u, F=f, H=h, KV=kv or h, D=u // h,
+                        T=total, cw=cw, llama=fam == "llama", lo=lo,
+                        NC=nct)
+    smem = P._smem_bytes(batch, u, f, h, L.KV, total, cw, L.llama)
+    assert smem <= P._SMEM_MAX
+    pl = P.plan(L, 132, total - 1)
+    assert _attn_bytes(L, pl, 132) <= smem
+    assert max(_kernel_bytes(L, pl, True)) <= smem
+    if batch * L.KV > 132:
+        assert not pl["keep"]                   # the scores recomputed
+
+
 @pytest.fixture(scope="module")
 def models():
     """(reference, port) pairs: GPT and Llama, bf16 and f32."""
@@ -409,23 +601,30 @@ def _card_model(fam):
     return m.initialize(0.15, seed=1)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,pos", [(1, 0), (3, 17), (4, 31)])
-@pytest.mark.parametrize("quant", [False, True], ids=["native", "int8"])
-@pytest.mark.parametrize("fam", ["gpt", "llama"])
-def test_kernel_matches_plain_on_card(fam, quant, B, pos):
-    """K5 against decode_step_plain on the same card inputs: the output
-    and the written column within four bf16 steps of their magnitude
-    (the two sum in other orders and round to bf16 at every projection),
-    the rest of the caches bit for bit."""
-    need_cuda()
+def _card_case(fam, quant, B, T):
     m = _card_model(fam)
     pack = (P.pack_llama_weights(m.blocks, m._cfg, torch.bfloat16, quant)
             if fam == "llama" else
             P.pack_gpt_weights(m.blocks, torch.bfloat16, quant))
     act = None if fam == "llama" else "gelu"
     x, kh, vh = (torch.from_numpy(a).cuda().bfloat16()
-                 for a in _step_inputs(m._cfg, B, 32, torch.bfloat16))
+                 for a in _step_inputs(m._cfg, B, T, torch.bfloat16))
+    return m, pack, act, x, kh, vh
+
+
+# (B, pos, T): T = 256 with pos 200 puts attention over several chunks
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,pos,T", [(1, 0, 32), (3, 17, 32), (4, 31, 32),
+                                     (4, 200, 256)])
+@pytest.mark.parametrize("quant", [False, True], ids=["native", "int8"])
+@pytest.mark.parametrize("fam", ["gpt", "llama"])
+def test_kernel_matches_plain_on_card(fam, quant, B, pos, T):
+    """K5 against decode_step_plain on the same card inputs: the output
+    and the written column within four bf16 steps of their magnitude
+    (the two sum in other orders and round to bf16 at every projection),
+    the rest of the caches bit for bit."""
+    need_cuda()
+    m, pack, act, x, kh, vh = _card_case(fam, quant, B, T)
     kk, vk = kh.clone(), vh.clone()
     before = P.decode_step.launches
     got, _, _ = P.decode_step(pos, x, pack, kk, vk, m._cfg, act, 1e-5)
@@ -433,12 +632,118 @@ def test_kernel_matches_plain_on_card(fam, quant, B, pos):
                                       m._cfg, act, 1e-5)
     torch.cuda.synchronize()
     assert P.decode_step.launches == before + 1
+    if T > 32:
+        assert P.decode_step.last_plan["nc"] > 1      # several chunks
     for a, b in ((got, ref), (kk[:, :, :, pos], kr[:, :, :, pos]),
                  (vk[:, :, :, pos], vr[:, :, :, pos])):
         tol = 4 * 2.0 ** -8 * b.float().abs().max().item()
         assert (a.float() - b.float()).abs().max().item() <= tol
-    rest = torch.ones(32, dtype=torch.bool, device="cuda")
+    rest = torch.ones(T, dtype=torch.bool, device="cuda")
     rest[pos] = False
+    assert torch.equal(kk[:, :, :, rest], kh[:, :, :, rest])
+    assert torch.equal(vk[:, :, :, rest], vh[:, :, :, rest])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["native", "int8"])
+@pytest.mark.parametrize("fam", ["gpt", "llama"])
+def test_kernel_repeats_bit_for_bit_on_card(fam, quant):
+    """Two launches on the same inputs agree exactly, x and the written
+    column: every partial is summed in a fixed order."""
+    need_cuda()
+    m, pack, act, x, kh, vh = _card_case(fam, quant, 3, 256)
+    outs = []
+    for _ in range(2):
+        kk, vk = kh.clone(), vh.clone()
+        got = P.decode_step(150, x, pack, kk, vk, m._cfg, act, 1e-5)[0]
+        outs.append((got, kk[:, :, :, 150], vk[:, :, :, 150]))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos,keep", [(20, True), (50, False)])
+@pytest.mark.parametrize("quant", [False, True], ids=["native", "int8"])
+def test_kernel_with_more_pairs_than_blocks_on_card(quant, pos, keep):
+    """128 KV heads at B=4 give 512 (batch row, KV head) pairs, more than
+    the grid's blocks: a block keeps the scores of two items (pos 20), or
+    past half the cache recomputes them in the second pass (pos 50); the
+    output and the written column within four bf16 steps of the plain
+    version, a second launch bit for bit."""
+    need_cuda()
+    from mxnet_tpu_torch.models import GPT, GPTConfig
+
+    m = GPT(GPTConfig(vocab_size=97, max_length=64, num_layers=1,
+                      units=1024, num_heads=128, hidden_size=2048),
+            dtype=torch.bfloat16).initialize(0.05, seed=1)
+    pack = P.pack_gpt_weights(m.blocks, torch.bfloat16, quant)
+    x, kh, vh = (torch.from_numpy(a).cuda().bfloat16()
+                 for a in _step_inputs(m._cfg, 4, 64, torch.bfloat16))
+    outs = []
+    for _ in range(2):
+        kk, vk = kh.clone(), vh.clone()
+        got = P.decode_step(pos, x, pack, kk, vk, m._cfg, "gelu", 1e-5)[0]
+        outs.append((got, kk[:, :, :, pos], vk[:, :, :, pos]))
+    assert P.decode_step.grid < 4 * 128
+    assert P.decode_step.last_plan["keep"] == keep
+    kr, vr = kh.clone(), vh.clone()
+    ref, _, _ = P.decode_step_plain(pos, x, pack, kr, vr, m._cfg, "gelu",
+                                    1e-5)
+    torch.cuda.synchronize()
+    for a, b in zip(outs[0], (ref, kr[:, :, :, pos], vr[:, :, :, pos])):
+        tol = 4 * 2.0 ** -8 * b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["native", "int8"])
+@pytest.mark.parametrize("fam,f", [("gpt", 512), ("llama", 256),
+                                   ("gpt", 4096)])
+def test_kernel_in_its_least_layout_on_card(monkeypatch, fam, f, quant):
+    """The layout the widest configurations take: the column phases read
+    their prelude rows where they lie, the fc2/down span goes in an F
+    slab a chunk (32 slabs with F = 4096), p.V takes one head a pass
+    through one row; the output and the written column within four bf16
+    steps of the plain version, the rest of the caches bit for bit."""
+    need_cuda()
+    from mxnet_tpu_torch.models import GPT, GPTConfig, Llama, LlamaConfig
+
+    if fam == "gpt":
+        m = GPT(GPTConfig(vocab_size=97, max_length=64, num_layers=2,
+                          units=128, num_heads=4, hidden_size=f),
+                dtype=torch.bfloat16)
+    else:
+        m = Llama(LlamaConfig(vocab_size=97, max_length=64, num_layers=2,
+                              units=128, num_heads=4, num_kv_heads=2,
+                              hidden_size=f), dtype=torch.bfloat16)
+    m = m.initialize(0.15, seed=1)
+    cw = P._schedule(m._cfg)[0]
+    full = P.layout
+    monkeypatch.setattr(P, "layout", lambda *a: dict(
+        full(*a), stage=False, s_row=f // cw, gm=1, pv_rows=1))
+    pack = (P.pack_llama_weights(m.blocks, m._cfg, torch.bfloat16, quant)
+            if fam == "llama" else
+            P.pack_gpt_weights(m.blocks, torch.bfloat16, quant))
+    act = None if fam == "llama" else "gelu"
+    x, kh, vh = (torch.from_numpy(a).cuda().bfloat16()
+                 for a in _step_inputs(m._cfg, 3, 256, torch.bfloat16))
+    kk, vk, kr, vr = kh.clone(), vh.clone(), kh.clone(), vh.clone()
+    got, _, _ = P.decode_step(200, x, pack, kk, vk, m._cfg, act, 1e-5)
+    pl = P.decode_step.last_plan
+    assert not pl["stage"] and pl["pv_rows"] == pl["gm"] == 1
+    assert pl["s_row"] == f // cw and pl["nc"] > 1
+    ref, _, _ = P.decode_step_plain(200, x, pack, kr, vr, m._cfg, act,
+                                    1e-5)
+    torch.cuda.synchronize()
+    for a, b in ((got, ref), (kk[:, :, :, 200], kr[:, :, :, 200]),
+                 (vk[:, :, :, 200], vr[:, :, :, 200])):
+        tol = 4 * 2.0 ** -8 * b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol
+    rest = torch.ones(256, dtype=torch.bool, device="cuda")
+    rest[200] = False
     assert torch.equal(kk[:, :, :, rest], kh[:, :, :, rest])
     assert torch.equal(vk[:, :, :, rest], vh[:, :, :, rest])
 
