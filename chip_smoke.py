@@ -115,8 +115,14 @@ Phases (each fails the run by raising; there is no CPU path):
    (within 1e-6 of the output's largest magnitude, plus for bf16 one bf16
    step of the element's own magnitude) and timed
    beside its bound, its plain version and the PyTorch call of the same
-   function; 227 KB+ of shared memory is refused; host microseconds a
-   launch against a torch call; then the imperative path at GPT-2
+   function (kernel and library by both timers, ``cuda_ms`` and
+   ``cuda_ms_queued``); 227 KB+ of shared memory is refused; K7's host
+   microseconds a launch against a ``torch.add``, beside the host floor (a
+   bare ``cuLaunchKernel`` from Python) and split into parts (the
+   ``rtc launch parts:`` lines: the parent commit's path through its plain
+   functions, and the launch plan's path); one ``gelu_fwd`` launch
+   recorded into a CUDA graph, whose replay must equal the eager launch
+   bit for bit; then the imperative path at GPT-2
    small's MLP width, bf16 on ``mx.gpu(0)``: ``mx.nd.dot`` + bias, the
    ``rtc_gelu`` custom op (one NVRTC kernel forward, one backward),
    ``mx.nd.dot`` + bias, mean squared error under ``autograd.record()``,
@@ -1775,7 +1781,8 @@ def _rtc_case(name, k, args, grid, outs, plain, library, nbytes, n,
     version, element by element in units of ``err_units``'s tolerance (1e-6
     of the output's largest magnitude, plus for bf16 one bf16 step of the
     element's own magnitude; at most 1 passes), and kernel / plain /
-    library / bound times."""
+    library / bound times; kernel and library also by ``cuda_ms_queued``
+    (the device's share, the host out of the way)."""
     import mxnet_tpu_torch as mx
     import torch
 
@@ -1795,17 +1802,73 @@ def _rtc_case(name, k, args, grid, outs, plain, library, nbytes, n,
         fail(f"rtc {name}: max_abs_err {err}, {units:.3f} of the tolerance "
              "at the worst element")
     ms = cuda_ms(launch, 20)
+    queued = cuda_ms_queued(launch, 20)
     plain_ms = cuda_ms(lambda i: plain(), 10)
     lib = cuda_ms(lambda i: library(), 20)
+    lib_queued = cuda_ms_queued(lambda i: library(), 20)
     bms, by = bound_ms(nbytes, RTC_OPS[name.split("<")[0]] * n,
                        F32_OPS_PER_S)
     print(f"rtc {name} n={n}: max_abs_err={err:.3e} ({units:.3f} of the "
           f"tolerance at the worst element) "
-          f"kernel_ms={ms:.5f} bound_ms={bms:.5f} ({by}) plain_ms="
-          f"{plain_ms:.5f} library_ms={lib:.5f}", flush=True)
+          f"kernel_ms={ms:.5f} queued_ms={queued:.5f} bound_ms={bms:.5f} "
+          f"({by}) plain_ms={plain_ms:.5f} library_ms={lib:.5f} "
+          f"library_queued_ms={lib_queued:.5f}", flush=True)
     return dict(name=name, n=n, max_abs_err=err, err_units=units, ms=ms,
-                plain_ms=plain_ms, library_ms=lib, bound_ms=bms,
-                bound_by=by, bytes=nbytes)
+                queued_ms=queued, plain_ms=plain_ms, library_ms=lib,
+                library_queued_ms=lib_queued, bound_ms=bms, bound_by=by,
+                bytes=nbytes)
+
+
+def host_us(fn, iters=200, reps=5):
+    """Host microseconds of one ``fn()``: the median of ``reps`` runs of
+    ``iters`` calls enqueued with no synchronisation between them (fewer
+    than the launch queue holds, so the host does not wait for the
+    card)."""
+    import torch
+
+    fn()
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        runs.append((time.perf_counter() - t0) / iters * 1e6)
+    torch.cuda.synchronize()
+    return sorted(runs)[reps // 2]
+
+
+def rtc_gelu_cases(mod, gen):
+    """``gelu_fwd`` and ``gelu_bwd`` in bf16 and f32 at the MLP path's
+    8192 x 3072 through ``_rtc_case``; the library calls are
+    ``F.gelu(approximate="tanh")`` and ``aten.gelu_backward``."""
+    import torch
+    import torch.nn.functional as F
+
+    S = _rtc_sources()
+    n = MLP_ROWS * MLP_HIDDEN
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        ct = S.CTYPES[str(dt)]
+        x = torch.randn(n, generator=gen, device="cuda").to(dt)
+        dy = torch.randn(n, generator=gen, device="cuda").to(dt)
+        y, dx = torch.empty_like(x), torch.empty_like(x)
+        grid = S.elementwise_grid(n, x.element_size())
+        el = x.element_size()
+        fwd, bwd = (mod.get_kernel(f"{name}<{ct}>",
+                                   S.SIGNATURES[name].format(T=ct))
+                    for name in ("gelu_fwd", "gelu_bwd"))
+        cases.append(_rtc_case(
+            f"gelu_fwd<{ct}>", fwd, [x, y, n], grid, lambda: y,
+            lambda: S.gelu_fwd_plain(x),
+            lambda: F.gelu(x, approximate="tanh"), 2 * n * el, n))
+        cases.append(_rtc_case(
+            f"gelu_bwd<{ct}>", bwd, [x, dy, dx, n], grid, lambda: dx,
+            lambda: S.gelu_bwd_plain(x, dy),
+            lambda: torch.ops.aten.gelu_backward(dy, x, approximate="tanh"),
+            3 * n * el, n))
+        del x, dy, y, dx
+    return cases
 
 
 def check_rtc():
@@ -1814,11 +1877,13 @@ def check_rtc():
     and timed beside its bound, its plain version and the PyTorch call of
     the same function (a yardstick only: ``F.gelu(approximate="tanh")``,
     its backward ``aten.gelu_backward``, ``torch.softmax``, ``torch.add(y,
-    x, alpha=2)``); the refusal of shared memory past 227 KB; and K7's own
-    cost, host microseconds a ``launch`` of a tiny ``addmul`` against one
-    torch elementwise call."""
+    x, alpha=2)``), kernel and library also by ``cuda_ms_queued``; the
+    refusal of shared memory past 227 KB; K7's own cost
+    (``rtc_launch_costs``: host microseconds a ``launch`` of a tiny
+    ``addmul``, its parts, the host floor and one ``torch.add``); and one
+    launch recorded into a CUDA graph and replayed bit for bit
+    (``rtc_graph_replay``)."""
     import torch
-    import torch.nn.functional as F
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import rtc
 
@@ -1843,32 +1908,11 @@ def check_rtc():
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     n = MLP_ROWS * MLP_HIDDEN
-    cases = []
+    cases = rtc_gelu_cases(mod, gen)
 
-    def kernel(name, ct=None):
-        full = f"{name}<{ct}>" if ct else name
-        sig = S.SIGNATURES[name].format(T=ct)
-        return full, mod.get_kernel(full, sig)
+    def kernel(name):
+        return name, mod.get_kernel(name, S.SIGNATURES[name])
 
-    for dt in (torch.bfloat16, torch.float32):
-        ct = S.CTYPES[str(dt)]
-        x = torch.randn(n, generator=gen, device="cuda").to(dt)
-        dy = torch.randn(n, generator=gen, device="cuda").to(dt)
-        y, dx = torch.empty_like(x), torch.empty_like(x)
-        grid = S.elementwise_grid(n, x.element_size())
-        el = x.element_size()
-        name, k = kernel("gelu_fwd", ct)
-        cases.append(_rtc_case(
-            name, k, [x, y, n], grid, lambda: y,
-            lambda: S.gelu_fwd_plain(x),
-            lambda: F.gelu(x, approximate="tanh"), 2 * n * el, n))
-        name, k = kernel("gelu_bwd", ct)
-        cases.append(_rtc_case(
-            name, k, [x, dy, dx, n], grid, lambda: dx,
-            lambda: S.gelu_bwd_plain(x, dy),
-            lambda: torch.ops.aten.gelu_backward(dy, x, approximate="tanh"),
-            3 * n * el, n))
-        del x, dy, y, dx
     rows, cols, rpb = MLP_ROWS, MLP_HIDDEN, S.SOFTMAX_ROWS_PER_BLOCK
     xs = torch.randn(rows, cols, generator=gen,
                      device="cuda").to(torch.bfloat16)
@@ -1897,32 +1941,152 @@ def check_rtc():
         name, k, [a, b, o, n], S.elementwise_grid(n, 4),
         lambda: o, lambda: S.addmul_plain(a, b),
         lambda: torch.add(b, a, alpha=2.0), 3 * n * 4, n))
-    # K7's own cost: host time a launch, at a size where the card idles
-    small = [mx.nd.from_torch(t[:256]) for t in (a, b, o)]
-    iters = 2000
-
-    def host_us(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        return (t1 - t0) / iters * 1e6
-
-    launch_us = host_us(lambda: k.launch(small + [256], mx.gpu(0),
-                                         (1, 1, 1), (256, 1, 1)))
-    ta, tb, to = (t[:256] for t in (a, b, o))
-    torch_us = host_us(lambda: torch.add(tb, ta, alpha=2.0, out=to))
-    print(f"rtc launch overhead: {launch_us:.2f} us of host time a "
-          f"CudaKernel.launch (addmul, 256 values) against {torch_us:.2f} "
-          f"us a torch.add", flush=True)
-    del a, b, o, small
+    del a, b, o
     torch.cuda.empty_cache()
+    costs = rtc_launch_costs(mod)
+    graph = rtc_graph_replay(mod)
+    if not graph["bitwise_equal"] or graph["captured_launches"] != 1 \
+            or graph["replay_launches"] != 0:
+        fail(f"rtc graph: {graph}")
     return dict(compile_s=mod.compile_seconds, compile_and_load_s=cold,
-                cached_s=cached, nvrtc=lib_path, cases=cases,
-                launch_us=launch_us, torch_launch_us=torch_us)
+                cached_s=cached, nvrtc=lib_path, cases=cases, graph=graph,
+                **costs)
+
+
+def rtc_launch_costs(mod):
+    """K7's own cost, in host microseconds (``host_us``) at a size where
+    the card idles (``addmul``, 256 values, one block): a
+    ``CudaKernel.launch``; one ``torch.add`` of the same function (the
+    library column); the host floor, a bare ``cuLaunchKernel`` of the same
+    function from Python with its ``void*`` array packed once (the bound
+    column); the parent commit's launch path split into the parts it runs
+    each time, timed through the plain functions it calls
+    (``check_launch``, ``pack_args``, the ``torch.cuda.device`` guard,
+    ``torch.cuda.current_stream(i).cuda_stream``, the ``cuLaunchKernel``
+    call as it makes it); and, where the package has launch plans, the
+    plan path's parts (the plan lookup, ``LaunchPlan.pack``, the current
+    card, the raw stream, the ``rtc_launch`` call of ``csrc/
+    rtc_launch.cu``)."""
+    import ctypes
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+
+    S = _rtc_sources()
+    k = mod.get_kernel("addmul", S.SIGNATURES["addmul"])
+    n = 256
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    a = torch.randn(n, generator=gen, device="cuda")
+    b = torch.randn(n, generator=gen, device="cuda")
+    o = torch.empty_like(a)
+    args = [mx.nd.from_torch(t) for t in (a, b, o)] + [n]
+    ctx, grid, block = mx.gpu(0), (1, 1, 1), (256, 1, 1)
+    k.launch(args, ctx, grid, block)
+    torch.cuda.synchronize()
+    if not torch.equal(o, S.addmul_plain(a, b)):
+        fail("rtc addmul at 256 values differs from its plain version")
+    launch_us = host_us(lambda: k.launch(args, ctx, grid, block))
+    torch_us = host_us(lambda: torch.add(b, a, alpha=2.0, out=o))
+    lib, fn, specs = rtc._cuda(), k._function(0), k._specs
+    holders, params = rtc.pack_args(specs, args)
+    stream = torch.cuda.current_stream(0).cuda_stream
+
+    def guard():
+        with torch.cuda.device(0):
+            pass
+
+    def parent_call():
+        rtc._cu_check(lib, lib.cuLaunchKernel(
+            fn, *grid, *block, 0, ctypes.c_void_p(stream), params, None),
+            f"cuLaunchKernel({k.name})")
+
+    parts = dict(
+        check_launch=host_us(
+            lambda: rtc.check_launch(specs, args, ctx, grid, block, 0)),
+        pack_args=host_us(lambda: rtc.pack_args(specs, args)),
+        device_guard=host_us(guard),
+        stream_lookup=host_us(
+            lambda: torch.cuda.current_stream(0).cuda_stream),
+        cuLaunchKernel=host_us(parent_call))
+    floor_us = host_us(lambda: lib.cuLaunchKernel(
+        fn, *grid, *block, 0, stream, params, None))
+    print("rtc launch parts: parent path " + ", ".join(
+        f"{p} {us:.3f}" for p, us in parts.items()) +
+        f" us (sum {sum(parts.values()):.3f})", flush=True)
+    plan_parts = None
+    if hasattr(rtc, "LaunchPlan"):
+        raw, cur = torch._C._cuda_getCurrentRawStream, torch._C._cuda_getDevice
+        if raw(0) != stream:
+            fail("rtc: the raw current stream is not torch.cuda."
+                 "current_stream(0).cuda_stream")
+        key = (ctx, grid, block, 0)
+        plan = k._plans[key]
+        record = plan.pack(args)[1]
+        plan_parts = dict(
+            plan_lookup=host_us(lambda: k._plans[key]),
+            pack=host_us(lambda: plan.pack(args)),
+            current_card=host_us(cur),
+            raw_stream=host_us(lambda: raw(0)),
+            rtc_launch=host_us(lambda: plan.call(record, stream)))
+        print("rtc launch parts: plan path " + ", ".join(
+            f"{p} {us:.3f}" for p, us in plan_parts.items()) +
+            f" us (sum {sum(plan_parts.values()):.3f})", flush=True)
+    torch.cuda.synchronize()
+    print(f"rtc launch overhead: {launch_us:.3f} us of host time a "
+          f"CudaKernel.launch (addmul, 256 values) against {torch_us:.3f} "
+          f"us a torch.add; host floor {floor_us:.3f} us (a bare "
+          f"cuLaunchKernel from Python, arguments packed once)", flush=True)
+    del holders
+    return dict(launch_us=launch_us, torch_launch_us=torch_us,
+                host_floor_us=floor_us, launch_parts=parts,
+                plan_parts=plan_parts)
+
+
+def rtc_graph_replay(mod):
+    """One ``gelu_fwd<__nv_bfloat16>`` launch at the path's 8192 x 3072
+    recorded into a CUDA graph (``torch.cuda.graph``) after an eager
+    launch of the same signature: the replay's output against the eager
+    launch's, bit for bit; the capture counts as one launch, the replay
+    as none."""
+    import torch
+    import mxnet_tpu_torch as mx
+
+    S = _rtc_sources()
+    ct = "__nv_bfloat16"
+    k = mod.get_kernel(f"gelu_fwd<{ct}>",
+                       S.SIGNATURES["gelu_fwd"].format(T=ct))
+    n = MLP_ROWS * MLP_HIDDEN
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn(n, generator=gen, device="cuda").bfloat16()
+    eager, replayed = torch.empty_like(x), torch.empty_like(x)
+    grid, block = S.elementwise_grid(n, 2), (S.THREADS, 1, 1)
+
+    def launch(out):
+        k.launch([mx.nd.from_torch(x), mx.nd.from_torch(out), n],
+                 mx.gpu(0), grid, block)
+
+    launch(eager)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    before = k.launches
+    with torch.cuda.graph(g):
+        launch(replayed)
+    captured = k.launches - before
+    replayed.fill_(float("nan"))
+    g.replay()
+    torch.cuda.synchronize()
+    res = dict(captured_launches=captured,
+               replay_launches=k.launches - before - captured,
+               bitwise_equal=bool(torch.equal(eager.view(torch.int16),
+                                              replayed.view(torch.int16))))
+    print(f"rtc graph: gelu_fwd<{ct}> n={n} recorded into a CUDA graph "
+          f"({res['captured_launches']} launch counted at capture, "
+          f"{res['replay_launches']} at replay); replay equals the eager "
+          f"launch bit for bit: {res['bitwise_equal']}", flush=True)
+    del g, x, eager, replayed
+    torch.cuda.empty_cache()
+    return res
 
 
 def _mlp_data(rows, dtype, ctx):
@@ -2224,14 +2388,19 @@ def main():
         # K7: the runtime-compiled kernels' launcher; its launches on the
         # MLP path (gelu_fwd and gelu_bwd, 2 a step), its times those of
         # gelu_fwd<__nv_bfloat16> at the path's 8192 x 3072, the library
-        # call F.gelu(approximate="tanh")
+        # call F.gelu(approximate="tanh"); its host half: us a launch,
+        # the host floor and a torch.add (rtc_launch_costs)
         dict(name="rtc", route="cuda", source="tests/_torch_rtc_sources.py",
              launcher="mxnet_tpu_torch/rtc.py",
              kernel="gelu_fwd<__nv_bfloat16>",
              replaces="mxnet_tpu/rtc.py:29", launches=mlp["launches"],
              max_abs_err=gelu["max_abs_err"], ms=gelu["ms"],
              plain_ms=gelu["plain_ms"], bound_ms=gelu["bound_ms"],
-             bound_by=gelu["bound_by"], library_ms=gelu["library_ms"]),
+             bound_by=gelu["bound_by"], library_ms=gelu["library_ms"],
+             queued_ms=gelu["queued_ms"],
+             library_queued_ms=gelu["library_queued_ms"],
+             host_us=rtc["launch_us"], host_floor_us=rtc["host_floor_us"],
+             torch_launch_us=rtc["torch_launch_us"]),
     ]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),

@@ -18,7 +18,16 @@ the exports and the target, loaded through libcuda's module API
 (``cuModuleLoadData``, ``cuModuleGetFunction``) into the card's primary
 context, which PyTorch shares, and launched with ``cuLaunchKernel`` on
 PyTorch's current stream.  Both libraries are reached through ``ctypes``;
-nothing CUDA-specific is touched at import.  ``exports`` go through
+nothing CUDA-specific is touched at import.  A launch's fixed part (the
+function, the card, the dims, the shared-memory opt-in, each argument's
+slot and check) is a ``LaunchPlan``, built once per kernel, card, grid,
+block and ``shared_mem`` (the counterpart of the reference's
+``_compiled[key]``); a repeat launch is one pass over the arguments and
+one call of ``csrc/rtc_launch.cu`` (built by ``_build`` like the other
+sources), which makes one ``cuLaunchKernel`` from a per-thread launch
+record and counts it.  Nothing in a launch synchronises, allocates or
+reads the card's memory, so it records into a CUDA graph
+(``torch.cuda.graph``).  ``exports`` go through
 ``nvrtcAddNameExpression``/``nvrtcGetLoweredName``, so a templated kernel
 (``gelu_fwd<__nv_bfloat16>``) is reached by that name; any other kernel
 must be ``extern "C"``.  Dynamic shared memory above 48 KB is opted into
@@ -29,8 +38,9 @@ checked; a failure raises ``MXNetError`` with the NVRTC log.  Each
 
 ``rtc`` has no host path: ``CudaModule`` raises without CUDA, and a
 launch with a host array or a context that is not a GPU raises.  The
-parts that need no card are plain functions: ``parse_signature``,
-``check_args``, ``check_launch``, ``pack_args`` and ``cache_key``.
+parts that need no card are plain: ``parse_signature``, ``check_args``,
+``check_launch``, ``pack_args``, ``cache_key``, ``launch_plan`` and
+``LaunchPlan.pack``.
 ``PallasModule`` raises, naming ``CudaModule``: the mirror of the
 reference's gate.
 """
@@ -51,13 +61,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import _build
 from .base import MXNetError, numeric_types
 from .context import Context
 from .ndarray.ndarray import NDArray
 
 __all__ = ["CudaModule", "CudaKernel", "PallasModule", "ArgSpec",
-           "parse_signature", "check_args", "check_launch", "pack_args",
-           "cache_key",
+           "LaunchPlan", "parse_signature", "check_args", "check_launch",
+           "pack_args", "cache_key", "launch_plan",
            "nvrtc_dirs", "ARCH", "MAX_SHARED_BYTES"]
 
 ARCH = "sm_90a"
@@ -377,6 +388,27 @@ def _bind_context(lib, index: int) -> None:
         _cu_check(lib, lib.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
 
 
+class _LaunchRecord(ctypes.Structure):
+    """``struct RtcLaunch`` of ``csrc/rtc_launch.cu``: ``rtc_launch``'s
+    whole argument list but the stream."""
+
+    _fields_ = [("launch", ctypes.c_void_p), ("fn", ctypes.c_void_p),
+                ("dims", ctypes.c_uint * 7), ("params", ctypes.c_void_p),
+                ("count", ctypes.c_void_p)]
+
+
+def _launcher():
+    """``rtc_launch(record, stream)`` of ``csrc/rtc_launch.cu``, built at
+    first use."""
+    with _lock:
+        if "launch" not in _libs:
+            fn = _build.load("rtc_launch").rtc_launch
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _libs["launch"] = fn
+        return _libs["launch"]
+
+
 # --------------------------------------------------------------------------- #
 # the user-facing classes
 # --------------------------------------------------------------------------- #
@@ -448,8 +480,21 @@ class CudaKernel:
         self._specs = specs
         self._functions = {}       # device index -> CUfunction
         self._shared_set = {}      # device index -> opted-in smem bytes
-        self.launches = 0
+        self._by_key = {}          # launch_plan's key -> LaunchPlan
+        self._plans = {}           # (ctx, grid, block, smem) as given -> plan
+        self._lock = threading.Lock()
+        self._count = ctypes.c_uint64(0)     # raised by rtc_launch
         self._function(torch.cuda.current_device())
+
+    @property
+    def launches(self) -> int:
+        """Launches ``cuLaunchKernel`` accepted; ``rtc_launch`` raises it
+        by one in each, so a CUDA graph's replay does not count."""
+        return self._count.value
+
+    @launches.setter
+    def launches(self, value: int):
+        self._count.value = value
 
     def _function(self, index: int):
         fn = self._functions.get(index)
@@ -467,26 +512,213 @@ class CudaKernel:
     def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
         """Launch on ``ctx`` (a GPU context) with ``grid_dims`` and
         ``block_dims`` (three each) and ``shared_mem`` bytes of dynamic
-        shared memory, on PyTorch's current stream of that card."""
-        args = list(args)
-        index, grid, block, shared_mem = check_launch(
-            self._specs, args, ctx, grid_dims, block_dims, shared_mem)
-        lib = _cuda()
-        fn = self._function(index)
-        holders, params = pack_args(self._specs, args)
-        with torch.cuda.device(index):
-            if shared_mem > max(_STATIC_SHARED_BYTES,
-                                self._shared_set.get(index, 0)):
-                _cu_check(lib, lib.cuFuncSetAttribute(
-                    fn, _ATTR_MAX_DYNAMIC_SHARED, shared_mem),
-                    f"cuFuncSetAttribute({self.name}, {shared_mem} bytes)")
-                self._shared_set[index] = shared_mem
-            stream = torch.cuda.current_stream(index).cuda_stream
-            _cu_check(lib, lib.cuLaunchKernel(
-                fn, *grid, *block, shared_mem, ctypes.c_void_p(stream),
-                params, None), f"cuLaunchKernel({self.name})")
-        del holders
-        self.launches += 1
+        shared memory, on PyTorch's current stream of that card.
+
+        Under ``torch.cuda.graph`` the launch records into the graph (a
+        replay is not a launch and is not counted); its first launch with
+        given ``ctx``, dims and ``shared_mem`` builds the plan, which may
+        set the kernel's shared-memory attribute, so make that one before
+        the capture where it asks for more than 48 KB."""
+        if type(args) is not list and type(args) is not tuple:
+            args = list(args)
+        try:
+            plan = self._plans[ctx, grid_dims, block_dims, shared_mem]
+        except (KeyError, TypeError):
+            plan = self._plan(args, ctx, grid_dims, block_dims, shared_mem)
+        record = plan.pack(args)[1]
+        index = plan.index
+        if torch._C._cuda_getDevice() == index:
+            res = plan.call(record,
+                            torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                res = plan.call(record,
+                                torch._C._cuda_getCurrentRawStream(index))
+        if res:
+            _cu_check(_cuda(), res, f"cuLaunchKernel({self.name})")
+
+    def _plan(self, args, ctx, grid_dims, block_dims, shared_mem):
+        """The first launch with these ``ctx``, dims and ``shared_mem``
+        (as given): every check of ``check_launch``, then the plan, built
+        once per ``launch_plan`` key, with the function resolved and the
+        dynamic shared memory opted into."""
+        check_launch(self._specs, args, ctx, grid_dims, block_dims,
+                     shared_mem)
+        with self._lock:
+            plan = launch_plan(self._by_key, self._specs, ctx, grid_dims,
+                               block_dims, shared_mem)
+            if plan.record is None:
+                lib, index = _cuda(), plan.index
+                fn = self._function(index)
+                smem = plan.dims[-1]
+                if smem > max(_STATIC_SHARED_BYTES,
+                              self._shared_set.get(index, 0)):
+                    with torch.cuda.device(index):
+                        _cu_check(lib, lib.cuFuncSetAttribute(
+                            fn, _ATTR_MAX_DYNAMIC_SHARED, smem),
+                            f"cuFuncSetAttribute({self.name}, {smem} "
+                            "bytes)")
+                    self._shared_set[index] = smem
+                plan.record = _LaunchRecord(
+                    ctypes.cast(lib.cuLaunchKernel, ctypes.c_void_p).value,
+                    fn.value, (ctypes.c_uint * 7)(*plan.dims), None,
+                    ctypes.addressof(self._count))
+                plan.call = _launcher()
+            try:
+                self._plans[ctx, grid_dims, block_dims, shared_mem] = plan
+            except TypeError:      # unhashable dims (a list): checked anew
+                pass
+        return plan
+
+
+_INT, _FLOAT, _OTHER = range(3)      # LaunchPlan's scalar kinds
+
+
+class LaunchPlan:
+    """A launch's fixed part for one signature, card, grid, block and
+    ``shared_mem``: the dims as plain ints, each argument's check,
+    whether the written pointers need the aliasing check (only when the
+    signature has both ``const`` and written pointers), and, on each
+    thread that packs it, a buffer of 8-byte argument slots with the
+    ``void*`` array ``cuLaunchKernel`` takes pointing into it.  Built by
+    ``launch_plan`` (plain, no card); ``CudaKernel`` adds ``rtc_launch``
+    (``call``) and the launch record, with the function, that each thread
+    copies (``record``); a plan for card -1 takes host arrays and only
+    packs, for the tests of the packing.
+
+    ``pack(args)`` is a launch's one pass over its arguments.  It writes
+    what ``pack_args`` would into the slots, and refuses, by the plain
+    checks and with their messages, whatever ``check_launch`` and
+    ``pack_args`` refuse.  ``cuLaunchKernel`` copies the parameters when
+    it is called, so a thread's slots are reused launch after launch;
+    threads never share them."""
+
+    def __init__(self, specs, index: int, grid, block, shared_mem: int):
+        self.specs = tuple(specs)
+        self.index = index          # -1: host arrays; such a plan only packs
+        self.device = torch.device("cuda", index) if index >= 0 \
+            else torch.device("cpu")
+        self.dims = (*grid, *block, shared_mem)
+        self.call = self.record = None
+        self.pointers = tuple((i, s.dtype) for i, s in enumerate(self.specs)
+                              if s.pointer)
+        scalars = []
+        for i, s in enumerate(self.specs):
+            if s.pointer:
+                continue
+            if s.ctype in ("float", "double"):
+                scalars.append((i, _FLOAT, s, 0, 0))
+            elif s.dtype.is_floating_point:        # the 16-bit types
+                scalars.append((i, _OTHER, s, 0, 0))
+            else:
+                info = torch.iinfo(s.dtype)
+                scalars.append((i, _INT, s, info.min, info.max))
+        self.scalars = tuple(scalars)
+        self.const = tuple(i for i, s in enumerate(self.specs)
+                           if s.pointer and s.const)
+        self.written = tuple(i for i, s in enumerate(self.specs)
+                             if s.pointer and not s.const)
+        self.alias = bool(self.const and self.written)
+        self._local = threading.local()
+
+    def _slots(self):
+        """This thread's slots: typed views into one buffer of 8-byte
+        slots, each beside its argument's check; the ``void*`` array
+        pointing at them; and (a card's plan) the thread's copy of the
+        launch record, which points at that array, with its address."""
+        n = len(self.specs)
+        buf = (ctypes.c_uint64 * n)()
+        views = [(ctypes.c_void_p if s.pointer else _CTYPES[s.ctype][1])
+                 .from_buffer(buf, 8 * i) for i, s in enumerate(self.specs)]
+        params = (ctypes.c_void_p * n)(
+            *[ctypes.addressof(buf) + 8 * i for i in range(n)])
+        record, address = None, 0
+        if self.record is not None:      # its context current on the thread
+            with torch.cuda.device(self.index):
+                _bind_context(_cuda(), self.index)
+            record = _LaunchRecord.from_buffer_copy(self.record)
+            record.params = ctypes.addressof(params)
+            address = ctypes.addressof(record)
+        self._local.slots = slots = (
+            tuple((i, dtype, views[i]) for i, dtype in self.pointers),
+            tuple((*c, views[c[0]]) for c in self.scalars),
+            params, address, record)
+        return slots
+
+    def pack(self, args):
+        """Check ``args`` and write them into this thread's slots; returns
+        the ``void*`` array and the address of the thread's launch record
+        (0 for a plan without a function).  Touches no device memory."""
+        try:
+            pointers, scalars, params, address, _ = self._local.slots
+        except AttributeError:
+            pointers, scalars, params, address, _ = self._slots()
+        if len(args) != len(self.specs):
+            self._refuse(args)
+        index = self.index
+        for i, dtype, view in pointers:
+            a = args[i]
+            if not isinstance(a, NDArray):
+                self._refuse(args)
+            t = a._data
+            if t.dtype is not dtype or not t.is_contiguous() \
+                    or t.get_device() != index:
+                self._refuse(args)
+            view.value = t.data_ptr()
+        for i, kind, s, lo, hi, view in scalars:
+            a = args[i]
+            if kind == _INT and type(a) is int and lo <= a <= hi:
+                view.value = a
+            elif kind == _FLOAT and type(a) is float:
+                view.value = a
+            else:
+                view.value = self._other(s, a, args)
+        if self.alias:
+            read = {args[i]._data.untyped_storage().data_ptr()
+                    for i in self.const}
+            for i in self.written:
+                if args[i]._data.untyped_storage().data_ptr() in read:
+                    self._refuse(args)
+        return params, address
+
+    def _other(self, s, a, args):
+        """A scalar off the fast tests (another number type, a half
+        type, a value that does not fit): ``_scalar``'s bits."""
+        if isinstance(a, (NDArray, bool, np.bool_)) \
+                or not isinstance(a, numeric_types):
+            self._refuse(args)
+        try:
+            return _scalar(s, a).value
+        except MXNetError:
+            self._refuse(args)
+
+    def _refuse(self, args):
+        """Raise what the plain checks raise for ``args``, in their order:
+        ``check_args``, the placement checks of ``check_launch``, then
+        ``pack_args``'s scalars."""
+        check_args(self.specs, args)
+        _check_placement(self.specs, args, self.device)
+        pack_args(self.specs, args)
+        raise MXNetError(f"launch refused by its plan ({len(args)} "
+                         "arguments) but not by the plain checks")
+
+
+def launch_plan(plans, specs, ctx, grid_dims, block_dims, shared_mem):
+    """The ``LaunchPlan`` in the dict ``plans`` for a launch of a kernel
+    of signature ``specs`` on ``ctx`` with these dims and ``shared_mem``,
+    built there at first use.  Its key is the signature's argument kinds
+    and types, the card, the grid, the block and ``shared_mem``; a GPU
+    context, three positive dims each and at most ``MAX_SHARED_BYTES``
+    are required, as ``check_launch`` requires them."""
+    grid, block = _gpu_dims(ctx, grid_dims, block_dims)
+    shared_mem = _shared(shared_mem)
+    key = (tuple((s.ctype, s.pointer, s.const) for s in specs),
+           ctx.device_id, grid, block, shared_mem)
+    plan = plans.get(key)
+    if plan is None:
+        plan = plans[key] = LaunchPlan(specs, ctx.device_id, grid, block,
+                                       shared_mem)
+    return plan
 
 
 def _dims(dims, what):
@@ -503,26 +735,42 @@ def check_launch(specs, args, ctx, grid_dims, block_dims, shared_mem):
     (``check_args``), at most ``MAX_SHARED_BYTES`` of shared memory, and
     every array on the context's card.  Returns ``(card index, grid,
     block, shared_mem)``."""
+    grid, block = _gpu_dims(ctx, grid_dims, block_dims)
+    check_args(specs, args)
+    shared_mem = _shared(shared_mem)
+    dev = _check_placement(specs, args, ctx)
+    return dev.index, grid, block, shared_mem
+
+
+def _gpu_dims(ctx, grid_dims, block_dims):
     if not isinstance(ctx, Context) or ctx.device_type != "gpu":
         raise MXNetError(f"a CUDA kernel launches on a GPU context, not "
                          f"{ctx!r}")
-    grid, block = _dims(grid_dims, "grid_dims"), _dims(block_dims,
-                                                       "block_dims")
-    check_args(specs, args)
+    return _dims(grid_dims, "grid_dims"), _dims(block_dims, "block_dims")
+
+
+def _shared(shared_mem) -> int:
     shared_mem = int(shared_mem)
     if not 0 <= shared_mem <= MAX_SHARED_BYTES:
         raise MXNetError(f"shared_mem={shared_mem} bytes: a block may use "
                          f"at most {MAX_SHARED_BYTES}")
+    return shared_mem
+
+
+def _check_placement(specs, args, where):
+    """Every array on the card: none on the host, then each on ``where``
+    (a ``Context``, or a plan's ``torch.device``), which is returned as a
+    ``torch.device``."""
     for s, a in zip(specs, args):
         if s.pointer and a._data.device.type != "cuda":
             raise MXNetError(f"argument {s.name} is on the host "
                              f"({a.context}): rtc kernels run on the card")
-    dev = ctx.torch_device()
+    dev = where.torch_device() if isinstance(where, Context) else where
     for s, a in zip(specs, args):
         if s.pointer and a._data.device != dev:
             raise MXNetError(f"argument {s.name} is on {a._data.device}, "
                              f"the launch on {dev}")
-    return dev.index, grid, block, shared_mem
+    return dev
 
 
 class PallasModule:

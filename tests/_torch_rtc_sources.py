@@ -13,8 +13,8 @@ NVRTC for ``sm_90a``:
   derivative times the output gradient; each for ``float`` and
   ``__nv_bfloat16``, f32 math inside, reached through ``exports``.  Both
   are bound by bytes (one read and one write a value, two reads for the
-  backward); each thread moves 16 bytes a load where the pointers are
-  16-byte aligned;
+  backward); each thread moves one 16-byte vector where the pointers are
+  16-byte aligned, over a grid that covers the array;
 - ``softmax_rows``: a row softmax of bf16 rows, ``rows_per_block`` rows
   staged in dynamic shared memory as f32 (96 KB for 8 rows of 3072, past
   the 48 KB that needs the opt-in), with an ``int`` scalar.
@@ -63,17 +63,18 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
-// y = gelu(x); 16 bytes a thread a step (8 bf16 or 4 floats) where the
-// pointers allow it, the ragged tail one value at a time
+// y = gelu(x): one thread a 16-byte vector (8 bf16 or 4 floats), the grid
+// covering the array (elementwise_grid), so no thread strides and no block
+// waits on a last partial wave; the ragged tail (< one vector) goes to the
+// first block's threads.  Where a pointer is not 16-byte aligned, the same
+// grid takes the values one at a time, a vector's worth a thread.
 template <typename T>
 __global__ void gelu_fwd(const T* __restrict__ x, T* __restrict__ y, int n) {
   constexpr int V = 16 / sizeof(T);
-  const int stride = gridDim.x * blockDim.x;
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  int done = 0;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (aligned16(x) && aligned16(y)) {
     const int nv = n / V;
-    for (int i = i0; i < nv; i += stride) {
+    if (i < nv) {
       const uint4 a = reinterpret_cast<const uint4*>(x)[i];
       uint4 b;
       const T* av = reinterpret_cast<const T*>(&a);
@@ -83,23 +84,27 @@ __global__ void gelu_fwd(const T* __restrict__ x, T* __restrict__ y, int n) {
         bv[k] = Cvt<T>::out(gelu_tanh(Cvt<T>::in(av[k])));
       reinterpret_cast<uint4*>(y)[i] = b;
     }
-    done = nv * V;
+    const int t = nv * V + threadIdx.x;
+    if (blockIdx.x == 0 && t < n)
+      y[t] = Cvt<T>::out(gelu_tanh(Cvt<T>::in(x[t])));
+  } else {
+    const long long base = (long long)blockIdx.x * blockDim.x * V;
+    for (int k = 0; k < V; ++k) {
+      const long long j = base + k * blockDim.x + threadIdx.x;
+      if (j < n) y[j] = Cvt<T>::out(gelu_tanh(Cvt<T>::in(x[j])));
+    }
   }
-  for (int i = done + i0; i < n; i += stride)
-    y[i] = Cvt<T>::out(gelu_tanh(Cvt<T>::in(x[i])));
 }
 
-// dx = dy * gelu'(x)
+// dx = dy * gelu'(x), laid out as gelu_fwd
 template <typename T>
 __global__ void gelu_bwd(const T* __restrict__ x, const T* __restrict__ dy,
                          T* __restrict__ dx, int n) {
   constexpr int V = 16 / sizeof(T);
-  const int stride = gridDim.x * blockDim.x;
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  int done = 0;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (aligned16(x) && aligned16(dy) && aligned16(dx)) {
     const int nv = n / V;
-    for (int i = i0; i < nv; i += stride) {
+    if (i < nv) {
       const uint4 a = reinterpret_cast<const uint4*>(x)[i];
       const uint4 g = reinterpret_cast<const uint4*>(dy)[i];
       uint4 b;
@@ -112,10 +117,18 @@ __global__ void gelu_bwd(const T* __restrict__ x, const T* __restrict__ dy,
                             gelu_tanh_grad(Cvt<T>::in(av[k])));
       reinterpret_cast<uint4*>(dx)[i] = b;
     }
-    done = nv * V;
+    const int t = nv * V + threadIdx.x;
+    if (blockIdx.x == 0 && t < n)
+      dx[t] = Cvt<T>::out(Cvt<T>::in(dy[t]) * gelu_tanh_grad(Cvt<T>::in(x[t])));
+  } else {
+    const long long base = (long long)blockIdx.x * blockDim.x * V;
+    for (int k = 0; k < V; ++k) {
+      const long long j = base + k * blockDim.x + threadIdx.x;
+      if (j < n)
+        dx[j] = Cvt<T>::out(Cvt<T>::in(dy[j]) *
+                            gelu_tanh_grad(Cvt<T>::in(x[j])));
+    }
   }
-  for (int i = done + i0; i < n; i += stride)
-    dx[i] = Cvt<T>::out(Cvt<T>::in(dy[i]) * gelu_tanh_grad(Cvt<T>::in(x[i])));
 }
 
 // the sum (or max) of v over the block, in every thread; blockDim.x is a
@@ -193,9 +206,11 @@ SOFTMAX_ROWS_PER_BLOCK = 8
 
 def elementwise_grid(n, itemsize):
     """Blocks of ``THREADS`` for an elementwise kernel moving 16 bytes a
-    thread a step (grid-stride past 8 blocks per SM of an H100)."""
+    thread: as many as cover the array in one pass (the GELU kernels take
+    one vector a thread; ``addmul``'s grid-stride loop takes the same
+    grid)."""
     per_block = THREADS * (16 // itemsize)
-    return (max(1, min(-(-n // per_block), 132 * 8)), 1, 1)
+    return (max(1, -(-n // per_block)), 1, 1)
 
 
 # --------------------------------------------------------------------------- #

@@ -8,13 +8,19 @@ the refusals (``CudaModule`` without CUDA, ``PallasModule``), and the
 reference's ``addmul`` through ``mxnet_tpu.rtc.PallasModule`` (interpret
 mode, as ``tests/test_tools.py`` runs it) against the plain ``addmul``.
 
+The launch plans (no card): their slots against ``pack_args``'s bytes
+for every type, their refusals against ``check_args``, ``check_launch``
+and ``pack_args``, and when ``launch_plan`` builds a new one.
+
 ``cuda``-marked (the card): each user kernel of ``_torch_rtc_sources``
 through ``CudaModule`` against its plain version, element by element
 within ``_torch_rtc_sources.err_units`` (1e-6 of the output's largest
 magnitude, as the kernel's ``tanhf``/``expf`` and torch's differ by ulps,
 plus for bf16 one bf16 step of the element's own magnitude), the templated
-exports, shared memory past 48 KB and its refusal past 227 KB, and
-launches with a host array or a host context raising.
+exports, shared memory past 48 KB and its refusal past 227 KB,
+launches with a host array or a host context raising, a plan's second
+launch, a launch recorded into a CUDA graph and replayed, and two threads
+launching at once.
 """
 import ctypes
 
@@ -145,6 +151,158 @@ def test_pack_args_refuses_what_does_not_fit(sig, value):
         rtc.pack_args(rtc.parse_signature(sig), [value])
 
 
+# --------------------------------------------------------------------------- #
+# launch plans (no card)
+# --------------------------------------------------------------------------- #
+
+# a value of each type, and a second one to overwrite it with
+VALUES = {"float": (1.5, -3.25), "double": (-2.25, 1e300),
+          "__half": (0.333, -65504.0), "__nv_bfloat16": (3.140625, -1e-3),
+          "uint8_t": (200, 0), "int": (-7, 2 ** 31 - 1),
+          "int32_t": (2 ** 31 - 1, -2 ** 31), "int8_t": (-128, 127),
+          "char": (5, -1), "int64_t": (2 ** 40 + 3, -2 ** 63)}
+
+
+def _slot_bytes(params, holders):
+    """Each argument's bytes behind ``params``, at its holder's width."""
+    return [ctypes.string_at(params[i], ctypes.sizeof(h))
+            for i, h in enumerate(holders)]
+
+
+@pytest.mark.parametrize("ctype", sorted(TYPES))
+def test_plan_slots_equal_pack_args(ctype):
+    """The plan's slots hold ``pack_args``'s bytes for each type, for a
+    Python number and a numpy one, and again after a second pack
+    overwrites them."""
+    specs = rtc.parse_signature(f"const {ctype} *p, {ctype} v, int n")
+    arr = mx.nd.from_torch(torch.zeros(3, dtype=TYPES[ctype]))
+    plan = rtc.LaunchPlan(specs, -1, (1, 1, 1), (32, 1, 1), 0)
+    np_type = {"float": onp.float32, "double": onp.float64,
+               "__half": onp.float16, "__nv_bfloat16": onp.float32,
+               "uint8_t": onp.uint8, "int8_t": onp.int8,
+               "char": onp.int8, "int64_t": onp.int64}.get(ctype, onp.int32)
+    for v in VALUES[ctype] + tuple(np_type(v) for v in VALUES[ctype]):
+        args = [arr, v, 3]
+        params, record = plan.pack(args)
+        assert record == 0               # no function: the plan only packs
+        holders, want = rtc.pack_args(specs, args)
+        assert _slot_bytes(params, holders) == _slot_bytes(want, holders)
+        assert ctypes.sizeof(params) == 8 * len(specs)
+
+
+def _message(fn, *a):
+    with pytest.raises(MXNetError) as e:
+        fn(*a)
+    return str(e.value)
+
+
+def _bad_args():
+    x, y = _cpu(onp.ones(4)), _cpu(onp.zeros(4))
+    return {
+        "count": [x, y],
+        "pointer_given_a_number": [x, 3.0, 4],
+        "scalar_given_an_array": [x, y, y],
+        "scalar_given_a_string": [x, y, "4"],
+        "bool_for_int": [x, y, True],
+        "numpy_bool_for_int": [x, y, onp.bool_(True)],
+        "dtype": [x, _cpu(onp.zeros(4), "float16"), 4],
+        "not_contiguous": [x, _cpu(onp.zeros((4, 2)))[:, 0], 4],
+        "writes_what_it_reads": [x, x, 4],
+        "writes_a_view_of_what_it_reads": [x, x[1:3], 4],
+    }
+
+
+@pytest.mark.parametrize("card", [-1, 0])
+@pytest.mark.parametrize("case", sorted(_bad_args()))
+def test_plan_refuses_what_check_args_refuses(case, card):
+    """Each input ``check_args`` refuses, the plan refuses with the same
+    message, whether its arrays' card matches (-1, the host) or not."""
+    specs = rtc.parse_signature("const float *x, float *y, int n")
+    args = _bad_args()[case]
+    plan = rtc.LaunchPlan(specs, card, (1, 1, 1), (32, 1, 1), 0)
+    assert _message(plan.pack, args) == _message(rtc.check_args, specs,
+                                                 args)
+
+
+@pytest.mark.parametrize("sig,value", [
+    ("int n", 2 ** 31), ("int n", 1.5), ("uint8_t n", -1),
+    ("int8_t n", 128), ("int64_t n", 2 ** 63), ("int n", onp.int64(2 ** 40))])
+def test_plan_refuses_what_does_not_fit(sig, value):
+    specs = rtc.parse_signature(sig)
+    plan = rtc.LaunchPlan(specs, 0, (1, 1, 1), (32, 1, 1), 0)
+    msg = _message(plan.pack, [value])
+    assert "cannot hold" in msg
+    assert msg == _message(rtc.pack_args, specs, [value])
+
+
+@pytest.mark.parametrize("card", [0, 1])
+def test_plan_refuses_host_arrays(monkeypatch, card):
+    """A card's plan refuses host arrays with ``check_launch``'s
+    message."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    specs = rtc.parse_signature("const float *x, float *y, int n")
+    args = [_cpu(onp.ones(4)), _cpu(onp.zeros(4)), 4]
+    plan = rtc.LaunchPlan(specs, card, (1, 1, 1), (32, 1, 1), 0)
+    msg = _message(plan.pack, args)
+    assert "on the host" in msg
+    assert msg == _message(rtc.check_launch, specs, args,
+                           mx.Context("gpu", 0), (1, 1, 1), (32, 1, 1), 0)
+
+
+@pytest.mark.parametrize("ctx,grid,block,smem,match", [
+    ("cpu", (1, 1, 1), (32, 1, 1), 0, "GPU context"),
+    ("gpu", (1, 1, 1), (32, 1, 1), 0, "GPU context"),
+    (None, (1, 1), (32, 1, 1), 0, "grid_dims"),
+    (None, (1, 1, 1), (0, 1, 1), 0, "block_dims"),
+    (None, (1, 1, 1), (32, 1, 1), rtc.MAX_SHARED_BYTES + 1, "at most")])
+def test_launch_plan_refuses_what_check_launch_refuses(ctx, grid, block,
+                                                       smem, match):
+    ctx = {"cpu": mx.cpu(), "gpu": "gpu"}.get(ctx, mx.Context("gpu", 0))
+    specs = rtc.parse_signature("const float *x, float *y, int n")
+    args = [_cpu(onp.ones(4)), _cpu(onp.zeros(4)), 4]
+    msg = _message(rtc.launch_plan, {}, specs, ctx, grid, block, smem)
+    assert match in msg
+    assert msg == _message(rtc.check_launch, specs, args, ctx, grid, block,
+                           smem)
+
+
+def test_launch_plan_is_reused_and_rebuilt():
+    """One plan per signature kinds and types, card, grid, block and
+    shared memory: the same launch (dims as a list or numpy ints too)
+    finds it again, a change of any one builds another."""
+    f32 = rtc.parse_signature(S.SIGNATURES["gelu_fwd"].format(T="float"))
+    bf16 = rtc.parse_signature(
+        S.SIGNATURES["gelu_fwd"].format(T="__nv_bfloat16"))
+    gpu0, gpu1 = mx.Context("gpu", 0), mx.Context("gpu", 1)
+    plans = {}
+    base = rtc.launch_plan(plans, f32, gpu0, (4, 1, 1), (256, 1, 1), 0)
+    for again in [(f32, mx.Context("gpu", 0), (4, 1, 1), (256, 1, 1), 0),
+                  (f32, gpu0, [4, 1, 1], onp.array([256, 1, 1]), 0),
+                  (f32, gpu0, (onp.int64(4), 1, 1), (256, 1, 1),
+                   onp.int32(0))]:
+        assert rtc.launch_plan(plans, *again) is base
+    others = [(bf16, gpu0, (4, 1, 1), (256, 1, 1), 0),
+              (f32, gpu1, (4, 1, 1), (256, 1, 1), 0),
+              (f32, gpu0, (8, 1, 1), (256, 1, 1), 0),
+              (f32, gpu0, (4, 1, 1), (128, 1, 1), 0),
+              (f32, gpu0, (4, 1, 1), (256, 1, 1), 1024)]
+    built = [rtc.launch_plan(plans, *o) for o in others]
+    assert len({id(p) for p in [base] + built}) == 6 == len(plans)
+    assert [rtc.launch_plan(plans, *o) for o in others] == built
+    assert base.dims == (4, 1, 1, 256, 1, 1, 0) and base.index == 0
+    assert (built[1].index, built[1].device) == (1, torch.device("cuda", 1))
+    assert built[4].dims[-1] == 1024 and base.record is None
+
+
+@pytest.mark.parametrize("sig,alias", [
+    (S.SIGNATURES["addmul"], True), ("const float *a, const float *b", False),
+    ("float *a, float *b, int n", False), ("const float *a, int n", False)])
+def test_plan_checks_aliasing_only_where_it_can_occur(sig, alias):
+    plan = rtc.LaunchPlan(rtc.parse_signature(sig), -1, (1, 1, 1),
+                          (32, 1, 1), 0)
+    assert plan.alias is alias
+
+
 def test_cache_key():
     k = rtc.cache_key(S.SOURCE, (), S.EXPORTS)
     assert k == rtc.cache_key(S.SOURCE, [], list(S.EXPORTS))
@@ -259,6 +417,105 @@ def test_gelu_kernels_match_plain(module, dtype, n, offset):
     assert (kf.launches, kb.launches) == (1, 1)
     assert S.err_units(y, S.gelu_fwd_plain(x)) <= 1
     assert S.err_units(dx, S.gelu_bwd_plain(x, dy)) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", [(8192 * 3072, 0), (1001, 0),
+                                      (4099, 1)])
+def test_plan_launch_matches_plain(module, dtype, n, offset):
+    """A second launch of the same signature takes the plan the first
+    built: the same bits as the first, within tolerance of the plain
+    version, one plan, two counted launches."""
+    ct = S.CTYPES[str(dtype)]
+    g = torch.Generator(device="cuda").manual_seed(n + 1)
+    x = torch.randn(n + offset, device="cuda", generator=g).to(dtype)[offset:]
+    ys = [torch.empty_like(x) for _ in range(2)]
+    k = module.get_kernel(f"gelu_fwd<{ct}>",
+                          S.SIGNATURES["gelu_fwd"].format(T=ct))
+    grid = S.elementwise_grid(n, x.element_size())
+    for y in ys:
+        k.launch([_nd(x), _nd(y), n], mx.gpu(0), grid, (S.THREADS, 1, 1))
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1])
+    assert S.err_units(ys[1], S.gelu_fwd_plain(x)) <= 1
+    assert (k.launches, len(k._by_key), len(k._plans)) == (2, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", ["eager", "captured"])
+def test_graph_capture_replays_eager_bits(module, first):
+    """A launch under ``torch.cuda.graph`` records; the replay gives the
+    eager launch's bits; the capture counts as a launch, a replay does
+    not.  ``first``: whether the signature's plan was built by an eager
+    launch or inside the capture."""
+    n = 4099
+    ct = "__nv_bfloat16"
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(n + 1, device="cuda", generator=g).bfloat16()[1:]
+    eager, replayed = torch.empty_like(x), torch.empty_like(x)
+    k = module.get_kernel(f"gelu_fwd<{ct}>",
+                          S.SIGNATURES["gelu_fwd"].format(T=ct))
+    grid, block = S.elementwise_grid(n, 2), (S.THREADS, 1, 1)
+    graph = torch.cuda.CUDAGraph()
+    if first == "eager":
+        k.launch([_nd(x), _nd(eager), n], mx.gpu(0), grid, block)
+    with torch.cuda.graph(graph):
+        k.launch([_nd(x), _nd(replayed), n], mx.gpu(0), grid, block)
+    if first == "captured":
+        k.launch([_nd(x), _nd(eager), n], mx.gpu(0), grid, block)
+    replayed.fill_(float("nan"))
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(eager.view(torch.int16), replayed.view(torch.int16))
+    assert k.launches == 2
+
+
+@pytest.mark.cuda
+def test_two_threads_launch_addmul(module):
+    """Two threads each launch ``addmul`` 1000 times, each launch into
+    its own output row, with the interpreter switching threads every
+    microsecond: every row holds its thread's result, and every launch
+    is counted."""
+    import sys
+    import threading
+
+    n, reps = 1000, 1000
+    k = module.get_kernel("addmul", S.SIGNATURES["addmul"])
+    xs = [torch.full((n,), float(i + 1), device="cuda") for i in range(2)]
+    ys = [torch.arange(n, dtype=torch.float32, device="cuda") * (i + 3)
+          for i in range(2)]
+    outs = [torch.full((reps, n), float("nan"), device="cuda")
+            for _ in range(2)]
+    errors = []
+
+    def work(i):
+        try:
+            x, y = _nd(xs[i]), _nd(ys[i])
+            for r in range(reps):
+                k.launch([x, y, _nd(outs[i][r]), n], mx.gpu(0), (4, 1, 1),
+                         (256, 1, 1))
+        except Exception as e:          # reported below, with the thread
+            errors.append((i, e))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    for i in range(2):
+        want = S.addmul_plain(xs[i], ys[i]).expand(reps, n)
+        torch.testing.assert_close(outs[i], want, rtol=0, atol=0)
+    assert k.launches == 2 * reps
 
 
 @pytest.mark.cuda
