@@ -107,7 +107,27 @@ Phases (each fails the run by raising; there is no CPU path):
    the same 20 steps with the switch off (cuDNN's backward, no K6);
 15. one SGD step of a small bottleneck ResNet (f32, TF32 off) on the card
    (K6) held against the same step on the CPU (its plain version);
-16. the fifth slice: K7 (``rtc.CudaModule``) compiles the user kernels of
+16. the tenth slice, the Gluon parameter layer, on ``mx.gpu(0)``: the
+   reference's headline loop (``Dense(128, activation="relu")``,
+   ``Dense(10)``, ``in_units`` deferred to 784, ``mx.init.Xavier()``,
+   ``hybridize()``, ``gluon.Trainer(net.collect_params(), "adam")``,
+   batch 64, 10 steps: losses finite and falling, every parameter on the
+   card); ResNet-50 v1 (``get_model("resnet50_v1", classes=1000,
+   layout="NHWC")``, ``initialize(ctx=mx.gpu(0))``, ``cast("bfloat16")``,
+   ``hybridize()``) through ``gluon.Trainer(net.collect_params(),
+   "sgd")`` on phase 14's batch as NDArrays, 20 steps of ``record``,
+   ``backward``, ``step``: K6 launched exactly 30 times a step and no other
+   kernel, losses finite, the first within 1.0 of ln(1000), falling; ms a
+   step and images/s beside phase 14's ``SPMDTrainer`` arm (their
+   difference is the Gluon layer's host cost), peak memory; then
+   ``save_parameters``, ``load_parameters(ctx=mx.gpu(0))`` into a fresh
+   net and an inference forward on both, equal bit for bit, the running
+   statistics unmoved; and one f32 SGD step of a small bottleneck ResNet
+   with deferred BatchNorms through the Gluon loop on the card against
+   the CPU, its weights carried by ``save_parameters``: loss and every
+   updated parameter within 1e-5 of the array's largest magnitude, every
+   gradient within 1e-4 (cuDNN's f32 weight gradients reach 2e-5);
+17. the fifth slice: K7 (``rtc.CudaModule``) compiles the user kernels of
    ``tests/_torch_rtc_sources.py`` with NVRTC (cold, then from the CUBIN
    cache); each (``gelu_fwd``/``gelu_bwd`` in bf16 and f32,
    ``softmax_rows`` with 96 KB of dynamic shared memory, ``addmul``) is
@@ -131,7 +151,7 @@ Phases (each fails the run by raising; there is no CPU path):
    a step, rows/s, peak memory, no step's buffers left for the cyclic
    collector, three profiled steps by group; and one f32
    step at 256 rows on the card against the CPU;
-17. one ``{"kernels": [...]}`` line, the card line, and as the last line
+18. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -1505,12 +1525,20 @@ def _resnet50():
     net.initialize(initializer.Xavier(rnd_type="uniform", factor_type="avg",
                                       magnitude=3), seed=0)
     net.cast("bfloat16")
+    return (net, *_resnet_batch())
+
+
+def _resnet_batch():
+    """Phase 14's synthetic batch: 128 x 3 x 224 x 224 bf16 in [0, 1)
+    and 128 labels, seeded, made on the card."""
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(15)
     data = torch.rand((RESNET_B, 3, 224, 224), generator=gen,
                       device="cuda").bfloat16()
     label = torch.randint(0, 1000, (RESNET_B,), generator=gen,
                           device="cuda")
-    return net, data, label
+    return data, label
 
 
 def _resnet_profile(trainer, net, data, label):
@@ -1718,7 +1746,7 @@ def check_resnet_vs_cpu():
     spec = ([1, 1, 1, 1], [16, 32, 64, 128, 256])
     cpu = ResNetV1(BottleneckV1, *spec, device="cpu", **kw)
     cpu.initialize(initializer.Xavier(magnitude=3), seed=3)
-    card = ResNetV1(BottleneckV1, *spec, **kw)
+    card = ResNetV1(BottleneckV1, *spec, device="cuda", **kw)
     card.load_state_dict(cpu.state_dict())
     rs = np.random.RandomState(16)
     data = rs.rand(8, 3, 32, 32).astype(np.float32)
@@ -1749,7 +1777,294 @@ def check_resnet_vs_cpu():
 
 
 # --------------------------------------------------------------------------- #
-# phase 16: K7 (rtc.CudaModule) and the imperative core, the fifth slice
+# phase 16: the Gluon parameter layer, the tenth slice
+# --------------------------------------------------------------------------- #
+
+GLUON_STEPS = 10            # the headline loop
+GLUON_RESNET_STEPS = 20     # ResNet-50 through gluon.Trainer
+GLUON_TOL = 1e-5            # f32 card vs CPU, of each array's largest value
+# cuDNN's f32 weight gradients of the 3x3 convolutions (TF32 off; its
+# algorithm varies from run to run) differ from the CPU's by 1.0-2.0e-5
+# of their largest value at 8 x 32 x 32, further from the float64 step
+# than the CPU's f32 (``gluon_vs_cpu`` prints both): gradients are held
+# to phase 15's 1e-4 instead
+GLUON_GRAD_TOL = 1e-4
+# biases of the bottleneck's 1x1 convolutions: a BatchNorm follows, so
+# their gradient is zero in exact arithmetic and summation noise in f32;
+# held to GLUON_TOL of the net's largest gradient (parameter) instead
+GLUON_NOISE = ("body.0.bias", "body.6.bias")
+
+
+def gluon_headline():
+    """The reference's headline loop on ``mx.gpu()``: ``Dense(128,
+    activation="relu")``, ``Dense(10)`` with ``in_units`` deferred (784),
+    ``mx.init.Xavier()``, ``hybridize()``, ``gluon.Trainer(
+    net.collect_params(), "adam")``, batch 64, 10 steps; losses finite and
+    falling, every parameter on the card."""
+    import math
+
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    mx.random.seed(0)
+    rs = np.random.RandomState(21)
+    x = mx.nd.array(rs.rand(64, 784), ctx=mx.gpu())
+    y = mx.nd.array(rs.randint(0, 10, 64), ctx=mx.gpu())
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(128, activation="relu"), gluon.nn.Dense(10))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu())
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adam")
+    losses = []
+    for _ in range(GLUON_STEPS):
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+        loss.backward()
+        trainer.step(64)
+        losses.append(loss.mean())
+    losses = [float(v.asscalar()) for v in losses]
+    shapes = [p.shape for p in net.collect_params().values()]
+    on_card = all(p.data()._data.is_cuda and p.grad()._data.is_cuda
+                  for p in net.collect_params().values())
+    print(f"gluon headline: Dense(128, relu) + Dense(10), 784 deferred, "
+          f"batch 64, adam, {GLUON_STEPS} steps on {mx.gpu()}; losses "
+          f"{[round(v, 4) for v in losses]}; parameters {shapes}, on the "
+          f"card: {on_card}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"gluon headline: losses not finite and falling: {losses}")
+    if not on_card or shapes[0] != (128, 784):
+        fail(f"gluon headline: parameters {shapes}, on the card {on_card}")
+    return dict(losses=losses, shapes=shapes)
+
+
+def _gluon_resnet50(mx):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+
+    net = get_model("resnet50_v1", classes=1000, layout="NHWC")
+    net.initialize(mx.init.Xavier(rnd_type="uniform", factor_type="avg",
+                                  magnitude=3), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    net.hybridize()
+    return net
+
+
+def gluon_resnet(spmd_row):
+    """ResNet-50 v1 at full width through the Gluon loop on
+    ``mx.gpu(0)``: phase 14's batch as NDArrays, ``gluon.Trainer(
+    net.collect_params(), "sgd", RESNET_OPT)``, 20 steps of ``record``,
+    ``backward``, ``step(128)`` with ``MXNET_FUSED_CONV_BWD=1``: K6
+    launched exactly 30 times a step and no other kernel; losses finite,
+    the first within 1.0 of ln(1000), falling; ms a step beside phase
+    14's ``SPMDTrainer`` arm of this run.  Then ``save_parameters``,
+    ``load_parameters(ctx=mx.gpu(0))`` into a fresh net and an inference
+    forward on both: equal bit for bit, running statistics unmoved."""
+    import math
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    net = _gluon_resnet50(mx)
+    data, label = _resnet_batch()
+    x, y = mx.nd.NDArray(data), mx.nd.NDArray(label)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(RESNET_OPT))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(RESNET_B)
+        return loss._data.detach().float().mean()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    cf.conv1x1_bwd_pair.launches = 0
+    t0 = time.perf_counter()
+    losses = [step()]                       # the deferred shapes, too
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses += [step() for _ in range(GLUON_RESNET_STEPS - 1)]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(_counts(), conv1x1_bwd=cf.conv1x1_bwd_pair.launches)
+    losses = [float(v) for v in losses]
+    rest = GLUON_RESNET_STEPS - 1
+    row = dict(losses=losses, ms_per_step=(t2 - t1) / rest * 1e3,
+               images_per_s=rest * RESNET_B / (t2 - t1),
+               first_step_ms=(t1 - t0) * 1e3,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               allocated_at_start=start, launches=launches,
+               spmd_ms_per_step=spmd_row["ms_per_step"],
+               spmd_images_per_s=spmd_row["images_per_s"])
+    row["host_cost_ms"] = row["ms_per_step"] - row["spmd_ms_per_step"]
+    print(f"gluon resnet: resnet50_v1 NHWC bf16 through gluon.Trainer, "
+          f"B={RESNET_B} 224x224, {GLUON_RESNET_STEPS} SGD steps; losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    print(f"gluon resnet: images/s={row['images_per_s']:.2f} ms/step="
+          f"{row['ms_per_step']:.3f} (steps 2-{GLUON_RESNET_STEPS}; first "
+          f"step {row['first_step_ms']:.3f} ms) beside SPMDTrainer "
+          f"{row['spmd_ms_per_step']:.3f} ms/step "
+          f"({row['spmd_images_per_s']:.2f} images/s, phase 14): the Gluon "
+          f"layer's host cost {row['host_cost_ms']:.3f} ms a step; "
+          f"max_memory_allocated={row['max_memory_allocated']} "
+          f"({row['max_memory_allocated'] - start} above the phase's start) "
+          f"launches {launches}", flush=True)
+    expect = K6_PER_STEP * GLUON_RESNET_STEPS
+    if launches["conv1x1_bwd"] != expect:
+        fail(f"gluon resnet: K6 launched {launches['conv1x1_bwd']} times, "
+             f"expected {expect}")
+    if any(n for k, n in launches.items() if k != "conv1x1_bwd"):
+        fail(f"gluon resnet: other kernels launched: {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"gluon resnet: losses not finite: {losses}")
+    if abs(losses[0] - math.log(1000)) > 1.0:
+        fail(f"gluon resnet: first loss {losses[0]} is not within 1.0 of "
+             "ln(1000)")
+    if not losses[-1] < losses[0]:
+        fail(f"gluon resnet: loss did not fall: {losses}")
+    # save, load into a fresh net on the card, infer on both
+    path = os.path.join(HERE, "build", "gluon_resnet50.params")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    net.save_parameters(path)
+    twin = _gluon_resnet50(mx)
+    twin.load_parameters(path, ctx=mx.gpu(0))
+    os.remove(path)
+
+    def stats(m):
+        return [p.data()._data.clone() for k, p in
+                m._collect_params_with_prefix().items() if "running" in k]
+
+    before = stats(net)
+    out = [m(x)._data for m in (net, twin)]
+    moved = any(not torch.equal(a, b) for a, b in zip(before, stats(net)))
+    same_params = all(torch.equal(p.data()._data, q.data()._data)
+                      for p, q in zip(net.collect_params().values(),
+                                      twin.collect_params().values()))
+    row["round_trip_equal"] = bool(torch.equal(out[0], out[1]))
+    print(f"gluon resnet: save_parameters -> load_parameters(ctx=gpu(0)): "
+          f"parameters equal {same_params}, inference logits equal bit for "
+          f"bit {row['round_trip_equal']}, running statistics moved by the "
+          f"inference forward {moved}", flush=True)
+    if not (same_params and row["round_trip_equal"]) or moved:
+        fail("gluon resnet: the save/load round trip or the inference "
+             "forward is wrong")
+    del net, twin, trainer, out, before
+    torch.cuda.empty_cache()
+    return row
+
+
+def _gluon_small(mx, ctx):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
+                                                        ResNetV1)
+    with ctx:
+        return ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 32, 64, 128, 256],
+                        classes=10, thumbnail=True, layout="NHWC")
+
+
+def gluon_vs_cpu():
+    """One f32 SGD step of a small bottleneck ResNet built with deferred
+    BatchNorms, through the Gluon loop, on the card (K6, TF32 off) and on
+    the CPU, its weights carried by ``save_parameters``: the loss and
+    every updated parameter (running statistics included) within 1e-5 of
+    the array's largest magnitude, every gradient by structural name
+    within ``GLUON_GRAD_TOL``."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    rs = np.random.RandomState(17)
+    xa = rs.rand(8, 3, 32, 32).astype(np.float32)
+    ya = rs.randint(0, 10, 8).astype(np.float32)
+    mx.random.seed(3)
+    cpu = _gluon_small(mx, mx.cpu())
+    cpu.initialize(mx.init.Xavier(magnitude=3), ctx=mx.cpu())
+    cpu(mx.nd.array(xa, ctx=mx.cpu()))      # the deferred shapes
+    path = os.path.join(HERE, "build", "gluon_small.params")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    cpu.save_parameters(path)
+    card = _gluon_small(mx, mx.gpu(0))
+    card.load_parameters(path, ctx=mx.gpu(0))
+    cpu64 = _gluon_small(mx, mx.cpu())      # the yardstick of both
+    cpu64.load_parameters(path, ctx=mx.cpu())
+    cpu64.cast("float64")
+    os.remove(path)
+    res = {}
+    cf.conv1x1_bwd_pair.launches = 0
+    for name, net, ctx in (("card", card, mx.gpu(0)), ("cpu", cpu, mx.cpu()),
+                           ("cpu64", cpu64, mx.cpu())):
+        dt = "float64" if name == "cpu64" else "float32"
+        x, y = (mx.nd.array(a, ctx=ctx, dtype=dt) for a in (xa, ya))
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                dict(RESNET_OPT))
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+        loss.backward()
+        params = net._collect_params_with_prefix()
+        grads = {k: p.grad().asnumpy() for k, p in params.items()
+                 if p.grad_req != "null"}
+        trainer.step(8)
+        res[name] = dict(loss=loss.asnumpy(), grads=grads,
+                         after={k: p.data().asnumpy()
+                                for k, p in params.items()})
+    launches = cf.conv1x1_bwd_pair.launches
+
+    def worst(what, side="card", ref_side="cpu"):
+        """The three largest errors, each over its array's largest
+        magnitude, with the arrays' structural names."""
+        got, ref = res[side][what], res[ref_side][what]
+        net_scale = max(float(np.abs(a).max()) for a in ref.values())
+        errs = []
+        for k, r in ref.items():
+            scale = net_scale if k.endswith(GLUON_NOISE) else \
+                max(float(np.abs(r).max()), 1e-30)
+            errs.append((float(np.abs(got[k] - r).max()) / scale, k))
+        return sorted(errs, reverse=True)[:3]
+
+    grads, after = worst("grads"), worst("after")
+    vs64 = {side: worst("grads", side, "cpu64")[0] for side in ("card", "cpu")}
+    row = dict(loss_card=res["card"]["loss"].tolist(),
+               loss_cpu=res["cpu"]["loss"].tolist(),
+               loss_rel=float(np.abs(res["card"]["loss"] - res["cpu"]["loss"])
+                              .max() / np.abs(res["cpu"]["loss"]).max()),
+               grad_rel=grads[0][0], param_rel=after[0][0],
+               worst_grads=grads, worst_params=after,
+               grads_vs_float64=vs64, launches=launches)
+    print(f"gluon vs cpu: small bottleneck v1, deferred BatchNorm, f32 SGD "
+          f"step through gluon.Trainer: loss {row['loss_rel']:.3e}, "
+          f"updated parameters {row['param_rel']:.3e} (tol {GLUON_TOL}), "
+          f"gradients {row['grad_rel']:.3e} (tol {GLUON_GRAD_TOL}) of each "
+          f"array's largest magnitude; K6 launches {launches} (expected "
+          f"6); worst "
+          f"gradients {[(f'{e:.3e}', k) for e, k in grads]}, parameters "
+          f"{[(f'{e:.3e}', k) for e, k in after]}; worst gradient against "
+          f"the CPU's float64 step: card {vs64['card'][0]:.3e} "
+          f"({vs64['card'][1]}), CPU f32 {vs64['cpu'][0]:.3e} "
+          f"({vs64['cpu'][1]})", flush=True)
+    if launches != 6:
+        fail(f"gluon vs cpu: K6 launched {launches} times, expected 6")
+    if max(row["loss_rel"], row["param_rel"]) > GLUON_TOL or \
+            row["grad_rel"] > GLUON_GRAD_TOL:
+        fail("the card's Gluon step disagrees with the CPU's")
+    return row
+
+
+def check_gluon(spmd_row):
+    return dict(headline=gluon_headline(), resnet=gluon_resnet(spmd_row),
+                vs_cpu=gluon_vs_cpu())
+
+
+# --------------------------------------------------------------------------- #
+# phase 17: K7 (rtc.CudaModule) and the imperative core, the fifth slice
 # --------------------------------------------------------------------------- #
 
 # GPT-2 small's MLP width at 8 x 1024 tokens
@@ -2315,6 +2630,7 @@ def main():
     k6 = check_k6()
     vision = dict(fused=check_resnet(True), unfused=check_resnet(False),
                   vs_cpu=check_resnet_vs_cpu())
+    gluon = check_gluon(vision["fused"])
 
     import mxnet_tpu_torch as mx
 
@@ -2376,11 +2692,14 @@ def main():
              unfused_step_ms=k5[0]["unfused_step_ms"],
              design=k5_design["design"]),
         # K6: per ResNet-50 step (30 launches at nine shapes, bf16); the
-        # library call is cuDNN's backward (dx and dW in one call)
+        # library call is cuDNN's backward (dx and dW in one call); its
+        # launches are those of both ResNet-50 arms (SPMDTrainer, phase
+        # 14, and gluon.Trainer, phase 16)
         dict(name="conv1x1_bwd", route="cuda",
              source="mxnet_tpu_torch/csrc/conv1x1_bwd.cu",
              replaces="mxnet_tpu/ops/conv_fused.py:134",
-             launches=vision["fused"]["launches"]["conv1x1_bwd"],
+             launches=vision["fused"]["launches"]["conv1x1_bwd"] +
+             gluon["resnet"]["launches"]["conv1x1_bwd"],
              max_abs_err=k6["max_abs_err"], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
@@ -2410,7 +2729,8 @@ def main():
                        k3_design=k3_design, k6_design=k6_design,
                        k5_design=k5_design,
                        serve=srv, train=train, bert=bert, k5=k5,
-                       fused=fused, k6=k6, vision=vision, rtc=rtc,
+                       fused=fused, k6=k6, vision=vision, gluon=gluon,
+                       rtc=rtc,
                        mlp=mlp, kernels=kernels),
                   fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))

@@ -22,7 +22,10 @@ imperative core: ``nd`` (``NDArray`` and the op registry), ``autograd``,
 ``context`` (``cpu()``, ``gpu()``), ``operator`` (custom ops) and ``rtc``
 (CUDA kernels compiled at run time by NVRTC), so that ``import
 mxnet_tpu_torch as mx`` reads like the reference's ``import mxnet_tpu as
-mx``.
+mx``.  The tenth is Gluon's parameter layer: ``gluon.Parameter``,
+``ParameterDict``, deferred initialization, ``collect_params()``,
+``save_parameters``/``load_parameters`` and ``mx.init``, with NDArrays in
+and out of every block, loss and ``gluon.Trainer``.
 """
 __version__ = "0.1.0"
 
@@ -35,7 +38,8 @@ _SUBPACKAGES = ("ops", "models", "serve", "gluon", "optimizer", "parallel",
                 "random", "initializer", "ndarray", "autograd", "context",
                 "operator", "rtc")
 # names of the imperative core, taken from the module that holds them
-_FROM = {"nd": ("ndarray", None), "cpu": ("context", "cpu"),
+_FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
+         "cpu": ("context", "cpu"),
          "gpu": ("context", "gpu"), "Context": ("context", "Context"),
          "current_context": ("context", "current_context"),
          "num_gpus": ("context", "num_gpus")}

@@ -137,6 +137,9 @@ def _seeds(heads, head_grads):
 # ``_Bridge.backward``, which torch may run on its own device thread, so
 # it is process-wide rather than thread-local.
 _retaining = False
+# whether a backward of this module is running: an adopted parameter's
+# hook (``ndarray._leaf``) hands its gradient to ``.grad`` only then
+_in_backward = False
 
 
 def _run(fn, heads, retain_graph):
@@ -188,13 +191,18 @@ def _free(heads):
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """``mx.autograd.backward`` — gradients land in each variable's
     ``.grad``."""
+    global _in_backward
     heads, outs, seeds = _seeds(heads, head_grads)
     if not outs:
         return
-    with pause(train_mode=train_mode):
-        _run(lambda: torch.autograd.backward(outs, seeds,
-                                             retain_graph=retain_graph),
-             heads, retain_graph)
+    prev, _in_backward = _in_backward, True
+    try:
+        with pause(train_mode=train_mode):
+            _run(lambda: torch.autograd.backward(outs, seeds,
+                                                 retain_graph=retain_graph),
+                 heads, retain_graph)
+    finally:
+        _in_backward = prev
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

@@ -1,55 +1,442 @@
-"""The base of the port's Gluon layers.
+"""Gluon ``Block`` and ``HybridBlock``.
 
-Counterpart of ``mxnet_tpu/gluon/block.py`` for the layers of
-``gluon.nn``: a ``HybridBlock`` is an ``nn.Module`` whose parameters live
-on the card unless it was built with ``device="cpu"``.  ``initialize``
-fills them through ``initializer.initialize`` (the reference's name
-rules and per-layer initializers, from one seeded generator), ``cast``
-converts every parameter, running statistics included, as the
-reference's ``Block.cast`` does.  Shapes are given when a layer is built:
-the reference's deferred shape inference (``in_channels=0``) comes with
-a later slice and raises here.
+Port of ``mxnet_tpu/gluon/block.py``.  A block is an ``nn.Module`` (so
+``.to()``, ``named_parameters()``, ``state_dict()`` and
+``parallel.SPMDTrainer`` work on it) with the reference's Gluon surface:
+name scopes (``prefix``, ``name``, ``params``, ``name_scope()``), so
+``collect_params()`` gives the reference's flat names (``dense0_weight``)
+and ``save_parameters`` its structural ones (``features.0.weight``);
+``register_child``; forward hooks and pre-hooks with handles;
+``initialize(init, ctx)``; ``save_parameters``/``load_parameters``;
+``cast``; ``zero_grad``; ``reset_ctx``; ``summary``; and deferred shape
+inference: a layer built without a size (``Dense(in_units=0)``) infers
+it from its first input (``infer_shape``) and creates its parameters
+then.
+
+A Gluon ``Parameter`` assigned to a block (``self.weight =
+self.params.get("weight", ...)``) stays the attribute, and its tensor is
+registered under the same name in the module's ``_parameters``: layers
+read their tensors from ``self._parameters``.
+
+Called with ``NDArray``s, a block unwraps them, runs its forward under
+``torch.enable_grad()`` inside ``autograd.record()`` and under
+``torch.no_grad()`` otherwise, and wraps its outputs back into
+``NDArray``s; inside such a call the layers follow
+``autograd.is_training()`` (BatchNorm's batch statistics and their
+commit).  Called with tensors, a block is a plain ``nn.Module``: the
+layers follow ``nn.Module.training`` (``SPMDTrainer`` sets ``train()``).
+
+``hybridize()`` records its flags and nothing else in this slice: the
+forward stays imperative and the hooks fire.  The reference's trace
+into one program (``_CachedOp``), ``export``, ``optimize_for`` and
+``SymbolBlock`` raise ``MXNetError``: a CUDA-graph capture of the whole
+step belongs to the fused train step, a later slice.
 """
 from __future__ import annotations
 
+import re
+import threading
+from collections import OrderedDict
+
+import numpy as np
 import torch
 from torch import nn
 
-from .. import initializer as _init
-from ..base import MXNetError, torch_dtype
+from ..base import MXNetError
+from ..context import current_context
+from ..device import resolve_device
+from ..ndarray.ndarray import NDArray
+from ..ops.registry import _unwrap
+from .parameter import Parameter, ParameterDict, _load_file
 
-__all__ = ["HybridBlock", "deferred"]
-
-
-def deferred(layer, what):
-    return MXNetError(f"{layer}: {what}=0 asks for deferred shape "
-                      "inference, which comes with a later slice of "
-                      "mxnet_tpu_torch; pass the size explicitly")
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
-class HybridBlock(nn.Module):
-    """``nn.Module`` with the reference block's ``initialize`` and
-    ``cast``.  ``_inits`` maps a parameter's attribute name to
-    the initializer its layer was given for it."""
+def _later(what):
+    return MXNetError(f"{what} is not ported yet: the fused train step (a "
+                      "CUDA-graph capture of forward, backward and update) "
+                      "comes with a later slice of mxnet_tpu_torch; "
+                      "hybridize() keeps the forward imperative")
 
-    def __init__(self):
+
+# --------------------------------------------------------------------------- #
+# naming scope (reference ``_BlockScope``)
+# --------------------------------------------------------------------------- #
+
+class _BlockScope:
+    _current = threading.local()
+    _global_counter: dict = {}
+
+    def __init__(self, block):
+        self._block = block
+        self._counter: dict = {}
+        self._old = None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        """(prefix, ParameterDict) of a new block."""
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                count = _BlockScope._global_counter.get(hint, 0)
+                _BlockScope._global_counter[hint] = count + 1
+                prefix = f"{hint}{count}_"
+            params = ParameterDict(prefix) if params is None else \
+                ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            current._counter[hint] = count + 1
+            prefix = f"{hint}{count}_"
+        full_prefix = current._block.prefix + prefix
+        params = ParameterDict(full_prefix) if params is None else \
+            ParameterDict(params.prefix, params)
+        return full_prefix, params
+
+    def __enter__(self):
+        self._old = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, *a):
+        _BlockScope._current.value = self._old
+
+
+def _classname_hint(name):
+    out = []
+    for i, ch in enumerate(name):
+        if ch.isupper() and i > 0 and not name[i - 1].isupper():
+            out.append("_")
+        out.append(ch.lower())
+    return "".join(out).replace("_", "")
+
+
+class _HookHandle:
+    _next_id = [0]
+
+    def __init__(self, hooks, hook):
+        self._hooks = hooks
+        self._id = _HookHandle._next_id[0]
+        _HookHandle._next_id[0] += 1
+        hooks[self._id] = hook
+
+    def detach(self):
+        self._hooks.pop(self._id, None)
+
+    remove = detach
+
+
+# the training flag of the innermost call made with NDArrays (None
+# outside one: layers then follow nn.Module.training)
+_MODE = threading.local()
+
+
+def _wrap(out):
+    if isinstance(out, torch.Tensor):
+        return NDArray(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_wrap(o) for o in out)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Block
+# --------------------------------------------------------------------------- #
+
+class Block(nn.Module):
+    """Base container (reference ``Block``)."""
+
+    def __init__(self, prefix=None, params=None):
         super().__init__()
-        self._inits = {}
+        hint = _classname_hint(type(self).__name__)
+        self._prefix, self._params = _BlockScope.create(prefix, params, hint)
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._reg_params: "OrderedDict[str, Parameter]" = OrderedDict()
+        self._mx_hooks: OrderedDict = OrderedDict()
+        self._mx_pre_hooks: OrderedDict = OrderedDict()
+        self._ready = False     # every own parameter created
 
-    def _param(self, name, shape, device, dtype, init=None,
-               requires_grad=True):
-        p = nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                         requires_grad=requires_grad)
-        setattr(self, name, p)
-        if init is not None:
-            self._inits[name] = init
-        return p
+    # -- naming ----------------------------------------------------------- #
+    @property
+    def prefix(self):
+        return self._prefix
 
-    def initialize(self, init=None, seed=0):
-        """Fill every parameter (``initializer.initialize``); returns
-        ``self``."""
-        return _init.initialize(self, init, seed)
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        """``with self.name_scope():`` children and parameters made inside
+        are named under this block's prefix."""
+        return self._scope
+
+    @property
+    def params(self) -> ParameterDict:
+        return self._params
+
+    @property
+    def _children(self):
+        return OrderedDict((k, m) for k, m in self._modules.items()
+                           if isinstance(m, Block))
+
+    # -- registration ----------------------------------------------------- #
+    def __setattr__(self, name, value):
+        reg = self.__dict__.get("_reg_params")
+        if isinstance(value, Parameter):
+            self._parameters.pop(name, None)
+            self._modules.pop(name, None)
+            object.__setattr__(self, name, value)
+            reg[name] = value
+            value._attach(self, name)
+            self._ready = False
+            return
+        if reg is not None and name in reg:
+            del reg[name]
+            self._parameters.pop(name, None)
+            object.__delattr__(self, name)
+        super().__setattr__(name, value)
+
+    def register_child(self, block, name=None):
+        self.add_module(name or str(len(self._modules)), block)
+        return block
+
+    def register_forward_hook(self, hook):
+        """``hook(block, inputs, output)`` after every forward; returns a
+        handle with ``detach()``."""
+        return _HookHandle(self._mx_hooks, hook)
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, inputs)`` before every forward."""
+        return _HookHandle(self._mx_pre_hooks, hook)
+
+    # -- parameter management --------------------------------------------- #
+    def _place(self, device):
+        """Create this block's parameters now if every shape is known:
+        on ``device``, else on the current context.  A block with a size
+        left to infer waits for its first forward (``initialize`` then
+        creates the others on its ``ctx``); given a ``device`` it is
+        built at once, so it needs every size."""
+        todo = [p for p in self._reg_params.values() if p._data is None]
+        unknown = [p for p in todo if not all(p.shape or (0,))]
+        if unknown:
+            if device is not None:
+                raise MXNetError(
+                    f"{type(self).__name__}: parameter {unknown[0].name} "
+                    f"has unknown shape {unknown[0].shape}; a block built "
+                    "with device= creates its parameters at once and needs "
+                    "every size: give it, or leave device out for deferred "
+                    "shape inference at the first forward")
+            return
+        if todo:
+            dev = resolve_device(device) if device is not None else \
+                current_context().torch_device()
+            for p in todo:
+                p._create(dev)
+
+    def collect_params(self, select=None) -> ParameterDict:
+        """Every parameter of the subtree by its flat name, optionally
+        those matching the regex ``select`` (reference
+        ``collect_params('.*weight')``)."""
+        ret = ParameterDict(self._params.prefix)
+        if select is None:
+            ret.update(self._params)
+        else:
+            pat = re.compile(select)
+            ret.update({k: v for k, v in self._params.items()
+                        if pat.match(k)})
+        for child in self._children.values():
+            ret.update(child.collect_params(select))
+        return ret
+
+    def _collect_params_with_prefix(self, prefix=""):
+        """Structural names (``features.0.weight``), those of
+        ``save_parameters`` and of ``named_parameters()``."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + n: p for n, p in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, seed=None):
+        """Initialize every parameter (``ParameterDict.initialize``) on
+        ``ctx`` (default the current context, ``gpu(0)``); ``seed`` draws
+        from generators of that seed instead of ``mx.random``'s.
+        Returns ``self``."""
+        self.collect_params().initialize(init, ctx, verbose, force_reinit,
+                                         seed=seed)
+        return self
+
+    def save_parameters(self, filename, deduplicate=False):
+        """The reference's ``.params`` file, by structural name."""
+        from ..ndarray import serialization
+
+        arrays, seen = {}, set()
+        for name, p in self._collect_params_with_prefix().items():
+            if deduplicate and id(p) in seen:
+                continue
+            seen.add(id(p))
+            arrays[name] = p.data()
+        serialization.save(filename, arrays)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a ``.params`` file by structural name, or by flat name
+        (one that ``ParameterDict.save`` wrote).  Arrays take each
+        parameter's dtype, unless ``cast_dtype`` with ``dtype_source=
+        "saved"``, where the parameters take the file's."""
+        loaded = _load_file(filename)
+        params = self._collect_params_with_prefix()
+        cast = cast_dtype and dtype_source == "saved"
+        if not any("." in k for k in loaded) and \
+                any("." in k for k in params):
+            params = {p.name: p for p in params.values()}
+        for name, p in params.items():
+            if name in loaded:
+                p._load_init(loaded[name], ctx, cast_dtype=cast)
+            elif not allow_missing:
+                raise MXNetError(f"missing parameter {name} in {filename}")
+        if not ignore_extra:
+            extra = set(loaded) - set(params)
+            if extra:
+                raise MXNetError(f"extra parameters in {filename}: "
+                                 f"{sorted(extra)}")
 
     def cast(self, dtype):
-        """Convert every parameter to ``dtype`` (e.g. "bfloat16")."""
-        return self.to(dtype=torch_dtype(dtype))
+        """Convert every parameter (running statistics included) to
+        ``dtype``; returns ``self``."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for p in self._reg_params.values():
+            p.cast(dtype)
+        return self
+
+    def zero_grad(self, set_to_none=True):
+        """Zero every parameter's ``grad()`` (and clear the tensors'
+        ``.grad``, as ``nn.Module.zero_grad`` does)."""
+        self.collect_params().zero_grad()
+        super().zero_grad(set_to_none)
+
+    def reset_ctx(self, ctx):
+        self.collect_params().reset_ctx(ctx)
+
+    def hybridize(self, active=True, **kwargs):
+        for child in self._children.values():
+            child.hybridize(active, **kwargs)
+
+    def summary(self, *inputs):
+        """Print each block with its parameter count (reference
+        ``Block.summary``)."""
+        rows = []
+
+        def walk(block, depth):
+            n = sum(int(np.prod(p.shape)) for p in block._reg_params.values()
+                    if p.shape and all(s > 0 for s in p.shape))
+            rows.append(("  " * depth + type(block).__name__, block.name, n))
+            for c in block._children.values():
+                walk(c, depth + 1)
+
+        walk(self, 0)
+        lines = [f"{'Layer':<40}{'Name':<30}{'Params':>12}", "-" * 82]
+        lines += [f"{r[0]:<40}{r[1]:<30}{r[2]:>12}" for r in rows]
+        lines += ["-" * 82,
+                  f"{'Total params:':<70}{sum(r[2] for r in rows):>12}"]
+        print("\n".join(lines))
+
+    # -- forward ----------------------------------------------------------- #
+    def _is_training(self):
+        """``autograd.is_training()`` inside a call made with NDArrays,
+        else ``nn.Module.training``."""
+        mode = getattr(_MODE, "training", None)
+        return self.training if mode is None else mode
+
+    def infer_shape(self, *args):
+        raise MXNetError(
+            f"{type(self).__name__} has deferred-init parameters but no "
+            "infer_shape; give explicit in_units/in_channels or override "
+            "infer_shape")
+
+    def _prepare(self, args):
+        """Create the parameters whose shapes wait on the first input."""
+        if any(p._data is None for p in self._reg_params.values()):
+            self.infer_shape(*args)
+            for p in self._reg_params.values():
+                p._finish_deferred_init()
+        self._ready = True
+
+    def __call__(self, *args, **kwargs):
+        for hook in self._mx_pre_hooks.values():
+            hook(self, args)
+        if any(isinstance(a, NDArray) for a in args):
+            out = self._call_nd(args, kwargs)
+        else:
+            if not self._ready:
+                self._prepare(args)
+            out = super().__call__(*args, **kwargs)
+        for hook in self._mx_hooks.values():
+            hook(self, args, out)
+        return out
+
+    def _call_nd(self, args, kwargs):
+        from .. import autograd
+
+        tensors = [_unwrap(a) for a in args]
+        kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
+        prev = getattr(_MODE, "training", None)
+        _MODE.training = autograd.is_training()
+        try:
+            with torch.enable_grad() if autograd.is_recording() \
+                    else torch.no_grad():
+                if not self._ready:
+                    self._prepare(tensors)
+                out = super().__call__(*tensors, **kwargs)
+        finally:
+            _MODE.training = prev
+        return _wrap(out)
+
+
+class HybridBlock(Block):
+    """A block that can be hybridized (reference ``HybridBlock``); in this
+    slice ``hybridize`` records its flags and the forward stays
+    imperative."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._flags = {}
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        self._active = active
+        self._flags = dict(static_alloc=static_alloc,
+                           static_shape=static_shape, **kwargs)
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        raise _later("HybridBlock.export (symbol.json + .params)")
+
+    def optimize_for(self, x, *args, backend=None, **kwargs):
+        raise _later("HybridBlock.optimize_for")
+
+
+class _CachedOp:
+    """The reference's traced, compiled forward of a hybridized block."""
+
+    def __init__(self, block, flags=None):
+        raise _later("_CachedOp")
+
+
+class SymbolBlock(HybridBlock):
+    """The reference's block over a Symbol graph."""
+
+    def __init__(self, outputs, inputs, params=None, prefix=None):
+        raise _later("SymbolBlock (the port has no symbolic graph)")
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        raise _later("SymbolBlock.imports")

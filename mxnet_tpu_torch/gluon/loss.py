@@ -1,19 +1,20 @@
 """Loss layers.
 
-Port of ``mxnet_tpu/gluon/loss.py`` (``Loss``, ``L2Loss``,
-``SoftmaxCrossEntropyLoss``) as ``nn.Module``s, with the reference's
+Port of ``mxnet_tpu/gluon/loss.py`` (``Loss``, ``L1Loss``, ``L2Loss``,
+``SoftmaxCrossEntropyLoss``) as ``HybridBlock``s, with the reference's
 semantics: a loss is per sample, the mean over every axis but
 ``batch_axis``; ``weight`` is a number the loss is multiplied by, and
-``sample_weight`` a tensor broadcast against it.
+``sample_weight`` a tensor broadcast against it.  A loss takes and
+returns ``NDArray``s (``Block``'s bridge), or tensors.
 """
 from __future__ import annotations
 
-from torch import nn
-
 from ..base import MXNetError
 from ..ops.nn import log_softmax, pick, sparse_softmax_ce
+from .block import HybridBlock
 
-__all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+__all__ = ["Loss", "L1Loss", "L2Loss", "SoftmaxCrossEntropyLoss",
+           "SoftmaxCELoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -26,9 +27,9 @@ def _apply_weighting(loss, weight=None, sample_weight=None):
     return loss
 
 
-class Loss(nn.Module):
-    def __init__(self, weight, batch_axis):
-        super().__init__()
+class Loss(HybridBlock):
+    def __init__(self, weight, batch_axis, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._weight = weight
         self._batch_axis = batch_axis
 
@@ -40,11 +41,23 @@ class Loss(nn.Module):
         return loss.mean(dim=axes) if axes else loss
 
 
+class L1Loss(Loss):
+    """|pred - label|."""
+
+    def __init__(self, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def forward(self, pred, label, sample_weight=None):
+        loss = (label.reshape(pred.shape) - pred).abs()
+        loss = _apply_weighting(loss, self._weight, sample_weight)
+        return self._mean_excl_batch(loss)
+
+
 class L2Loss(Loss):
     """0.5 * (pred - label)^2 (the 0.5 matches the reference)."""
 
-    def __init__(self, weight=1.0, batch_axis=0):
-        super().__init__(weight, batch_axis)
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
 
     def forward(self, pred, label, sample_weight=None):
         loss = (label.reshape(pred.shape) - pred).square()
@@ -58,8 +71,8 @@ class SoftmaxCrossEntropyLoss(Loss):
     pred[label]`` (f32 inside the reductions, no (N, V) f32 array)."""
 
     def __init__(self, axis=-1, sparse_label=True, from_logits=False,
-                 weight=None, batch_axis=0):
-        super().__init__(weight, batch_axis)
+                 weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
         self._axis = axis
         self._sparse_label = sparse_label
         self._from_logits = from_logits

@@ -10,12 +10,14 @@ transpose at the stem (BatchNorm over axis -1); there every 1x1
 stride-1 convolution may take the fused backward K6
 (``MXNET_FUSED_CONV_BWD=1``).
 
-The reference infers the input channels of several layers from the
-first forward; the port gives every layer its size when it is built
-(images have 3 channels).  Layers are built in the reference's order,
-so ``models/convert.py`` can name the parameters as the reference does.
-Every layer is created on ``device`` (``cuda:0`` by default) in
-``dtype``.
+The nets are built in the reference's name scopes, so
+``collect_params()`` names every parameter as the reference does
+(``resnetv10_stage3_batchnorm7_running_var``) and a ``.params`` file
+carries both ways.  Without ``device`` the layers the reference sizes
+at the first forward (the BatchNorms, the bottlenecks' 1x1
+convolutions, the stem) infer their sizes then, and the others are
+created on the current context; with ``device`` every layer is built
+at once on it, with its size (images have 3 channels), in ``dtype``.
 """
 from __future__ import annotations
 
@@ -34,10 +36,21 @@ __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
 _IMAGE_CHANNELS = 3
 
 
-def _conv3x3(channels, stride, in_channels, layout, **dev):
+def _sized(n, dev):
+    """A size the reference infers at the first forward: given only to
+    a net built at once on a ``device``."""
+    return n if dev["device"] is not None else 0
+
+
+def _conv3x3(channels, stride, in_channels, layout, dev):
     return nn.Conv2D(channels, kernel_size=3, strides=stride, padding=1,
                      use_bias=False, in_channels=in_channels, layout=layout,
                      **dev)
+
+
+def _bn(ax, channels, dev, **kw):
+    return nn.BatchNorm(axis=ax, in_channels=_sized(channels, dev), **kw,
+                        **dev)
 
 
 def _bn_axis(layout):
@@ -45,28 +58,30 @@ def _bn_axis(layout):
     return 1 if layout[1] == "C" else -1
 
 
+def _downsample_v1(channels, stride, in_channels, layout, ax, dev):
+    ds = nn.HybridSequential(prefix="")
+    ds.add(nn.Conv2D(channels, kernel_size=1, strides=stride,
+                     use_bias=False, in_channels=in_channels, layout=layout,
+                     **dev))
+    ds.add(_bn(ax, channels, dev))
+    return ds
+
+
 class BasicBlockV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None, dtype=None):
-        super().__init__()
+                 layout="NCHW", device=None, dtype=None, **kwargs):
+        super().__init__(**kwargs)
         dev = dict(device=device, dtype=dtype)
         ax = _bn_axis(layout)
         self.body = nn.HybridSequential(prefix="")
-        self.body.add(_conv3x3(channels, stride, in_channels, layout, **dev))
-        self.body.add(nn.BatchNorm(axis=ax, in_channels=channels, **dev))
+        self.body.add(_conv3x3(channels, stride, in_channels, layout, dev))
+        self.body.add(_bn(ax, channels, dev))
         self.body.add(nn.Activation("relu"))
-        self.body.add(_conv3x3(channels, 1, channels, layout, **dev))
-        self.body.add(nn.BatchNorm(axis=ax, in_channels=channels, **dev))
-        if downsample:
-            self.downsample = nn.HybridSequential(prefix="")
-            self.downsample.add(nn.Conv2D(channels, kernel_size=1,
-                                          strides=stride, use_bias=False,
-                                          in_channels=in_channels,
-                                          layout=layout, **dev))
-            self.downsample.add(nn.BatchNorm(axis=ax, in_channels=channels,
-                                             **dev))
-        else:
-            self.downsample = None
+        self.body.add(_conv3x3(channels, 1, channels, layout, dev))
+        self.body.add(_bn(ax, channels, dev))
+        self.downsample = _downsample_v1(channels, stride, in_channels,
+                                         layout, ax, dev) \
+            if downsample else None
 
     def forward(self, x):
         residual = x
@@ -78,33 +93,27 @@ class BasicBlockV1(HybridBlock):
 
 class BottleneckV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None, dtype=None):
-        super().__init__()
+                 layout="NCHW", device=None, dtype=None, **kwargs):
+        super().__init__(**kwargs)
         dev = dict(device=device, dtype=dtype)
         ax = _bn_axis(layout)
         mid = channels // 4
         self.body = nn.HybridSequential(prefix="")
         self.body.add(nn.Conv2D(mid, kernel_size=1, strides=stride,
-                                layout=layout, in_channels=in_channels,
-                                **dev))
-        self.body.add(nn.BatchNorm(axis=ax, in_channels=mid, **dev))
+                                layout=layout,
+                                in_channels=_sized(in_channels, dev), **dev))
+        self.body.add(_bn(ax, mid, dev))
         self.body.add(nn.Activation("relu"))
-        self.body.add(_conv3x3(mid, 1, mid, layout, **dev))
-        self.body.add(nn.BatchNorm(axis=ax, in_channels=mid, **dev))
+        self.body.add(_conv3x3(mid, 1, mid, layout, dev))
+        self.body.add(_bn(ax, mid, dev))
         self.body.add(nn.Activation("relu"))
         self.body.add(nn.Conv2D(channels, kernel_size=1, strides=1,
-                                layout=layout, in_channels=mid, **dev))
-        self.body.add(nn.BatchNorm(axis=ax, in_channels=channels, **dev))
-        if downsample:
-            self.downsample = nn.HybridSequential(prefix="")
-            self.downsample.add(nn.Conv2D(channels, kernel_size=1,
-                                          strides=stride, use_bias=False,
-                                          in_channels=in_channels,
-                                          layout=layout, **dev))
-            self.downsample.add(nn.BatchNorm(axis=ax, in_channels=channels,
-                                             **dev))
-        else:
-            self.downsample = None
+                                layout=layout, in_channels=_sized(mid, dev),
+                                **dev))
+        self.body.add(_bn(ax, channels, dev))
+        self.downsample = _downsample_v1(channels, stride, in_channels,
+                                         layout, ax, dev) \
+            if downsample else None
 
     def forward(self, x):
         residual = x
@@ -116,20 +125,17 @@ class BottleneckV1(HybridBlock):
 
 class BasicBlockV2(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None, dtype=None):
-        super().__init__()
+                 layout="NCHW", device=None, dtype=None, **kwargs):
+        super().__init__(**kwargs)
         dev = dict(device=device, dtype=dtype)
         ax = _bn_axis(layout)
-        self.bn1 = nn.BatchNorm(axis=ax, in_channels=in_channels, **dev)
-        self.conv1 = _conv3x3(channels, stride, in_channels, layout, **dev)
-        self.bn2 = nn.BatchNorm(axis=ax, in_channels=channels, **dev)
-        self.conv2 = _conv3x3(channels, 1, channels, layout, **dev)
-        if downsample:
-            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
-                                        in_channels=in_channels,
-                                        layout=layout, **dev)
-        else:
-            self.downsample = None
+        self.bn1 = _bn(ax, in_channels, dev)
+        self.conv1 = _conv3x3(channels, stride, in_channels, layout, dev)
+        self.bn2 = _bn(ax, channels, dev)
+        self.conv2 = _conv3x3(channels, 1, channels, layout, dev)
+        self.downsample = nn.Conv2D(
+            channels, 1, stride, use_bias=False, in_channels=in_channels,
+            layout=layout, **dev) if downsample else None
 
     def forward(self, x):
         residual = x
@@ -144,27 +150,24 @@ class BasicBlockV2(HybridBlock):
 
 class BottleneckV2(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
-                 layout="NCHW", device=None, dtype=None):
-        super().__init__()
+                 layout="NCHW", device=None, dtype=None, **kwargs):
+        super().__init__(**kwargs)
         dev = dict(device=device, dtype=dtype)
         ax = _bn_axis(layout)
         mid = channels // 4
-        self.bn1 = nn.BatchNorm(axis=ax, in_channels=in_channels, **dev)
+        self.bn1 = _bn(ax, in_channels, dev)
         self.conv1 = nn.Conv2D(mid, kernel_size=1, strides=1,
                                use_bias=False, layout=layout,
-                               in_channels=in_channels, **dev)
-        self.bn2 = nn.BatchNorm(axis=ax, in_channels=mid, **dev)
-        self.conv2 = _conv3x3(mid, stride, mid, layout, **dev)
-        self.bn3 = nn.BatchNorm(axis=ax, in_channels=mid, **dev)
+                               in_channels=_sized(in_channels, dev), **dev)
+        self.bn2 = _bn(ax, mid, dev)
+        self.conv2 = _conv3x3(mid, stride, mid, layout, dev)
+        self.bn3 = _bn(ax, mid, dev)
         self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
                                use_bias=False, layout=layout,
-                               in_channels=mid, **dev)
-        if downsample:
-            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
-                                        in_channels=in_channels,
-                                        layout=layout, **dev)
-        else:
-            self.downsample = None
+                               in_channels=_sized(mid, dev), **dev)
+        self.downsample = nn.Conv2D(
+            channels, 1, stride, use_bias=False, in_channels=in_channels,
+            layout=layout, **dev) if downsample else None
 
     def forward(self, x):
         residual = x
@@ -182,24 +185,31 @@ class BottleneckV2(HybridBlock):
 def _make_layer(block, layers, channels, stride, stage_index, in_channels,
                 layout, dev):
     layer = nn.HybridSequential(prefix=f"stage{stage_index}_")
-    layer.add(block(channels, stride, channels != in_channels,
-                    in_channels=in_channels, layout=layout, **dev))
-    for _ in range(layers - 1):
-        layer.add(block(channels, 1, False, in_channels=channels,
-                        layout=layout, **dev))
+    with layer.name_scope():
+        layer.add(block(channels, stride, channels != in_channels,
+                        in_channels=in_channels, layout=layout, prefix="",
+                        **dev))
+        for _ in range(layers - 1):
+            layer.add(block(channels, 1, False, in_channels=channels,
+                            layout=layout, prefix="", **dev))
     return layer
 
 
 def _stem(features, channels, thumbnail, layout, ax, dev):
+    image = _sized(_IMAGE_CHANNELS, dev)
     if thumbnail:
-        features.add(_conv3x3(channels, 1, _IMAGE_CHANNELS, layout, **dev))
+        features.add(_conv3x3(channels, 1, image, layout, dev))
     else:
         features.add(nn.Conv2D(channels, 7, 2, 3, use_bias=False,
-                               in_channels=_IMAGE_CHANNELS, layout=layout,
-                               **dev))
-        features.add(nn.BatchNorm(axis=ax, in_channels=channels, **dev))
+                               in_channels=image, layout=layout, **dev))
+        features.add(_bn(ax, channels, dev))
         features.add(nn.Activation("relu"))
         features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+
+
+def _check(layers, channels):
+    if len(layers) != len(channels) - 1:
+        raise MXNetError("ResNet: len(layers) must be len(channels) - 1")
 
 
 class ResNetV1(HybridBlock):
@@ -207,23 +217,23 @@ class ResNetV1(HybridBlock):
     keeping the NCHW input contract: one transpose at the stem."""
 
     def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False, layout="NCHW", device=None, dtype=None):
-        super().__init__()
-        if len(layers) != len(channels) - 1:
-            raise MXNetError("ResNet: len(layers) must be "
-                             "len(channels) - 1")
+                 thumbnail=False, layout="NCHW", device=None, dtype=None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        _check(layers, channels)
         dev = dict(device=device, dtype=dtype)
         self._layout = layout
         ax = _bn_axis(layout)
-        self.features = nn.HybridSequential(prefix="")
-        _stem(self.features, channels[0], thumbnail, layout, ax, dev)
-        for i, num_layer in enumerate(layers):
-            stride = 1 if i == 0 else 2
-            self.features.add(_make_layer(
-                block, num_layer, channels[i + 1], stride, i + 1,
-                channels[i], layout, dev))
-        self.features.add(nn.GlobalAvgPool2D(layout=layout))
-        self.output = nn.Dense(classes, in_units=channels[-1], **dev)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            _stem(self.features, channels[0], thumbnail, layout, ax, dev)
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(_make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    channels[i], layout, dev))
+            self.features.add(nn.GlobalAvgPool2D(layout=layout))
+            self.output = nn.Dense(classes, in_units=channels[-1], **dev)
 
     def forward(self, x):
         if self._layout == "NHWC":
@@ -234,31 +244,30 @@ class ResNetV1(HybridBlock):
 
 class ResNetV2(HybridBlock):
     def __init__(self, block, layers, channels, classes=1000,
-                 thumbnail=False, layout="NCHW", device=None, dtype=None):
-        super().__init__()
-        if len(layers) != len(channels) - 1:
-            raise MXNetError("ResNet: len(layers) must be "
-                             "len(channels) - 1")
+                 thumbnail=False, layout="NCHW", device=None, dtype=None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        _check(layers, channels)
         dev = dict(device=device, dtype=dtype)
         self._layout = layout
         ax = _bn_axis(layout)
-        self.features = nn.HybridSequential(prefix="")
-        self.features.add(nn.BatchNorm(scale=False, center=False, axis=ax,
-                                       in_channels=_IMAGE_CHANNELS, **dev))
-        _stem(self.features, channels[0], thumbnail, layout, ax, dev)
-        in_channels = channels[0]
-        for i, num_layer in enumerate(layers):
-            stride = 1 if i == 0 else 2
-            self.features.add(_make_layer(
-                block, num_layer, channels[i + 1], stride, i + 1,
-                in_channels, layout, dev))
-            in_channels = channels[i + 1]
-        self.features.add(nn.BatchNorm(axis=ax, in_channels=in_channels,
-                                       **dev))
-        self.features.add(nn.Activation("relu"))
-        self.features.add(nn.GlobalAvgPool2D(layout=layout))
-        self.features.add(nn.Flatten())
-        self.output = nn.Dense(classes, in_units=in_channels, **dev)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(_bn(ax, _IMAGE_CHANNELS, dev, scale=False,
+                                  center=False))
+            _stem(self.features, channels[0], thumbnail, layout, ax, dev)
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(_make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels, layout, dev))
+                in_channels = channels[i + 1]
+            self.features.add(_bn(ax, in_channels, dev))
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D(layout=layout))
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels, **dev)
 
     def forward(self, x):
         if self._layout == "NHWC":

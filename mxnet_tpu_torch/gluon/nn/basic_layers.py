@@ -1,48 +1,57 @@
 """Basic layers.
 
-Port of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``HybridSequential``,
-``Dense``, ``BatchNorm``, ``Activation``, ``Flatten``.  ``BatchNorm``
-keeps the reference's four parameters: ``gamma`` and ``beta`` train
-unless ``scale``/``center`` is off (``fix_gamma = not scale``), and
-``running_mean``/``running_var`` never train; in training mode
-(``nn.Module.train()``) each forward commits the new moving statistics
-in place, as the reference's ``commit_aux`` does.
+Port of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``,
+``HybridSequential``, ``Dense``, ``BatchNorm``, ``Activation``,
+``Flatten``.  Their parameters are Gluon ``Parameter``s (``dense0_weight``)
+whose tensors the module registers under the attribute's name.  A size
+left at 0 (``in_units``, ``in_channels``) is inferred from the first
+input.  ``device`` (a port extension) creates the parameters at once on
+that device and needs every size; without it the parameters with known
+shapes are created on the current context.
+
+``BatchNorm`` keeps the reference's four parameters: ``gamma`` and
+``beta`` train unless ``scale``/``center`` is off (``fix_gamma = not
+scale``), ``running_mean``/``running_var`` never train (``grad_req=
+"null"``).  In training mode it normalizes with the batch statistics and
+commits the new moving statistics in place, as the reference's
+``commit_aux`` does; training mode is ``autograd.is_training()`` in a
+call made with NDArrays and ``nn.Module.training`` in one made with
+tensors.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ...device import resolve_device
 from ...ops.nn import activation, batch_norm, flatten, fully_connected
-from ...base import torch_dtype
-from ..block import HybridBlock, deferred
+from ..block import Block, HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "Activation",
-           "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm",
+           "Activation", "Flatten"]
 
 
-class HybridSequential(HybridBlock):
-    """Blocks run in order.  ``prefix`` is the reference's name scope:
-    a non-empty prefix (a ResNet stage's ``"stage1_"``) opens a scope of
-    its own for the reference's parameter names (``models/convert.py``);
-    it does not change the port's names."""
-
-    def __init__(self, prefix=None):
-        super().__init__()
-        self._prefix = prefix or ""
+class _Stack:
+    """Blocks run in order (``Sequential`` and ``HybridSequential``)."""
 
     def add(self, *blocks):
         for block in blocks:
-            self.add_module(str(len(self._modules)), block)
+            self.register_child(block)
         return self
 
-    def forward(self, x):
+    def forward(self, x, *args):
         for block in self._modules.values():
-            x = block(x)
+            x = block(x, *args)
+            args = ()
         return x
 
-    def __getitem__(self, i):
-        return list(self._modules.values())[i]
+    def __getitem__(self, key):
+        children = list(self._modules.values())
+        if isinstance(key, slice):
+            net = type(self)(prefix=self.prefix)
+            for block in children[key]:
+                net.register_child(block)
+            return net
+        return children[key]
 
     def __len__(self):
         return len(self._modules)
@@ -51,28 +60,50 @@ class HybridSequential(HybridBlock):
         return iter(self._modules.values())
 
 
-class Dense(HybridBlock):
-    """``x W^T + b``; weight (units, in_units).  With ``flatten`` the
-    input is (N, ...) flattened to (N, in_units)."""
+class Sequential(_Stack, Block):
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
 
-    def __init__(self, units, use_bias=True, flatten=True, dtype="float32",
-                 weight_initializer=None, bias_initializer="zeros",
-                 in_units=0, device=None):
-        super().__init__()
-        if not in_units:
-            raise deferred("Dense", "in_units")
-        dev, dt = resolve_device(device), torch_dtype(dtype)
-        self._flatten = flatten
-        self._param("weight", (units, in_units), dev, dt, weight_initializer)
-        if use_bias:
-            self._param("bias", (units,), dev, dt, bias_initializer)
-        else:
-            self.bias = None
+
+class HybridSequential(_Stack, HybridBlock):
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+
+class Dense(HybridBlock):
+    """``act(x W^T + b)``; weight (units, in_units).  With ``flatten``
+    the input is (N, ...) flattened to (N, in_units)."""
+
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, prefix=None,
+                 params=None, device=None):
+        super().__init__(prefix=prefix, params=params)
+        self._units, self._flatten = units, flatten
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(units, in_units), dtype=dtype,
+                init=weight_initializer, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(units,), dtype=dtype,
+                    init=bias_initializer, allow_deferred_init=True)
+            else:
+                self.bias = None
+            self.act = Activation(activation) if activation else None
+        self._place(device)
+
+    def infer_shape(self, x, *args):
+        in_units = int(np.prod(x.shape[1:])) if self._flatten \
+            else x.shape[-1]
+        self.weight.shape = (self._units, in_units)
 
     def forward(self, x):
+        p = self._parameters
         if self._flatten:
             x = flatten(x)
-        return fully_connected(x, self.weight, self.bias)
+        out = fully_connected(x, p["weight"], p.get("bias"))
+        return self.act(out) if self.act is not None else out
 
 
 class BatchNorm(HybridBlock):
@@ -84,38 +115,51 @@ class BatchNorm(HybridBlock):
                  beta_initializer="zeros", gamma_initializer="ones",
                  running_mean_initializer="zeros",
                  running_variance_initializer="ones", in_channels=0,
-                 device=None, dtype=None):
-        super().__init__()
-        if not in_channels:
-            raise deferred("BatchNorm", "in_channels")
-        dev, dt = resolve_device(device), torch_dtype(dtype)
+                 prefix=None, params=None, device=None, dtype=None):
+        super().__init__(prefix=prefix, params=params)
         self._axis, self._momentum, self._eps = axis, momentum, epsilon
         self._scale, self._use_global_stats = scale, use_global_stats
         c = (in_channels,)
-        self._param("gamma", c, dev, dt, gamma_initializer, scale)
-        self._param("beta", c, dev, dt, beta_initializer, center)
-        self._param("running_mean", c, dev, dt, running_mean_initializer,
-                    False)
-        self._param("running_var", c, dev, dt, running_variance_initializer,
-                    False)
+        kw = dict(shape=c, dtype=dtype, allow_deferred_init=True)
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", init=gamma_initializer,
+                                         differentiable=scale, **kw)
+            self.beta = self.params.get("beta", init=beta_initializer,
+                                        differentiable=center, **kw)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null",
+                init=running_mean_initializer, differentiable=False, **kw)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null",
+                init=running_variance_initializer, differentiable=False,
+                **kw)
+        self._place(device)
+
+    def infer_shape(self, x, *args):
+        ch = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            p.shape = (ch,)
 
     def forward(self, x):
+        p = self._parameters
+        training = self._is_training()
         out, new_mm, new_mv, _, _ = batch_norm(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            x, p["gamma"], p["beta"], p["running_mean"], p["running_var"],
             eps=self._eps, momentum=self._momentum,
             fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
-            training=self.training)
-        if self.training and not self._use_global_stats:
+            training=training)
+        if training and not self._use_global_stats:
             with torch.no_grad():
-                self.running_mean.copy_(new_mm)
-                self.running_var.copy_(new_mv)
+                p["running_mean"].copy_(new_mm)
+                p["running_var"].copy_(new_mv)
         return out
 
 
 class Activation(HybridBlock):
-    def __init__(self, activation):
-        super().__init__()
+    def __init__(self, activation, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._act_type = activation
 
     def forward(self, x):

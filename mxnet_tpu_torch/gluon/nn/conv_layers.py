@@ -3,16 +3,16 @@
 Port of ``mxnet_tpu/gluon/nn/conv_layers.py`` for 2-D: ``Conv2D``,
 ``MaxPool2D``, ``AvgPool2D``, ``GlobalMaxPool2D``, ``GlobalAvgPool2D``.
 Weights are OIHW in every layout, as in the reference, so the same
-parameters serve ``layout="NCHW"`` and ``"NHWC"``.  ``ops.nn.convolution``
+parameters serve ``layout="NCHW"`` and ``"NHWC"``.  ``in_channels=0``
+infers the input channels from the first input.  ``ops.nn.convolution``
 decides per call whether an NHWC 1x1 convolution takes the fused
 backward (K6).
 """
 from __future__ import annotations
 
-from ...device import resolve_device
 from ...ops.nn import convolution, pooling
-from ...base import torch_dtype
-from ..block import HybridBlock, deferred
+from ..block import HybridBlock
+from .basic_layers import Activation
 
 __all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D",
            "GlobalAvgPool2D"]
@@ -25,39 +25,55 @@ def _tuple(v, n):
 
 
 class Conv2D(HybridBlock):
+    """``act(conv(x, W) + b)``; ``device`` as in ``Dense``."""
+
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
-                 dilation=(1, 1), groups=1, layout="NCHW", use_bias=True,
-                 weight_initializer=None,
-                 bias_initializer="zeros", in_channels=0, device=None,
-                 dtype=None):
-        super().__init__()
-        if not in_channels:
-            raise deferred("Conv2D", "in_channels")
-        dev, dt = resolve_device(device), torch_dtype(dtype)
+                 dilation=(1, 1), groups=1, layout="NCHW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, prefix=None,
+                 params=None, device=None, dtype=None):
+        super().__init__(prefix=prefix, params=params)
         self._channels, self._in_channels = channels, in_channels
         self._kernel = _tuple(kernel_size, 2)
         self._stride = _tuple(strides, 2)
         self._pad = _tuple(padding, 2)
         self._dilate = _tuple(dilation, 2)
         self._groups, self._layout = groups, layout
-        self._param("weight", (channels, in_channels // groups) +
-                    self._kernel, dev, dt, weight_initializer)
-        if use_bias:
-            self._param("bias", (channels,), dev, dt, bias_initializer)
-        else:
-            self.bias = None
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(channels, in_channels // groups) +
+                self._kernel, dtype=dtype, init=weight_initializer,
+                allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(channels,), dtype=dtype,
+                    init=bias_initializer, allow_deferred_init=True)
+            else:
+                self.bias = None
+            self.act = Activation(activation) if activation else None
+        self._place(device)
+
+    def infer_shape(self, x, *args):
+        c_axis = 1 if self._layout[1] == "C" else x.dim() - 1
+        self._in_channels = x.shape[c_axis]
+        self.weight.shape = (self._channels,
+                             self._in_channels // self._groups) + \
+            self._kernel
 
     def forward(self, x):
-        return convolution(x, self.weight, self.bias, kernel=self._kernel,
-                           stride=self._stride, dilate=self._dilate,
-                           pad=self._pad, num_filter=self._channels,
-                           num_group=self._groups, no_bias=self.bias is None,
-                           layout=self._layout)
+        p = self._parameters
+        bias = p.get("bias")
+        out = convolution(x, p["weight"], bias, kernel=self._kernel,
+                          stride=self._stride, dilate=self._dilate,
+                          pad=self._pad, num_filter=self._channels,
+                          num_group=self._groups, no_bias=bias is None,
+                          layout=self._layout)
+        return self.act(out) if self.act is not None else out
 
     def extra_repr(self):
-        return (f"{self._in_channels} -> {self._channels}, kernel_size="
-                f"{self._kernel}, stride={self._stride}, padding="
-                f"{self._pad}, layout={self._layout}")
+        return (f"{self._in_channels or None} -> {self._channels}, "
+                f"kernel_size={self._kernel}, stride={self._stride}, "
+                f"padding={self._pad}, layout={self._layout}")
 
 
 class _Pooling(HybridBlock):

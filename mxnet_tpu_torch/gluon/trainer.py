@@ -1,27 +1,41 @@
 """The imperative trainer: ``loss.backward()`` then ``step(batch_size)``.
 
-Port of ``mxnet_tpu/gluon/trainer.py`` ``Trainer`` on one device.
-Gradients come from PyTorch's autograd; MXNet's ``backward()`` on a
-non-scalar loss uses a head gradient of ones, which is
-``loss.backward(torch.ones_like(loss))`` here.  ``step(batch_size)``
-rescales the summed gradients by ``1 / batch_size`` and applies the
-optimizer to every parameter that has a gradient, with the reference's
-dtype discipline (``Optimizer.apply``).  After the update the gradients
-are released, so the next backward writes them afresh, as the
-reference's ``grad_req='write'`` does (PyTorch's backward otherwise
-adds to them).
+Port of ``mxnet_tpu/gluon/trainer.py`` ``Trainer`` on one device.  Over
+Gluon ``Parameter``s (a ``ParameterDict`` in its order, a dict by sorted
+key, a list, or a Gluon block's ``collect_params()``) it reads each
+gradient from ``Parameter.grad()``, where a backward of ``autograd``
+leaves it following ``grad_req``, and a gradient rebound there in
+between (``g *= scale``) is the one applied.  A PyTorch ``backward`` on
+the module's tensors leaves the gradient in the tensor's ``.grad``
+instead; ``step`` takes it from there first.  Parameters whose
+``grad_req`` is ``null`` are skipped; ``lr_mult``/``wd_mult`` come from
+each ``Parameter``.  As in MXNet, a gradient that no backward refreshed
+since the last step is stale: it raises, or with
+``ignore_stale_grad=True`` the parameter is skipped.
 
-Gradient accumulation (``update_interval``) and kvstores belong to
-later slices of the port and raise ``MXNetError``; ``save_states``,
-``load_states`` and ``fused_step`` are absent until then.
+Over a plain ``nn.Module`` (its ``parameters()``) or tensors, the
+gradients are the tensors' ``.grad``: MXNet's ``backward()`` on a
+non-scalar loss is ``loss.backward(torch.ones_like(loss))`` there, and
+after the update the gradients are released, so the next backward
+writes them afresh (``grad_req='write'``).
+
+``step(batch_size)`` rescales by ``1 / batch_size`` and applies the
+optimizer with the reference's dtype discipline (``Optimizer.apply``).
+Gradient accumulation (``update_interval``), kvstores and
+``save_states``/``load_states`` belong to the fused train step of a
+later slice and raise ``MXNetError``.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 from torch import nn
 
 from .. import optimizer as opt_mod
 from ..base import MXNetError
+from .block import Block
+from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
 
@@ -33,30 +47,40 @@ def _later(what):
                       "later slice of mxnet_tpu_torch")
 
 
+def _param_list(params):
+    """(the parameters in the reference's order, whether they are Gluon
+    ``Parameter``s)."""
+    if isinstance(params, Block):
+        params = params.collect_params()
+    if isinstance(params, ParameterDict):
+        params = list(params.values())
+    elif isinstance(params, nn.Module):
+        params = list(params.parameters())
+    elif isinstance(params, dict):
+        params = [params[k] for k in sorted(params)]
+    elif not isinstance(params, (list, tuple)):
+        raise MXNetError("params must be a ParameterDict, a dict, a list "
+                         "or an nn.Module")
+    params = list(params)
+    gluon = bool(params) and all(isinstance(p, Parameter) for p in params)
+    for p in params:
+        if not isinstance(p, Parameter if gluon else torch.Tensor):
+            raise MXNetError(f"invalid parameter {p!r}")
+    return params, gluon
+
+
 class Trainer:
-    """``params``: a dict of name -> parameter (taken in sorted-name
-    order, as the reference does), a list of parameters, or an
-    ``nn.Module`` (its ``parameters()``)."""
+    """``params``: see the module docstring."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None, update_interval=1):
-        if isinstance(params, nn.Module):
-            params = list(params.parameters())
-        elif isinstance(params, dict):
-            params = [params[k] for k in sorted(params)]
-        elif not isinstance(params, (list, tuple)):
-            raise MXNetError("params must be a dict, a list or an "
-                             "nn.Module")
-        for p in params:
-            if not isinstance(p, torch.Tensor):
-                raise MXNetError(f"invalid parameter {p!r}")
+        self._params, self._gluon = _param_list(params)
         if int(update_interval) != 1:
             raise _later("update_interval (gradient accumulation)")
         if kvstore not in _LOCAL_KVSTORES or update_on_kvstore or \
                 compression_params:
             raise _later("a kvstore")
-        self._params = list(params)
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         param_dict = {i: p for i, p in enumerate(self._params)}
@@ -72,6 +96,8 @@ class Trainer:
                                              **optimizer_params)
         self._states = [None] * len(self._params)
         self._states_created = [False] * len(self._params)
+        # the gradient tensor each Parameter's last update consumed
+        self._consumed = [None] * len(self._params)
 
     @property
     def learning_rate(self):
@@ -92,6 +118,47 @@ class Trainer:
     def update(self, batch_size, ignore_stale_grad=False):
         """The update half of ``step``."""
         self._optimizer.rescale_grad = self._scale / float(batch_size)
+        if self._gluon:
+            self._update_params(ignore_stale_grad)
+        else:
+            self._update_tensors(ignore_stale_grad)
+
+    def _apply(self, i, weight, grad):
+        if not self._states_created[i]:
+            self._states[i] = \
+                self._optimizer.create_state_multi_precision(i, weight)
+            self._states_created[i] = True
+        self._states[i] = self._optimizer.update_multi_precision(
+            i, weight, grad, self._states[i])
+
+    def _update_params(self, ignore_stale_grad):
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null":
+                continue
+            arr = p._data
+            if arr is None:
+                if ignore_stale_grad:
+                    continue
+                raise MXNetError(f"parameter {p.name} is not initialized; "
+                                 "call initialize() and run a forward pass "
+                                 "first")
+            leaf = arr._data
+            if leaf.grad is not None:       # left by a PyTorch backward
+                arr._commit_grad(leaf.grad)
+                leaf.grad = None
+            grad = arr._grad._data
+            seen = self._consumed[i]
+            if seen is not None and seen() is grad:
+                if ignore_stale_grad:
+                    continue
+                raise MXNetError(
+                    f"gradient of parameter {p.name} has not been updated "
+                    "by a backward since the last step; run backward, or "
+                    "step(ignore_stale_grad=True) to skip it")
+            self._apply(i, leaf, grad)
+            self._consumed[i] = weakref.ref(grad)
+
+    def _update_tensors(self, ignore_stale_grad):
         for i, p in enumerate(self._params):
             if not p.requires_grad:
                 continue
@@ -101,15 +168,18 @@ class Trainer:
                 raise MXNetError(
                     f"parameter {i} {tuple(p.shape)} has no gradient: run "
                     "backward first, or step(ignore_stale_grad=True)")
-            if not self._states_created[i]:
-                self._states[i] = \
-                    self._optimizer.create_state_multi_precision(i, p)
-                self._states_created[i] = True
-            self._states[i] = self._optimizer.update_multi_precision(
-                i, p, p.grad, self._states[i])
+            self._apply(i, p, p.grad)
             p.grad = None
 
     def zero_grad(self):
         for p in self._params:
-            if p.grad is not None:
+            if self._gluon:
+                p.zero_grad()
+            elif p.grad is not None:
                 p.grad.zero_()
+
+    def save_states(self, fname):
+        raise _later("save_states (optimizer state checkpoints)")
+
+    def load_states(self, fname):
+        raise _later("load_states (optimizer state checkpoints)")

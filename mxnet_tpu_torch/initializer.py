@@ -1,19 +1,20 @@
 """Weight initializers.
 
 Port of ``mxnet_tpu/initializer.py`` (the base class's name rules,
-``Zero``, ``One``, ``Uniform``, ``Xavier``; the others come with later
-slices).
+``InitDesc``, ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal``,
+``Xavier``; the others come with later slices).
 An initializer draws from an explicit seeded ``torch.Generator`` in f32
 and casts to the parameter's dtype.  The reference draws threefry bits,
 which no torch generator reproduces, so the numbers differ; the
 distributions and the name rules are the reference's, and parity tests
 carry weights across instead (``models/convert.py``).
 
-``initialize(module, init, seed)`` walks a module's parameters: a
-parameter whose layer names its own initializer (``weight_initializer``,
-``bias_initializer``, ``gamma_initializer``, ...) takes that one's
-``_init_weight`` directly, as the reference's ``InitDesc`` override does;
-every other one goes through ``init``'s name rules.
+``Initializer.__call__(desc, arr)`` fills one Gluon parameter's array,
+as the reference's does: an explicit initializer in ``desc.attrs
+["__init__"]`` (the parameter's own, ``weight_initializer=`` and the
+like) wins over the name rules.  It draws from ``mx.random``'s generator
+on the array's device unless it is handed one (``Block.initialize(...,
+seed=)``).
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Initializer", "Zero", "One", "Uniform", "Xavier", "register",
-           "create", "initialize"]
+__all__ = ["Initializer", "InitDesc", "Zero", "One", "Constant",
+           "Uniform", "Normal", "Xavier", "register", "create"]
 
 _REGISTRY: dict = {}
 
@@ -44,6 +45,17 @@ def create(init, **kwargs):
             raise MXNetError(f"unknown initializer {init}")
         return _REGISTRY[name](**kwargs)
     raise MXNetError(f"cannot create initializer from {init!r}")
+
+
+class InitDesc(str):
+    """A parameter's name carrying its init attributes (reference
+    ``InitDesc``): ``attrs["__init__"]`` is the parameter's own
+    initializer."""
+
+    def __new__(cls, name, attrs=None):
+        obj = super().__new__(cls, name)
+        obj.attrs = attrs or {}
+        return obj
 
 
 class Initializer:
@@ -71,6 +83,29 @@ class Initializer:
             return torch.zeros(shape, dtype=dtype, device=device)
         return self._init_weight(name, shape, dtype, device, generator)
 
+    def __call__(self, desc, arr, generator=None):
+        """Fill the NDArray ``arr`` in place for the parameter ``desc``
+        (reference ``Initializer.__call__``).  The parameter's own
+        initializer (``desc.attrs["__init__"]``) bypasses the name rules,
+        so ``bias_initializer="ones"`` is not turned back into zeros."""
+        from . import random as _random
+
+        t = arr._data
+        gen = generator if generator is not None else \
+            _random.generator(t.device)
+        name = str(desc)
+        own = getattr(desc, "attrs", {}).get("__init__")
+        with torch.no_grad():
+            if own:
+                val = create(own)._init_weight(name, t.shape, torch.float32,
+                                               t.device, gen)
+            else:
+                val = self.generate(name, t.shape, torch.float32, t.device,
+                                    gen)
+            arr._rebind(val.to(t.dtype))
+
+    init_weight = __call__
+
     def _init_weight(self, name, shape, dtype, device, generator):
         raise NotImplementedError
 
@@ -94,6 +129,23 @@ _REGISTRY["zeros"] = Zero
 _REGISTRY["ones"] = One
 
 
+@register
+class Constant(Initializer):
+    """Every element ``value`` (a number or an array broadcast to the
+    shape)."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, name, shape, dtype, device, generator):
+        v = self.value
+        if hasattr(v, "asnumpy"):
+            v = v.asnumpy()
+        return torch.as_tensor(v, dtype=dtype).to(device).broadcast_to(
+            tuple(shape)).clone()
+
+
 def _uniform(shape, scale, device, generator):
     u = torch.rand(shape, generator=generator, device=device,
                    dtype=torch.float32)
@@ -110,6 +162,19 @@ class Uniform(Initializer):
 
     def _init_weight(self, name, shape, dtype, device, generator):
         return _uniform(shape, self.scale, device, generator).to(dtype)
+
+
+@register
+class Normal(Initializer):
+    """N(0, sigma^2)."""
+
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
+
+    def _init_weight(self, name, shape, dtype, device, generator):
+        return (torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32) * self.sigma).to(dtype)
 
 
 @register
@@ -152,33 +217,3 @@ class Xavier(Initializer):
             return (torch.randn(shape, generator=generator, device=device,
                                 dtype=torch.float32) * scale).to(dtype)
         raise MXNetError(f"bad rnd_type {self.rnd_type}")
-
-
-@torch.no_grad()
-def initialize(module, init=None, seed=0):
-    """Initialize every parameter of ``module`` in place, in
-    ``named_parameters`` order, from one generator seeded with ``seed``
-    on the parameters' device.  ``init`` (default ``Uniform()``, the
-    reference's default) applies through its name rules unless the
-    owning layer names an initializer for that parameter in its
-    ``_inits`` dict.  Returns ``module``."""
-    init = create(init) or Uniform()
-    params = list(module.named_parameters())
-    if not params:
-        return module
-    device = params[0][1].device
-    gen = torch.Generator(device=device).manual_seed(int(seed))
-    owners = {}
-    for mod_name, mod in module.named_modules():
-        for pname, override in getattr(mod, "_inits", {}).items():
-            key = f"{mod_name}.{pname}" if mod_name else pname
-            owners[key] = create(override)
-    for name, p in params:
-        override = owners.get(name)
-        if override is not None:
-            val = override._init_weight(name, p.shape, torch.float32,
-                                        device, gen)
-        else:
-            val = init.generate(name, p.shape, torch.float32, device, gen)
-        p.copy_(val)
-    return module

@@ -5,16 +5,14 @@ vision net (the ResNet family) and the port.
 the reference's parameters (``gpt0_h0_attn_qkv_weight``,
 ``bertmodel0_layer0_ffn_fc1_bias``, ``resnetv10_stage3_batchnorm7_
 running_var``, ...).  The model prefix is stripped and the layouts kept
-((out, in) and OIHW), so no array is transposed.  For a net built from
-``gluon.nn`` layers the reference's names follow its name scopes: each
-parametrized layer is ``<kind><n>`` (``conv2d``, ``batchnorm``,
-``dense``), counted per kind in construction order within its scope,
-and a ``HybridSequential`` with a prefix (a ResNet stage's
-``"stage1_"``) opens a scope with counters of its own.  Running
-statistics are parameters in both packages and are carried both ways.
-``arrays_from_port`` is the reverse map, so a test can compare trained
-weights name by name.  Nothing here imports the JAX package: the caller
-hands over plain arrays.
+((out, in) and OIHW), so no array is transposed.  A net built from
+``gluon`` blocks names its parameters as the reference does
+(``Parameter.name``, from the same name scopes), so its arrays are
+matched by that name, and a parameter whose shape waits on the first
+forward takes the array's.  Running statistics are parameters in both
+packages and are carried both ways.  ``arrays_from_port`` is the reverse
+map, so a test can compare trained weights name by name.  Nothing here
+imports the JAX package: the caller hands over plain arrays.
 """
 from __future__ import annotations
 
@@ -24,7 +22,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..gluon.block import HybridBlock
+from ..gluon.block import Block
 from ..gluon.model_zoo.vision import get_resnet
 from .bert import BERTModel
 from .gpt import GPT
@@ -90,32 +88,18 @@ def _spec(model):
 
 
 def _gluon_names(model) -> dict:
-    """``{port name: reference name without the model prefix}`` of a
-    net built from ``gluon.nn`` layers, by the reference's name scopes
-    (see the module docstring)."""
-    names = {}
-
-    def walk(mod, path, scope, counters):
-        own = [n for n, _ in mod.named_parameters(recurse=False)]
-        if own:
-            kind = type(mod).__name__.lower()
-            idx = counters.get(kind, 0)
-            counters[kind] = idx + 1
-            for n in own:
-                names[path + n] = f"{scope}{kind}{idx}_{n}"
-        for child_name, child in mod.named_children():
-            prefix = getattr(child, "_prefix", "")
-            walk(child, f"{path}{child_name}.", scope + prefix,
-                 {} if prefix else counters)
-
-    walk(model, "", "", {})
-    return names
+    """``{structural name: reference name without the model prefix}`` of
+    a net built from ``gluon`` blocks: each ``Parameter.name`` less the
+    net's prefix."""
+    cut = len(model.prefix)
+    return {k: p.name[cut:] if p.name.startswith(model.prefix) else p.name
+            for k, p in model._collect_params_with_prefix().items()}
 
 
 def _names(model) -> dict:
     """``{port name: reference name without the model prefix}`` of every
     parameter of ``model``."""
-    if isinstance(model, HybridBlock):
+    if isinstance(model, Block):
         return _gluon_names(model)
     spec = _spec(model)
     return {name: _ref_name(name, spec)
@@ -124,7 +108,9 @@ def _names(model) -> dict:
 
 def _load(model, arrays):
     to_port = {ref: port for port, ref in _names(model).items()}
-    params = dict(model.named_parameters())
+    gluon = isinstance(model, Block)
+    params = model._collect_params_with_prefix() if gluon else \
+        dict(model.named_parameters())
     seen = set()
     with torch.no_grad():
         for name, arr in arrays.items():
@@ -134,10 +120,14 @@ def _load(model, arrays):
                                  f"parameter {name!r}")
             p = params[target]
             a = np.asarray(arr)
-            if tuple(a.shape) != tuple(p.shape):
+            t = torch.from_numpy(a.astype(np.float32))
+            if gluon:
+                p._load_init(t)
+            elif tuple(a.shape) != tuple(p.shape):
                 raise MXNetError(f"{name!r}: shape {a.shape} != port "
                                  f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(a.astype(np.float32)))
+            else:
+                p.copy_(t)
             seen.add(target)
     missing = sorted(set(params) - seen)
     if missing:
@@ -183,5 +173,8 @@ def arrays_from_port(model, prefix="") -> dict:
     (``prefix`` is the reference model's, e.g. ``"gpt0_"`` or
     ``"resnetv10_"``)."""
     names = _names(model)
+    params = {k: p.data()._data for k, p in
+              model._collect_params_with_prefix().items()} \
+        if isinstance(model, Block) else dict(model.named_parameters())
     return {prefix + names[name]: p.detach().float().cpu().numpy()
-            for name, p in model.named_parameters()}
+            for name, p in params.items()}

@@ -16,6 +16,13 @@ w.grad`` keeps ``w`` a variable.  The gradient lands in the persistent
 ``.grad`` handle through a post-accumulate hook on the leaf, following
 ``grad_req`` (``write`` replaces, ``add`` adds, ``null`` never records).
 
+A Gluon ``Parameter``'s array adopts the ``nn.Parameter`` its block
+registers (``_leaf``), so the module, the array and the trainers share
+one storage: rebinding such an array outside ``record()`` writes the new
+values into that tensor, and its hook hands a gradient to ``.grad`` only
+in a backward of ``autograd``; a PyTorch ``backward`` on the module's
+tensors leaves the gradient in the tensor's ``.grad``, as PyTorch does.
+
 Differences from the reference: sparse storage raises ``MXNetError``;
 ``asnumpy`` of a bfloat16 array returns float32 (numpy has no bfloat16);
 ``dtype`` is a numpy dtype, or ``torch.bfloat16`` for bfloat16.
@@ -159,7 +166,15 @@ class NDArray:
     def _rebind(self, data: torch.Tensor):
         """Point this handle at ``data``.  A variable (attached gradient)
         keeps being one: a tensor that no recorded op produced becomes
-        its new leaf."""
+        its new leaf.  An adopted ``nn.Parameter`` takes such a tensor's
+        values in place, so it stays the module's parameter."""
+        cur = self._data
+        if isinstance(cur, torch.nn.Parameter) and data.grad_fn is None \
+                and data is not cur and data.shape == cur.shape:
+            with torch.no_grad():
+                cur.copy_(data)
+            self._freed = False
+            return self
         if self._grad_req != "null" and data.grad_fn is None:
             data = _leaf(data, self)
         self._data = data
@@ -500,20 +515,31 @@ class NDArray:
 
 def _leaf(data: torch.Tensor, owner: NDArray) -> torch.Tensor:
     """A leaf tensor holding ``data``'s values whose accumulated gradient
-    is handed to ``owner``'s ``.grad`` after every backward."""
-    t = data.detach()
+    is handed to ``owner``'s ``.grad`` after every backward.  An
+    ``nn.Parameter`` is adopted as it is (hooked once), not copied: a
+    Gluon ``Parameter``'s array and its block then hold one tensor."""
+    adopt = isinstance(data, torch.nn.Parameter)
+    t = data if adopt else data.detach()
     if not t.is_floating_point():
         return t
     t.requires_grad_(True)
+    if adopt and getattr(t, "_mx_hooked", False):
+        return t
     ref = weakref.ref(owner)
 
     def commit(leaf):
+        if adopt:
+            from .. import autograd
+            if not autograd._in_backward:
+                return          # a PyTorch backward: keep torch's .grad
         g, leaf.grad = leaf.grad, None
         nd = ref()
         if nd is not None and g is not None:
             nd._commit_grad(g)
 
     t.register_post_accumulate_grad_hook(commit)
+    if adopt:
+        t._mx_hooked = True
     return t
 
 

@@ -11,6 +11,10 @@ parameter the loss does not reach gets a zero gradient, as
 reference's multi-precision / plain dtype discipline
 (``Optimizer.apply``) with the trainer's step count as Adam's ``t``.
 
+The trainable parameters are collected after the first forward, so a
+Gluon net whose layers infer their sizes there (deferred initialization)
+trains all of them.
+
 ``run_steps`` is a Python loop over the leading axis of ``data`` and
 ``label``; it returns the losses as one device tensor and reads nothing
 back to the host inside the loop.  A mesh or sharding rules over more
@@ -95,11 +99,15 @@ class SPMDTrainer:
                     for p, s in zip(self._params, self._states)]
 
     def _device(self):
-        return self._params[0].device
+        """The block's device (None while every parameter waits on the
+        first forward: the data then stays where it is)."""
+        p = next(self._block.parameters(), None)
+        return None if p is None else p.device
 
     def _as_tensor(self, x):
         if isinstance(x, torch.Tensor):
-            return x.to(self._device())
+            dev = self._device()
+            return x if dev is None else x.to(dev)
         return torch.as_tensor(x, device=self._device())
 
     def _forward_loss(self, data, label):
@@ -112,11 +120,11 @@ class SPMDTrainer:
         """One train step; returns the loss as a device scalar (nothing
         is read back to the host).  ``batch_size`` divides the gradient
         (the gradient is the mean loss's, so the default is 1)."""
-        self._ensure_built()
         data, label = self._as_tensor(data), self._as_tensor(label)
+        loss = self._forward_loss(data, label)
+        self._ensure_built()
         self._t += 1
         self._opt.num_update = self._t
-        loss = self._forward_loss(data, label)
         grads = torch.autograd.grad(loss, self._params, allow_unused=True)
         lr = self._opt.learning_rate
         rescale = self._rescale / (batch_size if batch_size else 1.0)
@@ -132,7 +140,6 @@ class SPMDTrainer:
     def run_steps(self, data, label, batch_size: Optional[int] = None):
         """``data``/``label`` carry a leading steps axis (N, batch, ...);
         runs N steps and returns the (N,) losses as a device tensor."""
-        self._ensure_built()
         data, label = self._as_tensor(data), self._as_tensor(label)
         return torch.stack([self.step(data[i], label[i], batch_size)
                             for i in range(data.shape[0])])

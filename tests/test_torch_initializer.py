@@ -88,14 +88,17 @@ def test_initialize_module_seeded_with_overrides():
     b = build().initialize(pinit.Xavier(), seed=7)
     for p, q in zip(a.parameters(), b.parameters()):
         assert torch.equal(p, q)
-    assert (a[0].bias == 1).all()              # the layer's own initializer
-    assert (a[1].gamma == 1).all() and (a[1].running_var == 1).all()
-    assert (a[1].beta == 0).all() and (a[1].running_mean == 0).all()
-    assert (a[2].bias == 0).all()
+    def t(param):                              # a Gluon Parameter's tensor
+        return param.data().astorch()
+
+    assert (t(a[0].bias) == 1).all()           # the layer's own initializer
+    assert (t(a[1].gamma) == 1).all() and (t(a[1].running_var) == 1).all()
+    assert (t(a[1].beta) == 0).all() and (t(a[1].running_mean) == 0).all()
+    assert (t(a[2].bias) == 0).all()
     bound = pinit.Xavier().scale("w", a[0].weight.shape)
-    assert 0 < a[0].weight.abs().max() <= bound
+    assert 0 < t(a[0].weight).abs().max() <= bound
     c = build().initialize(pinit.Xavier(), seed=8)
-    assert not torch.equal(a[0].weight, c[0].weight)
+    assert not torch.equal(t(a[0].weight), t(c[0].weight))
     # the default initializer is the reference's Uniform(0.07)
     d = build().initialize()
-    assert d[2].weight.abs().max() <= 0.07
+    assert t(d[2].weight).abs().max() <= 0.07

@@ -13,7 +13,7 @@ from mxnet_tpu_torch.base import MXNetError
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "mxnet_tpu_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "decode_ab.py", REPO / "rtc_ab.py",
-     REPO / "tests" / "_torch_rtc_sources.py"]
+     REPO / "resnet_ab.py", REPO / "tests" / "_torch_rtc_sources.py"]
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
 
 
