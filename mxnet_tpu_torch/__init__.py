@@ -42,7 +42,8 @@ _FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
          "cpu": ("context", "cpu"),
          "gpu": ("context", "gpu"), "Context": ("context", "Context"),
          "current_context": ("context", "current_context"),
-         "num_gpus": ("context", "num_gpus")}
+         "num_gpus": ("context", "num_gpus"),
+         "lr_scheduler": ("optimizer.lr_scheduler", None)}
 
 __all__ = ["MXNetError", "resolve_device", *_SUBPACKAGES, *_FROM]
 

@@ -20,7 +20,8 @@ port keeps of MXNet's semantics:
   ``torch.autograd.Function``.
 
 ``get_symbol`` raises as in the reference.  ``trace_value_and_grad``
-belongs to the fused train step, which is not ported yet.
+gives the fused train step its forward, loss and gradients without
+touching any ``.grad``.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from .base import MXNetError
 __all__ = [
     "record", "pause", "train_mode", "predict_mode", "is_recording",
     "is_training", "set_recording", "set_training", "mark_variables",
-    "backward", "grad", "Function", "get_symbol",
+    "backward", "grad", "Function", "get_symbol", "trace_value_and_grad",
 ]
 
 _STATE = threading.local()
@@ -253,6 +254,66 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         v._grad_req = r
         v._freed = False
         v._data = _leaf(v._data, v) if r != "null" else v._data.detach()
+
+
+def trace_value_and_grad(fn, params, frozen_params=(), train_mode=True):
+    """The fused train step's forward and backward (reference
+    ``trace_value_and_grad``): returns ``pure(train_vals, frozen_vals,
+    *args) -> (outs, grads, new_frozen)``.
+
+    - ``fn`` is NDArray-level user code (``lambda x, y: loss(net(x),
+      y)``) returning the per-sample loss or a sequence whose first
+      element is the loss; the extras ride along undifferentiated.
+    - ``params``/``frozen_params`` are the Gluon ``Parameter``s whose
+      values ``train_vals``/``frozen_vals`` give.  In the port a value is
+      the parameter's own tensor (a captured graph reads that storage);
+      another tensor is copied into it first.
+    - ``fn`` runs under ``gluon.block.trace_scope`` (recording, in
+      ``train_mode``, hybridized blocks inlined), and the gradient is
+      ``torch.autograd.grad`` of ``sum(outs[0])``, the seeding of
+      ``loss.backward()``.  The ``Parameter.grad()`` buffers and the
+      tensors' ``.grad`` are never touched: no gradient is accumulated,
+      so the leaves' hooks do not fire.
+    - ``new_frozen`` are the frozen parameters' tensors after the call
+      (BatchNorm commits its running statistics into them in place).
+    - ``pure.out_struct['is_seq']`` says whether ``fn`` returned a
+      sequence.
+    """
+    from .gluon.block import trace_scope
+    from .ndarray.ndarray import NDArray
+
+    params = list(params)
+    frozen = list(frozen_params)
+    struct: dict = {}
+
+    def take(ps, vals):
+        for p, v in zip(ps, vals):
+            leaf = p._data._data
+            if v is not leaf:
+                with torch.no_grad():
+                    leaf.copy_(v)
+
+    def pure(train_vals, frozen_vals, *args):
+        take(params, train_vals)
+        take(frozen, frozen_vals)
+        leaves = [p._data._data for p in params]
+        with trace_scope(train_mode):
+            out = fn(*(a if isinstance(a, NDArray) else NDArray(a)
+                       for a in args))
+        is_seq = isinstance(out, (tuple, list))
+        struct["is_seq"] = is_seq
+        outs = [o._data if isinstance(o, NDArray) else o
+                for o in (out if is_seq else [out])]
+        head = outs[0]
+        got = torch.autograd.grad(head.sum(), leaves, allow_unused=True) \
+            if head.requires_grad else [None] * len(leaves)
+        grads = [torch.zeros_like(leaf) if g is None else g
+                 for leaf, g in zip(leaves, got)]
+        return (tuple(o.detach() for o in outs), grads,
+                [p._data._data for p in frozen])
+
+    pure.out_struct = struct
+    return pure
 
 
 def get_symbol(x):

@@ -26,16 +26,29 @@ Called with ``NDArray``s, a block unwraps them, runs its forward under
 commit).  Called with tensors, a block is a plain ``nn.Module``: the
 layers follow ``nn.Module.training`` (``SPMDTrainer`` sets ``train()``).
 
-``hybridize()`` records its flags and nothing else in this slice: the
-forward stays imperative and the hooks fire.  The reference's trace
-into one program (``_CachedOp``), ``export``, ``optimize_for`` and
-``SymbolBlock`` raise ``MXNetError``: a CUDA-graph capture of the whole
-step belongs to the fused train step, a later slice.
+``hybridize()`` makes a ``HybridBlock`` called with NDArrays outside
+``autograd.record()`` run through ``_CachedOp``: on the card its forward
+is captured as a CUDA graph once per (input shapes and dtypes, training
+flag) and replayed (``_GraphProgram``); on the CPU it is the forward
+itself.  Under ``record()`` the forward runs imperatively, so torch's
+graph records it: a hybridized training step is the fused train step's
+(``Trainer.fused_step``), a deliberate difference from the reference,
+whose recorded ``CachedOp`` is one tape node.  A forward that a graph
+replays fires the block's hooks but not its children's.  The
+reference's jit of unhybridized inference (``MXNET_JIT_BY_DEFAULT``) is
+not ported: an unhybridized block stays imperative.  ``export``,
+``optimize_for`` and ``SymbolBlock`` raise ``MXNetError``.
+
+``trace_scope`` is the reference's trace discipline for the fused step:
+recording in the step's training mode, hybridized blocks inlined
+(``_no_hybrid``: a graph cannot be captured inside another's capture).
 """
 from __future__ import annotations
 
+import contextlib
 import re
 import threading
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -47,16 +60,147 @@ from ..context import current_context
 from ..device import resolve_device
 from ..ndarray.ndarray import NDArray
 from ..ops.registry import _unwrap
-from .parameter import Parameter, ParameterDict, _load_file
+from .parameter import Parameter, ParameterDict, _load_file, generation
 
-__all__ = ["Block", "HybridBlock", "SymbolBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "trace_scope"]
 
 
 def _later(what):
-    return MXNetError(f"{what} is not ported yet: the fused train step (a "
-                      "CUDA-graph capture of forward, backward and update) "
-                      "comes with a later slice of mxnet_tpu_torch; "
-                      "hybridize() keeps the forward imperative")
+    return MXNetError(f"{what} is not ported yet: the port has no symbolic "
+                      "graph; hybridize() runs the forward as a CUDA graph, "
+                      "and a later slice of mxnet_tpu_torch brings the "
+                      "symbolic surface")
+
+
+# --------------------------------------------------------------------------- #
+# trace state (reference ``_TraceState``, ``trace_scope``, ``_no_hybrid``)
+# --------------------------------------------------------------------------- #
+
+class _TraceState(threading.local):
+    def __init__(self):
+        self.no_hybrid = 0   # >0: hybridized blocks run their forward
+
+
+_trace_state = _TraceState()
+
+
+class _no_hybrid:
+    """Run every ``HybridBlock`` of this thread imperatively (inside a
+    capture or a trace, nested cached blocks are inlined, as the
+    reference inlines child graphs into the parent's)."""
+
+    def __enter__(self):
+        _trace_state.no_hybrid += 1
+        return self
+
+    def __exit__(self, *a):
+        _trace_state.no_hybrid -= 1
+
+
+@contextlib.contextmanager
+def trace_scope(training):
+    """The fused step's trace discipline: ops record (in ``training``
+    mode) so the backward can follow them, and hybridized blocks are
+    inlined.  The reference stages aux-state updates here; the port's
+    layers commit them in place (BatchNorm's ``copy_``), which a graph
+    replays."""
+    from .. import autograd
+
+    with autograd.record(train_mode=training), _no_hybrid():
+        yield
+
+
+def _launch_counts():
+    """The launch counts of the port's kernel wrappers (K1-K6) and of the
+    runtime-compiled kernels (K7); host counters, raised at a launch, so
+    a graph's capture raises them and its replays do not."""
+    from .. import rtc
+    from ..ops.attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from ..ops.conv_fused import conv1x1_bwd_pair
+    from ..ops.decode_fused import decode_step
+    from ..ops.q8_matvec import q8_matvec
+
+    return {"flash_fwd": flash_fwd.launches,
+            "flash_bwd_dq": flash_bwd_dq.launches,
+            "flash_bwd_dkv": flash_bwd_dkv.launches,
+            "q8_matvec": q8_matvec.launches,
+            "decode_fused": decode_step.launches,
+            "conv1x1_bwd": conv1x1_bwd_pair.launches,
+            "rtc": rtc.launch_total()}
+
+
+class _GraphProgram:
+    """``fn()`` (a list of tensors out, reading and writing static
+    tensors) as one program: the CPU runs ``fn`` at every call; on the
+    card call 1 runs it eagerly on a side stream (PyTorch's warm-up: the
+    deferred shapes, optimizer states, library handles and kernels'
+    first-use set-up), call 2 captures it into a ``torch.cuda.CUDAGraph``
+    (in ``pool``) and replays it once, later calls replay it.  So each
+    call does ``fn``'s work exactly once.  A replay overwrites the
+    outputs, so the card's calls return clones.
+
+    ``inputs`` are the static tensors a caller copies its arguments
+    into.  ``launches`` holds what the capture added to
+    ``_launch_counts()``: the kernels one replay launches (the counters
+    do not see replays).  With ``debug`` set before the capture the
+    graph keeps its nodes for ``graph.debug_dump``."""
+
+    debug = False
+
+    def __init__(self, fn, device, pool, inputs):
+        self.fn = fn
+        self.on_card = torch.device(device).type == "cuda"
+        self.pool = pool
+        self.inputs = inputs
+        self.is_seq = False
+        self.calls = 0
+        self.replays = 0
+        self.graph = None
+        self.outs = None
+        self.launches = {}
+        self.capture_s = None
+
+    def __call__(self):
+        self.calls += 1
+        if not self.on_card:
+            return self.fn()
+        if self.calls == 1:
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                outs = self.fn()
+            cur.wait_stream(side)
+            for o in outs:
+                o.record_stream(cur)
+            return outs
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        self.replays += 1
+        return [o.clone() for o in self.outs]
+
+    def _capture(self):
+        keep = False
+        if self.debug:
+            try:
+                g = torch.cuda.CUDAGraph(keep_graph=True)
+                keep = True
+            except TypeError:           # an older PyTorch
+                g = torch.cuda.CUDAGraph()
+                g.enable_debug_mode()
+        else:
+            g = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(g, pool=self.pool):
+            self.outs = self.fn()
+        if keep:
+            g.instantiate()
+        self.capture_s = time.perf_counter() - t0
+        self.launches = {k: v - before[k] for k, v in
+                         _launch_counts().items() if v != before[k]}
+        self.graph = g
 
 
 # --------------------------------------------------------------------------- #
@@ -368,10 +512,15 @@ class Block(nn.Module):
                 p._finish_deferred_init()
         self._ready = True
 
+    def _cached(self, args, kwargs):
+        return False
+
     def __call__(self, *args, **kwargs):
         for hook in self._mx_pre_hooks.values():
             hook(self, args)
-        if any(isinstance(a, NDArray) for a in args):
+        if self._cached(args, kwargs):
+            out = self._call_cached_op(args)
+        elif any(isinstance(a, NDArray) for a in args):
             out = self._call_nd(args, kwargs)
         else:
             if not self._ready:
@@ -384,38 +533,54 @@ class Block(nn.Module):
     def _call_nd(self, args, kwargs):
         from .. import autograd
 
-        tensors = [_unwrap(a) for a in args]
-        kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
+        return _wrap(self._run_nd(
+            [_unwrap(a) for a in args],
+            {k: _unwrap(v) for k, v in kwargs.items()},
+            autograd.is_training(), autograd.is_recording()))
+
+    def _run_nd(self, tensors, kwargs, training, recording):
+        """The forward of a call made with NDArrays, on their tensors."""
         prev = getattr(_MODE, "training", None)
-        _MODE.training = autograd.is_training()
+        _MODE.training = training
         try:
-            with torch.enable_grad() if autograd.is_recording() \
-                    else torch.no_grad():
+            with torch.enable_grad() if recording else torch.no_grad():
                 if not self._ready:
                     self._prepare(tensors)
-                out = super().__call__(*tensors, **kwargs)
+                out = nn.Module.__call__(self, *tensors, **kwargs)
         finally:
             _MODE.training = prev
-        return _wrap(out)
+        return out
 
 
 class HybridBlock(Block):
-    """A block that can be hybridized (reference ``HybridBlock``); in this
-    slice ``hybridize`` records its flags and the forward stays
-    imperative."""
+    """A block that can be hybridized (reference ``HybridBlock``): once
+    ``hybridize()``d, a call with NDArrays outside ``autograd.record()``
+    runs through ``_CachedOp``."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
         self._flags = {}
+        self._cached_op = None
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   **kwargs):
         self._active = active
         self._flags = dict(static_alloc=static_alloc,
                            static_shape=static_shape, **kwargs)
+        self._cached_op = None
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, **kwargs)
+
+    def _cached(self, args, kwargs):
+        return (self._active and not kwargs and bool(args) and
+                not _trace_state.no_hybrid and
+                all(isinstance(a, NDArray) for a in args))
+
+    def _call_cached_op(self, args):
+        if self._cached_op is None:
+            self._cached_op = _CachedOp(self, self._flags)
+        return self._cached_op(args)
 
     def export(self, path, epoch=0, remove_amp_cast=True):
         raise _later("HybridBlock.export (symbol.json + .params)")
@@ -425,10 +590,75 @@ class HybridBlock(Block):
 
 
 class _CachedOp:
-    """The reference's traced, compiled forward of a hybridized block."""
+    """A hybridized block's forward as one program (reference
+    ``CachedOp``), keyed by (input shapes and dtypes, training flag).
+
+    Outside ``autograd.record()`` on the card each key's forward is a
+    ``_GraphProgram`` over static inputs: the call's arrays are copied in,
+    the graph replayed, the outputs cloned (its eager first call also
+    infers deferred shapes).  On the CPU the forward runs directly (the
+    keys are still counted in ``builds``).  Under ``record()`` the
+    forward runs imperatively.  A move of the parameters' storage
+    generation (``parameter.generation()``: ``cast``,
+    ``load_parameters``, ``reset_ctx``, deferred init) drops every
+    program, so the next call captures again."""
 
     def __init__(self, block, flags=None):
-        raise _later("_CachedOp")
+        self._block = block
+        self._flags = dict(flags or {})
+        self._programs = {}
+        self._generation = None
+        self._pool = None
+        self.builds = 0
+
+    def _key(self, tensors, training):
+        return (tuple((tuple(t.shape), t.dtype, t.device) for t in tensors),
+                training)
+
+    def __call__(self, args):
+        from .. import autograd
+
+        block = self._block
+        if autograd.is_recording():
+            return block._call_nd(args, {})
+        tensors = [a._data for a in args]
+        if self._generation != generation():
+            self._programs.clear()
+            self._generation = generation()
+        training = autograd.is_training()
+        key = self._key(tensors, training)
+        if key not in self._programs:
+            self._programs[key] = self._program(tensors, training)
+            self.builds += 1
+        prog = self._programs[key]
+        if prog is None:        # the CPU: the forward itself
+            return block._call_nd(args, {})
+        for s, t in zip(prog.inputs, tensors):
+            s.copy_(t)
+        outs = prog()
+        if prog.graph is None:
+            # the eager first call may have created deferred parameters;
+            # the capture, next, reads them as they now are
+            self._generation = generation()
+        return _wrap(list(outs) if prog.is_seq else outs[0])
+
+    def _program(self, tensors, training):
+        device = tensors[0].device
+        if device.type != "cuda":
+            return None
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        block = self._block
+        static = [torch.empty_like(t) for t in tensors]
+
+        def fn():
+            with _no_hybrid():
+                out = block._run_nd(static, {}, training, False)
+            prog.is_seq = isinstance(out, (tuple, list))
+            return list(out) if prog.is_seq else [out]
+
+        prog = _GraphProgram(fn, device, self._pool, static)
+        return prog
 
 
 class SymbolBlock(HybridBlock):

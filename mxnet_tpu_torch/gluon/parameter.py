@@ -15,6 +15,17 @@ built (``Block._place``), else at the block's first forward, after the
 block inferred the shape (deferred initialization).  ``initialize``
 fills it, or records where and how to fill it once the shape is known.
 
+``grad()``'s buffer is allocated at first use: by the first backward of
+``autograd`` that writes it, or the first ``grad()`` or ``zero_grad()``.
+The fused train step and ``parallel.SPMDTrainer`` take their gradients
+from ``torch.autograd.grad`` and allocate none.
+
+Every operation that replaces a parameter's tensor (creation, deferred
+initialization, ``cast``, ``reset_ctx``, loading) raises one
+process-wide storage generation (``generation()``): a captured CUDA
+graph reads the tensors it was captured with, so a cached graph compares
+that one integer at each call and is captured again when it moved.
+
 The reference's per-context replicas (``initialize`` on several
 contexts) and its mesh sharding (``set_sharding``, ``var``) are not
 ported: the port runs on one card.
@@ -33,7 +44,20 @@ from ..context import Context, current_context
 from ..ndarray.ndarray import NDArray
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
-           "DeferredInitializationError"]
+           "DeferredInitializationError", "generation"]
+
+
+_GENERATION = [0]
+
+
+def generation() -> int:
+    """The storage generation: raised whenever a parameter's tensor is
+    replaced."""
+    return _GENERATION[0]
+
+
+def _bump():
+    _GENERATION[0] += 1
 
 
 class DeferredInitializationError(MXNetError):
@@ -110,7 +134,7 @@ class Parameter:
             arr._grad, arr._grad_req = None, "null"
             arr._data.requires_grad_(False)
         else:
-            arr.attach_grad(req)
+            arr.attach_grad(req, lazy=True)
 
     @property
     def shape(self):
@@ -158,21 +182,22 @@ class Parameter:
                 with torch.no_grad():
                     leaf.data = leaf.data.to(device)
                 self._fresh_grad()
+                _bump()
             return
         leaf = nn.Parameter(torch.empty(self._shape, device=device,
                                         dtype=torch_dtype(self.dtype)),
                             requires_grad=self._grad_req != "null")
         self._data = NDArray(leaf)
         if self._grad_req != "null":
-            self._data.attach_grad(self._grad_req)
+            self._data.attach_grad(self._grad_req, lazy=True)
         for block, attr in self._owners:
             block._parameters[attr] = leaf
+        _bump()
 
     def _fresh_grad(self):
-        """A zero gradient of the tensor's device and dtype."""
-        arr = self._data
-        if arr._grad is not None:
-            arr._grad = NDArray(torch.zeros_like(arr._data.detach()))
+        """Drop the gradient buffer (allocated again, on the tensor's
+        device and dtype, at its next use)."""
+        self._data._grad = None
 
     def _device(self):
         return self._data._data.device if self._data is not None else None
@@ -245,10 +270,10 @@ class Parameter:
 
     def grad(self, ctx=None) -> NDArray:
         self._check_initialized()
-        if self._grad_req == "null" or self._data._grad is None:
+        if self._grad_req == "null" or self._data._grad_req == "null":
             raise MXNetError(
                 f"cannot get grad for {self.name}: grad_req is 'null'")
-        return self._data._grad
+        return self._data._grad_buffer()
 
     def list_data(self):
         return [self.data()]
@@ -303,9 +328,11 @@ class Parameter:
         self._create(device)
         self._deferred_init = None
         self._write(src)
+        _bump()
 
     def zero_grad(self):
-        if self._data is not None and self._data._grad is not None:
+        if self._data is not None and self._data._grad_req != "null":
+            self._data._grad_buffer()
             self._data.zero_grad()
 
     def reset_ctx(self, ctx):
@@ -329,6 +356,7 @@ class Parameter:
             with torch.no_grad():
                 leaf.data = leaf.data.to(dt)
             self._fresh_grad()
+            _bump()
 
     # -- JAX-only parts of the reference ------------------------------- #
     def set_sharding(self, sharding):

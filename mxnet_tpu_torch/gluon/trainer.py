@@ -20,10 +20,24 @@ after the update the gradients are released, so the next backward
 writes them afresh (``grad_req='write'``).
 
 ``step(batch_size)`` rescales by ``1 / batch_size`` and applies the
-optimizer with the reference's dtype discipline (``Optimizer.apply``).
-Gradient accumulation (``update_interval``), kvstores and
-``save_states``/``load_states`` belong to the fused train step of a
-later slice and raise ``MXNetError``.
+optimizer with the reference's dtype discipline, one grouped apply a
+(multi-precision, dtype) group (``Optimizer.multi_update``, the fused
+step's own apply).
+
+``Trainer(update_interval=N)`` accumulates gradients over a window of N
+micro-batches: ``step`` applies the optimizer at every Nth call, rescaled
+once by ``1 / (N * batch_size)``, which needs ``grad_req='add'`` (a
+``'write'`` buffer would keep only the last micro-batch), and
+``allreduce_grads``/``update`` refuse to run mid-window.
+``fused_step(loss_fn, *batch)`` runs forward, loss, backward, the
+window's accumulation and the apply as one program (``gluon/
+fused_step.py``): one CUDA-graph replay a call on the card.  It and
+``step`` share one window, the same optimizer states (updated in place
+by both, since a captured graph reads those tensors) and the same
+update counts.
+
+Kvstores other than the local ones, ``data_sharding`` and
+``save_states``/``load_states`` raise ``MXNetError``.
 """
 from __future__ import annotations
 
@@ -76,8 +90,9 @@ class Trainer:
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None, update_interval=1):
         self._params, self._gluon = _param_list(params)
-        if int(update_interval) != 1:
-            raise _later("update_interval (gradient accumulation)")
+        self._update_interval = int(update_interval)
+        if self._update_interval < 1:
+            raise MXNetError("update_interval must be >= 1")
         if kvstore not in _LOCAL_KVSTORES or update_on_kvstore or \
                 compression_params:
             raise _later("a kvstore")
@@ -98,6 +113,12 @@ class Trainer:
         self._states_created = [False] * len(self._params)
         # the gradient tensor each Parameter's last update consumed
         self._consumed = [None] * len(self._params)
+        self._window_pos = 0        # micro-batches seen in this window
+        # True while FusedStep's phase-by-phase path drives step(): it
+        # accumulates 'write' gradients itself
+        self._accum_managed = False
+        # id(loss_fn) -> FusedStep (strong references keep ids unique)
+        self._fused_steps = {}
 
     @property
     def learning_rate(self):
@@ -112,26 +133,88 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale by ``1 / batch_size`` and update (reference
-        ``Trainer.step``; there is nothing to allreduce on one device)."""
-        self.update(batch_size, ignore_stale_grad)
+        ``Trainer.step``; there is nothing to allreduce on one device).
+        With ``update_interval=N``, ``batch_size`` is the micro-batch's:
+        the first N-1 calls of a window only count, the Nth rescales once
+        by ``1 / (N * batch_size)``, updates and zeroes the ``'add'``
+        buffers."""
+        N = self._update_interval
+        if N > 1:
+            self._window_pos += 1
+            if self._window_pos == 1 and self._gluon and \
+                    not self._accum_managed:
+                bad = [p.name for p in self._params if p.grad_req == "write"]
+                if bad:
+                    self._window_pos = 0
+                    raise MXNetError(
+                        f"Trainer(update_interval={N}) with step() "
+                        "requires grad_req='add' so micro-batch gradients "
+                        "accumulate; these parameters have grad_req="
+                        f"'write' (first: {bad[0]}) and each backward "
+                        "would overwrite, not accumulate. Set grad_req="
+                        "'add' (zero_grad() is then automatic at the "
+                        "window boundary) or drive the window with "
+                        "fused_step(), which accumulates on the device.")
+            if self._window_pos < N:
+                return
+            self._window_pos = 0
+            self._do_update(batch_size * N, ignore_stale_grad)
+            if self._gluon:
+                for p in self._params:
+                    if p.grad_req == "add":
+                        p.zero_grad()
+            return
+        self._do_update(batch_size, ignore_stale_grad)
+
+    def _check_window_boundary(self, what):
+        if self._update_interval > 1 and self._window_pos != 0:
+            raise MXNetError(
+                f"{what} called mid-accumulation window (micro-batch "
+                f"{self._window_pos}/{self._update_interval} of "
+                f"Trainer(update_interval={self._update_interval})): "
+                "applying partial gradients would corrupt the accumulated "
+                "update; call it only at the window boundary (after the "
+                "Nth backward), or let step()/fused_step() drive the "
+                "window")
+
+    def allreduce_grads(self):
+        """The reference's explicit allreduce, for the clip-then-update
+        pattern: nothing to reduce on one card, refused mid-window."""
+        self._check_window_boundary("allreduce_grads()")
 
     def update(self, batch_size, ignore_stale_grad=False):
-        """The update half of ``step``."""
+        """The update half of ``step``; with ``update_interval=N`` it
+        rescales by ``1 / (N * batch_size)`` and is refused mid-window."""
+        self._check_window_boundary("update()")
+        self._do_update(batch_size * self._update_interval,
+                        ignore_stale_grad)
+
+    def _do_update(self, batch_size, ignore_stale_grad):
         self._optimizer.rescale_grad = self._scale / float(batch_size)
         if self._gluon:
             self._update_params(ignore_stale_grad)
         else:
             self._update_tensors(ignore_stale_grad)
 
-    def _apply(self, i, weight, grad):
+    def _ensure_state(self, i):
+        """Create parameter ``i``'s optimizer state once (shared by the
+        fused step and the phase-by-phase update)."""
         if not self._states_created[i]:
+            p = self._params[i]
+            weight = p._data._data if self._gluon else p
             self._states[i] = \
                 self._optimizer.create_state_multi_precision(i, weight)
             self._states_created[i] = True
-        self._states[i] = self._optimizer.update_multi_precision(
-            i, weight, grad, self._states[i])
+
+    def _apply(self, idxs, weights, grads):
+        for i in idxs:
+            self._ensure_state(i)
+        # updates the states in place: a captured fused step reads them
+        self._optimizer.multi_update(
+            idxs, weights, grads, [self._states[i] for i in idxs])
 
     def _update_params(self, ignore_stale_grad):
+        idxs, weights, grads = [], [], []
         for i, p in enumerate(self._params):
             if p.grad_req == "null":
                 continue
@@ -146,7 +229,7 @@ class Trainer:
             if leaf.grad is not None:       # left by a PyTorch backward
                 arr._commit_grad(leaf.grad)
                 leaf.grad = None
-            grad = arr._grad._data
+            grad = arr._grad_buffer()._data
             seen = self._consumed[i]
             if seen is not None and seen() is grad:
                 if ignore_stale_grad:
@@ -155,10 +238,15 @@ class Trainer:
                     f"gradient of parameter {p.name} has not been updated "
                     "by a backward since the last step; run backward, or "
                     "step(ignore_stale_grad=True) to skip it")
-            self._apply(i, leaf, grad)
+            idxs.append(i)
+            weights.append(leaf)
+            grads.append(grad)
             self._consumed[i] = weakref.ref(grad)
+        if idxs:
+            self._apply(idxs, weights, grads)
 
     def _update_tensors(self, ignore_stale_grad):
+        idxs, weights, grads = [], [], []
         for i, p in enumerate(self._params):
             if not p.requires_grad:
                 continue
@@ -168,15 +256,61 @@ class Trainer:
                 raise MXNetError(
                     f"parameter {i} {tuple(p.shape)} has no gradient: run "
                     "backward first, or step(ignore_stale_grad=True)")
-            self._apply(i, p, p.grad)
+            idxs.append(i)
+            weights.append(p)
+            grads.append(p.grad)
+        if idxs:
+            self._apply(idxs, weights, grads)
+        for p in weights:
             p.grad = None
 
     def zero_grad(self):
+        """Zero the gradient of every parameter that has one (the
+        ``grad_req='add'`` accumulators' reset)."""
         for p in self._params:
             if self._gluon:
-                p.zero_grad()
+                if p.grad_req != "null":
+                    p.zero_grad()
             elif p.grad is not None:
                 p.grad.zero_()
+
+    def fused_step(self, loss_fn, *batch, batch_size=None,
+                   data_sharding=None):
+        """One training step as one program: forward, loss, backward,
+        the gradient rescale and the optimizer apply (``gluon/
+        fused_step.py``), a CUDA-graph replay on the card.
+        ``loss_fn(*batch)`` takes NDArrays and returns the per-sample
+        loss, or ``(loss, *extras)``; define it once outside the loop
+        (the step is cached by ``id(loss_fn)``).  ``batch_size`` defaults
+        to ``batch[0].shape[0]``.  With ``update_interval=N`` the
+        gradients accumulate on the device and the apply, rescaled by
+        ``1 / (N * batch_size)``, runs at every Nth call.  The
+        parameters' ``grad()`` buffers are never touched.
+        ``MXNET_FUSED_STEP=0`` runs the phase-by-phase step instead."""
+        from .fused_step import FusedStep
+
+        if not self._gluon:
+            raise MXNetError(
+                "fused_step needs a Trainer over Gluon Parameters (a "
+                "block's collect_params()); over an nn.Module or tensors "
+                "use backward() and step(), or parallel.SPMDTrainer")
+        if data_sharding is not None:
+            raise MXNetError("fused_step: data_sharding lays a batch over "
+                             "several devices; the port runs one card")
+        fs = self._fused_steps.get(id(loss_fn))
+        if fs is None:
+            if len(self._fused_steps) >= 16:
+                self._fused_steps.pop(next(iter(self._fused_steps)))
+                if not getattr(self, "_fused_evict_warned", False):
+                    import warnings
+                    warnings.warn(
+                        "fused_step: more than 16 distinct loss_fn objects "
+                        "seen; define the loss_fn once outside the "
+                        "training loop, or every call captures again",
+                        stacklevel=2)
+                    self._fused_evict_warned = True
+            fs = self._fused_steps[id(loss_fn)] = FusedStep(self, loss_fn)
+        return fs(batch, batch_size)
 
     def save_states(self, fname):
         raise _later("save_states (optimizer state checkpoints)")

@@ -139,8 +139,13 @@ class NDArray:
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        # at least 1-d, as the reference's (``np.ascontiguousarray``)
-        return np.ascontiguousarray(t.cpu().numpy())
+        # at least 1-d, as the reference's (``np.ascontiguousarray``); a
+        # copy, as MXNet's: a CPU tensor's numpy view would follow the
+        # in-place updates of a parameter
+        out = np.ascontiguousarray(t.cpu().numpy())
+        if t.device.type == "cpu" and np.shares_memory(out, t.numpy()):
+            out = out.copy()
+        return out
 
     def item(self):
         return self.asnumpy().item()
@@ -186,18 +191,17 @@ class NDArray:
     # ------------------------------------------------------------------ #
     # autograd surface
     # ------------------------------------------------------------------ #
-    def attach_grad(self, grad_req: str = "write", stype=None):
+    def attach_grad(self, grad_req: str = "write", stype=None, lazy=False):
         """Allocate a zero gradient buffer and make this array a variable
-        (reference ``NDArray.attach_grad``)."""
+        (reference ``NDArray.attach_grad``).  With ``lazy`` (a Gluon
+        ``Parameter``'s array) the buffer is allocated at its first use
+        instead (``_grad_buffer``)."""
         if grad_req not in ("write", "add", "null"):
             raise MXNetError(f"invalid grad_req {grad_req}")
         if stype not in (None, "default"):
             raise MXNetError(f"sparse gradient storage {stype!r} is not "
                              "supported by mxnet_tpu_torch")
-        gdt = self._data.dtype if self._data.is_floating_point() \
-            else torch.float32
-        self._grad = NDArray(torch.zeros(self.shape, dtype=gdt,
-                                         device=self._data.device))
+        self._grad = None if lazy else self._zeros_grad()
         self._grad_req = grad_req
         self._freed = False
         self._data = _leaf(self._data, self) if grad_req != "null" \
@@ -205,6 +209,18 @@ class NDArray:
 
     @property
     def grad(self):
+        return self._grad_buffer()
+
+    def _zeros_grad(self) -> "NDArray":
+        gdt = self._data.dtype if self._data.is_floating_point() \
+            else torch.float32
+        return NDArray(torch.zeros(self.shape, dtype=gdt,
+                                   device=self._data.device))
+
+    def _grad_buffer(self) -> "NDArray":
+        """The gradient buffer, allocated (zero) at its first use."""
+        if self._grad is None and self._grad_req != "null":
+            self._grad = self._zeros_grad()
         return self._grad
 
     def zero_grad(self):
@@ -212,12 +228,13 @@ class NDArray:
             self._grad._rebind(torch.zeros_like(self._grad._data))
 
     def _commit_grad(self, g: torch.Tensor):
-        if self._grad is None or self._grad_req == "null":
+        buf = self._grad_buffer()
+        if buf is None or self._grad_req == "null":
             return
-        g = g.detach().to(self._grad._data.dtype)
+        g = g.detach().to(buf._data.dtype)
         if self._grad_req == "add":
-            g = self._grad._data + g
-        self._grad._rebind(g)
+            g = buf._data + g
+        buf._rebind(g)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         from .. import autograd

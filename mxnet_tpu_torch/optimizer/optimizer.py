@@ -14,24 +14,58 @@ reference's dtype discipline (``Optimizer._apply_one`` /
 cast to the weight's dtype before rescale and clip, and the new weight
 is rounded back; with ``multi_precision`` and a half-precision weight
 the f32 master copy is updated and then rounded into the weight.  The
-weight is updated in place; the new state is returned.  Both
-``gluon.Trainer`` and ``parallel.SPMDTrainer`` go through it.
+weight is updated in place; the new state is returned.  The
+per-parameter ``update`` and ``parallel.SPMDTrainer`` go through it.
 
-Learning-rate schedulers and the fused multi-tensor executables of the
-reference belong to later slices of the port and are absent here.
+``fused_step_apply`` is the multi-tensor apply of ``Trainer.step``
+(through ``multi_update``) and of the fused train step
+(``gluon/fused_step.py``, inside a program that a CUDA graph captures):
+learning rates, weight decays, step counts and the gradient rescale are
+device tensors, so one graph serves every step.  ``_apply_one`` copies
+the reference's dtype discipline line for line, which differs from
+``apply`` in two places: the f32 ``lr``/``wd`` tensors promote a
+low-precision update to f32 (as the reference's traced f32 scalars do),
+and Adam's bias correction is computed on the device in f32 from the
+step tensor (as ``-expm1(t log beta)``, which keeps f32 within ~1e-7 of
+``apply``'s host f64, where the reference's ``1 - beta ** t`` loses
+1.3e-5).  ``MXNET_FUSED_OPTIMIZER=0`` makes ``multi_update`` run the
+per-parameter ``update_multi_precision`` loop instead, bit for bit the
+path before the grouped apply.
+
+An optimizer built with ``lr_scheduler=`` reads its learning rate from
+the scheduler at every update (``optimizer/lr_scheduler.py``).
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "register", "create"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "register", "create",
+           "apply_counters", "reset_apply_counters", "fused_enabled"]
 
 _REGISTRY: dict = {}
 _HALF = (torch.float16, torch.bfloat16)
+
+# grouped applies of ``multi_update`` (reference names):
+#   fused_calls      grouped applies (one a group a step)
+#   fused_params     parameters those applies served
+#   fallback_params  parameters that took the per-parameter loop
+apply_counters = {"fused_calls": 0, "fused_params": 0, "fallback_params": 0}
+
+
+def reset_apply_counters():
+    for k in apply_counters:
+        apply_counters[k] = 0
+
+
+def fused_enabled() -> bool:
+    """``MXNET_FUSED_OPTIMIZER=0`` restores the per-parameter update loop
+    (read per call)."""
+    return os.environ.get("MXNET_FUSED_OPTIMIZER", "1") != "0"
 
 
 def register(klass):
@@ -57,14 +91,46 @@ def _cast_like(ref, new):
     return new
 
 
+def _tensor(x):
+    return x._data if hasattr(x, "_data") else x
+
+
+def _assign(dst, src):
+    """Copy the tensors of ``src`` into those of ``dst`` (a state's
+    structure: a tensor, a tuple of them, or None), in place."""
+    if isinstance(dst, tuple):
+        for a, b in zip(dst, src):
+            _assign(a, b)
+    elif isinstance(dst, torch.Tensor) and dst is not src:
+        dst.copy_(src.reshape(dst.shape))
+
+
+def _write(dst, values):
+    """Copy the numbers ``values`` into the f32 vector ``dst``.  On the
+    card the copy leaves from pinned memory without blocking the host;
+    PyTorch's pinned allocator keeps the block from reuse until the copy
+    has run, so a later write cannot overtake it."""
+    host = torch.tensor(values, dtype=torch.float32)
+    dst.copy_(host.pin_memory() if dst.is_cuda else host, non_blocking=True)
+    return dst
+
+
 class Optimizer:
     """Base optimizer (reference anchor ``class Optimizer``)."""
 
+    # every rule of the port is a pure function of its operands (the
+    # reference's SGLD, which draws host noise, is not ported)
+    _fusable = True
+
     def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=None, multi_precision=False, param_dict=None,
+                 learning_rate=None, lr_scheduler=None,
+                 multi_precision=False, param_dict=None,
                  begin_num_update=0):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate if learning_rate is not None else 0.01
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None and learning_rate is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.multi_precision = multi_precision
@@ -78,6 +144,8 @@ class Optimizer:
     # -- lr/wd plumbing ---------------------------------------------------- #
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
     @learning_rate.setter
@@ -85,6 +153,9 @@ class Optimizer:
         self.set_learning_rate(lr)
 
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise MXNetError("cannot set lr directly when lr_scheduler is "
+                             "active")
         self.lr = lr
 
     def set_lr_mult(self, args_lr_mult):
@@ -176,6 +247,113 @@ class Optimizer:
                           self._index_update_count[index],
                           self.rescale_grad, use_mp)
 
+    # -- the fused apply ---------------------------------------------------- #
+    def _hyper_key(self):
+        """The scalar hyperparameters the rules read as Python numbers
+        (momentum, betas, epsilon, ...): part of a captured step's key, so
+        changing one captures again.  Per-step quantities (lr, wd,
+        rescale, step counts) are device operands and left out."""
+        skip = {"rescale_grad", "num_update", "begin_num_update", "lr",
+                "wd", "clip_gradient"}
+        return tuple(sorted(
+            (k, v) for k, v in self.__dict__.items()
+            if k not in skip and isinstance(v, (bool, int, float, str))))
+
+    def _apply_one(self, w, g, s, lr, wd, t, rescale, clip, use_mp,
+                   has_clip):
+        """One parameter's update with device operands (``lr``, ``wd``:
+        f32 tensors of the weight's rank, so that they promote it as the
+        reference's traced f32 scalars do, where a 0-dim tensor would
+        not; ``t``, ``rescale``: f32 scalars; ``clip`` a number read when
+        the step is captured): the reference's ``_apply_one``, dtype for
+        dtype.  Pure: returns ``(new_weight, new_state)`` before their
+        rounding, which the in-place copies into the weight and the
+        state tensors do (``copy_`` rounds as the reference's ``astype``
+        does)."""
+        if use_mp:
+            master, inner = s
+            g2 = g.float() * rescale
+            if has_clip:
+                g2 = g2.clamp(-clip, clip)
+            nm, ni = self._update_rule(master, g2, inner, lr, wd, t)
+            return nm, (nm, ni)
+        # the gradient is cast to the weight's dtype before rescale and
+        # clip, as on the per-parameter path; the f32 lr/wd then promote
+        # the rule's arithmetic to f32 before the rounding back
+        g2 = g.to(w.dtype) * rescale.to(w.dtype)
+        if has_clip:
+            g2 = g2.clamp(-clip, clip)
+        return self._update_rule(w, g2, s, lr, wd, t)
+
+    @torch.no_grad()
+    def fused_step_apply(self, ws, gs, ss, mp_flags, lrs, wds, ts, rescale):
+        """The multi-tensor apply of ``multi_update`` and of the fused
+        train step: every weight, master copy and state updated in place
+        (their storage is what a captured graph reads and writes);
+        ``lrs``, ``wds``, ``ts`` are f32 vectors with one entry a
+        parameter, ``rescale`` the device scalar that carries the
+        accumulation window's 1/(N*batch).  ``clip_gradient`` is read
+        here, when the step is captured (it is part of the step's key).
+        Returns ``(ws, ss)``."""
+        has_clip = self.clip_gradient is not None
+        clip = float(self.clip_gradient) if has_clip else 0.0
+        # each parameter's lr and wd as views of the weight's rank, made
+        # by one reshape and one unbind a rank (the host's cost of the
+        # apply is a few calls a parameter)
+        ranks = {w.dim() for w in ws}
+        lr_of = {r: lrs.reshape(-1, *[1] * r).unbind() for r in ranks}
+        wd_of = {r: wds.reshape(-1, *[1] * r).unbind() for r in ranks}
+        ts = ts.unbind()
+        for i, (w, g, s, mp) in enumerate(zip(ws, gs, ss, mp_flags)):
+            r = w.dim()
+            nw, ns = self._apply_one(w, g, s, lr_of[r][i], wd_of[r][i],
+                                     ts[i], rescale, clip, mp, has_clip)
+            w.copy_(nw)
+            _assign(s, ns)
+        return ws, ss
+
+    def multi_update(self, indices, weights, grads, states):
+        """Update many parameters (tensors or NDArrays) as the reference's
+        ``multi_update`` does: grouped by (multi-precision, dtype,
+        device), each group's learning rates, weight decays and step
+        counts one device vector, and ``fused_step_apply`` over the group
+        (the fused train step's own apply, so the two cannot drift).
+        Weights and states are updated in place; returns ``states``.
+        ``MXNET_FUSED_OPTIMIZER=0`` runs ``update_multi_precision``
+        parameter by parameter, bit for bit the per-parameter loop, and
+        writes its states into the same tensors."""
+        ws = [_tensor(w) for w in weights]
+        gs = [_tensor(g) for g in grads]
+        if not (fused_enabled() and self._fusable):
+            for pos, idx in enumerate(indices):
+                _assign(states[pos], self.update_multi_precision(
+                    idx, ws[pos], gs[pos], states[pos]))
+                apply_counters["fallback_params"] += 1
+            return list(states)
+        groups: dict = {}
+        for pos, w in enumerate(ws):
+            use_mp = self._use_mp(w, states[pos])
+            groups.setdefault((use_mp, w.dtype, w.device), []).append(pos)
+        for (use_mp, _dt, dev), poss in groups.items():
+            lrs, wds, ts = [], [], []
+            for pos in poss:
+                idx = indices[pos]
+                self._update_count(idx)
+                lrs.append(self._get_lr(idx))
+                wds.append(self._get_wd(idx))
+                ts.append(self._index_update_count[idx])
+            n = len(poss)
+            hyper = _write(torch.empty(3 * n + 1, dtype=torch.float32,
+                                       device=dev),
+                           lrs + wds + ts + [self.rescale_grad])
+            self.fused_step_apply(
+                [ws[p] for p in poss], [gs[p] for p in poss],
+                [states[p] for p in poss], [use_mp] * n, hyper[:n],
+                hyper[n:2 * n], hyper[2 * n:3 * n], hyper[3 * n])
+            apply_counters["fused_calls"] += 1
+            apply_counters["fused_params"] += n
+        return list(states)
+
 
 @register
 class SGD(Optimizer):
@@ -216,7 +394,15 @@ class Adam(Optimizer):
         m, v = state
         m = self.beta1 * m + (1 - self.beta1) * g
         v = self.beta2 * v + (1 - self.beta2) * g.square()
-        lr_scale = math.sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)
+        if isinstance(t, torch.Tensor):
+            # the fused step's f32 device step count.  1 - beta ** t as
+            # -expm1(t log beta): the reference's f32 ``1 - 0.999 ** t``
+            # loses 1.3e-5 of its value at t=1 (0.999 is not an f32)
+            lr_scale = torch.sqrt(-torch.expm1(t * math.log(self.beta2))) \
+                / -torch.expm1(t * math.log(self.beta1))
+        else:
+            lr_scale = math.sqrt(1 - self.beta2 ** t) / \
+                (1 - self.beta1 ** t)
         return m, v, lr_scale
 
     def _update_rule(self, w, g, state, lr, wd, t):
@@ -234,3 +420,4 @@ class AdamW(Adam):
         m, v, lr_scale = self._moments(g, state, t)
         return w - lr * lr_scale * (m / (v.sqrt() + self.epsilon) +
                                     wd * w), (m, v)
+

@@ -12,6 +12,10 @@ every draw after it.
   returned as a Python int, for attention dropout (whose keep mask is a
   position hash of that seed, computed inside the kernels).  A host draw
   needs no device sync, once per layer.
+
+Both raise while the current CUDA stream is capturing a graph: a graph
+would replay the seed or the generator's state it saw at capture, so
+every replay would draw the same dropout mask.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import threading
 
 import numpy as np
 import torch
+
+from .base import MXNetError
 
 __all__ = ["seed", "generator", "attention_seed"]
 
@@ -44,8 +50,18 @@ def _make(device, salt):
     return g
 
 
+def _refuse_capture(what):
+    if torch.cuda.is_available() and \
+            torch.cuda.is_current_stream_capturing():
+        raise MXNetError(
+            f"random.{what} called while a CUDA graph is being captured: "
+            "every replay would draw the same numbers; a captured step "
+            "cannot draw random numbers yet")
+
+
 def generator(device) -> torch.Generator:
     """The device generator of ``device`` (created at first use)."""
+    _refuse_capture("generator")
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -59,6 +75,7 @@ def generator(device) -> torch.Generator:
 
 def attention_seed() -> int:
     """A uint32 attention-dropout seed from the host generator."""
+    _refuse_capture("attention_seed")
     gens = _root().gens
     g = gens.get("attention")
     if g is None:

@@ -55,6 +55,7 @@ import sys
 import tempfile
 import threading
 import time
+import weakref
 from pathlib import Path
 from typing import NamedTuple
 
@@ -470,6 +471,16 @@ class CudaModule:
                           parse_signature(signature))
 
 
+# every kernel made, weakly: ``launch_total`` sums their launch counts
+_KERNELS: "weakref.WeakSet[CudaKernel]" = weakref.WeakSet()
+
+
+def launch_total() -> int:
+    """The launches of every live ``CudaKernel`` (a CUDA graph's replays
+    are not launches)."""
+    return sum(k.launches for k in list(_KERNELS))
+
+
 class CudaKernel:
     """One kernel of a ``CudaModule``; ``launches`` counts its launches."""
 
@@ -485,6 +496,7 @@ class CudaKernel:
         self._lock = threading.Lock()
         self._count = ctypes.c_uint64(0)     # raised by rtc_launch
         self._function(torch.cuda.current_device())
+        _KERNELS.add(self)
 
     @property
     def launches(self) -> int:

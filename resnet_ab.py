@@ -13,7 +13,8 @@ measured by the same code, then prints one JSON line:
   steps: ms a step (steps 2-20), images/s, peak memory, launches;
 - ``gluon``: where the checkout has the Gluon parameter layer,
   ``chip_smoke.gluon_resnet``, the same net and batch through
-  ``gluon.Trainer`` and NDArrays (its gates included).
+  ``gluon.Trainer`` and NDArrays (its gates included), its weights
+  drawn after ``mx.random.seed(0)``.
 
 Run it once per checkout, in separate processes, in the order parent,
 change, change, parent (host clocks spread between processes).
@@ -63,6 +64,8 @@ def main():
     torch.cuda.empty_cache()
     out = dict(tag=args.tag, root=root, card=cs.card_line(), spmd=spmd)
     if hasattr(gluon, "Parameter"):
+        # the same initial weights for every checkout and run
+        mxnet_tpu_torch.random.seed(0)
         out["gluon"] = cs.gluon_resnet(spmd)
     print(json.dumps(out, default=str))
 

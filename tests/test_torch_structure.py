@@ -81,8 +81,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 
 def test_new_modules_are_covered():
-    """The structure checks above reach the fused decode, the vision and
-    the imperative slices' modules and kernel sources."""
+    """The structure checks above reach the fused decode, the vision,
+    the imperative and the fused-train-step slices' modules and kernel
+    sources."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"mxnet_tpu_torch/context.py",
             "mxnet_tpu_torch/ndarray/ndarray.py",
@@ -102,6 +103,8 @@ def test_new_modules_are_covered():
             "mxnet_tpu_torch/gluon/nn/basic_layers.py",
             "mxnet_tpu_torch/gluon/nn/conv_layers.py",
             "mxnet_tpu_torch/gluon/model_zoo/vision/resnet.py"} <= names
+    assert {"mxnet_tpu_torch/gluon/fused_step.py",
+            "mxnet_tpu_torch/optimizer/lr_scheduler.py"} <= names
     assert {"decode_fused", "conv1x1_bwd"} <= set(_build.KERNELS)
 
 

@@ -143,8 +143,13 @@ def test_gluon_trainer_matches_jax(gpt_pair):
 
 def test_gluon_trainer_refuses_later_slice_features(gpt_pair):
     _, model = gpt_pair
+    # update_interval is ported: a window needs at least one micro-batch,
+    # and the fused step needs Gluon Parameters, not an nn.Module
     with pytest.raises(MXNetError, match="update_interval"):
-        pgluon.Trainer(model, "sgd", update_interval=2)
+        pgluon.Trainer(model, "sgd", update_interval=0)
+    with pytest.raises(MXNetError, match="Gluon Parameters"):
+        pgluon.Trainer(model, "sgd", update_interval=2).fused_step(
+            lambda x: x, torch.zeros(1))
     with pytest.raises(MXNetError, match="kvstore"):
         pgluon.Trainer(model, "sgd", kvstore="dist_sync")
     tr = pgluon.Trainer(model, "sgd")
