@@ -24,18 +24,25 @@ Phases (each fails the run by raising; there is no CPU path):
    share of it);
 4. K1 (flash forward) against its plain version in bf16 at the shape
    the serving prefill and the training step give it (8 rows, 12 heads,
-   1024 tokens, head dim 64, causal), and once more with a key mask and
-   dropout, with kernel, plain, library (``scaled_dot_product_attention``)
-   and bound times; two launches must agree bit for bit; first the
-   design tag of the bf16 tensor-core kernel and its registers and
-   spills from this run's ptxas report;
+   1024 tokens, head dim 64, causal), once more with a key mask and
+   dropout, and at the training shape with dropout 0.1, the seed a
+   device word, with kernel, plain, library
+   (``scaled_dot_product_attention``) and bound times; two launches
+   must agree bit for bit; first the design tag of the bf16 tensor-core
+   kernel and its registers and spills from this run's ptxas report;
 5. K2 and K3 (flash backward: dq; dk, dv, dbias) against their plain
    versions in bf16 at the training shape, and at 2 x 12 x 640 with a
-   key mask, dbias and dropout 0.1, with kernel, plain and bound times,
-   and K1+K2+K3 forward and backward beside ``scaled_dot_product_attention``
-   forward and backward (the library's backward alone is K2's and K3's
-   library time); two launches must agree bit for bit; first K2's and
-   K3's design tags, registers and spills, as for K1;
+   key mask, dbias and dropout 0.1, and at the training shape with
+   dropout 0.1, with kernel, plain and bound times, and K1+K2+K3 forward
+   and backward beside ``scaled_dot_product_attention`` forward and
+   backward (the library's backward alone is K2's and K3's library
+   time); two launches must agree bit for bit; first K2's and K3's
+   design tags, registers and spills, as for K1; then (5b) the keep
+   masks of K1, K2 and K3 at 8 x 12 x 1024 x 64, causal, dropout 0.1,
+   read back through one-hot operands, equal to the plain version's
+   for the same seed word bit for bit, and the three kernels inside a
+   captured program whose traced key gives the seed: a replay with the
+   eager call's key repeats it bit for bit, another key drops others;
 6. serving: GPT-2 small at full width in bf16 (seeded random weights)
    through ``DecodeServer(weights="int8", pool_sizes=(4, 8))`` — six
    ragged greedy requests, the 700-token one arriving after the others
@@ -45,20 +52,31 @@ Phases (each fails the run by raising; there is no CPU path):
    then once more under ``torch.profiler`` for the device time by
    kernel, then the same weights in float32 in one wave, held the same
    way;
-7. training, the second slice's path: GPT-2 small at full width in
-   bf16 with dropout 0.1, 8 x 1024 tokens, ``parallel.SPMDTrainer`` with
-   AdamW (multi-precision), one ``step`` then ``run_steps`` over 19 more
-   of the same batch; every layer runs K1 forward and K2/K3 backward, so
-   each launches exactly 12 times a step; the losses must be finite,
-   start near ln(vocab) and fall; tokens/s, ms per step and peak memory;
-   then two more steps under ``torch.profiler``, device time by kernel
-   and by group (attention kernels, GEMMs, the rest);
+7. training, the second slice's path, through the captured step of
+   the twelfth slice: GPT-2 small at full width in bf16 with dropout
+   0.1, 8 x 1024 tokens, ``parallel.SPMDTrainer`` with AdamW
+   (multi-precision), one ``step`` then ``run_steps`` over 19 more of
+   the same batch (eager calls, a capture, replays); every layer runs
+   K1 forward and K2/K3 backward, so each launches exactly 12 times a
+   step (a replay's launches counted by what its capture recorded); the
+   losses must be finite, start within 0.5 of ln(vocab) and fall;
+   tokens/s, ms per step and peak memory; the captured arm (one write,
+   5 bare replays) beside the eager arm (the program's own function, 5
+   steps): ms a step, tokens/s, host µs a replay call, capture seconds,
+   ``step_hlo_op_count``, peak memory above each arm's start, the busy
+   share of one profiled replay; then two more steps under
+   ``torch.profiler``, device time by kernel and by group (attention
+   kernels, GEMMs, the rest); (7.2) from the same weights and keys,
+   three eager steps against three replays, losses and weights bit for
+   bit; (7.3) with lr 0, replays on one batch give different losses at
+   dropout 0.1 and equal ones at dropout 0 (2-layer, f32);
 8. one f32 AdamW step of a 2-layer GPT-2-width model at 1 x 1024 on the
    card (kernels) held against the same step on the CPU (plain
    versions), loss and updated weights;
 9. BERT-base as ``bench.py`` trains it (seq 128, batch 64, bf16, AdamW
-   1e-4; its attention takes the plain path, no kernel): five steps,
-   finite and falling losses, tokens/s;
+   1e-4; its attention takes the plain path, no kernel) through the
+   captured step: five steps, finite and falling losses, tokens/s, and
+   the captured and eager arms as in phase 7;
 10. K5 (the fused decode step, ``ops.decode_fused.decode_step``): first
    its design tag and registers; then against its plain version in bf16,
    native and int8 streams, at four shapes: GPT-2 small (12 layers, B=4,
@@ -100,11 +118,15 @@ Phases (each fails the run by raising; there is no CPU path):
    classes=1000, layout="NHWC")``, Xavier, ``cast("bfloat16")``) trained
    by ``parallel.SPMDTrainer`` with SGD (lr 0.1, momentum 0.9, wd 1e-4)
    on one synthetic batch of 128 x 3 x 224 x 224, 20 steps, with
-   ``MXNET_FUSED_CONV_BWD=1``: K6 launched exactly 30 times a step, losses
-   finite, the first within 1.0 of ln(1000), falling; ms a step, images/s
-   and peak memory; then one profiled step, device time split among K6,
-   cuDNN convolutions, GEMMs, BatchNorm, the optimizer and the rest; then
-   the same 20 steps with the switch off (cuDNN's backward, no K6);
+   ``MXNET_FUSED_CONV_BWD=1`` through the captured step: K6 launched
+   exactly 30 times a step, losses finite, the first within 1.0 of
+   ln(1000), falling, and the run equal bit for bit to the same steps
+   of a fresh net through a plain loop with the reference's update
+   written in the script (``reference_sgd``); ms a step, images/s and
+   peak memory; the captured and eager arms as in phase 7; then one
+   profiled step, device time split among K6, cuDNN convolutions, GEMMs,
+   BatchNorm, the optimizer and the rest; then the same 20 steps with
+   the switch off (cuDNN's backward, no K6), and its arms;
 15. one SGD step of a small bottleneck ResNet (f32, TF32 off) on the card
    (K6) held against the same step on the CPU (its plain version);
 16. the tenth slice, the Gluon parameter layer, on ``mx.gpu(0)``: the
@@ -174,7 +196,12 @@ Phases (each fails the run by raising; there is no CPU path):
    the step graph, ms a step of both beside phase 17's; (7) ResNet-50
    inference at B=128, hybridized (a graph replay) against imperative,
    within 2 bf16 steps, ms a forward both ways; (8) ``MXNET_FUSED_STEP=0``
-   equal to the phase-by-phase step bit for bit;
+   equal to the phase-by-phase step bit for bit; (9) a block with
+   attention dropout (K1-K3 at 8 x 1024 x 768) and ``gluon.nn.Dropout``
+   through ``fused_step``, 10 Adam steps: K1, K2, K3 once a step, one
+   capture, losses finite and falling, with lr 0 two replays different;
+   hybridized, replays in training mode different, in inference mode
+   within 2 bf16 steps of the imperative forward;
 19. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -453,8 +480,11 @@ def check_k1(cfg, B):
     D = cfg.units // H
     gen = torch.Generator(device="cuda").manual_seed(5)
     results = []
+    # the dropout seed as the kernels read it: a device word
+    word = torch.full((1,), 1234, dtype=torch.int64, device="cuda")
     cases = [("prefill_causal", B, 1024, 1024, True, False, 0.0),
-             ("kmask_dropout", 2, 384, 384, False, True, 0.1)]
+             ("kmask_dropout", 2, 384, 384, False, True, 0.1),
+             ("train_causal_dropout", B, 1024, 1024, True, False, 0.1)]
     for name, b, L, Lk, causal, masked, rate in cases:
         q, k, v = (torch.randn((b, H, n, D), generator=gen, device="cuda")
                    .bfloat16() for n in (L, Lk, Lk))
@@ -464,8 +494,8 @@ def check_k1(cfg, B):
             km[0, 0, Lk - 50:] = -1e30
             km[1, 0, Lk - 7:] = -1e30
         scale = D ** -0.5
-        out, lse = flash_fwd(q, k, v, scale, causal, km, 1234, rate)
-        ro, rl = flash_fwd_plain(q, k, v, scale, causal, km, 1234, rate)
+        out, lse = flash_fwd(q, k, v, scale, causal, km, word, rate)
+        ro, rl = flash_fwd_plain(q, k, v, scale, causal, km, word, rate)
         torch.cuda.synchronize()
         err = (out.float() - ro.float()).abs().max().item()
         lerr = (lse - rl).abs().max().item()
@@ -474,13 +504,13 @@ def check_k1(cfg, B):
             fail(f"K1 {name}: out max_abs_err {err} (tol 2e-2), lse "
                  f"max_abs_err {lerr} (tol 1e-3)")
         # no atomics: a second launch repeats out and lse bit for bit
-        out2, lse2 = flash_fwd(q, k, v, scale, causal, km, 1234, rate)
+        out2, lse2 = flash_fwd(q, k, v, scale, causal, km, word, rate)
         if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
             fail(f"K1 {name}: two launches differ")
-        ms = cuda_ms(lambda i: flash_fwd(q, k, v, scale, causal, km, 1234,
+        ms = cuda_ms(lambda i: flash_fwd(q, k, v, scale, causal, km, word,
                                          rate), 20)
         plain = cuda_ms(lambda i: flash_fwd_plain(q, k, v, scale, causal,
-                                                  km, 1234, rate), 5)
+                                                  km, word, rate), 5)
         mask4 = None if km is None else km.reshape(b, 1, 1, Lk).bfloat16()
         lib = cuda_ms(lambda i: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask4, dropout_p=rate, is_causal=causal),
@@ -525,8 +555,10 @@ def check_k23(cfg, B):
     D = cfg.units // H
     gen = torch.Generator(device="cuda").manual_seed(7)
     results = []
+    word = torch.full((1,), 1234, dtype=torch.int64, device="cuda")
     cases = [("train_causal", B, 1024, 1024, True, False, 0.0),
-             ("ragged_kmask_dropout", 2, 640, 640, False, True, 0.1)]
+             ("ragged_kmask_dropout", 2, 640, 640, False, True, 0.1),
+             ("train_causal_dropout", B, 1024, 1024, True, False, 0.1)]
     for name, b, L, Lk, causal, masked, rate in cases:
         q, k, v = (torch.randn((b, H, n, D), generator=gen, device="cuda")
                    .bfloat16() for n in (L, Lk, Lk))
@@ -538,9 +570,9 @@ def check_k23(cfg, B):
             km[0, 0, Lk - 50:] = -1e30
             km[1, 0, Lk - 7:] = -1e30
         scale = D ** -0.5
-        out, lse = pa.flash_fwd(q, k, v, scale, causal, km, 1234, rate)
+        out, lse = pa.flash_fwd(q, k, v, scale, causal, km, word, rate)
         delta = (out.float() * g.float()).sum(-1)
-        args = (q, k, v, g, lse, delta, scale, causal, km, 1234, rate)
+        args = (q, k, v, g, lse, delta, scale, causal, km, word, rate)
         dq = pa.flash_bwd_dq(*args)
         dk, dv, db = pa.flash_bwd_dkv(*args, need_dbias=masked)
         rdq = pa.flash_bwd_dq_plain(*args)
@@ -585,7 +617,7 @@ def check_k23(cfg, B):
         mask4 = None if km is None else bias.bfloat16()
 
         def ours(i):
-            o = pa._FlashAttention.apply(*leaves, bias, scale, causal, 1234,
+            o = pa._FlashAttention.apply(*leaves, bias, scale, causal, word,
                                          rate)
             torch.autograd.grad(o, leaves, g)
 
@@ -624,6 +656,118 @@ def check_k23(cfg, B):
               f"launches equal bit for bit", flush=True)
         results.append(row)
     return results
+
+
+# --------------------------------------------------------------------------- #
+# phase 5b: K1-K3's dropout seed as a device word
+# --------------------------------------------------------------------------- #
+
+SEED_RATE = 0.1
+
+
+def _onehot_window(B, H, L, D, w, rows):
+    """(B, H, L, D) bf16 zeros with a one at (w*D + d, d) for d < D (the
+    window ``w`` of ``rows``, one row a column)."""
+    import torch
+
+    t = torch.zeros((B, H, L, D), dtype=torch.bfloat16, device="cuda")
+    r = torch.arange(D, device="cuda")
+    t[:, :, w * D + r, r] = 1.0
+    return t
+
+
+def check_seed_masks(cfg, B):
+    """K1, K2 and K3 read their dropout seed from a device word.  At
+    GPT-2's training shape (B x 12 heads x 1024 x 64, causal, dropout
+    0.1) each kernel's keep mask is read back through one-hot operands
+    (q = 0, so every allowed probability is 1/(q+1)): K1's out with v a
+    one-hot window of keys, K2's dq with k one, K3's dv with do a one-hot
+    window of query rows; each must equal the plain version's mask
+    (``attention._keep`` of the same word, causal) bit for bit.  Then
+    the three kernels run inside a ``_GraphProgram`` whose traced key
+    gives ``flash_attention`` its seed on the device: a replay with the
+    eager call's key repeats it bit for bit, a replay with another key
+    drops other entries."""
+    import torch
+    from mxnet_tpu_torch.gluon.block import _GraphProgram
+    from mxnet_tpu_torch.ops import attention as pa
+
+    H = cfg.num_heads
+    D = cfg.units // H
+    L = 1024
+    word = torch.full((1,), 98765, dtype=torch.int64, device="cuda")
+    scale = D ** -0.5
+    zero = torch.zeros((B, H, L, D), dtype=torch.bfloat16, device="cuda")
+    ones = torch.ones_like(zero)
+    _, lse = pa.flash_fwd(zero, zero, zero, scale, True, None, word,
+                          SEED_RATE)
+    delta = torch.zeros_like(lse)
+    bh, qpos, kpos = pa._positions(B, H, L, D, "cuda")
+    bad = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    kept = 0
+    for w in range(L // D):
+        win = _onehot_window(B, H, L, D, w, L)
+        keys = kpos + w * D                              # (1, D)
+        ref = pa._keep(word, bh, qpos, keys, SEED_RATE) & (qpos >= keys)
+        out, _ = pa.flash_fwd(zero, zero, win, scale, True, None, word,
+                              SEED_RATE)
+        bad["flash_fwd"] += int(((out != 0) != ref).sum())
+        dq = pa.flash_bwd_dq(zero, win, ones, ones, lse, delta, scale, True,
+                             None, word, SEED_RATE)
+        bad["flash_bwd_dq"] += int(((dq != 0) != ref).sum())
+        # dv[k, d] = p_drop[w*D + d, k]: the mask of query rows w*D + d
+        _, dv, _ = pa.flash_bwd_dkv(zero, zero, ones, win, lse, delta,
+                                    scale, True, None, word, SEED_RATE)
+        rows = qpos[w * D:(w + 1) * D].reshape(1, D)        # (1, D)
+        allk = torch.arange(L, device="cuda").reshape(L, 1)
+        ref_t = pa._keep(word, bh, rows, allk, SEED_RATE) & (rows >= allk)
+        bad["flash_bwd_dkv"] += int(((dv != 0) != ref_t).sum())
+        kept += int(ref.sum())
+    allowed = B * H * L * (L + 1) // 2
+    print(f"seed word: K1/K2/K3 keep masks at B={B} H={H} L={L} D={D} "
+          f"causal dropout {SEED_RATE} against the plain version's, "
+          f"entries that differ {bad} (kept {kept} of {allowed} allowed, "
+          f"{kept / allowed:.5f})", flush=True)
+    if any(bad.values()):
+        fail(f"seed word: the kernels' keep masks differ from the plain "
+             f"version's: {bad}")
+    del zero, ones, lse
+    # the seed from a traced key, inside a captured program
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q, k, v, g = (torch.randn((B, H, L, D), generator=gen, device="cuda")
+                  .bfloat16() for _ in range(4))
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    key = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def fn():
+        o = pa.flash_attention(*leaves, causal=True, dropout=SEED_RATE,
+                               training=True)
+        return [o.detach(), *torch.autograd.grad(o, leaves, g)]
+
+    prog = _GraphProgram(fn, "cuda", None, [], key=key)
+    launches0 = {n: getattr(pa, n).launches for n in bad}
+    key.fill_(7)
+    eager = prog()                          # eager
+    key.fill_(7)
+    same = prog()                           # capture, replay
+    key.fill_(8)
+    other = prog()                          # replay, another key
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(eager, same))
+    differ = [not torch.equal(a, b) for a, b in zip(same, other)]
+    print(f"seed word: flash_attention dropout {SEED_RATE} in a captured "
+          f"program: replay with the eager call's key equal bit for bit "
+          f"{equal}; replay with another key differs (out, dq, dk, dv) "
+          f"{differ}; launches a replay {prog.launches}", flush=True)
+    if not equal or not all(differ):
+        fail("seed word: a replay did not follow its traced key")
+    if any(prog.launches.get(n) != 1 for n in bad):
+        fail(f"seed word: the captured program launches {prog.launches}, "
+             "expected one launch of each of K1, K2, K3")
+    for n in bad:
+        getattr(pa, n).launches = launches0[n]
+    return dict(bad_entries=bad, kept=kept, allowed=allowed,
+                replay_equal=equal, other_key_differs=differ)
 
 
 # --------------------------------------------------------------------------- #
@@ -805,19 +949,146 @@ def check_serving_f32(cfg):
 # --------------------------------------------------------------------------- #
 
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 1024, 20
+EAGER_STEPS = 5             # the eager arm, beside the captured one
+
+
+def _graph_launches(trainer, counts):
+    """The kernels a run launched: the wrappers' counts (eager calls and
+    captures) less what the captures recorded (they run nothing) plus
+    what the replays ran."""
+    out = dict(counts)
+    for k, n in trainer.captured_launches.items():
+        out[k] = out.get(k, 0) - n
+    for k, n in trainer.replayed_launches.items():
+        out[k] = out.get(k, 0) + n
+    return out
+
+
+def _attention_counts():
+    from mxnet_tpu_torch.ops import attention as pa
+
+    return {n: getattr(pa, n).launches
+            for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def _reset_attention_counts():
+    from mxnet_tpu_torch.ops import attention as pa
+
+    for fn in (pa.flash_fwd, pa.flash_bwd_dq, pa.flash_bwd_dkv):
+        fn.launches = 0
+
+
+def _pool_of_a_capture(trainer, prog):
+    """The step program captured once more, into a graph pool of its own
+    that is never replayed (a capture records and runs nothing), from
+    the base the eager arm is measured from: the device memory the pool
+    reserves and the peak allocated above the base across the capture.
+    The capture counts as one in the trainer's ``captured_launches``."""
+    import torch
+    from mxnet_tpu_torch.gluon.block import _no_collection
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.cuda.CUDAGraph()
+    for gen in prog.generators:
+        g.register_generator_state(gen)
+    with _no_collection(), torch.cuda.graph(g):
+        outs = prog.run(capturing=True)
+    torch.cuda.synchronize()
+    pool = torch.cuda.memory_reserved() - reserved
+    peak = torch.cuda.max_memory_allocated() - base
+    trainer._count(prog, trainer.captured_launches, 1)
+    del g, outs
+    torch.cuda.empty_cache()
+    return pool, peak
+
+
+def spmd_arms(trainer, data, label, what, steps=EAGER_STEPS):
+    """The captured arm and the eager arm of an ``SPMDTrainer`` whose
+    step graph exists, ``steps`` steps each on one batch: the captured
+    arm is one write and ``steps`` bare replays (host us a replay call,
+    ms a step by the host clock after a sync); the eager arm is the same
+    program's own function called outside the graph (``prog.run()``)
+    step by step.  Memory, from one base (after the trainer's states
+    exist): the eager arm's peak allocated above it, against the pool a
+    capture of the step reserves and the peak allocated across that
+    capture (``_pool_of_a_capture``); the pool must stay below twice the
+    eager peak.  The step graph's kernel nodes (``step_hlo_op_count``),
+    capture seconds and the busy share of one profiled replay."""
+    import torch
+
+    # within the stage the step graph was captured with
+    steps = min(steps, max(p.stage for p in trainer._programs.values()))
+    d, l = data[None].expand(steps, *data.shape), \
+        label[None].expand(steps, *label.shape)
+    nodes = trainer.step_hlo_op_count(data, label)
+    prog = trainer._prepare(d, l, None)
+    torch.cuda.synchronize()
+    host = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        h0 = time.perf_counter()
+        prog.graph.replay()
+        host.append(time.perf_counter() - h0)
+    torch.cuda.synchronize()
+    captured_ms = (time.perf_counter() - t0) / steps * 1e3
+    prog.replays += steps
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        trainer._prepare(data[None], label[None], None).run()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / steps * 1e3
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    pool, capture_peak = _pool_of_a_capture(trainer, prog)
+    trainer._prepare(data[None], label[None], None)
+    by_name, busy, wall_us = _profiled(prog.graph.replay)
+    row = dict(captured_ms_per_step=captured_ms, eager_ms_per_step=eager_ms,
+               host_us_a_replay=sorted(host)[len(host) // 2] * 1e6,
+               capture_s=prog.capture_s, step_hlo_op_count=nodes,
+               eager_peak_above_base=eager_peak,
+               capture_pool_reserved=pool,
+               capture_peak_above_base=capture_peak,
+               pool_over_eager_peak=pool / eager_peak,
+               replay_busy=busy / wall_us if busy > 0 else None,
+               replay_window_us=wall_us)
+    print(f"{what}: captured {captured_ms:.3f} ms/step (one write, "
+          f"{steps} replays; host {row['host_us_a_replay']:.1f} us a "
+          f"replay call, median) beside eager {eager_ms:.3f} ms/step "
+          f"(the program's own function outside the graph); capture "
+          f"{prog.capture_s:.3f} s; step_hlo_op_count {nodes} kernel "
+          f"nodes; memory above one base: eager peak {eager_peak}, a "
+          f"capture's pool {pool} reserved ({pool / eager_peak:.4f}x the "
+          f"eager peak) and {capture_peak} peak allocated across it; one "
+          f"replay under torch.profiler: device busy "
+          + (f"{row['replay_busy']:.4f} of {wall_us:.0f} us"
+             if busy > 0 else "not measured (no device time recorded)"),
+          flush=True)
+    if not pool < 2 * eager_peak:
+        fail(f"{what}: the graph pool ({pool}) is not below twice the "
+             f"eager step's peak ({eager_peak})")
+    return row
 
 
 def check_training(cfg):
     """GPT-2 small, bf16, dropout 0.1, AdamW (multi-precision) on one
-    repeated batch: ``step`` once, then ``run_steps`` over the rest.  The
-    launch counts are set to 0 just before and read just after."""
+    repeated batch through the captured step: ``step`` once (the eager
+    call of a one-batch program), then ``run_steps`` over the rest (its
+    own program: eager, capture and replay, then bare replays).  The
+    launch counts are set to 0 just before and read just after; a
+    replay's launches count by what its capture recorded."""
     import math
 
     import numpy as np
     import torch
     from mxnet_tpu_torch import gluon, parallel, random
     from mxnet_tpu_torch.models import gpt2_small
-    from mxnet_tpu_torch.ops import attention as pa
 
     random.seed(0)
     model, _ = gpt2_small(dtype=torch.bfloat16, dropout=0.1)
@@ -832,9 +1103,9 @@ def check_training(cfg):
         {"learning_rate": 1e-4, "wd": 0.01, "multi_precision": True})
     rest = TRAIN_STEPS - 1
     torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    for fn in (pa.flash_fwd, pa.flash_bwd_dq, pa.flash_bwd_dkv):
-        fn.launches = 0
+    _reset_attention_counts()
     t0 = time.perf_counter()
     first = trainer.step(data, label)
     torch.cuda.synchronize()
@@ -843,19 +1114,19 @@ def check_training(cfg):
                              label[None].expand(rest, -1, -1))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {"flash_fwd": pa.flash_fwd.launches,
-                "flash_bwd_dq": pa.flash_bwd_dq.launches,
-                "flash_bwd_dkv": pa.flash_bwd_dkv.launches}
+    launches = _graph_launches(trainer, _attention_counts())
     peak = torch.cuda.max_memory_allocated()
     losses = [float(first)] + [float(x) for x in more.float().cpu()]
     step_ms = (t2 - t1) / rest * 1e3
     tok_s = rest * TRAIN_B * TRAIN_T / (t2 - t1)
     print(f"train: gpt2_small bf16 dropout 0.1, B={TRAIN_B} T={TRAIN_T}, "
-          f"{TRAIN_STEPS} steps; losses {[round(x, 4) for x in losses]}",
-          flush=True)
+          f"{TRAIN_STEPS} steps through the captured step; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
     print(f"train: tokens/s={tok_s:.2f} ms/step={step_ms:.3f} (steps 2-"
-          f"{TRAIN_STEPS}; first step {(t1 - t0) * 1e3:.3f} ms) "
-          f"max_memory_allocated={peak} launches {launches}", flush=True)
+          f"{TRAIN_STEPS}: one eager call, one capture, replays; first "
+          f"step {(t1 - t0) * 1e3:.3f} ms) max_memory_allocated={peak} "
+          f"({peak - start} above the phase's start) launches {launches} "
+          f"(a replay's {trainer.captured_launches})", flush=True)
     expect = cfg.num_layers * TRAIN_STEPS
     for name, n in launches.items():
         if n != expect:
@@ -868,6 +1139,14 @@ def check_training(cfg):
              f"{math.log(cfg.vocab_size)}")
     if not np.mean(losses[-5:]) < np.mean(losses[:5]):
         fail(f"training loss did not fall: {losses}")
+    arms = spmd_arms(trainer, data, label, "train arms")
+    arms["captured_tokens_per_s"] = TRAIN_B * TRAIN_T / \
+        arms["captured_ms_per_step"] * 1e3
+    arms["eager_tokens_per_s"] = TRAIN_B * TRAIN_T / \
+        arms["eager_ms_per_step"] * 1e3
+    print(f"train arms: tokens/s captured "
+          f"{arms['captured_tokens_per_s']:.2f}, eager "
+          f"{arms['eager_tokens_per_s']:.2f}", flush=True)
     # where a step's device time goes: two more steps, profiled, with the
     # kernel time grouped into attention (K1/K2/K3), GEMMs and the rest
     by_name, busy, wall_us = _profiled(lambda: trainer.run_steps(
@@ -889,7 +1168,99 @@ def check_training(cfg):
     torch.cuda.empty_cache()
     return dict(losses=losses, tokens_per_s=tok_s, ms_per_step=step_ms,
                 first_step_ms=(t1 - t0) * 1e3, max_memory_allocated=peak,
-                launches=launches, profile=prof)
+                launches=launches, arms=arms, profile=prof)
+
+
+def _gpt2_trainer(dropout, seed, num_layers=None, dtype="bfloat16"):
+    import torch
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.models import gpt2_small
+
+    kw = {} if num_layers is None else {"num_layers": num_layers}
+    model, _ = gpt2_small(dtype=getattr(torch, dtype), dropout=dropout,
+                          **kw)
+    model.initialize(0.02, seed=seed)
+    return model, parallel.SPMDTrainer(
+        model, gluon.loss.SoftmaxCrossEntropyLoss(), "adamw",
+        {"learning_rate": 1e-4, "wd": 0.01, "multi_precision": True})
+
+
+def _bf16_steps_apart(a, b):
+    """How many bf16 steps of ``b``'s magnitude ``a`` is from ``b``."""
+    import torch
+
+    step = torch.finfo(torch.bfloat16).eps * max(
+        b.float().abs().max().item(), 1e-30)
+    return (a.float() - b.float()).abs().max().item() / step
+
+
+def check_captured_vs_eager(cfg):
+    """7.2: GPT-2 small bf16 at dropout 0.1 from the same weights and the
+    same keys (``random.seed``), three steps of the eager program
+    function against three bare replays of the captured step (its graph
+    made first by ``step_hlo_op_count``: a restored warm-up, then the
+    capture): equal losses and weights bit for bit.  7.3: with lr 0, two
+    replays on one batch give different losses at dropout 0.1 (fresh
+    masks) and equal losses at dropout 0: 2-layer models in f32, whose
+    loss resolves what one bf16 step of a bf16 loss (0.0625 at 11)
+    hides."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import random
+
+    rs = np.random.RandomState(10)
+    data = torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                      (TRAIN_B, TRAIN_T)), device="cuda")
+    label = torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                       (TRAIN_B, TRAIN_T)), device="cuda")
+    arms = {}
+    for arm in ("eager", "captured"):
+        model, trainer = _gpt2_trainer(0.1, 1)
+        random.seed(11)
+        if arm == "eager":
+            losses = [trainer._prepare(data[None], label[None], None)
+                      .run()[0][0].clone() for _ in range(3)]
+        else:
+            trainer.step_hlo_op_count(data, label)
+            losses = [trainer.step(data, label) for _ in range(3)]
+        torch.cuda.synchronize()
+        arms[arm] = (torch.stack(losses).float().cpu(),
+                     [p.detach().clone() for p in model.parameters()],
+                     trainer)
+        del model
+    (le, we, _), (lc, wc, tc) = arms["eager"], arms["captured"]
+    loss_equal = torch.equal(le, lc)
+    diffs = [(i, _bf16_steps_apart(a, b)) for i, (a, b) in
+             enumerate(zip(wc, we)) if not torch.equal(a, b)]
+    worst = max((d for _, d in diffs), default=0.0)
+    print(f"captured vs eager: 3 steps at dropout 0.1, losses eager "
+          f"{le.tolist()} captured {lc.tolist()} (equal bit for bit "
+          f"{loss_equal}); weights differing {len(diffs)} of {len(we)} "
+          f"(largest {worst:.3f} bf16 steps of the weight's magnitude)",
+          flush=True)
+    if not loss_equal or diffs:
+        fail("captured vs eager: the captured step departs from the eager "
+             f"one (loss equal {loss_equal}, weights {diffs[:8]})")
+    del arms, we, wc, tc
+    torch.cuda.empty_cache()
+    rows = {}
+    for rate in (0.1, 0.0):
+        _, tr = _gpt2_trainer(rate, 1, num_layers=2, dtype="float32")
+        tr.set_learning_rate(0.0)
+        rows[rate] = tr.run_steps(data[None].expand(4, -1, -1),
+                                  label[None].expand(4, -1, -1)).cpu()
+        del tr
+    fresh, still = rows[0.1], rows[0.0]
+    print(f"fresh masks: lr 0, one batch, 2-layer f32 (steps 2-4 are "
+          f"replays): dropout 0.1 losses {fresh.tolist()}; dropout 0 "
+          f"{still.tolist()}", flush=True)
+    if fresh[2] == fresh[3] or not (still[1] == still[2] == still[3]):
+        fail("fresh masks: replays at dropout 0.1 must differ and at "
+             "dropout 0 must not")
+    torch.cuda.empty_cache()
+    return dict(losses_eager=le.tolist(), losses_captured=lc.tolist(),
+                weights_differing=len(diffs), worst_bf16_steps=worst,
+                fresh_dropout=fresh.tolist(), fresh_no_dropout=still.tolist())
 
 
 # --------------------------------------------------------------------------- #
@@ -958,7 +1329,6 @@ def check_bert():
     from torch import nn
     from mxnet_tpu_torch import gluon, parallel
     from mxnet_tpu_torch.models import bert_base
-    from mxnet_tpu_torch.ops import attention as pa
 
     B, T, steps = 64, 128, 5
     bert, cfg = bert_base(use_pooler=False, use_mlm=True, vocab_size=30528,
@@ -981,8 +1351,7 @@ def check_bert():
     trainer = parallel.SPMDTrainer(MLMHeadOnly(),
                                    gluon.loss.SoftmaxCrossEntropyLoss(),
                                    "adamw", {"learning_rate": 1e-4})
-    for fn in (pa.flash_fwd, pa.flash_bwd_dq, pa.flash_bwd_dkv):
-        fn.launches = 0
+    _reset_attention_counts()
     first = trainer.step(data, label)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -991,8 +1360,7 @@ def check_bert():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     losses = [float(first)] + [float(x) for x in more.float().cpu()]
-    kernels = pa.flash_fwd.launches + pa.flash_bwd_dq.launches + \
-        pa.flash_bwd_dkv.launches
+    kernels = sum(_graph_launches(trainer, _attention_counts()).values())
     tok_s = (steps - 1) * B * T / dt
     print(f"bert: bert_base bf16 (vocab {cfg.vocab_size}), B={B} T={T}, "
           f"{steps} steps; losses {[round(x, 4) for x in losses]}; "
@@ -1002,10 +1370,12 @@ def check_bert():
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         fail(f"BERT losses not finite and falling: {losses}")
+    arms = spmd_arms(trainer, data, label, "bert arms")
     del trainer, bert
     torch.cuda.empty_cache()
     return dict(losses=losses, tokens_per_s=tok_s,
-                ms_per_step=dt / (steps - 1) * 1e3, kernel_launches=kernels)
+                ms_per_step=dt / (steps - 1) * 1e3, kernel_launches=kernels,
+                arms=arms)
 
 
 # --------------------------------------------------------------------------- #
@@ -1722,9 +2092,11 @@ def _resnet_profile(trainer, net, data, label):
 
 def train_resnet(fused):
     """ResNet-50 v1 bf16 NHWC, 20 SGD steps on one repeated batch through
-    ``SPMDTrainer`` with ``MXNET_FUSED_CONV_BWD`` on or off.  The launch
-    counts are set to 0 just before the steps and read just after.
-    Returns the numbers and the trainer, net and batch."""
+    ``SPMDTrainer``'s captured step with ``MXNET_FUSED_CONV_BWD`` on or
+    off, then its captured and eager arms (``spmd_arms``).  The launch
+    counts are set to 0 just before the steps and read just after (a
+    replay's launches count by what its capture recorded).  Returns the
+    numbers and the trainer, net and batch."""
     import torch
     from mxnet_tpu_torch import gluon, parallel
     from mxnet_tpu_torch.ops import conv_fused as cf
@@ -1748,7 +2120,8 @@ def train_resnet(fused):
                              label[None].expand(rest, -1))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = dict(_counts(), conv1x1_bwd=cf.conv1x1_bwd_pair.launches)
+    launches = _graph_launches(trainer, dict(
+        _counts(), conv1x1_bwd=cf.conv1x1_bwd_pair.launches))
     row = dict(losses=[float(first)] + [float(v) for v in
                                         more.float().cpu()],
                ms_per_step=(t2 - t1) / rest * 1e3,
@@ -1765,18 +2138,97 @@ def train_resnet(fused):
           f"{row['first_step_ms']:.3f} ms) max_memory_allocated="
           f"{row['max_memory_allocated']} ({row['max_memory_allocated'] - start}"
           f" above the phase's start) launches {launches}", flush=True)
-    return row, (trainer, net, data, label)
+    after = [p.detach().clone() for p in net.parameters()]
+    row["arms"] = spmd_arms(trainer, data, label, f"resnet {arm} arms")
+    return row, (trainer, net, data, label), after
+
+
+def _as_bf16(x):
+    """The Python number ``x`` rounded to bf16."""
+    import torch
+
+    return float(torch.tensor(x).bfloat16())
+
+
+def reference_sgd(p, g, m, lr, momentum, wd):
+    """One bf16 parameter's SGD update without a master copy, in place,
+    written apart from the port's optimizer: the reference's jitted
+    ``SPMDTrainer`` step (``mxnet_tpu/parallel/spmd.py`` ``step_fn``'s
+    bf16 branch and ``SGD._update_rule``: ``g += wd * w; mom = mom *
+    momentum - lr * g; w += mom``, the new weight and momentum rounded
+    to bf16) as XLA compiles it on the CPU: lr f32, wd and momentum
+    turned into bf16 first (JAX's weak types), ``wd * w`` rounded to
+    bf16, the rest in f32.  ``tests/test_torch_spmd.py`` holds it to the
+    reference's trainer on the CPU, ulp for ulp."""
+    g = g.float() + (p * _as_bf16(wd)).float()
+    mom = m.float() * _as_bf16(momentum) - g * lr
+    p.copy_(p.float() + mom)
+    m.copy_(mom)
+
+
+def _witness_sgd():
+    """20 SGD steps (``RESNET_OPT``) of a fresh ResNet-50 of phase 14's
+    seed on its batch, independent of the port's optimizer and trainer:
+    the net's forward in training mode, the mean loss,
+    ``torch.autograd.grad``, then ``reference_sgd``.  Returns the losses
+    and the net's parameters after the steps."""
+    import torch
+    from mxnet_tpu_torch import gluon
+
+    net, data, label = _resnet50()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    lr, momentum, wd = (RESNET_OPT[k] for k in
+                        ("learning_rate", "momentum", "wd"))
+    losses, params = [], None
+    for _ in range(RESNET_STEPS):
+        net.train()
+        loss = loss_fn(net(data), label).mean()
+        if params is None:
+            # BatchNorm's gamma and beta exist from the first input on
+            params = [p for p in net.parameters() if p.requires_grad]
+            moms = [torch.zeros_like(p) for p in params]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        losses.append(float(loss))
+        with torch.no_grad():
+            for p, g, m in zip(params, grads, moms):
+                g = torch.zeros_like(p) if g is None else g.to(p.dtype)
+                reference_sgd(p, g, m, lr * getattr(p, "lr_mult", 1.0),
+                              momentum, wd * getattr(p, "wd_mult", 1.0))
+    return losses, list(net.parameters())
+
+
+def _resnet_witness(after, losses, arm):
+    """The captured run of ``train_resnet`` held against ``_witness_sgd``:
+    losses and every parameter (running statistics too) bit for bit.
+    Made last: a new net moves the storage generation, which drops every
+    trainer's programs."""
+    import torch
+
+    plain, params = _witness_sgd()
+    differ = sum(not torch.equal(a, b) for a, b in zip(after, params))
+    print(f"resnet {arm}: the same {RESNET_STEPS} steps from a fresh net "
+          f"through a plain loop and the reference's SGD update written in "
+          f"this script: losses equal bit for bit {plain == losses}, "
+          f"parameters differing {differ} of {len(params)}", flush=True)
+    if plain != losses or differ:
+        fail(f"resnet {arm}: the trainer's run departs from the plain "
+             f"update's (plain losses {plain}, {differ} parameters differ)")
+    del params
+    torch.cuda.empty_cache()
+    return dict(plain_losses_equal=True, plain_parameters_differing=differ)
 
 
 def check_resnet(fused):
     """``train_resnet`` and its checks: with ``fused`` K6 ran exactly 30
     times a step, without it never, and no other kernel ran; the losses
-    are finite, the first within 1.0 of ln(1000), and they fall."""
+    are finite, the first within 1.0 of ln(1000), and they fall; the
+    captured run equals a plain loop with the reference's update written
+    in this script bit for bit (``_resnet_witness``)."""
     import math
 
     import torch
 
-    row, held = train_resnet(fused)
+    row, held, after = train_resnet(fused)
     arm = "fused" if fused else "unfused"
     launches, losses = row["launches"], row["losses"]
     expect = K6_PER_STEP * RESNET_STEPS if fused else 0
@@ -1795,6 +2247,8 @@ def check_resnet(fused):
     if fused:
         row["profile"] = _resnet_profile(*held)
     del held
+    row.update(_resnet_witness(after, losses, arm))
+    del after
     torch.cuda.empty_cache()
     return row
 
@@ -2443,6 +2897,7 @@ def rtc_graph_replay(mod):
     as none."""
     import torch
     import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.block import _no_collection
 
     S = _rtc_sources()
     ct = "__nv_bfloat16"
@@ -2462,7 +2917,7 @@ def rtc_graph_replay(mod):
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     before = k.launches
-    with torch.cuda.graph(g):
+    with _no_collection(), torch.cuda.graph(g):
         launch(replayed)
     captured = k.launches - before
     replayed.fill_(float("nan"))
@@ -2650,30 +3105,16 @@ GRAPH_KERNELS = {"conv1x1_bwd": r"conv1x1_bwd(_mma)?_kernel",
 
 
 def _graph_nodes(prog, names):
-    """The kernel nodes of a captured ``_GraphProgram``'s graph, from
-    ``CUDAGraph.debug_dump``: ``{name: count}`` of the nodes whose kernel
-    name matches ``GRAPH_KERNELS[name]`` for each of ``names``, and
-    ``{kernel: count}`` of all."""
+    """The kernel nodes of a captured ``_GraphProgram``'s graph
+    (``prog.kernel_nodes()``, from ``CUDAGraph.debug_dump``): ``{name:
+    count}`` of the nodes whose kernel name matches
+    ``GRAPH_KERNELS[name]`` for each of ``names``, and ``{kernel: count}``
+    of all."""
     import re
 
-    path = os.path.join(HERE, "build", f"graph_{os.getpid()}.dot")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    prog.graph.debug_dump(path)
-    with open(path) as fh:
-        text = fh.read()
-    os.remove(path)
-    kernels = re.findall(
-        r"\{ID \| \d+(?: \(topoId: \d+\))? \| ([^|}\\<]+)", text)
-    if not kernels:
-        with open(os.path.join(HERE, "chiprun_out", "graph_dump.dot"),
-                  "w") as fh:
-            fh.write(text[:200000])
-        fail("graph dump: no kernel node found (the start of the dump is "
-             "in chiprun_out/graph_dump.dot)")
-    every = {}
-    for k in kernels:
-        k = k.strip()
-        every[k] = every.get(k, 0) + 1
+    every = prog.kernel_nodes()
+    if not every:
+        fail("graph dump: no kernel node found")
     return {n: sum(c for k, c in every.items()
                    if re.search(GRAPH_KERNELS[n], k))
             for n in names}, every
@@ -3364,15 +3805,155 @@ def fused_hybridize():
     return row
 
 
+DROP_B, DROP_T, DROP_U, DROP_H = 8, 1024, 768, 12   # GPT-2 small's block
+FUSED_DROP_STEPS = 10
+ATTN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _attn_drop_block(mx):
+    """A Gluon ``HybridBlock`` of GPT-2 small's attention width: qkv
+    projection, causal ``flash_attention`` at dropout 0.1 (K1 forward,
+    K2/K3 backward at T = 1024), output projection and
+    ``gluon.nn.Dropout(0.1)``; Xavier, bf16, on ``mx.gpu(0)``."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.ops.attention import flash_attention
+
+    U, H = DROP_U, DROP_H
+
+    class AttnDrop(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.qkv = nn.Dense(3 * U, flatten=False, in_units=U)
+                self.proj = nn.Dense(U, flatten=False, in_units=U)
+                self.drop = nn.Dropout(0.1)
+
+        def forward(self, x):
+            B, L, _ = x.shape
+            qkv = self.qkv(x).reshape(B, L, 3, H, U // H).permute(
+                2, 0, 3, 1, 4)
+            o = flash_attention(qkv[0], qkv[1], qkv[2], causal=True,
+                                dropout=0.1, training=self._is_training())
+            return self.drop(self.proj(o.permute(0, 2, 1, 3).reshape(
+                B, L, U)))
+
+    with mx.gpu(0):
+        net = AttnDrop()
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0), seed=6)
+    net.cast("bfloat16")
+    return net
+
+
+def fused_dropout():
+    """18.9: ``Trainer.fused_step`` and ``hybridize()`` over a block with
+    attention dropout and ``gluon.nn.Dropout`` (``_attn_drop_block``),
+    8 x 1024 tokens, L2 loss to a seeded target, Adam (lr 1e-3), 10
+    fused steps: K1, K2 and K3 launched exactly once a step (replays
+    counted by what the capture recorded), one capture, losses finite
+    and falling; then with lr 0 two replays on one batch give different
+    losses (fresh masks); then the hybridized forward in training mode
+    (``autograd.train_mode()``): its replays differ from each other,
+    and in inference mode a replay equals the imperative forward within
+    2 bf16 steps."""
+    import math
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+    from mxnet_tpu_torch.ops import attention as pa
+
+    mx.random.seed(7)
+    net = _attn_drop_block(mx)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    data = torch.randn((DROP_B, DROP_T, DROP_U), generator=gen,
+                       device="cuda").bfloat16()
+    target = (0.1 * torch.randn((DROP_B, DROP_T, DROP_U), generator=gen,
+                                device="cuda")).bfloat16()
+    x, y = mx.nd.NDArray(data), mx.nd.NDArray(target)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 1e-3})
+    loss_l = gluon.loss.L2Loss()
+
+    def loss_fn(a, b):
+        return loss_l(net(a), b)
+
+    torch.cuda.synchronize()
+    fsm.reset_step_counters()
+    _reset_attention_counts()
+    losses = [trainer.fused_step(loss_fn, x, y)._data.float().mean()
+              for _ in range(FUSED_DROP_STEPS)]
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    fs, prog = _apply_program(trainer)
+    host = _attention_counts()
+    replayed = fs.launches()
+    launches = {n: host[n] - prog.launches.get(n, 0) + replayed.get(n, 0)
+                for n in ATTN_KERNELS}
+    counters = dict(fsm.step_counters)
+    trainer.set_learning_rate(0.0)
+    fresh = [float(trainer.fused_step(loss_fn, x, y)._data.float().mean())
+             for _ in range(2)]
+    print(f"fused dropout: attention + gluon.nn.Dropout block (B="
+          f"{DROP_B} T={DROP_T} U={DROP_U}, bf16, dropout 0.1) through "
+          f"Trainer.fused_step, {FUSED_DROP_STEPS} Adam steps; losses "
+          f"{[round(v, 6) for v in losses]}; launches {launches} "
+          f"(a replay's {prog.launches}); step_counters {counters}; lr 0, "
+          f"two replays on one batch: losses {fresh}", flush=True)
+    for n in ATTN_KERNELS:
+        if launches[n] != FUSED_DROP_STEPS:
+            fail(f"fused dropout: {n} launched {launches[n]} times, "
+                 f"expected {FUSED_DROP_STEPS}")
+    if counters["compiles"] != 1 or counters["legacy_steps"]:
+        fail(f"fused dropout: step counters {counters}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not sum(losses[-3:]) < sum(losses[:3]):
+        fail(f"fused dropout: losses not finite and falling: {losses}")
+    if fresh[0] == fresh[1]:
+        fail("fused dropout: two replays drew the same masks")
+    trainer._fused_steps.clear()
+    # hybridize(): replays in training mode draw fresh masks; in inference
+    # mode a replay is the imperative forward
+    net.hybridize(False)
+    ref = net(x)._data.clone()
+    net.hybridize()
+    with autograd.train_mode():
+        train_outs = [net(x)._data.clone() for _ in range(3)]
+    outs = [net(x)._data.clone() for _ in range(3)]
+    top = float(ref.float().abs().max())
+    tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    err = max(float((o.float() - ref.float()).abs().max()) for o in outs)
+    differ = not torch.equal(train_outs[1], train_outs[2])
+    progs = net._cached_op._programs.values()
+    captured = [p.graph is not None for p in progs]
+    print(f"fused dropout: hybridized, training mode: replays differ "
+          f"{differ}; inference mode: max_abs_err {err:.3e} against the "
+          f"imperative forward (tol {tol:.3e}, 2 bf16 steps of "
+          f"{top:.4f}); programs captured {captured}", flush=True)
+    if not differ or err > tol or not all(captured):
+        fail("fused dropout: the hybridized forward's replays do not draw "
+             "fresh masks in training mode or disagree in inference mode")
+    row = dict(losses=losses, launches=launches,
+               launches_a_replay=prog.launches, step_counters=counters,
+               fresh_losses=fresh, hybridized_replays_differ=differ,
+               hybridized_max_abs_err=err, hybridized_tol=tol)
+    del fs, prog, trainer, net, x, y, data, target, ref, outs, train_outs
+    torch.cuda.empty_cache()
+    for fn in (pa.flash_fwd, pa.flash_bwd_dq, pa.flash_bwd_dkv):
+        fn.launches = 0
+    return row
+
+
 def check_fused(op, spmd_row, gluon_row, eager_row):
-    """Phase 18: its eight parts (18.8 runs with 18.3 and 18.4, on the
+    """Phase 18: its nine parts (18.8 runs with 18.3 and 18.4, on the
     same small net)."""
     return dict(capture=fused_capture_checks(op),
                 resnet=fused_resnet(spmd_row, gluon_row),
                 small=fused_small_checks(),
                 accumulation=fused_accumulation(),
                 mlp=fused_mlp(op, eager_row),
-                hybridize=fused_hybridize())
+                hybridize=fused_hybridize(),
+                dropout=fused_dropout())
 
 
 def main():
@@ -3420,6 +4001,7 @@ def main():
     k3_design = report_design("K3", "flash_bwd", "flash_bwd_dkv_design",
                               "flash_bwd_dkv_mma_kernel")
     k23 = check_k23(cfg, B=8)
+    seed_word = check_seed_masks(cfg, B=8)
     srv = check_serving(model, cfg)
     srv["profile"] = profile_serving(model, cfg)
     del model
@@ -3427,6 +4009,7 @@ def main():
     srv["agreement_f32"] = check_serving_f32(cfg)
     torch.cuda.empty_cache()
     train = check_training(cfg)
+    train["captured_vs_eager"] = check_captured_vs_eager(cfg)
     train["vs_cpu"] = check_training_vs_cpu()
     bert = check_bert()
 
@@ -3557,6 +4140,7 @@ def main():
                        k1_design=k1_design, k2_design=k2_design,
                        k3_design=k3_design, k6_design=k6_design,
                        k5_design=k5_design,
+                       seed_word=seed_word,
                        serve=srv, train=train, bert=bert, k5=k5,
                        fused=fused, k6=k6, vision=vision, gluon=gluon,
                        rtc=rtc,

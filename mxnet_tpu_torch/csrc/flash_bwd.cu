@@ -9,8 +9,10 @@
 // (Nb = 1 or B), then the causal mask (qpos >= kpos) with -1e30;
 // p = exp(s - lse), forced to 0 where s <= -0.5e30; the attention-dropout
 // keep bit is the reference's position hash of (seed, b*H + h, qpos,
-// kpos), bit for bit, so forward and backward drop the same entries; it
-// zeroes dp and scales it by 1/(1 - rate) (and p for dv the same way);
+// kpos), bit for bit, so forward and backward drop the same entries (the
+// seed is a device word, the low half of a one-element int64 tensor, read
+// once by each block before its tiles, so a CUDA graph's replay drops what
+// the word holds at that replay); it zeroes dp and scales it by 1/(1 - rate) (and p for dv the same way);
 // ds = p * (dp - delta) with delta = rowsum(o * do), computed by the
 // caller.  K2 writes dq = scale * ds @ k in f32; K3 writes dk = scale *
 // ds^T @ q, dv = p_drop^T @ do, both f32, and, when asked, the key-mask
@@ -141,8 +143,10 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ delta,
                         const float* __restrict__ kmask,
                         float* __restrict__ dq, int H, int L, int Lk, int D,
-                        int nb_mask, float scale, int causal, uint32_t seed,
+                        int nb_mask, float scale, int causal,
+                        const uint32_t* __restrict__ seed_word,
                         uint32_t thresh, float inv_keep, int dropout) {
+  const uint32_t seed = dropout ? __ldg(seed_word) : 0u;
   constexpr int S = DP + 1;
   constexpr int DT = DP / 4;  // output columns per thread
   extern __shared__ float smem[];
@@ -240,8 +244,10 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ dk, float* __restrict__ dv,
                          float* __restrict__ dbias, int H, int L, int Lk,
                          int D, int nb_mask, float scale, int causal,
-                         uint32_t seed, uint32_t thresh, float inv_keep,
+                         const uint32_t* __restrict__ seed_word,
+                         uint32_t thresh, float inv_keep,
                          int dropout) {
+  const uint32_t seed = dropout ? __ldg(seed_word) : 0u;
   constexpr int S = DP + 1;
   constexpr int DT = DP / 4;
   extern __shared__ float smem[];
@@ -366,8 +372,10 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
                              float* __restrict__ dk, float* __restrict__ dv,
                              float* __restrict__ dbias, int H, int L,
                              int Lk, int D, int nb_mask, float scale,
-                             int causal, uint32_t seed, uint32_t thresh,
+                             int causal, const uint32_t* __restrict__ seed_word,
+                             uint32_t thresh,
                              float inv_keep, int dropout) {
+  const uint32_t seed = dropout ? __ldg(seed_word) : 0u;
   using namespace mx_attn;
   static_assert(kB == kTileRows, "64-row tiles");
   constexpr int SR = stride<DP>();
@@ -568,8 +576,10 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
                             const float* __restrict__ kmask,
                             float* __restrict__ dq, int H, int L, int Lk,
                             int D, int nb_mask, float scale, int causal,
-                            uint32_t seed, uint32_t thresh, float inv_keep,
+                            const uint32_t* __restrict__ seed_word,
+                            uint32_t thresh, float inv_keep,
                             int dropout) {
+  const uint32_t seed = dropout ? __ldg(seed_word) : 0u;
   using namespace mx_attn;
   static_assert(kB == kTileRows, "64-row tiles");
   constexpr int SR = stride<DP>();
@@ -735,7 +745,8 @@ struct Args {
   int B, H, L, Lk, D, nb_mask;
   float scale;
   int causal;
-  uint32_t seed, thresh;
+  const uint32_t* seed;
+  uint32_t thresh;
   float inv_keep;
   int dropout;
   cudaStream_t st;
@@ -855,13 +866,13 @@ int dispatch_dkv(const Args& a, float* dk, float* dv, float* dbias) {
 Args make_args(const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, const void* kmask, int B,
                int H, int L, int Lk, int D, int nb_mask, float scale,
-               int causal, unsigned seed, unsigned thresh, float inv_keep,
+               int causal, const void* seed, unsigned thresh, float inv_keep,
                int dropout, void* stream) {
   return Args{q, k, v, g, static_cast<const float*>(lse),
               static_cast<const float*>(delta),
               static_cast<const float*>(kmask), B, H, L, Lk, D, nb_mask,
-              scale, causal, seed, thresh, inv_keep, dropout,
-              static_cast<cudaStream_t>(stream)};
+              scale, causal, static_cast<const uint32_t*>(seed), thresh,
+              inv_keep, dropout, static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -872,7 +883,7 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* kmask, void* dq, int is_bf16,
                                    int B, int H, int L, int Lk, int D,
                                    int nb_mask, float scale, int causal,
-                                   unsigned seed, unsigned thresh,
+                                   const void* seed, unsigned thresh,
                                    float inv_keep, int dropout,
                                    void* stream) {
   if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
@@ -889,7 +900,7 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* kmask, void* dk, void* dv,
                                     void* dbias, int is_bf16, int B, int H,
                                     int L, int Lk, int D, int nb_mask,
-                                    float scale, int causal, unsigned seed,
+                                    float scale, int causal, const void* seed,
                                     unsigned thresh, float inv_keep,
                                     int dropout, void* stream) {
   if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;

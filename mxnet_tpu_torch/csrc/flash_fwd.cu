@@ -10,7 +10,10 @@
 // is clamped to 1e-30 before the division and the log; attention dropout
 // keeps a probability iff hash(seed, b*H + h, qpos, kpos) >= rate * 2^32
 // (the reference's position hash, bit for bit) and scales it by
-// 1/(1 - rate), after the row sum took it.  q/k/v are (B, H, L|Lk, D)
+// 1/(1 - rate), after the row sum took it.  The seed is a device word
+// (the low half of a one-element int64 tensor), read once by each block
+// before its tiles, so a CUDA graph's replay drops what the word holds at
+// that replay.  q/k/v are (B, H, L|Lk, D)
 // bf16 or f32, contiguous, D <= 128 a multiple of 8; out has q's type;
 // lse is (B, H, L) f32.  Ragged L and Lk are masked inside: rows past L
 // are neither computed into memory nor written, keys past Lk score -1e30.
@@ -93,8 +96,9 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, const float* __restrict__ kmask,
                      T* __restrict__ out, float* __restrict__ lse, int H,
                      int L, int Lk, int D, int nb_mask, float scale,
-                     int causal, uint32_t seed, uint32_t thresh,
-                     float inv_keep, int dropout) {
+                     int causal, const uint32_t* __restrict__ seed_word,
+                     uint32_t thresh, float inv_keep, int dropout) {
+  const uint32_t seed = dropout ? __ldg(seed_word) : 0u;
   constexpr int S = DP + 1;  // odd row stride: rows land in distinct banks
   constexpr int DT = DP / 4; // output columns per thread
   extern __shared__ float smem[];
@@ -222,8 +226,10 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
                          __nv_bfloat16* __restrict__ out,
                          float* __restrict__ lse, int H, int L, int Lk,
                          int D, int nb_mask, float scale, int causal,
-                         uint32_t seed, uint32_t thresh, float inv_keep,
+                         const uint32_t* __restrict__ seed_word,
+                         uint32_t thresh, float inv_keep,
                          int dropout) {
+  const uint32_t seed = dropout ? __ldg(seed_word) : 0u;
   using namespace mx_attn;
   static_assert(kBQ == kTileRows && kBK == kTileRows, "64-row tiles");
   constexpr int SR = stride<DP>();
@@ -387,7 +393,7 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, const float* kmask,
            void* out, float* lse, int B, int H, int L, int Lk, int D,
-           int nb_mask, float scale, int causal, uint32_t seed,
+           int nb_mask, float scale, int causal, const uint32_t* seed,
            uint32_t thresh, float inv_keep, int dropout, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<DP>();
   static bool attr_set = false;
@@ -409,7 +415,7 @@ int launch(const void* q, const void* k, const void* v, const float* kmask,
 template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v,
              const float* kmask, void* out, float* lse, int B, int H, int L,
-             int Lk, int nb_mask, float scale, int causal, uint32_t seed,
+             int Lk, int nb_mask, float scale, int causal, const uint32_t* seed,
              uint32_t thresh, float inv_keep, int dropout, cudaStream_t st) {
 #define MX_FLASH_CASE(DP)                                                   \
   return launch<T, DP>(q, k, v, kmask, out, lse, B, H, L, Lk, D, nb_mask,   \
@@ -425,7 +431,8 @@ template <int DP>
 int launch_mma(const void* q, const void* k, const void* v,
                const float* kmask, void* out, float* lse, int B, int H,
                int L, int Lk, int D, int nb_mask, float scale, int causal,
-               uint32_t seed, uint32_t thresh, float inv_keep, int dropout,
+               const uint32_t* seed, uint32_t thresh, float inv_keep,
+               int dropout,
                cudaStream_t st) {
   constexpr size_t smem = mma_smem_bytes<DP>();
   static bool attr_set = false;
@@ -449,7 +456,8 @@ int launch_mma(const void* q, const void* k, const void* v,
 int dispatch_mma(int D, const void* q, const void* k, const void* v,
                  const float* kmask, void* out, float* lse, int B, int H,
                  int L, int Lk, int nb_mask, float scale, int causal,
-                 uint32_t seed, uint32_t thresh, float inv_keep, int dropout,
+                 const uint32_t* seed, uint32_t thresh, float inv_keep,
+                 int dropout,
                  cudaStream_t st) {
   // q, k and v are read by 16-byte copies
   if (!mx_attn::aligned16(q) || !mx_attn::aligned16(k) ||
@@ -471,17 +479,18 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* kmask, void* out, void* lse,
                                 int is_bf16, int B, int H, int L, int Lk,
                                 int D, int nb_mask, float scale, int causal,
-                                unsigned seed, unsigned thresh,
+                                const void* seed, unsigned thresh,
                                 float inv_keep, int dropout, void* stream) {
   if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* km = static_cast<const float*>(kmask);
   float* ls = static_cast<float*>(lse);
+  const uint32_t* sd = static_cast<const uint32_t*>(seed);
   if (is_bf16)
     return dispatch_mma(D, q, k, v, km, out, ls, B, H, L, Lk, nb_mask, scale,
-                        causal, seed, thresh, inv_keep, dropout, st);
+                        causal, sd, thresh, inv_keep, dropout, st);
   return dispatch<float>(D, q, k, v, km, out, ls, B, H, L, Lk, nb_mask,
-                         scale, causal, seed, thresh, inv_keep, dropout, st);
+                         scale, causal, sd, thresh, inv_keep, dropout, st);
 }
 
 // the design the bf16 path runs, for reports

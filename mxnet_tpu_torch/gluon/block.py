@@ -46,6 +46,8 @@ recording in the step's training mode, hybridized blocks inlined
 from __future__ import annotations
 
 import contextlib
+import gc
+import os
 import re
 import threading
 import time
@@ -55,11 +57,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import random as _random
 from ..base import MXNetError
 from ..context import current_context
 from ..device import resolve_device
 from ..ndarray.ndarray import NDArray
 from ..ops.registry import _unwrap
+from ..optimizer.optimizer import _write
 from .parameter import Parameter, ParameterDict, _load_file, generation
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "trace_scope"]
@@ -129,47 +133,90 @@ def _launch_counts():
             "rtc": rtc.launch_total()}
 
 
+@contextlib.contextmanager
+def _no_collection():
+    """Python's cyclic garbage collector held off: a collection inside a
+    capture can free a dead program's graph, and destroying a graph
+    while a stream captures invalidates the capture (PyTorch no longer
+    collects before a capture)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class _GraphProgram:
     """``fn()`` (a list of tensors out, reading and writing static
     tensors) as one program: the CPU runs ``fn`` at every call; on the
     card call 1 runs it eagerly on a side stream (PyTorch's warm-up: the
     deferred shapes, optimizer states, library handles and kernels'
     first-use set-up), call 2 captures it into a ``torch.cuda.CUDAGraph``
-    (in ``pool``) and replays it once, later calls replay it.  So each
-    call does ``fn``'s work exactly once.  A replay overwrites the
-    outputs, so the card's calls return clones.
+    (in ``pool``) and replays it once, later calls replay it (every call
+    replays once a graph exists, made by ``_capture`` ahead of the calls
+    after a warm-up of the caller's).  So each call does ``fn``'s work
+    exactly once.  A replay overwrites the outputs, so the card's calls
+    return clones.
+
+    ``key`` is the program's PRNG key operand (reference ``CachedOp``'s
+    key argument): a one-element integer tensor the caller writes before
+    each call, or a function that picks it on the device inside the
+    program.  ``run()`` (every call, and the eager arm a test compares
+    with) runs ``fn`` with it pushed (``random.trace``), so each random
+    draw in ``fn`` derives its seed from the key on the device; the
+    device generators the eager call drew from are registered with the
+    graph, so every replay advances them.
 
     ``inputs`` are the static tensors a caller copies its arguments
     into.  ``launches`` holds what the capture added to
     ``_launch_counts()``: the kernels one replay launches (the counters
     do not see replays).  With ``debug`` set before the capture the
-    graph keeps its nodes for ``graph.debug_dump``."""
+    graph keeps its nodes for ``graph.debug_dump`` (``kernel_nodes``
+    reads them)."""
 
     debug = False
 
-    def __init__(self, fn, device, pool, inputs):
+    def __init__(self, fn, device, pool, inputs, key=None):
         self.fn = fn
         self.on_card = torch.device(device).type == "cuda"
         self.pool = pool
         self.inputs = inputs
+        self.key = key
+        self.generators: list = []
+        self.draws = None
         self.is_seq = False
         self.calls = 0
         self.replays = 0
         self.graph = None
+        self.graph_debug = False
         self.outs = None
         self.launches = {}
         self.capture_s = None
 
+    def run(self, capturing=False):
+        """``fn()`` with the program's key pushed; outside a capture it
+        records the generators and keyed draws ``fn`` made."""
+        if self.key is None:
+            return self.fn()
+        key = self.key() if callable(self.key) else self.key
+        with _random.trace(key, self.generators if capturing else ()) as tr:
+            outs = self.fn()
+        if not capturing:
+            self.generators, self.draws = tr.generators, tr.draws
+        return outs
+
     def __call__(self):
         self.calls += 1
         if not self.on_card:
-            return self.fn()
-        if self.calls == 1:
+            return self.run()
+        if self.calls == 1 and self.graph is None:
             cur = torch.cuda.current_stream()
             side = torch.cuda.Stream()
             side.wait_stream(cur)
             with torch.cuda.stream(side):
-                outs = self.fn()
+                outs = self.run()
             cur.wait_stream(side)
             for o in outs:
                 o.record_stream(cur)
@@ -180,9 +227,36 @@ class _GraphProgram:
         self.replays += 1
         return [o.clone() for o in self.outs]
 
-    def _capture(self):
+    def kernel_nodes(self):
+        """``{kernel name: count}`` of the kernel nodes one replay
+        launches, from ``CUDAGraph.debug_dump``: each kernel node's label
+        holds ``{ID | n (topoId: m) | <mangled name>\\<\\<\\<``.  A graph
+        captured with ``debug`` set is read itself; otherwise ``fn`` is
+        captured again with its nodes kept, into a graph that is never
+        replayed (a capture records and runs nothing), and that one is
+        read.  The counters of ``_launch_counts()`` rise by one capture."""
+        import tempfile
+
+        g = self.graph if self.graph is not None and self.graph_debug \
+            else self._record(debug=True)[0]
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "graph.dot")
+            g.debug_dump(path)
+            with open(path) as fh:
+                text = fh.read()
+        every: dict = {}
+        for k in re.findall(
+                r"\{ID \| \d+(?: \(topoId: \d+\))? \| ([^|}\\<]+)", text):
+            k = k.strip()
+            every[k] = every.get(k, 0) + 1
+        return every
+
+    def _record(self, debug):
+        """``fn`` captured into a new graph in ``pool``, with its nodes
+        kept for ``debug_dump`` if ``debug``; returns the graph and the
+        outputs."""
         keep = False
-        if self.debug:
+        if debug:
             try:
                 g = torch.cuda.CUDAGraph(keep_graph=True)
                 keep = True
@@ -191,16 +265,25 @@ class _GraphProgram:
                 g.enable_debug_mode()
         else:
             g = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(g, pool=self.pool):
-            self.outs = self.fn()
+        for gen in self.generators:
+            g.register_generator_state(gen)
+        with _no_collection(), torch.cuda.graph(g, pool=self.pool):
+            outs = self.run(capturing=True)
         if keep:
             g.instantiate()
+        return g, outs
+
+    def _capture(self, debug=None):
+        """Capture the program's graph (with its nodes kept when
+        ``debug``, by default the class's ``debug``)."""
+        debug = self.debug if debug is None else debug
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        self.graph, self.outs = self._record(debug)
         self.capture_s = time.perf_counter() - t0
+        self.graph_debug = debug
         self.launches = {k: v - before[k] for k, v in
                          _launch_counts().items() if v != before[k]}
-        self.graph = g
 
 
 # --------------------------------------------------------------------------- #
@@ -596,12 +679,15 @@ class _CachedOp:
     Outside ``autograd.record()`` on the card each key's forward is a
     ``_GraphProgram`` over static inputs: the call's arrays are copied in,
     the graph replayed, the outputs cloned (its eager first call also
-    infers deferred shapes).  On the CPU the forward runs directly (the
-    keys are still counted in ``builds``).  Under ``record()`` the
-    forward runs imperatively.  A move of the parameters' storage
-    generation (``parameter.generation()``: ``cast``,
-    ``load_parameters``, ``reset_ctx``, deferred init) drops every
-    program, so the next call captures again."""
+    infers deferred shapes).  Every program reads one key word (the
+    reference's per-call key operand), written before a call from
+    ``random.next_key()`` while the program draws from it, so a dropout
+    in the forward draws a fresh mask at every replay.  On the CPU the
+    forward runs directly (the keys are still counted in ``builds``).
+    Under ``record()`` the forward runs imperatively.  A move of the
+    parameters' storage generation (``parameter.generation()``:
+    ``cast``, ``load_parameters``, ``reset_ctx``, deferred init) drops
+    every program, so the next call captures again."""
 
     def __init__(self, block, flags=None):
         self._block = block
@@ -609,6 +695,7 @@ class _CachedOp:
         self._programs = {}
         self._generation = None
         self._pool = None
+        self._key_word = None
         self.builds = 0
 
     def _key(self, tensors, training):
@@ -635,6 +722,8 @@ class _CachedOp:
             return block._call_nd(args, {})
         for s, t in zip(prog.inputs, tensors):
             s.copy_(t)
+        if prog.draws != 0:     # unknown before the first call
+            _write(self._key_word, [], [_random.next_key()])
         outs = prog()
         if prog.graph is None:
             # the eager first call may have created deferred parameters;
@@ -648,6 +737,7 @@ class _CachedOp:
             return None
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+            self._key_word = torch.zeros(1, device=device)
         block = self._block
         static = [torch.empty_like(t) for t in tensors]
 
@@ -657,7 +747,8 @@ class _CachedOp:
             prog.is_seq = isinstance(out, (tuple, list))
             return list(out) if prog.is_seq else [out]
 
-        prog = _GraphProgram(fn, device, self._pool, static)
+        prog = _GraphProgram(fn, device, self._pool, static,
+                             key=self._key_word.view(torch.int32))
         return prog
 
 

@@ -20,11 +20,16 @@ path updates too) in place and the ring is zeroed.  The learning rates,
 weight decays and step counts of every parameter and the rescale
 ``scale / (batch * N)`` are one device vector that the host writes
 before each apply (``optimizer._write``), so one graph serves every
-step and every schedule.  There is one program a (phase: micro or apply, batch
-signature, training flag, ``N > 1``, the optimizer's scalar
-hyperparameters, clip present); micro and apply graphs share one memory
-pool.  A replay overwrites the program's outputs: the caller gets
-clones.
+step and every schedule.  The vector's last word is the program's PRNG
+key (``random.next_key()``, written at every call as raw bits, read
+through an int32 view): the program draws its attention-dropout seeds
+from it on the device (``_GraphProgram``'s key), and its graph
+registers the dropout generator, so every replay draws fresh masks, as
+the reference's step takes a fresh key operand.  There is one program
+a (phase: micro or apply, batch signature, training flag, ``N > 1``,
+the optimizer's scalar hyperparameters, clip present); micro and apply
+graphs share one memory pool.  A replay overwrites the program's
+outputs: the caller gets clones.
 
 The kernel wrappers count launches on the host, so a replay adds
 nothing to them: each program keeps what its capture added (the
@@ -126,7 +131,7 @@ class FusedStep:
         device = self._train_params[0]._data._data.device \
             if self._train_params else torch.device("cpu")
         self._device = device
-        self._hyper = torch.zeros(3 * len(self._train_idx) + 1,
+        self._hyper = torch.zeros(3 * len(self._train_idx) + 2,
                                   device=device)
         self._programs = {}
         if self._accum is not None and (
@@ -193,8 +198,9 @@ class FusedStep:
                             a.zero_()
                 return list(outs)
 
-        prog = self._programs[key] = _GraphProgram(fn, self._device,
-                                                   self._pool, static)
+        prog = self._programs[key] = _GraphProgram(
+            fn, self._device, self._pool, static,
+            key=hyper[3 * n + 1:].view(torch.int32))
         step_counters["compiles"] += 1
         return prog
 
@@ -210,6 +216,7 @@ class FusedStep:
 
     # ------------------------------------------------------------------ #
     def __call__(self, batch, batch_size=None):
+        from .. import random as _random
         from ..ndarray.ndarray import NDArray, array
         from .parameter import generation
 
@@ -228,7 +235,9 @@ class FusedStep:
             self._accum = [torch.zeros_like(p._data._data)
                            for p in self._train_params]
         tr._window_pos += 1
+        key = [_random.next_key()]
         if tr._window_pos < N:
+            _write(self._hyper[-1:], [], key)
             prog = self._program("micro", args)
             step_counters["micro_dispatches"] += 1
         else:
@@ -241,7 +250,7 @@ class FusedStep:
                 wds.append(opt._get_wd(i))
                 ts.append(opt._index_update_count[i])
             _write(self._hyper, lrs + wds + ts +
-                   [tr._scale / (float(batch_size) * N)])
+                   [tr._scale / (float(batch_size) * N)], key)
             prog = self._program("apply", args)
             step_counters["apply_dispatches"] += 1
         for s, a in zip(prog.inputs, args):

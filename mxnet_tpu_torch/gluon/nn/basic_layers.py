@@ -1,9 +1,10 @@
 """Basic layers.
 
 Port of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``,
-``HybridSequential``, ``Dense``, ``BatchNorm``, ``Activation``,
-``Flatten``.  Their parameters are Gluon ``Parameter``s (``dense0_weight``)
-whose tensors the module registers under the attribute's name.  A size
+``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``,
+``Activation``, ``Flatten``.  Their parameters are Gluon
+``Parameter``s (``dense0_weight``) whose tensors the module registers
+under the attribute's name.  A size
 left at 0 (``in_units``, ``in_channels``) is inferred from the first
 input.  ``device`` (a port extension) creates the parameters at once on
 that device and needs every size; without it the parameters with known
@@ -23,11 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...ops.nn import activation, batch_norm, flatten, fully_connected
+from ...ops.nn import (activation, batch_norm, dropout, flatten,
+                       fully_connected)
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm",
-           "Activation", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "BatchNorm", "Activation", "Flatten"]
 
 
 class _Stack:
@@ -104,6 +106,26 @@ class Dense(HybridBlock):
             x = flatten(x)
         out = fully_connected(x, p["weight"], p.get("bias"))
         return self.act(out) if self.act is not None else out
+
+
+class Dropout(HybridBlock):
+    """Reference ``gluon.nn.Dropout``: ``ops.nn.dropout`` at ``rate``
+    (the mask shared along ``axes``) in training mode, the identity
+    otherwise.  Its masks come from the device generator, which a
+    hybridized or fused step's graph advances at every replay."""
+
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._rate = rate
+        self._axes = tuple(axes)
+
+    def forward(self, x):
+        if self._rate <= 0:
+            return x
+        return dropout(x, self._rate, self._is_training(), axes=self._axes)
+
+    def __repr__(self):
+        return f"Dropout(p = {self._rate}, axes={self._axes})"
 
 
 class BatchNorm(HybridBlock):

@@ -6,7 +6,11 @@ carries ``gamma``/``beta`` — so weights carry over name for name
 (``models/convert.py``).  Dropout (attention probabilities inside the
 flash kernels, the attention and FFN outputs) applies in training mode
 (``nn.Module.train()``), as the reference's applies under
-``autograd.record()``.
+``autograd.record()``.  Inside a captured program (``SPMDTrainer``,
+``Trainer.fused_step``, ``hybridize()``) attention's seed comes from the
+program's traced key and the output dropouts' masks from the device
+generator its graph registered, so every replay draws fresh masks;
+eagerly both are the draws they always were.
 """
 from __future__ import annotations
 
@@ -93,7 +97,8 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Reference ``gluon.nn.Dropout``: active in training mode only."""
+    """Reference ``gluon.nn.Dropout``: active in training mode only
+    (``ops.nn.dropout``, the device generator's mask)."""
 
     def __init__(self, rate):
         super().__init__()

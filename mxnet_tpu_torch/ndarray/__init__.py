@@ -3,9 +3,9 @@
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``: the NDArray class plus
 one wrapper per op of the registry, generated from the ported op modules
 (``ops/defs.py``), with the reference's alias names, and ``save``,
-``load``, ``concatenate`` and ``Custom``.  ``mx.nd.random``, ``image``,
-``sparse``, ``contrib`` and the ops of the other op modules are not
-ported yet.
+``load``, ``concatenate``, ``Dropout`` and ``Custom``.
+``mx.nd.random``, ``image``, ``sparse``, ``contrib`` and the ops of the
+other op modules are not ported yet.
 """
 from .ndarray import NDArray, array, empty, from_torch, waitall
 from ..ops.defs import arange, eye, full, linspace, ones, zeros
@@ -22,6 +22,7 @@ for _name, _obj in vars(_defs).items():
             globals().setdefault(_obj._op.name, _obj)
 
 stop_gradient = _defs.stop_gradient
+Dropout = _defs.Dropout
 
 # alias names (Concat, SequenceMask, elemwise_add, ...) resolve to the same
 # wrappers, mirroring the reference's duplicate CamelCase/snake_case surface

@@ -24,7 +24,14 @@ seq, head_dim) throughout, as in the reference.
 
 Dropout determinism: the keep mask is the reference's pure position hash
 of ``(seed, batch·head, q_pos, k_pos)``, computed here bit for bit, so
-the port and the reference drop the same probabilities.
+the port and the reference drop the same probabilities.  The seed is a
+device word, a one-element int64 tensor holding a uint32 (the reference's
+``seed_ref`` operand): the kernels read its low 32 bits on the card, so
+a CUDA graph that captured them drops what the word holds at each
+replay.  ``flash_attention`` takes it from ``random.attention_seed``,
+which under a program's traced key derives it on the device; the
+wrappers and plain versions also take a Python int, which the wrappers
+fill into a word.
 """
 from __future__ import annotations
 
@@ -179,30 +186,48 @@ def _on_card(what, q):
     return True
 
 
+def _seed_word(seed, device, rate):
+    """The dropout seed as the kernels read it: a one-element int64 word
+    on ``device`` (a Python int is filled into one); None without
+    dropout."""
+    if rate <= 0.0:
+        return None
+    if not isinstance(seed, torch.Tensor):
+        return torch.full((1,), int(seed) & _M32, dtype=torch.int64,
+                          device=device)
+    if seed.dtype != torch.int64 or seed.numel() != 1 or \
+            seed.device != torch.device(device):
+        raise MXNetError(f"dropout seed must be a one-element int64 word "
+                         f"on {device}, got {seed.dtype} "
+                         f"{tuple(seed.shape)} on {seed.device}")
+    return seed
+
+
 def _entry(lib_name, fn_name, n_ptrs):
     """The library ``lib_name`` and its typed C entry point ``fn_name``:
     ``n_ptrs`` device pointers, then the shared scalar tail (is_bf16, B,
-    H, L, Lk, D, nb_mask, scale, causal, seed, thresh, inv_keep, dropout,
-    stream)."""
+    H, L, Lk, D, nb_mask, scale, causal, the seed word's pointer,
+    thresh, inv_keep, dropout, stream)."""
     lib = _build.load(lib_name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_uint)
-        fn.argtypes = [p] * n_ptrs + [i, i, i, i, i, i, i, f, i, u, u, f,
+        fn.argtypes = [p] * n_ptrs + [i, i, i, i, i, i, i, f, i, p, u, f,
                                       i, p]
         fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _scalar_tail(q, k, kmask, scale, causal, seed, dropout):
+def _scalar_tail(q, k, kmask, scale, causal, seed_word, dropout):
     """The kernels' shared scalar arguments, in the C entry points'
-    order; dropout takes the reference's keep threshold and 1/(1-rate)."""
+    order; dropout takes the seed word (``_seed_word``), the reference's
+    keep threshold and 1/(1-rate)."""
     B, H, L, D = q.shape
     rate = float(dropout)
     return (int(q.dtype == torch.bfloat16), B, H, L, k.shape[2], D,
             1 if kmask is None else kmask.shape[0], float(scale),
-            int(bool(causal)), int(seed) & _M32,
+            int(bool(causal)), _ptr(seed_word),
             _keep_threshold(rate) if rate > 0.0 else 0,
             1.0 / (1.0 - rate) if rate > 0.0 else 1.0, int(rate > 0.0),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -215,11 +240,14 @@ def _ptr(t):
 def flash_fwd(q, k, v, scale, causal, kmask=None, seed=0, dropout=0.0):
     """K1: flash-attention forward over (B, H, L, D) q and (B, H, Lk, D)
     k/v.  Returns ``(out, lse)``: out in q's dtype, lse (B, H, L) f32.
-    CUDA tensors launch ``csrc/flash_fwd.cu`` (``flash_fwd.launches``
-    counts launches); CPU tensors take ``flash_fwd_plain``."""
+    ``seed`` is the dropout seed: a one-element int64 word on q's device
+    or a Python int.  CUDA tensors launch ``csrc/flash_fwd.cu``
+    (``flash_fwd.launches`` counts launches); CPU tensors take
+    ``flash_fwd_plain``."""
     _check_fwd(q, k, v, kmask)
+    word = _seed_word(seed, q.device, dropout)
     if not _on_card("flash_fwd", q):
-        return flash_fwd_plain(q, k, v, scale, causal, kmask, seed,
+        return flash_fwd_plain(q, k, v, scale, causal, kmask, word,
                                dropout)
     B, H, L, D = q.shape
     out = torch.empty_like(q)
@@ -230,7 +258,7 @@ def flash_fwd(q, k, v, scale, causal, kmask=None, seed=0, dropout=0.0):
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kmask),
                  out.data_ptr(), lse.data_ptr(),
-                 *_scalar_tail(q, k, kmask, scale, causal, seed, dropout))
+                 *_scalar_tail(q, k, kmask, scale, causal, word, dropout))
     _build.check(lib, err, "flash_fwd")
     flash_fwd.launches += 1
     return out, lse
@@ -313,9 +341,10 @@ def flash_bwd_dq(q, k, v, g, lse, delta, scale, causal, kmask=None, seed=0,
     f32.  CUDA tensors launch ``csrc/flash_bwd.cu`` (``flash_bwd_dq.
     launches`` counts launches); CPU tensors take ``flash_bwd_dq_plain``."""
     _check_bwd("flash_bwd_dq", q, k, v, g, lse, delta, kmask)
+    word = _seed_word(seed, q.device, dropout)
     if not _on_card("flash_bwd_dq", q):
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, scale, causal,
-                                  kmask, seed, dropout)
+                                  kmask, word, dropout)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq
@@ -324,7 +353,7 @@ def flash_bwd_dq(q, k, v, g, lse, delta, scale, causal, kmask=None, seed=0,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), _ptr(kmask),
                  dq.data_ptr(),
-                 *_scalar_tail(q, k, kmask, scale, causal, seed, dropout))
+                 *_scalar_tail(q, k, kmask, scale, causal, word, dropout))
     _build.check(lib, err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq
@@ -341,9 +370,10 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, scale, causal, kmask=None,
     ``csrc/flash_bwd.cu`` (``flash_bwd_dkv.launches`` counts launches);
     CPU tensors take ``flash_bwd_dkv_plain``."""
     _check_bwd("flash_bwd_dkv", q, k, v, g, lse, delta, kmask)
+    word = _seed_word(seed, q.device, dropout)
     if not _on_card("flash_bwd_dkv", q):
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, scale, causal,
-                                   kmask, seed, dropout, need_dbias)
+                                   kmask, word, dropout, need_dbias)
     B, H, _, _ = q.shape
     Lk = k.shape[2]
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
@@ -357,7 +387,7 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, scale, causal, kmask=None,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), _ptr(kmask),
                  dk.data_ptr(), dv.data_ptr(), _ptr(dbias),
-                 *_scalar_tail(q, k, kmask, scale, causal, seed, dropout))
+                 *_scalar_tail(q, k, kmask, scale, causal, word, dropout))
     _build.check(lib, err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv, dbias
@@ -378,16 +408,19 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, scale, causal, seed, dropout):
         kmask = None if bias is None else bias.to(_wide(q).dtype).reshape(
             bias.shape[0], 1, bias.shape[3]).contiguous()
+        # the seed word is saved, so the backward of a replay reads the
+        # word that replay's forward read
+        seed = _seed_word(seed, q.device, dropout)
         out, lse = flash_fwd(q, k, v, scale, causal, kmask, seed, dropout)
-        ctx.save_for_backward(q, k, v, kmask, out, lse)
-        ctx.args = (scale, causal, seed, dropout)
+        ctx.save_for_backward(q, k, v, kmask, out, lse, seed)
+        ctx.args = (scale, causal, dropout)
         ctx.bias_like = None if bias is None else (bias.shape, bias.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, kmask, out, lse = ctx.saved_tensors
-        scale, causal, seed, dropout = ctx.args
+        q, k, v, kmask, out, lse, seed = ctx.saved_tensors
+        scale, causal, dropout = ctx.args
         need_q, need_k, need_v, need_bias = ctx.needs_input_grad[:4]
         g = g.to(q.dtype).contiguous()
         # delta_i = sum_d o_i * do_i (row-wise), the standard flash backward
@@ -453,12 +486,14 @@ def flash_attention(q, k, v, bias=None, *, scale: Optional[float] = None,
     ``bias``.  ``bias`` is an optional additive score bias broadcastable
     to (B, H, Lq, Lk).  ``dropout`` applies only with ``training=True``
     (None, as outside the reference's ``autograd.record``, is
-    inference); its seed is a uint32 drawn from ``random``'s host
-    generator, as the reference draws ``jax.random.bits(next_key())``."""
+    inference); its seed is ``random.attention_seed``'s device word, as
+    the reference draws ``jax.random.bits(next_key())``: under a
+    program's traced key a word derived on the device, else a draw of the
+    host generator."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     rate = float(dropout) if training else 0.0
-    seed = _random.attention_seed() if rate > 0.0 else 0
+    seed = _random.attention_seed(q.device) if rate > 0.0 else 0
     Lq, Lk = q.shape[2], k.shape[2]
     if Lq * Lk <= _PLAIN_ATTN_MAX_SCORES or not (
             bias is None or (_is_kmask(bias) and bias.shape[3] == Lk)):

@@ -921,3 +921,30 @@ def amp_multicast(*arrays, num_outputs=0, cast_narrow=False):
                    key=lambda d: d.itemsize * 8 if d.is_floating_point
                    else 0)
     return tuple(a.to(target) for a in arrays)
+
+
+# ----------------------------------------------------------------------- #
+# Dropout (reference: the plain function ``Dropout`` over the op
+# ``_DropoutImpl``; here one unregistered op, so the registry keeps the
+# ops the parity cases cover)
+# ----------------------------------------------------------------------- #
+
+def Dropout(data, key=None, *, p=0.5, mode="training", axes=(),
+            cudnn_off=False, training=None):
+    """Reference ``Dropout``: applies in training mode
+    (``autograd.is_training()``, or ``training=``) or with ``mode=
+    'always'``, and is the identity otherwise or at ``p <= 0``.  The mask
+    comes from ``ops.nn.dropout``: a generator seeded with the integer
+    ``key`` when one is given (the same key, the same mask), else the
+    port's device generator, which a captured program's graph advances
+    at every replay."""
+    from .. import autograd
+    from .nn import dropout
+    from .registry import Op
+
+    if training is None:
+        training = autograd.is_training()
+    if (not training and mode != "always") or p <= 0.0:
+        return data
+    return invoke(Op("Dropout", lambda x: dropout(
+        x, p, True, axes=tuple(axes), key=key)), [data], {})

@@ -79,17 +79,30 @@ def embedding(idx, weight):
     return weight[idx.long()]
 
 
-def dropout(x, p=0.5, training=True, generator=None):
-    """Reference ``Dropout``: in training, keep each element with
-    probability ``1 - p`` and scale it by ``1 / (1 - p)``; otherwise the
-    identity.  The mask is drawn from ``generator`` (default: the port's
-    generator of ``x``'s device, ``random.generator``).  The reference
-    draws threefry bits, which no torch generator reproduces."""
+def dropout(x, p=0.5, training=True, generator=None, axes=(), key=None):
+    """Reference ``Dropout`` (``_DropoutImpl``): in training, keep each
+    element with probability ``1 - p`` and scale it by ``1 / (1 - p)``;
+    otherwise the identity.  With ``axes`` the mask has size 1 along
+    those axes (one draw shared along them, as the reference's).  The
+    mask is drawn from ``generator``, else from a generator seeded with
+    the integer ``key``, else from the port's generator of ``x``'s device
+    (``random.generator``), which a captured program registers with its
+    graph, so every replay draws a fresh mask.  The reference draws
+    threefry bits, which no torch generator reproduces."""
     if not training or p <= 0.0:
         return x
+    if generator is None and key is not None:
+        if _random._capturing():
+            raise MXNetError("dropout(key=) under a CUDA graph capture: "
+                             "a generator made from a host key cannot "
+                             "join the graph; draw from the program's "
+                             "key instead (no key=)")
+        generator = torch.Generator(device=x.device)
+        generator.manual_seed(int(key))
     gen = generator if generator is not None else \
         _random.generator(x.device)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+    shape = tuple(1 if i in axes else n for i, n in enumerate(x.shape))
+    keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x)).to(
         x.dtype)
 

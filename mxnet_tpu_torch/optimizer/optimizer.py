@@ -28,9 +28,10 @@ low-precision update to f32 (as the reference's traced f32 scalars do),
 and Adam's bias correction is computed on the device in f32 from the
 step tensor (as ``-expm1(t log beta)``, which keeps f32 within ~1e-7 of
 ``apply``'s host f64, where the reference's ``1 - beta ** t`` loses
-1.3e-5).  ``MXNET_FUSED_OPTIMIZER=0`` makes ``multi_update`` run the
-per-parameter ``update_multi_precision`` loop instead, bit for bit the
-path before the grouped apply.
+1.3e-5).  ``SPMDTrainer`` asks for its reference's own arithmetic
+(``spmd``; ``SGD._spmd_rule``).  ``MXNET_FUSED_OPTIMIZER=0`` makes
+``multi_update`` run the per-parameter ``update_multi_precision`` loop
+instead, bit for bit the path before the grouped apply.
 
 An optimizer built with ``lr_scheduler=`` reads its learning rate from
 the scheduler at every update (``optimizer/lr_scheduler.py``).
@@ -40,6 +41,7 @@ from __future__ import annotations
 import math
 import os
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
@@ -105,12 +107,18 @@ def _assign(dst, src):
         dst.copy_(src.reshape(dst.shape))
 
 
-def _write(dst, values):
-    """Copy the numbers ``values`` into the f32 vector ``dst``.  On the
-    card the copy leaves from pinned memory without blocking the host;
-    PyTorch's pinned allocator keeps the block from reuse until the copy
-    has run, so a later write cannot overtake it."""
-    host = torch.tensor(values, dtype=torch.float32)
+def _write(dst, values, words=()):
+    """Copy the numbers ``values``, then the uint32 ``words`` as raw bits
+    (a program's keys, read on the device through an int32 view), into
+    the f32 vector ``dst``.  On the card the copy leaves from pinned
+    memory without blocking the host; PyTorch's pinned allocator keeps
+    the block from reuse until the copy has run, so a later write cannot
+    overtake it."""
+    n = len(values)
+    host = np.empty(n + len(words), dtype=np.float32)
+    host[:n] = values
+    host[n:].view(np.uint32)[:] = words
+    host = torch.from_numpy(host)
     dst.copy_(host.pin_memory() if dst.is_cuda else host, non_blocking=True)
     return dst
 
@@ -206,6 +214,12 @@ class Optimizer:
         """Pure: (w, g, state, lr, wd, step) -> (new_w, new_state)."""
         raise NotImplementedError
 
+    def _spmd_rule(self, weight, grad, state, lr, wd, t):
+        """``_update_rule`` on a weight without a master copy as the
+        reference's jitted ``SPMDTrainer`` step computes it: the rule
+        itself unless a subclass says otherwise (ROADMAP §3)."""
+        return self._update_rule(weight, grad, state, lr, wd, t)
+
     @torch.no_grad()
     def apply(self, weight, grad, state, lr, wd, t, rescale, use_mp):
         """One parameter's update with the reference's dtype discipline;
@@ -260,7 +274,7 @@ class Optimizer:
             if k not in skip and isinstance(v, (bool, int, float, str))))
 
     def _apply_one(self, w, g, s, lr, wd, t, rescale, clip, use_mp,
-                   has_clip):
+                   has_clip, spmd=False):
         """One parameter's update with device operands (``lr``, ``wd``:
         f32 tensors of the weight's rank, so that they promote it as the
         reference's traced f32 scalars do, where a 0-dim tensor would
@@ -269,7 +283,10 @@ class Optimizer:
         dtype.  Pure: returns ``(new_weight, new_state)`` before their
         rounding, which the in-place copies into the weight and the
         state tensors do (``copy_`` rounds as the reference's ``astype``
-        does)."""
+        does).  ``spmd``: a weight without a master copy takes the
+        reference ``SPMDTrainer`` step's arithmetic instead (its
+        ``step_fn``: the gradient rescaled in f32, then rounded;
+        ``_spmd_rule``)."""
         if use_mp:
             master, inner = s
             g2 = g.float() * rescale
@@ -277,16 +294,22 @@ class Optimizer:
                 g2 = g2.clamp(-clip, clip)
             nm, ni = self._update_rule(master, g2, inner, lr, wd, t)
             return nm, (nm, ni)
-        # the gradient is cast to the weight's dtype before rescale and
-        # clip, as on the per-parameter path; the f32 lr/wd then promote
+        # the gradient reaches the weight's dtype before the clip: cast
+        # first, then rescaled, as on the per-parameter path (rescaled in
+        # f32, then cast, on the SPMD path); the f32 lr/wd then promote
         # the rule's arithmetic to f32 before the rounding back
-        g2 = g.to(w.dtype) * rescale.to(w.dtype)
+        if spmd:
+            g2 = (g.float() * rescale).to(w.dtype)
+        else:
+            g2 = g.to(w.dtype) * rescale.to(w.dtype)
         if has_clip:
             g2 = g2.clamp(-clip, clip)
-        return self._update_rule(w, g2, s, lr, wd, t)
+        rule = self._spmd_rule if spmd else self._update_rule
+        return rule(w, g2, s, lr, wd, t)
 
     @torch.no_grad()
-    def fused_step_apply(self, ws, gs, ss, mp_flags, lrs, wds, ts, rescale):
+    def fused_step_apply(self, ws, gs, ss, mp_flags, lrs, wds, ts, rescale,
+                         spmd=False):
         """The multi-tensor apply of ``multi_update`` and of the fused
         train step: every weight, master copy and state updated in place
         (their storage is what a captured graph reads and writes);
@@ -294,7 +317,9 @@ class Optimizer:
         parameter, ``rescale`` the device scalar that carries the
         accumulation window's 1/(N*batch).  ``clip_gradient`` is read
         here, when the step is captured (it is part of the step's key).
-        Returns ``(ws, ss)``."""
+        ``spmd``: the reference ``SPMDTrainer`` step's arithmetic on
+        weights without a master copy (``_apply_one``).  Returns
+        ``(ws, ss)``."""
         has_clip = self.clip_gradient is not None
         clip = float(self.clip_gradient) if has_clip else 0.0
         # each parameter's lr and wd as views of the weight's rank, made
@@ -307,7 +332,8 @@ class Optimizer:
         for i, (w, g, s, mp) in enumerate(zip(ws, gs, ss, mp_flags)):
             r = w.dim()
             nw, ns = self._apply_one(w, g, s, lr_of[r][i], wd_of[r][i],
-                                     ts[i], rescale, clip, mp, has_clip)
+                                     ts[i], rescale, clip, mp, has_clip,
+                                     spmd)
             w.copy_(nw)
             _assign(s, ns)
         return ws, ss
@@ -374,6 +400,23 @@ class SGD(Optimizer):
         if self.momentum == 0.0:
             return w - lr * g, None
         mom = state * self.momentum - lr * g
+        return w + mom, mom
+
+    def _spmd_rule(self, w, g, state, lr, wd, t):
+        """``_update_rule`` as the reference's jitted ``SPMDTrainer`` step
+        computes it (``mxnet_tpu/parallel/spmd.py:257-281``): there
+        ``wd`` and the momentum are Python numbers, which JAX turns into
+        the weight's dtype first (weak types), and XLA rounds ``wd * w``
+        to that dtype but keeps the sum and the momentum's product in
+        f32.  ``wd`` is the f32 device operand here, rounded the same
+        way.  On an f32 weight this is ``_update_rule`` bit for bit.
+        ``tests/test_torch_spmd.py`` holds a bf16 weight to the
+        reference ulp for ulp."""
+        g = g.float() + (w * wd.to(w.dtype)).float()
+        if self.momentum == 0.0:
+            return w - lr * g, None
+        momentum = float(torch.tensor(self.momentum, dtype=w.dtype))
+        mom = state.float() * momentum - lr * g
         return w + mom, mom
 
 

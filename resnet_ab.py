@@ -59,7 +59,7 @@ def main():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
     _build.build()
-    spmd, held = cs.train_resnet(True)
+    spmd, *held = cs.train_resnet(True)
     del held
     torch.cuda.empty_cache()
     out = dict(tag=args.tag, root=root, card=cs.card_line(), spmd=spmd)

@@ -52,7 +52,9 @@ def test_weight_map_round_trips(pair):
 
     net, model = pair
     ref = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
-    got = arrays_from_port(model, prefix="llama0_")
+    # the reference names its blocks by a process-wide counter, so the
+    # prefix depends on the Llama nets made before in this process
+    got = arrays_from_port(model, prefix=net.prefix)
     assert sorted(got) == sorted(ref)
     for k in ref:
         onp.testing.assert_array_equal(got[k], ref[k])
