@@ -202,7 +202,32 @@ Phases (each fails the run by raising; there is no CPU path):
    capture, losses finite and falling, with lr 0 two replays different;
    hybridized, replays in training mode different, in inference mode
    within 2 bf16 steps of the imperative forward;
-19. one ``{"kernels": [...]}`` line, the card line, and as the last line
+19. the thirteenth slice, the optimizers and the trainer's states:
+   (1) GPT-2 small bf16 (12 layers, 768 units, 1024 context, dropout 0.1,
+   8 x 1024 tokens) through ``SPMDTrainer`` with LAMB (multi-precision,
+   lr 1e-3, wd 0.01): one ``step``, ``run_steps`` over 19 more; K1, K2,
+   K3 exactly 12 times a step; losses finite, the first within 0.5 of
+   ln(vocab), falling; ms a step beside phase 7's AdamW and the
+   optimizer's device ms in one profiled eager step; three eager steps
+   against three replays bit for bit; (2) phase 16's ResNet-50 (bf16,
+   multi-precision) through ``gluon.Trainer(..., "lars")`` and
+   ``fused_step`` with ``MXNET_FUSED_CONV_BWD=1``: 30 K6 nodes in the
+   step graph, one capture; 10 steps, ``save_states`` +
+   ``save_parameters``, 10 more; a fresh net and trainer loading both
+   and running the last 10 equal the run bit for bit, and so does the
+   original trainer after ``load_states`` with the step-10 weights put
+   back (no new capture); losses finite, the first within 1.0 of
+   ln(1000); (3) phase 18.6's MLP block through ``gluon.Trainer`` with
+   each of the fifteen optimizers, with and without multi-precision:
+   three ``fused_step`` calls (eager, capture and replay, replay)
+   against three phase-by-phase steps bit for bit (SGLD phase by phase
+   only), a states file written after step 2 giving step 3 bit for bit
+   in a fresh trainer, ms a fused step and the optimizer's device share
+   of one profiled step; (4) phases 16 and 18.2 (bf16 SGD without
+   masters, the reference's Gluon-path typing) held bit for bit, losses
+   and every parameter, against a plain loop with the reference's
+   update written here (``reference_gluon_sgd``);
+20. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -1171,7 +1196,11 @@ def check_training(cfg):
                 launches=launches, arms=arms, profile=prof)
 
 
-def _gpt2_trainer(dropout, seed, num_layers=None, dtype="bfloat16"):
+ADAMW_OPT = {"learning_rate": 1e-4, "wd": 0.01, "multi_precision": True}
+
+
+def _gpt2_trainer(dropout, seed, num_layers=None, dtype="bfloat16",
+                  optimizer="adamw", opt=ADAMW_OPT):
     import torch
     from mxnet_tpu_torch import gluon, parallel
     from mxnet_tpu_torch.models import gpt2_small
@@ -1181,8 +1210,7 @@ def _gpt2_trainer(dropout, seed, num_layers=None, dtype="bfloat16"):
                           **kw)
     model.initialize(0.02, seed=seed)
     return model, parallel.SPMDTrainer(
-        model, gluon.loss.SoftmaxCrossEntropyLoss(), "adamw",
-        {"learning_rate": 1e-4, "wd": 0.01, "multi_precision": True})
+        model, gluon.loss.SoftmaxCrossEntropyLoss(), optimizer, dict(opt))
 
 
 def _bf16_steps_apart(a, b):
@@ -1204,18 +1232,53 @@ def check_captured_vs_eager(cfg):
     masks) and equal losses at dropout 0: 2-layer models in f32, whose
     loss resolves what one bf16 step of a bf16 loss (0.0625 at 11)
     hides."""
+    import torch
+
+    row = eager_vs_replays("captured vs eager", cfg, "adamw", ADAMW_OPT)
+    data, label = _tokens_7_2(cfg)
+    rows = {}
+    for rate in (0.1, 0.0):
+        _, tr = _gpt2_trainer(rate, 1, num_layers=2, dtype="float32")
+        tr.set_learning_rate(0.0)
+        rows[rate] = tr.run_steps(data[None].expand(4, -1, -1),
+                                  label[None].expand(4, -1, -1)).cpu()
+        del tr
+    fresh, still = rows[0.1], rows[0.0]
+    print(f"fresh masks: lr 0, one batch, 2-layer f32 (steps 2-4 are "
+          f"replays): dropout 0.1 losses {fresh.tolist()}; dropout 0 "
+          f"{still.tolist()}", flush=True)
+    if fresh[2] == fresh[3] or not (still[1] == still[2] == still[3]):
+        fail("fresh masks: replays at dropout 0.1 must differ and at "
+             "dropout 0 must not")
+    torch.cuda.empty_cache()
+    return dict(row, fresh_dropout=fresh.tolist(),
+                fresh_no_dropout=still.tolist())
+
+
+def _tokens_7_2(cfg):
     import numpy as np
+    import torch
+
+    rs = np.random.RandomState(10)
+    return tuple(torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                            (TRAIN_B, TRAIN_T)),
+                                 device="cuda") for _ in range(2))
+
+
+def eager_vs_replays(what, cfg, optimizer, opt):
+    """GPT-2 small bf16 at dropout 0.1 through ``SPMDTrainer`` with
+    ``optimizer`` from the same weights and the same keys
+    (``random.seed``): three steps of the eager program function against
+    three bare replays of the captured step (its graph made first by
+    ``step_hlo_op_count``: a restored warm-up, then the capture); the
+    losses and the weights must be equal bit for bit."""
     import torch
     from mxnet_tpu_torch import random
 
-    rs = np.random.RandomState(10)
-    data = torch.as_tensor(rs.randint(0, cfg.vocab_size,
-                                      (TRAIN_B, TRAIN_T)), device="cuda")
-    label = torch.as_tensor(rs.randint(0, cfg.vocab_size,
-                                       (TRAIN_B, TRAIN_T)), device="cuda")
+    data, label = _tokens_7_2(cfg)
     arms = {}
     for arm in ("eager", "captured"):
-        model, trainer = _gpt2_trainer(0.1, 1)
+        model, trainer = _gpt2_trainer(0.1, 1, optimizer=optimizer, opt=opt)
         random.seed(11)
         if arm == "eager":
             losses = [trainer._prepare(data[None], label[None], None)
@@ -1233,34 +1296,18 @@ def check_captured_vs_eager(cfg):
     diffs = [(i, _bf16_steps_apart(a, b)) for i, (a, b) in
              enumerate(zip(wc, we)) if not torch.equal(a, b)]
     worst = max((d for _, d in diffs), default=0.0)
-    print(f"captured vs eager: 3 steps at dropout 0.1, losses eager "
+    print(f"{what}: 3 steps at dropout 0.1 ({optimizer}), losses eager "
           f"{le.tolist()} captured {lc.tolist()} (equal bit for bit "
           f"{loss_equal}); weights differing {len(diffs)} of {len(we)} "
           f"(largest {worst:.3f} bf16 steps of the weight's magnitude)",
           flush=True)
     if not loss_equal or diffs:
-        fail("captured vs eager: the captured step departs from the eager "
-             f"one (loss equal {loss_equal}, weights {diffs[:8]})")
+        fail(f"{what}: the captured step departs from the eager one (loss "
+             f"equal {loss_equal}, weights {diffs[:8]})")
     del arms, we, wc, tc
     torch.cuda.empty_cache()
-    rows = {}
-    for rate in (0.1, 0.0):
-        _, tr = _gpt2_trainer(rate, 1, num_layers=2, dtype="float32")
-        tr.set_learning_rate(0.0)
-        rows[rate] = tr.run_steps(data[None].expand(4, -1, -1),
-                                  label[None].expand(4, -1, -1)).cpu()
-        del tr
-    fresh, still = rows[0.1], rows[0.0]
-    print(f"fresh masks: lr 0, one batch, 2-layer f32 (steps 2-4 are "
-          f"replays): dropout 0.1 losses {fresh.tolist()}; dropout 0 "
-          f"{still.tolist()}", flush=True)
-    if fresh[2] == fresh[3] or not (still[1] == still[2] == still[3]):
-        fail("fresh masks: replays at dropout 0.1 must differ and at "
-             "dropout 0 must not")
-    torch.cuda.empty_cache()
     return dict(losses_eager=le.tolist(), losses_captured=lc.tolist(),
-                weights_differing=len(diffs), worst_bf16_steps=worst,
-                fresh_dropout=fresh.tolist(), fresh_no_dropout=still.tolist())
+                weights_differing=len(diffs), worst_bf16_steps=worst)
 
 
 # --------------------------------------------------------------------------- #
@@ -2166,6 +2213,29 @@ def reference_sgd(p, g, m, lr, momentum, wd):
     m.copy_(mom)
 
 
+def reference_gluon_sgd(p, g, m, lr, momentum, wd, rescale):
+    """One bf16 parameter's SGD update without a master copy on the
+    reference's Gluon path (``gluon.Trainer.step`` and ``fused_step``:
+    ``Optimizer._apply_one``'s bf16 branch and ``SGD._update_rule``), in
+    place, written apart from the port's optimizer: ``lr``, ``wd`` and
+    the rescale are traced f32 operands there, so ``g * rescale`` is
+    bf16 (the rescale rounded to bf16) and ``g + wd * w`` f32; the
+    momentum is a Python number, rounded to bf16 where it meets the bf16
+    momentum state.  As XLA compiles it on the CPU, a bf16 product read
+    by an f32 operation is computed in f32.  ``tests/
+    test_torch_trainer_states.py`` holds it to the reference's
+    ``gluon.Trainer`` on the CPU, ulp for ulp."""
+    import torch
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=p.device)
+
+    g = g.float() * _as_bf16(rescale) + f32(wd) * p.float()
+    mom = m.float() * _as_bf16(momentum) - f32(lr) * g
+    p.copy_(p.float() + mom)
+    m.copy_(mom)
+
+
 def _witness_sgd():
     """20 SGD steps (``RESNET_OPT``) of a fresh ResNet-50 of phase 14's
     seed on its batch, independent of the port's optimizer and trainer:
@@ -2216,6 +2286,90 @@ def _resnet_witness(after, losses, arm):
     del params
     torch.cuda.empty_cache()
     return dict(plain_losses_equal=True, plain_parameters_differing=differ)
+
+
+def _witness_gluon_sgd(init_state, fused, steps):
+    """``steps`` SGD steps (``RESNET_OPT``) of a fresh ResNet-50 of phase
+    16's making on phase 14's batch, its initial weights drawn from the
+    generator state ``init_state`` (the generator is put back after),
+    through a plain loop with ``reference_gluon_sgd``, independent of the
+    port's optimizer and trainer: the gradients as ``gluon.Trainer.step``
+    gets them (``record``, ``backward``) or, with ``fused``, as
+    ``fused_step``'s program takes them (the deferred shapes by one
+    inference forward, then ``torch.autograd.grad`` of the summed loss
+    under ``trace_scope``).  Returns the losses and every parameter."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, random
+    from mxnet_tpu_torch.gluon.block import _no_hybrid, trace_scope
+
+    gen = random.generator("cuda")
+    keep = gen.get_state()
+    gen.set_state(init_state)
+    try:
+        net = _gluon_resnet50(mx)
+        data, label = _resnet_batch()
+        x, y = mx.nd.NDArray(data), mx.nd.NDArray(label)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        if fused:
+            with autograd.pause(train_mode=False), _no_hybrid():
+                loss_fn(net(x), y)
+        lr, momentum, wd = (RESNET_OPT[k] for k in
+                            ("learning_rate", "momentum", "wd"))
+        losses, params, moms = [], None, None
+        for _ in range(steps):
+            if fused:
+                with trace_scope(True):
+                    loss = loss_fn(net(x), y)._data
+                train = [p for p in net.collect_params().values()
+                         if p.grad_req != "null"]
+                grads = torch.autograd.grad(
+                    loss.sum(), [p.data()._data for p in train],
+                    allow_unused=True)
+            else:
+                with autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                loss = loss._data
+                train = [p for p in net.collect_params().values()
+                         if p.grad_req != "null"]
+                grads = [p.grad()._data for p in train]
+            losses.append(float(loss.detach().float().mean()))
+            if params is None:
+                params = train
+                moms = [torch.zeros_like(p.data()._data) for p in params]
+            with torch.no_grad():
+                for p, g, m in zip(params, grads, moms):
+                    w = p.data()._data
+                    g = torch.zeros_like(w) if g is None else g
+                    reference_gluon_sgd(w, g, m, lr * p.lr_mult, momentum,
+                                        wd * p.wd_mult, 1.0 / RESNET_B)
+        out = [p.data()._data.clone() for p in
+               net.collect_params().values()]
+    finally:
+        gen.set_state(keep)
+    del net
+    torch.cuda.empty_cache()
+    return losses, out
+
+
+def _gluon_witness(what, init_state, fused, losses, after):
+    """Phase 16's or 18.2's run held against ``_witness_gluon_sgd``: the
+    losses and every parameter (running statistics too) bit for bit."""
+    import torch
+
+    plain, params = _witness_gluon_sgd(init_state, fused, len(losses))
+    differ = sum(not torch.equal(a, b) for a, b in zip(after, params))
+    print(f"{what}: the same {len(losses)} steps from a fresh net through "
+          f"a plain loop with the reference's Gluon-path SGD written in "
+          f"this script (reference_gluon_sgd): losses equal bit for bit "
+          f"{plain == losses}, parameters differing {differ} of "
+          f"{len(params)}; plain losses {[round(v, 4) for v in plain]}",
+          flush=True)
+    if plain != losses or differ:
+        fail(f"{what}: the trainer's run departs from the plain loop's")
+    return dict(plain_losses_equal=True, plain_parameters_differing=differ,
+                plain_losses=plain)
 
 
 def check_resnet(fused):
@@ -2395,12 +2549,13 @@ def gluon_resnet(spmd_row):
 
     import torch
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch import autograd, gluon, random
     from mxnet_tpu_torch.ops import conv_fused as cf
 
     os.environ["MXNET_FUSED_CONV_BWD"] = "1"
     torch.cuda.synchronize()
     start = torch.cuda.memory_allocated()
+    init_state = random.generator("cuda").get_state()
     net = _gluon_resnet50(mx)
     data, label = _resnet_batch()
     x, y = mx.nd.NDArray(data), mx.nd.NDArray(label)
@@ -2448,6 +2603,9 @@ def gluon_resnet(spmd_row):
           f"max_memory_allocated={row['max_memory_allocated']} "
           f"({row['max_memory_allocated'] - start} above the phase's start) "
           f"launches {launches}", flush=True)
+    row.update(_gluon_witness(
+        "gluon resnet", init_state, False, losses,
+        [p.data()._data.clone() for p in net.collect_params().values()]))
     expect = K6_PER_STEP * GLUON_RESNET_STEPS
     if launches["conv1x1_bwd"] != expect:
         fail(f"gluon resnet: K6 launched {launches['conv1x1_bwd']} times, "
@@ -3221,7 +3379,7 @@ def fused_resnet(spmd_row, gluon_row):
 
     import torch
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import gluon, random
     from mxnet_tpu_torch.gluon import fused_step as fsm
     from mxnet_tpu_torch.gluon.block import _GraphProgram
     from mxnet_tpu_torch.ops import conv_fused as cf
@@ -3229,6 +3387,7 @@ def fused_resnet(spmd_row, gluon_row):
     os.environ["MXNET_FUSED_CONV_BWD"] = "1"
     torch.cuda.synchronize()
     start = torch.cuda.memory_allocated()
+    init_state = random.generator("cuda").get_state()
     net = _gluon_resnet50(mx)
     data, label = _resnet_batch()
     x, y = mx.nd.NDArray(data), mx.nd.NDArray(label)
@@ -3265,6 +3424,7 @@ def fused_resnet(spmd_row, gluon_row):
         host.append(time.perf_counter() - h0)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
+    after = [p.data()._data.clone() for p in net.collect_params().values()]
     counters = dict(fsm.step_counters)
     fs, prog = _apply_program(trainer)
     host_launches = cf.conv1x1_bwd_pair.launches
@@ -3332,8 +3492,6 @@ def fused_resnet(spmd_row, gluon_row):
     if abs(losses[0] - math.log(1000)) > 1.0:
         fail(f"fused resnet: first loss {losses[0]} is not within 1.0 of "
              "ln(1000)")
-    if not losses[-1] < losses[0]:
-        fail(f"fused resnet: loss did not fall: {losses}")
     # where the host's time of a call goes (more training steps, after
     # the checks), each part timed alone HOST_PARTS times: after a
     # synchronisation, and while the previous replay runs
@@ -3379,6 +3537,13 @@ def fused_resnet(spmd_row, gluon_row):
     trainer._fused_steps.clear()
     del fs, prog, trainer, net, x, y, data, label
     torch.cuda.empty_cache()
+    # last: a new net moves the storage generation, which drops every
+    # fused step's programs
+    row.update(_gluon_witness("fused resnet", init_state, True, losses,
+                              after))
+    del after
+    if not losses[-1] < losses[0]:
+        fail(f"fused resnet: loss did not fall: {losses}")
     return row
 
 
@@ -3956,6 +4121,426 @@ def check_fused(op, spmd_row, gluon_row, eager_row):
                 dropout=fused_dropout())
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: the optimizers and the trainer's states, the thirteenth slice
+# --------------------------------------------------------------------------- #
+
+LAMB_OPT = {"learning_rate": 1e-3, "wd": 0.01, "multi_precision": True}
+LARS_OPT = {"learning_rate": 1.0, "momentum": 0.9, "wd": 1e-4,
+            "multi_precision": True}
+LARS_STEPS = 10             # each of the three runs of 19.2
+ALL_OPT_STEPS = 3           # 19.3: eager, capture + replay, replay
+ALL_OPT_TIMED = 10          # 19.3: replays timed a fused step
+ALL_OPT_LR = {"sgd": 10.0, "nag": 10.0, "signum": 1e-3, "dcasgd": 10.0,
+              "adam": 1e-3, "adamw": 1e-3, "nadam": 1e-3, "lamb": 1e-2,
+              "lars": 10.0, "rmsprop": 1e-3, "adagrad": 1e-2,
+              "adadelta": 1.0, "ftrl": 0.1, "ftml": 1e-3, "sgld": 1e-4}
+
+
+def _ranged_optimizer(opt, fn):
+    """``fn()`` under ``torch.profiler`` with ``opt.fused_step_apply`` in
+    a range: (the range's device us, the window's device us).  ``fn``
+    must run the apply eagerly: a graph replay has no host range."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    plain = opt.fused_step_apply
+
+    def ranged(*a, **k):
+        with record_function("optimizer"):
+            return plain(*a, **k)
+
+    opt.fused_step_apply = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        del opt.fused_step_apply
+    busy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.key != "optimizer":
+            us = getattr(ev, "self_device_time_total", None)
+            busy += ev.self_cuda_time_total if us is None else us
+    ranged_us = 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        up = ev
+        while up is not None and up.name != "optimizer":
+            up = up.cpu_parent
+        if up is not None:
+            ranged_us += sum(k.duration for k in ev.kernels
+                             if k.name != "optimizer")
+    return ranged_us, busy
+
+
+def lamb_gpt2(cfg, adamw_row):
+    """19.1: GPT-2 small bf16 (12 layers, 768 units, 1024 context) at
+    dropout 0.1 through ``SPMDTrainer`` with LAMB (multi-precision, lr
+    1e-3, wd 0.01): one ``step``, then ``run_steps`` over 19 more of one
+    batch; K1, K2, K3 exactly 12 times a step; losses finite, the first
+    within 0.5 of ln(vocab), falling; ms a step beside phase 7's AdamW;
+    the optimizer's device ms in one profiled eager step; three eager
+    steps against three replays bit for bit (phase 7.2's check)."""
+    import math
+
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import gluon, parallel, random
+    from mxnet_tpu_torch.models import gpt2_small
+
+    random.seed(0)
+    model, _ = gpt2_small(dtype=torch.bfloat16, dropout=0.1)
+    model.initialize(0.02, seed=0)
+    rs = np.random.RandomState(8)
+    data = torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                      (TRAIN_B, TRAIN_T)), device="cuda")
+    label = torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                       (TRAIN_B, TRAIN_T)), device="cuda")
+    trainer = parallel.SPMDTrainer(
+        model, gluon.loss.SoftmaxCrossEntropyLoss(), "lamb", dict(LAMB_OPT))
+    rest = TRAIN_STEPS - 1
+    torch.cuda.synchronize()
+    _reset_attention_counts()
+    first = trainer.step(data, label)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    more = trainer.run_steps(data[None].expand(rest, -1, -1),
+                             label[None].expand(rest, -1, -1))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = _graph_launches(trainer, _attention_counts())
+    losses = [float(first)] + [float(x) for x in more.float().cpu()]
+    step_ms = (t2 - t1) / rest * 1e3
+    arms = spmd_arms(trainer, data, label, "lamb gpt2 arms")
+    opt_us, busy = _ranged_optimizer(trainer.optimizer, lambda: trainer
+                                     ._prepare(data[None], label[None],
+                                               None).run())
+    row = dict(losses=losses, ms_per_step=step_ms,
+               tokens_per_s=rest * TRAIN_B * TRAIN_T / (t2 - t1),
+               launches=launches, optimizer_device_us=opt_us,
+               eager_step_device_us=busy, arms=arms,
+               adamw_ms_per_step=adamw_row["ms_per_step"],
+               adamw_captured_ms_per_step=adamw_row["arms"][
+                   "captured_ms_per_step"])
+    print(f"lamb gpt2: gpt2_small bf16 dropout 0.1, B={TRAIN_B} "
+          f"T={TRAIN_T}, SPMDTrainer lamb {LAMB_OPT}, {TRAIN_STEPS} steps; "
+          f"losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"lamb gpt2: ms/step={step_ms:.3f} tokens/s="
+          f"{row['tokens_per_s']:.2f} (steps 2-{TRAIN_STEPS}: one eager "
+          f"call, one capture, replays) beside phase 7's AdamW "
+          f"{adamw_row['ms_per_step']:.3f}; captured arm "
+          f"{arms['captured_ms_per_step']:.3f} ms/step beside phase 7's "
+          f"{row['adamw_captured_ms_per_step']:.3f}; "
+          f"launches {launches}; one eager step profiled: optimizer "
+          + (f"{opt_us / 1e3:.3f} ms of {busy / 1e3:.3f} ms device time "
+             f"({opt_us / busy:.4f})" if busy > 0 and opt_us > 0 else
+             "not measured (the profiler recorded no device time in its "
+             "range)") + f"; {card_line()}", flush=True)
+    expect = cfg.num_layers * TRAIN_STEPS
+    for name, n in launches.items():
+        if n != expect:
+            fail(f"lamb gpt2: {name} launched {n} times, expected {expect}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"lamb gpt2: losses not finite: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        fail(f"lamb gpt2: first loss {losses[0]} is not within 0.5 of "
+             f"ln(vocab)")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fail(f"lamb gpt2: loss did not fall: {losses}")
+    del trainer, model, more
+    torch.cuda.empty_cache()
+    row["captured_vs_eager"] = eager_vs_replays(
+        "lamb gpt2 captured vs eager", cfg, "lamb", dict(LAMB_OPT))
+    return row
+
+
+def _lars_resnet(mx, state=None):
+    """Phase 16's ResNet-50 with a ``gluon.Trainer`` over LARS; with
+    ``state`` (a parameters file and a states file) loaded from it."""
+    from mxnet_tpu_torch import gluon
+
+    net = _gluon_resnet50(mx)
+    if state is not None:
+        net.load_parameters(state[0], ctx=mx.gpu(0))
+    trainer = gluon.Trainer(net.collect_params(), "lars", dict(LARS_OPT))
+    if state is not None:
+        trainer.load_states(state[1])
+    loss_l = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(x, y):
+        return loss_l(net(x), y)
+    return net, trainer, loss_fn
+
+
+def lars_resnet():
+    """19.2: ResNet-50 (phase 16's net, bf16, multi-precision) through
+    ``gluon.Trainer(..., "lars")`` and ``fused_step`` with
+    ``MXNET_FUSED_CONV_BWD=1``: 30 K6 nodes in the step graph and one
+    capture; 10 steps, ``save_states`` + ``save_parameters``, 10 more; a
+    fresh net and trainer that load both and run the last 10 equal the
+    run bit for bit (losses and every parameter); ``load_states`` into
+    the original trainer (its graph captured) with the step-10 weights
+    copied back in place, then 10 replays: equal again, no new capture;
+    losses finite, the first within 1.0 of ln(1000)."""
+    import math
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+    from mxnet_tpu_torch.gluon.block import _GraphProgram
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    data, label = _resnet_batch()
+    x, y = mx.nd.NDArray(data), mx.nd.NDArray(label)
+    net, trainer, loss_fn = _lars_resnet(mx)
+
+    def run(tr, lf, n):
+        out = [tr.fused_step(lf, x, y)._data.float().mean()
+               for _ in range(n)]
+        torch.cuda.synchronize()
+        return [float(v) for v in out]
+
+    def params(m):
+        return [p.data()._data.clone() for p in m.collect_params().values()]
+
+    fsm.reset_step_counters()
+    cf.conv1x1_bwd_pair.launches = 0
+    _GraphProgram.debug = True
+    try:
+        losses = run(trainer, loss_fn, 2)       # eager; capture + replay
+    finally:
+        _GraphProgram.debug = False
+    losses += run(trainer, loss_fn, LARS_STEPS - 2)
+    fs, prog = _apply_program(trainer)
+    counts, _ = _graph_nodes(prog, ("conv1x1_bwd",))
+    path = os.path.join(HERE, "build", "lars_resnet50")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    files = (path + ".params", path + ".states")
+    net.save_parameters(files[0])
+    trainer.save_states(files[1])
+    at_10 = params(net)
+    t0 = time.perf_counter()
+    tail = run(trainer, loss_fn, LARS_STEPS)
+    ms = (time.perf_counter() - t0) / LARS_STEPS * 1e3
+    end = params(net)
+    k6 = cf.conv1x1_bwd_pair.launches - prog.launches.get(
+        "conv1x1_bwd", 0) + fs.launches().get("conv1x1_bwd", 0)
+    compiles = fsm.step_counters["compiles"]
+    # the original trainer, its graph captured, loaded back
+    trainer.load_states(files[1])
+    with torch.no_grad():
+        for p, w in zip(net.collect_params().values(), at_10):
+            p.data()._data.copy_(w)
+    again = run(trainer, loss_fn, LARS_STEPS)
+    again_equal = again == tail and all(
+        torch.equal(a, b) for a, b in zip(params(net), end))
+    reload_compiles = fsm.step_counters["compiles"]
+    # a fresh net and trainer from the files (last: a new net moves the
+    # storage generation, which drops the original's programs)
+    twin, ttr, tlf = _lars_resnet(mx, files)
+    resumed = run(ttr, tlf, LARS_STEPS)
+    twin_equal = resumed == tail and all(
+        torch.equal(a, b) for a, b in zip(params(twin), end))
+    del twin, ttr, tlf
+    torch.cuda.empty_cache()
+    counters = dict(fsm.step_counters)
+    for f in files:
+        os.remove(f)
+    curve = losses + tail
+    row = dict(losses=curve, resumed=resumed, reloaded=again,
+               ms_per_step=ms, k6_nodes=counts["conv1x1_bwd"],
+               launches=dict(conv1x1_bwd=k6), step_counters=counters,
+               compiles_before_reload=compiles,
+               compiles_after_reload=reload_compiles, twin_equal=twin_equal,
+               reload_equal=again_equal)
+    print(f"lars resnet: resnet50_v1 NHWC bf16 multi-precision, "
+          f"Trainer.fused_step lars {LARS_OPT}, B={RESNET_B}; losses "
+          f"{[round(v, 4) for v in curve]}; ms/step={ms:.3f} (steps 11-20, "
+          f"replays); K6 nodes in the step graph {counts} (expected "
+          f"{K6_PER_STEP}), K6 ran {k6} times; {card_line()}", flush=True)
+    print(f"lars resnet: resumed from save_states + save_parameters in a "
+          f"fresh net and trainer: losses {[round(v, 4) for v in resumed]},"
+          f" equal to steps 11-20 bit for bit (losses and every parameter) "
+          f"{twin_equal}; load_states into the captured trainer with the "
+          f"step-10 weights: equal {again_equal}; step_counters {counters} "
+          f"(compiles {compiles} before the reload, {reload_compiles} "
+          f"after it)", flush=True)
+    if counts["conv1x1_bwd"] != K6_PER_STEP:
+        fail(f"lars resnet: {counts['conv1x1_bwd']} K6 nodes in the step "
+             f"graph, expected {K6_PER_STEP}")
+    if compiles != 1 or reload_compiles != 1 or \
+            counters["legacy_steps"] or counters["compiles"] != 2:
+        # one capture of the original's step, one of the fresh trainer's
+        fail(f"lars resnet: step counters {counters}, compiles before the "
+             f"reload {compiles}")
+    if not (twin_equal and again_equal):
+        fail("lars resnet: a resumed run departs from the uninterrupted one")
+    if not all(math.isfinite(v) for v in curve):
+        fail(f"lars resnet: losses not finite: {curve}")
+    if abs(curve[0] - math.log(1000)) > 1.0:
+        fail(f"lars resnet: first loss {curve[0]} is not within 1.0 of "
+             "ln(1000)")
+    del net, trainer, fs, prog, at_10, end
+    torch.cuda.empty_cache()
+    return row
+
+
+def _tensors_of(trainer):
+    out = [p.data()._data for p in trainer._params]
+    for s in trainer._states:
+        stack = [s]
+        while stack:
+            x = stack.pop(0)
+            if isinstance(x, tuple):
+                stack = list(x) + stack
+            elif x is not None:
+                out.append(x)
+    return out
+
+
+def all_optimizers(op):
+    """19.3: phase 18.6's MLP block (bf16, K7's ``gelu_fwd``/``gelu_bwd``)
+    through ``gluon.Trainer`` with each of the fifteen optimizers, with
+    and without multi-precision: three ``fused_step`` calls (eager,
+    capture and replay, replay) against three phase-by-phase steps,
+    losses, weights and states bit for bit (SGLD runs phase by phase
+    only: its noise keeps it off the fused path); a states file written
+    after step 2 and loaded into a fresh trainer (its net given the
+    step-2 weights) gives step 3 bit for bit; K7 twice a step; ms a
+    fused step (replays) and the optimizer's device share of one eager
+    step of the fused program, profiled."""
+    import math
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+    from mxnet_tpu_torch.optimizer.optimizer import _REGISTRY
+
+    def mse(net):
+        return lambda a, b: mx.nd.mean(mx.nd.square(net(a) - b))
+
+    def build(name, mp):
+        net, x, t = _mlp_block(mx)
+        tr = gluon.Trainer(net.collect_params(), name,
+                           {"learning_rate": ALL_OPT_LR[name],
+                            "multi_precision": mp})
+        return net, tr, mse(net), x, t
+
+    path = os.path.join(HERE, "build", "all_optimizers.states")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    rows, launches, failed = {}, 0, []
+    for name in sorted(set(_REGISTRY)):
+        for mp in (False, True):
+            key = f"{name}{' mp' if mp else ''}"
+            fused_arm = _REGISTRY[name]._fusable
+            for k in op.kernels.values():
+                k.launches = 0
+            net, tr, lf, x, t = build(name, mp)
+            phase = []
+            for step in range(ALL_OPT_STEPS):
+                if step == ALL_OPT_STEPS - 1:
+                    tr.save_states(path)
+                    at_2 = [p.data()._data.clone() for p in tr._params]
+                    mx.random.seed(5)       # SGLD's step-3 noise, twice
+                phase.append(float(_mlp_phase(mx, tr, lf, x, t)
+                                   .asnumpy().reshape(-1)[0]))
+            phase_end = [a.clone() for a in _tensors_of(tr)]
+            launches += op.launches()
+            ok_launch = op.launches() == 2 * ALL_OPT_STEPS
+            # step 3 again from the file, in a fresh trainer
+            net2, tr2, lf2, _, _ = build(name, mp)
+            for p, w in zip(tr2._params, at_2):
+                p.set_data(mx.nd.NDArray(w.clone()))
+            tr2.load_states(path)
+            mx.random.seed(5)
+            _mlp_phase(mx, tr2, lf2, x, t)
+            resumed = all(torch.equal(a, b) for a, b in
+                          zip(_tensors_of(tr2), phase_end))
+            del net2, tr2
+            row = dict(phase_losses=phase, resumed_equal=resumed,
+                       launches_ok=ok_launch)
+            if fused_arm:
+                for k in op.kernels.values():
+                    k.launches = 0
+                netf, trf, lff, xf, tf = build(name, mp)
+                fsm.reset_step_counters()
+                fused = [float(trf.fused_step(lff, xf, tf, batch_size=1)
+                               .asnumpy().reshape(-1)[0])
+                         for _ in range(ALL_OPT_STEPS)]
+                fs, prog = _apply_program(trf)
+                worst = 0.0
+                same = fused == phase
+                for a, b in zip(_tensors_of(trf), phase_end):
+                    if not torch.equal(a, b):
+                        same = False
+                        worst = max(worst, _bf16_steps_apart(a, b))
+                runs = op.launches() - prog.launches.get("rtc", 0) + \
+                    fs.launches().get("rtc", 0)
+                launches += runs
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(ALL_OPT_TIMED):
+                    prog.graph.replay()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / ALL_OPT_TIMED * 1e3
+                prog.replays += ALL_OPT_TIMED
+                launches += ALL_OPT_TIMED * prog.launches.get("rtc", 0)
+                opt_us, busy = _ranged_optimizer(trf.optimizer, prog.run)
+                row.update(fused_losses=fused, equal=same,
+                           worst_bf16_steps=worst, ms_per_fused_step=ms,
+                           optimizer_device_us=opt_us,
+                           step_device_us=busy,
+                           optimizer_share=opt_us / busy if busy else None,
+                           compiles=fsm.step_counters["compiles"],
+                           legacy_steps=fsm.step_counters["legacy_steps"])
+                ok_launch = ok_launch and runs == 2 * ALL_OPT_STEPS
+                row["launches_ok"] = ok_launch
+                trf._fused_steps.clear()
+                del netf, trf, fs, prog
+            rows[key] = row
+            print(f"all optimizers: {key}: phase-by-phase losses "
+                  f"{[round(v, 6) for v in phase]}; resumed from its "
+                  f"states file at step 3 equal bit for bit {resumed}"
+                  + (f"; fused (eager, capture + replay, replay) equal bit "
+                     f"for bit {row['equal']} (largest "
+                     f"{row['worst_bf16_steps']:.3f} bf16 steps); "
+                     f"{row['ms_per_fused_step']:.3f} ms a fused step; "
+                     f"optimizer "
+                     + (f"{row['optimizer_device_us'] / 1e3:.3f} ms of "
+                        f"{row['step_device_us'] / 1e3:.3f} ms device time "
+                        f"a step ({row['optimizer_share']:.4f})"
+                        if row["optimizer_share"] else "not measured")
+                     if fused_arm else "; phase by phase only")
+                  + f"; K7 2 a step {ok_launch}", flush=True)
+            bad = not (resumed and ok_launch) or \
+                not all(math.isfinite(v) for v in phase)
+            if fused_arm:
+                bad = bad or not row["equal"] or row["compiles"] != 1 or \
+                    row["legacy_steps"]
+            if bad:
+                failed.append(key)
+            del net, tr
+            torch.cuda.empty_cache()
+    os.remove(path)
+    print(f"all optimizers: {card_line()}", flush=True)
+    if failed:
+        fail(f"all optimizers: {failed} failed their checks")
+    return dict(rows=rows, launches=launches)
+
+
+def check_optimizers(cfg, op, adamw_row):
+    """Phase 19: its three new parts (19.4 runs inside phases 16 and
+    18.2)."""
+    return dict(lamb_gpt2=lamb_gpt2(cfg, adamw_row),
+                lars_resnet=lars_resnet(), all=all_optimizers(op))
+
+
 def main():
     try:
         import torch
@@ -4044,6 +4629,7 @@ def main():
     mlp = check_imperative_mlp(gelu_op)
     mlp["vs_cpu"] = check_imperative_vs_cpu()
     fused_train = check_fused(gelu_op, vision["fused"], gluon["resnet"], mlp)
+    opt19 = check_optimizers(cfg, gelu_op, train)
     gelu = next(c for c in rtc["cases"]
                 if c["name"] == "gelu_fwd<__nv_bfloat16>")
 
@@ -4051,7 +4637,9 @@ def main():
         main = k23[0][key]
         return dict(name=name, route="cuda",
                     source="mxnet_tpu_torch/csrc/flash_bwd.cu",
-                    replaces=replaces, launches=train["launches"][name],
+                    replaces=replaces,
+                    launches=train["launches"][name] +
+                    opt19["lamb_gpt2"]["launches"][name],
                     max_abs_err=max(e for r in k23
                                     for w, e in r["max_abs_err"].items()
                                     if w in outputs),
@@ -4073,7 +4661,8 @@ def main():
         dict(name="flash_fwd", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_fwd.cu",
              replaces="mxnet_tpu/ops/attention.py:226",
-             launches=train["launches"]["flash_fwd"],
+             launches=train["launches"]["flash_fwd"] +
+             opt19["lamb_gpt2"]["launches"]["flash_fwd"],
              max_abs_err=max(r["max_abs_err"] for r in k1), ms=k1[0]["ms"],
              plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
              bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"],
@@ -4099,23 +4688,26 @@ def main():
              design=k5_design["design"]),
         # K6: per ResNet-50 step (30 launches at nine shapes, bf16); the
         # library call is cuDNN's backward (dx and dW in one call); its
-        # launches are those of the three ResNet-50 arms (SPMDTrainer,
-        # phase 14, gluon.Trainer, phase 16, and Trainer.fused_step,
-        # phase 18, whose replays count by the graph's launches)
+        # launches are those of the four ResNet-50 arms (SPMDTrainer,
+        # phase 14, gluon.Trainer, phase 16, Trainer.fused_step, phase
+        # 18, and LARS through fused_step, phase 19.2; replays count by
+        # the graph's launches)
         dict(name="conv1x1_bwd", route="cuda",
              source="mxnet_tpu_torch/csrc/conv1x1_bwd.cu",
              replaces="mxnet_tpu/ops/conv_fused.py:134",
              launches=vision["fused"]["launches"]["conv1x1_bwd"] +
              gluon["resnet"]["launches"]["conv1x1_bwd"] +
-             fused_train["resnet"]["launches"]["conv1x1_bwd"],
+             fused_train["resnet"]["launches"]["conv1x1_bwd"] +
+             opt19["lars_resnet"]["launches"]["conv1x1_bwd"],
              max_abs_err=k6["max_abs_err"], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
              cublas_ms=k6["cublas_ms"], design=k6_design["design"]),
         # K7: the runtime-compiled kernels' launcher; its launches on the
         # MLP paths (gelu_fwd and gelu_bwd, 2 a step: phase 17's NDArray
-        # loop, phase 18's Gluon block phase by phase and fused, whose
-        # replays count by the graph's launches), its times those of
+        # loop, phase 18's Gluon block phase by phase and fused, and
+        # phase 19.3's fifteen optimizers; replays count by the graph's
+        # launches), its times those of
         # gelu_fwd<__nv_bfloat16> at the path's 8192 x 3072, the library
         # call F.gelu(approximate="tanh"); its host half: us a launch,
         # the host floor and a torch.add (rtc_launch_costs)
@@ -4124,7 +4716,8 @@ def main():
              kernel="gelu_fwd<__nv_bfloat16>",
              replaces="mxnet_tpu/rtc.py:29",
              launches=mlp["launches"] + fused_train["mlp"]["phase"][
-                 "launches"] + fused_train["mlp"]["fused"]["launches"],
+                 "launches"] + fused_train["mlp"]["fused"]["launches"] +
+             opt19["all"]["launches"],
              max_abs_err=gelu["max_abs_err"], ms=gelu["ms"],
              plain_ms=gelu["plain_ms"], bound_ms=gelu["bound_ms"],
              bound_by=gelu["bound_by"], library_ms=gelu["library_ms"],
@@ -4144,7 +4737,8 @@ def main():
                        serve=srv, train=train, bert=bert, k5=k5,
                        fused=fused, k6=k6, vision=vision, gluon=gluon,
                        rtc=rtc,
-                       mlp=mlp, fused_train=fused_train, kernels=kernels),
+                       mlp=mlp, fused_train=fused_train, optimizers=opt19,
+                       kernels=kernels),
                   fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

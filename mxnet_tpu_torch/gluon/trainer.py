@@ -36,13 +36,24 @@ fused_step.py``): one CUDA-graph replay a call on the card.  It and
 by both, since a captured graph reads those tensors) and the same
 update counts.
 
-Kvstores other than the local ones, ``data_sharding`` and
-``save_states``/``load_states`` raise ``MXNetError``.
+``save_states``/``load_states`` write and read the reference's pickle
+(``num_update``, ``index_update_count``, the states as numpy arrays in
+the reference's nesting, ``created``), so a file moves both ways between
+the packages (``ndarray/serialization.py``; bf16 states without
+``ml_dtypes``).  A load copies into the states that exist, in place (a
+captured fused step reads their storage, and its next replay continues
+from the loaded states), creates the others, and resets the
+accumulation window and every fused step's ring.  Both are refused
+mid-window.
+
+Kvstores other than the local ones and ``data_sharding`` raise
+``MXNetError``.
 """
 from __future__ import annotations
 
 import weakref
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -81,6 +92,32 @@ def _param_list(params):
         if not isinstance(p, Parameter if gluon else torch.Tensor):
             raise MXNetError(f"invalid parameter {p!r}")
     return params, gluon
+
+
+def _copy_state(dst, src, what):
+    """Copy a loaded state ``src`` (numpy arrays or tensors in a state's
+    nesting) into the state ``dst`` in place, refusing another structure,
+    shape or dtype."""
+    if dst is None or src is None:
+        if dst is not None or src is not None:
+            raise MXNetError(f"load_states: {what} is None on one side only")
+        return
+    nested = isinstance(src, (tuple, list))
+    if isinstance(dst, tuple) != nested or nested and len(src) != len(dst):
+        raise MXNetError(f"load_states: {what} has another structure than "
+                         "the optimizer's state")
+    if nested:
+        for k, (a, b) in enumerate(zip(dst, src)):
+            _copy_state(a, b, f"{what}[{k}]")
+        return
+    if not isinstance(src, torch.Tensor):
+        src = torch.from_numpy(np.array(src))
+    if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+        raise MXNetError(
+            f"load_states: {what} is {tuple(src.shape)} {src.dtype} in the "
+            f"file and {tuple(dst.shape)} {dst.dtype} in the trainer")
+    with torch.no_grad():
+        dst.copy_(src)
 
 
 class Trainer:
@@ -200,11 +237,19 @@ class Trainer:
         """Create parameter ``i``'s optimizer state once (shared by the
         fused step and the phase-by-phase update)."""
         if not self._states_created[i]:
-            p = self._params[i]
-            weight = p._data._data if self._gluon else p
             self._states[i] = \
-                self._optimizer.create_state_multi_precision(i, weight)
+                self._optimizer.create_state_multi_precision(
+                    i, self._weight(i))
             self._states_created[i] = True
+
+    def _weight(self, i):
+        p = self._params[i]
+        if not self._gluon:
+            return p
+        if p._data is None:
+            raise MXNetError(f"parameter {p.name} is not initialized; call "
+                             "initialize() and run a forward pass first")
+        return p._data._data
 
     def _apply(self, idxs, weights, grads):
         for i in idxs:
@@ -313,7 +358,52 @@ class Trainer:
         return fs(batch, batch_size)
 
     def save_states(self, fname):
-        raise _later("save_states (optimizer state checkpoints)")
+        """Pickle the optimizer's update counts and states (reference
+        ``Trainer.save_states``); refused mid-window, where the
+        accumulated gradients would be lost."""
+        from ..ndarray import serialization
+
+        self._check_window_boundary("save_states()")
+        opt = self._optimizer
+        serialization.save_states(fname, {
+            "num_update": opt.num_update,
+            "index_update_count": dict(opt._index_update_count),
+            "states": [s if c else None for s, c in
+                       zip(self._states, self._states_created)],
+            "created": list(self._states_created)})
 
     def load_states(self, fname):
-        raise _later("load_states (optimizer state checkpoints)")
+        """Load a states file of either package (reference
+        ``Trainer.load_states``): in place into the states that exist,
+        each checked for structure, shape and dtype; the others are
+        created first.  The accumulation window and the fused steps'
+        rings start afresh."""
+        from ..ndarray import serialization
+
+        self._check_window_boundary("load_states()")
+        payload = serialization.load_states(fname)
+        states, created = payload["states"], list(payload["created"])
+        if len(states) != len(self._params) or \
+                len(created) != len(self._params):
+            raise MXNetError(
+                f"load_states: the file holds {len(states)} states, the "
+                f"trainer has {len(self._params)} parameters")
+        for i, (saved, made) in enumerate(zip(states, created)):
+            if not (made or self._states_created[i]):
+                continue
+            self._ensure_state(i)
+            if not made:
+                # the state the next update would create, written into
+                # the tensors a captured step reads
+                saved = self._optimizer.create_state_multi_precision(
+                    i, self._weight(i))
+            _copy_state(self._states[i], saved, f"state {i}")
+        self._optimizer.num_update = payload["num_update"]
+        self._optimizer._index_update_count = dict(
+            payload["index_update_count"])
+        self._window_pos = 0
+        for fs in self._fused_steps.values():
+            if fs._accum is not None:
+                for a in fs._accum:
+                    a.zero_()
+            fs._legacy_accum = None

@@ -17,6 +17,7 @@ load as they were saved.
 """
 from __future__ import annotations
 
+import pickle
 import struct
 
 import numpy as np
@@ -132,3 +133,133 @@ def load(fname: str, ctx=None):
             ln, = struct.unpack("<Q", f.read(8))
             names.append(f.read(ln).decode())
         return dict(zip(names, arrays))
+
+
+# --------------------------------------------------------------------------- #
+# the reference's optimizer-states pickle (``Trainer.save_states``)
+# --------------------------------------------------------------------------- #
+#
+# The reference pickles its states as numpy arrays.  A bf16 array names
+# ``ml_dtypes.bfloat16`` in the pickle, a package the port does not need:
+# its states are read by an unpickler of the port's own, which takes such
+# an array's raw 16 bits into a ``torch.bfloat16`` tensor, and written as
+# ``numpy.ndarray(shape, numpy.dtype("bfloat16"), buffer)``, which numpy
+# resolves by name wherever ``ml_dtypes`` is loaded (JAX loads it).
+
+class _Bf16Dtype:
+    """``numpy.dtype("bfloat16")`` in a pickle (a marker when read by the
+    port)."""
+
+    def __reduce__(self):
+        return (np.dtype, ("bfloat16",))
+
+    def __setstate__(self, state):
+        pass
+
+
+class _Bf16Array:
+    """A bf16 tensor as a pickled numpy array of dtype ``bfloat16``."""
+
+    def __init__(self, t: torch.Tensor):
+        self.shape = tuple(t.shape)
+        self.raw = t.detach().contiguous().view(torch.int16).cpu() \
+            .numpy().tobytes()
+
+    def __reduce__(self):
+        return (np.ndarray, (self.shape, _Bf16Dtype(), bytearray(self.raw)))
+
+
+def _bf16_tensor(shape, raw):
+    return torch.frombuffer(bytearray(raw), dtype=torch.bfloat16) \
+        .reshape(shape).clone()
+
+
+def _dtype(obj, *args):
+    if obj is _ML_BF16 or obj == "bfloat16":
+        return _Bf16Dtype()
+    return np.dtype(obj, *args)
+
+
+def _ndarray(shape, dtype=float, buffer=None, *args, **kwargs):
+    if isinstance(dtype, _Bf16Dtype):
+        return _bf16_tensor(shape, buffer)
+    return np.array(np.ndarray(shape, dtype, buffer, *args, **kwargs))
+
+
+class _Reconstructed:
+    """numpy's ``_reconstruct`` placeholder: ``__setstate__`` (pickle's
+    BUILD) makes its value, a numpy array or a bf16 tensor."""
+
+    def __setstate__(self, state):
+        _, shape, dtype, fortran, raw = state
+        if isinstance(dtype, _Bf16Dtype):
+            if fortran:
+                raise MXNetError("states file: a Fortran-ordered bf16 array")
+            self.value = _bf16_tensor(shape, raw)
+        else:
+            self.value = np.frombuffer(bytearray(raw), dtype).reshape(
+                shape, order="F" if fortran else "C").copy()
+
+
+def _reconstruct(cls, shape, typecode):
+    return _Reconstructed()
+
+
+_ML_BF16 = object()
+
+
+class _StatesUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] == "ml_dtypes":
+            if name != "bfloat16":
+                raise MXNetError(f"states file: dtype ml_dtypes.{name} is "
+                                 "not supported")
+            return _ML_BF16
+        if module == "numpy" and name == "dtype":
+            return _dtype
+        if module == "numpy" and name == "ndarray":
+            return _ndarray
+        if module in ("numpy.core.multiarray", "numpy._core.multiarray") \
+                and name == "_reconstruct":
+            return _reconstruct
+        if module.startswith("numpy._core") and \
+                not hasattr(np, "_core"):          # numpy 1 reads numpy 2
+            module = "numpy.core" + module[len("numpy._core"):]
+        return super().find_class(module, name)
+
+
+def _resolve(x):
+    if isinstance(x, _Reconstructed):
+        return x.value
+    if isinstance(x, (list, tuple)):
+        return type(x)(_resolve(a) for a in x)
+    if isinstance(x, dict):
+        return {k: _resolve(v) for k, v in x.items()}
+    return x
+
+
+def _as_file_array(x):
+    """A state tensor as the reference writes it: numpy, bf16 by name."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_as_file_array(a) for a in x)
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return _Bf16Array(x)
+        return x.detach().cpu().numpy().copy()
+    return x
+
+
+def save_states(fname: str, payload: dict):
+    """Pickle a trainer's ``payload`` (``num_update``,
+    ``index_update_count``, ``states``, ``created``) as the reference's
+    ``Trainer.save_states`` does, its tensors as numpy arrays."""
+    payload = dict(payload, states=_as_file_array(payload["states"]))
+    with open(fname, "wb") as f:
+        pickle.dump(payload, f, protocol=4)
+
+
+def load_states(fname: str) -> dict:
+    """Read a states file of either package; numpy arrays stay numpy, a
+    bf16 array becomes a CPU ``torch.bfloat16`` tensor."""
+    with open(fname, "rb") as f:
+        return _resolve(_StatesUnpickler(f).load())

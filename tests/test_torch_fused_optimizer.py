@@ -15,9 +15,11 @@ updates).  The reference's tolerances are
 kept.  The grouped apply is ``fused_step_apply``, the fused step's own;
 the escape hatch is the per-parameter loop bit for bit (held below).
 
-Not ported, waiting on ROADMAP §1 item 2 (the other optimizers) and the
-sparse and kvstore items: the LAMB clip case, the sparse-gradient
-fallback [:147], SGLD [:168], the kvstore server push [:239].
+``FUSABLE`` is every registered optimizer that the grouped apply serves
+(all but SGLD) [:73].  SGLD's per-parameter path [:168] is held in
+``tests/test_torch_optimizer_bf16.py``.  Not ported, waiting on the
+sparse and kvstore items: the sparse-gradient fallback [:147], the
+kvstore server push [:239].
 
 Held against ``mxnet_tpu``: the fused train step's apply
 (``fused_step_apply``, device operands) on the same weights, gradients
@@ -37,12 +39,12 @@ from mxnet_tpu_torch import gluon
 from mxnet_tpu_torch import optimizer as opt_mod
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import Parameter
-from mxnet_tpu_torch.optimizer.optimizer import (apply_counters,
+from mxnet_tpu_torch.optimizer.optimizer import (_REGISTRY, apply_counters,
                                                  reset_apply_counters)
 
 CPU = mx.cpu()
 SHAPES = [(4, 5), (7,), (2, 3, 4)]
-FUSABLE = ["adam", "adamw", "sgd"]
+FUSABLE = sorted(k for k, v in _REGISTRY.items() if v._fusable)
 
 
 def _mk(name, **extra):
@@ -147,7 +149,7 @@ def test_fused_lr_wd_mult_asymmetry(name, monkeypatch):
     _assert_close(ws_f, ws_l, name)
 
 
-@pytest.mark.parametrize("name", ["sgd", "adam"])
+@pytest.mark.parametrize("name", ["sgd", "adam", "lamb"])
 def test_fused_clip_gradient(name, monkeypatch):
     wnp, gnp = _mk_tensors(seed=2)
     ws_f, _ = _run_steps(_mk(name, clip_gradient=0.1), wnp, gnp)

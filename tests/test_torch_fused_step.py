@@ -20,13 +20,13 @@ accumulators [:386]; ``'write'`` gradients refused mid-window [:425];
 ``fused_step`` and ``step`` sharing one window [:566].  The reference's
 tolerances are kept.
 
-Not ported, each waiting on a ROADMAP item: SGLD [:346] (the other
-optimizers, §1 item 2), the registry-dispatch count [:276] (the port
-has no op registry hook in the fused path to count), the estimator
-[:498, :518] (``gluon/contrib``, §1 item 7), ``save_states`` [:541]
-(§1 item 2), the data-sharded step [:587] (one card; ``data_sharding=``
-raises) and the benchmark smoke runs [:633, :639] (``benchmark/`` is not
-ported).
+SGLD taking the phase-by-phase step [:346]; ``save_states`` after
+fused steps [:541] is in ``tests/test_torch_trainer_states.py``.  Not
+ported, each waiting on a ROADMAP item: the registry-dispatch count
+[:276] (the port has no op registry hook in the fused path to count),
+the estimator [:498, :518] (``gluon/contrib``, §1 item 7), the
+data-sharded step [:587] (one card; ``data_sharding=`` raises) and the
+benchmark smoke runs [:633, :639] (``benchmark/`` is not ported).
 
 Every case runs on the reference test's inputs: its seeded data and
 its net's weights (``_build_net``, made by ``mxnet_tpu`` and carried by
@@ -396,6 +396,21 @@ def test_lr_schedule_is_an_operand_not_a_retrace():
     assert step_counters["compiles"] == 1
     for a, b in zip(_params_np(nets[0]), _params_np(nets[1])):
         onp.testing.assert_allclose(a, b, rtol=2e-5, atol=1e-6)
+
+
+def test_sgld_falls_back():
+    """SGLD draws its noise inside its rule: the whole step takes the
+    phase-by-phase path [:346]."""
+    B = 4
+    X, Y = _data(B)
+    net = _build_net()
+    loss_l = gluon.loss.L2Loss()
+    tr = gluon.Trainer(net.collect_params(), "sgld",
+                       {"learning_rate": 0.01}, kvstore=None)
+    reset_step_counters()
+    tr.fused_step(lambda x, y: loss_l(net(x), y), _nd(X), _nd(Y))
+    assert step_counters["legacy_steps"] == 1
+    assert step_counters["dispatches"] == 0
 
 
 # --------------------------------------------------------------------------- #

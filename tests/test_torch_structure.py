@@ -1,5 +1,6 @@
-"""Structure of the PyTorch port: it imports neither JAX nor the JAX
-package, its entry points refuse to run on a host without CUDA unless
+"""Structure of the PyTorch port: it imports neither JAX, the JAX
+package nor ``ml_dtypes`` (the card's machine has none), its entry
+points refuse to run on a host without CUDA unless
 asked for the CPU, and its kernels are built for sm_90a."""
 import ast
 import pathlib
@@ -14,7 +15,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "mxnet_tpu_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "decode_ab.py", REPO / "rtc_ab.py",
      REPO / "resnet_ab.py", REPO / "tests" / "_torch_rtc_sources.py"]
-FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
 
 
 def _imports(path):
