@@ -16,16 +16,19 @@ Phases (each fails the run by raising; there is no CPU path):
    spills; then against its plain version in bf16 at the five
    GPT-2-small decode shapes with the server's two pools (8 and 4 rows)
    and at Llama-7B's shapes with 1 row (4096 x 4096, 4096 x 11008,
-   11008 x 4096, the 4096 x 32000 head), two launches bit for bit, with
-   kernel, plain, library (``x @ wt.to(bf16)``) and bound times; per
-   decode step for each pool; kernel and library by two timers,
+   11008 x 4096, the 4096 x 32000 head) and with the chunked prefill's
+   1024 rows (the three projection shapes; per chunk layer), two
+   launches bit for bit, with kernel, plain, library (``x @
+   wt.to(bf16)``) and bound times; per decode step for each pool;
+   kernel and library by two timers,
    ``cuda_ms`` (the calls as the host enqueues them, the figure of every
    phase) and ``cuda_ms_queued`` (behind a spin kernel: the device's
    share of it);
 4. K1 (flash forward) against its plain version in bf16 at the shape
    the serving prefill and the training step give it (8 rows, 12 heads,
    1024 tokens, head dim 64, causal), once more with a key mask and
-   dropout, and at the training shape with dropout 0.1, the seed a
+   dropout, at Llama-7B's admission shape (4 x 32 heads x 1024, head
+   dim 128, causal), and at the training shape with dropout 0.1, the seed a
    device word, with kernel, plain, library
    (``scaled_dot_product_attention``) and bound times; two launches
    must agree bit for bit; first the design tag of the bf16 tensor-core
@@ -44,14 +47,22 @@ Phases (each fails the run by raising; there is no CPU path):
    captured program whose traced key gives the seed: a replay with the
    eager call's key repeats it bit for bit, another key drops others;
 6. serving: GPT-2 small at full width in bf16 (seeded random weights)
-   through ``DecodeServer(weights="int8", pool_sizes=(4, 8))`` — six
-   ragged greedy requests, the 700-token one arriving after the others
-   were admitted, so its wave runs K1 (a 1024 bucket); every decode
-   step runs K4 49 times — held against the port's own batch-1
-   ``kv_generate`` (first tokens equal, whole-stream agreement >= 0.9),
-   then once more under ``torch.profiler`` for the device time by
-   kernel, then the same weights in float32 in one wave, held the same
-   way;
+   through ``DecodeServer(weights="int8", pool_sizes=(4, 8))`` on its
+   own thread — six ragged greedy requests, the 700-token one arriving
+   after the others were admitted, so its wave runs K1 (a 1024 bucket);
+   every decode step is one CUDA-graph replay that runs K4 49 times (a
+   replay counted by what its capture recorded) — held against the
+   port's own batch-1 ``kv_generate`` (first tokens equal, whole-stream
+   agreement >= 0.9); then two arms of the same requests pump-driven,
+   the captured step and the eager step (the program's own function):
+   streams equal token for token, tokens/s, ms a step, host us a step
+   call, capture seconds, kernel nodes by name, the busy share of one
+   profiled replay; then once more under ``torch.profiler`` for the
+   device time by kernel; then (6c) where a bf16 stream parts from its
+   batch-1 twin: request 1's prompt through ``kv_generate`` at batch 1, 4
+   and 8, int8 and native, the first differing token and, teacher-forced,
+   the first layer and output whose row 0 differs; then the same weights
+   in float32 in one wave, held as the bf16 run;
 7. training, the second slice's path, through the captured step of
    the twelfth slice: GPT-2 small at full width in bf16 with dropout
    0.1, 8 x 1024 tokens, ``parallel.SPMDTrainer`` with AdamW
@@ -101,10 +112,33 @@ Phases (each fails the run by raising; there is no CPU path):
    and int8: K5 launched 31 times each, tokens/s fused and unfused,
    teacher-forced agreement >= 0.9 (and, beside it, the agreement over
    the positions whose unfused top-2 logit margin is ``TIE_STEPS`` bf16
-   steps or more, which rounding order cannot flip); K5 alone at full
+   steps or more, a near-tie filter); K5 alone at full
    depth; a fused
    token split by CUDA events into the embedding, K5, ln_f + the head
    (K4 with int8) and the argmax, beside the run's ms a token;
+12b. the fourteenth slice: phase 12's Llama-7B (bf16, full width and
+   depth, K5's stream freed) through ``DecodeServer(weights="int8",
+   pool_sizes=(4, 8), max_total_len=2048, prefill_buckets=16...1024)``,
+   page 16, greedy, 32 new tokens a request, on its own thread: prompts
+   of 7, 100 and 700 tokens (the 700 late: the pool grows), one of 1800
+   (two chunks), and a 512-token system prompt ``Sys``: ``Sys`` + 40,
+   then ``Sys`` + 25 (a partial hit, its suffix chunked), then ``Sys``
+   (a full hit with a copy-on-write page) and ``Sys`` + 1 (a full hit);
+   K4 exactly 225 times a step and 224 a chunk, K1 at least once, each
+   pool size's step captured once and no capture failed;
+   ``chunk_dispatches >= 3``, ``prefix_hits >= 3``, ``cow_copies >= 1``,
+   the full hits at zero admit and chunk dispatches; every stream
+   teacher-forced against the port's batch-1 step >= 0.9: a miss after
+   the batch-1 ``kv_generate`` prefill, a chunked prompt or a hit after a
+   cache filled as the server filled it for its kind (its chunks, a
+   hit's cached prefix then its suffix or its step); printed beside it,
+   every stream against both, over the positions with a top-2 margin of
+   ``TIE_STEPS``+ bf16 steps, and where a stream leaves the batch-1
+   ``kv_generate`` reference at such a position, the same reference at
+   the served width (8 rows) and the logit gap between the two; tokens/s,
+   TTFT by kind, peak memory, pool bytes; the captured and eager arms as
+   in phase 6; then the same requests on a 4-layer full-width Llama in
+   f32, agreement 1.0 and every first token equal;
 13. K6 (the fused 1x1-convolution backward, ``ops.conv_fused.
    conv1x1_bwd_pair``) against its plain version at the nine stride-1 1x1
    shapes of ResNet-50 at batch 128 in bf16 and one in f32: dx within 2
@@ -477,6 +511,25 @@ def check_k4(cfg):
                        ("l7b_down", 11008, 4096), ("l7b_head", 4096, 32000)):
         out["shapes"].append(_k4_case(name, 1, K, O, False, gen))
         torch.cuda.empty_cache()
+    # the chunked prefill's projections (phase 12b): 1024 rows each
+    chunk = dict(ms=0.0, queued_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                 library_queued_ms=0.0, bytes=0, ops=0)
+    for name, K, O, calls in (("l7b_qkvo", 4096, 4096, 4),
+                              ("l7b_gate_up", 4096, 11008, 2),
+                              ("l7b_down", 11008, 4096, 1)):
+        row = _k4_case(name, 1024, K, O, False, gen)
+        out["shapes"].append(row)
+        for k in chunk:
+            chunk[k] += calls * row[k]
+        torch.cuda.empty_cache()
+    chunk["bound_ms"], chunk["bound_by"] = bound_ms(chunk["bytes"],
+                                                    chunk["ops"])
+    print(f"K4 per Llama-7B chunk layer (7 launches, 1024 rows): kernel_ms="
+          f"{chunk['ms']:.5f} queued_ms={chunk['queued_ms']:.5f} plain_ms="
+          f"{chunk['plain_ms']:.5f} library_ms={chunk['library_ms']:.5f} "
+          f"library_queued_ms={chunk['library_queued_ms']:.5f} bound_ms="
+          f"{chunk['bound_ms']:.5f} ({chunk['bound_by']})", flush=True)
+    out["chunk_layer"] = chunk
     for timer, k, lk in (("cuda_ms", "ms", "library_ms"),
                          ("cuda_ms_queued", "queued_ms",
                           "library_queued_ms")):
@@ -501,16 +554,21 @@ def check_k1(cfg, B):
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.attention import flash_fwd, flash_fwd_plain
 
-    H = cfg.num_heads
-    D = cfg.units // H
+    H0 = cfg.num_heads
+    D0 = cfg.units // H0
     gen = torch.Generator(device="cuda").manual_seed(5)
     results = []
     # the dropout seed as the kernels read it: a device word
     word = torch.full((1,), 1234, dtype=torch.int64, device="cuda")
-    cases = [("prefill_causal", B, 1024, 1024, True, False, 0.0),
-             ("kmask_dropout", 2, 384, 384, False, True, 0.1),
-             ("train_causal_dropout", B, 1024, 1024, True, False, 0.1)]
-    for name, b, L, Lk, causal, masked, rate in cases:
+    cases = [("prefill_causal", B, H0, D0, 1024, 1024, True, False, 0.0),
+             ("kmask_dropout", 2, H0, D0, 384, 384, False, True, 0.1),
+             ("train_causal_dropout", B, H0, D0, 1024, 1024, True, False,
+              0.1),
+             # Llama-7B's first admission wave in phase 12b: 3 prompts
+             # (7, 100, 552 tokens) in the A=4 bucket at P=1024
+             ("llama7b_prefill_causal", 4, 32, 128, 1024, 1024, True,
+              False, 0.0)]
+    for name, b, H, D, L, Lk, causal, masked, rate in cases:
         q, k, v = (torch.randn((b, H, n, D), generator=gen, device="cuda")
                    .bfloat16() for n in (L, Lk, Lk))
         km = None
@@ -801,53 +859,144 @@ def check_seed_masks(cfg, B):
 
 PROMPT_LENS = (7, 100, 700, 33, 250, 512)
 NEW_TOKENS = 32
+ARM_STEPS = 20              # bare step calls of each arm
 
 
-def serve(model, cfg, counted=True):
-    """Serve the six prompts; returns the streams, counts and timings.
-    With ``counted`` (the main path) the kernels' launch counts are set
-    to 0 just before the requests and read just after, and the 700-token
-    prompt arrives after the others were admitted (a second wave, mid
-    run); otherwise all six go in one wave."""
-    import numpy as np
+def _wait_thread(pred, what, timeout=600.0):
+    """Wait for ``pred()`` while the server's own thread serves."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            fail(f"{what}: timed out waiting for the server")
+        time.sleep(0.001)
+
+
+def _wait_pump(srv, what):
+    """``wait(pred)`` for a pump-driven server: pump until ``pred()``."""
+    def wait(pred):
+        while not pred():
+            if not srv.pump():
+                fail(f"{what}: the server went idle before the wait ended")
+    return wait
+
+
+def _step_totals(srv):
+    """Over every pool size ``srv`` served so far: what the step replays
+    launched less what the step captures added to the kernels' counters
+    (a capture runs nothing), by kernel."""
+    out = {}
+    for r in srv.step_records():
+        for k, n in r["launches"].items():
+            out[k] = out.get(k, 0) + n * r["replays"]
+        for k, n in r["recorded"].items():
+            out[k] = out.get(k, 0) - n
+    return out
+
+
+def _served_launches(srv, counts, before):
+    """The kernels a serving run launched: the wrappers' counts (eager
+    calls, captures) corrected by ``_step_totals`` over the run;
+    ``before`` is ``_step_totals`` at the run's start."""
+    after = _step_totals(srv)
+    return {k: n + after.get(k, 0) - before.get(k, 0)
+            for k, n in counts.items()}
+
+
+def serve_run(model, scenario, what, threaded, counted=False, warm=1,
+              keep=False, **kw):
+    """One run of ``scenario(srv, wait)`` (it submits the requests and
+    returns ``(prompts, streams, info)``) through ``DecodeServer(model,
+    weights="int8", **kw)``, its own thread serving (``threaded``) or
+    pump-driven.  ``warm`` warm-up requests first (allocator, cuBLAS
+    and the captures of the pools they fill stay off the clock).  With
+    ``counted`` the kernels' counts are set to 0 just before the
+    requests and read just after, replays counted by what their capture
+    recorded.  Returns the
+    prompts, tokens and a dict of counts and timings (``server`` too,
+    open, with ``keep``)."""
     import torch
     from mxnet_tpu_torch.ops.attention import flash_fwd
     from mxnet_tpu_torch.ops.q8_matvec import q8_matvec
     from mxnet_tpu_torch.serve import DecodeServer
 
-    rs = np.random.RandomState(6)
-    prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in PROMPT_LENS]
-    late = PROMPT_LENS.index(max(PROMPT_LENS)) if counted else None
-    srv = DecodeServer(model, weights="int8", pool_sizes=(4, 8),
-                       autostart=True)
+    srv = DecodeServer(model, weights="int8", autostart=threaded, **kw)
+    wait = (lambda pred: _wait_thread(pred, what)) if threaded \
+        else _wait_pump(srv, what)
     try:
-        # warm-up: a first request so the timed run does not hold the
-        # allocator's and cuBLAS's first-call set-up
-        srv.submit(prompts[0][:5], max_new_tokens=3).tokens(300)
+        warm_up = [srv.submit([0] * 5, max_new_tokens=3)
+                   for _ in range(warm)]
+        wait(lambda: all(s.done for s in warm_up))
         srv.reset_counters()
-        q8_matvec.launches = 0
-        flash_fwd.launches = 0
+        torch.cuda.synchronize()
+        before = _step_totals(srv)
+        if counted:
+            q8_matvec.launches = 0
+            flash_fwd.launches = 0
         t0 = time.perf_counter()
-        streams = [None if i == late else
-                   srv.submit(p, max_new_tokens=NEW_TOKENS)
-                   for i, p in enumerate(prompts)]
-        if late is not None:
-            first = next(s for s in streams if s is not None)
-            while not first.times:        # the first wave is admitted
-                time.sleep(0.001)
-            streams[late] = srv.submit(prompts[late],
-                                       max_new_tokens=NEW_TOKENS)
-        toks = [s.tokens(600) for s in streams]
+        prompts, streams, info = scenario(srv, wait)
+        wait(lambda: all(s.done for s in streams))
+        toks = [s.tokens(1) for s in streams]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"q8_matvec": q8_matvec.launches,
-                    "flash_fwd": flash_fwd.launches}
-        counters = dict(srv.counters)
-        ttft = [s.ttft for s in streams]
+        run = dict(info, counters=dict(srv.counters), wall_s=wall,
+                   ttft_s=[s.ttft for s in streams], stats=srv.stats(),
+                   step_records=srv.step_records(),
+                   admissions=[s.admission for s in streams],
+                   tokens_per_s=sum(map(len, toks)) / wall)
+        if counted:
+            run["launches"] = _served_launches(
+                srv, {"q8_matvec": q8_matvec.launches,
+                      "flash_fwd": flash_fwd.launches}, before)
+        run["steps"] = run["counters"]["step_dispatches"]
+        run["ms_per_step"] = wall / max(run["steps"], 1) * 1e3
+        if keep:
+            run["server"] = srv
     finally:
-        srv.close(drain=False)
-    return prompts, toks, dict(launches=launches, counters=counters,
-                               wall_s=wall, ttft_s=ttft)
+        if not keep:
+            srv.close(drain=False)
+    return prompts, toks, run
+
+
+def gpt2_scenario(cfg, late=True):
+    """Phase 6's six ragged requests; with ``late`` the 700-token one
+    arrives after the first wave was admitted (a second wave, mid run)."""
+    import numpy as np
+
+    rs = np.random.RandomState(6)
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in PROMPT_LENS]
+    last = PROMPT_LENS.index(max(PROMPT_LENS)) if late else None
+
+    def scenario(srv, wait):
+        streams = [None if i == last else
+                   srv.submit(p, max_new_tokens=NEW_TOKENS)
+                   for i, p in enumerate(prompts)]
+        if last is not None:
+            first = next(s for s in streams if s is not None)
+            wait(lambda: bool(first.times))
+            streams[last] = srv.submit(prompts[last],
+                                       max_new_tokens=NEW_TOKENS)
+        return prompts, streams, {}
+    return scenario
+
+
+def check_launches(run, what, per_step, per_chunk):
+    """K4 exactly ``per_step`` times a decode step and ``per_chunk`` a
+    chunk; K1 at least once; every pool size's step captured once, no
+    capture failed."""
+    for r in run["step_records"]:
+        if r["captures"] != 1 or r["capture_failures"]:
+            fail(f"{what}: the {r['S']}-slot pool's step was captured "
+                 f"{r['captures']} times, {r['capture_failures']} captures "
+                 "failed (want one capture a pool size)")
+    steps, chunks = run["steps"], run["counters"]["chunk_dispatches"]
+    launches = run["launches"]
+    want = per_step * steps + per_chunk * chunks
+    if launches["q8_matvec"] != want:
+        fail(f"{what}: K4 launched {launches['q8_matvec']} times over "
+             f"{steps} decode steps and {chunks} chunks, expected {want} "
+             f"({per_step} a step, {per_chunk} a chunk)")
+    if launches["flash_fwd"] <= 0:
+        fail(f"{what}: K1 was never launched on the serving path")
 
 
 def check_streams(model, cfg, prompts, toks, what):
@@ -882,27 +1031,136 @@ def check_streams(model, cfg, prompts, toks, what):
 
 
 def check_serving(model, cfg):
-    prompts, toks, run = serve(model, cfg)
-    steps = run["counters"]["step_dispatches"]
-    per_step = 4 * cfg.num_layers + 1
-    launches = run["launches"]
+    prompts, toks, run = serve_run(model, gpt2_scenario(cfg), "serve",
+                                   threaded=True, counted=True,
+                                   pool_sizes=(4, 8))
     print(f"serve: {len(prompts)} requests, prompt lens {PROMPT_LENS}, "
           f"{NEW_TOKENS} new tokens each; counters {run['counters']}; "
-          f"launches {launches}", flush=True)
-    if launches["q8_matvec"] != per_step * steps:
-        fail(f"K4 launched {launches['q8_matvec']} times over {steps} "
-             f"decode steps, expected {per_step} per step")
-    if launches["flash_fwd"] <= 0:
-        fail("K1 was never launched on the serving path")
+          f"launches {run['launches']} (replays counted by their "
+          f"capture)", flush=True)
+    check_launches(run, "serve", 4 * cfg.num_layers + 1, 4 * cfg.num_layers)
     ttft = run["ttft_s"]
-    gen_tokens = len(prompts) * NEW_TOKENS
-    run["tokens_per_s"] = gen_tokens / run["wall_s"]
     print(f"serve: tokens/s={run['tokens_per_s']:.2f} wall_s="
           f"{run['wall_s']:.4f} ttft_s mean={sum(ttft) / len(ttft):.4f} "
-          f"max={max(ttft):.4f} steps={steps} admits="
+          f"max={max(ttft):.4f} steps={run['steps']} admits="
           f"{run['counters']['admit_dispatches']}", flush=True)
     run["agreement"] = check_streams(model, cfg, prompts, toks, "serve")
+    run["arms"] = serving_arms(model, gpt2_scenario(cfg), "serve",
+                               pool_sizes=(4, 8))
     return run
+
+
+def step_arms(srv, what, steps=ARM_STEPS):
+    """The captured and the eager arm of the largest pool's step, on an
+    idle pool (every lane masked, an all-trash table: the same work as a
+    live step), ``steps`` calls each, ms a step by the host clock after
+    a sync: bare replays of the step graph (``graph.replay``) beside the
+    step program's own function (``run``), with the median host us a
+    call of each; then whole ``PoolPrograms.step`` calls (the table's
+    copy, the replay, the readback's copies out of the graph), whose
+    host time includes waiting for the table copy two steps back when
+    the host runs ahead.  Capture seconds, the graph's kernel nodes by
+    name (one more capture, kept for ``debug_dump``), the busy share of
+    one profiled replay."""
+    import numpy as np
+    import torch
+
+    progs = srv._progs
+    prog = progs.step_program
+    if prog is None or prog.graph is None:
+        fail(f"{what}: the pool of {progs.S} slots has no captured step")
+    trash = np.full((progs.S, progs.maxp), progs.sentinel, np.int64)
+    progs.step(srv._state, trash)
+
+    def arm(call):
+        host = []
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            h0 = time.perf_counter()
+            call()
+            host.append(time.perf_counter() - h0)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) / steps * 1e3,
+                sorted(host)[len(host) // 2] * 1e6)
+
+    captured_ms, captured_host = arm(prog.graph.replay)
+    prog.replays += steps + 1
+    eager_ms, eager_host = arm(prog.run)
+    call_ms, call_host = arm(lambda: progs.step(srv._state, trash))
+    nodes = prog.kernel_nodes()
+    by_name, busy, wall_us = _profiled(prog.graph.replay)
+    profile = report_profile(f"{what} replay profile", by_name, busy,
+                             wall_us, top=6)
+    row = dict(S=progs.S, captured_ms_per_step=captured_ms, profile=profile,
+               captured_host_us=captured_host, eager_ms_per_step=eager_ms,
+               eager_host_us=eager_host, step_call_ms=call_ms,
+               step_call_host_us=call_host, capture_s=prog.capture_s,
+               kernel_nodes=sum(nodes.values()), nodes_by_name=nodes,
+               replay_busy=busy / wall_us if busy > 0 else None,
+               replay_window_us=wall_us)
+    top = sorted(nodes.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{what} step arms (S={progs.S}): captured {captured_ms:.3f} "
+          f"ms/step (bare replays, host {captured_host:.1f} us a replay "
+          f"call) beside eager {eager_ms:.3f} ms/step (the program's own "
+          f"function, host {eager_host:.1f} us a call); whole step calls "
+          f"{call_ms:.3f} ms/step, host {call_host:.1f} us a call; capture "
+          f"{prog.capture_s:.3f} s; {row['kernel_nodes']} kernel nodes, by "
+          "name " + "; ".join(f"{n[:48]} x{c}" for n, c in top)
+          + "; one replay under torch.profiler: device busy "
+          + (f"{row['replay_busy']:.4f} of {wall_us:.0f} us"
+             if busy > 0 else "not measured (no device time recorded)"),
+          flush=True)
+    return row
+
+
+def serving_arms(model, scenario, what, **kw):
+    """The same requests served twice pump-driven (so both runs dispatch
+    the same waves at the same steps), after a warm-up that fills the
+    largest pool (so its step is captured before the clock starts):
+    steps as graph replays, then as the step program's own function; the
+    streams must be equal token for token.  Tokens/s and ms a step of
+    both; then ``step_arms`` on the captured run's server."""
+    from mxnet_tpu_torch.gluon.block import _GraphProgram
+
+    runs = {}
+    call = _GraphProgram.__call__
+    for arm in ("captured", "eager"):
+        if arm == "eager":      # every step runs its program's function
+            _GraphProgram.__call__ = _GraphProgram.run
+        try:
+            _, toks, run = serve_run(model, scenario, f"{what} {arm}",
+                                     threaded=False,
+                                     warm=max(kw["pool_sizes"]),
+                                     keep=arm == "captured", **kw)
+        finally:
+            _GraphProgram.__call__ = call
+        runs[arm] = (toks, run)
+    (ctoks, crun), (etoks, erun) = runs["captured"], runs["eager"]
+    srv = crun.pop("server")
+    try:
+        if ctoks != etoks:
+            bad = [i for i, (a, b) in enumerate(zip(ctoks, etoks)) if a != b]
+            fail(f"{what}: captured and eager streams differ (requests "
+                 f"{bad})")
+        if crun["counters"] != erun["counters"]:
+            fail(f"{what}: the arms dispatched differently: "
+                 f"{crun['counters']} vs {erun['counters']}")
+        row = step_arms(srv, what)
+    finally:
+        srv.close(drain=False)
+    row.update(captured_tokens_per_s=crun["tokens_per_s"],
+               eager_tokens_per_s=erun["tokens_per_s"],
+               captured_run_ms_per_step=crun["ms_per_step"],
+               eager_run_ms_per_step=erun["ms_per_step"],
+               steps=crun["steps"], streams_equal=True)
+    print(f"{what} arms: the same requests pump-driven, {crun['steps']} "
+          f"steps each: captured {crun['tokens_per_s']:.2f} tokens/s "
+          f"({crun['ms_per_step']:.3f} ms a step of the run) beside eager "
+          f"{erun['tokens_per_s']:.2f} tokens/s ({erun['ms_per_step']:.3f});"
+          f" streams equal token for token", flush=True)
+    return row
 
 
 def _profiled(fn):
@@ -951,7 +1209,8 @@ def profile_serving(model, cfg):
     once more (one wave) under ``torch.profiler``, kernel time summed by
     name."""
     return report_profile("profile", *_profiled(
-        lambda: serve(model, cfg, counted=False)))
+        lambda: serve_run(model, gpt2_scenario(cfg, late=False), "profile",
+                          threaded=True, pool_sizes=(4, 8))))
 
 
 def check_serving_f32(cfg):
@@ -965,8 +1224,112 @@ def check_serving_f32(cfg):
 
     model, _ = gpt2_small(dtype=torch.float32)
     model.initialize(0.02, seed=0)
-    prompts, toks, _ = serve(model, cfg, counted=False)
+    prompts, toks, _ = serve_run(model, gpt2_scenario(cfg, late=False),
+                                 "serve_f32", threaded=True,
+                                 pool_sizes=(4, 8))
     return check_streams(model, cfg, prompts, toks, "serve_f32")
+
+
+def trace_drift(model, cfg):
+    """Where a pooled bf16 stream leaves its batch-1 twin: request 1's
+    prompt (100 tokens) through ``kv_generate`` at batch 1 and
+    replicated at batch 4 and 8, int8 and native weights: the first new
+    token where row 0 differs from batch 1.  Then the batch-1 stream
+    teacher-forced through the prefill and the unfused step at batch 1
+    and at batch B (and at the server's admission shape: 8 rows padded
+    to the 128 bucket, the step at 8 rows), row 0 compared bit for bit:
+    the first layer's K/V of the prefill, or the first projection output
+    (``_DecodeEngine._lin``) of a step, that differs; the head's logits
+    apart."""
+    import numpy as np
+    from mxnet_tpu_torch.models import kv_generate
+
+    p = np.random.RandomState(6).randint(0, cfg.vocab_size,
+                                         (PROMPT_LENS[1],))
+    P = p.size
+    out = {}
+    for weights in ("int8", "native"):
+        one = kv_generate(model, p[None], NEW_TOKENS, temperature=0.0,
+                          weights=weights)[0]
+        for B, pad in ((4, None), (8, None), (8, 128)):
+            first_tok = rows_same = None
+            if pad is None:
+                many = kv_generate(model, np.repeat(p[None], B, 0),
+                                   NEW_TOKENS, temperature=0.0,
+                                   weights=weights)
+                diff = np.nonzero(many[0, P:] != one[P:])[0]
+                first_tok = int(diff[0]) if diff.size else None
+                rows_same = bool((many == many[:1]).all())
+            where = _first_parting(model, one, P, B, weights, pad)
+            key = f"{weights} B={B}" + (f" P={pad}" if pad else "")
+            out[key] = dict(first_differing_token=first_tok,
+                            rows_equal=rows_same, **where)
+            print(f"drift: {key}: first new token where row 0 differs "
+                  f"from batch 1: "
+                  + ("not run (the server's shape)" if pad else
+                     f"{first_tok} (of {NEW_TOKENS}), rows equal each "
+                     f"other: {rows_same}")
+                  + f"; teacher-forced, the hidden states first part at "
+                  f"{where['hidden']}, the head's logits first at "
+                  f"{where['logits']}", flush=True)
+    return out
+
+
+def _first_parting(model, stream, P, B, weights, pad=None):
+    """The batch-1 ``stream`` teacher-forced at batch 1 and at batch B
+    (replicated; the prefill right-padded to ``pad`` if given): the
+    first place row 0's hidden states differ bit for bit (a prefill
+    layer's K/V, or a step's projection output) and the first place the
+    head's logits do."""
+    import torch
+    from mxnet_tpu_torch.models.decoding import _DecodeEngine
+
+    total = stream.size
+    s = torch.as_tensor(stream, device="cuda").long()
+    logs = {}
+    for b in (1, B):
+        eng = _DecodeEngine(model, 0.0, 0, weights)
+        log = logs[b] = []
+        lin = eng._lin
+
+        def traced(x, i, kind, act_type=None, lin=lin, log=log):
+            y = lin(x, i, kind, act_type)
+            log.append(("hidden", f"layer {i} {kind}", y[0].clone()))
+            return y
+
+        eng._lin = traced
+        toks = s[None].expand(b, -1)
+        width = P if (pad is None or b == 1) else pad
+        prompts = torch.zeros((b, width), dtype=torch.int64, device="cuda")
+        prompts[:, :P] = toks[:, :P]
+        last = torch.full((b,), P - 1, dtype=torch.int64, device="cuda")
+        logits, knew, vnew = eng.prefill(prompts, last_index=last)
+        for i in range(eng.NL):
+            log.append(("hidden", f"layer {i} K", knew[i, 0, :, :P].clone()))
+            log.append(("hidden", f"layer {i} V", vnew[i, 0, :, :P].clone()))
+        log.append(("logits", "", logits[0].clone()))
+        shape = (eng.NL, b + 1, eng.KV, total, eng.D)
+        kp, vp = (torch.zeros(shape, dtype=eng.cdtype, device="cuda")
+                  for _ in range(2))
+        kp[:, :b, :, :P] = knew[:, :, :, :P]
+        vp[:, :b, :, :P] = vnew[:, :, :, :P]
+        pt = torch.arange(b, device="cuda")[:, None]
+        for t in range(P, total - 1):
+            log.append(("step", t, None))
+            posv = torch.full((b,), t, dtype=torch.int64, device="cuda")
+            lg = eng.paged_step(toks[:, t].contiguous(), posv, kp, vp, pt,
+                                total)
+            log.append(("logits", "", lg[0].clone()))
+    found = {"hidden": "nowhere (bit for bit)",
+             "logits": "nowhere (bit for bit)"}
+    phase = "the prefill"
+    for x, y in zip(logs[1], logs[B]):
+        if x[0] == "step":
+            phase = f"the step at position {x[1]}"
+        elif found[x[0]].startswith("nowhere") and \
+                not torch.equal(x[2], y[2]):
+            found[x[0]] = f"{phase}, {x[1]}".rstrip(", ")
+    return found
 
 
 # --------------------------------------------------------------------------- #
@@ -1565,7 +1928,8 @@ def check_k5(models):
 TIE_STEPS = 2      # a top-2 logit margin below this many bf16 steps: a tie
 
 
-def teacher_forced(model, prompts, stream, weights, clear=None):
+def teacher_forced(model, prompts, stream, weights, clear=None,
+                   first=False, fill=None, keep=None):
     """Share of the fused stream's new tokens that the unfused step
     predicts when fed the stream's own earlier tokens (greedy): the
     prefill's argmax against the first new token, then one unfused step
@@ -1573,8 +1937,16 @@ def teacher_forced(model, prompts, stream, weights, clear=None):
     whole-stream comparison.  Where ``clear`` (a dict) is given, it gets
     the same share over the positions whose unfused top-2 logit margin is
     at least ``TIE_STEPS`` bf16 steps of the top logit (``agreement``)
-    and their count (``positions``): rounding order alone cannot flip
-    those."""
+    and their count (``positions``), and ``first_margin``, the first
+    position's top-2 margin in bf16 steps of the top logit, per row.
+    That is a near-tie filter, not a bound on rounding: at 32 layers a
+    batch-1 and an 8-row reference differ by about 10 such steps.  With
+    ``first`` it also returns
+    whether every first new token equals the reference's.  ``fill(eng,
+    s, kp, vp, pt)`` (default: the batched prefill) fills the rows' cache
+    below ``P`` (one page of ``total`` positions a row, then the trash
+    page) and returns the logits of the first new token.  A ``keep``
+    list gets the (B, new, V) f32 logits."""
     import torch
     from mxnet_tpu_torch.models.decoding import _DecodeEngine
 
@@ -1582,18 +1954,23 @@ def teacher_forced(model, prompts, stream, weights, clear=None):
     B, P = prompts.shape
     total = stream.shape[1]
     s = torch.as_tensor(stream, device="cuda").long()
-    logits, knew, vnew = eng.prefill(s[:, :P])
     shape = (eng.NL, B + 1, eng.KV, total, eng.D)
     kp, vp = (torch.zeros(shape, dtype=eng.cdtype, device="cuda")
               for _ in range(2))
-    kp[:, :B, :, :P] = knew
-    vp[:, :B, :, :P] = vnew
     pt = torch.arange(B, device="cuda")[:, None]
+    if fill is None:
+        logits, knew, vnew = eng.prefill(s[:, :P])
+        kp[:, :B, :, :P] = knew
+        vp[:, :B, :, :P] = vnew
+    else:
+        logits = fill(eng, s[:, :P], kp, vp, pt)
     steps = [logits]
     for t in range(P, total - 1):
         posv = torch.full((B,), t, dtype=torch.int64, device="cuda")
         steps.append(eng.paged_step(s[:, t], posv, kp, vp, pt, total))
     lg = torch.stack(steps, 1).float()                   # (B, new, V)
+    if keep is not None:
+        keep.append(lg)
     same = lg.argmax(-1) == s[:, P:]
     if clear is not None:
         top = lg.topk(2, dim=-1).values
@@ -1602,7 +1979,12 @@ def teacher_forced(model, prompts, stream, weights, clear=None):
         clear["positions"] = int(wide.sum().item())
         clear["agreement"] = (same[wide].float().mean().item()
                               if clear["positions"] else None)
-    return same.float().mean().item()
+        clear["first_margin"] = ((top[:, 0, 0] - top[:, 0, 1]) /
+                                 (2.0 ** -8 * top[:, 0, 0].abs())).tolist()
+    rate = same.float().mean().item()
+    if first:       # and whether every first new token is the prefill's
+        return rate, bool(same[:, 0].all().item())
+    return rate
 
 
 def _reset_counts():
@@ -1842,18 +2224,10 @@ def split_fused_token(model, weights, ms_per_token, steps=10):
     return out
 
 
-def check_llama7b():
+def check_llama7b(model, cfg):
     import numpy as np
     import torch
-    from mxnet_tpu_torch.models import llama_7b
 
-    t0 = time.perf_counter()
-    model, cfg = llama_7b(dtype=torch.bfloat16)
-    model.initialize(0.02, seed=0)
-    torch.cuda.synchronize()
-    print(f"llama_7b: {sum(p.numel() for p in model.parameters())} "
-          f"parameters, bf16, seeded Normal(0.02), built in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
     prompts = np.random.RandomState(13).randint(0, cfg.vocab_size, (1, 32))
     runs = {}
     for weights in ("native", "int8"):
@@ -1887,9 +2261,345 @@ def check_llama7b():
     runs["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     print(f"llama_7b: max_memory_allocated="
           f"{runs['max_memory_allocated']}", flush=True)
-    del model
+    # K5's packed stream goes; the unfused int8 codes stay for phase 12b
+    for attr in ("_fused_pack_cache", "_q8_head_cache"):
+        model.__dict__.pop(attr, None)
     torch.cuda.empty_cache()
     return runs
+
+
+# --------------------------------------------------------------------------- #
+# phase 12b: Llama-7B served, the fourteenth slice's path
+# --------------------------------------------------------------------------- #
+
+L7_BUCKETS = tuple(2 ** i for i in range(4, 11))     # 16 ... 1024
+L7_TOTAL = 2048
+L7_SYS = 512                # the shared system prompt
+
+
+def llama_scenario(vocab):
+    """Ragged prompts of 7, 100 and 700 tokens (the 700 arriving after
+    the first wave was admitted, so the pool grows 4 -> 8 and its
+    admission rides the 1024 bucket through K1), one of 1800 (past the
+    largest bucket: it chunks in over two dispatches), and a 512-token
+    system prompt ``Sys``: first ``Sys`` + 40 tokens (its 34 full pages
+    registered); once its first token has arrived, ``Sys`` + 25 other
+    tokens (a partial hit: the suffix chunks in); once that one's first
+    token has arrived, ``Sys`` exactly (a full hit, one copy-on-write
+    page) and ``Sys`` + 1 token (a full hit, no copy).  ``info`` holds
+    each request's kind and the dispatch counters just before and just
+    after the two full hits were admitted."""
+    import numpy as np
+
+    rs = np.random.RandomState(14)
+    draw = lambda n: rs.randint(0, vocab, (n,))          # noqa: E731
+    sys_p = draw(L7_SYS)
+    first = [("miss", draw(7)), ("miss", draw(100)), ("chunked", draw(1800)),
+             ("miss", np.concatenate([sys_p, draw(40)]))]
+    late = ("miss", draw(700))
+    partial = ("partial hit", np.concatenate([sys_p, draw(25)]))
+    full = [("full hit", sys_p.copy()),
+            ("full hit", np.concatenate([sys_p, draw(1)]))]
+
+    def scenario(srv, wait):
+        kinds, prompts, streams = [], [], []
+
+        def submit(kind, p):
+            kinds.append(kind)
+            prompts.append(p)
+            streams.append(srv.submit(p, max_new_tokens=NEW_TOKENS))
+
+        for kind, p in first:
+            submit(kind, p)
+        wait(lambda: bool(streams[0].times))
+        submit(*late)
+        wait(lambda: bool(streams[3].times))
+        submit(*partial)
+        wait(lambda: all(s.times for s in streams))
+        before = dict(srv.counters)
+        for kind, p in full:
+            submit(kind, p)
+        wait(lambda: all(s.times for s in streams))
+        after = dict(srv.counters)
+        shared = [L7_SYS if k == "partial hit" else 0 for k in kinds]
+        return prompts, streams, dict(kinds=kinds, shared=shared,
+                                      producer=3, before_full=before,
+                                      after_full=after)
+    return scenario
+
+
+def _fill_as_served(kind, shared, buckets, pad):
+    """A batch-1 ``teacher_forced`` fill that computes the prompt as the
+    server does for a request of ``kind``: ``miss`` one batched prefill
+    right-padded to its wave's bucket ``pad``; ``chunked``
+    ``chunk_tokens`` over the server's chunks; ``partial hit`` the
+    batched prefill of the ``shared`` cached tokens padded to their
+    producer's bucket ``pad``, then the suffix in chunks; ``full hit``
+    that prefill of all but the last token, then one step at ``L - 1``.
+    (The reference's int8 chunk projects its K/V through K4 and a hit's
+    first token comes from the step, where ``kv_generate`` runs a native
+    prefill; and the bucket decides whether attention takes K1.)"""
+    import torch
+
+    def fill(eng, s, kp, vp, pt):
+        L = s.shape[1]
+        page = kp.shape[3]          # one page of ``total`` positions
+
+        def prefill(n):
+            toks = torch.zeros((1, max(n, pad)), dtype=torch.int64,
+                               device="cuda")
+            toks[:, :n] = s[:, :n]
+            last = torch.full((1,), n - 1, dtype=torch.int64, device="cuda")
+            logits, knew, vnew = eng.prefill(toks, last_index=last)
+            kp[:, :1, :, :n] = knew[:, :, :, :n]
+            vp[:, :1, :, :n] = vnew[:, :, :, :n]
+            return logits
+
+        def chunks(off):
+            while True:
+                rem = L - off
+                final = rem <= buckets[-1]
+                C = next(b for b in buckets if b >= rem) if final \
+                    else buckets[-1]
+                n = rem if final else C
+                toks = torch.zeros((C,), dtype=torch.int64, device="cuda")
+                toks[:n] = s[0, off:off + n]
+                lg = eng.chunk_tokens(toks, off, n - 1, pt[0], kp, vp, page)
+                if final:
+                    return lg
+                off += n
+
+        if kind == "miss":
+            return prefill(L)
+        if kind == "chunked":
+            return chunks(0)
+        if kind == "partial hit":
+            prefill(shared)
+            return chunks(shared)
+        prefill(L - 1)
+        posv = torch.full((1,), L - 1, dtype=torch.int64, device="cuda")
+        return eng.paged_step(s[:, L - 1], posv, kp, vp, pt, page)
+    return fill
+
+
+L7_WIDTH = 8                # the served pool's rows (K4's mma path)
+
+
+def _gap_at_disagreements(model, p, stream, ref, what, i):
+    """Where the served stream leaves the batch-1 reference ``ref`` (its
+    (new, V) logits) at a position with a top-2 margin of ``TIE_STEPS``+
+    bf16 steps: the same teacher-forced reference with the row repeated
+    to the served pool's width ``L7_WIDTH`` (so K4 takes its 4-8-row
+    ``mma.sync`` path, as in the served steps), the largest logit gap
+    between the two references there in bf16 steps of the top logit,
+    and whether the wide reference picks the served token.  Returns
+    ``(wide agreement with the stream, [(position, margin, gap, the wide
+    reference agrees)])``."""
+    import numpy as np
+    import torch
+
+    wide = []
+    rate = teacher_forced(model, np.repeat(p[None], L7_WIDTH, 0),
+                          np.repeat(stream, L7_WIDTH, 0), "int8",
+                          keep=wide)
+    wide = wide[0][0]
+    served = torch.as_tensor(stream[0, p.size:], device=ref.device)
+    top = ref.topk(2, dim=-1).values
+    unit = 2.0 ** -8 * top[:, 0].abs()
+    margin = (top[:, 0] - top[:, 1]) / unit
+    gap = (wide - ref).abs().max(-1).values / unit
+    out = []
+    for t in torch.nonzero((ref.argmax(-1) != served) &
+                           (margin >= TIE_STEPS)).flatten().tolist():
+        out.append((t, round(margin[t].item(), 3), round(gap[t].item(), 3),
+                    bool(wide[t].argmax().item() == served[t].item())))
+    print(f"{what}: request {i}: the reference at the served width "
+          f"({L7_WIDTH} rows) agrees {rate:.4f}; logit gap between the "
+          f"batch-1 and {L7_WIDTH}-row references: median "
+          f"{gap.median().item():.3f}, max {gap.max().item():.3f} bf16 "
+          "steps; disagreements with a margin of "
+          f"{TIE_STEPS}+ steps (position, margin, gap, the wide reference "
+          f"picks the served token): {out}", flush=True)
+    return rate, out
+
+
+def llama_served_checks(model, cfg, prompts, toks, run, what, bar,
+                        explain=False):
+    """Counters, full hits at zero prefill dispatches, every stream's
+    budget and vocab, and teacher-forced agreement of at least ``bar``
+    (with ``bar`` 1.0, every first token equal too) over every stream,
+    each held against the port's batch-1 step (int8): a ``miss`` (one
+    batched prefill) against the batch-1 ``kv_generate`` prefill, a
+    chunked prompt and a hit against a batch-1 cache that computes the
+    prompt as the server did for its kind (``_fill_as_served``: the
+    reference's int8 chunk projects K/V through K4 and a hit's first
+    token comes from a step).  Printed beside it: each request against
+    both references and over the positions with a top-2 margin of
+    ``TIE_STEPS``+ bf16 steps; with ``explain``, those positions where a
+    stream leaves the batch-1 ``kv_generate`` reference, held against
+    the same reference at the served width (``_gap_at_disagreements``)."""
+    import numpy as np
+
+    c = run["counters"]
+    b, a = run["before_full"], run["after_full"]
+    if c["chunk_dispatches"] < 3 or c["prefix_hits"] < 3 or \
+            c["cow_copies"] < 1:
+        fail(f"{what}: counters {c}: want chunk_dispatches >= 3, "
+             "prefix_hits >= 3, cow_copies >= 1")
+    full = {k: a[k] - b[k] for k in ("admit_dispatches", "chunk_dispatches",
+                                     "prefix_hits", "cow_copies")}
+    if full["admit_dispatches"] or full["chunk_dispatches"] or \
+            full["prefix_hits"] != 2 or full["cow_copies"] != 1:
+        fail(f"{what}: the two full hits dispatched {full}: want 0 admit "
+             "and 0 chunk dispatches, 2 hits, 1 copy")
+    sums = {k: 0.0 for k in ("plain", "kind", "gate", "clear", "clear_n",
+                             "miss", "miss_n", "wide", "wide_n")}
+    firsts = {"plain": True, "kind": True, "gate": True}
+    explained = []
+    for i, (p, tk) in enumerate(zip(prompts, toks)):
+        if len(tk) != NEW_TOKENS or not all(0 <= x < cfg.vocab_size
+                                            for x in tk):
+            fail(f"{what}: request {i} emitted {len(tk)} of {NEW_TOKENS} "
+                 "or a token outside the vocab")
+        kind = run["kinds"][i]
+        clear, kclear, ref = {}, {}, []
+        stream = np.concatenate([p, np.asarray(tk)])[None]
+        tf, first = teacher_forced(model, p[None], stream, "int8", clear,
+                                   first=True, keep=ref)
+        adm = run["admissions"][i]
+        pad = (adm if adm["mode"] == "admit" else
+               run["admissions"][run["producer"]]).get("p_bucket", 0)
+        ktf, kfirst = teacher_forced(
+            model, p[None], stream, "int8", kclear, first=True,
+            fill=_fill_as_served(kind, run["shared"][i], L7_BUCKETS, pad))
+        gtf, gfirst = (tf, first) if kind == "miss" else (ktf, kfirst)
+        for key, r, f in (("plain", tf, first), ("kind", ktf, kfirst),
+                          ("gate", gtf, gfirst)):
+            sums[key] += r * NEW_TOKENS
+            firsts[key] &= f
+        if kind == "miss":
+            sums["miss"] += tf * NEW_TOKENS
+            sums["miss_n"] += NEW_TOKENS
+        if clear["positions"]:
+            sums["clear"] += clear["agreement"] * clear["positions"]
+            sums["clear_n"] += clear["positions"]
+        print(f"{what}: request {i} ({kind}, prompt {p.size}): ttft "
+              f"{run['ttft_s'][i]:.4f} s; against the batch-1 kv_generate "
+              f"prefill: first token equal {first}, teacher-forced "
+              f"agreement {tf:.4f}, over the {clear['positions']} positions"
+              f" with a top-2 margin of {TIE_STEPS}+ bf16 steps "
+              f"{clear['agreement']}, first margin "
+              f"{clear['first_margin'][0]:.3f} bf16 steps; against the "
+              f"batch-1 path of its kind: agreement {ktf:.4f}, first token "
+              f"equal {kfirst}, over the {kclear['positions']} clear "
+              f"positions {kclear['agreement']}; gated: {gtf:.4f}",
+              flush=True)
+        if explain:
+            wrate, where = _gap_at_disagreements(model, p, stream, ref[0][0],
+                                                 what, i)
+            sums["wide"] += wrate * NEW_TOKENS
+            sums["wide_n"] += NEW_TOKENS
+            explained += [(i,) + w for w in where]
+        del ref
+    n = NEW_TOKENS * len(prompts)
+    rate, krate, grate = (sums[k] / n for k in ("plain", "kind", "gate"))
+    miss_rate = sums["miss"] / sums["miss_n"] if sums["miss_n"] else None
+    clear_rate = sums["clear"] / sums["clear_n"] if sums["clear_n"] else None
+    wide_rate = sums["wide"] / sums["wide_n"] if sums["wide_n"] else None
+    print(f"{what}: teacher-forced agreement, gated (misses against the "
+          f"batch-1 kv_generate prefill, chunked prompts and hits against "
+          f"the batch-1 path of their kind): {grate:.4f} (bar {bar}), "
+          f"first tokens equal {firsts['gate']}; the misses alone "
+          f"{miss_rate}; every stream against the batch-1 kv_generate "
+          f"prefill {rate:.4f} (over the {sums['clear_n']:.0f} positions "
+          f"with a top-2 margin of {TIE_STEPS}+ bf16 steps {clear_rate}), "
+          f"first tokens equal {firsts['plain']}; every stream against the "
+          f"path of its kind {krate:.4f}, first tokens equal "
+          f"{firsts['kind']}"
+          + (f"; at the served width ({L7_WIDTH} rows) {wide_rate:.4f}"
+             if explain else ""), flush=True)
+    if grate < bar:
+        fail(f"{what}: teacher-forced agreement {grate:.4f} < {bar} (misses "
+             "against the batch-1 kv_generate prefill, chunked prompts and "
+             "hits against the batch-1 path of their kind)")
+    if bar >= 1.0 and not firsts["gate"]:
+        fail(f"{what}: a served first token differs from its batch-1 "
+             "reference")
+    return dict(teacher_forced_gated=grate, teacher_forced_miss=miss_rate,
+                teacher_forced=rate, teacher_forced_clear=clear_rate,
+                clear_positions=sums["clear_n"],
+                first_tokens_equal=firsts["plain"],
+                first_tokens_equal_gated=firsts["gate"],
+                teacher_forced_kind=krate,
+                first_tokens_equal_kind=firsts["kind"],
+                teacher_forced_wide=wide_rate,
+                clear_disagreements=explained, full_hits=full)
+
+
+def _ttft_by_kind(run):
+    out = {}
+    for kind, t in zip(run["kinds"], run["ttft_s"]):
+        out.setdefault(kind, []).append(t)
+    return out
+
+
+def check_llama_served(model, cfg):
+    """Phase 12b: Llama-7B (bf16, int8 weights, full width and depth)
+    through ``DecodeServer(pool_sizes=(4, 8), max_total_len=2048,
+    prefill_buckets=16...1024)``, page 16, greedy, 32 new tokens a
+    request: the counted threaded run and its gates, then the captured
+    and eager arms; then a 4-layer full-width Llama in f32, the same
+    requests, held to agreement 1.0."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(pool_sizes=(4, 8), max_total_len=L7_TOTAL,
+              prefill_buckets=L7_BUCKETS, page_size=16)
+    scenario = llama_scenario(cfg.vocab_size)
+    prompts, toks, run = serve_run(model, scenario, "llama_7b served",
+                                   threaded=True, counted=True, **kw)
+    # the served run's peak (the checks below build their own caches)
+    run["peak_memory"] = torch.cuda.max_memory_allocated()
+    NL = cfg.num_layers
+    print(f"llama_7b served: {len(prompts)} requests ({run['kinds']}), "
+          f"prompt lens {[p.size for p in prompts]}; counters "
+          f"{run['counters']}; launches {run['launches']} (replays counted "
+          "by their capture)", flush=True)
+    check_launches(run, "llama_7b served", 7 * NL + 1, 7 * NL)
+    run.update(llama_served_checks(model, cfg, prompts, toks, run,
+                                   "llama_7b served", 0.9, explain=True))
+    ttft = _ttft_by_kind(run)
+    run["ttft_by_kind"] = ttft
+    run["pool_bytes"] = run["stats"]["pool_bytes"]
+    print(f"llama_7b served: tokens/s={run['tokens_per_s']:.2f} wall_s="
+          f"{run['wall_s']:.4f} steps={run['steps']} ms a step of the run="
+          f"{run['ms_per_step']:.3f}; ttft_s by kind "
+          + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}"
+                      for k, v in ttft.items())
+          + f"; peak memory of the served run {run['peak_memory']}; pool "
+          f"bytes {run['pool_bytes']}", flush=True)
+    run["arms"] = serving_arms(model, scenario, "llama_7b served", **kw)
+    return run
+
+
+def check_llama_served_f32():
+    """The same requests on a 4-layer full-width Llama in float32: the
+    served streams against the batch-1 step, teacher-forced agreement
+    1.0 and every first token equal."""
+    import torch
+    from mxnet_tpu_torch.models import llama_7b
+
+    model, cfg = llama_7b(dtype=torch.float32, num_layers=4)
+    model.initialize(0.02, seed=0)
+    prompts, toks, run = serve_run(
+        model, llama_scenario(cfg.vocab_size), "llama f32 served",
+        threaded=True, pool_sizes=(4, 8), max_total_len=L7_TOTAL,
+        prefill_buckets=L7_BUCKETS, page_size=16)
+    out = llama_served_checks(model, cfg, prompts, toks, run,
+                              "llama f32 served", 1.0)
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -4589,6 +5299,7 @@ def main():
     seed_word = check_seed_masks(cfg, B=8)
     srv = check_serving(model, cfg)
     srv["profile"] = profile_serving(model, cfg)
+    srv["drift"] = trace_drift(model, cfg)
     del model
     torch.cuda.empty_cache()
     srv["agreement_f32"] = check_serving_f32(cfg)
@@ -4613,7 +5324,18 @@ def main():
     fused["profile"] = profile_fused(gpt2)
     del gpt2
     torch.cuda.empty_cache()
-    fused["llama_7b"] = check_llama7b()
+    t0 = time.perf_counter()
+    llama, lcfg = llama_7b(dtype=torch.bfloat16)
+    llama.initialize(0.02, seed=0)
+    torch.cuda.synchronize()
+    print(f"llama_7b: {sum(p.numel() for p in llama.parameters())} "
+          f"parameters, bf16, seeded Normal(0.02), built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    fused["llama_7b"] = check_llama7b(llama, lcfg)
+    served = check_llama_served(llama, lcfg)
+    del llama
+    torch.cuda.empty_cache()
+    served["f32"] = check_llama_served_f32()
 
     k6_design = report_design("K6", "conv1x1_bwd", "conv1x1_bwd_design",
                               "conv1x1_bwd_mma_kernel")
@@ -4651,7 +5373,8 @@ def main():
         dict(name="q8_matvec", route="cuda",
              source="mxnet_tpu_torch/csrc/q8_matvec.cu",
              replaces="mxnet_tpu/ops/q8_matvec.py:74",
-             launches=srv["launches"]["q8_matvec"],
+             launches=srv["launches"]["q8_matvec"] +
+             served["launches"]["q8_matvec"],
              max_abs_err=k4["max_abs_err"], ms=k4["ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=k4["library_ms"],
@@ -4662,7 +5385,8 @@ def main():
              source="mxnet_tpu_torch/csrc/flash_fwd.cu",
              replaces="mxnet_tpu/ops/attention.py:226",
              launches=train["launches"]["flash_fwd"] +
-             opt19["lamb_gpt2"]["launches"]["flash_fwd"],
+             opt19["lamb_gpt2"]["launches"]["flash_fwd"] +
+             srv["launches"]["flash_fwd"] + served["launches"]["flash_fwd"],
              max_abs_err=max(r["max_abs_err"] for r in k1), ms=k1[0]["ms"],
              plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
              bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"],
@@ -4734,7 +5458,8 @@ def main():
                        k3_design=k3_design, k6_design=k6_design,
                        k5_design=k5_design,
                        seed_word=seed_word,
-                       serve=srv, train=train, bert=bert, k5=k5,
+                       serve=srv, llama_served=served, train=train,
+                       bert=bert, k5=k5,
                        fused=fused, k6=k6, vision=vision, gluon=gluon,
                        rtc=rtc,
                        mlp=mlp, fused_train=fused_train, optimizers=opt19,

@@ -153,7 +153,8 @@ class _GraphProgram:
     tensors) as one program: the CPU runs ``fn`` at every call; on the
     card call 1 runs it eagerly on a side stream (PyTorch's warm-up: the
     deferred shapes, optimizer states, library handles and kernels'
-    first-use set-up), call 2 captures it into a ``torch.cuda.CUDAGraph``
+    first-use set-up, such as K4's scratch, which is kept per stream),
+    call 2 captures it on the same stream into a ``torch.cuda.CUDAGraph``
     (in ``pool``) and replays it once, later calls replay it (every call
     replays once a graph exists, made by ``_capture`` ahead of the calls
     after a warm-up of the caller's).  So each call does ``fn``'s work
@@ -174,16 +175,24 @@ class _GraphProgram:
     ``_launch_counts()``: the kernels one replay launches (the counters
     do not see replays).  With ``debug`` set before the capture the
     graph keeps its nodes for ``graph.debug_dump`` (``kernel_nodes``
-    reads them)."""
+    reads them).  ``recorded`` holds what every capture (kept, failed
+    or read for its nodes) added to the counters.  ``error_mode`` is
+    ``torch.cuda.graph``'s ``capture_error_mode``: ``"thread_local"``
+    lets other threads use the card while this one captures (a server's
+    scheduler thread).  A capture that fails leaves no graph, restores
+    the caller's stream and hands its memory pool to the next capture,
+    so a caller may run ``run()`` instead and capture again later."""
 
     debug = False
 
-    def __init__(self, fn, device, pool, inputs, key=None):
+    def __init__(self, fn, device, pool, inputs, key=None,
+                 error_mode="global"):
         self.fn = fn
         self.on_card = torch.device(device).type == "cuda"
         self.pool = pool
         self.inputs = inputs
         self.key = key
+        self.error_mode = error_mode
         self.generators: list = []
         self.draws = None
         self.is_seq = False
@@ -193,7 +202,9 @@ class _GraphProgram:
         self.graph_debug = False
         self.outs = None
         self.launches = {}
+        self.recorded = {}
         self.capture_s = None
+        self.stream = None          # the warm-up's, then the captures'
 
     def run(self, capturing=False):
         """``fn()`` with the program's key pushed; outside a capture it
@@ -213,7 +224,7 @@ class _GraphProgram:
             return self.run()
         if self.calls == 1 and self.graph is None:
             cur = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
+            side = self.stream = torch.cuda.Stream()
             side.wait_stream(cur)
             with torch.cuda.stream(side):
                 outs = self.run()
@@ -267,8 +278,25 @@ class _GraphProgram:
             g = torch.cuda.CUDAGraph()
         for gen in self.generators:
             g.register_generator_state(gen)
-        with _no_collection(), torch.cuda.graph(g, pool=self.pool):
-            outs = self.run(capturing=True)
+        cur = torch.cuda.current_stream()
+        before = _launch_counts()
+        try:
+            with _no_collection(), torch.cuda.graph(
+                    g, pool=self.pool, stream=self.stream,
+                    capture_error_mode=self.error_mode):
+                outs = self.run(capturing=True)
+        except BaseException:
+            # an invalidated capture raises at its end, before the graph
+            # context restores the stream; the failed graph never frees
+            # its pool, so the next capture allocates from it
+            torch.cuda.set_stream(cur)
+            if self.pool is None:
+                self.pool = g.pool()
+            raise
+        finally:
+            for k, v in _launch_counts().items():
+                if v != before[k]:
+                    self.recorded[k] = self.recorded.get(k, 0) + v - before[k]
         if keep:
             g.instantiate()
         return g, outs

@@ -408,6 +408,88 @@ class _DecodeEngine:
         return self.head_logits(m.ln_f(x))
 
     @torch.no_grad()
+    def chunk_tokens(self, toks, off, nlast, ptrow, kp, vp, page):
+        """One chunk of one sequence's prefill against the paged pool
+        (chunked prefill, and the prefix cache's suffix fill): ``toks``
+        (C,) int64 at absolute positions ``off .. off + C - 1`` of the
+        slot whose page-table row is ``ptrow`` (MAXP,) int64.  Per layer
+        the cached prefix is gathered through the row into a dense
+        (KV, T, D) view, the chunk's K/V lands in it before attention,
+        and one mask ``t <= off + j`` covers the prefix and the chunk's
+        own causality; then the chunk's columns scatter back through the
+        row (positions at or past T, or past the reserved pages, go to
+        the trash page).  Returns the f32 logits (1, V) at ``off +
+        nlast``, from the native head, as the batched prefill's.
+        ``off`` and ``nlast`` are host ints.  In int8 every projection
+        runs ``q8_matvec`` on the (C, U) rows; Llama's SwiGLU is then
+        decomposed, as in ``paged_step``."""
+        m = self.model
+        C = toks.shape[0]
+        U, H, KV, D = self.U, self.H, self.KV, self.D
+        G = H // KV
+        trash = kp.shape[1] - 1
+        maxp = ptrow.shape[0]
+        T = maxp * page
+        dev = toks.device
+        cpos = off + torch.arange(C, device=dev)            # absolute
+        x = embedding(toks, m.wte.weight)                   # (C, U)
+        if not self.is_llama:
+            # pad columns past the table read its last row: they are
+            # never attended by a prompt row
+            x = x + embedding(torch.clamp(cpos, max=m.wpe.weight.shape[0]
+                                          - 1), m.wpe.weight)
+        live = torch.arange(T, device=dev)[None, :] <= cpos[:, None]
+        pgs = torch.where(cpos < T,
+                          ptrow[torch.clamp(cpos // page, max=maxp - 1)],
+                          torch.full_like(cpos, trash))
+        offs = cpos % page
+        n = min(C, T - off)             # chunk columns inside the view
+        for i, blk in enumerate(m.blocks):
+            if self.is_llama:
+                h = blk.rms1(x)
+                q, k, v = (self._lin(h, i, kind).reshape(C, nh, D)
+                           .transpose(0, 1)[None]
+                           for kind, nh in (("q", H), ("k", KV), ("v", KV)))
+                q = rope(q, base=self.rope_base, position_offset=off)
+                k = rope(k, base=self.rope_base, position_offset=off)
+            else:
+                h = blk.ln1(x)
+                qkv = self._lin(h, i, "qkv")                   # (C, 3U)
+                q, k, v = (qkv[:, j * U:(j + 1) * U].reshape(C, H, D)
+                           .transpose(0, 1)[None] for j in range(3))
+            views = []
+            for pool, new in ((kp[i], k[0]), (vp[i], v[0])):
+                pool[trash].zero_()             # sentinel entries read 0
+                view = pool[ptrow].permute(1, 0, 2, 3).reshape(KV, T, D)
+                view[:, off:off + n] = new[:, :n]
+                views.append(view)
+                pool[pgs, :, offs] = new.transpose(0, 1)
+            qg = q.reshape(KV, G, C, D)
+            s = torch.matmul(qg.float(), views[0].float()[:, None]
+                             .transpose(-1, -2)) * self.scale  # (KV,G,C,T)
+            s = torch.where(live, s, torch.full_like(s, _NEG_INF))
+            p = torch.softmax(s, dim=-1).to(self.cdtype)
+            # p.V summed in f64 and rounded once, as in ``_attend``
+            o = torch.matmul(p.double(), views[1].double()[:, None]) \
+                .to(self.cdtype)
+            o = o.permute(2, 0, 1, 3).reshape(C, U)
+            if self.is_llama:
+                x = x + self._lin(o, i, "o")
+                h2 = blk.rms2(x)
+                if self.q8 is not None:
+                    g = self._lin(h2, i, "gate")
+                    x = x + self._lin(g * torch.sigmoid(g) *
+                                      self._lin(h2, i, "up"), i, "down")
+                else:
+                    x = x + blk.mlp(h2)
+            else:
+                x = x + self._lin(o, i, "proj")
+                h2 = blk.ln2(x)
+                x = x + self._lin(self._lin(h2, i, "fc1", self.act_t), i,
+                                  "fc2")
+        return self.head_logits(m.ln_f(x[nlast:nlast + 1]), q8=False)
+
+    @torch.no_grad()
     def fused_step(self, tok, t, kc, vc):
         """Token ``tok`` (B,) at the shared position ``t`` -> f32 logits
         (B, V): the embeddings, then every layer in one K5 launch against

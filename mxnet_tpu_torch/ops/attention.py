@@ -58,7 +58,11 @@ _M32 = 0xFFFFFFFF
 # --------------------------------------------------------------------------- #
 
 def _u32(x, device=None):
-    return torch.as_tensor(x, dtype=torch.int64, device=device) & _M32
+    # a Python int is filled on the device (no host copy, so the hash can
+    # run inside a CUDA-graph capture)
+    if not isinstance(x, torch.Tensor):
+        x = torch.full((), int(x), dtype=torch.int64, device=device)
+    return x.to(torch.int64) & _M32
 
 
 def _mul32(a, c: int):

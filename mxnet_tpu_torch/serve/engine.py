@@ -3,29 +3,41 @@ continuous-batching server (``serve/server.py``).
 
 Port of ``mxnet_tpu/serve/engine.py`` (native-dtype pages).  The resident
 K/V store is a page pool ``(NL, NPAGES + 1, H, PAGE, D)`` shared by all
-in-flight sequences and addressed through per-slot page tables (host
-numpy rows, copied in per dispatch).  Page ``NPAGES`` is the trash page
-that stands for the reference's one-past-the-end sentinel (see
-``models/decoding.py``): idle and retired slots carry all-trash rows, so
-their masked lanes can never write into a page they do not own.
+in-flight sequences and addressed through per-slot page tables.  Page
+``NPAGES`` is the trash page that stands for the reference's
+one-past-the-end sentinel (see ``models/decoding.py``): idle and retired
+slots carry all-trash rows, so their masked lanes can never write into a
+page they do not own.
 
-Per pool size ``S`` there are two units of work:
+Per pool size ``S`` there are four units of work:
 
 - ``PoolPrograms.step`` — every slot advances one token
   (``_DecodeEngine.paged_step``), samples, and the retirement flags are
-  computed on the device;
+  computed on the device.  It is ONE program (``gluon.block.
+  _GraphProgram``): on the card a CUDA-graph replay a step, captured once
+  a pool size, the counterpart of the reference's one executable a pool
+  size.  Its operands are static: the slot state, updated in place, and
+  an (S, MAXP) page table the host copies in from pinned memory;
 - ``PoolPrograms.admit`` — one causal prefill over an ``(A, P)`` block of
   right-padded prompts, scattered into the admitted slots' reserved
-  pages, first tokens sampled at each row's own last prompt token.
+  pages, first tokens sampled at each row's own last prompt token;
+- ``PoolPrograms.admit_hit`` — a prefix-cache hit: no model forward, at
+  most one copy-on-write page copy a row, and the slot enters at ``pos =
+  L - 1`` so that the next step recomputes the last prompt position;
+- ``PoolPrograms.chunk`` — one slice of a long prompt (or of a partial
+  hit's suffix) through the slot's page-table row
+  (``_DecodeEngine.chunk_tokens``); only the final slice activates the
+  slot.
 
-``PagePool`` is the host-side free-list allocator (refcounted, as in the
-reference, so the prefix cache of a later slice can share pages).
+``PagePool`` is the host-side free-list allocator with refcounts: the
+prefix cache maps one page into many slots' tables.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import MXNetError
+from ..gluon.block import _GraphProgram
 
 __all__ = ["PagePool", "PoolPrograms", "pool_state_init", "pool_state_grow"]
 
@@ -118,11 +130,38 @@ def pool_state_grow(state, new_s, new_pages):
     return out
 
 
+class _HostTable:
+    """The step's page table on the host: two pinned buffers used in
+    turn, each written again only after the copy that read it has run
+    (the host may run a step ahead of the card)."""
+
+    def __init__(self, shape, device):
+        self.cuda = device.type == "cuda"
+        self.bufs = [torch.empty(shape, dtype=torch.int64,
+                                 pin_memory=self.cuda) for _ in range(2)]
+        self.events = [None, None]
+        self.turn = 0
+
+    def copy_to(self, dst, rows):
+        i, self.turn = self.turn, self.turn ^ 1
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        self.bufs[i].numpy()[...] = rows
+        dst.copy_(self.bufs[i], non_blocking=self.cuda)
+        if self.cuda:
+            self.events[i] = torch.cuda.Event()
+            self.events[i].record()
+
+
+def _with_eos(done, tok, eos_id):
+    return done if eos_id is None else done | (tok == eos_id)
+
+
 class PoolPrograms:
-    """Decode step and admission for ONE pool size ``num_slots`` over a
-    ``num_pages``-page pool of ``page_size``-token pages (cache horizon
-    ``max_total`` rounded up to whole pages).  ``eng`` is the shared
-    ``_DecodeEngine`` (weights, weight mode, sampler)."""
+    """Decode step, admissions and chunks for ONE pool size ``num_slots``
+    over a ``num_pages``-page pool of ``page_size``-token pages (cache
+    horizon ``max_total`` rounded up to whole pages).  ``eng`` is the
+    shared ``_DecodeEngine`` (weights, weight mode, sampler)."""
 
     def __init__(self, eng, num_slots, max_total, page_size=16,
                  num_pages=None, eos_id=None):
@@ -140,6 +179,13 @@ class PoolPrograms:
                              f"got {self.num_pages}")
         self.sentinel = self.num_pages      # the trash page's index
         self.eos_id = None if eos_id is None else int(eos_id)
+        # the step program's static page table and its host side
+        self.pt = torch.full((self.S, self.maxp), self.sentinel,
+                             dtype=torch.int64, device=eng.device)
+        self._table = _HostTable((self.S, self.maxp), eng.device)
+        self.step_program = None
+        self._step_state = None
+        self.capture_failures = 0
 
     def page_bytes(self):
         """Device bytes of ONE page across all layers, K and V together."""
@@ -150,23 +196,74 @@ class PoolPrograms:
     def pages_for(self, total_len):
         return -(-int(total_len) // self.page)
 
-    def step(self, state, pt):
-        """One decode step for every slot; ``pt`` is the (S, MAXP) page
-        table (device int64).  Updates ``state`` in place and returns the
-        readback ``(token, emitted, done)`` device tensors."""
-        e = self.eng
+    def _done(self, done, tok):
+        return _with_eos(done, tok, self.eos_id)
+
+    def _step_fn(self, state):
+        """The step program's function over ``state`` and ``self.pt``:
+        writes the slot vectors in place, returns ``[token, emitted,
+        done]``.  It holds no reference to ``self``, so a pool that is
+        dropped frees its state and graph at once."""
+        e, pt, page, eos = self.eng, self.pt, self.page, self.eos_id
         pos, tok, active = state["pos"], state["tok"], state["active"]
-        logits = e.paged_step(tok, pos, state["kp"], state["vp"], pt,
-                              self.page)
-        nxt = torch.where(active, e.sample(logits, state["seed"], pos), tok)
-        newpos = torch.where(active, pos + 1, pos)
-        done = active & (newpos >= state["stop"])
-        if self.eos_id is not None:
-            done |= active & (nxt == self.eos_id)
-        emitted = active.clone()
-        state["pos"], state["tok"] = newpos, nxt
-        state["active"] = active & ~done
-        return nxt, emitted, done
+
+        def fn():
+            logits = e.paged_step(tok, pos, state["kp"], state["vp"], pt,
+                                  page)
+            nxt = torch.where(active, e.sample(logits, state["seed"], pos),
+                              tok)
+            newpos = torch.where(active, pos + 1, pos)
+            done = _with_eos(active & (newpos >= state["stop"]), nxt, eos)
+            done &= active
+            emitted = active.clone()
+            pos.copy_(newpos)
+            tok.copy_(nxt)
+            active.copy_(emitted & ~done)
+            return [nxt, emitted, done]
+
+        return fn
+
+    def step(self, state, rows):
+        """One decode step for every slot; ``rows`` is the (S, MAXP) int64
+        host page table.  Updates ``state`` in place and returns the
+        readback ``[token, emitted, done]`` device tensors.  The program
+        is captured at its second call, in ``thread_local`` error mode:
+        other threads may allocate, launch and synchronize their own
+        streams meanwhile.  A device-wide ``torch.cuda.synchronize()``
+        from another thread during the capture fails that call and the
+        capture; the step then runs the program's own function (the same
+        kernels, nothing replayed: a capture runs nothing) and the next
+        step captures again (``capture_failures`` counts them)."""
+        self._table.copy_to(self.pt, rows)
+        prog = self.step_program
+        if prog is None or self._step_state is not state:
+            prog = self.step_program = _GraphProgram(
+                self._step_fn(state), self.eng.device, None, [self.pt],
+                error_mode="thread_local")
+            self._step_state = state
+        capturing = prog.on_card and prog.graph is None and prog.calls >= 1
+        try:
+            return prog()
+        except Exception:
+            if not capturing or prog.graph is not None:
+                raise
+            self.capture_failures += 1
+            return prog.run()
+
+    def step_record(self):
+        """What this pool size's step program did so far: ``S``,
+        ``captures`` (graphs kept), ``capture_failures``, ``replays``,
+        ``launches`` (the kernels one replay launches), ``recorded``
+        (what its captures added to the kernels' counters, though a
+        capture runs nothing) and ``capture_s``."""
+        p = self.step_program
+        return {"S": self.S, "captures": int(p is not None and
+                                             p.graph is not None),
+                "capture_failures": self.capture_failures,
+                "replays": 0 if p is None else p.replays,
+                "launches": {} if p is None else dict(p.launches),
+                "recorded": {} if p is None else dict(p.recorded),
+                "capture_s": None if p is None else p.capture_s}
 
     def admit(self, state, prompts, true_len, slots, stop_pos, seeds,
               pages):
@@ -181,9 +278,7 @@ class PoolPrograms:
         npb = pages.shape[1]
         logits, knew, vnew = e.prefill(prompts, last_index=true_len - 1)
         first = e.sample(logits, seeds, true_len - 1)
-        done = stop_pos <= true_len
-        if self.eos_id is not None:
-            done |= first == self.eos_id
+        done = self._done(stop_pos <= true_len, first)
         ppad = npb * self.page
         flat = pages.reshape(A * npb)
         for name, new in (("kp", knew), ("vp", vnew)):
@@ -200,4 +295,52 @@ class PoolPrograms:
         state["active"][idx] = ~done[:n]
         state["stop"][idx] = stop_pos[:n]
         state["seed"][idx] = seeds[:n]
+        return first, done
+
+    def admit_hit(self, state, slots, true_len, last_tok, stop_pos, seeds,
+                  src, dst):
+        """Admit a wave of prefix-cache hits (``true_len``/``last_tok``/
+        ``stop_pos``/``seeds``/``src``/``dst`` (A,) int64; ``slots`` the
+        wave's slot ids).  No model forward: each row copies at most one
+        copy-on-write page ``src`` -> ``dst`` (a row without a copy
+        carries the trash page on both sides), and its slot enters at
+        ``pos = L - 1`` with ``tok`` = the last prompt token, so the
+        next step recomputes that position and samples it with the
+        admission's own (seed, position).  Returns nothing: a hit's first
+        token comes from the step."""
+        for name in ("kp", "vp"):
+            pool = state[name]
+            pool[:, dst] = pool[:, src]     # every source read first
+        n = len(slots)
+        idx = torch.as_tensor(slots, dtype=torch.int64,
+                              device=self.eng.device)
+        state["pos"][idx] = true_len[:n] - 1
+        state["tok"][idx] = last_tok[:n]
+        state["active"][idx] = True
+        state["stop"][idx] = stop_pos[:n]
+        state["seed"][idx] = seeds[:n]
+
+    def chunk(self, state, toks, ptrow, off, nlast, final, slot, true_len,
+              stop_pos, seed):
+        """One ``C``-token slice (``toks`` (C,) int64) of one prompt at
+        absolute offset ``off`` through the slot's page-table row
+        ``ptrow`` (MAXP,) int64.  An intermediate chunk changes no slot
+        state.  The ``final`` chunk samples the first token at ``true_len
+        - 1`` with the request's seed and sets the slot's ``pos``,
+        ``tok``, ``active``, ``stop`` and ``seed``.  Returns ``(first,
+        done)``, one element each."""
+        e = self.eng
+        logits = e.chunk_tokens(toks, off, nlast, ptrow, state["kp"],
+                                state["vp"], self.page)
+        one = lambda v: torch.full((1,), v, dtype=torch.int64,  # noqa
+                                   device=e.device)
+        first = e.sample(logits, one(seed), one(true_len - 1))
+        done = self._done(torch.full((1,), stop_pos <= true_len,
+                                     device=e.device), first)
+        if final:
+            state["pos"][slot] = true_len
+            state["tok"][slot] = first[0]
+            state["active"][slot] = ~done[0]
+            state["stop"][slot] = stop_pos
+            state["seed"][slot] = seed
         return first, done

@@ -1,33 +1,47 @@
-"""Continuous-batching decode server.
+"""Continuous-batching decode server for the GPT and Llama families.
 
 Port of ``mxnet_tpu/serve/server.py``: callers ``submit()`` ragged
 requests at any time and new sequences join the running pool at step
 boundaries.  One ``pump()`` is one step boundary:
 
-1. **admit** — every pending request the free slots can take goes into
-   one wave, padded to the ``admit_sizes`` (A) and ``prefill_buckets``
-   (P) ladders, and ONE prefill + page scatter admits it
-   (``PoolPrograms.admit``); a wave larger than the biggest A bucket
-   spills into a second admission in the same pump.  When the backlog
-   outgrows the pool, the pool grows to the next of ``pool_sizes``.
+1. **admit** — every pending request the free slots can take is popped
+   into one wave and planned against the page pool and the prefix cache
+   (``_plan_admission``), reserving all its pages up front:
+   - ``admit``: no cached prefix and a prompt within the largest of
+     ``prefill_buckets``: ONE prefill + page scatter admits the wave's
+     such requests, padded to the ``admit_sizes`` (A) and
+     ``prefill_buckets`` (P) ladders (``PoolPrograms.admit``);
+   - ``hit``: the prefix cache holds every prompt token but at most the
+     last: the shared pages map read-only into the slot's table, at most
+     one page is copied (copy-on-write), and no model forward runs
+     (``PoolPrograms.admit_hit``); the first token comes from the next
+     step.  Hits dispatch before the wave's admissions and chunks;
+   - ``chunk``: a prompt past the largest bucket, or a partial hit's
+     uncached suffix, streams in one chunk a pump, interleaved with the
+     steps (``PoolPrograms.chunk``).
+   When the backlog outgrows the pool, the pool grows to the next of
+   ``pool_sizes``.
 2. **step** — if any slot is live, ONE decode step advances every
-   active slot by one token; retired slots are masked.  Kernel launches
-   are asynchronous on the card: the host does not wait here.
+   active slot by one token: one CUDA-graph replay on the card, one
+   capture a pool size.  Kernel launches are asynchronous on the card:
+   the host does not wait here.
 3. **drain** — the PREVIOUS dispatches' small ``(token, emitted, done)``
    readbacks (copied to the host without blocking, each behind a CUDA
    event) are routed to the per-request ``TokenStream``s and retired
    slots are freed, while the card computes the newest step.
 
 EOS (``eos_id``) and ``max_new_tokens`` retirement are computed on the
-device by the step itself.
+device by the step itself.  The prefix cache (``_PrefixIndex``) is on
+unless ``prefix_cache=False`` or ``MXNET_SERVE_PREFIX_CACHE=0``.
 
 Not in this slice (each enabling argument raises ``MXNetError`` naming
-it): speculative decoding, the prefix cache, chunked prefill, int8 KV
-pages, deadlines and the watchdog, telemetry, the HBM budget, and the
-synchronous ``kv_generate`` fallback (``MXNET_SERVE_SYNC``).
+it): speculative decoding, int8 KV pages, deadlines, cancellation and
+the watchdog, telemetry, the HBM budget, and the synchronous
+``kv_generate`` fallback (``MXNET_SERVE_SYNC``).
 """
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import time
@@ -45,9 +59,15 @@ __all__ = ["DecodeServer", "TokenStream"]
 _LATER_SLICE = {
     "spec": "speculative decoding", "spec_depth": "speculative decoding",
     "spec_sizes": "speculative decoding", "drafter": "speculative decoding",
-    "prefix_cache": "the prefix cache", "hbm_budget": "the HBM budget",
+    "hbm_budget": "the HBM budget",
     "default_deadline": "deadlines", "step_timeout": "the watchdog",
 }
+
+
+def _prefix_cache_from_env():
+    """``MXNET_SERVE_PREFIX_CACHE``: 0 disables copy-on-write shared-
+    prefix caching (default on)."""
+    return os.environ.get("MXNET_SERVE_PREFIX_CACHE", "1") != "0"
 
 
 def _pow2_ladder(start, top):
@@ -75,6 +95,95 @@ def _check_ladder(name, ladder, top=None):
                          (f" within {top}" if top is not None else ""))
 
 
+class _PrefixIndex:
+    """Host-side copy-on-write shared-prefix page cache: a trie over FULL
+    pages of prompt tokens, each node mapping one ``(parent,
+    page-of-token-bytes)`` chunk to the pool page holding its K/V.
+    ``register`` pins a producer's full prompt pages with one index-owned
+    refcount each (so they outlive the producer); ``match`` walks the
+    longest cached chain for a new prompt; ``evict`` drops the least
+    recently touched LEAF nodes when the allocator runs dry.  Scheduler
+    thread only, like the ``PagePool`` under it."""
+
+    def __init__(self, page_size, pool):
+        self.page = int(page_size)
+        self.pool = pool
+        self._nodes = {}    # (parent_id, chunk_bytes) -> node dict
+        self._by_id = {}    # node id -> node (parent chains, eviction)
+        self._ids = itertools.count(1)
+        self._tick = itertools.count(1)
+
+    def __len__(self):
+        return len(self._nodes)
+
+    def _chunk_key(self, prompt, parent, c):
+        return (parent,
+                prompt[c * self.page:(c + 1) * self.page].tobytes())
+
+    def match(self, prompt):
+        """Longest chain of cached full pages covering a prefix of
+        ``prompt``: ``(num_matched_pages, [pool page ids])``."""
+        pages, parent = [], 0
+        for c in range(prompt.size // self.page):
+            node = self._nodes.get(self._chunk_key(prompt, parent, c))
+            if node is None:
+                break
+            node["last"] = next(self._tick)
+            pages.append(node["page"])
+            parent = node["id"]
+        return len(pages), pages
+
+    def register(self, prompt, length, slot_pages):
+        """Index ``prompt[:length]``'s full pages, backed by the producer
+        slot's ``slot_pages``.  Only new nodes incref their page; pages
+        past the last full one are never indexed (the producer's own
+        steps write into them)."""
+        parent = 0
+        for c in range(min(length // self.page, len(slot_pages))):
+            key = self._chunk_key(prompt, parent, c)
+            node = self._nodes.get(key)
+            if node is None:
+                node = {"id": next(self._ids), "key": key,
+                        "page": slot_pages[c], "parent": parent,
+                        "children": 0, "last": next(self._tick)}
+                self._nodes[key] = node
+                self._by_id[node["id"]] = node
+                if parent:
+                    self._by_id[parent]["children"] += 1
+                self.pool.incref(node["page"])
+            else:
+                node["last"] = next(self._tick)
+            parent = node["id"]
+
+    def evict(self, need, protect=()):
+        """Drop LRU leaf nodes (never pages in ``protect``) until ``need``
+        pool pages have come free (a decref frees a page only once no
+        slot maps it).  Returns the pages freed."""
+        protect = set(protect)
+        before = self.pool.free_pages
+        while self.pool.free_pages - before < need:
+            leaves = [nd for nd in self._nodes.values()
+                      if nd["children"] == 0 and nd["page"] not in protect]
+            if not leaves:
+                break
+            self._drop(min(leaves, key=lambda nd: nd["last"]))
+        return self.pool.free_pages - before
+
+    def _drop(self, node):
+        del self._nodes[node["key"]]
+        del self._by_id[node["id"]]
+        if node["parent"]:
+            self._by_id[node["parent"]]["children"] -= 1
+        self.pool.decref(node["page"])
+
+    def drop_all(self):
+        """Release every index-owned page ref (server teardown)."""
+        for node in self._by_id.values():
+            self.pool.decref(node["page"])
+        self._nodes.clear()
+        self._by_id.clear()
+
+
 class _Readback:
     """Device tensors copied to the host without blocking the issuing
     thread; ``get()`` waits only for this copy's own CUDA event."""
@@ -97,10 +206,13 @@ class TokenStream:
     """Streaming view of one request's continuation: iterate it for token
     ids as they decode, or call :meth:`tokens` to wait for all of them.
     Host arrival times are kept in :attr:`times`, the time to first token
-    in :attr:`ttft`."""
+    in :attr:`ttft`; how the request entered its slot in
+    :attr:`admission` (``mode`` "admit", "hit" or "chunk" and its
+    buckets, the reference's request-span admission fields)."""
 
     def __init__(self, request_id, detokenize=None, on_token=None):
         self.request_id = request_id
+        self.admission = None
         self.submit_time = time.perf_counter()
         self.times = []
         self._detok = detokenize
@@ -188,14 +300,19 @@ class DecodeServer:
     prompt[None], max_new_tokens, temperature, top_k, seed)``.  The
     server runs on the model's device.  ``autostart=True`` runs the
     scheduler on a background thread; with ``autostart=False`` the owner
-    calls :meth:`pump`.
+    calls :meth:`pump`.  ``prefix_cache`` (default: on, unless
+    ``MXNET_SERVE_PREFIX_CACHE=0``) shares identical full prompt pages
+    between requests, copy-on-write.  A prompt longer than the largest of
+    ``prefill_buckets`` streams in chunk by chunk; the one length limit
+    is the pool cache length ``max_total_len``.
     """
 
     def __init__(self, model, *, max_total_len=None, pool_sizes=(1, 2, 4, 8),
                  temperature=0.0, top_k=0, eos_id=None, weights="native",
                  max_pending=256, detokenize=None, admit_sizes=None,
                  prefill_buckets=None, page_size=16, num_pages=None,
-                 kv_dtype=None, autostart=True, **later):
+                 kv_dtype=None, prefix_cache=None, autostart=True,
+                 **later):
         for name, val in later.items():
             if name not in _LATER_SLICE:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -203,11 +320,6 @@ class DecodeServer:
                 raise MXNetError(f"DecodeServer({name}={val!r}): "
                                  f"{_LATER_SLICE[name]} is not ported yet "
                                  "(a later slice of mxnet_tpu_torch.serve)")
-        if hasattr(model.blocks[0], "rms1"):
-            raise MXNetError("DecodeServer serves the GPT family only: "
-                             "Llama serving is not ported yet (a later "
-                             "slice of mxnet_tpu_torch.serve); use "
-                             "models.kv_generate for Llama")
         if kv_dtype not in (None, "native"):
             raise MXNetError(f"DecodeServer(kv_dtype={kv_dtype!r}): int8 KV "
                              "pages are not ported yet (a later slice)")
@@ -238,6 +350,15 @@ class DecodeServer:
                                    self.page_size, num_pages, eos_id)
         self._state = pool_state_init(self._progs)
         self._pages = PagePool(self._progs.num_pages)
+        self.prefix_cache_enabled = bool(prefix_cache) \
+            if prefix_cache is not None else _prefix_cache_from_env()
+        # slots mid-chunked-prefill (kept out of the steps and of the
+        # free slots until their final chunk), their chunk records, and
+        # the copy-on-write prefix index
+        self._chunk_slots = set()
+        self._chunking = deque()    # {"req", "slot", "off", "start"}
+        self._prefix = _PrefixIndex(self._progs.page, self._pages) \
+            if self.prefix_cache_enabled else None
         self._slot_pages = [[] for _ in range(self.pool_sizes[0])]
         self._slots = [None] * self.pool_sizes[0]
         self._lock = threading.Lock()
@@ -251,7 +372,9 @@ class DecodeServer:
         self._occupied_lane_steps = 0
         self._capacity_lane_steps = 0
         self.counters = {"step_dispatches": 0, "admit_dispatches": 0,
-                         "pool_grows": 0}
+                         "chunk_dispatches": 0, "prefix_hits": 0,
+                         "cow_copies": 0, "pool_grows": 0}
+        self._retired_steps = []    # step_record() of each outgrown pool
         self._thread = None
         if autostart:
             self.start()
@@ -291,11 +414,6 @@ class DecodeServer:
             raise MXNetError(
                 f"prompt ({prompt.size}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds the pool cache length {self.T}")
-        if prompt.size > self.prefill_buckets[-1]:
-            raise MXNetError(
-                f"prompt ({prompt.size}) exceeds the largest prefill bucket "
-                f"{self.prefill_buckets[-1]}; chunked prefill is not "
-                "ported yet (a later slice)")
         need = self._progs.pages_for(prompt.size + max_new_tokens)
         cap = self._pages.num_pages if self._num_pages_fixed \
             else self.pool_sizes[-1] * self._progs.maxp
@@ -343,10 +461,18 @@ class DecodeServer:
             "page_size": self._progs.page,
             "pages_total": self._pages.num_pages,
             "pages_in_use": self._pages.in_use,
+            "prefix_nodes": 0 if self._prefix is None else len(self._prefix),
             "pool_bytes": (self._pages.num_pages + 1) *
             self._progs.page_bytes(),
             "counters": dict(self.counters),
         }
+
+    def step_records(self):
+        """What the step program of every pool size served so far did
+        (``PoolPrograms.step_record``, one ``gluon.block._GraphProgram``
+        a size, captured once on the card), oldest first: an outgrown
+        pool keeps only this record, its state and graph are freed."""
+        return self._retired_steps + [self._progs.step_record()]
 
     def close(self, drain=True, timeout=60.0):
         """Stop the scheduler.  ``drain=True`` serves everything already
@@ -386,11 +512,17 @@ class DecodeServer:
         if any work happened."""
         worked = self._admit_pending()
         stepped = False
-        if any(r is not None for r in self._slots):
+        # slots mid-chunked-prefill do not step: their lanes activate at
+        # the final chunk
+        if self._live_slots():
             self._dispatch_step()
             worked = stepped = True
         worked |= self._flush_drain(keep=1 if stepped else 0)
         return worked
+
+    def _live_slots(self):
+        return any(r is not None and i not in self._chunk_slots
+                   for i, r in enumerate(self._slots))
 
     def _loop(self):
         while True:
@@ -417,6 +549,10 @@ class DecodeServer:
                         self._work.wait(0.05)
 
     def _teardown(self, err):
+        self._chunking.clear()
+        self._chunk_slots.clear()
+        if self._prefix is not None:
+            self._prefix.drop_all()
         with self._lock:
             dropped = list(self._pending)
             self._pending.clear()
@@ -440,6 +576,10 @@ class DecodeServer:
         new_s = next((s for s in bigger if s >= want), bigger[-1])
         new_pages = self._pages.num_pages if self._num_pages_fixed \
             else new_s * self._progs.maxp
+        # the outgrown pool's programs, state and graph go (its last step
+        # may still run: the allocator reuses their memory in stream
+        # order and the graph is destroyed once that replay ends)
+        self._retired_steps.append(self._progs.step_record())
         self._progs = PoolPrograms(self._eng, new_s, self.T, self.page_size,
                                    new_pages, self.eos_id)
         self._state = pool_state_grow(self._state, new_s, new_pages)
@@ -451,41 +591,143 @@ class DecodeServer:
         self.counters["pool_grows"] += 1
 
     def _admit_pending(self):
-        """Wave-building batched admission: every pending request the
-        free slots (and free pages) can take, one admission per wave of
-        at most the largest A bucket."""
-        admitted = False
+        """Wave-building admission: pop every pending request the free
+        slots can take (at most the largest A bucket a wave), plan each
+        against the page pool and the prefix cache, and dispatch each
+        mode in bulk: the wave's hits as ONE no-forward hit admission,
+        its prefills as ONE bucketed ``(A, P)`` admission, its long
+        prompts as chunk records that ``_pump_chunks`` streams in.  A
+        request the pool cannot cover now goes back to the queue front
+        with everything behind it (retirements free pages)."""
+        admitted = may_retire = False
         self._maybe_grow()
         cap = self.admit_sizes[-1]
         while True:
             free = [i for i, r in enumerate(self._slots) if r is None]
             if not free:
                 break
+            # pop and record into the slot table at once, so close() and
+            # teardown never miss a request while its dispatch is built
             wave = []
             with self._lock:
                 while self._pending and len(wave) < min(len(free), cap):
-                    req = self._pending[0]
-                    pages = self._pages.alloc(self._progs.pages_for(
-                        req.prompt.size + req.max_new))
-                    if pages is None:
-                        break       # retirements free pages; retry later
-                    self._pending.popleft()
+                    req = self._pending.popleft()
                     slot = free[len(wave)]
                     self._slots[slot] = req
-                    self._slot_pages[slot] = pages
                     wave.append((slot, req))
                 if wave:
                     self._work.notify_all()
             if not wave:
                 break
-            self._dispatch_admit(wave)
-            admitted = True
-        if admitted and any(r.max_new == 1 for r in self._slots
-                            if r is not None):
+            plans, failed = [], None
+            for k, (slot, req) in enumerate(wave):
+                plan = self._plan_admission(req, slot)
+                if plan is None:
+                    failed = wave[k:]
+                    break
+                plans.append(plan)
+            if failed is not None:
+                with self._lock:
+                    for slot, _ in failed:
+                        self._slots[slot] = None
+                    for _, req in reversed(failed):
+                        self._pending.appendleft(req)
+            for p in plans:
+                if p["mode"] == "chunk":
+                    self._chunk_slots.add(p["slot"])
+                    self._chunking.append({"req": p["req"],
+                                           "slot": p["slot"],
+                                           "off": p["off"],
+                                           "start": p["off"]})
+            # hits first: a copy-on-write source page that another plan's
+            # eviction freed and reallocated in this wave is copied before
+            # any admission or chunk can overwrite it (one stream, FIFO)
+            hits = [p for p in plans if p["mode"] == "hit"]
+            if hits:
+                self._dispatch_hits(hits)
+            admits = [(p["slot"], p["req"]) for p in plans
+                      if p["mode"] == "admit"]
+            if admits:
+                self._dispatch_admit(admits)
+                may_retire |= any(r.max_new == 1 for _, r in admits)
+            admitted |= bool(plans)
+            if failed is not None:
+                break
+        chunked, chunk_retire = self._pump_chunks()
+        if may_retire or chunk_retire:
             # a 1-token budget retires inside the admission itself: read
             # it back now so its slot is free before the step decision
             self._drain_kind("admit")
-        return admitted
+        return admitted or chunked
+
+    def _alloc_pages(self, n, protect=()):
+        """All-or-nothing page reservation, evicting least recently used
+        prefix-cache pages (never ``protect``) when the free list runs
+        dry."""
+        got = self._pages.alloc(n)
+        if got is None and self._prefix is not None:
+            self._prefix.evict(n - self._pages.free_pages, protect=protect)
+            got = self._pages.alloc(n)
+        return got
+
+    def _plan_admission(self, req, slot):
+        """How one popped request enters its slot, with all its pages
+        ``ceil((L + max_new) / page)`` reserved up front:
+
+        - ``admit``: one bucketed prefill (no cached prefix, the prompt
+          within the largest bucket);
+        - ``hit``: the prefix cache covers every prompt token but at most
+          the last: the shared pages map read-only into the row, no
+          prefill, at most one copy-on-write page copy;
+        - ``chunk``: the prompt, or its uncached suffix, streams in over
+          chunk dispatches.
+
+        Returns ``None`` when the pool cannot supply the pages now."""
+        progs = self._progs
+        PG = progs.page
+        L = int(req.prompt.size)
+        need = progs.pages_for(L + req.max_new)
+        m, shared = (self._prefix.match(req.prompt)
+                     if self._prefix is not None else (0, []))
+        if m and m * PG >= L - 1:
+            # full hit: the slot enters at pos = L - 1 and its first step
+            # writes that position's K/V again.  When the cached pages
+            # cover all L tokens that write lands in the last shared page,
+            # which is therefore copied first; when they cover L - 1 it
+            # lands in the first page the slot owns.
+            copy = m * PG == L
+            keep = m - 1 if copy else m
+            # the whole matched chain is protected, the copy's source too
+            owned = self._alloc_pages(need - keep, shared[:m])
+            if owned is None:
+                return None
+            for p in shared[:keep]:
+                self._pages.incref(p)
+            self._slot_pages[slot] = list(shared[:keep]) + owned
+            return {"mode": "hit", "req": req, "slot": slot,
+                    "src": shared[m - 1] if copy else -1,
+                    "dst": owned[0] if copy else -1}
+        if m == 0 and L <= self.prefill_buckets[-1]:
+            owned = self._alloc_pages(need)
+            if owned is None:
+                return None
+            self._slot_pages[slot] = owned
+            return {"mode": "admit", "req": req, "slot": slot}
+        # chunked prefill; a partial hit maps its cached pages and
+        # streams only the rest
+        owned = self._alloc_pages(need - m, shared)
+        if owned is None:
+            return None
+        for p in shared:
+            self._pages.incref(p)
+        self._slot_pages[slot] = list(shared) + owned
+        if m:
+            self.counters["prefix_hits"] += 1
+        return {"mode": "chunk", "req": req, "slot": slot, "off": m * PG}
+
+    def _tensors(self, *arrays):
+        dev = self._eng.device
+        return [torch.as_tensor(a, device=dev) for a in arrays]
 
     def _dispatch_admit(self, wave):
         """ONE bucketed (A, P) admission for a wave of (slot, request)."""
@@ -508,23 +750,117 @@ class DecodeServer:
             row = self._slot_pages[slot]
             k = min(npb, len(row))
             pages[i, :k] = row[:k]
-        dev = self._eng.device
-        t = lambda a: torch.as_tensor(a, device=dev)
-        first, done = progs.admit(self._state, t(prompts), t(true_len),
-                                  [s for s, _ in wave], t(stop_pos),
-                                  t(seeds), t(pages))
+        prompts, true_len, stop_pos, seeds, pages = self._tensors(
+            prompts, true_len, stop_pos, seeds, pages)
+        first, done = progs.admit(self._state, prompts, true_len,
+                                  [s for s, _ in wave], stop_pos, seeds,
+                                  pages)
         self.counters["admit_dispatches"] += 1
+        for _, req in wave:
+            req.stream.admission = {"mode": "admit", "a_bucket": A,
+                                    "p_bucket": P}
         self._inflight.append(("admit", _Readback([first, done]),
                                list(wave)))
+        if self._prefix is not None:
+            # index the wave's full prompt pages for later hits (any
+            # reader is a later dispatch on the same stream)
+            for slot, req in wave:
+                self._prefix.register(req.prompt, req.prompt.size,
+                                      self._slot_pages[slot])
+
+    def _dispatch_hits(self, hits):
+        """ONE admission of a wave of prefix-cache hits: copy-on-write
+        page copies and slot state, no model forward; each request's
+        first token arrives from the next step."""
+        progs = self._progs
+        A = _bucket_for(self.admit_sizes, len(hits))
+        true_len = np.ones((A,), np.int64)
+        last_tok = np.zeros((A,), np.int64)
+        stop_pos = np.zeros((A,), np.int64)
+        seeds = np.zeros((A,), np.int64)
+        src = np.full((A,), progs.sentinel, np.int64)
+        dst = np.full((A,), progs.sentinel, np.int64)
+        for i, plan in enumerate(hits):
+            req = plan["req"]
+            L = req.prompt.size
+            true_len[i] = L
+            last_tok[i] = req.prompt[-1]
+            stop_pos[i] = L + req.max_new - 1
+            seeds[i] = req.seed
+            if plan["src"] >= 0:
+                src[i], dst[i] = plan["src"], plan["dst"]
+                self.counters["cow_copies"] += 1
+            self.counters["prefix_hits"] += 1
+            req.stream.admission = {"mode": "hit", "a_bucket": A,
+                                    "cow_copy": bool(plan["src"] >= 0)}
+        progs.admit_hit(self._state, [p["slot"] for p in hits],
+                        *self._tensors(true_len, last_tok, stop_pos, seeds,
+                                       src, dst))
+
+    def _pump_chunks(self):
+        """Advance every mid-prefill request by ONE chunk, interleaved
+        with the steps so that resident sequences keep streaming while a
+        long prompt fills in.  Returns ``(worked, may_retire)``, the
+        latter when a final chunk could retire its request itself."""
+        worked = may_retire = False
+        for rec in list(self._chunking):
+            final = self._dispatch_chunk(rec)
+            worked = True
+            if final:
+                self._chunk_slots.discard(rec["slot"])
+                self._chunking.remove(rec)
+                may_retire |= rec["req"].max_new == 1
+        return worked, may_retire
+
+    def _dispatch_chunk(self, rec):
+        """ONE slice of a streaming prefill, up to the largest bucket of
+        tokens at the record's offset through the slot's page-table row.
+        The final slice samples the first token and activates the slot;
+        its readback takes the admissions' path.  Returns whether this
+        was the final slice."""
+        req, slot, off = rec["req"], rec["slot"], rec["off"]
+        L = int(req.prompt.size)
+        remaining = L - off
+        top = self.prefill_buckets[-1]
+        if remaining > top:
+            C, final, ntok = top, False, top
+        else:
+            C = _bucket_for(self.prefill_buckets, remaining)
+            final, ntok = True, remaining
+        progs = self._progs
+        toks = np.zeros((C,), np.int64)
+        toks[:ntok] = req.prompt[off:off + ntok]
+        ptrow = np.full((progs.maxp,), progs.sentinel, np.int64)
+        row = self._slot_pages[slot]
+        ptrow[:len(row)] = row
+        toks, ptrow = self._tensors(toks, ptrow)
+        first, done = progs.chunk(
+            self._state, toks, ptrow, off,
+            (L - 1 - off) if final else C - 1, final, slot, L,
+            L + req.max_new - 1, req.seed)
+        self.counters["chunk_dispatches"] += 1
+        rec["off"] = off + ntok
+        if final:
+            req.stream.admission = {"mode": "chunk", "c_bucket": C,
+                                    "offset": rec["start"]}
+            if self._prefix is not None:
+                self._prefix.register(req.prompt, L, row)
+            self._inflight.append(("admit", _Readback([first, done]),
+                                   [(slot, req)]))
+        return final
 
     def _page_table(self):
+        """The step's (S, MAXP) page table, trash-padded.  Slots
+        mid-chunked-prefill get all-trash rows: their masked lanes must
+        not write into the pages the chunks are filling."""
         progs = self._progs
         pt = np.full((len(self._slots), progs.maxp), progs.sentinel,
                      np.int64)
         for i, row in enumerate(self._slot_pages):
-            if row and self._slots[i] is not None:
+            if row and self._slots[i] is not None and \
+                    i not in self._chunk_slots:
                 pt[i, :len(row)] = row
-        return torch.as_tensor(pt, device=self._eng.device)
+        return pt
 
     def _dispatch_step(self):
         out = self._progs.step(self._state, self._page_table())

@@ -3,7 +3,8 @@ int8 streams token-identical to the JAX server and to JAX
 ``kv_generate`` for the same carried weights and prompts, across
 mid-run admission, slot reuse and pool growth; sampled streams equal the
 port's own batch-1 ``kv_generate(seed=...)``; later-slice features
-raise."""
+raise.  Chunked prefill, the prefix cache and Llama are held in
+``tests/test_torch_serve_paged.py``."""
 import numpy as onp
 import pytest
 
@@ -119,8 +120,7 @@ def test_eos_and_one_token_budget(pair):
     assert one.tokens(5) == full[:1]
 
 
-@pytest.mark.parametrize("kw", [dict(spec=True), dict(prefix_cache=True),
-                                dict(kv_dtype="int8"),
+@pytest.mark.parametrize("kw", [dict(spec=True), dict(kv_dtype="int8"),
                                 dict(hbm_budget="1G"),
                                 dict(default_deadline=5.0)])
 def test_later_slice_features_raise(pair, kw):
@@ -137,8 +137,6 @@ def test_sync_mode_deadline_and_long_prompt_raise(pair, monkeypatch):
                        prefill_buckets=(8, 16), autostart=False)
     with pytest.raises(MXNetError, match="deadlines"):
         srv.submit(_prompt(0, 3), deadline=1.0)
-    with pytest.raises(MXNetError, match="chunked prefill"):
-        srv.submit(_prompt(0, 20), max_new_tokens=2)
     srv.close()
     monkeypatch.setenv("MXNET_SERVE_SYNC", "1")
     with pytest.raises(MXNetError, match="MXNET_SERVE_SYNC"):
