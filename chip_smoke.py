@@ -17,7 +17,8 @@ Phases (each fails the run by raising; there is no CPU path):
    GPT-2-small decode shapes with the server's two pools (8 and 4 rows)
    and at Llama-7B's shapes with 1 row (4096 x 4096, 4096 x 11008,
    11008 x 4096, the 4096 x 32000 head) and with the chunked prefill's
-   1024 rows (the three projection shapes; per chunk layer), two
+   1024 rows (the three projection shapes; per chunk layer) and with a
+   verify's 40 rows (the projections and the head; per verify), two
    launches bit for bit, with kernel, plain, library (``x @
    wt.to(bf16)``) and bound times; per decode step for each pool;
    kernel and library by two timers,
@@ -138,7 +139,39 @@ Phases (each fails the run by raising; there is no CPU path):
    the served width (8 rows) and the logit gap between the two; tokens/s,
    TTFT by kind, peak memory, pool bytes; the captured and eager arms as
    in phase 6; then the same requests on a 4-layer full-width Llama in
-   f32, agreement 1.0 and every first token equal;
+   f32, agreement 1.0 and every first token equal (phases 6 and 12b, and
+   ``serve_grow_ab.py``, serve with ``spec=False``: they count steps and
+   K4's launches a step);
+12c. the fifteenth slice: the same Llama-7B through ``DecodeServer(
+   kv_dtype="int8")`` with speculation at its defaults (depth 4, k
+   buckets 1, 2, 4), phase 12b's pools, horizon, buckets and requests
+   and two repetitive prompts (a 32-token pattern repeated to 256 and to
+   1024 tokens, 64 new each), on its own thread: an int8 page of
+   4,202,496 B and the pool (pages + 1) of them; draft ledgers balanced
+   per server and over the streams; verifies >= 1; K4 225 times a step
+   and a verify, 224 a
+   chunk, K1 at least once; every program called twice captured once,
+   none failed; every stream teacher-forced against a batch-1 int8-KV
+   reference of its kind (a one-slot ``PoolPrograms(kv_dtype="int8")``
+   and its plain step), >= 0.9 over the positions with a top-2 margin of
+   ``TIE_STEPS``+ bf16 steps, the raw figure beside it; then on the
+   largest pool, every slot live: a captured verify equal to its eager
+   function bit for bit (tokens, advance, slot vectors, codes and
+   scales), its column 0 against the plain step within phase 12b's
+   largest batch-1 against 8-row reference gap, emitted tokens its own
+   argmax prefix, the written pages within half a code step + one bf16
+   step of a native pool's; ms a replay of each k bucket and of the step,
+   capture seconds, kernel nodes; tokens/s beside phase 12b's, tokens a
+   dispatch, accept rate, TTFT by kind, pool bytes of both, peak memory;
+   then the two repetitive prompts again with a drafter that proposes
+   their batch-1 int8-KV reference's continuation (random weights
+   continue neither the pattern nor themselves, so the n-gram drafter's
+   proposals seldom come and do not land): drafts accepted on both;
+   then phase 12b's 4-layer f32 Llama pump-driven: spec on (drafts: the
+   spec-off streams' own continuations) equal to spec off token for
+   token, and int8 KV with spec >= 0.9 teacher-forced against native KV
+   over the clear positions of the streams (each stream's raw figure and
+   the margins where it parts beside it);
 13. K6 (the fused 1x1-convolution backward, ``ops.conv_fused.
    conv1x1_bwd_pair``) against its plain version at the nine stride-1 1x1
    shapes of ResNet-50 at batch 128 in bf16 and one in f32: dx within 2
@@ -530,6 +563,28 @@ def check_k4(cfg):
           f"library_queued_ms={chunk['library_queued_ms']:.5f} bound_ms="
           f"{chunk['bound_ms']:.5f} ({chunk['bound_by']})", flush=True)
     out["chunk_layer"] = chunk
+    # a verify dispatch of phase 12c at its largest bucket: 8 slots x (1
+    # + 4 drafts) = 40 rows through every projection of the 32 layers and
+    # the head
+    verify = dict(ms=0.0, queued_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                  library_queued_ms=0.0, bytes=0, ops=0)
+    for name, K, O, calls in (("l7b_qkvo", 4096, 4096, 4 * 32),
+                              ("l7b_gate_up", 4096, 11008, 2 * 32),
+                              ("l7b_down", 11008, 4096, 32),
+                              ("l7b_head", 4096, 32000, 1)):
+        row = _k4_case(name, 40, K, O, False, gen)
+        out["shapes"].append(row)
+        for k in verify:
+            verify[k] += calls * row[k]
+        torch.cuda.empty_cache()
+    verify["bound_ms"], verify["bound_by"] = bound_ms(verify["bytes"],
+                                                      verify["ops"])
+    print(f"K4 per Llama-7B verify (225 launches, 40 rows): kernel_ms="
+          f"{verify['ms']:.5f} queued_ms={verify['queued_ms']:.5f} plain_ms="
+          f"{verify['plain_ms']:.5f} library_ms={verify['library_ms']:.5f} "
+          f"library_queued_ms={verify['library_queued_ms']:.5f} bound_ms="
+          f"{verify['bound_ms']:.5f} ({verify['bound_by']})", flush=True)
+    out["verify"] = verify
     for timer, k, lk in (("cuda_ms", "ms", "library_ms"),
                          ("cuda_ms_queued", "queued_ms",
                           "library_queued_ms")):
@@ -881,11 +936,12 @@ def _wait_pump(srv, what):
 
 
 def _step_totals(srv):
-    """Over every pool size ``srv`` served so far: what the step replays
-    launched less what the step captures added to the kernels' counters
-    (a capture runs nothing), by kernel."""
+    """Over every program ``srv`` served so far (each pool size's step and
+    verify programs): what the replays launched less what the captures
+    added to the kernels' counters (a capture runs nothing), by
+    kernel."""
     out = {}
-    for r in srv.step_records():
+    for r in srv.program_records():
         for k, n in r["launches"].items():
             out[k] = out.get(k, 0) + n * r["replays"]
         for k, n in r["recorded"].items():
@@ -903,12 +959,15 @@ def _served_launches(srv, counts, before):
 
 
 def serve_run(model, scenario, what, threaded, counted=False, warm=1,
-              keep=False, **kw):
+              keep=False, spec=False, **kw):
     """One run of ``scenario(srv, wait)`` (it submits the requests and
     returns ``(prompts, streams, info)``) through ``DecodeServer(model,
-    weights="int8", **kw)``, its own thread serving (``threaded``) or
-    pump-driven.  ``warm`` warm-up requests first (allocator, cuBLAS
-    and the captures of the pools they fill stay off the clock).  With
+    weights="int8", spec=spec, **kw)``, its own thread serving
+    (``threaded``) or pump-driven.  Speculation is off unless asked for
+    (``spec=None``: the server's default, on): the phases that count
+    steps and K4's launches a step measure the plain step.  ``warm``
+    warm-up requests first (allocator, cuBLAS and the captures of the
+    pools they fill stay off the clock).  With
     ``counted`` the kernels' counts are set to 0 just before the
     requests and read just after, replays counted by what their capture
     recorded.  Returns the
@@ -919,7 +978,8 @@ def serve_run(model, scenario, what, threaded, counted=False, warm=1,
     from mxnet_tpu_torch.ops.q8_matvec import q8_matvec
     from mxnet_tpu_torch.serve import DecodeServer
 
-    srv = DecodeServer(model, weights="int8", autostart=threaded, **kw)
+    srv = DecodeServer(model, weights="int8", autostart=threaded, spec=spec,
+                       **kw)
     wait = (lambda pred: _wait_thread(pred, what)) if threaded \
         else _wait_pump(srv, what)
     try:
@@ -941,6 +1001,9 @@ def serve_run(model, scenario, what, threaded, counted=False, warm=1,
         run = dict(info, counters=dict(srv.counters), wall_s=wall,
                    ttft_s=[s.ttft for s in streams], stats=srv.stats(),
                    step_records=srv.step_records(),
+                   program_records=srv.program_records(),
+                   ledgers=[(s.draft_accepted, s.draft_rejected)
+                            for s in streams],
                    admissions=[s.admission for s in streams],
                    tokens_per_s=sum(map(len, toks)) / wall)
         if counted:
@@ -2277,7 +2340,7 @@ L7_TOTAL = 2048
 L7_SYS = 512                # the shared system prompt
 
 
-def llama_scenario(vocab):
+def llama_scenario(vocab, extra=()):
     """Ragged prompts of 7, 100 and 700 tokens (the 700 arriving after
     the first wave was admitted, so the pool grows 4 -> 8 and its
     admission rides the 1024 bucket through K1), one of 1800 (past the
@@ -2286,9 +2349,10 @@ def llama_scenario(vocab):
     registered); once its first token has arrived, ``Sys`` + 25 other
     tokens (a partial hit: the suffix chunks in); once that one's first
     token has arrived, ``Sys`` exactly (a full hit, one copy-on-write
-    page) and ``Sys`` + 1 token (a full hit, no copy).  ``info`` holds
-    each request's kind and the dispatch counters just before and just
-    after the two full hits were admitted."""
+    page) and ``Sys`` + 1 token (a full hit, no copy).  ``extra``
+    ((kind, prompt, new tokens), ...) arrive with the 700.  ``info``
+    holds each request's kind and budget and the dispatch counters just
+    before and just after the two full hits were admitted."""
     import numpy as np
 
     rs = np.random.RandomState(14)
@@ -2302,17 +2366,20 @@ def llama_scenario(vocab):
             ("full hit", np.concatenate([sys_p, draw(1)]))]
 
     def scenario(srv, wait):
-        kinds, prompts, streams = [], [], []
+        kinds, prompts, streams, news = [], [], [], []
 
-        def submit(kind, p):
+        def submit(kind, p, new=NEW_TOKENS):
             kinds.append(kind)
             prompts.append(p)
-            streams.append(srv.submit(p, max_new_tokens=NEW_TOKENS))
+            news.append(new)
+            streams.append(srv.submit(p, max_new_tokens=new))
 
         for kind, p in first:
             submit(kind, p)
         wait(lambda: bool(streams[0].times))
         submit(*late)
+        for e in extra:
+            submit(*e)
         wait(lambda: bool(streams[3].times))
         submit(*partial)
         wait(lambda: all(s.times for s in streams))
@@ -2324,7 +2391,7 @@ def llama_scenario(vocab):
         shared = [L7_SYS if k == "partial hit" else 0 for k in kinds]
         return prompts, streams, dict(kinds=kinds, shared=shared,
                                       producer=3, before_full=before,
-                                      after_full=after)
+                                      after_full=after, news=news)
     return scenario
 
 
@@ -2420,7 +2487,7 @@ def _gap_at_disagreements(model, p, stream, ref, what, i):
           "steps; disagreements with a margin of "
           f"{TIE_STEPS}+ steps (position, margin, gap, the wide reference "
           f"picks the served token): {out}", flush=True)
-    return rate, out
+    return rate, out, gap.max().item()
 
 
 def llama_served_checks(model, cfg, prompts, toks, run, what, bar,
@@ -2455,7 +2522,7 @@ def llama_served_checks(model, cfg, prompts, toks, run, what, bar,
     sums = {k: 0.0 for k in ("plain", "kind", "gate", "clear", "clear_n",
                              "miss", "miss_n", "wide", "wide_n")}
     firsts = {"plain": True, "kind": True, "gate": True}
-    explained = []
+    explained, gaps = [], []
     for i, (p, tk) in enumerate(zip(prompts, toks)):
         if len(tk) != NEW_TOKENS or not all(0 <= x < cfg.vocab_size
                                             for x in tk):
@@ -2495,8 +2562,9 @@ def llama_served_checks(model, cfg, prompts, toks, run, what, bar,
               f"positions {kclear['agreement']}; gated: {gtf:.4f}",
               flush=True)
         if explain:
-            wrate, where = _gap_at_disagreements(model, p, stream, ref[0][0],
-                                                 what, i)
+            wrate, where, gmax = _gap_at_disagreements(
+                model, p, stream, ref[0][0], what, i)
+            gaps.append(gmax)
             sums["wide"] += wrate * NEW_TOKENS
             sums["wide_n"] += NEW_TOKENS
             explained += [(i,) + w for w in where]
@@ -2532,7 +2600,7 @@ def llama_served_checks(model, cfg, prompts, toks, run, what, bar,
                 first_tokens_equal_gated=firsts["gate"],
                 teacher_forced_kind=krate,
                 first_tokens_equal_kind=firsts["kind"],
-                teacher_forced_wide=wide_rate,
+                teacher_forced_wide=wide_rate, wide_gap_max=gaps,
                 clear_disagreements=explained, full_hits=full)
 
 
@@ -2600,6 +2668,557 @@ def check_llama_served_f32():
     del model
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 12c: Llama-7B on int8 KV pages with speculation, the fifteenth
+# slice's path
+# --------------------------------------------------------------------------- #
+
+SPEC_NEW = 64               # new tokens of each repetitive prompt
+L7_PAGE_INT8 = 2 * 32 * 32 * (16 * 128 + 4)     # one int8 page, K and V
+
+
+def spec_extra(vocab):
+    """Phase 12c's two repetitive prompts: a 32-token pattern repeated to
+    256 tokens, another to 1024, 64 new tokens each."""
+    import numpy as np
+
+    rs = np.random.RandomState(15)
+    return [("repeat", np.tile(rs.randint(0, vocab, (32,)), n // 32),
+             SPEC_NEW) for n in (256, 1024)]
+
+
+def _arrays(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+def _snapshot(state):
+    return {n: tuple(a.clone() for a in _arrays(v))
+            for n, v in state.items()}
+
+
+def _restore(state, snap):
+    for n, v in state.items():
+        for a, b in zip(_arrays(v), snap[n]):
+            a.copy_(b)
+
+
+def int8_reference(model, p, kind, pad, new, tokens=None):
+    """The batch-1 reference of a stream on a one-slot ``PoolPrograms(
+    kv_dtype="int8")`` driven by its plain step (``_DecodeEngine.
+    paged_step``), speculation off: fed ``tokens`` (teacher-forced) or,
+    without them, its own greedy tokens.  The prompt enters as the
+    server computed it for its kind: a miss (or a repetitive prompt) one
+    prefill at its wave's bucket ``pad``, quantized into the pages the
+    server reserves; a chunked prompt its chunks; a hit the producer's
+    pages of the shared ``L7_SYS`` tokens (their prefill at the
+    producer's bucket ``pad``), then the suffix's chunks (partial) or the
+    step at ``L - 1`` (full).  Returns the f32 logits (new, V) and the
+    ``new`` tokens fed (or chosen)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models.decoding import _DecodeEngine
+    from mxnet_tpu_torch.serve.engine import PoolPrograms, pool_state_init
+
+    eng = _DecodeEngine(model, 0.0, 0, "int8")
+    progs = PoolPrograms(eng, 1, L7_TOTAL, 16, kv_dtype="int8")
+    state = pool_state_init(progs)
+    page, dev = progs.page, eng.device
+    L = p.size
+    s = torch.zeros((L + new,), dtype=torch.int64, device=dev)
+    s[:L] = torch.as_tensor(p, device=dev)
+    if tokens is not None:
+        s[L:] = torch.as_tensor(np.asarray(tokens), device=dev)
+    reserved = progs.pages_for(L + new)
+    row = torch.full((progs.maxp,), progs.sentinel, dtype=torch.int64,
+                     device=dev)
+    row[:reserved] = torch.arange(reserved, device=dev)
+
+    def prefill(n, k):
+        P = max(n, pad)
+        npb = -(-P // page)
+        prompts = torch.zeros((1, P), dtype=torch.int64, device=dev)
+        prompts[0, :n] = s[:n]
+        tl = torch.full((1,), n, dtype=torch.int64, device=dev)
+        pages = torch.full((1, npb), progs.sentinel, dtype=torch.int64,
+                           device=dev)
+        pages[0, :min(npb, k)] = row[:min(npb, k)]
+        progs.admit(state, prompts, tl, [0], tl, torch.zeros_like(tl),
+                    pages)
+        return eng.prefill(prompts, last_index=tl - 1)[0]
+
+    def chunks(off):
+        while True:
+            rem = L - off
+            final = rem <= L7_BUCKETS[-1]
+            C = next(b for b in L7_BUCKETS if b >= rem) if final \
+                else L7_BUCKETS[-1]
+            n = rem if final else C
+            toks = torch.zeros((C,), dtype=torch.int64, device=dev)
+            toks[:n] = s[off:off + n]
+            lg = eng.chunk_tokens(toks, off, n - 1, row, state["kp"],
+                                  state["vp"], page)
+            if final:
+                return lg
+            off += n
+
+    def step(t):
+        posv = torch.full((1,), t, dtype=torch.int64, device=dev)
+        return eng.paged_step(s[t:t + 1], posv, state["kp"], state["vp"],
+                              row[None], page)
+
+    if kind in ("miss", "repeat"):
+        logits = prefill(L, reserved)
+    elif kind == "chunked":
+        logits = chunks(0)
+    else:
+        prefill(L7_SYS, L7_SYS // page)
+        logits = chunks(L7_SYS) if kind == "partial hit" else step(L - 1)
+    steps = [logits]
+    for t in range(L, L + new):
+        if tokens is None:
+            s[t] = steps[-1][0].argmax()
+        if t < L + new - 1:
+            steps.append(step(t))
+    return torch.cat(steps).float(), s[L:]
+
+
+def teacher_forced_int8(model, p, tokens, kind, pad, new):
+    """One served stream teacher-forced against its batch-1 int8-KV
+    reference (``int8_reference``).  Returns (agreement, the agreement
+    over the positions with a top-2 margin of ``TIE_STEPS``+ bf16 steps,
+    their count)."""
+    lg, fed = int8_reference(model, p, kind, pad, new, tokens)
+    same = lg.argmax(-1) == fed
+    top = lg.topk(2, dim=-1).values
+    wide = (top[:, 0] - top[:, 1]) >= TIE_STEPS * 2.0 ** -8 * \
+        top[:, 0].abs()
+    n = int(wide.sum().item())
+    return (same.float().mean().item(),
+            same[wide].float().mean().item() if n else None, n)
+
+
+def stream_drafter(streams):
+    """A ``serve.Drafter`` that proposes, for a slot whose history (prompt
+    and routed tokens) is a prefix of one of ``streams`` (1-D int
+    arrays), that stream's next tokens, and nothing otherwise."""
+    import numpy as np
+    from mxnet_tpu_torch.serve import Drafter
+
+    class StreamDrafter(Drafter):
+        def propose(self, history, k):
+            h = np.asarray(history)
+            for s in streams:
+                if h.size < s.size and np.array_equal(s[:h.size], h):
+                    return [int(t) for t in s[h.size:h.size + k]]
+            return []
+
+    return StreamDrafter()
+
+
+def spec_accept_run(model, cfg, card):
+    """Phase 12c's two repetitive prompts served again in one wave,
+    pump-driven, int8 KV pages and speculation on, with a drafter that
+    proposes each prompt's batch-1 int8-KV reference continuation
+    (``int8_reference`` at the wave's bucket, greedy): drafts accepted on
+    both, the ledgers balanced; tokens a dispatch, the accept rate and
+    each stream's agreement with its reference."""
+    import numpy as np
+
+    what = "llama_7b spec accept"
+    extra = spec_extra(cfg.vocab_size)
+    pad = next(b for b in L7_BUCKETS if b >= max(p.size for _, p, _ in
+                                                 extra))
+    refs = [np.concatenate([p, int8_reference(model, p, "repeat", pad,
+                                              new)[1].cpu().numpy()])
+            for _, p, new in extra]
+
+    def scenario(srv, wait):
+        return ([p for _, p, _ in extra],
+                [srv.submit(p, max_new_tokens=new) for _, p, new in extra],
+                {})
+
+    prompts, toks, run = serve_run(
+        model, scenario, what, threaded=False, spec=None,
+        drafter=stream_drafter(refs), pool_sizes=(4, 8),
+        max_total_len=L7_TOTAL, prefill_buckets=L7_BUCKETS, page_size=16,
+        kv_dtype="int8")
+    c = run["counters"]
+    agree = [float(np.mean(np.asarray(t) == r[p.size:]))
+             for p, t, r in zip(prompts, toks, refs)]
+    total = sum(map(len, toks))
+    tpd = total / (total - c["draft_accepted"])
+    print(f"{what}: the repetitive prompts with the reference's "
+          f"continuation as drafts: counters {c}; drafts accepted, rejected "
+          f"by stream {run['ledgers']}; {tpd:.3f} tokens a dispatch (total "
+          f"/ (total - accepted)); accept rate "
+          f"{run['stats']['draft_accept_rate']:.4f}; streams equal to their "
+          f"reference at {[round(a, 4) for a in agree]} of positions; "
+          f"tokens/s {run['tokens_per_s']:.2f} [{card}]", flush=True)
+    if c["draft_accepted"] + c["draft_rejected"] != c["draft_proposed"] or \
+            any(a < 1 for a, _ in run["ledgers"]):
+        fail(f"{what}: drafts accepted by stream {run['ledgers']} (want >= 1 "
+             f"each), ledger {c}")
+    return dict(counters=c, ledgers=run["ledgers"], agreement=agree,
+                tokens_per_dispatch=tpd,
+                accept_rate=run["stats"]["draft_accept_rate"],
+                tokens_per_s=run["tokens_per_s"])
+
+
+def spec_program_checks(srv, what, card, gap_bar):
+    """On the served run's largest pool (closed, its state kept), every
+    slot made live at its own depth over its own pages (their contents
+    the run's): (1) the greedy chain of drafts for k = 4, each slot's
+    broken at its own column, through the captured verify program and
+    through its own function from one snapshot: tokens, ``adv``, every
+    slot vector and the pools' codes and scales bit for bit; (2) the
+    verify's column 0 against the plain step from that snapshot, in bf16
+    steps of the step's top logit, within ``gap_bar`` (phase 12b's
+    largest batch-1 against 8-row reference gap), and every emitted
+    token the verify's own argmax prefix; (3) one plain step on the int8
+    pool and on a native pool holding its dequantized pages: every
+    column of the written pages within half a code step of its page's
+    scale plus one bf16 step of the value; (4) ms a replay of each k
+    bucket's verify beside the step's, capture seconds, kernel nodes."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models.decoding import _kv_dequant
+
+    progs, state = srv._progs, srv._state
+    e, S, page = progs.eng, progs.S, progs.page
+    dev, V = e.device, e.vocab
+    rs = np.random.RandomState(16)
+    pos = progs.Tp // 7 + np.arange(S) * (progs.Tp // 2 // S)
+    rows = np.arange(S * progs.maxp).reshape(S, progs.maxp)
+    k = max(srv.spec_sizes)
+    nd = np.full((S,), k)
+    with torch.no_grad():
+        state["pos"].copy_(torch.as_tensor(pos))
+        state["tok"].copy_(torch.as_tensor(rs.randint(0, V, (S,))))
+        state["active"].fill_(True)
+        state["stop"].copy_(torch.as_tensor(pos + progs.Tp // 8))
+        state["spec"].fill_(k)
+    torch.cuda.synchronize()
+    base = _snapshot(state)
+    pt = torch.as_tensor(rows, device=dev)
+    posd = torch.as_tensor(pos, device=dev)
+
+    def plain_verify(d):
+        _restore(state, base)
+        toks = torch.cat([state["tok"][:, None],
+                          torch.as_tensor(d, device=dev)], 1)
+        return e.pool_verify_paged(toks, posd, state["kp"], state["vp"], pt,
+                                   page)
+
+    # the model's own greedy chain, then slot s breaks it at column s % 5
+    d = rs.randint(0, V, (S, k))
+    for j in range(k):
+        d[:, j] = plain_verify(d).argmax(-1)[:, j].cpu().numpy()
+    for i in range(S):
+        if i % (k + 1) < k:
+            d[i, i % (k + 1)] = (d[i, i % (k + 1)] + 1) % V
+    logits = plain_verify(d)
+    # every bucket's verify (and the step) captured before the arms
+    def captured(p):
+        return p is not None and p.graph.calls >= 2
+
+    for kk in srv.spec_sizes:
+        while not captured(progs._verifies.get(kk)):
+            _restore(state, base)
+            progs.verify(state, rows, d[:, :kk], np.full((S,), kk), kk)
+    while not captured(progs._step):
+        _restore(state, base)
+        progs.step(state, rows)
+    prog = progs._verifies[k]
+    _restore(state, base)
+    got = [t.clone() for t in progs.verify(state, rows, d, nd, k)]
+    torch.cuda.synchronize()
+    after = _snapshot(state)
+    _restore(state, base)
+    eager = prog.graph.run()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "adv", "done"), got, eager):
+        if not torch.equal(a, b):
+            fail(f"{what}: captured and eager verify differ in {name}")
+    for n, v in state.items():
+        for a, b in zip(_arrays(v), after[n]):
+            if not torch.equal(a, b):
+                fail(f"{what}: captured and eager verify leave {n} "
+                     "different")
+    del after, eager
+    torch.cuda.empty_cache()
+    out, adv = got[0], got[1]
+    if not torch.equal(out, logits.argmax(-1)):
+        fail(f"{what}: the verify's tokens are not its logits' argmax")
+    for i in range(S):
+        n = int(adv[i])
+        want = min((i % (k + 1)) + 1, k + 1)
+        if n != want or not torch.equal(
+                out[i, :n - 1].cpu(), torch.as_tensor(d[i, :n - 1])):
+            fail(f"{what}: slot {i} advanced {n} (want {want}) or emitted "
+                 "tokens that are not its drafts' accepted prefix")
+    _restore(state, base)
+    step = e.paged_step(state["tok"], posd, state["kp"], state["vp"], pt,
+                        page)
+    unit = 2.0 ** -8 * step.float().max(-1).values.abs()
+    gap = ((logits[:, 0] - step).abs().max(-1).values / unit).tolist()
+    print(f"{what}: captured verify (S={S}, k={k}) equals its eager "
+          f"function bit for bit (tokens, adv {adv.tolist()}, slot vectors, "
+          f"codes and scales); column 0 against the plain step, bf16 steps "
+          f"of the top logit by slot: {[round(g, 3) for g in gap]} (bar "
+          f"{gap_bar:.3f}, phase 12b's largest batch-1 against 8-row "
+          f"reference gap) [{card}]", flush=True)
+    if max(gap) > gap_bar:
+        fail(f"{what}: verify column 0 is {max(gap):.3f} bf16 steps from "
+             f"the plain step, past {gap_bar:.3f}")
+    # (3) the representation: the same step on the int8 pool and on a
+    # native pool of its dequantized pages
+    _restore(state, base)
+    native = [_kv_dequant(*state[n], e.cdtype) for n in ("kp", "vp")]
+    e.paged_step(state["tok"], posd, native[0], native[1], pt, page)
+    _restore(state, base)
+    e.paged_step(state["tok"], posd, state["kp"], state["vp"], pt, page)
+    pg = pt[torch.arange(S, device=dev), posd // page]
+    worst = 0.0
+    for name, ref in zip(("kp", "vp"), native):
+        codes, scales = state[name]
+        deq = _kv_dequant(codes[:, pg], scales[:, pg], torch.float32)
+        want = ref[:, pg].float()
+        ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp(
+            min=2.0 ** -126))) - 7)
+        tol = scales[:, pg][..., None, None] / 2 + ulp
+        worst = max(worst, ((deq - want).abs() / tol).max().item())
+    del native
+    torch.cuda.empty_cache()
+    print(f"{what}: every column of the written pages against a native "
+          f"pool's: the largest error is {worst:.4f} of half a code step + "
+          f"one bf16 step (bar 1) [{card}]", flush=True)
+    if worst > 1.0:
+        fail(f"{what}: a column of a written page is {worst:.4f} times half "
+             "a code step + one bf16 step from the native pool's")
+    # (4) replays, capture seconds, kernel nodes
+    rows_out = {}
+    for key, p in [("step", progs._step)] + [
+            (f"verify k={kk}", progs._verifies[kk])
+            for kk in sorted(progs._verifies)]:
+        g = p.graph
+        _restore(state, base)
+        ms = cuda_ms(lambda i: g.graph.replay(), 10)
+        nodes = g.kernel_nodes()
+        rows_out[key] = dict(ms=ms, capture_s=g.capture_s,
+                             kernel_nodes=sum(nodes.values()),
+                             launches=dict(g.launches))
+        print(f"{what}: S={S} {key}: {ms:.3f} ms a replay, capture "
+              f"{g.capture_s:.3f} s, {sum(nodes.values())} kernel nodes, "
+              f"K4 {g.launches.get('q8_matvec')} a replay [{card}]",
+              flush=True)
+    _restore(state, base)
+    return dict(gap=gap, gap_bar=gap_bar, adv=adv.tolist(),
+                representation=worst, replays=rows_out)
+
+
+def check_llama_spec(model, cfg, base):
+    """Phase 12c: Llama-7B (bf16, int8 weights, full width and depth)
+    through ``DecodeServer(kv_dtype="int8")`` with speculation at its
+    defaults (depth 4, buckets 1, 2, 4), phase 12b's pools, horizon and
+    buckets, phase 12b's requests and two repetitive ones, on its own
+    thread, counted: the gates of the issue (page price, draft ledgers,
+    launches a step, verify and chunk, one capture per program that ran
+    twice, streams teacher-forced against a batch-1 int8-KV reference),
+    then ``spec_program_checks`` on its largest pool.  ``base`` is phase
+    12b's run."""
+    import numpy as np
+    import torch
+
+    card = card_line()
+    what = "llama_7b spec"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(pool_sizes=(4, 8), max_total_len=L7_TOTAL,
+              prefill_buckets=L7_BUCKETS, page_size=16, kv_dtype="int8")
+    scenario = llama_scenario(cfg.vocab_size, spec_extra(cfg.vocab_size))
+    prompts, toks, run = serve_run(model, scenario, what, threaded=True,
+                                   counted=True, keep=True, spec=None, **kw)
+    run["peak_memory"] = torch.cuda.max_memory_allocated()
+    srv = run.pop("server")
+    srv.close(drain=False)
+    NL = cfg.num_layers
+    c, st = run["counters"], run["stats"]
+    print(f"{what}: {len(prompts)} requests ({run['kinds']}), prompt lens "
+          f"{[p.size for p in prompts]}; counters {c}; launches "
+          f"{run['launches']} (replays counted by their capture) [{card}]",
+          flush=True)
+    if st["page_bytes"] != L7_PAGE_INT8 or st["pool_bytes"] != \
+            (st["pages_total"] + 1) * L7_PAGE_INT8:
+        fail(f"{what}: page_bytes {st['page_bytes']} (want {L7_PAGE_INT8})"
+             f", pool_bytes {st['pool_bytes']} for {st['pages_total']} + 1 "
+             "pages")
+    acc, rej = c["draft_accepted"], c["draft_rejected"]
+    sacc = sum(a for a, _ in run["ledgers"])
+    srej = sum(r for _, r in run["ledgers"])
+    if acc + rej != c["draft_proposed"] or (sacc, srej) != (acc, rej):
+        fail(f"{what}: draft ledgers do not balance: server {acc} + {rej} "
+             f"of {c['draft_proposed']}, streams {sacc} + {srej}")
+    if c["verify_dispatches"] < 1:
+        fail(f"{what}: no verify dispatch")
+    for r in run["program_records"]:
+        if r["captures"] != int(r["calls"] >= 2) or r["capture_failures"]:
+            fail(f"{what}: program S={r['S']} k={r['k']} called "
+                 f"{r['calls']} times was captured {r['captures']} times, "
+                 f"{r['capture_failures']} captures failed")
+    steps, verifies = run["steps"], c["verify_dispatches"]
+    chunks = c["chunk_dispatches"]
+    want = (7 * NL + 1) * (steps + verifies) + 7 * NL * chunks
+    if run["launches"]["q8_matvec"] != want:
+        fail(f"{what}: K4 launched {run['launches']['q8_matvec']} times over "
+             f"{steps} steps, {verifies} verifies and {chunks} chunks, "
+             f"expected {want} ({7 * NL + 1} a step and a verify, {7 * NL} "
+             "a chunk)")
+    if run["launches"]["flash_fwd"] <= 0:
+        fail(f"{what}: K1 was never launched")
+    # the streams against the batch-1 int8-KV reference of their kind
+    clear = raw = n_clear = 0.0
+    rates = []
+    for i, (p, tk) in enumerate(zip(prompts, toks)):
+        new = run["news"][i]
+        if len(tk) != new or not all(0 <= x < cfg.vocab_size for x in tk):
+            fail(f"{what}: request {i} emitted {len(tk)} of {new} or a "
+                 "token outside the vocab")
+        kind = run["kinds"][i]
+        adm = run["admissions"][i]
+        pad = (adm if adm["mode"] == "admit" else
+               run["admissions"][run["producer"]]).get("p_bucket", 0)
+        tf, tfc, nc = teacher_forced_int8(model, p, tk, kind, pad, new)
+        raw += tf * new
+        if nc:
+            clear += tfc * nc
+            n_clear += nc
+        rates.append((tf, tfc, nc))
+        a, r = run["ledgers"][i]
+        print(f"{what}: request {i} ({kind}, prompt {p.size}, {new} new): "
+              f"ttft {run['ttft_s'][i]:.4f} s; drafts accepted {a}, "
+              f"rejected {r}; against the batch-1 int8-KV reference: "
+              f"teacher-forced {tf:.4f}, over the {nc} positions with a "
+              f"top-2 margin of {TIE_STEPS}+ bf16 steps {tfc}", flush=True)
+    total = sum(run["news"])
+    gate = clear / n_clear if n_clear else None
+    print(f"{what}: teacher-forced agreement against the batch-1 int8-KV "
+          f"reference over the {n_clear:.0f} positions with a top-2 margin "
+          f"of {TIE_STEPS}+ bf16 steps {gate} (bar 0.9); raw {raw / total:.4f}"
+          f" [{card}]", flush=True)
+    if gate is None or gate < 0.9:
+        fail(f"{what}: teacher-forced agreement {gate} < 0.9 over the "
+             "clear positions")
+    tpd = total / (total - acc)
+    ttft = _ttft_by_kind(run)
+    b = base
+    row = dict(counters=c, launches=run["launches"], wall_s=run["wall_s"],
+               tokens_per_s=run["tokens_per_s"], ttft_by_kind=ttft,
+               tokens_per_dispatch=tpd,
+               accept_rate=st["draft_accept_rate"],
+               pool_bytes=st["pool_bytes"],
+               page_bytes=st["page_bytes"], peak_memory=run["peak_memory"],
+               teacher_forced_clear=gate, teacher_forced=raw / total,
+               streams=rates, program_records=run["program_records"])
+    print(f"{what}: tokens/s {run['tokens_per_s']:.2f} beside phase 12b's "
+          f"{b['tokens_per_s']:.2f} (spec off, native KV; 12b's requests "
+          f"alone); {tpd:.3f} tokens a dispatch (total / (total - "
+          f"accepted); {total} tokens, {steps} steps + {verifies} "
+          f"verifies); accept rate "
+          f"{st['draft_accept_rate']:.4f}; ttft_s by kind "
+          + "; ".join(f"{kd} {', '.join(f'{t:.4f}' for t in v)}"
+                      for kd, v in ttft.items())
+          + f"; pool bytes {st['pool_bytes']} against 12b's "
+          f"{b['pool_bytes']} ({st['pool_bytes'] / b['pool_bytes']:.4f}); "
+          f"page bytes {st['page_bytes']}; peak memory of the served run "
+          f"{run['peak_memory']} (12b {b['peak_memory']}) [{card}]",
+          flush=True)
+    row["programs"] = spec_program_checks(
+        srv, what, card, max(b["wide_gap_max"]))
+    del srv
+    torch.cuda.empty_cache()
+    row["accept"] = spec_accept_run(model, cfg, card)
+    return row
+
+
+def check_llama_spec_f32():
+    """Phase 12c's requests on phase 12b's 4-layer full-width Llama in
+    float32, pump-driven (the same waves in every arm): spec on equals
+    spec off token for token (native KV), its drafts each spec-off
+    stream's own continuation (``stream_drafter``), so that they land;
+    with int8 KV and spec on (the same drafter), the streams
+    teacher-forced against the batch-1 native-KV path of their kind
+    agree >= 0.9 over the positions with a top-2 margin of ``TIE_STEPS``+
+    bf16 steps (PARITY.md's pin; on these near-flat random logits the
+    quantization flips near ties, so each stream's raw figure and the
+    margins where it parts are printed beside it)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import llama_7b
+
+    card = card_line()
+    model, cfg = llama_7b(dtype=torch.float32, num_layers=4)
+    model.initialize(0.02, seed=0)
+    scen = llama_scenario(cfg.vocab_size, spec_extra(cfg.vocab_size))
+    kw = dict(pool_sizes=(4, 8), max_total_len=L7_TOTAL,
+              prefill_buckets=L7_BUCKETS, page_size=16, threaded=False)
+    prompts, off, _ = serve_run(model, scen, "llama f32 spec off", **kw)
+    # drafts that land: each spec-off stream's own continuation
+    kw["drafter"] = stream_drafter([np.concatenate([p, np.asarray(t)])
+                                    for p, t in zip(prompts, off)])
+    prompts, on, orun = serve_run(model, scen, "llama f32 spec", spec=None,
+                                  **kw)
+    if on != off:
+        bad = [i for i, (a, b) in enumerate(zip(on, off)) if a != b]
+        fail(f"llama f32 spec: spec-on streams differ from spec-off ones "
+             f"(requests {bad})")
+    _, q8, qrun = serve_run(model, scen, "llama f32 int8 spec", spec=None,
+                            kv_dtype="int8", **kw)
+    rates, clear_n, clear_sum = [], 0, 0.0
+    for i, (p, tk) in enumerate(zip(prompts, q8)):
+        kind = qrun["kinds"][i]
+        adm = qrun["admissions"][i]
+        pad = (adm if adm["mode"] == "admit" else
+               qrun["admissions"][qrun["producer"]]).get("p_bucket", 0)
+        stream = np.concatenate([p, np.asarray(tk)])[None]
+        clear, keep = {}, []
+        rate = teacher_forced(
+            model, p[None], stream, "int8", clear, keep=keep,
+            fill=_fill_as_served("miss" if kind == "repeat" else kind,
+                                 qrun["shared"][i], L7_BUCKETS, pad))
+        lg = keep[0][0]
+        top = lg.topk(2, dim=-1).values
+        margin = (top[:, 0] - top[:, 1]) / (2.0 ** -8 * top[:, 0].abs())
+        flips = (lg.argmax(-1).cpu().numpy() != np.asarray(tk)).nonzero()[0]
+        rates.append((rate, clear["agreement"], clear["positions"],
+                      [round(margin[t].item(), 2) for t in flips]))
+        if clear["positions"]:
+            clear_n += clear["positions"]
+            clear_sum += clear["agreement"] * clear["positions"]
+    if orun["counters"]["draft_accepted"] < 1:
+        fail("llama f32 spec: no draft was accepted")
+    gate = clear_sum / clear_n if clear_n else None
+    print(f"llama f32 spec: spec on equals spec off token for token over "
+          f"{len(on)} streams ({orun['counters']['verify_dispatches']} "
+          f"verifies, {orun['counters']['draft_accepted']} drafts of "
+          f"{orun['counters']['draft_proposed']} accepted: the drafter "
+          f"proposes the spec-off streams); int8 KV with spec, "
+          f"teacher-forced against the native-KV path of each kind, by "
+          f"stream (agreement, over the positions with a top-2 margin of "
+          f"{TIE_STEPS}+ bf16 steps, their count, the margins in bf16 steps "
+          f"where it parts): "
+          f"{[(round(r, 4), c, n, m) for r, c, n, m in rates]}; over the "
+          f"clear positions of every stream {gate} (bar 0.9) "
+          f"[{card}]", flush=True)
+    if gate is None or gate < 0.9:
+        fail(f"llama f32 int8 spec: agreement {gate} < 0.9 with the "
+             "native-KV reference over the clear positions")
+    del model
+    torch.cuda.empty_cache()
+    return dict(spec_equal=True, int8_teacher_forced=rates,
+                int8_teacher_forced_clear=gate,
+                verifies=orun["counters"]["verify_dispatches"])
 
 
 # --------------------------------------------------------------------------- #
@@ -5333,9 +5952,11 @@ def main():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     fused["llama_7b"] = check_llama7b(llama, lcfg)
     served = check_llama_served(llama, lcfg)
+    served["spec"] = check_llama_spec(llama, lcfg, served)
     del llama
     torch.cuda.empty_cache()
     served["f32"] = check_llama_served_f32()
+    served["spec_f32"] = check_llama_spec_f32()
 
     k6_design = report_design("K6", "conv1x1_bwd", "conv1x1_bwd_design",
                               "conv1x1_bwd_mma_kernel")
@@ -5374,19 +5995,24 @@ def main():
              source="mxnet_tpu_torch/csrc/q8_matvec.cu",
              replaces="mxnet_tpu/ops/q8_matvec.py:74",
              launches=srv["launches"]["q8_matvec"] +
-             served["launches"]["q8_matvec"],
+             served["launches"]["q8_matvec"] +
+             served["spec"]["launches"]["q8_matvec"],
              max_abs_err=k4["max_abs_err"], ms=k4["ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=k4["library_ms"],
              queued_ms=k4["queued_ms"],
              library_queued_ms=k4["library_queued_ms"],
+             verify_ms=k4["verify"]["ms"],
+             verify_library_ms=k4["verify"]["library_ms"],
+             verify_bound_ms=k4["verify"]["bound_ms"],
              design=k4["design"]["design"]),
         dict(name="flash_fwd", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_fwd.cu",
              replaces="mxnet_tpu/ops/attention.py:226",
              launches=train["launches"]["flash_fwd"] +
              opt19["lamb_gpt2"]["launches"]["flash_fwd"] +
-             srv["launches"]["flash_fwd"] + served["launches"]["flash_fwd"],
+             srv["launches"]["flash_fwd"] + served["launches"]["flash_fwd"] +
+             served["spec"]["launches"]["flash_fwd"],
              max_abs_err=max(r["max_abs_err"] for r in k1), ms=k1[0]["ms"],
              plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
              bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"],

@@ -181,12 +181,16 @@ class _GraphProgram:
     lets other threads use the card while this one captures (a server's
     scheduler thread).  A capture that fails leaves no graph, restores
     the caller's stream and hands its memory pool to the next capture,
-    so a caller may run ``run()`` instead and capture again later."""
+    so a caller may run ``run()`` instead and capture again later.
+    ``stream`` is the side stream of the warm-up and the captures
+    (default: a new one at the first call); programs that share one
+    share what is kept per stream (K4's scratch, the allocator's cached
+    blocks)."""
 
     debug = False
 
     def __init__(self, fn, device, pool, inputs, key=None,
-                 error_mode="global"):
+                 error_mode="global", stream=None):
         self.fn = fn
         self.on_card = torch.device(device).type == "cuda"
         self.pool = pool
@@ -204,7 +208,7 @@ class _GraphProgram:
         self.launches = {}
         self.recorded = {}
         self.capture_s = None
-        self.stream = None          # the warm-up's, then the captures'
+        self.stream = stream        # the warm-up's, then the captures'
 
     def run(self, capturing=False):
         """``fn()`` with the program's key pushed; outside a capture it
@@ -224,7 +228,9 @@ class _GraphProgram:
             return self.run()
         if self.calls == 1 and self.graph is None:
             cur = torch.cuda.current_stream()
-            side = self.stream = torch.cuda.Stream()
+            if self.stream is None:
+                self.stream = torch.cuda.Stream()
+            side = self.stream
             side.wait_stream(cur)
             with torch.cuda.stream(side):
                 outs = self.run()

@@ -44,6 +44,17 @@ The rest of the engine:
 
 ``kv_generate`` runs the unfused step against a pool with one page per
 row.
+
+int8 K/V pages (the serving pool's ``kv_dtype="int8"``): a pool is a
+``(codes, scales)`` pair, int8 codes ``(NL, NPAGES + 1, KV, page, D)``
+and one f32 scale per (layer, page, KV head) ``(NL, NPAGES + 1, KV)``.
+A step or chunk gathers the layer's pages dequantized to the compute
+dtype, lands its own exact new columns in that dense view and attends,
+then rewrites the touched pages through an f32 dequantization
+(``_kv_step_rmw``, ``_kv_chunk_rmw``, ``_kv_verify_rmw``), each page's
+old scale the new one's floor, as the reference does.
+``pool_verify_paged`` scores a block of drafted tokens per slot
+(speculative decoding).
 """
 from __future__ import annotations
 
@@ -155,6 +166,118 @@ def _fused_pack(model, quant):
     return _cached(model, "_fused_pack_cache",
                    [p for blk in model.blocks for p in blk.parameters()],
                    build, tag=bool(quant))
+
+
+# the int8 page pair's dtypes: codes, and one scale a (layer, page, head)
+_KV_CODE_DTYPE = torch.int8
+_KV_SCALE_DTYPE = torch.float32
+
+
+def _kv_dequant(codes, scales, dtype):
+    """int8 page codes -> ``dtype`` values: ``codes * scale``, the f32
+    scale of each (page, head) broadcast over the trailing ``(page, D)``
+    axes.  Zero codes and a zero scale (the trash page) give zeros."""
+    return (codes.to(_KV_SCALE_DTYPE) * scales[..., None, None]).to(dtype)
+
+
+def _kv_requant(vals, floor_scales):
+    """Symmetric int8 quantization of ``vals`` over its trailing ``(page,
+    D)`` axes: scale ``max(max(amax / 127, floor), 1e-8)``, codes
+    ``round(v / scale)`` (half to even).  ``floor_scales`` (the page's
+    old scales, or ``0.0`` for fresh pages) keeps a rewrite lossless for
+    columns it does not touch: when the range does not grow, every old
+    code maps to itself.  Both quotients are true divisions by a tensor
+    (a CUDA division by a Python number multiplies by its reciprocal)."""
+    v32 = vals.to(_KV_SCALE_DTYPE)
+    amax = v32.abs().amax(dim=(-2, -1))
+    s = amax / torch.full_like(amax, 127.0)
+    if torch.is_tensor(floor_scales):
+        s = torch.maximum(s, floor_scales)
+    else:
+        s = torch.clamp(s, min=float(floor_scales))
+    s = torch.clamp(s, min=1e-8)
+    codes = torch.round(v32 / s[..., None, None]).to(_KV_CODE_DTYPE)
+    return codes, s
+
+
+def _zero_trash(pool):
+    """Zero the trash page of an int8 pool, codes and scales, so that
+    sentinel entries gather zeros (the reference's ``mode="fill"``)."""
+    codes, scales = pool
+    codes[:, -1].zero_()
+    scales[:, -1].zero_()
+
+
+def _kv_step_rmw(pool, pg, iB, offs, newcol):
+    """The step's requantizing page rewrite, in place: gather each row's
+    frontier page ``pg[b]`` (codes and scale), dequantize to f32, land
+    row ``b``'s new column ``newcol[b]`` (NL, KV, D) at page offset
+    ``offs[b]``, requantize with the old scale as floor and scatter
+    codes and scales back.  Sentinel rows gather zeros and write the
+    trash page.  Returns the pool."""
+    codes, scales = pool
+    _zero_trash(pool)
+    old_s = scales[:, pg]                               # (NL, B, KV)
+    vals = _kv_dequant(codes[:, pg], old_s, torch.float32)
+    vals[:, iB, :, offs, :] = newcol.to(torch.float32)  # (B, NL, KV, D)
+    q, s = _kv_requant(vals, old_s)
+    codes[:, pg] = q
+    scales[:, pg] = s
+    return pool
+
+
+def _window(win, lead, ntp, page):
+    """(NL, *lead, NTP, KV, page, D) pages -> (NL, *lead, KV, NTP * page
+    + 1, D) columns, the last one a drop slot for out-of-window writes."""
+    nl, kv, d = win.shape[0], win.shape[-3], win.shape[-1]
+    n = len(lead)
+    flat = win.movedim(n + 2, n + 1).reshape((nl,) + lead +
+                                             (kv, ntp * page, d))
+    return torch.nn.functional.pad(flat, (0, 0, 0, 1))
+
+
+def _unwindow(flat, lead, ntp, page):
+    nl, kv, d = flat.shape[0], flat.shape[-3], flat.shape[-1]
+    n = len(lead)
+    return flat[..., :ntp * page, :].reshape(
+        (nl,) + lead + (kv, ntp, page, d)).movedim(n + 1, n + 2)
+
+
+def _kv_chunk_rmw(pool, wpgs, loc, new_cd, page, ntp):
+    """The chunk's requantizing page-window rewrite, in place: the
+    chunk's columns touch at most ``ntp`` consecutive pages ``wpgs``
+    (NTP,) of one row; gather them, dequantize, land ``new_cd`` (NL, KV,
+    C, D) at window offsets ``loc`` (C,) (``ntp * page``: dropped),
+    requantize each page with its old scale as floor, scatter back."""
+    codes, scales = pool
+    _zero_trash(pool)
+    old_s = scales[:, wpgs]                             # (NL, NTP, KV)
+    win = _kv_dequant(codes[:, wpgs], old_s, torch.float32)
+    flat = _window(win, (), ntp, page)                  # (NL, KV, W+1, D)
+    flat[:, :, loc, :] = new_cd.to(torch.float32)
+    q, s = _kv_requant(_unwindow(flat, (), ntp, page), old_s)
+    codes[:, wpgs] = q
+    scales[:, wpgs] = s
+    return pool
+
+
+def _kv_verify_rmw(pool, wpgs, iB, loc, new_bd, page, ntp):
+    """``_kv_chunk_rmw`` batched over slots, in place: slot ``b``'s
+    block lands in its window pages ``wpgs[b]`` at offsets ``loc[b]``;
+    ``new_bd`` is (B, C, NL, KV, D).  As in the reference, every column
+    of the block is quantized before acceptance is known, so a rejected
+    draft can ratchet its page's scale (PARITY.md)."""
+    codes, scales = pool
+    _zero_trash(pool)
+    old_s = scales[:, wpgs]                             # (NL, B, NTP, KV)
+    win = _kv_dequant(codes[:, wpgs], old_s, torch.float32)
+    B = wpgs.shape[0]
+    flat = _window(win, (B,), ntp, page)                # (NL, B, KV, W+1, D)
+    flat[:, iB[:, None], :, loc, :] = new_bd.to(torch.float32)
+    q, s = _kv_requant(_unwindow(flat, (B,), ntp, page), old_s)
+    codes[:, wpgs] = q
+    scales[:, wpgs] = s
+    return pool
 
 
 def _check_args(prefill, weights, fused, stacked):
@@ -351,143 +474,212 @@ class _DecodeEngine:
         o = torch.matmul(p.double(), vc.double()).to(self.cdtype)
         return o.reshape(B, H * D)
 
+    def _mlp(self, blk, i, x, o):
+        """The rest of a layer after attention: output projection and
+        residual, norm, MLP and residual (``x``, ``o`` (N, U))."""
+        if self.is_llama:
+            x = x + self._lin(o, i, "o")
+            h2 = blk.rms2(x)
+            if self.q8 is not None:
+                # SwiGLU decomposed, as the reference's int8 arm
+                g = self._lin(h2, i, "gate")
+                return x + self._lin(g * torch.sigmoid(g) *
+                                     self._lin(h2, i, "up"), i, "down")
+            return x + blk.mlp(h2)
+        x = x + self._lin(o, i, "proj")
+        h2 = blk.ln2(x)
+        return x + self._lin(self._lin(h2, i, "fc1", self.act_t), i, "fc2")
+
+    def _qkv(self, blk, i, x, pos, n):
+        """q (N, H, n, D), k and v (N, KV, n, D) of the rows ``x`` (N * n,
+        U): ``n`` consecutive positions a row from ``pos`` (a host int
+        or (N,)), Llama's rotated."""
+        U, H, KV, D = self.U, self.H, self.KV, self.D
+        N = x.shape[0] // n
+        if self.is_llama:
+            h = blk.rms1(x)
+            q, k, v = (self._lin(h, i, kind).reshape(N, n, nh, D)
+                       .transpose(1, 2)
+                       for kind, nh in (("q", H), ("k", KV), ("v", KV)))
+            q = rope(q, base=self.rope_base, position_offset=pos)
+            k = rope(k, base=self.rope_base, position_offset=pos)
+            return q, k, v
+        qkv = self._lin(blk.ln1(x), i, "qkv")                  # (N n, 3U)
+        return tuple(qkv[:, j * U:(j + 1) * U].reshape(N, n, H, D)
+                     .transpose(1, 2) for j in range(3))
+
+    def _view(self, pool, i, pt):
+        """Layer ``i``'s pages through the table ``pt`` (B, P) as dense
+        (B, KV, P * page, D) views in the compute dtype (an int8 pool
+        dequantized), the trash page zeroed first."""
+        if isinstance(pool, tuple):
+            codes, scales = pool
+            codes[i, -1].zero_()
+            scales[i, -1].zero_()
+            g = _kv_dequant(codes[i][pt], scales[i][pt], self.cdtype)
+        else:
+            pool[i, -1].zero_()
+            g = pool[i][pt]
+        B, P, KV, page, D = g.shape
+        return g.permute(0, 2, 1, 3, 4).reshape(B, KV, P * page, D)
+
     @torch.no_grad()
     def paged_step(self, tok, pos, kp, vp, pt, page):
         """Token ``tok`` (B,) at per-row position ``pos`` (B,) -> f32
         logits (B, V).  Writes the new K/V columns into the pools ``kp``,
         ``vp`` (NL, NPAGES + 1, KV, page, D) in place through the page
         table ``pt`` (B, MAXP) int64, whose entries equal to NPAGES are
-        the trash page."""
+        the trash page.  An int8 pool (a ``(codes, scales)`` pair) is
+        read dequantized to the compute dtype with the step's exact new
+        column landed in the view; its frontier pages are requantized
+        after the last layer (``_kv_step_rmw``), as in the reference."""
         m = self.model
         B = tok.shape[0]
-        U, H, KV, D = self.U, self.H, self.KV, self.D
-        trash = kp.shape[1] - 1
+        quant = isinstance(kp, tuple)
         maxp = pt.shape[1]
         T = maxp * page
         iB = torch.arange(B, device=tok.device)
         pg = pt[iB, torch.clamp(pos // page, max=maxp - 1)]
         off = pos % page
+        vpos = torch.clamp(pos, max=T - 1)
         live = torch.arange(T, device=tok.device)[None, None, None, :] <= \
             pos[:, None, None, None]                        # (B, 1, 1, T)
         x = self.embed(tok, pos)
+        cols = ([], [])
         for i, blk in enumerate(m.blocks):
-            if self.is_llama:
-                h = blk.rms1(x)
-                q = self._lin(h, i, "q").reshape(B, H, 1, D)
-                k = self._lin(h, i, "k").reshape(B, KV, 1, D)
-                v = self._lin(h, i, "v").reshape(B, KV, D)
-                q = rope(q, base=self.rope_base, position_offset=pos)[:, :, 0]
-                k = rope(k, base=self.rope_base, position_offset=pos)[:, :, 0]
-            else:
-                h = blk.ln1(x)
-                qkv = self._lin(h, i, "qkv")                   # (B, 3U)
-                q, k, v = (qkv[:, j * U:(j + 1) * U].reshape(B, H, D)
-                           for j in range(3))
+            q, k, v = (t[:, :, 0] for t in self._qkv(blk, i, x, pos, 1))
             views = []
-            for pool, new in ((kp[i], k), (vp[i], v)):
-                pool[pg, :, off] = new          # the new column first ...
-                pool[trash].zero_()             # ... sentinel writes vanish
-                views.append(pool[pt].permute(0, 2, 1, 3, 4)
-                             .reshape(B, KV, T, D))
-            o = self._attend(q, views[0], views[1], live)
-            if self.is_llama:
-                x = x + self._lin(o, i, "o")
-                h2 = blk.rms2(x)
-                if self.q8 is not None:
-                    # SwiGLU decomposed, as the reference's int8 arm
-                    g = self._lin(h2, i, "gate")
-                    x = x + self._lin(g * torch.sigmoid(g) *
-                                      self._lin(h2, i, "up"), i, "down")
+            for pool, new, col in ((kp, k, cols[0]), (vp, v, cols[1])):
+                if quant:
+                    view = self._view(pool, i, pt)
+                    view[iB, :, vpos] = new     # the exact column
+                    col.append(new)
                 else:
-                    x = x + blk.mlp(h2)
-            else:
-                x = x + self._lin(o, i, "proj")
-                h2 = blk.ln2(x)
-                x = x + self._lin(self._lin(h2, i, "fc1", self.act_t), i,
-                                  "fc2")
+                    pool[i][pg, :, off] = new   # the new column first ...
+                    view = self._view(pool, i, pt)  # ... trash zeroed
+                views.append(view)
+            x = self._mlp(blk, i, x, self._attend(q, views[0], views[1],
+                                                  live))
+        if quant:
+            for pool, col in ((kp, cols[0]), (vp, cols[1])):
+                _kv_step_rmw(pool, pg, iB, off, torch.stack(col, 1))
         return self.head_logits(m.ln_f(x))
+
+    def _block(self, toks, pos, kp, vp, pt, page, nlast=None):
+        """The pass a chunk and a verify share: a block ``toks`` (B, C) a
+        row at absolute positions ``pos[b] .. pos[b] + C - 1`` through
+        the page-table rows ``pt`` (B, MAXP).  Per layer each row's pages
+        are gathered into a dense (KV, T, D) view, the block's K/V lands
+        in it before attention (a column at or past ``T`` in a drop
+        column past the view, never clamped onto a live one), and one
+        mask ``t <= pos[b] + j`` covers the cached prefix and the block's
+        own causality.  The block's columns go to the pages through the
+        rows (past ``T`` or the reserved pages: the trash page): written
+        per layer in a native pool; requantized after the last layer in
+        an int8 pool, a chunk's columns past ``nlast`` left out (they
+        would raise their page's scale).  Returns the hidden states (B C,
+        U) before ``ln_f``."""
+        m = self.model
+        B, C = toks.shape
+        U, H, KV, D = self.U, self.H, self.KV, self.D
+        G = H // KV
+        quant = isinstance(kp, tuple)
+        trash = (kp[0] if quant else kp).shape[1] - 1
+        maxp = pt.shape[1]
+        T = maxp * page
+        dev = toks.device
+        iB = torch.arange(B, device=dev)
+        cpos = pos[:, None] + torch.arange(C, device=dev)   # (B, C)
+        inside = cpos < T
+        wpos = torch.where(inside, cpos, torch.full_like(cpos, T))
+        # one trash page more a row: the view's drop columns
+        ptx = torch.cat([pt, torch.full((B, 1), trash, dtype=pt.dtype,
+                                        device=dev)], 1)
+        x = embedding(toks.reshape(-1), m.wte.weight)       # (B C, U)
+        if not self.is_llama:
+            # columns past the table read its last row: never attended
+            wp = m.wpe.weight
+            x = x + embedding(torch.clamp(cpos, max=wp.shape[0] - 1)
+                              .reshape(-1), wp)
+        live = torch.arange(T, device=dev)[None, None] <= cpos[:, :, None]
+        pgs = torch.where(inside, pt[iB[:, None],
+                                     torch.clamp(cpos // page, max=maxp - 1)],
+                          torch.full_like(cpos, trash))
+        offs = cpos % page
+        cols = ([], [])
+        for i, blk in enumerate(m.blocks):
+            q, k, v = self._qkv(blk, i, x, pos, C)          # (B, n, C, D)
+            views = []
+            for pool, new, col in ((kp, k, cols[0]), (vp, v, cols[1])):
+                new = new.transpose(1, 2)                   # (B, C, KV, D)
+                view = self._view(pool, i, ptx)
+                view[iB[:, None], :, wpos] = new
+                views.append(view[:, :, :T])
+                if quant:
+                    col.append(new)
+                else:
+                    pool[i][pgs, :, offs] = new
+            qg = q.reshape(B, KV, G, C, D)
+            s = torch.matmul(qg.float(), views[0].float()[:, :, None]
+                             .transpose(-1, -2)) * self.scale  # (B,KV,G,C,T)
+            s = torch.where(live[:, None, None], s,
+                            torch.full_like(s, _NEG_INF))
+            p = torch.softmax(s, dim=-1).to(self.cdtype)
+            # p.V summed in f64 and rounded once, as in ``_attend``
+            o = torch.matmul(p.double(), views[1].double()[:, :, None]) \
+                .to(self.cdtype)
+            o = o.permute(0, 3, 1, 2, 4).reshape(B * C, U)
+            x = self._mlp(blk, i, x, o)
+        if quant:
+            ntp = (C + page - 2) // page + 1
+            p0 = pos // page
+            widx = p0[:, None] + torch.arange(ntp, device=dev)
+            wpgs = torch.where(
+                widx < maxp, pt[iB[:, None], torch.clamp(widx, max=maxp - 1)],
+                torch.full_like(widx, trash))               # (B, NTP)
+            keep = inside if nlast is None else \
+                inside & (torch.arange(C, device=dev) <= nlast)[None]
+            loc = torch.where(keep, cpos - p0[:, None] * page,
+                              torch.full_like(cpos, ntp * page))
+            for pool, col in ((kp, cols[0]), (vp, cols[1])):
+                new = torch.stack(col, 2)                   # (B, C, NL, KV, D)
+                if nlast is None:
+                    _kv_verify_rmw(pool, wpgs, iB, loc, new, page, ntp)
+                else:
+                    _kv_chunk_rmw(pool, wpgs[0], loc[0],
+                                  new[0].permute(1, 2, 0, 3), page, ntp)
+        return x
 
     @torch.no_grad()
     def chunk_tokens(self, toks, off, nlast, ptrow, kp, vp, page):
         """One chunk of one sequence's prefill against the paged pool
         (chunked prefill, and the prefix cache's suffix fill): ``toks``
         (C,) int64 at absolute positions ``off .. off + C - 1`` of the
-        slot whose page-table row is ``ptrow`` (MAXP,) int64.  Per layer
-        the cached prefix is gathered through the row into a dense
-        (KV, T, D) view, the chunk's K/V lands in it before attention,
-        and one mask ``t <= off + j`` covers the prefix and the chunk's
-        own causality; then the chunk's columns scatter back through the
-        row (positions at or past T, or past the reserved pages, go to
-        the trash page).  Returns the f32 logits (1, V) at ``off +
-        nlast``, from the native head, as the batched prefill's.
-        ``off`` and ``nlast`` are host ints.  In int8 every projection
-        runs ``q8_matvec`` on the (C, U) rows; Llama's SwiGLU is then
+        slot whose page-table row is ``ptrow`` (MAXP,) int64, through
+        ``_block``.  Returns the f32 logits (1, V) at ``off + nlast``,
+        from the native head, as the batched prefill's.  ``off`` and
+        ``nlast`` are host ints.  In int8 every projection runs
+        ``q8_matvec`` on the (C, U) rows; Llama's SwiGLU is then
         decomposed, as in ``paged_step``."""
-        m = self.model
-        C = toks.shape[0]
-        U, H, KV, D = self.U, self.H, self.KV, self.D
-        G = H // KV
-        trash = kp.shape[1] - 1
-        maxp = ptrow.shape[0]
-        T = maxp * page
-        dev = toks.device
-        cpos = off + torch.arange(C, device=dev)            # absolute
-        x = embedding(toks, m.wte.weight)                   # (C, U)
-        if not self.is_llama:
-            # pad columns past the table read its last row: they are
-            # never attended by a prompt row
-            x = x + embedding(torch.clamp(cpos, max=m.wpe.weight.shape[0]
-                                          - 1), m.wpe.weight)
-        live = torch.arange(T, device=dev)[None, :] <= cpos[:, None]
-        pgs = torch.where(cpos < T,
-                          ptrow[torch.clamp(cpos // page, max=maxp - 1)],
-                          torch.full_like(cpos, trash))
-        offs = cpos % page
-        n = min(C, T - off)             # chunk columns inside the view
-        for i, blk in enumerate(m.blocks):
-            if self.is_llama:
-                h = blk.rms1(x)
-                q, k, v = (self._lin(h, i, kind).reshape(C, nh, D)
-                           .transpose(0, 1)[None]
-                           for kind, nh in (("q", H), ("k", KV), ("v", KV)))
-                q = rope(q, base=self.rope_base, position_offset=off)
-                k = rope(k, base=self.rope_base, position_offset=off)
-            else:
-                h = blk.ln1(x)
-                qkv = self._lin(h, i, "qkv")                   # (C, 3U)
-                q, k, v = (qkv[:, j * U:(j + 1) * U].reshape(C, H, D)
-                           .transpose(0, 1)[None] for j in range(3))
-            views = []
-            for pool, new in ((kp[i], k[0]), (vp[i], v[0])):
-                pool[trash].zero_()             # sentinel entries read 0
-                view = pool[ptrow].permute(1, 0, 2, 3).reshape(KV, T, D)
-                view[:, off:off + n] = new[:, :n]
-                views.append(view)
-                pool[pgs, :, offs] = new.transpose(0, 1)
-            qg = q.reshape(KV, G, C, D)
-            s = torch.matmul(qg.float(), views[0].float()[:, None]
-                             .transpose(-1, -2)) * self.scale  # (KV,G,C,T)
-            s = torch.where(live, s, torch.full_like(s, _NEG_INF))
-            p = torch.softmax(s, dim=-1).to(self.cdtype)
-            # p.V summed in f64 and rounded once, as in ``_attend``
-            o = torch.matmul(p.double(), views[1].double()[:, None]) \
-                .to(self.cdtype)
-            o = o.permute(2, 0, 1, 3).reshape(C, U)
-            if self.is_llama:
-                x = x + self._lin(o, i, "o")
-                h2 = blk.rms2(x)
-                if self.q8 is not None:
-                    g = self._lin(h2, i, "gate")
-                    x = x + self._lin(g * torch.sigmoid(g) *
-                                      self._lin(h2, i, "up"), i, "down")
-                else:
-                    x = x + blk.mlp(h2)
-            else:
-                x = x + self._lin(o, i, "proj")
-                h2 = blk.ln2(x)
-                x = x + self._lin(self._lin(h2, i, "fc1", self.act_t), i,
-                                  "fc2")
-        return self.head_logits(m.ln_f(x[nlast:nlast + 1]), q8=False)
+        pos = torch.full((1,), off, dtype=torch.int64, device=toks.device)
+        x = self._block(toks[None], pos, kp, vp, ptrow[None], page, nlast)
+        return self.head_logits(self.model.ln_f(x[nlast:nlast + 1]),
+                                q8=False)
+
+    @torch.no_grad()
+    def pool_verify_paged(self, toks, pos, kp, vp, pt, page):
+        """Draft-and-verify scoring against the paged pool (speculative
+        decoding): slot ``b``'s block ``toks[b]`` (C,) holds its last
+        emitted token (column 0, not yet attended) and C - 1 drafts, at
+        positions ``pos[b] .. pos[b] + C - 1``; ONE pass over all layers
+        (``_block``) gives the f32 logits (B, C, V) of every column from
+        the step's own head (K4 in int8), so ``argmax`` of column j is the
+        token the plain step would emit after position ``pos[b] + j``.
+        The block's K/V stays in the pages: a rejected tail lies past the
+        slot's advanced position, masked and later overwritten."""
+        B, C = toks.shape
+        x = self._block(toks, pos, kp, vp, pt, page)
+        return self.head_logits(self.model.ln_f(x)).reshape(B, C, -1)
 
     @torch.no_grad()
     def fused_step(self, tok, t, kc, vc):

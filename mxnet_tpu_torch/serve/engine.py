@@ -1,15 +1,20 @@
 """Paged slot-pool decode programs — the device side of the
 continuous-batching server (``serve/server.py``).
 
-Port of ``mxnet_tpu/serve/engine.py`` (native-dtype pages).  The resident
-K/V store is a page pool ``(NL, NPAGES + 1, H, PAGE, D)`` shared by all
-in-flight sequences and addressed through per-slot page tables.  Page
+Port of ``mxnet_tpu/serve/engine.py``.  The resident K/V store is a page
+pool ``(NL, NPAGES + 1, H, PAGE, D)`` shared by all in-flight sequences
+and addressed through per-slot page tables; with ``kv_dtype="int8"``
+each of K and V is a ``(codes, scales)`` pair, int8 codes of that shape
+and one f32 scale a (layer, page, head), ``(NL, NPAGES + 1, H)``.  Page
 ``NPAGES`` is the trash page that stands for the reference's
 one-past-the-end sentinel (see ``models/decoding.py``): idle and retired
 slots carry all-trash rows, so their masked lanes can never write into a
-page they do not own.
+page they do not own.  On an int8 pool every page an admission, hit or
+first chunk reserves has its scales zeroed in that same dispatch (the
+``zpages``/``zrow`` operands): a recycled page's old scale would
+otherwise floor its new tenant's first requantization.
 
-Per pool size ``S`` there are four units of work:
+Per pool size ``S`` there are five units of work:
 
 - ``PoolPrograms.step`` — every slot advances one token
   (``_DecodeEngine.paged_step``), samples, and the retirement flags are
@@ -27,19 +32,39 @@ Per pool size ``S`` there are four units of work:
 - ``PoolPrograms.chunk`` — one slice of a long prompt (or of a partial
   hit's suffix) through the slot's page-table row
   (``_DecodeEngine.chunk_tokens``); only the final slice activates the
-  slot.
+  slot;
+- ``PoolPrograms.verify`` — speculative draft-and-verify (greedy only):
+  every slot scores its last token and up to ``k`` drafts in one pass
+  (``_DecodeEngine.pool_verify_paged``) and accepts its longest matching
+  prefix on the device; one ``_GraphProgram`` per k bucket, captured as
+  the step's is.
+
+Every program of one ``PoolPrograms`` warms up and captures on the one
+side stream it is given (a server passes its own to every pool size),
+so K4's scratch, kept per (shape, stream), is made once per shape.
 
 ``PagePool`` is the host-side free-list allocator with refcounts: the
 prefix cache maps one page into many slots' tables.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
 from ..gluon.block import _GraphProgram
+from ..models.decoding import (_KV_CODE_DTYPE, _KV_SCALE_DTYPE, _kv_requant,
+                               _zero_trash)
 
-__all__ = ["PagePool", "PoolPrograms", "pool_state_init", "pool_state_grow"]
+__all__ = ["PagePool", "PoolPrograms", "pool_state_init", "pool_state_grow",
+           "kv_page_int8_bytes"]
+
+
+def kv_page_int8_bytes(nl, kv, page, d):
+    """Device bytes of ONE int8 page across all layers, K and V together:
+    ``page * d`` one-byte codes and one f32 scale per (layer, KV head)
+    (the reference's ``serve/schema.py`` price, copied)."""
+    return 2 * nl * kv * (page * d * 1 + 4)
 
 
 class PagePool:
@@ -88,19 +113,32 @@ class PagePool:
         self.num_pages = int(new_num)
 
 
-_SLOT_FIELDS = ("pos", "tok", "active", "stop", "seed")
+_SLOT_FIELDS = ("pos", "tok", "active", "stop", "seed", "spec")
+
+
+def _pool_arrays(pool):
+    """The arrays of one pool: ``(pool,)``, or an int8 pool's codes and
+    scales."""
+    return pool if isinstance(pool, tuple) else (pool,)
 
 
 def pool_state_init(progs):
     """Fresh all-idle pool state for ``progs``: a dict of the two page
-    pools (trash page included) and the per-slot vectors ``pos`` (next
-    write index), ``tok`` (last token), ``active``, ``stop`` (retire
-    position) and ``seed``."""
+    pools (trash page included; ``(codes, scales)`` pairs on an int8
+    pool) and the per-slot vectors ``pos`` (next write index), ``tok``
+    (last token), ``active``, ``stop`` (retire position), ``seed`` and
+    ``spec`` (the slot's speculation-depth cap, 0: never)."""
     e, S = progs.eng, progs.S
     shape = (e.NL, progs.num_pages + 1, e.KV, progs.page, e.D)
     dev = e.device
-    state = {"kp": torch.zeros(shape, dtype=e.cdtype, device=dev),
-             "vp": torch.zeros(shape, dtype=e.cdtype, device=dev)}
+    state = {}
+    for name in ("kp", "vp"):
+        if progs.quant_kv:
+            state[name] = (
+                torch.zeros(shape, dtype=_KV_CODE_DTYPE, device=dev),
+                torch.zeros(shape[:3], dtype=_KV_SCALE_DTYPE, device=dev))
+        else:
+            state[name] = torch.zeros(shape, dtype=e.cdtype, device=dev)
     for name in _SLOT_FIELDS:
         dt = torch.bool if name == "active" else torch.int64
         state[name] = torch.zeros((S,), dtype=dt, device=dev)
@@ -110,18 +148,21 @@ def pool_state_init(progs):
 def pool_state_grow(state, new_s, new_pages):
     """Pad the slot vectors up to ``new_s`` slots (new lanes idle) and
     the page pools up to ``new_pages`` pages (new pages zero, the trash
-    page moved to the new end)."""
+    page moved to the new end, an int8 pool's scales too)."""
     S = state["pos"].shape[0]
-    npages = state["kp"].shape[1] - 1
+    npages = _pool_arrays(state["kp"])[0].shape[1] - 1
     if new_s <= S or new_pages < npages:
         raise MXNetError(f"pool can only grow: {S} -> {new_s} slots, "
                          f"{npages} -> {new_pages} pages")
     out = {}
     for name in ("kp", "vp"):
-        old = state[name]
-        new = old.new_zeros((old.shape[0], new_pages + 1) + old.shape[2:])
-        new[:, :npages] = old[:, :npages]
-        out[name] = new
+        grown = []
+        for old in _pool_arrays(state[name]):
+            new = old.new_zeros((old.shape[0], new_pages + 1) +
+                                old.shape[2:])
+            new[:, :npages] = old[:, :npages]
+            grown.append(new)
+        out[name] = tuple(grown) if len(grown) > 1 else grown[0]
     for name in _SLOT_FIELDS:
         old = state[name]
         new = old.new_zeros((new_s,))
@@ -131,9 +172,9 @@ def pool_state_grow(state, new_s, new_pages):
 
 
 class _HostTable:
-    """The step's page table on the host: two pinned buffers used in
-    turn, each written again only after the copy that read it has run
-    (the host may run a step ahead of the card)."""
+    """A static operand on the host: two pinned buffers used in turn,
+    each written again only after the copy that read it has run (the
+    host may run a step ahead of the card)."""
 
     def __init__(self, shape, device):
         self.cuda = device.type == "cuda"
@@ -157,15 +198,71 @@ def _with_eos(done, tok, eos_id):
     return done if eos_id is None else done | (tok == eos_id)
 
 
+class _Program:
+    """One ``_GraphProgram`` of a pool size (the step, or the verify of
+    one k bucket), its static operands' host sides and its failed
+    captures."""
+
+    def __init__(self, fn, device, operands, stream):
+        self.operands = operands            # [(static tensor, _HostTable)]
+        self.graph = _GraphProgram(fn, device, None,
+                                   [t for t, _ in operands],
+                                   error_mode="thread_local", stream=stream)
+        self.capture_failures = 0
+
+    def __call__(self, *host):
+        """Copy ``host`` into the static operands and run the program:
+        captured at its second call in ``thread_local`` error mode
+        (other threads may allocate, launch and synchronize their own
+        streams meanwhile).  A device-wide ``torch.cuda.synchronize()``
+        from another thread during the capture fails that call and the
+        capture; the call then runs the program's own function (the same
+        kernels, nothing replayed: a capture runs nothing) and the next
+        call captures again (``capture_failures`` counts them)."""
+        for (dst, table), rows in zip(self.operands, host):
+            table.copy_to(dst, rows)
+        prog = self.graph
+        capturing = prog.on_card and prog.graph is None and prog.calls >= 1
+        try:
+            return prog()
+        except Exception:
+            if not capturing or prog.graph is not None:
+                raise
+            self.capture_failures += 1
+            return prog.run()
+
+    def record(self, S, k=None):
+        """``S``, ``k`` (None for the step), ``calls``, ``captures``
+        (graphs kept), ``capture_failures``, ``replays``, ``launches``
+        (the kernels one replay launches), ``recorded`` (what its
+        captures added to the kernels' counters, though a capture runs
+        nothing) and ``capture_s``."""
+        p = self.graph
+        return {"S": S, "k": k, "calls": p.calls,
+                "captures": int(p.graph is not None),
+                "capture_failures": self.capture_failures,
+                "replays": p.replays, "launches": dict(p.launches),
+                "recorded": dict(p.recorded), "capture_s": p.capture_s}
+
+
 class PoolPrograms:
-    """Decode step, admissions and chunks for ONE pool size ``num_slots``
-    over a ``num_pages``-page pool of ``page_size``-token pages (cache
-    horizon ``max_total`` rounded up to whole pages).  ``eng`` is the
-    shared ``_DecodeEngine`` (weights, weight mode, sampler)."""
+    """Decode step, verify, admissions and chunks for ONE pool size
+    ``num_slots`` over a ``num_pages``-page pool of ``page_size``-token
+    pages (cache horizon ``max_total`` rounded up to whole pages),
+    stored at ``kv_dtype`` ("native": the compute dtype; "int8": codes
+    and per-page scales).  ``eng`` is the shared ``_DecodeEngine``
+    (weights, weight mode, sampler); ``stream`` the side stream every
+    program warms up and captures on (None: each makes its own)."""
 
     def __init__(self, eng, num_slots, max_total, page_size=16,
-                 num_pages=None, eos_id=None):
+                 num_pages=None, eos_id=None, kv_dtype="native",
+                 stream=None):
         self.eng = eng
+        if kv_dtype not in ("native", "int8"):
+            raise MXNetError(f"kv_dtype must be 'native' or 'int8', "
+                             f"got {kv_dtype!r}")
+        self.kv_dtype = kv_dtype
+        self.quant_kv = kv_dtype == "int8"
         self.S, self.T = int(num_slots), int(max_total)
         self.page = int(page_size)
         if self.page < 1:
@@ -179,17 +276,27 @@ class PoolPrograms:
                              f"got {self.num_pages}")
         self.sentinel = self.num_pages      # the trash page's index
         self.eos_id = None if eos_id is None else int(eos_id)
-        # the step program's static page table and its host side
+        self.stream = stream
+        # the programs' static page table
         self.pt = torch.full((self.S, self.maxp), self.sentinel,
                              dtype=torch.int64, device=eng.device)
         self._table = _HostTable((self.S, self.maxp), eng.device)
-        self.step_program = None
-        self._step_state = None
-        self.capture_failures = 0
+        self._step = None
+        self._verifies = {}         # k bucket -> _Program
+        self._state = None          # the state the programs were made for
+
+    @property
+    def step_program(self):
+        """The step's ``gluon.block._GraphProgram`` (None before the
+        first step)."""
+        return None if self._step is None else self._step.graph
 
     def page_bytes(self):
-        """Device bytes of ONE page across all layers, K and V together."""
+        """Device bytes of ONE page across all layers, K and V together:
+        at the compute dtype, or an int8 page's codes and scales."""
         e = self.eng
+        if self.quant_kv:
+            return kv_page_int8_bytes(e.NL, e.KV, self.page, e.D)
         return 2 * e.NL * e.KV * self.page * e.D * \
             torch.empty((), dtype=e.cdtype).element_size()
 
@@ -198,6 +305,13 @@ class PoolPrograms:
 
     def _done(self, done, tok):
         return _with_eos(done, tok, self.eos_id)
+
+    def _own(self, state):
+        """Drop programs made for another state (the state is static in
+        every program)."""
+        if self._state is not state:
+            self._step, self._verifies = None, {}
+            self._state = state
 
     def _step_fn(self, state):
         """The step program's function over ``state`` and ``self.pt``:
@@ -226,53 +340,122 @@ class PoolPrograms:
     def step(self, state, rows):
         """One decode step for every slot; ``rows`` is the (S, MAXP) int64
         host page table.  Updates ``state`` in place and returns the
-        readback ``[token, emitted, done]`` device tensors.  The program
-        is captured at its second call, in ``thread_local`` error mode:
-        other threads may allocate, launch and synchronize their own
-        streams meanwhile.  A device-wide ``torch.cuda.synchronize()``
-        from another thread during the capture fails that call and the
-        capture; the step then runs the program's own function (the same
-        kernels, nothing replayed: a capture runs nothing) and the next
-        step captures again (``capture_failures`` counts them)."""
-        self._table.copy_to(self.pt, rows)
-        prog = self.step_program
-        if prog is None or self._step_state is not state:
-            prog = self.step_program = _GraphProgram(
-                self._step_fn(state), self.eng.device, None, [self.pt],
-                error_mode="thread_local")
-            self._step_state = state
-        capturing = prog.on_card and prog.graph is None and prog.calls >= 1
-        try:
-            return prog()
-        except Exception:
-            if not capturing or prog.graph is not None:
-                raise
-            self.capture_failures += 1
-            return prog.run()
+        readback ``[token, emitted, done]`` device tensors; one
+        ``_Program`` (captured at its second call)."""
+        self._own(state)
+        if self._step is None:
+            self._step = _Program(self._step_fn(state), self.eng.device,
+                                  [(self.pt, self._table)], self.stream)
+        return self._step(rows)
+
+    def _verify_fn(self, state, ops, K):
+        """The verify program's function: the (S, K) block is each slot's
+        last token and its drafts (``ops[:, :K - 1]``, ``ops[:, K - 1]``
+        the drafts proposed, ``nd``); accepts the longest prefix of
+        drafts that the model's own greedy tokens match within ``min(nd,
+        spec)``, clamps at the first EOS and at the slot's stop
+        (``max(stop - pos, 1)``), advances nothing on an inactive lane,
+        and returns ``[out (S, K), adv (S,), done (S,)]``."""
+        e, pt, page, eos = self.eng, self.pt, self.page, self.eos_id
+        pos, tok, active = state["pos"], state["tok"], state["active"]
+        stop, spec = state["stop"], state["spec"]
+        drafts, nd = ops[:, :K - 1], ops[:, K - 1]
+        S = ops.shape[0]
+
+        def fn():
+            toks = torch.cat([tok[:, None], drafts], 1)
+            logits = e.pool_verify_paged(toks, pos, state["kp"],
+                                         state["vp"], pt, page)
+            out = torch.argmax(logits, dim=-1)                  # (S, K)
+            iK = torch.arange(K, device=out.device)
+            ok = (out[:, :-1] == drafts) & \
+                (iK[None, :-1] < torch.minimum(nd, spec)[:, None])
+            adv = torch.cumprod(ok.long(), 1).sum(1) + 1
+            if eos is not None:
+                first_eos = torch.where(out == eos, iK[None],
+                                        torch.full_like(out, K)).amin(1)
+                adv = torch.minimum(adv, first_eos + 1)
+            adv = torch.minimum(adv, torch.clamp(stop - pos, min=1))
+            adv = torch.where(active, adv, torch.zeros_like(adv))
+            nxt = torch.where(
+                active, out[torch.arange(S, device=out.device),
+                            torch.clamp(adv, min=1) - 1], tok)
+            newpos = pos + adv
+            done = _with_eos(active & (newpos >= stop), nxt, eos) & active
+            pos.copy_(newpos)
+            tok.copy_(nxt)
+            active.copy_(active & ~done)
+            return [out, adv, done]
+
+        return fn
+
+    def verify(self, state, rows, drafts, nd, k):
+        """One draft-and-verify dispatch for every slot at k bucket ``k``:
+        ``rows`` the (S, MAXP) host page table, ``drafts`` (S, k) and
+        ``nd`` (S,) int64 host arrays (the drafts each slot proposed;
+        0: a plain step through column 0).  Updates ``state`` in place
+        and returns the readback ``[out (S, k + 1), adv (S,), done
+        (S,)]``.  One ``_Program`` a k bucket, captured at its second
+        call as ``step``'s.  Greedy only."""
+        k = int(k)
+        if k < 1:
+            raise MXNetError(f"verify bucket {k} must be >= 1")
+        if self.eng.temperature != 0.0:
+            raise MXNetError(
+                "draft-and-verify acceptance is exact only for greedy "
+                f"decoding; temperature={self.eng.temperature} slots must "
+                "run the plain step (rejection sampling is out of scope "
+                "for v1)")
+        self._own(state)
+        prog = self._verifies.get(k)
+        if prog is None:
+            dev = self.eng.device
+            ops = torch.zeros((self.S, k + 1), dtype=torch.int64, device=dev)
+            prog = self._verifies[k] = _Program(
+                self._verify_fn(state, ops, k + 1), dev,
+                [(self.pt, self._table),
+                 (ops, _HostTable((self.S, k + 1), dev))], self.stream)
+        block = np.empty((self.S, k + 1), np.int64)
+        block[:, :k] = drafts
+        block[:, k] = nd
+        return prog(rows, block)
 
     def step_record(self):
-        """What this pool size's step program did so far: ``S``,
-        ``captures`` (graphs kept), ``capture_failures``, ``replays``,
-        ``launches`` (the kernels one replay launches), ``recorded``
-        (what its captures added to the kernels' counters, though a
-        capture runs nothing) and ``capture_s``."""
-        p = self.step_program
-        return {"S": self.S, "captures": int(p is not None and
-                                             p.graph is not None),
-                "capture_failures": self.capture_failures,
-                "replays": 0 if p is None else p.replays,
-                "launches": {} if p is None else dict(p.launches),
-                "recorded": {} if p is None else dict(p.recorded),
-                "capture_s": None if p is None else p.capture_s}
+        """What this pool size's step program did so far
+        (``_Program.record``)."""
+        if self._step is None:
+            return {"S": self.S, "k": None, "calls": 0, "captures": 0,
+                    "capture_failures": 0, "replays": 0, "launches": {},
+                    "recorded": {}, "capture_s": None}
+        return self._step.record(self.S)
+
+    def program_records(self):
+        """The step's record, then each verify program's by k bucket."""
+        return [self.step_record()] + [
+            self._verifies[k].record(self.S, k)
+            for k in sorted(self._verifies)]
+
+    def _reset_scales(self, state, zpages):
+        """Zero the scales of the pages ``zpages`` (int64, trash-padded)
+        of an int8 pool: freshly reserved pages enter with a zero
+        scale."""
+        if self.quant_kv and zpages is not None:
+            flat = zpages.reshape(-1)
+            for name in ("kp", "vp"):
+                state[name][1][:, flat] = 0.0
 
     def admit(self, state, prompts, true_len, slots, stop_pos, seeds,
-              pages):
+              pages, spec=None, zpages=None):
         """Admit a wave: ``prompts`` (A, P) int64 right-padded prompts
         (rows past the wave are padding); ``true_len``/``stop_pos``/
-        ``seeds`` (A,) int64; ``slots`` the wave's slot ids (a list as
-        long as the wave); ``pages`` (A, NPB) int64 reserved-page rows,
-        trash-padded.  Returns the readback ``(first_tok, done)`` for the
-        A rows."""
+        ``seeds``/``spec`` (A,) int64 (``spec``: the speculation-depth
+        cap, default 0); ``slots`` the wave's slot ids (a list as long as
+        the wave); ``pages`` (A, NPB) int64 reserved-page rows,
+        trash-padded; ``zpages`` (A, MAXP) every page each row reserved
+        (an int8 pool zeroes their scales first; the prompt's own pages
+        are quantized fresh, their padded tail zeroed so that it cannot
+        raise a scale).  Returns the readback ``(first_tok, done)`` for
+        the A rows."""
         e = self.eng
         A, P = prompts.shape
         npb = pages.shape[1]
@@ -281,13 +464,25 @@ class PoolPrograms:
         done = self._done(stop_pos <= true_len, first)
         ppad = npb * self.page
         flat = pages.reshape(A * npb)
+        self._reset_scales(state, zpages)
         for name, new in (("kp", knew), ("vp", vnew)):
             NL, H, D = new.shape[0], new.shape[2], new.shape[4]
             new = torch.nn.functional.pad(new, (0, 0, 0, ppad - P))
+            if self.quant_kv:
+                col = torch.arange(ppad, device=e.device)[None] < \
+                    true_len[:, None]                       # (A, ppad)
+                new = torch.where(col[None, :, None, :, None], new,
+                                  torch.zeros_like(new))
             new = new.reshape(NL, A, H, npb, self.page, D) \
                 .permute(0, 1, 3, 2, 4, 5) \
                 .reshape(NL, A * npb, H, self.page, D)
-            state[name][:, flat] = new
+            if self.quant_kv:
+                codes, scales = state[name]
+                q, s = _kv_requant(new, 0.0)
+                codes[:, flat] = q
+                scales[:, flat] = s
+            else:
+                state[name][:, flat] = new
         n = len(slots)
         idx = torch.as_tensor(slots, dtype=torch.int64, device=e.device)
         state["pos"][idx] = true_len[:n]
@@ -295,22 +490,36 @@ class PoolPrograms:
         state["active"][idx] = ~done[:n]
         state["stop"][idx] = stop_pos[:n]
         state["seed"][idx] = seeds[:n]
+        state["spec"][idx] = 0 if spec is None else spec[:n]
         return first, done
 
     def admit_hit(self, state, slots, true_len, last_tok, stop_pos, seeds,
-                  src, dst):
+                  src, dst, spec=None, zpages=None):
         """Admit a wave of prefix-cache hits (``true_len``/``last_tok``/
-        ``stop_pos``/``seeds``/``src``/``dst`` (A,) int64; ``slots`` the
-        wave's slot ids).  No model forward: each row copies at most one
-        copy-on-write page ``src`` -> ``dst`` (a row without a copy
-        carries the trash page on both sides), and its slot enters at
-        ``pos = L - 1`` with ``tok`` = the last prompt token, so the
-        next step recomputes that position and samples it with the
-        admission's own (seed, position).  Returns nothing: a hit's first
-        token comes from the step."""
-        for name in ("kp", "vp"):
-            pool = state[name]
-            pool[:, dst] = pool[:, src]     # every source read first
+        ``stop_pos``/``seeds``/``src``/``dst``/``spec`` (A,) int64;
+        ``slots`` the wave's slot ids).  No model forward: each row copies
+        at most one copy-on-write page ``src`` -> ``dst`` (a row without a
+        copy carries the trash page on both sides; an int8 page's codes
+        and scale together), and its slot enters at ``pos = L - 1`` with
+        ``tok`` = the last prompt token, so the next step recomputes that
+        position and samples it with the admission's own (seed,
+        position).  On an int8 pool the scales of ``zpages`` (A, MAXP),
+        each row's freshly owned pages, are zeroed after the copies'
+        sources are read and before their destinations are written.
+        Returns nothing: a hit's first token comes from the step."""
+        if self.quant_kv:
+            got = {}
+            for name in ("kp", "vp"):
+                _zero_trash(state[name])
+                got[name] = [a[:, src] for a in state[name]]
+            self._reset_scales(state, zpages)   # every source read first
+            for name in ("kp", "vp"):
+                for a, g in zip(state[name], got[name]):
+                    a[:, dst] = g
+        else:
+            for name in ("kp", "vp"):
+                pool = state[name]
+                pool[:, dst] = pool[:, src]     # every source read first
         n = len(slots)
         idx = torch.as_tensor(slots, dtype=torch.int64,
                               device=self.eng.device)
@@ -319,17 +528,21 @@ class PoolPrograms:
         state["active"][idx] = True
         state["stop"][idx] = stop_pos[:n]
         state["seed"][idx] = seeds[:n]
+        state["spec"][idx] = 0 if spec is None else spec[:n]
 
     def chunk(self, state, toks, ptrow, off, nlast, final, slot, true_len,
-              stop_pos, seed):
+              stop_pos, seed, spec=0, zrow=None):
         """One ``C``-token slice (``toks`` (C,) int64) of one prompt at
         absolute offset ``off`` through the slot's page-table row
         ``ptrow`` (MAXP,) int64.  An intermediate chunk changes no slot
         state.  The ``final`` chunk samples the first token at ``true_len
         - 1`` with the request's seed and sets the slot's ``pos``,
-        ``tok``, ``active``, ``stop`` and ``seed``.  Returns ``(first,
+        ``tok``, ``active``, ``stop``, ``seed`` and ``spec``.  ``zrow``
+        (MAXP,): pages whose scales an int8 pool zeroes first (the
+        slot's fresh pages, at its first chunk only).  Returns ``(first,
         done)``, one element each."""
         e = self.eng
+        self._reset_scales(state, zrow)
         logits = e.chunk_tokens(toks, off, nlast, ptrow, state["kp"],
                                 state["vp"], self.page)
         one = lambda v: torch.full((1,), v, dtype=torch.int64,  # noqa
@@ -343,4 +556,5 @@ class PoolPrograms:
             state["active"][slot] = ~done[0]
             state["stop"][slot] = stop_pos
             state["seed"][slot] = seed
+            state["spec"][slot] = spec
         return first, done

@@ -24,7 +24,16 @@ boundaries.  One ``pump()`` is one step boundary:
 2. **step** — if any slot is live, ONE decode step advances every
    active slot by one token: one CUDA-graph replay on the card, one
    capture a pool size.  Kernel launches are asynchronous on the card:
-   the host does not wait here.
+   the host does not wait here.  On a greedy server with speculation on
+   (the default, as in the reference: ``spec``, ``MXNET_SERVE_SPEC``),
+   the pump first drains everything in flight, the drafter
+   (``serve.draft.NGramDrafter`` unless ``drafter=`` is given) proposes
+   up to ``spec_depth`` tokens a slot from its prompt and routed tokens,
+   and when any slot proposed, ONE verify dispatch of the smallest
+   ``spec_sizes`` bucket that fits scores them all and accepts each
+   slot's longest matching prefix on the device (one CUDA-graph replay
+   a (pool size, bucket)).  A stream is the same token for token as
+   without speculation.
 3. **drain** — the PREVIOUS dispatches' small ``(token, emitted, done)``
    readbacks (copied to the host without blocking, each behind a CUDA
    event) are routed to the per-request ``TokenStream``s and retired
@@ -33,11 +42,14 @@ boundaries.  One ``pump()`` is one step boundary:
 EOS (``eos_id``) and ``max_new_tokens`` retirement are computed on the
 device by the step itself.  The prefix cache (``_PrefixIndex``) is on
 unless ``prefix_cache=False`` or ``MXNET_SERVE_PREFIX_CACHE=0``.
+``kv_dtype="int8"`` (or ``MXNET_SERVE_KV_DTYPE=int8``) stores the pages
+as int8 codes with one f32 scale a (layer, page, head): half a bf16
+pool, and the reference's one lossy serving mode (PARITY.md).
 
 Not in this slice (each enabling argument raises ``MXNetError`` naming
-it): speculative decoding, int8 KV pages, deadlines, cancellation and
-the watchdog, telemetry, the HBM budget, and the synchronous
-``kv_generate`` fallback (``MXNET_SERVE_SYNC``).
+it): deadlines, cancellation and the watchdog, telemetry, the HBM
+budget, and the synchronous ``kv_generate`` fallback
+(``MXNET_SERVE_SYNC``).
 """
 from __future__ import annotations
 
@@ -52,13 +64,12 @@ import torch
 
 from ..base import MXNetError
 from ..models.decoding import _DecodeEngine
+from .draft import NGramDrafter
 from .engine import PagePool, PoolPrograms, pool_state_grow, pool_state_init
 
 __all__ = ["DecodeServer", "TokenStream"]
 
 _LATER_SLICE = {
-    "spec": "speculative decoding", "spec_depth": "speculative decoding",
-    "spec_sizes": "speculative decoding", "drafter": "speculative decoding",
     "hbm_budget": "the HBM budget",
     "default_deadline": "deadlines", "step_timeout": "the watchdog",
 }
@@ -68,6 +79,59 @@ def _prefix_cache_from_env():
     """``MXNET_SERVE_PREFIX_CACHE``: 0 disables copy-on-write shared-
     prefix caching (default on)."""
     return os.environ.get("MXNET_SERVE_PREFIX_CACHE", "1") != "0"
+
+
+def _kv_dtype_from_env():
+    """``MXNET_SERVE_KV_DTYPE``: the paged pool's storage, ``int8``
+    (codes and one f32 scale a page and head: lossy, PARITY.md) or
+    ``native`` (the model's dtype, the default).  ``DecodeServer(
+    kv_dtype=)`` wins over it."""
+    raw = os.environ.get("MXNET_SERVE_KV_DTYPE", "native").lower()
+    if raw in ("native", "f32", "float32", "bf16", "bfloat16", ""):
+        return "native"
+    if raw == "int8":
+        return "int8"
+    raise MXNetError(f"MXNET_SERVE_KV_DTYPE={raw!r}: expected 'native' "
+                     "(model cache dtype) or 'int8'")
+
+
+def _spec_from_env():
+    """``MXNET_SERVE_SPEC``: 0 disables speculative draft-and-verify
+    decoding (default on; only greedy servers speculate)."""
+    return os.environ.get("MXNET_SERVE_SPEC", "1") != "0"
+
+
+def _spec_depth_from_env():
+    """``MXNET_SERVE_SPEC_DEPTH``: the most draft tokens a slot proposes
+    a verify dispatch (default 4; 0 disables speculation)."""
+    raw = os.environ.get("MXNET_SERVE_SPEC_DEPTH", "4")
+    try:
+        depth = int(raw)
+    except ValueError:
+        raise MXNetError(f"MXNET_SERVE_SPEC_DEPTH={raw!r}: expected "
+                         "a non-negative integer draft depth")
+    if depth < 0:
+        raise MXNetError(f"MXNET_SERVE_SPEC_DEPTH={raw!r}: draft "
+                         "depth must be >= 0")
+    return depth
+
+
+def _spec_sizes_from_env(depth):
+    """``MXNET_SERVE_SPEC_SIZES``: the verify program's k buckets (one
+    program a bucket and pool size).  Default: powers of two up to the
+    speculation depth."""
+    raw = os.environ.get("MXNET_SERVE_SPEC_SIZES")
+    if raw is None:
+        return tuple(_pow2_ladder(1, max(depth, 1)))
+    try:
+        sizes = sorted({int(x) for x in raw.split(",") if x.strip()})
+    except ValueError:
+        raise MXNetError(f"MXNET_SERVE_SPEC_SIZES={raw!r}: expected a "
+                         "comma-separated list of draft depths")
+    if not sizes or sizes[0] < 1:
+        raise MXNetError(f"MXNET_SERVE_SPEC_SIZES={raw!r}: draft depths "
+                         "must be positive")
+    return tuple(sizes)
 
 
 def _pow2_ladder(start, top):
@@ -208,11 +272,17 @@ class TokenStream:
     Host arrival times are kept in :attr:`times`, the time to first token
     in :attr:`ttft`; how the request entered its slot in
     :attr:`admission` (``mode`` "admit", "hit" or "chunk" and its
-    buckets, the reference's request-span admission fields)."""
+    buckets, the reference's request-span admission fields); its draft
+    ledger in :attr:`draft_accepted`, :attr:`draft_rejected` and
+    :attr:`accept_rate`."""
 
     def __init__(self, request_id, detokenize=None, on_token=None):
         self.request_id = request_id
         self.admission = None
+        # the draft tokens of this request that verify dispatches
+        # accepted and rejected (scheduler thread)
+        self.draft_accepted = 0
+        self.draft_rejected = 0
         self.submit_time = time.perf_counter()
         self.times = []
         self._detok = detokenize
@@ -229,6 +299,13 @@ class TokenStream:
     @property
     def done(self):
         return self._done.is_set()
+
+    @property
+    def accept_rate(self):
+        """Share of this request's proposed draft tokens that were
+        accepted (0.0 while none was proposed)."""
+        total = self.draft_accepted + self.draft_rejected
+        return self.draft_accepted / total if total else 0.0
 
     def _push(self, tok):
         if self._done.is_set():
@@ -305,14 +382,24 @@ class DecodeServer:
     between requests, copy-on-write.  A prompt longer than the largest of
     ``prefill_buckets`` streams in chunk by chunk; the one length limit
     is the pool cache length ``max_total_len``.
+
+    ``kv_dtype`` ("native" or "int8"; default ``MXNET_SERVE_KV_DTYPE``)
+    is the pages' storage.  Speculation (``spec``, default
+    ``MXNET_SERVE_SPEC``: on) runs on greedy servers only: a slot drafts
+    at most ``spec_depth`` tokens (default ``MXNET_SERVE_SPEC_DEPTH``,
+    4; clamped to the largest bucket), ``spec_sizes`` (default
+    ``MXNET_SERVE_SPEC_SIZES``: powers of two up to the depth) are the
+    verify program's k buckets, and ``drafter`` is a
+    ``serve.draft.Drafter`` (default ``NGramDrafter()``).
     """
 
     def __init__(self, model, *, max_total_len=None, pool_sizes=(1, 2, 4, 8),
                  temperature=0.0, top_k=0, eos_id=None, weights="native",
                  max_pending=256, detokenize=None, admit_sizes=None,
                  prefill_buckets=None, page_size=16, num_pages=None,
-                 kv_dtype=None, prefix_cache=None, autostart=True,
-                 **later):
+                 kv_dtype=None, prefix_cache=None, spec=None,
+                 spec_depth=None, spec_sizes=None, drafter=None,
+                 autostart=True, **later):
         for name, val in later.items():
             if name not in _LATER_SLICE:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -320,9 +407,33 @@ class DecodeServer:
                 raise MXNetError(f"DecodeServer({name}={val!r}): "
                                  f"{_LATER_SLICE[name]} is not ported yet "
                                  "(a later slice of mxnet_tpu_torch.serve)")
-        if kv_dtype not in (None, "native"):
-            raise MXNetError(f"DecodeServer(kv_dtype={kv_dtype!r}): int8 KV "
-                             "pages are not ported yet (a later slice)")
+        self.kv_dtype = str(kv_dtype).lower() if kv_dtype is not None \
+            else _kv_dtype_from_env()
+        if self.kv_dtype in ("f32", "float32", "bf16", "bfloat16"):
+            self.kv_dtype = "native"
+        if self.kv_dtype not in ("native", "int8"):
+            raise MXNetError(f"kv_dtype must be 'native' or 'int8', "
+                             f"got {kv_dtype!r}")
+        self.spec_depth = int(spec_depth) if spec_depth is not None \
+            else _spec_depth_from_env()
+        if self.spec_depth < 0:
+            raise MXNetError(f"spec_depth must be >= 0, "
+                             f"got {self.spec_depth}")
+        self.spec_sizes = tuple(spec_sizes) if spec_sizes is not None \
+            else _spec_sizes_from_env(self.spec_depth)
+        if not self.spec_sizes \
+                or list(self.spec_sizes) != sorted(set(self.spec_sizes)) \
+                or self.spec_sizes[0] < 1:
+            raise MXNetError(f"spec_sizes {self.spec_sizes} must be "
+                             "strictly increasing positive draft depths")
+        self.spec_depth = min(self.spec_depth, self.spec_sizes[-1])
+        # greedy only: acceptance compares argmax tokens, so a sampled
+        # server never builds a verify program
+        self.spec_enabled = ((bool(spec) if spec is not None
+                              else _spec_from_env())
+                             and self.spec_depth > 0
+                             and temperature == 0.0)
+        self._drafter = drafter if drafter is not None else NGramDrafter()
         if os.environ.get("MXNET_SERVE_SYNC", "0") == "1":
             raise MXNetError("MXNET_SERVE_SYNC=1: the synchronous "
                              "kv_generate fallback is not ported yet")
@@ -346,8 +457,10 @@ class DecodeServer:
         self._num_pages_fixed = num_pages is not None
         self._detok = detokenize
         self._eng = _DecodeEngine(model, temperature, top_k, weights)
-        self._progs = PoolPrograms(self._eng, self.pool_sizes[0], self.T,
-                                   self.page_size, num_pages, eos_id)
+        # one side stream for every program the server captures
+        self._stream = torch.cuda.Stream(self._eng.device) \
+            if self._eng.device.type == "cuda" else None
+        self._progs = self._pool_programs(self.pool_sizes[0], num_pages)
         self._state = pool_state_init(self._progs)
         self._pages = PagePool(self._progs.num_pages)
         self.prefix_cache_enabled = bool(prefix_cache) \
@@ -373,8 +486,10 @@ class DecodeServer:
         self._capacity_lane_steps = 0
         self.counters = {"step_dispatches": 0, "admit_dispatches": 0,
                          "chunk_dispatches": 0, "prefix_hits": 0,
-                         "cow_copies": 0, "pool_grows": 0}
-        self._retired_steps = []    # step_record() of each outgrown pool
+                         "cow_copies": 0, "pool_grows": 0,
+                         "verify_dispatches": 0, "draft_proposed": 0,
+                         "draft_accepted": 0, "draft_rejected": 0}
+        self._retired = []      # program_records() of each outgrown pool
         self._thread = None
         if autostart:
             self.start()
@@ -449,10 +564,17 @@ class DecodeServer:
         self._capacity_lane_steps = 0
 
     def stats(self):
-        """Scheduler / occupancy / page-pool snapshot."""
+        """Scheduler / occupancy / page-pool / draft-ledger snapshot."""
+        acc = self.counters["draft_accepted"]
+        rej = self.counters["draft_rejected"]
         return {
             "num_slots": len(self._slots),
             "steps": self._steps,
+            "spec": self.spec_enabled,
+            "spec_depth": self.spec_depth,
+            "draft_accepted": acc,
+            "draft_rejected": rej,
+            "draft_accept_rate": acc / (acc + rej) if acc + rej else 0.0,
             "occupancy": (self._occupied_lane_steps /
                           self._capacity_lane_steps
                           if self._capacity_lane_steps else 0.0),
@@ -462,6 +584,8 @@ class DecodeServer:
             "pages_total": self._pages.num_pages,
             "pages_in_use": self._pages.in_use,
             "prefix_nodes": 0 if self._prefix is None else len(self._prefix),
+            "kv_dtype": self.kv_dtype,
+            "page_bytes": self._progs.page_bytes(),
             "pool_bytes": (self._pages.num_pages + 1) *
             self._progs.page_bytes(),
             "counters": dict(self.counters),
@@ -471,8 +595,14 @@ class DecodeServer:
         """What the step program of every pool size served so far did
         (``PoolPrograms.step_record``, one ``gluon.block._GraphProgram``
         a size, captured once on the card), oldest first: an outgrown
-        pool keeps only this record, its state and graph are freed."""
-        return self._retired_steps + [self._progs.step_record()]
+        pool keeps only its records, its state and graphs are freed."""
+        return [r for r in self.program_records() if r["k"] is None]
+
+    def program_records(self):
+        """The records of every program served so far, each step's then
+        its pool size's verify programs by k bucket
+        (``PoolPrograms.program_records``), oldest pool size first."""
+        return self._retired + self._progs.program_records()
 
     def close(self, drain=True, timeout=60.0):
         """Stop the scheduler.  ``drain=True`` serves everything already
@@ -508,15 +638,28 @@ class DecodeServer:
 
     # -- scheduler ------------------------------------------------------- #
     def pump(self):
-        """One scheduler round: admissions, one step, drain.  Returns True
-        if any work happened."""
+        """One scheduler round: admissions, one step or verify, drain.
+        Returns True if any work happened."""
         worked = self._admit_pending()
         stepped = False
         # slots mid-chunked-prefill do not step: their lanes activate at
         # the final chunk
         if self._live_slots():
-            self._dispatch_step()
-            worked = stepped = True
+            drafts = None
+            if self.spec_enabled:
+                # drafts chain off each slot's newest token, in flight
+                # until the previous dispatch drains: speculation gives
+                # up the one-dispatch overlap; the drain may retire
+                # slots, so liveness is asked again
+                worked |= self._flush_drain()
+                if self._live_slots():
+                    drafts = self._build_drafts()
+            if drafts:
+                self._dispatch_verify(drafts)
+                worked = stepped = True
+            elif self._live_slots():
+                self._dispatch_step()
+                worked = stepped = True
         worked |= self._flush_drain(keep=1 if stepped else 0)
         return worked
 
@@ -576,12 +719,11 @@ class DecodeServer:
         new_s = next((s for s in bigger if s >= want), bigger[-1])
         new_pages = self._pages.num_pages if self._num_pages_fixed \
             else new_s * self._progs.maxp
-        # the outgrown pool's programs, state and graph go (its last step
-        # may still run: the allocator reuses their memory in stream
-        # order and the graph is destroyed once that replay ends)
-        self._retired_steps.append(self._progs.step_record())
-        self._progs = PoolPrograms(self._eng, new_s, self.T, self.page_size,
-                                   new_pages, self.eos_id)
+        # the outgrown pool's programs, state and graphs go (its last
+        # dispatch may still run: the allocator reuses their memory in
+        # stream order and a graph is destroyed once its replay ends)
+        self._retired += self._progs.program_records()
+        self._progs = self._pool_programs(new_s, new_pages)
         self._state = pool_state_grow(self._state, new_s, new_pages)
         if new_pages > self._pages.num_pages:
             self._pages.grow(new_pages)
@@ -589,6 +731,27 @@ class DecodeServer:
             self._slots.extend([None] * (new_s - S))
         self._slot_pages.extend([] for _ in range(new_s - S))
         self.counters["pool_grows"] += 1
+
+    def _pool_programs(self, S, num_pages):
+        return PoolPrograms(self._eng, S, self.T, self.page_size, num_pages,
+                            self.eos_id, self.kv_dtype, self._stream)
+
+    def _slot_spec_depth(self):
+        """The speculation-depth cap a slot gets at admission (0: never
+        speculate; the device clamps accepted drafts to it)."""
+        return self.spec_depth if self.spec_enabled else 0
+
+    def _zero_rows(self, rows):
+        """(len(rows), MAXP) int64 rows of the pages whose scales an int8
+        pool zeroes in the dispatch, trash-padded; None on a native
+        pool."""
+        if self.kv_dtype != "int8":
+            return None
+        progs = self._progs
+        z = np.full((len(rows), progs.maxp), progs.sentinel, np.int64)
+        for i, row in enumerate(rows):
+            z[i, :len(row)] = row
+        return self._tensors(z)[0]
 
     def _admit_pending(self):
         """Wave-building admission: pop every pending request the free
@@ -638,7 +801,8 @@ class DecodeServer:
                     self._chunking.append({"req": p["req"],
                                            "slot": p["slot"],
                                            "off": p["off"],
-                                           "start": p["off"]})
+                                           "start": p["off"],
+                                           "zero": p["zero"]})
             # hits first: a copy-on-write source page that another plan's
             # eviction freed and reallocated in this wave is copied before
             # any admission or chunk can overwrite it (one stream, FIFO)
@@ -706,7 +870,7 @@ class DecodeServer:
             self._slot_pages[slot] = list(shared[:keep]) + owned
             return {"mode": "hit", "req": req, "slot": slot,
                     "src": shared[m - 1] if copy else -1,
-                    "dst": owned[0] if copy else -1}
+                    "dst": owned[0] if copy else -1, "shared": keep}
         if m == 0 and L <= self.prefill_buckets[-1]:
             owned = self._alloc_pages(need)
             if owned is None:
@@ -723,7 +887,8 @@ class DecodeServer:
         self._slot_pages[slot] = list(shared) + owned
         if m:
             self.counters["prefix_hits"] += 1
-        return {"mode": "chunk", "req": req, "slot": slot, "off": m * PG}
+        return {"mode": "chunk", "req": req, "slot": slot, "off": m * PG,
+                "zero": owned}
 
     def _tensors(self, *arrays):
         dev = self._eng.device
@@ -740,6 +905,7 @@ class DecodeServer:
         true_len = np.ones((A,), np.int64)     # idle rows read column 0
         stop_pos = np.zeros((A,), np.int64)
         seeds = np.zeros((A,), np.int64)
+        spec = np.zeros((A,), np.int64)
         pages = np.full((A, npb), progs.sentinel, np.int64)
         for i, (slot, req) in enumerate(wave):
             n = req.prompt.size
@@ -747,14 +913,17 @@ class DecodeServer:
             true_len[i] = n
             stop_pos[i] = n + req.max_new - 1
             seeds[i] = req.seed
+            spec[i] = self._slot_spec_depth()
             row = self._slot_pages[slot]
             k = min(npb, len(row))
             pages[i, :k] = row[:k]
-        prompts, true_len, stop_pos, seeds, pages = self._tensors(
-            prompts, true_len, stop_pos, seeds, pages)
+        prompts, true_len, stop_pos, seeds, pages, spec = self._tensors(
+            prompts, true_len, stop_pos, seeds, pages, spec)
+        # every page the wave reserved, decode frontier included
+        zpages = self._zero_rows([self._slot_pages[s] for s, _ in wave])
         first, done = progs.admit(self._state, prompts, true_len,
                                   [s for s, _ in wave], stop_pos, seeds,
-                                  pages)
+                                  pages, spec, zpages)
         self.counters["admit_dispatches"] += 1
         for _, req in wave:
             req.stream.admission = {"mode": "admit", "a_bucket": A,
@@ -778,6 +947,7 @@ class DecodeServer:
         last_tok = np.zeros((A,), np.int64)
         stop_pos = np.zeros((A,), np.int64)
         seeds = np.zeros((A,), np.int64)
+        spec = np.zeros((A,), np.int64)
         src = np.full((A,), progs.sentinel, np.int64)
         dst = np.full((A,), progs.sentinel, np.int64)
         for i, plan in enumerate(hits):
@@ -787,15 +957,20 @@ class DecodeServer:
             last_tok[i] = req.prompt[-1]
             stop_pos[i] = L + req.max_new - 1
             seeds[i] = req.seed
+            spec[i] = self._slot_spec_depth()
             if plan["src"] >= 0:
                 src[i], dst[i] = plan["src"], plan["dst"]
                 self.counters["cow_copies"] += 1
             self.counters["prefix_hits"] += 1
             req.stream.admission = {"mode": "hit", "a_bucket": A,
                                     "cow_copy": bool(plan["src"] >= 0)}
+        # each row's freshly owned pages (decode frontier and the copy's
+        # destination); the shared prefix keeps its scales
+        zpages = self._zero_rows([self._slot_pages[p["slot"]][p["shared"]:]
+                                  for p in hits])
         progs.admit_hit(self._state, [p["slot"] for p in hits],
                         *self._tensors(true_len, last_tok, stop_pos, seeds,
-                                       src, dst))
+                                       src, dst, spec), zpages)
 
     def _pump_chunks(self):
         """Advance every mid-prefill request by ONE chunk, interleaved
@@ -834,10 +1009,15 @@ class DecodeServer:
         row = self._slot_pages[slot]
         ptrow[:len(row)] = row
         toks, ptrow = self._tensors(toks, ptrow)
+        # the slot's fresh pages, at its first chunk only: later chunks
+        # keep the scales the earlier ones raised
+        zero = rec.pop("zero", None)
+        zrow = self._zero_rows([zero]) if zero else None
         first, done = progs.chunk(
             self._state, toks, ptrow, off,
             (L - 1 - off) if final else C - 1, final, slot, L,
-            L + req.max_new - 1, req.seed)
+            L + req.max_new - 1, req.seed, self._slot_spec_depth(),
+            None if zrow is None else zrow[0])
         self.counters["chunk_dispatches"] += 1
         rec["off"] = off + ntok
         if final:
@@ -871,6 +1051,80 @@ class DecodeServer:
         self._inflight.append(("step", _Readback(list(out)),
                                list(self._slots)))
 
+    # -- speculative decoding -------------------------------------------- #
+    def _build_drafts(self):
+        """The drafter's proposals for this pump, ``{slot: 1-D int64
+        drafts}``, or None when no slot proposed (the pump then takes a
+        plain step).  Drafts chain off the last token routed to each
+        stream, so a just-admitted slot (a hit too, whose first step
+        recomputes its last prompt position) proposes nothing until its
+        first token has drained."""
+        drafts = {}
+        for slot, req in enumerate(self._slots):
+            if req is None or slot in self._chunk_slots:
+                continue
+            toks = req.stream._toks
+            if not toks:
+                continue
+            # a verify emits up to k + 1 tokens: never past the budget
+            k = min(self.spec_depth, req.max_new - len(toks) - 1)
+            if k < 1:
+                continue
+            hist = np.concatenate([req.prompt, np.asarray(toks, np.int64)])
+            prop = self._drafter.propose(hist, k)
+            if prop is not None and len(prop):
+                drafts[slot] = np.asarray(prop, np.int64).reshape(-1)[:k]
+        return drafts or None
+
+    def _dispatch_verify(self, drafts):
+        """ONE verify dispatch at the smallest ``spec_sizes`` bucket that
+        fits the longest draft; a slot without drafts takes a plain step
+        through column 0.  A rejected tail needs no undo: its columns lie
+        past the slot's advanced position, and its pages were reserved at
+        admission."""
+        k = _bucket_for(self.spec_sizes, max(d.size for d in drafts.values()))
+        S = len(self._slots)
+        block = np.zeros((S, k), np.int64)
+        nd = np.zeros((S,), np.int64)
+        for slot, d in drafts.items():
+            nd[slot] = d.size
+            block[slot, :d.size] = d
+        out = self._progs.verify(self._state, self._page_table(), block, nd,
+                                 k)
+        self.counters["verify_dispatches"] += 1
+        self._occupied_lane_steps += sum(r is not None for r in self._slots)
+        self._capacity_lane_steps += S
+        self._inflight.append(("verify", _Readback(list(out)),
+                               (list(self._slots), nd)))
+
+    def _route_verify(self, readback, meta):
+        """Route one verify's ``(out (S, K), adv (S,), done (S,))``: every
+        live lane emits ``adv`` tokens (its accepted drafts, then the
+        model's own next token), and the draft ledgers move by what each
+        lane's proposals came to, so accepted + rejected == proposed per
+        stream and per server."""
+        toks, adv, done = readback.get()
+        snapshot, nd = meta
+        ledger = dict.fromkeys(("draft_proposed", "draft_accepted",
+                                "draft_rejected"), 0)
+        for slot, req in enumerate(snapshot):
+            n = int(adv[slot])
+            if req is None or n < 1:
+                continue                    # an inactive lane
+            for t in toks[slot, :n]:
+                req.stream._push(int(t))
+            proposed = int(nd[slot])
+            if proposed:
+                req.stream.draft_accepted += n - 1
+                req.stream.draft_rejected += proposed - (n - 1)
+                ledger["draft_proposed"] += proposed
+                ledger["draft_accepted"] += n - 1
+                ledger["draft_rejected"] += proposed - (n - 1)
+            if done[slot]:
+                self._retire(slot, req)
+        for key, v in ledger.items():
+            self.counters[key] += v
+
     # -- drain ----------------------------------------------------------- #
     def _retire(self, slot, req):
         req.stream._finish()
@@ -890,6 +1144,9 @@ class DecodeServer:
             self._pages.decref(p)
 
     def _route(self, kind, readback, meta):
+        if kind == "verify":
+            self._route_verify(readback, meta)
+            return
         if kind == "admit":
             first, done = readback.get()
             for i, (slot, req) in enumerate(meta):

@@ -122,7 +122,7 @@ def test_decode_server_refuses_llama(pair):
 
     model = pair[1]
     with pytest.raises(MXNetError, match="not ported yet"):
-        DecodeServer(model, kv_dtype="int8", autostart=False)
+        DecodeServer(model, step_timeout=5.0, autostart=False)
     srv = DecodeServer(model, max_total_len=32, pool_sizes=(1,),
                        autostart=False)
     p = onp.random.RandomState(3).randint(0, 97, (6,))

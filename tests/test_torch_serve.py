@@ -4,7 +4,9 @@ int8 streams token-identical to the JAX server and to JAX
 mid-run admission, slot reuse and pool growth; sampled streams equal the
 port's own batch-1 ``kv_generate(seed=...)``; later-slice features
 raise.  Chunked prefill, the prefix cache and Llama are held in
-``tests/test_torch_serve_paged.py``."""
+``tests/test_torch_serve_paged.py``; speculation and int8 KV pages in
+``tests/test_torch_serve_spec.py`` and
+``tests/test_torch_serve_kvquant.py``."""
 import numpy as onp
 import pytest
 
@@ -120,12 +122,20 @@ def test_eos_and_one_token_budget(pair):
     assert one.tokens(5) == full[:1]
 
 
-@pytest.mark.parametrize("kw", [dict(spec=True), dict(kv_dtype="int8"),
+@pytest.mark.parametrize("kw", [dict(step_timeout=5.0), dict(deadline=5.0),
                                 dict(hbm_budget="1G"),
                                 dict(default_deadline=5.0)])
 def test_later_slice_features_raise(pair, kw):
+    """The watchdog, per-request deadlines (at ``submit``), the HBM budget
+    and default deadlines are a later slice's."""
     from mxnet_tpu_torch.serve import DecodeServer
 
+    if "deadline" in kw:
+        srv = DecodeServer(pair[1], max_total_len=64, autostart=False)
+        with pytest.raises(MXNetError, match="not ported yet"):
+            srv.submit(_prompt(0, 3), **kw)
+        srv.close()
+        return
     with pytest.raises(MXNetError, match="not ported yet"):
         DecodeServer(pair[1], max_total_len=64, autostart=False, **kw)
 

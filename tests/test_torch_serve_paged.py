@@ -59,7 +59,8 @@ def _servers(pair, weights, **kw):
     net, model = pair
     kw = dict(max_total_len=T, prefill_buckets=BUCKETS, weights=weights,
               autostart=False, **kw)
-    return (JServer(net, spec=False, **kw), DecodeServer(model, **kw))
+    return (JServer(net, spec=False, **kw),
+            DecodeServer(model, spec=False, **kw))
 
 
 def _counts(srv):
@@ -365,7 +366,7 @@ def test_outgrown_pool_is_freed_at_growth(nets):
 
     _, model = nets["llama"]
     srv = DecodeServer(model, max_total_len=T, prefill_buckets=BUCKETS,
-                       pool_sizes=(1, 2), autostart=False)
+                       pool_sizes=(1, 2), spec=False, autostart=False)
     prompts = [_prompt(360, 5), _prompt(361, 7)]
     enabled = gc.isenabled()
     gc.disable()
@@ -423,7 +424,8 @@ def _card_run(model, prompts, temperature, new):
 
     srv = DecodeServer(model, max_total_len=128, pool_sizes=(2, 4),
                        weights="int8", prefill_buckets=(8, 16),
-                       temperature=temperature, top_k=5, autostart=False)
+                       temperature=temperature, top_k=5, spec=False,
+                       autostart=False)
     streams = [srv.submit(p, max_new_tokens=new) for p in prompts[:2]]
     for _ in range(4):
         srv.pump()
@@ -546,7 +548,7 @@ def test_server_recovers_from_a_failed_capture_on_card():
 
         srv = DecodeServer(model, max_total_len=128, pool_sizes=(2, 4),
                            weights="int8", prefill_buckets=(8, 16),
-                           autostart=False)
+                           spec=False, autostart=False)
         streams = [srv.submit(p, max_new_tokens=16) for p in prompts[:2]]
         for _ in range(4):
             srv.pump()
