@@ -172,6 +172,33 @@ Phases (each fails the run by raising; there is no CPU path):
    token, and int8 KV with spec >= 0.9 teacher-forced against native KV
    over the clear positions of the streams (each stream's raw figure and
    the margins where it parts beside it);
+12d. the sixteenth slice: the same Llama-7B (int8 weights, pools 4 and
+   8, horizon 2048, page 16, spec off unless said) through the server's
+   fault tolerance and telemetry: (1) phase 12b's requests pump-driven
+   under a fake clock (one second a pump), undisturbed and with a 12 s
+   deadline on the 100-token miss: it retires mid-decode, reason
+   ``deadline_exceeded``, a prefix of its undisturbed run, the other
+   streams equal token for token, the same steps, K4 225 a step and 224
+   a chunk, one capture a pool size; (2) the same with the late 700-token
+   miss cancelled from another thread: the others equal, a new request
+   takes the freed slot and agrees >= 0.9 teacher-forced with its batch-1
+   reference; (4) two replays of the captured 8-slot step at two clocks
+   straddling slot 0's deadline retire it at the second only; (6) ms a
+   bare replay of that step with deadlines on every slot and without
+   (turns none, set, set, none), whole step calls too, kernel nodes,
+   beside phase 12b's; (3) ``step_timeout=2.0`` on its own thread from
+   cold with no watchdog event, then ``serve.step:delay:3:5``: one
+   ``watchdog_fired`` within the timeout and one poll, every stream
+   raising an ``MXNetError`` naming ``step_timeout``; (5) a budget of the
+   4-slot pool and a 4-row admission's scratch refuses the growth to 8
+   (requested against available bytes) while four streams finish equal
+   to an unbudgeted 4-slot server's, ``pool_bytes`` the state tensors'
+   bytes, the allocator's live bytes at least that; speculation on, one
+   ``compile`` event a capture (kernel nodes in each), one TTFT
+   observation a request, the counters in ``render_prometheus()``; after
+   Llama-7B is freed, GPT-2 small with ``MXNET_SERVE_SYNC=1`` serves 7-,
+   100- and 700-token prompts through ``kv_generate`` on the card, its
+   streams and K1/K4 launches equal to three batch-1 calls';
 13. K6 (the fused 1x1-convolution backward, ``ops.conv_fused.
    conv1x1_bwd_pair``) against its plain version at the nine stride-1 1x1
    shapes of ResNet-50 at batch 128 in bf16 and one in f32: dx within 2
@@ -959,7 +986,7 @@ def _served_launches(srv, counts, before):
 
 
 def serve_run(model, scenario, what, threaded, counted=False, warm=1,
-              keep=False, spec=False, **kw):
+              keep=False, spec=False, setup=None, **kw):
     """One run of ``scenario(srv, wait)`` (it submits the requests and
     returns ``(prompts, streams, info)``) through ``DecodeServer(model,
     weights="int8", spec=spec, **kw)``, its own thread serving
@@ -970,7 +997,8 @@ def serve_run(model, scenario, what, threaded, counted=False, warm=1,
     pools they fill stay off the clock).  With
     ``counted`` the kernels' counts are set to 0 just before the
     requests and read just after, replays counted by what their capture
-    recorded.  Returns the
+    recorded.  ``setup(srv)`` runs on the new server before anything is
+    submitted (a fake clock, a pump wrapper).  Returns the
     prompts, tokens and a dict of counts and timings (``server`` too,
     open, with ``keep``)."""
     import torch
@@ -980,6 +1008,8 @@ def serve_run(model, scenario, what, threaded, counted=False, warm=1,
 
     srv = DecodeServer(model, weights="int8", autostart=threaded, spec=spec,
                        **kw)
+    if setup is not None:
+        setup(srv)
     wait = (lambda pred: _wait_thread(pred, what)) if threaded \
         else _wait_pump(srv, what)
     try:
@@ -1005,6 +1035,9 @@ def serve_run(model, scenario, what, threaded, counted=False, warm=1,
                    ledgers=[(s.draft_accepted, s.draft_rejected)
                             for s in streams],
                    admissions=[s.admission for s in streams],
+                   last_token_s=[s.times[-1] if s.times else None
+                                 for s in streams],
+                   server_label=srv.telemetry_label,
                    tokens_per_s=sum(map(len, toks)) / wall)
         if counted:
             run["launches"] = _served_launches(
@@ -2340,7 +2373,7 @@ L7_TOTAL = 2048
 L7_SYS = 512                # the shared system prompt
 
 
-def llama_scenario(vocab, extra=()):
+def llama_scenario(vocab, extra=(), deadline=None):
     """Ragged prompts of 7, 100 and 700 tokens (the 700 arriving after
     the first wave was admitted, so the pool grows 4 -> 8 and its
     admission rides the 1024 bucket through K1), one of 1800 (past the
@@ -2352,7 +2385,8 @@ def llama_scenario(vocab, extra=()):
     page) and ``Sys`` + 1 token (a full hit, no copy).  ``extra``
     ((kind, prompt, new tokens), ...) arrive with the 700.  ``info``
     holds each request's kind and budget and the dispatch counters just
-    before and just after the two full hits were admitted."""
+    before and just after the two full hits were admitted.  ``deadline``
+    ``(i, seconds)`` gives request ``i`` that deadline at ``submit``."""
     import numpy as np
 
     rs = np.random.RandomState(14)
@@ -2369,10 +2403,12 @@ def llama_scenario(vocab, extra=()):
         kinds, prompts, streams, news = [], [], [], []
 
         def submit(kind, p, new=NEW_TOKENS):
+            dl = deadline[1] if deadline is not None and \
+                deadline[0] == len(streams) else None
             kinds.append(kind)
             prompts.append(p)
             news.append(new)
-            streams.append(srv.submit(p, max_new_tokens=new))
+            streams.append(srv.submit(p, max_new_tokens=new, deadline=dl))
 
         for kind, p in first:
             submit(kind, p)
@@ -2867,7 +2903,7 @@ def spec_accept_run(model, cfg, card):
 
 
 def spec_program_checks(srv, what, card, gap_bar):
-    """On the served run's largest pool (closed, its state kept), every
+    """On the served run's largest pool (idle, its state kept), every
     slot made live at its own depth over its own pages (their contents
     the run's): (1) the greedy chain of drafts for k = 4, each slot's
     broken at its own column, through the captured verify program and
@@ -3030,6 +3066,7 @@ def check_llama_spec(model, cfg, base):
     12b's run."""
     import numpy as np
     import torch
+    from mxnet_tpu_torch.serve.schema import slot_state_bytes
 
     card = card_line()
     what = "llama_7b spec"
@@ -3041,19 +3078,22 @@ def check_llama_spec(model, cfg, base):
     prompts, toks, run = serve_run(model, scenario, what, threaded=True,
                                    counted=True, keep=True, spec=None, **kw)
     run["peak_memory"] = torch.cuda.max_memory_allocated()
+    # kept open, idle, for spec_program_checks (a close releases the
+    # pool); its thread finds no work meanwhile
     srv = run.pop("server")
-    srv.close(drain=False)
     NL = cfg.num_layers
     c, st = run["counters"], run["stats"]
     print(f"{what}: {len(prompts)} requests ({run['kinds']}), prompt lens "
           f"{[p.size for p in prompts]}; counters {c}; launches "
           f"{run['launches']} (replays counted by their capture) [{card}]",
           flush=True)
+    # the pages (trash page included) and each slot's state columns
+    slot_bytes = st["num_slots"] * slot_state_bytes()
     if st["page_bytes"] != L7_PAGE_INT8 or st["pool_bytes"] != \
-            (st["pages_total"] + 1) * L7_PAGE_INT8:
+            (st["pages_total"] + 1) * L7_PAGE_INT8 + slot_bytes:
         fail(f"{what}: page_bytes {st['page_bytes']} (want {L7_PAGE_INT8})"
              f", pool_bytes {st['pool_bytes']} for {st['pages_total']} + 1 "
-             "pages")
+             f"pages and {slot_bytes} B of slot state")
     acc, rej = c["draft_accepted"], c["draft_rejected"]
     sacc = sum(a for a, _ in run["ledgers"])
     srej = sum(r for _, r in run["ledgers"])
@@ -3134,8 +3174,11 @@ def check_llama_spec(model, cfg, base):
           f"page bytes {st['page_bytes']}; peak memory of the served run "
           f"{run['peak_memory']} (12b {b['peak_memory']}) [{card}]",
           flush=True)
-    row["programs"] = spec_program_checks(
-        srv, what, card, max(b["wide_gap_max"]))
+    try:
+        row["programs"] = spec_program_checks(
+            srv, what, card, max(b["wide_gap_max"]))
+    finally:
+        srv.close(drain=False)
     del srv
     torch.cuda.empty_cache()
     row["accept"] = spec_accept_run(model, cfg, card)
@@ -3219,6 +3262,573 @@ def check_llama_spec_f32():
     return dict(spec_equal=True, int8_teacher_forced=rates,
                 int8_teacher_forced_clear=gate,
                 verifies=orun["counters"]["verify_dispatches"])
+
+
+# --------------------------------------------------------------------------- #
+# phase 12d: deadlines, cancellation, the watchdog, the HBM budget, sync mode
+# and telemetry in DecodeServer, the sixteenth slice's path
+# --------------------------------------------------------------------------- #
+
+L7_DL_REQ = 1               # the request given a deadline: the 100-token miss
+L7_DEADLINE = 12.0          # its deadline, fake seconds (one a pump)
+L7_CANCEL_REQ = 4           # the request cancelled: the late 700-token miss
+WATCH_TIMEOUT = 2.0         # the watchdog run's step_timeout
+WATCH_POLL = 0.05           # the watchdog's poll (serve/server.py)
+WEDGE_S = 5.0               # the injected delay of one step dispatch
+
+
+def _ticking(srv):
+    """``serve_run`` setup: a fake clock at the server's epoch that moves
+    one second a pump (pump-driven runs), so that a deadline falls at the
+    same step in every run."""
+    clk = [srv._epoch]
+    srv._clock = lambda: clk[0]
+    real = srv.pump
+
+    def pump():
+        worked = real()
+        clk[0] += 1.0
+        return worked
+    srv.pump = pump
+
+
+def _server_events(kind, label):
+    from mxnet_tpu_torch import telemetry
+
+    return [e for e in telemetry.events(kind) if e.get("server") == label]
+
+
+def _state_bytes(state):
+    return sum(t.nbytes for v in state.values() for t in _arrays(v))
+
+
+def cancel_scenario(vocab, new_prompt):
+    """Phase 12b's requests; once all have a first token, request
+    ``L7_CANCEL_REQ`` is cancelled from another thread, and after the
+    cancel took effect a new request (``new_prompt``, a miss) is
+    submitted: it takes the freed slot."""
+    import threading
+
+    base = llama_scenario(vocab)
+
+    def scenario(srv, wait):
+        prompts, streams, info = base(srv, wait)
+        target = streams[L7_CANCEL_REQ]
+        if target.done:
+            fail("llama_7b cancel: the request to cancel finished first")
+        slot = next(i for i, r in enumerate(srv._slots)
+                    if r is not None and r.stream is target)
+        th = threading.Thread(target=target.cancel)
+        th.start()
+        th.join()
+        wait(lambda: target.done)
+        free = [i for i, r in enumerate(srv._slots) if r is None]
+        new = srv.submit(new_prompt, max_new_tokens=NEW_TOKENS)
+        wait(lambda: bool(new.times))
+        new_slot = next((i for i, r in enumerate(srv._slots)
+                         if r is not None and r.stream is new), None)
+        info.update(cancel_slot=slot, free_at_submit=free, new_slot=new_slot,
+                    cancelled=target.cancelled,
+                    kinds=info["kinds"] + ["miss"])
+        return prompts + [new_prompt], streams + [new], info
+    return scenario
+
+
+def llama_deadline_cancel(model, cfg):
+    """12d (1) and (2): phase 12b's requests pump-driven under a fake
+    clock, undisturbed, with a deadline on one request, and with one
+    cancelled from another thread; the deadline run's server is kept for
+    (4) and (6)."""
+    import numpy as np
+
+    card = card_line()
+    kw = dict(pool_sizes=(4, 8), max_total_len=L7_TOTAL,
+              prefill_buckets=L7_BUCKETS, page_size=16, threaded=False,
+              setup=_ticking)
+    vocab = cfg.vocab_size
+    NL = cfg.num_layers
+    _, base, brun = serve_run(model, llama_scenario(vocab),
+                              "llama_7b undisturbed", **kw)
+    what = "llama_7b deadline"
+    prompts, got, run = serve_run(
+        model, llama_scenario(vocab, deadline=(L7_DL_REQ, L7_DEADLINE)),
+        what, counted=True, keep=True, **kw)
+    srv = run.pop("server")
+    d = L7_DL_REQ
+    check_launches(run, what, 7 * NL + 1, 7 * NL)
+    others = [i for i in range(len(base)) if i != d and got[i] != base[i]]
+    if others:
+        fail(f"{what}: co-resident streams {others} differ from the "
+             "undisturbed run")
+    if not 0 < len(got[d]) < NEW_TOKENS or got[d] != base[d][:len(got[d])]:
+        fail(f"{what}: the deadlined stream has {len(got[d])} tokens, not a "
+             "proper prefix of its undisturbed run")
+    label = run["server_label"]
+    reasons = [e["reason"] for e in _server_events("serve_request", label)]
+    dl_events = _server_events("deadline_exceeded", label)
+    if reasons.count("deadline_exceeded") != 1 or len(dl_events) != 1 or \
+            dl_events[0]["tokens"] != len(got[d]):
+        fail(f"{what}: retire reasons {reasons}, deadline events "
+             f"{dl_events}: want one deadline_exceeded with "
+             f"{len(got[d])} tokens")
+    # the steps no lane needed any more: those after every other stream's
+    # last token, had the deadlined one been the last to finish
+    last = brun["last_token_s"]
+    saved_max = NEW_TOKENS - len(got[d])
+    d_last = last[d] == max(last)
+    saved = brun["steps"] - run["steps"]
+    if saved < 0 or saved > saved_max or (not d_last and saved):
+        fail(f"{what}: {run['steps']} steps against the undisturbed "
+             f"{brun['steps']} (the deadlined stream finished "
+             f"{'last' if d_last else 'before another'})")
+    print(f"{what}: request {d} (prompt {prompts[d].size}) with a "
+          f"{L7_DEADLINE} s deadline (fake clock, one second a pump) "
+          f"retired after {len(got[d])} of {NEW_TOKENS} tokens, reason "
+          f"deadline_exceeded, a prefix of its undisturbed run; the other "
+          f"{len(base) - 1} streams equal the undisturbed run token for "
+          f"token; steps {run['steps']} against {brun['steps']} undisturbed"
+          f"; counters {run['counters']}; launches {run['launches']}; "
+          f"captures by pool size "
+          f"{[(r['S'], r['captures'], r['capture_failures']) for r in run['step_records']]}"
+          f" [{card}]", flush=True)
+    rs = np.random.RandomState(161)
+    new_prompt = rs.randint(0, vocab, (60,))
+    what = "llama_7b cancel"
+    _, ctoks, crun = serve_run(model, cancel_scenario(vocab, new_prompt),
+                               what, counted=True, **kw)
+    c = L7_CANCEL_REQ
+    others = [i for i in range(len(base)) if i != c and ctoks[i] != base[i]]
+    if others:
+        fail(f"{what}: streams {others} differ from the undisturbed run")
+    if not crun["cancelled"] or not 0 < len(ctoks[c]) < NEW_TOKENS or \
+            ctoks[c] != base[c][:len(ctoks[c])]:
+        fail(f"{what}: the cancelled stream ({len(ctoks[c])} tokens) is not "
+             "a sealed proper prefix of its undisturbed run")
+    if crun["free_at_submit"] == [crun["cancel_slot"]] and \
+            crun["new_slot"] != crun["cancel_slot"]:
+        fail(f"{what}: the new request took slot {crun['new_slot']}, not "
+             f"the freed slot {crun['cancel_slot']}")
+    clear = {}
+    stream = np.concatenate([new_prompt, np.asarray(ctoks[-1])])[None]
+    tf, first = teacher_forced(model, new_prompt[None], stream, "int8",
+                               clear, first=True)
+    print(f"{what}: request {c} cancelled from another thread after "
+          f"{len(ctoks[c])} tokens (a prefix of its undisturbed run); the "
+          f"other {len(base) - 1} streams equal the undisturbed run; slots "
+          f"free when the new request came {crun['free_at_submit']}, the "
+          f"cancelled slot {crun['cancel_slot']}, the new request's slot "
+          f"{crun['new_slot']}; its stream against the batch-1 kv_generate "
+          f"prefill: teacher-forced {tf:.4f} (bar 0.9), first token equal "
+          f"{first}, over the {clear['positions']} positions with a top-2 "
+          f"margin of {TIE_STEPS}+ bf16 steps {clear['agreement']}; "
+          f"launches {crun['launches']} [{card}]", flush=True)
+    if tf < 0.9:
+        fail(f"{what}: the new request's stream agrees {tf:.4f} < 0.9 with "
+             "its batch-1 reference")
+    return srv, dict(
+        deadline=dict(tokens=len(got[d]), steps=run["steps"],
+                      undisturbed_steps=brun["steps"],
+                      counters=run["counters"], launches=run["launches"],
+                      step_records=run["step_records"]),
+        cancel=dict(tokens=len(ctoks[c]), new_slot=crun["new_slot"],
+                    cancel_slot=crun["cancel_slot"],
+                    free_at_submit=crun["free_at_submit"],
+                    teacher_forced=tf, launches=crun["launches"],
+                    counters=crun["counters"]),
+        launches={k: run["launches"][k] + crun["launches"][k]
+                  for k in run["launches"]})
+
+
+def llama_clock_operand(srv):
+    """12d (4): the captured step of the kept server's largest pool, every
+    lane live on an all-trash table, slot 0's deadline at ``t``: a replay
+    at ``now = t - 0.5`` retires nothing, the next at ``now = t`` retires
+    slot 0 alone."""
+    import numpy as np
+    import torch
+
+    progs, state = srv._progs, srv._state
+    prog = progs.step_program
+    if prog is None or prog.graph is None:
+        fail("llama_7b clock: the largest pool's step is not captured")
+    trash = np.full((progs.S, progs.maxp), progs.sentinel, np.int64)
+    t = 100.0
+    state["active"].fill_(True)
+    state["stop"].fill_(L7_TOTAL)
+    state["pos"].fill_(0)
+    state["dl"].fill_(float("inf"))
+    state["dl"][0] = t
+    r0 = prog.replays
+    d1 = progs.step(state, trash, t - 0.5)[2].cpu().tolist()
+    d2 = progs.step(state, trash, t)[2].cpu().tolist()
+    torch.cuda.synchronize()
+    if any(d1) or d2 != [True] + [False] * (progs.S - 1) or \
+            prog.replays != r0 + 2:
+        fail(f"llama_7b clock: done flags {d1} then {d2} over "
+             f"{prog.replays - r0} replays: want none, then slot 0 alone, "
+             "over two replays")
+    print(f"llama_7b clock: two replays of the captured {progs.S}-slot step "
+          f"at now = {t - 0.5} and {t} (slot 0's deadline {t}): done {d1} "
+          f"then {d2}", flush=True)
+    return dict(done_first=d1, done_second=d2)
+
+
+def llama_deadline_timing(srv, base_arms):
+    """12d (6): ms a replay of the captured step of the largest pool on an
+    idle all-trash table (phase 12b's measure), every slot's deadline set
+    (finite) against none (+inf), in turns inf, set, set, inf; whole
+    ``PoolPrograms.step`` calls too (their clock and table copies); the
+    graph's kernel nodes beside phase 12b's."""
+    import numpy as np
+    import torch
+
+    card = card_line()
+    progs, state = srv._progs, srv._state
+    prog = progs.step_program
+    trash = np.full((progs.S, progs.maxp), progs.sentinel, np.int64)
+    state["active"].fill_(False)
+
+    def arm(call, steps=ARM_STEPS):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    out = {"none": [], "set": [], "call_none": [], "call_set": []}
+    for key in ("none", "set", "set", "none"):
+        state["dl"].fill_(float("inf") if key == "none" else 1e6)
+        out[key].append(arm(prog.graph.replay))
+        out["call_" + key].append(
+            arm(lambda: progs.step(state, trash, 10.0)))
+    prog.replays += 4 * (ARM_STEPS + 1)
+    nodes = sum(prog.kernel_nodes().values())
+    ms = {k: sum(v) / len(v) for k, v in out.items()}
+    print(f"llama_7b deadline timing (S={progs.S}, idle lanes, bare replays "
+          f"of the captured step): deadlines set on every slot "
+          f"{[round(x, 3) for x in out['set']]} ms/step, none "
+          f"{[round(x, 3) for x in out['none']]} ms/step (turns none, set, "
+          f"set, none); whole step calls (clock and table copies) set "
+          f"{[round(x, 3) for x in out['call_set']]}, none "
+          f"{[round(x, 3) for x in out['call_none']]}; phase 12b's captured "
+          f"step {base_arms['captured_ms_per_step']:.3f} ms/step in this "
+          f"process; kernel nodes {nodes} beside phase 12b's "
+          f"{base_arms['kernel_nodes']} [{card}]", flush=True)
+    return dict(ms_per_step=ms, runs=out, kernel_nodes=nodes,
+                base_ms_per_step=base_arms["captured_ms_per_step"],
+                base_kernel_nodes=base_arms["kernel_nodes"])
+
+
+def llama_watchdog(model, cfg):
+    """12d (3): a threaded server with ``step_timeout=2.0`` serves phase
+    12b's requests from cold (first calls, captures, a pool growth) with
+    no watchdog event; then ``MXNET_FAULT_INJECT=serve.step:delay:3:5``
+    wedges a step dispatch under four live streams: the watchdog fires
+    once within the timeout and one poll of the wedge, and every stream
+    raises an ``MXNetError`` naming ``step_timeout``."""
+    import numpy as np
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.base import MXNetError
+
+    card = card_line()
+    what = "llama_7b watchdog"
+    _, _, run = serve_run(model, llama_scenario(cfg.vocab_size), what,
+                          threaded=True, warm=0, keep=True,
+                          step_timeout=WATCH_TIMEOUT, pool_sizes=(4, 8),
+                          max_total_len=L7_TOTAL, prefill_buckets=L7_BUCKETS,
+                          page_size=16)
+    srv = run.pop("server")
+    label = srv.telemetry_label
+    try:
+        if _server_events("watchdog_fired", label) or srv._fatal is not None:
+            fail(f"{what}: the watchdog fired while serving from cold "
+                 f"({srv._fatal})")
+        rs = np.random.RandomState(162)
+        streams = [srv.submit(rs.randint(0, cfg.vocab_size, (n,)),
+                              max_new_tokens=2 * NEW_TOKENS)
+                   for n in (7, 100, 300, 40)]
+        _wait_thread(lambda: all(s.times for s in streams), what)
+        telemetry.reset_faults()
+        os.environ["MXNET_FAULT_INJECT"] = f"serve.step:delay:3:{WEDGE_S}"
+        errors = []
+        try:
+            for s in streams:
+                try:
+                    s.tokens(60)
+                except MXNetError as e:
+                    errors.append(str(e))
+        finally:
+            del os.environ["MXNET_FAULT_INJECT"]
+        fired = _server_events("watchdog_fired", label)
+        inj = [e for e in telemetry.events("fault_injected")
+               if e.get("site") == "serve.step"]
+        if len(errors) != len(streams) or \
+                not all("step_timeout" in e for e in errors):
+            fail(f"{what}: {len(errors)} of {len(streams)} streams failed "
+                 f"naming step_timeout: {errors[:1]}")
+        if len(fired) != 1 or not inj:
+            fail(f"{what}: watchdog_fired emitted {len(fired)} times, "
+                 f"{len(inj)} injected delays")
+        latency = fired[0]["ts"] - inj[-1]["ts"]
+        print(f"{what}: served phase 12b's {len(run['kinds'])} requests from "
+              f"cold with step_timeout={WATCH_TIMEOUT} and no watchdog event "
+              f"(captures {[(r['S'], r['k'], r['captures']) for r in run['program_records']]}, "
+              f"pool grows {run['counters']['pool_grows']}); then a "
+              f"{WEDGE_S} s delay injected at serve.step: watchdog_fired "
+              f"once, {latency:.3f} s after the delay began (limit "
+              f"{WATCH_TIMEOUT} + one poll {WATCH_POLL}); all "
+              f"{len(streams)} streams raised: {errors[0][:120]}... "
+              f"[{card}]", flush=True)
+        if latency > WATCH_TIMEOUT + WATCH_POLL + 0.05:
+            fail(f"{what}: the watchdog fired {latency:.3f} s after the "
+                 f"wedge began, past {WATCH_TIMEOUT} s + one poll")
+    finally:
+        srv.close(drain=False)
+        telemetry.reset_faults()
+    return dict(latency_s=latency, errors=len(errors),
+                pool_grows=run["counters"]["pool_grows"])
+
+
+def llama_budget(model, cfg):
+    """12d (5), the budget: four misses on ``pool_sizes=(4, 8)`` with a
+    budget of the 4-slot pool plus a 4-row admission's scratch; a fifth
+    request asks the pool to grow, which the budget refuses with an error
+    naming requested against available bytes; it is cancelled and the
+    four streams finish equal to the same requests on a 4-slot server
+    without a budget.  ``stats()["pool_bytes"]`` equals the state's
+    tensors' bytes, and the allocator's live bytes are at least that."""
+    import numpy as np
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.models.decoding import _DecodeEngine
+    from mxnet_tpu_torch.serve import (PoolPrograms, admit_scratch_bytes,
+                                       pool_state_bytes)
+
+    card = card_line()
+    what = "llama_7b budget"
+    rs = np.random.RandomState(163)
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in (7, 100, 700, 300)]
+    kw = dict(max_total_len=L7_TOTAL, prefill_buckets=L7_BUCKETS,
+              page_size=16, threaded=False)
+
+    def plain(srv, wait):
+        return prompts, [srv.submit(p, max_new_tokens=NEW_TOKENS)
+                         for p in prompts], {}
+
+    _, ref, _ = serve_run(model, plain, f"{what} reference", pool_sizes=(4,),
+                          **kw)
+    progs = PoolPrograms(_DecodeEngine(model, 0.0, 0, "int8"), 4, L7_TOTAL, 16)
+    budget = pool_state_bytes(progs) + admit_scratch_bytes(progs, 4)
+    growth = pool_state_bytes(progs, 8) + pool_state_bytes(progs)
+    del progs
+    refusal = {}
+
+    def scenario(srv, wait):
+        streams = [srv.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        wait(lambda: all(s.times for s in streams))
+        extra = srv.submit(prompts[0], max_new_tokens=8)
+        try:
+            srv.pump()
+        except MXNetError as e:
+            refusal["msg"] = str(e)
+        extra.cancel()
+        st = srv.stats()
+        refusal.update(pool_bytes=st["pool_bytes"],
+                       state_bytes=_state_bytes(srv._state),
+                       live=telemetry.live_device_bytes().get("cuda:0", 0),
+                       num_slots=st["num_slots"])
+        return prompts, streams, {}
+
+    _, got, run = serve_run(model, scenario, what, pool_sizes=(4, 8),
+                            hbm_budget=budget, **kw)
+    msg = refusal.get("msg", "")
+    if "pool growth 4 -> 8" not in msg or "requests" not in msg or \
+            "remains" not in msg:
+        fail(f"{what}: the growth under a {budget} B budget (the growth "
+             f"prices {growth} B) was not refused as expected: {msg!r}")
+    if got != ref:
+        fail(f"{what}: the 4-slot streams differ from the same requests "
+             "without a budget")
+    if refusal["pool_bytes"] != refusal["state_bytes"] or \
+            refusal["live"] < refusal["pool_bytes"] or \
+            refusal["num_slots"] != 4:
+        fail(f"{what}: pool_bytes {refusal['pool_bytes']}, state tensors "
+             f"{refusal['state_bytes']}, live {refusal['live']}, slots "
+             f"{refusal['num_slots']}")
+    print(f"{what}: budget {budget} B (the 4-slot pool and a 4-row "
+          f"admission's scratch), the growth to 8 prices {growth} B: "
+          f"refused: {msg[:160]}...; the four streams equal the same "
+          f"requests without a budget; pool_bytes {refusal['pool_bytes']} = "
+          f"the state tensors' bytes, allocator live bytes "
+          f"{refusal['live']} [{card}]", flush=True)
+    return dict(budget=budget, growth_bytes=growth, refusal=msg,
+                pool_bytes=refusal["pool_bytes"], live_bytes=refusal["live"])
+
+
+def gpt2_sync():
+    """12d (5), sync mode: GPT-2 small (bf16, int8 weights, seeded
+    Normal(0.02)) with ``MXNET_SERVE_SYNC=1`` serves three requests (7,
+    100 and 700 prompt tokens, 32 new) through ``kv_generate`` on the
+    card, counted; the streams and the K1 and K4 launches equal three
+    batch-1 ``kv_generate`` calls'."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import gpt2_small, kv_generate
+    from mxnet_tpu_torch.serve import DecodeServer
+
+    card = card_line()
+    what = "gpt2 sync"
+    model, cfg = gpt2_small(dtype=torch.bfloat16)
+    model.initialize(0.02, seed=0)
+    rs = np.random.RandomState(164)
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in (7, 100, 700)]
+    os.environ["MXNET_SERVE_SYNC"] = "1"
+    try:
+        srv = DecodeServer(model, weights="int8", autostart=False)
+    finally:
+        del os.environ["MXNET_SERVE_SYNC"]
+    try:
+        if not srv.sync_mode or srv.sync_reason != "MXNET_SERVE_SYNC=1":
+            fail(f"{what}: sync_mode {srv.sync_mode}, reason "
+                 f"{srv.sync_reason!r}")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        streams = [srv.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        while srv.pump():
+            pass
+        toks = [s.tokens(1) for s in streams]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        served = _counts()
+        c, st = dict(srv.counters), srv.stats()
+    finally:
+        srv.close()
+    _reset_counts()
+    t0 = time.perf_counter()
+    refs = [list(kv_generate(model, p[None], NEW_TOKENS, temperature=0.0,
+                             weights="int8")[0, p.size:]) for p in prompts]
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    want = _counts()
+    if toks != refs:
+        fail(f"{what}: served streams differ from batch-1 kv_generate")
+    if served != want or served["flash_fwd"] < 1 or served["q8_matvec"] < 1:
+        fail(f"{what}: launches {served} against kv_generate's {want} "
+             "(K1 and K4 both wanted)")
+    if c["sync_requests"] != 3 or c["step_dispatches"] or st["pool_bytes"]:
+        fail(f"{what}: counters {c}, pool_bytes {st['pool_bytes']}")
+    print(f"{what}: MXNET_SERVE_SYNC=1 served {len(prompts)} requests "
+          f"(prompts {[p.size for p in prompts]}) through kv_generate in "
+          f"{wall:.3f} s ({sum(map(len, toks)) / wall:.2f} tokens/s) beside "
+          f"the three batch-1 calls' {ref_wall:.3f} s "
+          f"({sum(map(len, refs)) / ref_wall:.2f} tokens/s); "
+          f"launches {served}, equal to three batch-1 kv_generate calls'; "
+          f"streams equal; counters {c} [{card}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=served, tokens_per_s=sum(map(len, toks)) / wall,
+                kv_generate_tokens_per_s=sum(map(len, refs)) / ref_wall,
+                counters=c)
+
+
+class _EveryPumpDrafter:
+    """Proposes the history's last token ``k`` times: every slot with a
+    token drafts, so every pump after the first verifies and the verify
+    programs are captured (random weights seldom let the n-gram drafter
+    propose)."""
+
+    def propose(self, history, k):
+        return [int(history[-1])] * k
+
+
+def llama_telemetry(model, cfg):
+    """12d (5), telemetry: phase 12c's two repetitive prompts and two
+    misses through a speculating server on its own thread, drafting every
+    pump (``_EveryPumpDrafter``): one ``compile`` event per capture
+    (steps and verifies), equal to ``program_records()``'s captures, each
+    with its kernel nodes; one ``serve_ttft_seconds`` observation per
+    served request; the server's counters in ``render_prometheus()``."""
+    import numpy as np
+    from mxnet_tpu_torch import telemetry
+
+    card = card_line()
+    what = "llama_7b telemetry"
+    rs = np.random.RandomState(165)
+    extra = spec_extra(cfg.vocab_size)
+    prompts = [p for _, p, _ in extra] + \
+        [rs.randint(0, cfg.vocab_size, (n,)) for n in (7, 100)]
+    news = [n for _, _, n in extra] + [NEW_TOKENS] * 2
+
+    def scenario(srv, wait):
+        return prompts, [srv.submit(p, max_new_tokens=n)
+                         for p, n in zip(prompts, news)], {}
+
+    _, _, run = serve_run(model, scenario, what, threaded=True, keep=True,
+                          spec=None, drafter=_EveryPumpDrafter(),
+                          pool_sizes=(4, 8), max_total_len=L7_TOTAL,
+                          prefill_buckets=L7_BUCKETS, page_size=16)
+    srv = run.pop("server")
+    label = srv.telemetry_label
+    try:
+        records = srv.program_records()
+        comp = _server_events("compile", label)
+        captures = sum(r["captures"] for r in records)
+        sites = sorted({e["site"] for e in comp})
+        ttft = telemetry.histogram("serve_ttft_seconds", server=label).count
+        text = telemetry.render_prometheus()
+        c = dict(srv.counters)
+        lines = [f'serve_{k}_total{{server="{label}"}} {c[k]}'
+                 for k in ("step_dispatches", "verify_dispatches",
+                           "admit_dispatches")]
+        served = 1 + len(prompts)           # the warm-up request too
+        if len(comp) != captures or "serve.verify" not in sites or \
+                not all(e["kernel_nodes"] for e in comp):
+            fail(f"{what}: {len(comp)} compile events (sites {sites}, nodes "
+                 f"{[e['kernel_nodes'] for e in comp]}) for {captures} "
+                 "captures")
+        if ttft != served or not all(ln in text for ln in lines):
+            fail(f"{what}: ttft observations {ttft} for {served} requests, "
+                 f"Prometheus lines present {[ln in text for ln in lines]}")
+    finally:
+        srv.close(drain=False)
+    print(f"{what}: {len(comp)} compile events = {captures} captures "
+          f"(site, key, capture s, kernel nodes, s to count them: "
+          f"{[(e['site'], e['key'], round(e['seconds'], 3), e['kernel_nodes'], round(e['count_s'], 3)) for e in comp]}); "
+          f"serve_ttft_seconds observed {ttft} times for {served} requests; "
+          f"render_prometheus carries {lines}; counters {c} [{card}]",
+          flush=True)
+    return dict(compile_events=len(comp), captures=captures, ttft=ttft,
+                compile=[(e["site"], e["seconds"], e["kernel_nodes"],
+                          e["count_s"]) for e in comp])
+
+
+def check_llama_faults(model, cfg, served):
+    """Phase 12d on phase 12b's Llama-7B: (1) deadline, (2) cancellation,
+    (4) the clock operand, (6) timing, (3) the watchdog, (5) the budget,
+    sync mode (GPT-2 small) and telemetry.  ``served`` is phase 12b's
+    run."""
+    import torch
+    from mxnet_tpu_torch import telemetry
+
+    telemetry.clear_events()
+    torch.cuda.empty_cache()
+    srv, out = llama_deadline_cancel(model, cfg)
+    try:
+        out["clock"] = llama_clock_operand(srv)
+        out["timing"] = llama_deadline_timing(srv, served["arms"])
+    finally:
+        srv.close(drain=False)
+    torch.cuda.empty_cache()
+    out["watchdog"] = llama_watchdog(model, cfg)
+    torch.cuda.empty_cache()
+    out["budget"] = llama_budget(model, cfg)
+    torch.cuda.empty_cache()
+    out["telemetry"] = llama_telemetry(model, cfg)
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -5953,8 +6563,10 @@ def main():
     fused["llama_7b"] = check_llama7b(llama, lcfg)
     served = check_llama_served(llama, lcfg)
     served["spec"] = check_llama_spec(llama, lcfg, served)
+    served["faults"] = check_llama_faults(llama, lcfg, served)
     del llama
     torch.cuda.empty_cache()
+    served["faults"]["sync"] = gpt2_sync()
     served["f32"] = check_llama_served_f32()
     served["spec_f32"] = check_llama_spec_f32()
 
@@ -5996,7 +6608,9 @@ def main():
              replaces="mxnet_tpu/ops/q8_matvec.py:74",
              launches=srv["launches"]["q8_matvec"] +
              served["launches"]["q8_matvec"] +
-             served["spec"]["launches"]["q8_matvec"],
+             served["spec"]["launches"]["q8_matvec"] +
+             served["faults"]["launches"]["q8_matvec"] +
+             served["faults"]["sync"]["launches"]["q8_matvec"],
              max_abs_err=k4["max_abs_err"], ms=k4["ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=k4["library_ms"],
@@ -6012,7 +6626,9 @@ def main():
              launches=train["launches"]["flash_fwd"] +
              opt19["lamb_gpt2"]["launches"]["flash_fwd"] +
              srv["launches"]["flash_fwd"] + served["launches"]["flash_fwd"] +
-             served["spec"]["launches"]["flash_fwd"],
+             served["spec"]["launches"]["flash_fwd"] +
+             served["faults"]["launches"]["flash_fwd"] +
+             served["faults"]["sync"]["launches"]["flash_fwd"],
              max_abs_err=max(r["max_abs_err"] for r in k1), ms=k1[0]["ms"],
              plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
              bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"],

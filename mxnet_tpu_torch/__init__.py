@@ -25,7 +25,10 @@ mxnet_tpu_torch as mx`` reads like the reference's ``import mxnet_tpu as
 mx``.  The tenth is Gluon's parameter layer: ``gluon.Parameter``,
 ``ParameterDict``, deferred initialization, ``collect_params()``,
 ``save_parameters``/``load_parameters`` and ``mx.init``, with NDArrays in
-and out of every block, loss and ``gluon.Trainer``.
+and out of every block, loss and ``gluon.Trainer``.  The sixteenth is
+``telemetry`` (metrics, events, fault injection, memory accounting, the
+capture watch) and the server's deadlines, cancellation, watchdog, HBM
+budget and synchronous mode.
 """
 __version__ = "0.1.0"
 
@@ -36,7 +39,7 @@ from .device import resolve_device
 
 _SUBPACKAGES = ("ops", "models", "serve", "gluon", "optimizer", "parallel",
                 "random", "initializer", "ndarray", "autograd", "context",
-                "operator", "rtc")
+                "operator", "rtc", "telemetry")
 # names of the imperative core, taken from the module that holds them
 _FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
          "cpu": ("context", "cpu"),

@@ -35,6 +35,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 _lock = threading.Lock()
 _libs: dict = {}
 build_log: dict = {}      # name -> ptxas report of the last build
+_busy_lock = threading.Lock()
+building = 0              # builds running now (a watchdog waits them out)
 
 
 def _nvcc() -> str:
@@ -71,6 +73,17 @@ def build(names=KERNELS) -> dict:
     secs = {n: 0.0 for n in names}
     if not todo:
         return secs
+    global building
+    with _busy_lock:
+        building += 1
+    try:
+        return _build_todo(todo, secs)
+    finally:
+        with _busy_lock:
+            building -= 1
+
+
+def _build_todo(todo, secs):
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()

@@ -8,7 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "torch_dtype", "dtype_name", "numeric_types"]
+__all__ = ["MXNetError", "torch_dtype", "dtype_name", "numeric_types",
+           "parse_seconds"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64,
@@ -46,3 +47,15 @@ def dtype_name(dtype) -> str:
     if dtype not in _NAMES:
         raise MXNetError(f"unsupported dtype {dtype!r}")
     return _NAMES[dtype]
+
+
+def parse_seconds(var, raw):
+    """A seconds knob from the environment: ``None`` when unset, a float
+    otherwise; a malformed value raises ``MXNetError`` naming ``var``
+    (reference ``base.parse_seconds``)."""
+    if raw is None:
+        return None
+    try:
+        return float(raw)
+    except (TypeError, ValueError):
+        raise MXNetError(f"{var}={raw!r}: expected seconds (a number)")

@@ -51,6 +51,7 @@ import os
 import re
 import threading
 import time
+import warnings
 from collections import OrderedDict
 
 import numpy as np
@@ -185,7 +186,9 @@ class _GraphProgram:
     ``stream`` is the side stream of the warm-up and the captures
     (default: a new one at the first call); programs that share one
     share what is kept per stream (K4's scratch, the allocator's cached
-    blocks)."""
+    blocks).  ``watch`` is the telemetry capture watch
+    (``telemetry.instrument_program``): told of the first call on the
+    CPU and of each kept capture on the card."""
 
     debug = False
 
@@ -209,6 +212,7 @@ class _GraphProgram:
         self.recorded = {}
         self.capture_s = None
         self.stream = stream        # the warm-up's, then the captures'
+        self.watch = None
 
     def run(self, capturing=False):
         """``fn()`` with the program's key pushed; outside a capture it
@@ -225,6 +229,8 @@ class _GraphProgram:
     def __call__(self):
         self.calls += 1
         if not self.on_card:
+            if self.calls == 1 and self.watch is not None:
+                return self.watch.first_call(self)
             return self.run()
         if self.calls == 1 and self.graph is None:
             cur = torch.cuda.current_stream()
@@ -256,7 +262,9 @@ class _GraphProgram:
 
         g = self.graph if self.graph is not None and self.graph_debug \
             else self._record(debug=True)[0]
-        with tempfile.TemporaryDirectory() as d:
+        with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
+            # torch announces every dump with a UserWarning
+            warnings.simplefilter("ignore", UserWarning)
             path = os.path.join(d, "graph.dot")
             g.debug_dump(path)
             with open(path) as fh:
@@ -318,6 +326,8 @@ class _GraphProgram:
         self.graph_debug = debug
         self.launches = {k: v - before[k] for k, v in
                          _launch_counts().items() if v != before[k]}
+        if self.watch is not None:
+            self.watch.captured(self)
 
 
 # --------------------------------------------------------------------------- #

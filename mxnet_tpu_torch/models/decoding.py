@@ -71,7 +71,7 @@ from ..ops.decode_fused import (_quant_rows, decode_step,
 from ..ops.nn import activation, embedding, fully_connected
 from ..ops.q8_matvec import q8_matvec
 
-__all__ = ["kv_generate", "decode_mode"]
+__all__ = ["kv_generate", "decode_mode", "decode_step_program"]
 
 _NEG_INF = -1e30
 _GPT_PROJ = {"qkv": lambda b: b.attn.qkv, "proj": lambda b: b.attn.proj,
@@ -800,3 +800,80 @@ def kv_generate(model, prompt_tokens, max_new_tokens=32, temperature=1.0,
                 out.append(tok)
     new = torch.stack(out, dim=1).cpu().numpy()
     return np.concatenate([prompt, new], axis=1).astype(np.int32)
+
+
+class _StepProgram:
+    """One decode step of ``kv_generate``'s engine as a program:
+    ``step(tok, pos, ck, cv, seed) -> (next_tok, ck, cv)``.  The
+    arguments are copied into the program's static operands (the caches
+    only when they are not the program's own, ``example_args``'); the
+    step runs ``program``, a ``gluon.block._GraphProgram`` watched by the
+    telemetry capture watch (site ``models.decode_step``), and writes the
+    new K/V column into the caches in place."""
+
+    def __init__(self, program, tok, pos, seed, ck, cv):
+        self.program = program
+        self._tok, self._pos, self._seed = tok, pos, seed
+        self.ck, self.cv = ck, cv
+
+    def __call__(self, tok, pos, ck, cv, seed):
+        B = self._tok.shape[0]
+        self._tok.copy_(torch.as_tensor(tok).reshape(B))
+        self._pos.copy_(torch.as_tensor(pos).expand(B))
+        self._seed.fill_(int(seed))
+        for mine, given in ((self.ck, ck), (self.cv, cv)):
+            if given is not mine:
+                mine.copy_(given)
+        nxt = self.program()[0]
+        return nxt, self.ck, self.cv
+
+
+def decode_step_program(model, batch=1, total=32, temperature=0.0,
+                        top_k=0, weights="native", fused="auto",
+                        stacked="auto", seed=0):
+    """ONE decode step as a ``(fn, example_args)`` pair (reference
+    ``decode_step_program``): ``fn(tok (B,), pos, ck, cv, seed)`` ->
+    ``(next_tok (B,), ck, cv)`` for a token at position ``pos`` against
+    ``total``-position caches ``ck``/``cv`` (NL, B, KV, total, D), the
+    step ``kv_generate`` runs a token (``_DecodeEngine.paged_step`` and
+    its sampler).  ``fn.program`` is the ``gluon.block._GraphProgram``
+    (captured at its second call on the card); its kernel nodes
+    (``fn.program.kernel_nodes()``) are the per-step unit the
+    reference's op counts measure in HLO ops.  K5's step takes its
+    position as a host integer, so ``fused="on"`` is not one program
+    here and raises."""
+    from .. import telemetry
+    from ..gluon.block import _GraphProgram
+
+    mode = decode_mode(model, batch, total, weights, fused, stacked)
+    if mode == "fused":
+        raise MXNetError("decode_step_program: the fused step (K5) takes "
+                         "its position as a host integer, so it is no "
+                         "program with the position as an operand; use "
+                         "fused='off'")
+    eng = _DecodeEngine(model, temperature, top_k, weights)
+    dev, B = eng.device, int(batch)
+    # one page of ``total`` positions a row, plus the trash page
+    shape = (eng.NL, B + 1, eng.KV, total, eng.D)
+    kp = torch.zeros(shape, dtype=eng.cdtype, device=dev)
+    vp = torch.zeros(shape, dtype=eng.cdtype, device=dev)
+    pt = torch.arange(B, device=dev)[:, None]
+    tok = torch.zeros((B,), dtype=torch.int64, device=dev)
+    pos = torch.zeros((B,), dtype=torch.int64, device=dev)
+    seeds = torch.zeros((B,), dtype=torch.int64, device=dev)
+
+    def fn():
+        return [eng.sample(eng.paged_step(tok, pos, kp, vp, pt, total),
+                           seeds, pos)]
+
+    item = torch.empty((), dtype=eng.cdtype).element_size()
+    prog = telemetry.instrument_program(
+        _GraphProgram(fn, dev, None, [tok, pos, seeds]),
+        "models.decode_step", key=(B, total, weights, mode),
+        fields={"mode": mode, "batch": B,
+                "cache_bytes": 2 * eng.NL * B * eng.KV * total * eng.D *
+                item})
+    step = _StepProgram(prog, tok, pos, seeds, kp[:, :B], vp[:, :B])
+    args = (torch.zeros((B,), dtype=torch.int64, device=dev),
+            max(total - 2, 0), step.ck, step.cv, int(seed))
+    return step, args

@@ -18,11 +18,14 @@ Per pool size ``S`` there are five units of work:
 
 - ``PoolPrograms.step`` — every slot advances one token
   (``_DecodeEngine.paged_step``), samples, and the retirement flags are
-  computed on the device.  It is ONE program (``gluon.block.
-  _GraphProgram``): on the card a CUDA-graph replay a step, captured once
-  a pool size, the counterpart of the reference's one executable a pool
-  size.  Its operands are static: the slot state, updated in place, and
-  an (S, MAXP) page table the host copies in from pinned memory;
+  computed on the device: EOS, the stop position and the slot's
+  wall-clock deadline (``dl``, server-epoch seconds) against the step's
+  ``now`` operand, all in one ``done`` mask.  It is ONE program
+  (``gluon.block._GraphProgram``): on the card a CUDA-graph replay a
+  step, captured once a pool size, the counterpart of the reference's
+  one executable a pool size.  Its operands are static: the slot state, updated in place, an
+  (S, MAXP) page table and the one-element f32 clock ``now``, both
+  copied in from pinned memory before each call;
 - ``PoolPrograms.admit`` — one causal prefill over an ``(A, P)`` block of
   right-padded prompts, scattered into the admitted slots' reserved
   pages, first tokens sampled at each row's own last prompt token;
@@ -41,7 +44,11 @@ Per pool size ``S`` there are five units of work:
 
 Every program of one ``PoolPrograms`` warms up and captures on the one
 side stream it is given (a server passes its own to every pool size),
-so K4's scratch, kept per (shape, stream), is made once per shape.
+so K4's scratch, kept per (shape, stream), is made once per shape.  The
+step and verify programs are watched by the telemetry capture watch
+(sites ``serve.step`` and ``serve.verify``).  The state layout and the
+operands are declared in ``serve/schema.py``; ``pool_state_bytes`` and
+``admit_scratch_bytes`` price a pool and an admission wave from it.
 
 ``PagePool`` is the host-side free-list allocator with refcounts: the
 prefix cache maps one page into many slots' tables.
@@ -51,20 +58,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..base import MXNetError
 from ..gluon.block import _GraphProgram
 from ..models.decoding import (_KV_CODE_DTYPE, _KV_SCALE_DTYPE, _kv_requant,
-                               _zero_trash)
+                               _zero_trash, decode_mode)
+from . import schema
+from .schema import kv_page_int8_bytes
 
 __all__ = ["PagePool", "PoolPrograms", "pool_state_init", "pool_state_grow",
-           "kv_page_int8_bytes"]
-
-
-def kv_page_int8_bytes(nl, kv, page, d):
-    """Device bytes of ONE int8 page across all layers, K and V together:
-    ``page * d`` one-byte codes and one f32 scale per (layer, KV head)
-    (the reference's ``serve/schema.py`` price, copied)."""
-    return 2 * nl * kv * (page * d * 1 + 4)
+           "pool_state_bytes", "admit_scratch_bytes", "kv_page_int8_bytes"]
 
 
 class PagePool:
@@ -113,7 +116,9 @@ class PagePool:
         self.num_pages = int(new_num)
 
 
-_SLOT_FIELDS = ("pos", "tok", "active", "stop", "seed", "spec")
+_SLOT_FIELDS = tuple(n for n, _, _ in schema.SLOT_STATE)
+_SLOT_DTYPES = {n: getattr(torch, dt) for n, dt, _ in schema.SLOT_STATE}
+_SLOT_FILL = {"dl": float("inf")}          # +inf: no deadline
 
 
 def _pool_arrays(pool):
@@ -125,8 +130,9 @@ def _pool_arrays(pool):
 def pool_state_init(progs):
     """Fresh all-idle pool state for ``progs``: a dict of the two page
     pools (trash page included; ``(codes, scales)`` pairs on an int8
-    pool) and the per-slot vectors ``pos`` (next write index), ``tok``
-    (last token), ``active``, ``stop`` (retire position), ``seed`` and
+    pool) and the per-slot vectors of ``schema.SLOT_STATE``: ``pos``
+    (next write index), ``tok`` (last token), ``active``, ``stop``
+    (retire position), ``seed``, ``dl`` (deadline, +inf: none) and
     ``spec`` (the slot's speculation-depth cap, 0: never)."""
     e, S = progs.eng, progs.S
     shape = (e.NL, progs.num_pages + 1, e.KV, progs.page, e.D)
@@ -140,15 +146,16 @@ def pool_state_init(progs):
         else:
             state[name] = torch.zeros(shape, dtype=e.cdtype, device=dev)
     for name in _SLOT_FIELDS:
-        dt = torch.bool if name == "active" else torch.int64
-        state[name] = torch.zeros((S,), dtype=dt, device=dev)
+        state[name] = torch.full((S,), _SLOT_FILL.get(name, 0),
+                                 dtype=_SLOT_DTYPES[name], device=dev)
     return state
 
 
 def pool_state_grow(state, new_s, new_pages):
     """Pad the slot vectors up to ``new_s`` slots (new lanes idle) and
     the page pools up to ``new_pages`` pages (new pages zero, the trash
-    page moved to the new end, an int8 pool's scales too)."""
+    page moved to the new end, an int8 pool's scales too; new lanes'
+    deadlines +inf)."""
     S = state["pos"].shape[0]
     npages = _pool_arrays(state["kp"])[0].shape[1] - 1
     if new_s <= S or new_pages < npages:
@@ -165,10 +172,38 @@ def pool_state_grow(state, new_s, new_pages):
         out[name] = tuple(grown) if len(grown) > 1 else grown[0]
     for name in _SLOT_FIELDS:
         old = state[name]
-        new = old.new_zeros((new_s,))
+        new = old.new_full((new_s,), _SLOT_FILL.get(name, 0))
         new[:S] = old
         out[name] = new
     return out
+
+
+def pool_state_bytes(progs, num_slots=None, num_pages=None):
+    """Device bytes of the pool state at ``num_slots`` slots and
+    ``num_pages`` pages (defaults: ``progs``' own; the default page count
+    is the dense-equivalent ``num_slots * MAXP``): the pages, trash page
+    included, at ``progs``' page price, and each slot's columns at
+    ``schema.slot_state_bytes()``.  Pure arithmetic, so a server prices
+    a pool before allocating it; equal to ``telemetry.nbytes_of`` of the
+    state ``pool_state_init``/``pool_state_grow`` allocate."""
+    S = progs.S if num_slots is None else int(num_slots)
+    npages = S * progs.maxp if num_pages is None else int(num_pages)
+    return (npages + 1) * progs.page_bytes() + \
+        S * schema.slot_state_bytes()
+
+
+def admit_scratch_bytes(progs, a_bucket):
+    """Transient device bytes of an ``a_bucket``-row admission wave: the
+    dense K/V pair its prefill computes, priced at the cache horizon
+    ``Tp`` (the largest prompt bucket it can take) in the model's
+    compute dtype whatever the pool's ``kv_dtype`` (the prefill is
+    dense and quantizes on the page scatter), plus the wave's rows of
+    slot state."""
+    e = progs.eng
+    A = int(a_bucket)
+    item = torch.empty((), dtype=e.cdtype).element_size()
+    return 2 * e.NL * A * e.KV * progs.Tp * e.D * item + \
+        A * schema.slot_state_bytes()
 
 
 class _HostTable:
@@ -176,9 +211,9 @@ class _HostTable:
     each written again only after the copy that read it has run (the
     host may run a step ahead of the card)."""
 
-    def __init__(self, shape, device):
+    def __init__(self, shape, device, dtype=torch.int64):
         self.cuda = device.type == "cuda"
-        self.bufs = [torch.empty(shape, dtype=torch.int64,
+        self.bufs = [torch.empty(shape, dtype=dtype,
                                  pin_memory=self.cuda) for _ in range(2)]
         self.events = [None, None]
         self.turn = 0
@@ -201,14 +236,24 @@ def _with_eos(done, tok, eos_id):
 class _Program:
     """One ``_GraphProgram`` of a pool size (the step, or the verify of
     one k bucket), its static operands' host sides and its failed
-    captures."""
+    captures; watched by the telemetry capture watch at ``site``."""
 
-    def __init__(self, fn, device, operands, stream):
+    def __init__(self, fn, device, operands, stream, site, key, fields):
         self.operands = operands            # [(static tensor, _HostTable)]
-        self.graph = _GraphProgram(fn, device, None,
-                                   [t for t, _ in operands],
-                                   error_mode="thread_local", stream=stream)
+        self.graph = telemetry.instrument_program(
+            _GraphProgram(fn, device, None, [t for t, _ in operands],
+                          error_mode="thread_local", stream=stream),
+            site, key=key, fields=fields)
         self.capture_failures = 0
+
+    @property
+    def warm(self):
+        """Whether a call replays a captured graph (on the card) or has
+        run before (on the CPU): a cold call captures or runs eagerly
+        and may build kernels, which a watchdog must not take for a
+        wedged dispatch."""
+        g = self.graph
+        return g.graph is not None if g.on_card else g.calls > 0
 
     def __call__(self, *host):
         """Copy ``host`` into the static operands and run the program:
@@ -256,8 +301,16 @@ class PoolPrograms:
 
     def __init__(self, eng, num_slots, max_total, page_size=16,
                  num_pages=None, eos_id=None, kv_dtype="native",
-                 stream=None):
+                 stream=None, telemetry_label=None):
         self.eng = eng
+        if decode_mode(eng.model, 1, 32, "native", "off", "auto") != \
+                "stacked":
+            raise MXNetError(
+                "slot-pool serving needs the stacked-layer decode step "
+                "(uniform GPT/Llama stack — see ops/decode_fused."
+                "stacked_decode_supported); this model resolved to "
+                "'unrolled'.  MXNET_SERVE_SYNC=1 serves it through the "
+                "synchronous kv_generate fallback instead.")
         if kv_dtype not in ("native", "int8"):
             raise MXNetError(f"kv_dtype must be 'native' or 'int8', "
                              f"got {kv_dtype!r}")
@@ -277,13 +330,41 @@ class PoolPrograms:
         self.sentinel = self.num_pages      # the trash page's index
         self.eos_id = None if eos_id is None else int(eos_id)
         self.stream = stream
-        # the programs' static page table
+        self.telemetry_label = telemetry_label
+        # the programs' static page table and clock
         self.pt = torch.full((self.S, self.maxp), self.sentinel,
                              dtype=torch.int64, device=eng.device)
         self._table = _HostTable((self.S, self.maxp), eng.device)
+        self.now = torch.zeros((1,), dtype=torch.float32, device=eng.device)
+        self._clock = _HostTable((1,), eng.device, torch.float32)
         self._step = None
         self._verifies = {}         # k bucket -> _Program
         self._state = None          # the state the programs were made for
+        self._used = set()          # (kind, bucket) run once already
+        self._kept = None           # program_records() at release()
+
+    def first_use(self, kind, bucket):
+        """True at the first dispatch of an eager admission, hit or chunk
+        ``bucket`` of this pool size (its allocations, library handles
+        and kernel builds happen then), False after."""
+        key = (kind, bucket)
+        if key in self._used:
+            return False
+        self._used.add(key)
+        return True
+
+    def cold(self, k=None):
+        """Whether the next call of the step (``k`` None) or of the verify
+        of bucket ``k`` is cold (``_Program.warm``)."""
+        prog = self._step if k is None else self._verifies.get(k)
+        return prog is None or not getattr(prog, "warm", True)
+
+    def release(self):
+        """Drop the programs and the state they were made for (server
+        teardown): a graph and its pool go with the last reference; the
+        programs' records stay."""
+        self._kept = self.program_records()
+        self._step, self._verifies, self._state = None, {}, None
 
     @property
     def step_program(self):
@@ -314,12 +395,15 @@ class PoolPrograms:
             self._state = state
 
     def _step_fn(self, state):
-        """The step program's function over ``state`` and ``self.pt``:
-        writes the slot vectors in place, returns ``[token, emitted,
-        done]``.  It holds no reference to ``self``, so a pool that is
-        dropped frees its state and graph at once."""
+        """The step program's function over ``state``, ``self.pt`` and
+        ``self.now``: writes the slot vectors in place, returns
+        ``[token, emitted, done]``; a slot retires at EOS, at its stop
+        position or once ``now >= dl`` (the reference's
+        ``_retire_flags``).  It holds no reference to ``self``, so a
+        pool that is dropped frees its state and graph at once."""
         e, pt, page, eos = self.eng, self.pt, self.page, self.eos_id
         pos, tok, active = state["pos"], state["tok"], state["active"]
+        now, dl = self.now, state["dl"]
 
         def fn():
             logits = e.paged_step(tok, pos, state["kp"], state["vp"], pt,
@@ -328,7 +412,7 @@ class PoolPrograms:
                               tok)
             newpos = torch.where(active, pos + 1, pos)
             done = _with_eos(active & (newpos >= state["stop"]), nxt, eos)
-            done &= active
+            done = (done | (now >= dl)) & active
             emitted = active.clone()
             pos.copy_(newpos)
             tok.copy_(nxt)
@@ -337,16 +421,28 @@ class PoolPrograms:
 
         return fn
 
-    def step(self, state, rows):
+    def _fields(self, **extra):
+        return dict({"server": self.telemetry_label, "pool": self.S},
+                    **extra)
+
+    def step(self, state, rows, now=-np.inf):
         """One decode step for every slot; ``rows`` is the (S, MAXP) int64
-        host page table.  Updates ``state`` in place and returns the
-        readback ``[token, emitted, done]`` device tensors; one
-        ``_Program`` (captured at its second call)."""
+        host page table, ``now`` the server-epoch clock (f32 seconds).
+        Updates ``state`` in place and returns the readback ``[token,
+        emitted, done]`` device tensors; one ``_Program`` (captured at
+        its second call).  The default clock, -inf, retires no slot by
+        its deadline."""
         self._own(state)
         if self._step is None:
-            self._step = _Program(self._step_fn(state), self.eng.device,
-                                  [(self.pt, self._table)], self.stream)
-        return self._step(rows)
+            self._step = _Program(
+                self._step_fn(state), self.eng.device,
+                [(self.pt, self._table), (self.now, self._clock)],
+                self.stream, "serve.step",
+                key=(self.telemetry_label, self.S),
+                fields=self._fields(
+                    num_pages=self.num_pages,
+                    cache_bytes=(self.num_pages + 1) * self.page_bytes()))
+        return self._step(rows, np.float32(now))
 
     def _verify_fn(self, state, ops, K):
         """The verify program's function: the (S, K) block is each slot's
@@ -355,10 +451,12 @@ class PoolPrograms:
         drafts that the model's own greedy tokens match within ``min(nd,
         spec)``, clamps at the first EOS and at the slot's stop
         (``max(stop - pos, 1)``), advances nothing on an inactive lane,
-        and returns ``[out (S, K), adv (S,), done (S,)]``."""
+        and returns ``[out (S, K), adv (S,), done (S,)]``; the slot's
+        deadline retires it after the accepted prefix, as a step's does."""
         e, pt, page, eos = self.eng, self.pt, self.page, self.eos_id
         pos, tok, active = state["pos"], state["tok"], state["active"]
         stop, spec = state["stop"], state["spec"]
+        now, dl = self.now, state["dl"]
         drafts, nd = ops[:, :K - 1], ops[:, K - 1]
         S = ops.shape[0]
 
@@ -381,7 +479,8 @@ class PoolPrograms:
                 active, out[torch.arange(S, device=out.device),
                             torch.clamp(adv, min=1) - 1], tok)
             newpos = pos + adv
-            done = _with_eos(active & (newpos >= stop), nxt, eos) & active
+            done = _with_eos(active & (newpos >= stop), nxt, eos)
+            done = (done | (now >= dl)) & active
             pos.copy_(newpos)
             tok.copy_(nxt)
             active.copy_(active & ~done)
@@ -389,11 +488,12 @@ class PoolPrograms:
 
         return fn
 
-    def verify(self, state, rows, drafts, nd, k):
+    def verify(self, state, rows, drafts, nd, k, now=-np.inf):
         """One draft-and-verify dispatch for every slot at k bucket ``k``:
         ``rows`` the (S, MAXP) host page table, ``drafts`` (S, k) and
         ``nd`` (S,) int64 host arrays (the drafts each slot proposed;
-        0: a plain step through column 0).  Updates ``state`` in place
+        0: a plain step through column 0), ``now`` the server-epoch
+        clock.  Updates ``state`` in place
         and returns the readback ``[out (S, k + 1), adv (S,), done
         (S,)]``.  One ``_Program`` a k bucket, captured at its second
         call as ``step``'s.  Greedy only."""
@@ -413,17 +513,19 @@ class PoolPrograms:
             ops = torch.zeros((self.S, k + 1), dtype=torch.int64, device=dev)
             prog = self._verifies[k] = _Program(
                 self._verify_fn(state, ops, k + 1), dev,
-                [(self.pt, self._table),
-                 (ops, _HostTable((self.S, k + 1), dev))], self.stream)
+                [(self.pt, self._table), (self.now, self._clock),
+                 (ops, _HostTable((self.S, k + 1), dev))], self.stream,
+                "serve.verify", key=(self.telemetry_label, self.S, k + 1),
+                fields=self._fields(k_bucket=k))
         block = np.empty((self.S, k + 1), np.int64)
         block[:, :k] = drafts
         block[:, k] = nd
-        return prog(rows, block)
+        return prog(rows, np.float32(now), block)
 
     def step_record(self):
         """What this pool size's step program did so far
         (``_Program.record``)."""
-        if self._step is None:
+        if not isinstance(self._step, _Program):
             return {"S": self.S, "k": None, "calls": 0, "captures": 0,
                     "capture_failures": 0, "replays": 0, "launches": {},
                     "recorded": {}, "capture_s": None}
@@ -431,6 +533,8 @@ class PoolPrograms:
 
     def program_records(self):
         """The step's record, then each verify program's by k bucket."""
+        if self._kept is not None:
+            return self._kept
         return [self.step_record()] + [
             self._verifies[k].record(self.S, k)
             for k in sorted(self._verifies)]
@@ -445,12 +549,13 @@ class PoolPrograms:
                 state[name][1][:, flat] = 0.0
 
     def admit(self, state, prompts, true_len, slots, stop_pos, seeds,
-              pages, spec=None, zpages=None):
+              pages, spec=None, zpages=None, dls=None):
         """Admit a wave: ``prompts`` (A, P) int64 right-padded prompts
         (rows past the wave are padding); ``true_len``/``stop_pos``/
         ``seeds``/``spec`` (A,) int64 (``spec``: the speculation-depth
-        cap, default 0); ``slots`` the wave's slot ids (a list as long as
-        the wave); ``pages`` (A, NPB) int64 reserved-page rows,
+        cap, default 0); ``dls`` (A,) f32 deadlines in server-epoch
+        seconds (default: +inf, none); ``slots`` the wave's slot ids (a
+        list as long as the wave); ``pages`` (A, NPB) int64 reserved-page rows,
         trash-padded; ``zpages`` (A, MAXP) every page each row reserved
         (an int8 pool zeroes their scales first; the prompt's own pages
         are quantized fresh, their padded tail zeroed so that it cannot
@@ -490,15 +595,17 @@ class PoolPrograms:
         state["active"][idx] = ~done[:n]
         state["stop"][idx] = stop_pos[:n]
         state["seed"][idx] = seeds[:n]
+        state["dl"][idx] = float("inf") if dls is None else dls[:n]
         state["spec"][idx] = 0 if spec is None else spec[:n]
         return first, done
 
     def admit_hit(self, state, slots, true_len, last_tok, stop_pos, seeds,
-                  src, dst, spec=None, zpages=None):
+                  src, dst, spec=None, zpages=None, dls=None):
         """Admit a wave of prefix-cache hits (``true_len``/``last_tok``/
-        ``stop_pos``/``seeds``/``src``/``dst``/``spec`` (A,) int64;
-        ``slots`` the wave's slot ids).  No model forward: each row copies
-        at most one copy-on-write page ``src`` -> ``dst`` (a row without a
+        ``stop_pos``/``seeds``/``src``/``dst``/``spec`` (A,) int64,
+        ``dls`` (A,) f32 deadlines; ``slots`` the wave's slot ids).  No
+        model forward: each row copies at most one copy-on-write page
+        ``src`` -> ``dst`` (a row without a
         copy carries the trash page on both sides; an int8 page's codes
         and scale together), and its slot enters at ``pos = L - 1`` with
         ``tok`` = the last prompt token, so the next step recomputes that
@@ -528,16 +635,18 @@ class PoolPrograms:
         state["active"][idx] = True
         state["stop"][idx] = stop_pos[:n]
         state["seed"][idx] = seeds[:n]
+        state["dl"][idx] = float("inf") if dls is None else dls[:n]
         state["spec"][idx] = 0 if spec is None else spec[:n]
 
     def chunk(self, state, toks, ptrow, off, nlast, final, slot, true_len,
-              stop_pos, seed, spec=0, zrow=None):
+              stop_pos, seed, spec=0, zrow=None, dl=float("inf")):
         """One ``C``-token slice (``toks`` (C,) int64) of one prompt at
         absolute offset ``off`` through the slot's page-table row
         ``ptrow`` (MAXP,) int64.  An intermediate chunk changes no slot
         state.  The ``final`` chunk samples the first token at ``true_len
         - 1`` with the request's seed and sets the slot's ``pos``,
-        ``tok``, ``active``, ``stop``, ``seed`` and ``spec``.  ``zrow``
+        ``tok``, ``active``, ``stop``, ``seed``, ``dl`` (the f32 deadline
+        ``dl``, server-epoch seconds) and ``spec``.  ``zrow``
         (MAXP,): pages whose scales an int8 pool zeroes first (the
         slot's fresh pages, at its first chunk only).  Returns ``(first,
         done)``, one element each."""
@@ -556,5 +665,6 @@ class PoolPrograms:
             state["active"][slot] = ~done[0]
             state["stop"][slot] = stop_pos
             state["seed"][slot] = seed
+            state["dl"][slot] = dl
             state["spec"][slot] = spec
         return first, done

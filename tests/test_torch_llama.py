@@ -113,16 +113,22 @@ def test_bad_arguments_raise(pair):
 
 
 def test_decode_server_refuses_llama(pair):
-    """Since the fourteenth slice the server takes Llama (its greedy
-    stream equals ``kv_generate``'s; tests/test_torch_serve_paged.py holds
-    the rest against the JAX server); what it still refuses for Llama, as
-    for GPT, is a later slice's feature."""
+    """The server takes Llama (its greedy stream equals ``kv_generate``'s;
+    tests/test_torch_serve_paged.py holds the rest against the JAX
+    server), and with the watchdog armed (``step_timeout=5.0``) it serves
+    on its own thread as without it."""
     from mxnet_tpu_torch.models import kv_generate
     from mxnet_tpu_torch.serve import DecodeServer
 
     model = pair[1]
-    with pytest.raises(MXNetError, match="not ported yet"):
-        DecodeServer(model, step_timeout=5.0, autostart=False)
+    srv = DecodeServer(model, max_total_len=32, pool_sizes=(1,),
+                       step_timeout=5.0)
+    assert srv.step_timeout == 5.0
+    p = onp.random.RandomState(4).randint(0, 97, (5,))
+    s = srv.submit(p, max_new_tokens=4)
+    assert s.tokens(60) == list(kv_generate(model, p[None], 4,
+                                            temperature=0.0)[0, 5:])
+    srv.close()
     srv = DecodeServer(model, max_total_len=32, pool_sizes=(1,),
                        autostart=False)
     p = onp.random.RandomState(3).randint(0, 97, (6,))

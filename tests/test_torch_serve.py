@@ -2,11 +2,13 @@
 int8 streams token-identical to the JAX server and to JAX
 ``kv_generate`` for the same carried weights and prompts, across
 mid-run admission, slot reuse and pool growth; sampled streams equal the
-port's own batch-1 ``kv_generate(seed=...)``; later-slice features
-raise.  Chunked prefill, the prefix cache and Llama are held in
+port's own batch-1 ``kv_generate(seed=...)``; the fault-tolerance knobs
+take the reference's values.  Chunked prefill, the prefix cache and Llama are held in
 ``tests/test_torch_serve_paged.py``; speculation and int8 KV pages in
 ``tests/test_torch_serve_spec.py`` and
-``tests/test_torch_serve_kvquant.py``."""
+``tests/test_torch_serve_kvquant.py``; deadlines, cancellation, the
+watchdog, the budget and sync mode in
+``tests/test_torch_serve_faults.py``."""
 import numpy as onp
 import pytest
 
@@ -126,28 +128,63 @@ def test_eos_and_one_token_budget(pair):
                                 dict(hbm_budget="1G"),
                                 dict(default_deadline=5.0)])
 def test_later_slice_features_raise(pair, kw):
-    """The watchdog, per-request deadlines (at ``submit``), the HBM budget
-    and default deadlines are a later slice's."""
+    """The knobs the earlier slices refused — the watchdog's
+    ``step_timeout``, a per-request ``deadline`` at ``submit``, the HBM
+    budget and ``default_deadline`` — are accepted and do what the
+    reference's do at these values: the JAX and the port server hold the
+    same setting and serve the same stream (a generous deadline retires
+    nothing; a 1G budget fits the pool)."""
+    from mxnet_tpu.serve import DecodeServer as JServer
     from mxnet_tpu_torch.serve import DecodeServer
 
-    if "deadline" in kw:
-        srv = DecodeServer(pair[1], max_total_len=64, autostart=False)
-        with pytest.raises(MXNetError, match="not ported yet"):
-            srv.submit(_prompt(0, 3), **kw)
+    net, model = pair
+    ctor = {k: v for k, v in kw.items() if k != "deadline"}
+    sub = {k: v for k, v in kw.items() if k == "deadline"}
+    p = _prompt(0, 3)
+    got = []
+    for cls, m in ((JServer, net), (DecodeServer, model)):
+        srv = cls(m, max_total_len=64, pool_sizes=(1,), spec=False,
+                  autostart=False, **ctor)
+        s = srv.submit(p, max_new_tokens=5, **sub)
+        _drain(srv)
+        got.append((s.tokens(5), srv.step_timeout, srv.hbm_budget,
+                    srv.default_deadline, srv.stats()["counters"]))
         srv.close()
-        return
-    with pytest.raises(MXNetError, match="not ported yet"):
-        DecodeServer(pair[1], max_total_len=64, autostart=False, **kw)
+    assert got[0] == got[1]
+    assert len(got[1][0]) == 5
+    if "hbm_budget" in kw:
+        assert got[1][2] == 1 << 30
 
 
 def test_sync_mode_deadline_and_long_prompt_raise(pair, monkeypatch):
+    """``MXNET_SERVE_SYNC=1`` serves through ``kv_generate`` as the
+    reference does: a request whose deadline lapses in the queue retires
+    with no tokens and reason ``deadline_exceeded``, the next request
+    serves, and a prompt past ``max_total_len`` raises at ``submit``."""
+    from mxnet_tpu.serve import DecodeServer as JServer
+    from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.serve import DecodeServer
 
-    srv = DecodeServer(pair[1], max_total_len=64, pool_sizes=(1,),
-                       prefill_buckets=(8, 16), autostart=False)
-    with pytest.raises(MXNetError, match="deadlines"):
-        srv.submit(_prompt(0, 3), deadline=1.0)
-    srv.close()
+    net, model = pair
     monkeypatch.setenv("MXNET_SERVE_SYNC", "1")
-    with pytest.raises(MXNetError, match="MXNET_SERVE_SYNC"):
-        DecodeServer(pair[1], max_total_len=64, autostart=False)
+    got = []
+    for cls, m in ((JServer, net), (DecodeServer, model)):
+        srv = cls(m, max_total_len=64, pool_sizes=(1,),
+                  prefill_buckets=(8, 16), autostart=False)
+        t = [srv._epoch]
+        srv._clock = lambda: t[0]
+        lapsed = srv.submit(_prompt(0, 3), max_new_tokens=4, deadline=1.0)
+        ok = srv.submit(_prompt(1, 3), max_new_tokens=4)
+        t[0] += 5.0
+        _drain(srv)
+        with pytest.raises(Exception, match="exceeds the pool cache length"):
+            srv.submit(_prompt(2, 60), max_new_tokens=8)
+        got.append((srv.sync_mode, srv.sync_reason, lapsed.tokens(5),
+                    ok.tokens(5), dict(srv.counters)))
+        srv.close()
+    assert got[0] == got[1]
+    assert got[1][2] == [] and len(got[1][3]) == 4
+    assert got[1][4]["sync_requests"] == 1
+    evs = [e for e in telemetry.events("serve_request")
+           if e["reason"] == "deadline_exceeded"]
+    assert evs and evs[-1]["tokens"] == 0

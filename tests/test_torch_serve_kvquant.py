@@ -302,6 +302,7 @@ def test_kv_dtype_env_knob_and_validation(nets, monkeypatch):
     (f32)."""
     from mxnet_tpu_torch.serve import DecodeServer
     from mxnet_tpu_torch.serve.engine import kv_page_int8_bytes
+    from mxnet_tpu_torch.serve.schema import slot_state_bytes
 
     model = nets["gpt"][1]
     monkeypatch.setenv("MXNET_SERVE_KV_DTYPE", "int8")
@@ -311,7 +312,10 @@ def test_kv_dtype_env_knob_and_validation(nets, monkeypatch):
     assert srv.kv_dtype == "int8" and st["kv_dtype"] == "int8"
     assert st["page_bytes"] == kv_page_int8_bytes(2, 4, PAGE, 8) == \
         2 * 2 * 4 * (PAGE * 8 + 4)
-    assert st["pool_bytes"] == (st["pages_total"] + 1) * st["page_bytes"]
+    # the state's bytes: the pages (trash page included) and each slot's
+    # columns, as the reference counts them (``nbytes_of`` the state)
+    assert st["pool_bytes"] == (st["pages_total"] + 1) * st["page_bytes"] \
+        + st["num_slots"] * slot_state_bytes()
     p = _prompt(220, 6)
     s = srv.submit(p, max_new_tokens=8)
     _drain(srv)

@@ -84,8 +84,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 def test_new_modules_are_covered():
     """The structure checks above reach the fused decode, the vision,
-    the imperative and the fused-train-step slices' modules and kernel
-    sources."""
+    the imperative, the fused-train-step and the telemetry slices'
+    modules and kernel sources."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"mxnet_tpu_torch/context.py",
             "mxnet_tpu_torch/ndarray/ndarray.py",
@@ -107,6 +107,13 @@ def test_new_modules_are_covered():
             "mxnet_tpu_torch/gluon/model_zoo/vision/resnet.py"} <= names
     assert {"mxnet_tpu_torch/gluon/fused_step.py",
             "mxnet_tpu_torch/optimizer/lr_scheduler.py"} <= names
+    assert {"mxnet_tpu_torch/telemetry/__init__.py",
+            "mxnet_tpu_torch/telemetry/registry.py",
+            "mxnet_tpu_torch/telemetry/events.py",
+            "mxnet_tpu_torch/telemetry/faults.py",
+            "mxnet_tpu_torch/telemetry/memory.py",
+            "mxnet_tpu_torch/telemetry/compile.py",
+            "mxnet_tpu_torch/serve/schema.py"} <= names
     assert {"decode_fused", "conv1x1_bwd"} <= set(_build.KERNELS)
 
 
