@@ -128,17 +128,20 @@ Phases (each fails the run by raising; there is no CPU path):
    K4 exactly 225 times a step and 224 a chunk, K1 at least once, each
    pool size's step captured once and no capture failed;
    ``chunk_dispatches >= 3``, ``prefix_hits >= 3``, ``cow_copies >= 1``,
-   the full hits at zero admit and chunk dispatches; every stream
-   teacher-forced against the port's batch-1 step >= 0.9: a miss after
-   the batch-1 ``kv_generate`` prefill, a chunked prompt or a hit after a
-   cache filled as the server filled it for its kind (its chunks, a
-   hit's cached prefix then its suffix or its step); printed beside it,
-   every stream against both, over the positions with a top-2 margin of
-   ``TIE_STEPS``+ bf16 steps, and where a stream leaves the batch-1
-   ``kv_generate`` reference at such a position, the same reference at
-   the served width (8 rows) and the logit gap between the two; tokens/s,
-   TTFT by kind, peak memory, pool bytes; the captured and eager arms as
-   in phase 6; then the same requests on a 4-layer full-width Llama in
+   the full hits at zero admit and chunk dispatches; tokens/s, TTFT by
+   kind, peak memory, pool bytes; then the same requests pump-driven
+   (its waves do not follow thread timing), the same counters, and every
+   stream teacher-forced against the port's int8 step fed as the server
+   fed it >= 0.9: the prompt computed as served (a miss by its
+   admission wave's batched prefill, a chunked prompt by its chunks, a
+   hit by its producer's wave prefill, then its suffix or its step),
+   each step on the rows of the server's step that made the token (4 or
+   8), over the server's 2048-position horizon; printed beside it, every stream against the ``kv_generate``
+   prefill with one-row and 8-row steps and against the served prompt
+   with one-row steps, over the positions with a top-2 margin of
+   ``TIE_STEPS``+ bf16 steps too, and the largest logit gap between the
+   one-row and 8-row ``kv_generate`` references (phase 12c's bar); the
+   captured and eager arms as in phase 6; then the same requests on a 4-layer full-width Llama in
    f32, agreement 1.0 and every first token equal (phases 6 and 12b, and
    ``serve_grow_ab.py``, serve with ``spec=False``: they count steps and
    K4's launches a step);
@@ -321,7 +324,28 @@ Phases (each fails the run by raising; there is no CPU path):
    masters, the reference's Gluon-path typing) held bit for bit, losses
    and every parameter, against a plain loop with the reference's
    update written here (``reference_gluon_sgd``);
-20. one ``{"kernels": [...]}`` line, the card line, and as the last line
+20. the seventeenth slice, the reference's ``ops/nn.py`` ops as ``mx.nd``
+   ops and ``hybrid_forward`` blocks: (1) every op that ``ops/nn.py`` and
+   ``ops/attention.py`` register, at the tier-1 cases
+   (``tests/_torch_nn_cases.py``), f32, card against CPU, outputs and
+   input gradients (count per op family), and the host us of an
+   ``mx.nd`` op beside its torch call; (2) the user's ``hybrid_forward``
+   GPT-2 small (``tests/_torch_hybrid_models.gpt``: ``gluon.nn.
+   Embedding``, ``LayerNorm``, ``F.FullyConnected``, ``F.flash_attention``
+   with dropout 0.1, ``gluon.nn.GELU``, a tied head), bf16, 8 x 1024,
+   AdamW multi-precision through ``gluon.Trainer``: 3 steps phase by
+   phase, then 20 ``fused_step`` calls; K1, K2, K3 exactly 12 a step in
+   both arms, one capture, losses finite, the first within 0.5 of
+   ln(vocab), falling, every gradient nonzero after step 1; ms a step
+   of both beside phase 7's; at 2 layers and dropout 0, three fused
+   steps equal three phase-by-phase steps bit for bit; (3) the same
+   model in f32 at 2 layers, 1 x 1024: loss and every gradient against
+   the CPU (phase 16's bounds); (4) ResNet-50's conv2_x as
+   ``hybrid_forward`` bottlenecks of ``F.Convolution``, ``F.BatchNorm``
+   and ``F.Activation``, NHWC bf16 128 x 56 x 56 x 64 with
+   ``MXNET_FUSED_CONV_BWD=1``: K6 exactly 7 a backward, output and every
+   gradient equal bit for bit to the model zoo's stage;
+21. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -1030,6 +1054,7 @@ def serve_run(model, scenario, what, threaded, counted=False, warm=1,
         wall = time.perf_counter() - t0
         run = dict(info, counters=dict(srv.counters), wall_s=wall,
                    ttft_s=[s.ttft for s in streams], stats=srv.stats(),
+                   request_ids=[s.request_id for s in streams],
                    step_records=srv.step_records(),
                    program_records=srv.program_records(),
                    ledgers=[(s.draft_accepted, s.draft_rejected)
@@ -2025,7 +2050,8 @@ TIE_STEPS = 2      # a top-2 logit margin below this many bf16 steps: a tie
 
 
 def teacher_forced(model, prompts, stream, weights, clear=None,
-                   first=False, fill=None, keep=None):
+                   first=False, fill=None, keep=None, horizon=None,
+                   widths=None):
     """Share of the fused stream's new tokens that the unfused step
     predicts when fed the stream's own earlier tokens (greedy): the
     prefill's argmax against the first new token, then one unfused step
@@ -2040,17 +2066,20 @@ def teacher_forced(model, prompts, stream, weights, clear=None,
     ``first`` it also returns
     whether every first new token equals the reference's.  ``fill(eng,
     s, kp, vp, pt)`` (default: the batched prefill) fills the rows' cache
-    below ``P`` (one page of ``total`` positions a row, then the trash
-    page) and returns the logits of the first new token.  A ``keep``
-    list gets the (B, new, V) f32 logits."""
+    below ``P`` (one page of ``horizon`` positions a row, default the
+    stream's length, then the trash page: each step attends over the
+    whole page) and returns the logits of the first new token.  A
+    ``keep`` list gets the (B, new, V) f32 logits.  ``widths`` (default
+    B each) gives each step's rows (``_rows_step``: identical rows)."""
     import torch
     from mxnet_tpu_torch.models.decoding import _DecodeEngine
 
     eng = _DecodeEngine(model, 0.0, 0, weights)
     B, P = prompts.shape
     total = stream.shape[1]
+    page = horizon or total
     s = torch.as_tensor(stream, device="cuda").long()
-    shape = (eng.NL, B + 1, eng.KV, total, eng.D)
+    shape = (eng.NL, B + 1, eng.KV, page, eng.D)
     kp, vp = (torch.zeros(shape, dtype=eng.cdtype, device="cuda")
               for _ in range(2))
     pt = torch.arange(B, device="cuda")[:, None]
@@ -2062,8 +2091,8 @@ def teacher_forced(model, prompts, stream, weights, clear=None,
         logits = fill(eng, s[:, :P], kp, vp, pt)
     steps = [logits]
     for t in range(P, total - 1):
-        posv = torch.full((B,), t, dtype=torch.int64, device="cuda")
-        steps.append(eng.paged_step(s[:, t], posv, kp, vp, pt, total))
+        w = B if widths is None else widths[t - P]
+        steps.append(_rows_step(eng, s[:, t], t, kp, vp, pt, page, w))
     lg = torch.stack(steps, 1).float()                   # (B, new, V)
     if keep is not None:
         keep.append(lg)
@@ -2081,6 +2110,22 @@ def teacher_forced(model, prompts, stream, weights, clear=None,
     if first:       # and whether every first new token is the prefill's
         return rate, bool(same[:, 0].all().item())
     return rate
+
+
+def _rows_step(eng, tok, t, kp, vp, pt, page, w):
+    """One step at position ``t`` of identical rows, computed on the
+    first ``w`` of them (K4's row plan follows ``w``); the others get row
+    0's new K/V column and its logits.  Returns (B, V) logits."""
+    import torch
+
+    B = tok.shape[0]
+    posv = torch.full((w,), t, dtype=torch.int64, device="cuda")
+    logits = eng.paged_step(tok[:w], posv, kp, vp, pt[:w], page)
+    if w < B:
+        kp[:, w:B, :, t] = kp[:, :1, :, t]
+        vp[:, w:B, :, t] = vp[:, :1, :, t]
+        logits = logits[:1].expand(B, -1)
+    return logits
 
 
 def _reset_counts():
@@ -2431,6 +2476,26 @@ def llama_scenario(vocab, extra=(), deadline=None):
     return scenario
 
 
+def _chunks(eng, s, off, kp, vp, pt, buckets):
+    """Row 0's prompt ``s[0]`` from position ``off`` through
+    ``chunk_tokens`` over the server's chunks (the largest bucket until
+    the rest fits one); returns the logits (1, V) of its last token."""
+    import torch
+
+    L, page = s.shape[1], kp.shape[3]
+    while True:
+        rem = L - off
+        final = rem <= buckets[-1]
+        C = next(b for b in buckets if b >= rem) if final else buckets[-1]
+        n = rem if final else C
+        toks = torch.zeros((C,), dtype=torch.int64, device="cuda")
+        toks[:n] = s[0, off:off + n]
+        lg = eng.chunk_tokens(toks, off, n - 1, pt[0], kp, vp, page)
+        if final:
+            return lg
+        off += n
+
+
 def _fill_as_served(kind, shared, buckets, pad):
     """A batch-1 ``teacher_forced`` fill that computes the prompt as the
     server does for a request of ``kind``: ``miss`` one batched prefill
@@ -2459,18 +2524,7 @@ def _fill_as_served(kind, shared, buckets, pad):
             return logits
 
         def chunks(off):
-            while True:
-                rem = L - off
-                final = rem <= buckets[-1]
-                C = next(b for b in buckets if b >= rem) if final \
-                    else buckets[-1]
-                n = rem if final else C
-                toks = torch.zeros((C,), dtype=torch.int64, device="cuda")
-                toks[:n] = s[0, off:off + n]
-                lg = eng.chunk_tokens(toks, off, n - 1, pt[0], kp, vp, page)
-                if final:
-                    return lg
-                off += n
+            return _chunks(eng, s, off, kp, vp, pt, buckets)
 
         if kind == "miss":
             return prefill(L)
@@ -2485,62 +2539,122 @@ def _fill_as_served(kind, shared, buckets, pad):
     return fill
 
 
-L7_WIDTH = 8                # the served pool's rows (K4's mma path)
+L7_WIDTH = 8                # the grown pool's rows (K4's 8-row plan)
 
 
-def _gap_at_disagreements(model, p, stream, ref, what, i):
-    """Where the served stream leaves the batch-1 reference ``ref`` (its
-    (new, V) logits) at a position with a top-2 margin of ``TIE_STEPS``+
-    bf16 steps: the same teacher-forced reference with the row repeated
-    to the served pool's width ``L7_WIDTH`` (so K4 takes its 4-8-row
-    ``mma.sync`` path, as in the served steps), the largest logit gap
-    between the two references there in bf16 steps of the top logit,
-    and whether the wide reference picks the served token.  Returns
-    ``(wide agreement with the stream, [(position, margin, gap, the wide
-    reference agrees)])``."""
+def _wave_prefill(eng, run, prompts, j):
+    """Request ``j``'s admission wave prefilled as
+    ``DecodeServer._dispatch_admit`` builds it: the wave's prompts in
+    their rows of one ``(a_bucket, p_bucket)`` batch, the idle rows
+    zeros read at column 0.  Returns request ``j``'s row: its logits
+    (1, V) and K, V (NL, 1, KV, p_bucket, D)."""
     import numpy as np
     import torch
 
-    wide = []
-    rate = teacher_forced(model, np.repeat(p[None], L7_WIDTH, 0),
-                          np.repeat(stream, L7_WIDTH, 0), "int8",
-                          keep=wide)
-    wide = wide[0][0]
-    served = torch.as_tensor(stream[0, p.size:], device=ref.device)
-    top = ref.topk(2, dim=-1).values
-    unit = 2.0 ** -8 * top[:, 0].abs()
-    margin = (top[:, 0] - top[:, 1]) / unit
-    gap = (wide - ref).abs().max(-1).values / unit
-    out = []
-    for t in torch.nonzero((ref.argmax(-1) != served) &
-                           (margin >= TIE_STEPS)).flatten().tolist():
-        out.append((t, round(margin[t].item(), 3), round(gap[t].item(), 3),
-                    bool(wide[t].argmax().item() == served[t].item())))
-    print(f"{what}: request {i}: the reference at the served width "
-          f"({L7_WIDTH} rows) agrees {rate:.4f}; logit gap between the "
-          f"batch-1 and {L7_WIDTH}-row references: median "
-          f"{gap.median().item():.3f}, max {gap.max().item():.3f} bf16 "
-          "steps; disagreements with a margin of "
-          f"{TIE_STEPS}+ steps (position, margin, gap, the wide reference "
-          f"picks the served token): {out}", flush=True)
-    return rate, out, gap.max().item()
+    adm = run["admissions"]
+    a = adm[j]
+    rows = {adm[k]["row"]: prompts[k] for k in range(len(prompts))
+            if adm[k]["mode"] == "admit" and adm[k]["wave"] == a["wave"]}
+    if sorted(rows) != list(range(len(rows))):
+        fail(f"request {j}: its admission wave's rows {sorted(rows)} are "
+             "not all among the run's requests")
+    toks = np.zeros((a["a_bucket"], a["p_bucket"]), np.int64)
+    true_len = np.ones((a["a_bucket"],), np.int64)
+    for r, p in rows.items():
+        toks[r, :p.size] = p
+        true_len[r] = p.size
+    logits, knew, vnew = eng.prefill(
+        torch.as_tensor(toks, device="cuda"),
+        last_index=torch.as_tensor(true_len - 1, device="cuda"))
+    r = a["row"]
+    return logits[r:r + 1], knew[:, r:r + 1], vnew[:, r:r + 1]
 
 
-def llama_served_checks(model, cfg, prompts, toks, run, what, bar,
-                        explain=False):
+def _fill_as_admitted(run, prompts, i, buckets, width=None):
+    """A ``teacher_forced`` fill of identical rows that computes request
+    ``i``'s prompt as the server did for its kind: a ``miss`` by its
+    admission wave's batched prefill (``_wave_prefill``), a ``chunked``
+    prompt by ``chunk_tokens`` over the server's chunks, a ``partial
+    hit`` by its producer's wave prefill below the shared length, then
+    the suffix in chunks, a ``full hit`` by that prefill below ``L - 1``,
+    then one step at ``L - 1`` on ``width`` rows (default all)."""
+    kind, shared = run["kinds"][i], run["shared"][i]
+
+    def fill(eng, s, kp, vp, pt):
+        B, L = s.shape
+        page = kp.shape[3]          # one page of the horizon a row
+
+        def put(j, n):
+            logits, knew, vnew = _wave_prefill(eng, run, prompts, j)
+            kp[:, :B, :, :n] = knew[:, :, :, :n]
+            vp[:, :B, :, :n] = vnew[:, :, :, :n]
+            return logits.expand(B, -1)
+
+        def chunks(off):
+            # row 0 through the chunks, the other rows its copy
+            lg = _chunks(eng, s, off, kp, vp, pt, buckets)
+            kp[:, 1:B] = kp[:, :1]
+            vp[:, 1:B] = vp[:, :1]
+            return lg.expand(B, -1)
+
+        if kind == "miss":
+            return put(i, L)
+        if kind == "chunked":
+            return chunks(0)
+        if kind == "partial hit":
+            put(run["producer"], shared)
+            return chunks(shared)
+        put(run["producer"], L - 1)
+        return _rows_step(eng, s[:, L - 1], L - 1, kp, vp, pt, page,
+                          width or B)
+    return fill
+
+
+def _step_widths_recorder():
+    """``(log, setup)``: ``setup(srv)`` makes every step dispatch of the
+    server append its pool width and the request ids of the slots it
+    steps to ``log``."""
+    log = []
+
+    def setup(srv):
+        step = srv._dispatch_step
+
+        def recorded():
+            log.append((len(srv._slots),
+                        {r.stream.request_id
+                         for k, r in enumerate(srv._slots)
+                         if r is not None and k not in srv._chunk_slots}))
+            step()
+        srv._dispatch_step = recorded
+    return log, setup
+
+
+def _stream_widths(log, run):
+    """For each request of ``run``, the pool widths of the step
+    dispatches that stepped it, in order (its tokens after the first, a
+    hit's first too)."""
+    return [[S for S, live in log if rid in live]
+            for rid in run["request_ids"]]
+
+
+def llama_served_checks(model, cfg, prompts, toks, run, what, bar):
     """Counters, full hits at zero prefill dispatches, every stream's
-    budget and vocab, and teacher-forced agreement of at least ``bar``
-    (with ``bar`` 1.0, every first token equal too) over every stream,
-    each held against the port's batch-1 step (int8): a ``miss`` (one
-    batched prefill) against the batch-1 ``kv_generate`` prefill, a
-    chunked prompt and a hit against a batch-1 cache that computes the
-    prompt as the server did for its kind (``_fill_as_served``: the
-    reference's int8 chunk projects K/V through K4 and a hit's first
-    token comes from a step).  Printed beside it: each request against
-    both references and over the positions with a top-2 margin of
-    ``TIE_STEPS``+ bf16 steps; with ``explain``, those positions where a
-    stream leaves the batch-1 ``kv_generate`` reference, held against
-    the same reference at the served width (``_gap_at_disagreements``)."""
+    budget and vocab; with a ``bar`` (None: those alone) teacher-forced
+    agreement of at least ``bar`` over every stream (with ``bar`` 1.0,
+    every first token equal too) against the port's int8 step fed as the
+    server fed it: the prompt computed as served (``_fill_as_admitted``:
+    its admission wave's batched prefill, its chunks, a hit's producer),
+    each step on as many rows as the server's step that produced the
+    token (``run["step_widths"]``, ``_step_widths_recorder``), over the
+    server's horizon ``L7_TOTAL``.  Printed beside it, each stream against three
+    more references, the stream's length their horizon: ``batch1``, the
+    ``kv_generate`` prefill and one-row steps; ``wide``, the same at
+    ``L7_WIDTH`` rows; ``prompt``, the served prompt and one-row steps.
+    They split what moves a stream off the batch-1 reference between
+    the prompt's computation and the steps' width; the largest logit gap
+    between ``batch1`` and ``wide`` (in bf16 steps of the top logit) is
+    phase 12c's bar.  Each also over the positions with a top-2 margin
+    of ``TIE_STEPS``+ bf16 steps."""
     import numpy as np
 
     c = run["counters"]
@@ -2555,89 +2669,85 @@ def llama_served_checks(model, cfg, prompts, toks, run, what, bar,
             full["prefix_hits"] != 2 or full["cow_copies"] != 1:
         fail(f"{what}: the two full hits dispatched {full}: want 0 admit "
              "and 0 chunk dispatches, 2 hits, 1 copy")
-    sums = {k: 0.0 for k in ("plain", "kind", "gate", "clear", "clear_n",
-                             "miss", "miss_n", "wide", "wide_n")}
-    firsts = {"plain": True, "kind": True, "gate": True}
-    explained, gaps = [], []
-    for i, (p, tk) in enumerate(zip(prompts, toks)):
+    for i, tk in enumerate(toks):
         if len(tk) != NEW_TOKENS or not all(0 <= x < cfg.vocab_size
                                             for x in tk):
             fail(f"{what}: request {i} emitted {len(tk)} of {NEW_TOKENS} "
                  "or a token outside the vocab")
-        kind = run["kinds"][i]
-        clear, kclear, ref = {}, {}, []
+    out = dict(full_hits=full)
+    if bar is None:
+        return out
+    refs = ("batch1", "wide", "prompt", "served")
+    sums = {k: [0.0, 0.0, 0] for k in refs}     # agreement, clear, positions
+    firsts = dict.fromkeys(refs, True)
+    gaps = []
+    for i, (p, tk) in enumerate(zip(prompts, toks)):
         stream = np.concatenate([p, np.asarray(tk)])[None]
-        tf, first = teacher_forced(model, p[None], stream, "int8", clear,
-                                   first=True, keep=ref)
+        # a hit's first token comes from a step too
+        hit = int(run["kinds"][i] == "full hit")
+        ws = run["step_widths"][i][:NEW_TOKENS - 1 + hit]
+        if len(ws) < NEW_TOKENS - 1 + hit:
+            fail(f"{what}: request {i} was stepped {len(ws)} times")
+        got, lg = {}, {}
+        for ref, rows, f, hz, sw in (
+                ("batch1", 1, None, None, None),
+                ("wide", L7_WIDTH, None, None, None),
+                ("prompt", 1, _fill_as_admitted(run, prompts, i, L7_BUCKETS),
+                 None, None),
+                ("served", max(ws), _fill_as_admitted(
+                    run, prompts, i, L7_BUCKETS, ws[0] if hit else None),
+                 L7_TOTAL, ws[hit:])):
+            clear, keep = {}, []
+            rate, first = teacher_forced(
+                model, np.repeat(p[None], rows, 0),
+                np.repeat(stream, rows, 0), "int8", clear, first=True,
+                fill=f, keep=keep, horizon=hz, widths=sw)
+            got[ref] = (rate, first, clear)
+            lg[ref] = keep[0][0]
+            sums[ref][0] += rate * NEW_TOKENS
+            if clear["positions"]:
+                sums[ref][1] += clear["agreement"] * clear["positions"]
+                sums[ref][2] += clear["positions"]
+            firsts[ref] &= first
+        top = lg["batch1"].topk(1, dim=-1).values[:, 0].abs()
+        gaps.append(((lg["wide"] - lg["batch1"]).abs().max(-1).values /
+                     (2.0 ** -8 * top)).max().item())
+        del lg
         adm = run["admissions"][i]
-        pad = (adm if adm["mode"] == "admit" else
-               run["admissions"][run["producer"]]).get("p_bucket", 0)
-        ktf, kfirst = teacher_forced(
-            model, p[None], stream, "int8", kclear, first=True,
-            fill=_fill_as_served(kind, run["shared"][i], L7_BUCKETS, pad))
-        gtf, gfirst = (tf, first) if kind == "miss" else (ktf, kfirst)
-        for key, r, f in (("plain", tf, first), ("kind", ktf, kfirst),
-                          ("gate", gtf, gfirst)):
-            sums[key] += r * NEW_TOKENS
-            firsts[key] &= f
-        if kind == "miss":
-            sums["miss"] += tf * NEW_TOKENS
-            sums["miss_n"] += NEW_TOKENS
-        if clear["positions"]:
-            sums["clear"] += clear["agreement"] * clear["positions"]
-            sums["clear_n"] += clear["positions"]
-        print(f"{what}: request {i} ({kind}, prompt {p.size}): ttft "
-              f"{run['ttft_s'][i]:.4f} s; against the batch-1 kv_generate "
-              f"prefill: first token equal {first}, teacher-forced "
-              f"agreement {tf:.4f}, over the {clear['positions']} positions"
-              f" with a top-2 margin of {TIE_STEPS}+ bf16 steps "
-              f"{clear['agreement']}, first margin "
-              f"{clear['first_margin'][0]:.3f} bf16 steps; against the "
-              f"batch-1 path of its kind: agreement {ktf:.4f}, first token "
-              f"equal {kfirst}, over the {kclear['positions']} clear "
-              f"positions {kclear['agreement']}; gated: {gtf:.4f}",
-              flush=True)
-        if explain:
-            wrate, where, gmax = _gap_at_disagreements(
-                model, p, stream, ref[0][0], what, i)
-            gaps.append(gmax)
-            sums["wide"] += wrate * NEW_TOKENS
-            sums["wide_n"] += NEW_TOKENS
-            explained += [(i,) + w for w in where]
-        del ref
+        print(f"{what}: request {i} ({run['kinds'][i]}, prompt {p.size}, "
+              f"admission {adm}, steps by pool width "
+              f"{ {S: ws.count(S) for S in sorted(set(ws))} }): ttft "
+              f"{run['ttft_s'][i]:.4f} s; "
+              "teacher-forced agreement, first token equal, over the "
+              f"positions with a top-2 margin of {TIE_STEPS}+ bf16 steps: "
+              + "; ".join(f"{ref} {r:.4f}, {f1}, {cl['agreement']} of "
+                          f"{cl['positions']}"
+                          for ref, (r, f1, cl) in got.items())
+              + f"; largest logit gap between batch1 and wide {gaps[-1]:.3f}"
+              " bf16 steps", flush=True)
     n = NEW_TOKENS * len(prompts)
-    rate, krate, grate = (sums[k] / n for k in ("plain", "kind", "gate"))
-    miss_rate = sums["miss"] / sums["miss_n"] if sums["miss_n"] else None
-    clear_rate = sums["clear"] / sums["clear_n"] if sums["clear_n"] else None
-    wide_rate = sums["wide"] / sums["wide_n"] if sums["wide_n"] else None
-    print(f"{what}: teacher-forced agreement, gated (misses against the "
-          f"batch-1 kv_generate prefill, chunked prompts and hits against "
-          f"the batch-1 path of their kind): {grate:.4f} (bar {bar}), "
-          f"first tokens equal {firsts['gate']}; the misses alone "
-          f"{miss_rate}; every stream against the batch-1 kv_generate "
-          f"prefill {rate:.4f} (over the {sums['clear_n']:.0f} positions "
-          f"with a top-2 margin of {TIE_STEPS}+ bf16 steps {clear_rate}), "
-          f"first tokens equal {firsts['plain']}; every stream against the "
-          f"path of its kind {krate:.4f}, first tokens equal "
-          f"{firsts['kind']}"
-          + (f"; at the served width ({L7_WIDTH} rows) {wide_rate:.4f}"
-             if explain else ""), flush=True)
-    if grate < bar:
-        fail(f"{what}: teacher-forced agreement {grate:.4f} < {bar} (misses "
-             "against the batch-1 kv_generate prefill, chunked prompts and "
-             "hits against the batch-1 path of their kind)")
-    if bar >= 1.0 and not firsts["gate"]:
-        fail(f"{what}: a served first token differs from its batch-1 "
-             "reference")
-    return dict(teacher_forced_gated=grate, teacher_forced_miss=miss_rate,
-                teacher_forced=rate, teacher_forced_clear=clear_rate,
-                clear_positions=sums["clear_n"],
-                first_tokens_equal=firsts["plain"],
-                first_tokens_equal_gated=firsts["gate"],
-                teacher_forced_kind=krate,
-                first_tokens_equal_kind=firsts["kind"],
-                teacher_forced_wide=wide_rate, wide_gap_max=gaps,
-                clear_disagreements=explained, full_hits=full)
+    rates = {k: v[0] / n for k, v in sums.items()}
+    clears = {k: (v[1] / v[2] if v[2] else None) for k, v in sums.items()}
+    print(f"{what}: teacher-forced agreement over every stream, gated "
+          f"against the step fed as served (the prompt as the server "
+          f"computed it, each step on the rows of the server's, horizon "
+          f"{L7_TOTAL}): "
+          f"{rates['served']:.4f} (bar {bar}), first tokens equal "
+          f"{firsts['served']}; against the served prompt with one-row "
+          f"steps {rates['prompt']:.4f}; against the kv_generate prefill "
+          f"with one-row steps {rates['batch1']:.4f}, with {L7_WIDTH}-row "
+          f"steps {rates['wide']:.4f}; over the positions with a top-2 "
+          f"margin of {TIE_STEPS}+ bf16 steps {clears}; largest logit gap "
+          f"between batch1 and wide {max(gaps):.3f} bf16 steps", flush=True)
+    if rates["served"] < bar:
+        fail(f"{what}: teacher-forced agreement {rates['served']:.4f} < "
+             f"{bar} against the step fed as served")
+    if bar >= 1.0 and not firsts["served"]:
+        fail(f"{what}: a served first token differs from its reference")
+    out.update(teacher_forced_gated=rates["served"], teacher_forced=rates,
+               teacher_forced_clear=clears, first_tokens_equal=firsts,
+               wide_gap_max=gaps)
+    return out
 
 
 def _ttft_by_kind(run):
@@ -2651,9 +2761,12 @@ def check_llama_served(model, cfg):
     """Phase 12b: Llama-7B (bf16, int8 weights, full width and depth)
     through ``DecodeServer(pool_sizes=(4, 8), max_total_len=2048,
     prefill_buckets=16...1024)``, page 16, greedy, 32 new tokens a
-    request: the counted threaded run and its gates, then the captured
-    and eager arms; then a 4-layer full-width Llama in f32, the same
-    requests, held to agreement 1.0."""
+    request: the counted threaded run (tokens/s, TTFT, launches and
+    counters gated), then the same requests pump-driven, their counters
+    and their teacher-forced agreement gated at 0.9 (a pump-driven run's
+    waves do not follow thread timing), then the captured and eager
+    arms; then a 4-layer full-width Llama in f32, the same requests,
+    held to agreement 1.0."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
@@ -2671,7 +2784,16 @@ def check_llama_served(model, cfg):
           "by their capture)", flush=True)
     check_launches(run, "llama_7b served", 7 * NL + 1, 7 * NL)
     run.update(llama_served_checks(model, cfg, prompts, toks, run,
-                                   "llama_7b served", 0.9, explain=True))
+                                   "llama_7b served", None))
+    log, setup = _step_widths_recorder()
+    pprompts, ptoks, prun = serve_run(model, scenario,
+                                      "llama_7b served pump-driven",
+                                      threaded=False, setup=setup, **kw)
+    prun["step_widths"] = _stream_widths(log, prun)
+    run["pump"] = llama_served_checks(model, cfg, pprompts, ptoks, prun,
+                                      "llama_7b served pump-driven", 0.9)
+    run["pump"]["counters"] = prun["counters"]
+    run["wide_gap_max"] = run["pump"]["wide_gap_max"]     # phase 12c's bar
     ttft = _ttft_by_kind(run)
     run["ttft_by_kind"] = ttft
     run["pool_bytes"] = run["stats"]["pool_bytes"]
@@ -2688,17 +2810,19 @@ def check_llama_served(model, cfg):
 
 def check_llama_served_f32():
     """The same requests on a 4-layer full-width Llama in float32: the
-    served streams against the batch-1 step, teacher-forced agreement
-    1.0 and every first token equal."""
+    served streams against the step fed as served, teacher-forced
+    agreement 1.0 and every first token equal."""
     import torch
     from mxnet_tpu_torch.models import llama_7b
 
     model, cfg = llama_7b(dtype=torch.float32, num_layers=4)
     model.initialize(0.02, seed=0)
+    log, setup = _step_widths_recorder()
     prompts, toks, run = serve_run(
         model, llama_scenario(cfg.vocab_size), "llama f32 served",
-        threaded=True, pool_sizes=(4, 8), max_total_len=L7_TOTAL,
-        prefill_buckets=L7_BUCKETS, page_size=16)
+        threaded=True, setup=setup, pool_sizes=(4, 8),
+        max_total_len=L7_TOTAL, prefill_buckets=L7_BUCKETS, page_size=16)
+    run["step_widths"] = _stream_widths(log, run)
     out = llama_served_checks(model, cfg, prompts, toks, run,
                               "llama f32 served", 1.0)
     del model
@@ -6480,6 +6604,511 @@ def check_optimizers(cfg, op, adamw_row):
                 lars_resnet=lars_resnet(), all=all_optimizers(op))
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: the reference's ops/nn.py ops as mx.nd ops and hybrid_forward
+# blocks, the seventeenth slice
+# --------------------------------------------------------------------------- #
+
+OP_TOL = 1e-5               # 20.1: card vs CPU, relative and absolute
+OP_CTC_TOL = 2e-5           # CTCLoss: a log-space sum over every step
+OP_WGRAD_TOL = 1e-4         # cuDNN's f32 weight gradients (phase 16), of
+#                             the array's largest magnitude
+OP_FAMILIES = {
+    "activation": ("Activation", "LeakyReLU", "log_sigmoid", "hard_sigmoid",
+                   "mish"),
+    "softmax": ("softmax", "log_softmax", "softmin", "SoftmaxActivation",
+                "_sparse_softmax_ce"),
+    "dense/conv/pool": ("FullyConnected", "Convolution", "Deconvolution",
+                        "Pooling"),
+    "norm": ("_BatchNormStats", "LayerNorm", "InstanceNorm", "GroupNorm",
+             "RMSNorm"),
+    "embedding/loss": ("Embedding", "SoftmaxOutput", "CTCLoss", "MakeLoss"),
+    "attention": ("flash_attention", "rope",
+                  "_contrib_interleaved_matmul_selfatt_qk",
+                  "_contrib_interleaved_matmul_selfatt_valatt"),
+    "resize": ("UpSampling", "_contrib_BilinearResize2D"),
+}
+HF_V, HF_U, HF_H, HF_T, HF_B = 50257, 768, 12, 1024, 8   # GPT-2 small
+HF_STEPS = 3                # 20.2: phase-by-phase steps
+HF_FUSED = 20               # 20.2: fused_step calls after them
+HF_BITS = 3                 # 20.2: fused against phase by phase, 2 layers
+STAGE_B, STAGE_HW = 128, 56     # 20.4: ResNet-50's conv2_x at batch 128
+STAGE_K6 = 7                # its stride-1 1x1 convolutions
+
+
+def _tests_path():
+    """``tests/`` on the path: the op cases and the user's models that
+    the CPU tests run too (neither imports the JAX package)."""
+    path = os.path.join(HERE, "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+
+
+def _op_run(mx, name, arrays, kwargs, ctx, heads=None):
+    """``mx.nd.<name>`` on ``ctx`` under ``record()``: outputs, then with
+    ``heads`` the float inputs' gradients."""
+    import numpy as np
+
+    nds = [mx.nd.array(a, ctx=ctx, dtype=str(a.dtype)) for a in arrays]
+    wants = [a.dtype == np.float32 for a in arrays]
+    for x, w in zip(nds, wants):
+        if w:
+            x.attach_grad()
+    with mx.autograd.record():
+        outs = getattr(mx.nd, name)(*nds, **kwargs)
+    outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+    if heads is not None:
+        mx.autograd.backward(outs, [mx.nd.array(h, ctx=ctx) for h in heads])
+    grads = [x.grad.asnumpy() if w else None for x, w in zip(nds, wants)]
+    return [o.asnumpy() for o in outs], grads
+
+
+def op_sweep():
+    """20.1: every op that ``ops/nn.py`` and ``ops/attention.py``
+    register, at the tier-1 cases (``tests/_torch_nn_cases.py``), f32,
+    on the card and on the CPU with the same head gradients: outputs and
+    input gradients within ``OP_TOL`` (``OP_CTC_TOL`` for CTCLoss), a
+    convolution's weight gradient within ``OP_WGRAD_TOL`` of its largest
+    magnitude.  ``_DropoutImpl`` draws from each device's generator, so
+    it is left out.  Then the host cost of an ``mx.nd`` op beside the
+    torch call it makes."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import attention as pattn
+    from mxnet_tpu_torch.ops import nn as pnn
+    from mxnet_tpu_torch.ops.registry import OPS
+
+    _tests_path()
+    from _torch_nn_cases import CASES, _input
+
+    ported = {n for n, o in OPS.items()
+              if o.fn.__module__ in (pnn.__name__, pattn.__name__)}
+    counts = {f: 0 for f in OP_FAMILIES}
+    worst, bad = {}, []
+    for cid, name, specs, kwargs in CASES:
+        rs = np.random.RandomState(sum(map(ord, cid)))
+        arrays = [_input(rs, s) for s in specs]
+        outs, _ = _op_run(mx, name, arrays, kwargs, mx.cpu())
+        heads = [rs.standard_normal(o.shape).astype(np.float32)
+                 for o in outs]
+        c_out, c_grad = _op_run(mx, name, arrays, kwargs, mx.cpu(), heads)
+        g_out, g_grad = _op_run(mx, name, arrays, kwargs, mx.gpu(0), heads)
+        tol = OP_CTC_TOL if name == "CTCLoss" else OP_TOL
+        err = 0.0
+        for i, (g, c) in enumerate(zip(g_out + g_grad, c_out + c_grad)):
+            if c is None:
+                continue
+            wgrad = name in ("Convolution", "Deconvolution") and \
+                i - len(c_out) == 1
+            if wgrad:
+                scale = max(float(np.abs(c).max()), 1e-30)
+                e = float(np.abs(g - c).max()) / scale
+                ok = e <= OP_WGRAD_TOL
+            else:
+                e = float(np.abs(g - c).max()) if c.size else 0.0
+                ok = np.allclose(g, c, rtol=tol, atol=tol)
+            err = max(err, e)
+            if not ok:
+                bad.append((cid, i, e))
+        worst[cid] = err
+        family = next(f for f, names in OP_FAMILIES.items() if name in names)
+        counts[family] += 1
+    missing = ported - {c[1] for c in CASES} - {"_DropoutImpl"}
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print(f"op sweep: {len(CASES)} cases of {len(ported)} ops (ops/nn.py, "
+          f"ops/attention.py) card vs CPU, f32, TF32 off: by family "
+          f"{counts}; worst {[(k, f'{v:.2e}') for k, v in top]} (tol "
+          f"{OP_TOL}, CTCLoss {OP_CTC_TOL}, convolution weight gradients "
+          f"{OP_WGRAD_TOL} of the largest); _DropoutImpl left out (each "
+          f"device's generator)", flush=True)
+    if bad or missing:
+        fail(f"op sweep: disagreeing {bad[:5]}, without a case {missing}")
+    # the host cost of the mx.nd layer: an op through invoke() and the
+    # NDArray wrap, beside the torch call it makes
+    a = mx.nd.array(np.ones((64, 64), np.float32), ctx=mx.gpu(0))
+    w = mx.nd.array(np.ones((64, 64), np.float32), ctx=mx.gpu(0))
+    t, wt = a._data, w._data
+    host = dict(
+        Activation=host_us(lambda: mx.nd.Activation(a, act_type="relu")),
+        relu=host_us(lambda: torch.relu(t)),
+        FullyConnected=host_us(lambda: mx.nd.FullyConnected(
+            a, w, num_hidden=64, no_bias=True)),
+        matmul=host_us(lambda: torch.matmul(t, wt.t())))
+    print(f"op sweep: host us a call (median of 5 x 200, {card_line()}): "
+          f"mx.nd.Activation {host['Activation']:.2f} beside torch.relu "
+          f"{host['relu']:.2f}; mx.nd.FullyConnected "
+          f"{host['FullyConnected']:.2f} beside torch.matmul "
+          f"{host['matmul']:.2f}", flush=True)
+    return dict(cases=len(CASES), ops=len(ported), families=counts,
+                worst=dict(top), host_us=host)
+
+
+def _hf_gpt(mx, layers, dropout, dtype, ctx, seed):
+    """The user's GPT (``tests/_torch_hybrid_models.gpt``) at GPT-2
+    small's widths, Normal(0.02) from ``seed``, in ``dtype``."""
+    _tests_path()
+    from _torch_hybrid_models import gpt
+
+    with ctx:
+        net = gpt(mx, vocab=HF_V, units=HF_U, layers=layers, heads=HF_H,
+                  max_len=HF_T, dropout=dropout)
+    net.initialize(mx.init.Normal(0.02), ctx=ctx, seed=seed)
+    if dtype != "float32":
+        net.cast(dtype)
+    return net
+
+
+def _hf_batch(mx, B, ctx, seed=8):
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    tok = mx.nd.array(rs.randint(0, HF_V, (B, HF_T)), ctx=ctx,
+                      dtype="int32")
+    pos = mx.nd.array(np.tile(np.arange(HF_T), (B, 1)), ctx=ctx,
+                      dtype="int32")
+    lab = mx.nd.array(rs.randint(0, HF_V, (B, HF_T)), ctx=ctx,
+                      dtype="int32")
+    return tok, pos, lab
+
+
+def hf_gpt2(cfg, train_row):
+    """20.2: the user's GPT-2 small (12 layers, bf16, dropout 0.1,
+    ``gluon.Trainer(..., "adamw")`` multi-precision) on one batch of
+    8 x 1024: ``HF_STEPS`` steps phase by phase (``record``,
+    ``backward``, ``step``), then ``HF_FUSED`` ``fused_step`` calls (eager,
+    capture and replay, replays).  K1, K2, K3 exactly 12 a step in both
+    arms (a replay's by what its capture recorded), one capture, losses
+    finite, the first within 0.5 of ln(vocab), falling, every gradient
+    nonzero after the first step; ms a step of both arms beside phase
+    7's ``SPMDTrainer``.  Then at 2 layers and dropout 0, ``HF_BITS``
+    fused steps against as many phase-by-phase ones, bit for bit."""
+    import math
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+
+    gpu = mx.gpu(0)
+    mx.random.seed(0)
+    net = _hf_gpt(mx, cfg.num_layers, 0.1, "bfloat16", gpu, seed=0)
+    tok, pos, lab = _hf_batch(mx, HF_B, gpu)
+    loss_l = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adamw", dict(ADAMW_OPT))
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+
+    def loss_fn(t, p, y):
+        return loss_l(net(t, p), y)
+
+    losses, phase_counts, times, zero = [], [], [], []
+    for i in range(HF_STEPS):
+        _reset_attention_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(tok, pos, lab)
+        loss.backward()
+        if i == 0:
+            zero = [p.name for p in params
+                    if not bool((p.grad()._data != 0).any())]
+        trainer.step(HF_B)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss._data.detach().float().mean()))
+        phase_counts.append(_attention_counts())
+    # a live graph keeps its leaves' AccumulateGrad nodes, made on the
+    # default stream; the fused step's capture on its side stream would
+    # meet them and fail (PyTorch's stream-mismatch rule)
+    del loss
+    fsm.reset_step_counters()
+    _reset_attention_counts()
+    fused = []
+    for i in range(HF_FUSED):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        fused.append(trainer.fused_step(loss_fn, tok, pos, lab)._data
+                     .float().mean())
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) / (HF_FUSED - 2) * 1e3
+    losses += [float(v) for v in fused]
+    fs, prog = _apply_program(trainer)
+    launches = _fused_attention_launches(trainer)
+    counters = dict(fsm.step_counters)
+    phase_ms = sum(times[1:]) / (HF_STEPS - 1) * 1e3
+    L = cfg.num_layers
+    print(f"hybrid gpt2: the user's hybrid_forward GPT-2 small (12 layers, "
+          f"bf16, dropout 0.1, F.flash_attention, tied head by "
+          f"F.FullyConnected) B={HF_B} T={HF_T}, AdamW multi-precision: "
+          f"{HF_STEPS} phase-by-phase steps then {HF_FUSED} fused_step "
+          f"calls; losses {[round(v, 4) for v in losses]}; launches a "
+          f"phase-by-phase step {phase_counts}, fused {launches} (a "
+          f"replay's {prog.launches}); step_counters {counters}; "
+          f"parameters with a zero gradient after step 1: {zero}",
+          flush=True)
+    print(f"hybrid gpt2: ms a step, phase by phase {phase_ms:.3f} (steps "
+          f"2-{HF_STEPS}), fused {fused_ms:.3f} (replays 3-{HF_FUSED}); "
+          f"phase 7's SPMDTrainer GPT-2 in this process "
+          f"{train_row['ms_per_step']:.3f} (captured arm "
+          f"{train_row['arms']['captured_ms_per_step']:.3f}); "
+          f"{card_line()}", flush=True)
+    for c in phase_counts:
+        if any(c[n] != L for n in ATTN_KERNELS):
+            fail(f"hybrid gpt2: a phase-by-phase step launched {c}, "
+                 f"expected {L} each")
+    if any(prog.launches.get(n) != L or launches[n] != L * HF_FUSED
+           for n in ATTN_KERNELS):
+        fail(f"hybrid gpt2: fused launches {launches} (a replay's "
+             f"{prog.launches}), expected {L} a step")
+    if counters["compiles"] != 1 or counters["legacy_steps"]:
+        fail(f"hybrid gpt2: step counters {counters}")
+    if not all(math.isfinite(v) for v in losses) or \
+            abs(losses[0] - math.log(HF_V)) > 0.5 or \
+            not sum(losses[-3:]) < sum(losses[:3]):
+        fail(f"hybrid gpt2: losses not finite, first not within 0.5 of "
+             f"ln(vocab), or not falling: {losses}")
+    if zero:
+        fail(f"hybrid gpt2: zero gradients after the first step: {zero}")
+    row = dict(losses=losses, phase_launches=phase_counts,
+               fused_launches=launches, launches_a_replay=prog.launches,
+               step_counters=counters, phase_ms_per_step=phase_ms,
+               fused_ms_per_step=fused_ms,
+               spmd_ms_per_step=train_row["ms_per_step"],
+               launches={n: sum(c[n] for c in phase_counts) + launches[n]
+                         for n in ATTN_KERNELS})
+    del fs, prog, trainer, net, params, fused
+    torch.cuda.empty_cache()
+    row["bits"] = hf_bits(mx)
+    for n in ATTN_KERNELS:
+        row["launches"][n] += row["bits"]["launches"][n]
+    return row
+
+
+def _fused_attention_launches(trainer):
+    """K1-K3's launches since the counts were set to 0, through the
+    trainer's fused step: the eager calls by the counts, each replay by
+    what its capture recorded."""
+    fs, prog = _apply_program(trainer)
+    host = _attention_counts()
+    replayed = fs.launches()
+    return {n: host[n] - prog.launches.get(n, 0) + replayed.get(n, 0)
+            for n in ATTN_KERNELS}
+
+
+def hf_bits(mx):
+    """20.2, last: two copies of the user's GPT at full width, 2 layers,
+    dropout 0, bf16, from one seed; ``HF_BITS`` ``fused_step`` calls on
+    one (eager, capture and replay, replay) against as many
+    phase-by-phase steps on the other: the losses and every parameter
+    bit for bit."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+
+    gpu = mx.gpu(0)
+    nets = [_hf_gpt(mx, 2, 0.0, "bfloat16", gpu, seed=5) for _ in range(2)]
+    tok, pos, lab = _hf_batch(mx, HF_B, gpu, seed=10)
+    loss_l = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainers = [gluon.Trainer(n.collect_params(), "adamw", dict(ADAMW_OPT))
+                for n in nets]
+    fused, phase = [], []
+
+    def loss_fn(t, p, y):       # one function: one step program
+        return loss_l(nets[0](t, p), y)
+
+    _reset_attention_counts()
+    for _ in range(HF_BITS):
+        fused.append(trainers[0].fused_step(loss_fn, tok, pos, lab)
+                     ._data.clone())
+    launches = _fused_attention_launches(trainers[0])
+    _reset_attention_counts()
+    for _ in range(HF_BITS):
+        with autograd.record():
+            loss = loss_l(nets[1](tok, pos), lab)
+        loss.backward()
+        trainers[1].step(HF_B)
+        phase.append(loss._data.clone())
+    launches = {n: c + _attention_counts()[n] for n, c in launches.items()}
+    same_loss = all(torch.equal(a, b) for a, b in zip(fused, phase))
+    pa, pb = (n._collect_params_with_prefix() for n in nets)
+    differ = [k for k in pa if not torch.equal(pa[k].data()._data,
+                                               pb[k].data()._data)]
+    print(f"hybrid gpt2 bits: 2 layers, full width, dropout 0, bf16: "
+          f"{HF_BITS} fused steps against {HF_BITS} phase by phase: losses "
+          f"equal {same_loss}, parameters that differ {differ} of "
+          f"{len(pa)}; launches {launches}", flush=True)
+    if not same_loss or differ:
+        fail("hybrid gpt2 bits: the fused steps differ from the phase-by-"
+             "phase steps")
+    del nets, trainers, fused, phase
+    torch.cuda.empty_cache()
+    return dict(steps=HF_BITS, losses_equal=same_loss, params=len(pa),
+                params_differing=differ, launches=launches)
+
+
+def hf_vs_cpu():
+    """20.3: the user's GPT in f32 at 2 layers, full width, dropout 0,
+    1 x 1024, on the card (K1-K3, TF32 off) and on the CPU (their plain
+    versions) from the same weights: the loss within ``GLUON_TOL``
+    relative and every gradient within ``GLUON_GRAD_TOL`` of its array's
+    largest magnitude (phase 16's bounds)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+
+    cpu_net = _hf_gpt(mx, 2, 0.0, "float32", mx.cpu(), seed=9)
+    card_net = _hf_gpt(mx, 2, 0.0, "float32", mx.gpu(0), seed=1)
+    src = cpu_net._collect_params_with_prefix()
+    for k, p in card_net._collect_params_with_prefix().items():
+        p.set_data(src[k].data())
+    loss_l = gluon.loss.SoftmaxCrossEntropyLoss()
+    res = {}
+    for name, net, ctx in (("card", card_net, mx.gpu(0)),
+                           ("cpu", cpu_net, mx.cpu())):
+        tok, pos, lab = _hf_batch(mx, 1, ctx, seed=12)
+        _reset_attention_counts()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_l(net(tok, pos), lab)
+        loss.backward()
+        grads = {k: p.grad().asnumpy() for k, p in
+                 net._collect_params_with_prefix().items()}
+        res[name] = dict(loss=loss.asnumpy(), grads=grads,
+                         s=time.perf_counter() - t0,
+                         launches=_attention_counts())
+    c, g = res["cpu"], res["card"]
+    loss_rel = float(np.abs(g["loss"] - c["loss"]).max() /
+                     np.abs(c["loss"]).max())
+    errs = sorted(((float(np.abs(g["grads"][k] - v).max()) /
+                    max(float(np.abs(v).max()), 1e-30), k)
+                   for k, v in c["grads"].items()), reverse=True)
+    print(f"hybrid gpt2 vs cpu: 2 layers, f32, dropout 0, 1 x {HF_T}: loss "
+          f"card {g['loss'].item():.6f} cpu {c['loss'].item():.6f} (rel "
+          f"{loss_rel:.3e}, tol {GLUON_TOL}); worst gradients "
+          f"{[(f'{e:.3e}', k) for e, k in errs[:3]]} of each array's "
+          f"largest magnitude (tol {GLUON_GRAD_TOL}); {len(errs)} "
+          f"gradients; seconds card {g['s']:.2f}, cpu {c['s']:.2f}; "
+          f"launches on the card {g['launches']}", flush=True)
+    if loss_rel > GLUON_TOL or errs[0][0] > GLUON_GRAD_TOL:
+        fail("hybrid gpt2 vs cpu: the card disagrees with the CPU")
+    return dict(loss_card=g["loss"].item(), loss_cpu=c["loss"].item(),
+                loss_rel=loss_rel, grad_rel=errs[0][0],
+                worst=errs[:3], launches=g["launches"])
+
+
+def hf_stage():
+    """20.4: ResNet-50's stage conv2_x as the user's ``hybrid_forward``
+    bottlenecks (``F.Convolution``, ``F.BatchNorm``, ``F.Activation``;
+    ``tests/_torch_hybrid_models.bottleneck_stage``) against the same
+    stage of the model zoo's ``BottleneckV1`` (``gluon.nn.Conv2D``/
+    ``BatchNorm``) with the same weights, NHWC bf16, 128 x 56 x 56 x 64,
+    ``MXNET_FUSED_CONV_BWD=1``, under ``record()``: K6 exactly
+    ``STAGE_K6`` times a backward, the output, the input's gradient and
+    every parameter's gradient equal bit for bit.  The flag is restored
+    after the stage."""
+    prev = os.environ.get("MXNET_FUSED_CONV_BWD")
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    try:
+        return _hf_stage()
+    finally:
+        if prev is None:
+            del os.environ["MXNET_FUSED_CONV_BWD"]
+        else:
+            os.environ["MXNET_FUSED_CONV_BWD"] = prev
+
+
+def _hf_stage():
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    _tests_path()
+    from _torch_hybrid_models import (bottleneck_stage, stage_from_zoo,
+                                      zoo_stage)
+
+    gpu = mx.gpu(0)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn((STAGE_B, STAGE_HW, STAGE_HW, 64), generator=gen,
+                    device="cuda")
+    with gpu:
+        zoo, hyb = zoo_stage(mx), bottleneck_stage(mx)
+    zoo.initialize(mx.init.Xavier(magnitude=2), ctx=gpu, seed=4)
+    hyb.initialize(ctx=gpu)
+    zoo(mx.nd.NDArray(x))                   # the deferred shapes
+    zoo.cast("bfloat16")
+    hyb.cast("bfloat16")
+    names = stage_from_zoo(hyb, zoo)
+    xb = x.bfloat16()
+    head = torch.randn(xb.shape[:-1] + (256,), generator=gen,
+                       device="cuda").bfloat16()
+    res, k6 = {}, []
+    for what, net in (("hybrid", hyb), ("zoo", zoo)):
+        # the first call is compared (the zoo's BatchNorm then commits its
+        # running mean, the shift of the next call's statistics); the
+        # second is timed
+        for rep in range(2):
+            a = mx.nd.NDArray(xb.clone())
+            a.attach_grad()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with autograd.record():
+                out = net(a)
+            cf.conv1x1_bwd_pair.launches = 0
+            out.backward(mx.nd.NDArray(head))
+            torch.cuda.synchronize()
+            k6.append(cf.conv1x1_bwd_pair.launches)
+            if rep == 0:
+                res[what] = dict(
+                    out=out._data.clone(), dx=a.grad._data.clone(),
+                    grads={k: p.grad()._data.clone() for k, p in
+                           net._collect_params_with_prefix().items()
+                           if p.grad_req != "null"})
+        res[what]["ms"] = (time.perf_counter() - t0) * 1e3
+    h, z = res["hybrid"], res["zoo"]
+    differ = [k for k, g in z["grads"].items()
+              if not torch.equal(h["grads"][names[k]], g)]
+    same = torch.equal(h["out"], z["out"]) and torch.equal(h["dx"], z["dx"])
+    print(f"hybrid stage: ResNet-50 conv2_x as hybrid_forward bottlenecks "
+          f"(F.Convolution, F.BatchNorm, F.Activation), NHWC bf16 "
+          f"{STAGE_B}x{STAGE_HW}x{STAGE_HW}x64, MXNET_FUSED_CONV_BWD=1: K6 "
+          f"a backward, hybrid then zoo, two each, {k6} (expected "
+          f"{STAGE_K6}); output and input gradient equal to the zoo "
+          f"stage's {same}; parameter gradients that differ {differ} of "
+          f"{len(z['grads'])}; ms forward + backward hybrid "
+          f"{h['ms']:.3f}, zoo {z['ms']:.3f}; {card_line()}", flush=True)
+    if any(n != STAGE_K6 for n in k6):
+        fail(f"hybrid stage: K6 launched {k6} times a backward (hybrid "
+             f"then zoo, two each), expected {STAGE_K6}")
+    if not same or differ:
+        fail("hybrid stage: the hybrid_forward stage differs from the zoo "
+             "stage")
+    row = dict(k6=k6, launches=sum(k6), equal=same, grads=len(z["grads"]),
+               hybrid_ms=h["ms"], zoo_ms=z["ms"])
+    del zoo, hyb, res, x, xb, head, out, a
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_hybrid(cfg, train_row):
+    """Phase 20: the op sweep, the user's GPT-2 (bf16 arms, then f32
+    against the CPU) and the ResNet stage."""
+    import torch
+
+    t0 = time.perf_counter()
+    row = dict(ops=op_sweep(), gpt=hf_gpt2(cfg, train_row),
+               vs_cpu=hf_vs_cpu(), stage=hf_stage())
+    torch.cuda.synchronize()
+    # K1-K3 over 20.2 and 20.3, K6 over 20.4
+    row["launches"] = {n: row["gpt"]["launches"][n] +
+                       row["vs_cpu"]["launches"][n] for n in ATTN_KERNELS}
+    row["launches"]["conv1x1_bwd"] = row["stage"]["launches"]
+    row["seconds"] = time.perf_counter() - t0
+    print(f"phase 20: {row['seconds']:.2f} s", flush=True)
+    return row
+
+
 def main():
     try:
         import torch
@@ -6585,6 +7214,7 @@ def main():
     mlp["vs_cpu"] = check_imperative_vs_cpu()
     fused_train = check_fused(gelu_op, vision["fused"], gluon["resnet"], mlp)
     opt19 = check_optimizers(cfg, gelu_op, train)
+    hybrid = check_hybrid(cfg, train)
     gelu = next(c for c in rtc["cases"]
                 if c["name"] == "gelu_fwd<__nv_bfloat16>")
 
@@ -6594,7 +7224,8 @@ def main():
                     source="mxnet_tpu_torch/csrc/flash_bwd.cu",
                     replaces=replaces,
                     launches=train["launches"][name] +
-                    opt19["lamb_gpt2"]["launches"][name],
+                    opt19["lamb_gpt2"]["launches"][name] +
+                    hybrid["launches"][name],
                     max_abs_err=max(e for r in k23
                                     for w, e in r["max_abs_err"].items()
                                     if w in outputs),
@@ -6625,6 +7256,7 @@ def main():
              replaces="mxnet_tpu/ops/attention.py:226",
              launches=train["launches"]["flash_fwd"] +
              opt19["lamb_gpt2"]["launches"]["flash_fwd"] +
+             hybrid["launches"]["flash_fwd"] +
              srv["launches"]["flash_fwd"] + served["launches"]["flash_fwd"] +
              served["spec"]["launches"]["flash_fwd"] +
              served["faults"]["launches"]["flash_fwd"] +
@@ -6657,14 +7289,15 @@ def main():
         # launches are those of the four ResNet-50 arms (SPMDTrainer,
         # phase 14, gluon.Trainer, phase 16, Trainer.fused_step, phase
         # 18, and LARS through fused_step, phase 19.2; replays count by
-        # the graph's launches)
+        # the graph's launches) and of phase 20.4's hybrid_forward stage
         dict(name="conv1x1_bwd", route="cuda",
              source="mxnet_tpu_torch/csrc/conv1x1_bwd.cu",
              replaces="mxnet_tpu/ops/conv_fused.py:134",
              launches=vision["fused"]["launches"]["conv1x1_bwd"] +
              gluon["resnet"]["launches"]["conv1x1_bwd"] +
              fused_train["resnet"]["launches"]["conv1x1_bwd"] +
-             opt19["lars_resnet"]["launches"]["conv1x1_bwd"],
+             opt19["lars_resnet"]["launches"]["conv1x1_bwd"] +
+             hybrid["launches"]["conv1x1_bwd"],
              max_abs_err=k6["max_abs_err"], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
@@ -6705,7 +7338,7 @@ def main():
                        fused=fused, k6=k6, vision=vision, gluon=gluon,
                        rtc=rtc,
                        mlp=mlp, fused_train=fused_train, optimizers=opt19,
-                       kernels=kernels),
+                       hybrid=hybrid, kernels=kernels),
                   fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

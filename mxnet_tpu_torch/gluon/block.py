@@ -42,6 +42,18 @@ not ported: an unhybridized block stays imperative.  ``export``,
 ``trace_scope`` is the reference's trace discipline for the fused step:
 recording in the step's training mode, hybridized blocks inlined
 (``_no_hybrid``: a graph cannot be captured inside another's capture).
+
+A ``HybridBlock`` that defines ``hybrid_forward(F, x, *args, **params)``
+and no ``forward`` runs it as the reference does: ``F`` is ``mx.nd``,
+the inputs and the parameters (``self._reg_params``' data) are
+``NDArray``s, and its ``NDArray`` output leaves the block as a tensor
+(``_nd_call``).  Inside it the ops record exactly when torch's grad mode
+is on and train when the block does (``_is_training``), whichever of the
+three ways the forward runs: phase by phase under ``autograd.record()``,
+inside a ``_CachedOp`` capture (no grad), or in the fused step's trace
+(``trace_scope``), so a parameter's gradient never goes missing because
+``autograd.is_recording()`` and torch disagree.  A block that defines
+both keeps its ``forward``, as in the reference.
 """
 from __future__ import annotations
 
@@ -410,6 +422,30 @@ def _wrap(out):
     return out
 
 
+def _tensors(out):
+    """``_wrap``'s inverse: NDArrays (in tuples and lists too) to their
+    tensors."""
+    if isinstance(out, NDArray):
+        return out._data
+    if isinstance(out, (tuple, list)):
+        return type(out)(_tensors(o) for o in out)
+    return out
+
+
+def _nd_call(block, fn, args, kwargs):
+    """``fn(*args, **kwargs)`` on NDArrays inside a forward that runs on
+    tensors: the ops record exactly when torch's grad mode is on (the
+    caller set it: ``_run_nd``, a capture, the fused step's trace or a
+    plain torch call) and train when ``block`` does; the output goes back
+    to tensors."""
+    from .. import autograd
+
+    with autograd._ScopeCtx(torch.is_grad_enabled(), block._is_training()):
+        out = fn(*_wrap(list(args)), **{k: _wrap(v)
+                                        for k, v in kwargs.items()})
+    return _tensors(out)
+
+
 # --------------------------------------------------------------------------- #
 # Block
 # --------------------------------------------------------------------------- #
@@ -703,6 +739,29 @@ class HybridBlock(Block):
         return (self._active and not kwargs and bool(args) and
                 not _trace_state.no_hybrid and
                 all(isinstance(a, NDArray) for a in args))
+
+    def _hybrid(self):
+        """Whether the forward is ``hybrid_forward`` (no own ``forward``)."""
+        return type(self).forward is HybridBlock.forward
+
+    def _prepare(self, args):
+        # a hybrid_forward block's infer_shape sees NDArrays, as the
+        # reference's does
+        super()._prepare(_wrap(list(args)) if self._hybrid() else args)
+
+    def forward(self, x, *args, **kwargs):
+        """The reference's dispatch: ``hybrid_forward(F, x, *args,
+        **params, **kwargs)`` with ``F = mx.nd`` and the parameters'
+        data (a deferred parameter was created by ``_prepare`` from
+        ``infer_shape``; the base one raises)."""
+        from .. import ndarray as F
+
+        params = {n: p.data() for n, p in self._reg_params.items()}
+        return _nd_call(self, lambda *a, **kw: self.hybrid_forward(
+            F, *a, **kw), (x, *args), {**params, **kwargs})
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
 
     def _call_cached_op(self, args):
         if self._cached_op is None:

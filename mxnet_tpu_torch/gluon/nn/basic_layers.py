@@ -2,7 +2,12 @@
 
 Port of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``,
 ``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``,
-``Activation``, ``Flatten``.  Their parameters are Gluon
+``Activation``, ``Flatten`` with a ``forward`` on tensors (the models'
+paths); ``LayerNorm``, ``RMSNorm``, ``InstanceNorm``, ``GroupNorm``,
+``Embedding``, ``Lambda``, ``HybridLambda``, ``LeakyReLU``, ``PReLU``,
+``ELU``, ``SELU``, ``GELU``, ``Swish`` and ``SyncBatchNorm`` (BatchNorm
+on one card) written with ``hybrid_forward`` over ``mx.nd`` as the
+reference writes them.  Their parameters are Gluon
 ``Parameter``s (``dense0_weight``) whose tensors the module registers
 under the attribute's name.  A size
 left at 0 (``in_units``, ``in_channels``) is inferred from the first
@@ -26,10 +31,13 @@ import torch
 
 from ...ops.nn import (activation, batch_norm, dropout, flatten,
                        fully_connected)
-from ..block import Block, HybridBlock
+from ..block import Block, HybridBlock, _nd_call
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "BatchNorm", "Activation", "Flatten"]
+           "BatchNorm", "Activation", "Flatten", "LayerNorm", "RMSNorm",
+           "InstanceNorm", "GroupNorm", "Embedding", "Lambda",
+           "HybridLambda", "LeakyReLU", "PReLU", "ELU", "SELU", "GELU",
+           "Swish", "SyncBatchNorm"]
 
 
 class _Stack:
@@ -191,3 +199,215 @@ class Activation(HybridBlock):
 class Flatten(HybridBlock):
     def forward(self, x):
         return flatten(x)
+
+
+class SyncBatchNorm(BatchNorm):
+    """The reference's cross-device BatchNorm: on one card, BatchNorm
+    over axis 1 (the port runs no data-parallel mesh, so the batch is
+    the global batch)."""
+
+    def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
+                 epsilon=1e-5, center=True, scale=True,
+                 use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", **kwargs):
+        super().__init__(axis=1, momentum=momentum, epsilon=epsilon,
+                         center=center, scale=scale,
+                         use_global_stats=use_global_stats,
+                         beta_initializer=beta_initializer,
+                         gamma_initializer=gamma_initializer,
+                         running_mean_initializer=running_mean_initializer,
+                         running_variance_initializer=(
+                             running_variance_initializer),
+                         in_channels=in_channels, **kwargs)
+
+
+class _Norm(HybridBlock):
+    """A norm layer with ``gamma`` (and ``beta`` unless ``beta`` is
+    None) of the input's channel count along ``axis``."""
+
+    def __init__(self, axis, epsilon, in_channels, gamma_initializer,
+                 beta_initializer=None, scale=True, center=True,
+                 prefix=None, params=None, device=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis, self._eps = axis, epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            if beta_initializer is not None:
+                self.beta = self.params.get(
+                    "beta", shape=(in_channels,), init=beta_initializer,
+                    allow_deferred_init=True, differentiable=center)
+        self._place(device)
+
+    def infer_shape(self, x, *args):
+        ch = x.shape[self._axis]
+        for p in self._reg_params.values():
+            p.shape = (ch,)
+
+    def __repr__(self):
+        return f"{type(self).__name__}(axis={self._axis}, eps={self._eps})"
+
+
+class LayerNorm(_Norm):
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(axis, epsilon, in_channels, gamma_initializer,
+                         beta_initializer, scale, center, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
+
+
+class RMSNorm(_Norm):
+    """Root-mean-square norm (the Llama family's; the reference's
+    addition)."""
+
+    def __init__(self, axis=-1, epsilon=1e-6, gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(axis, epsilon, in_channels, gamma_initializer,
+                         **kwargs)
+
+    def hybrid_forward(self, F, x, gamma):
+        return F.RMSNorm(x, gamma, axis=self._axis, eps=self._eps)
+
+
+class InstanceNorm(_Norm):
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(axis, epsilon, in_channels, gamma_initializer,
+                         beta_initializer, scale, center, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._eps)
+
+
+class GroupNorm(_Norm):
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(1, epsilon, in_channels, gamma_initializer,
+                         beta_initializer, scale, center, **kwargs)
+        self._num_groups = num_groups
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._eps)
+
+
+class Embedding(HybridBlock):
+    """Index -> row lookup; weight (input_dim, output_dim)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None, device=None):
+        super().__init__(prefix=prefix, params=params)
+        self._input_dim, self._output_dim = input_dim, output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer)
+        self._place(device)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
+
+    def __repr__(self):
+        return f"Embedding({self._input_dim} -> {self._output_dim})"
+
+
+class Lambda(Block):
+    """A function of NDArrays as a block (``function`` or the name of an
+    ``mx.nd`` op)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as F
+            function = getattr(F, function)
+        self._func = function
+
+    def forward(self, *args):
+        return _nd_call(self, self._func, args, {})
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, x, *args)`` (or the ``mx.nd`` op of that name) as a
+    hybrid block."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func = lambda F, *a: getattr(F, function)(*a)
+        else:
+            self._func = function
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """Leaky ReLU with a learned slope per channel (axis 1)."""
+
+    def __init__(self, alpha_initializer=None, in_channels=1, prefix=None,
+                 params=None, device=None):
+        super().__init__(prefix=prefix, params=params)
+        from ... import initializer as init_mod
+        with self.name_scope():
+            self.alpha = self.params.get(
+                "alpha", shape=(in_channels,),
+                init=alpha_initializer or init_mod.Constant(0.25))
+        self._place(device)
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, gamma=alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    """GELU, the exact form (``approximation="erf"``) or the tanh one."""
+
+    def __init__(self, approximation="erf", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._approx = approximation
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(
+            x, act_type="gelu" if self._approx != "erf" else "erf_gelu")
+
+
+class Swish(HybridBlock):
+    def __init__(self, beta=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        if self._beta == 1.0:
+            return F.Activation(x, act_type="swish")
+        return x * F.sigmoid(self._beta * x)

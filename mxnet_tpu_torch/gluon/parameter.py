@@ -521,6 +521,8 @@ def _load_file(filename):
     from ..ndarray import serialization
 
     loaded = serialization.load(filename, ctx=cpu())
+    if isinstance(loaded, list) and not loaded:
+        return {}           # a block without parameters saved nothing
     if not isinstance(loaded, dict):
         raise MXNetError(f"{filename} holds an unnamed list of arrays, not "
                          "parameters")

@@ -439,7 +439,7 @@ class _DecodeEngine:
                 k = k.repeat_interleave(H // KV, dim=1)
                 v = v.repeat_interleave(H // KV, dim=1)
             o = flash_attention(q, k, v, None, scale=self.scale,
-                                causal=True)
+                                causal=True, training=False)
             o = o.permute(0, 2, 1, 3).reshape(B, P, U)
             if self.is_llama:
                 x = x + blk.attn.o_proj(o)

@@ -68,7 +68,7 @@ class LlamaAttention(nn.Module):
         if KV != H:     # each KV head serves H // KV consecutive q heads
             k = k.repeat_interleave(H // KV, dim=1)
             v = v.repeat_interleave(H // KV, dim=1)
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=True, training=False)
         return self.o_proj(out.permute(0, 2, 1, 3).reshape(B, L, U))
 
 

@@ -1,28 +1,35 @@
 """``mx.nd`` namespace.
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``: the NDArray class plus
-one wrapper per op of the registry, generated from the ported op modules
-(``ops/defs.py``), with the reference's alias names, and ``save``,
-``load``, ``concatenate``, ``Dropout`` and ``Custom``.
-``mx.nd.random``, ``image``, ``sparse``, ``contrib`` and the ops of the
-other op modules are not ported yet.
+one wrapper per op of the registry, generated from every ported op
+module (``ops/defs.py``, ``ops/nn.py``, ``ops/attention.py``) under the
+op's name (and ``ops/defs.py``'s Python names), with the reference's
+alias names, and ``save``, ``load``, ``concatenate``, ``BatchNorm``,
+``Dropout`` and ``Custom``.  ``ring_attention`` raises ``MXNetError``
+(``ops.registry.NOT_PORTED``).  ``mx.nd.random``, ``image``,
+``sparse``, ``contrib`` and the ops of the other op modules are not
+ported yet.
 """
 from .ndarray import NDArray, array, empty, from_torch, waitall
 from ..ops.defs import arange, eye, full, linspace, ones, zeros
+from ..ops import attention as _attention
 from ..ops import defs as _defs
+from ..ops import nn as _nn
+from ..ops.registry import OPS as _OPS
 from ..ops.registry import _ALIASES as _alias_map
 from .serialization import load, save
 
-_by_opname = {}
 for _name, _obj in vars(_defs).items():
     if callable(_obj) and getattr(_obj, "_op", None) is not None:
         globals()[_name] = _obj
-        _by_opname[_obj._op.name] = _obj
-        if _obj._op.name != _name:
-            globals().setdefault(_obj._op.name, _obj)
+_by_opname = {_name: _o.wrapper for _name, _o in _OPS.items()}
+for _name, _wrapper in _by_opname.items():
+    globals().setdefault(_name, _wrapper)
 
 stop_gradient = _defs.stop_gradient
 Dropout = _defs.Dropout
+BatchNorm = _nn.BatchNorm
+ring_attention = _attention.ring_attention
 
 # alias names (Concat, SequenceMask, elemwise_add, ...) resolve to the same
 # wrappers, mirroring the reference's duplicate CamelCase/snake_case surface

@@ -414,6 +414,14 @@ class NDArray:
     def tanh(self):
         return _ops().tanh(self)
 
+    def softmax(self, axis=-1):
+        from ..ops.registry import OPS
+        return OPS["softmax"].wrapper(self, axis=axis)
+
+    def log_softmax(self, axis=-1):
+        from ..ops.registry import OPS
+        return OPS["log_softmax"].wrapper(self, axis=axis)
+
     def clip(self, a_min, a_max):
         return _ops().clip(self, a_min=a_min, a_max=a_max)
 

@@ -43,10 +43,11 @@ import torch
 from .. import _build
 from .. import random as _random
 from ..base import MXNetError
+from .registry import NOT_PORTED, op
 
 __all__ = ["flash_attention", "flash_fwd", "flash_fwd_plain",
            "flash_bwd_dq", "flash_bwd_dq_plain", "flash_bwd_dkv",
-           "flash_bwd_dkv_plain", "rope"]
+           "flash_bwd_dkv_plain", "rope", "ring_attention"]
 
 _NEG_INF = -1e30
 _PLAIN_ATTN_MAX_SCORES = 512 * 512
@@ -483,19 +484,24 @@ def _plain_attn(q, k, v, bias, scale, causal, dropout=0.0, seed=0):
     return torch.matmul(p.to(v.dtype).double(), v.double()).to(v.dtype)
 
 
+@op("flash_attention", wrap=False)
 def flash_attention(q, k, v, bias=None, *, scale: Optional[float] = None,
                     causal: bool = False, dropout: float = 0.0,
                     training: Optional[bool] = None):
     """Attention over (B, H, L, D) tensors, differentiable in q, k, v and
-    ``bias``.  ``bias`` is an optional additive score bias broadcastable
-    to (B, H, Lq, Lk).  ``dropout`` applies only with ``training=True``
-    (None, as outside the reference's ``autograd.record``, is
-    inference); its seed is ``random.attention_seed``'s device word, as
-    the reference draws ``jax.random.bits(next_key())``: under a
-    program's traced key a word derived on the device, else a draw of the
-    host generator."""
+    ``bias`` (``mx.nd.flash_attention``).  ``bias`` is an optional
+    additive score bias broadcastable to (B, H, Lq, Lk).  ``dropout``
+    applies in training: ``training``, or when it is None
+    ``autograd.is_training()``, as in the reference (so inside
+    ``autograd.record()``); its seed is ``random.attention_seed``'s
+    device word, as the reference draws ``jax.random.bits(next_key())``:
+    under a program's traced key a word derived on the device, else a
+    draw of the host generator."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
+    if training is None:
+        from .. import autograd
+        training = autograd.is_training()
     rate = float(dropout) if training else 0.0
     seed = _random.attention_seed(q.device) if rate > 0.0 else 0
     Lq, Lk = q.shape[2], k.shape[2]
@@ -512,6 +518,7 @@ def flash_attention(q, k, v, bias=None, *, scale: Optional[float] = None,
 # rotary position embeddings (RoPE)
 # --------------------------------------------------------------------------- #
 
+@op("rope", wrap=False)
 def rope(x, *, base=10000.0, position_offset=0):
     """Rotary position embeddings on (B, H, L, D) q/k tensors: rotates
     consecutive (even, odd) feature pairs by ``pos / base^(2i/D)``.
@@ -534,3 +541,21 @@ def rope(x, *, base=10000.0, position_offset=0):
     r1 = x1 * cos - x2 * sin
     r2 = x1 * sin + x2 * cos
     return torch.stack([r1, r2], dim=-1).reshape(B, H, L, D).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# ring attention: not ported
+# --------------------------------------------------------------------------- #
+
+NOT_PORTED["ring_attention"] = (
+    "sequence-parallel attention needs a device mesh and shard_map, which "
+    "the port does not have; it waits with the multi-device half of "
+    "parallel/")
+
+
+def ring_attention(q, k, v, *, scale=None, causal=False, axis="sp",
+                   mesh=None):
+    """The reference's ``ring_attention``: raises ``MXNetError`` (see
+    ``registry.NOT_PORTED``)."""
+    raise MXNetError(f"op ring_attention is not ported: "
+                     f"{NOT_PORTED['ring_attention']}")

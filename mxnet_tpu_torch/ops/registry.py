@@ -14,6 +14,13 @@ under ``torch.no_grad()`` otherwise: as in MXNet, only ops inside
 ``record()`` reach the tape, even on arrays with an attached gradient.
 The reference's profiler hooks, symbol capture and ``NaiveEngine`` are
 not ported yet.
+
+``@op`` returns the NDArray-facing wrapper (``ops/defs.py``), or with
+``wrap=False`` the tensor function itself, so the models keep calling
+it on tensors (``ops/nn.py``, ``ops/attention.py``); either way the
+wrapper is ``Op.wrapper``, which ``mx.nd`` exports under the op's name.
+``NOT_PORTED`` names the reference's ops that the port leaves out on
+purpose, with the reason ``get_op`` raises.
 """
 from __future__ import annotations
 
@@ -27,10 +34,11 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["Op", "register", "alias", "get_op", "list_ops", "invoke", "op",
-           "OPS"]
+           "OPS", "NOT_PORTED"]
 
 OPS: dict[str, "Op"] = {}
 _ALIASES: dict[str, str] = {}
+NOT_PORTED: dict[str, str] = {}
 
 
 @dataclass
@@ -41,6 +49,7 @@ class Op:
     fn: Callable  # pure torch fn: fn(*tensors, **static_kwargs)
     variadic: bool = False  # first arg is a list of arrays (e.g. concat)
     differentiable: bool = True
+    wrapper: Optional[Callable] = None  # the NDArray-facing callable
 
     def __call__(self, *args, **kwargs):
         return self.fn(*args, **kwargs)
@@ -60,6 +69,8 @@ def alias(new: str, existing: str) -> None:
 
 def get_op(name: str) -> Op:
     name = _ALIASES.get(name, name)
+    if name in NOT_PORTED:
+        raise MXNetError(f"op {name} is not ported: {NOT_PORTED[name]}")
     if name not in OPS:
         raise MXNetError(f"unknown op {name}")
     return OPS[name]
@@ -100,11 +111,12 @@ def invoke(opref: Op, array_args: Sequence, kwargs: dict, out=None):
 
 
 def op(name: Optional[str] = None, variadic: bool = False,
-       differentiable: bool = True):
+       differentiable: bool = True, wrap: bool = True):
     """Decorator.  The decorated function is the pure torch
-    implementation; the returned callable is the NDArray-facing wrapper.
-    The leading positional parameters are the tensor inputs; keyword-only
-    parameters are static."""
+    implementation; the returned callable is the NDArray-facing wrapper,
+    or with ``wrap=False`` the implementation itself (the wrapper is
+    ``Op.wrapper`` then).  The leading positional parameters are the
+    tensor inputs; keyword-only parameters are static."""
 
     def deco(fn):
         opname = name or fn.__name__
@@ -134,6 +146,7 @@ def op(name: Optional[str] = None, variadic: bool = False,
             return invoke(o, arrays, kwargs, out=out)
 
         wrapper._op = o
-        return wrapper
+        o.wrapper = wrapper
+        return wrapper if wrap else fn
 
     return deco

@@ -437,7 +437,9 @@ class TokenStream:
     Host arrival times are kept in :attr:`times`, the time to first token
     in :attr:`ttft`; how the request entered its slot in
     :attr:`admission` (``mode`` "admit", "hit" or "chunk" and its
-    buckets, the reference's request-span admission fields); its draft
+    buckets, the reference's request-span admission fields; an admit
+    also its wave's serial in the server and its row in that wave's
+    prefill); its draft
     ledger in :attr:`draft_accepted`, :attr:`draft_rejected` and
     :attr:`accept_rate`; why it retired in :attr:`reason` (the request
     span's reason).  :meth:`cancel` ends it early from any thread."""
@@ -761,6 +763,7 @@ class DecodeServer:
         self._inflight = deque()    # (kind, _Readback, slot snapshot|wave)
         self._stopping = False
         self._next_id = 0
+        self._admit_waves = 0       # serial of the next admission wave
         self._steps = 0
         self._occupied_lane_steps = 0
         self._capacity_lane_steps = 0
@@ -1528,12 +1531,14 @@ class DecodeServer:
             pages[i, :k] = row[:k]
         now = time.perf_counter()
         occ = self._occupancy()
-        for _, req in wave:
+        serial, self._admit_waves = self._admit_waves, self._admit_waves + 1
+        for row, (_, req) in enumerate(wave):
             self._admitted(req, now - req.stream.submit_time,
                            wave=len(wave), a_bucket=A, p_bucket=P,
                            occupancy_at_admit=occ)
             req.stream.admission = {"mode": "admit", "a_bucket": A,
-                                    "p_bucket": P}
+                                    "p_bucket": P, "wave": serial,
+                                    "row": row}
         telemetry.emit("serve_admit", server=self.telemetry_label,
                        wave=len(wave), a_bucket=A, p_bucket=P,
                        pool=len(self._slots), occupancy=round(occ, 4))

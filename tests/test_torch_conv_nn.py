@@ -176,9 +176,11 @@ def test_batch_norm_bf16_dtype_flow():
 
 
 def test_convolution_refuses_other_ranks():
-    with pytest.raises(MXNetError, match="later slice"):
-        pnn.convolution(torch.zeros(1, 2, 8), torch.zeros(2, 2, 3),
-                        kernel=(3,))
+    """1-3 spatial dims are ported (``tests/test_torch_nn_ops.py``); a
+    4-D window is refused."""
+    with pytest.raises(MXNetError, match="1, 2 or 3 spatial dims"):
+        pnn.convolution(torch.zeros(1, 2, 3, 3, 3, 3),
+                        torch.zeros(2, 2, 1, 1, 1, 1), kernel=(1, 1, 1, 1))
     with pytest.raises(MXNetError, match="unknown pool_type"):
         pnn.pooling(torch.zeros(1, 2, 4, 4), kernel=(2, 2), pool_type="min")
 

@@ -68,6 +68,28 @@ def test_int8_streams_match_jax_server_and_kv_generate(pair):
                                  temperature=0.0, weights="int8")[0, p.size:])
 
 
+def test_admission_records_wave_and_row(pair):
+    """Each admitted stream records its wave's serial and its row in
+    that wave's prefill: the first two requests share wave 0, the later
+    ones each enter a later wave as a slot frees, row 0 of it."""
+    from mxnet_tpu_torch.serve import DecodeServer
+
+    _, model = pair
+    srv = DecodeServer(model, max_total_len=64, pool_sizes=(2,),
+                       weights="int8", spec=False, prefix_cache=False,
+                       autostart=False)
+    prompts = [_prompt(50 + i, 3 + i) for i in range(4)]
+    streams = [srv.submit(p, max_new_tokens=4 + 2 * i)
+               for i, p in enumerate(prompts)]
+    _drain(srv)
+    srv.close()
+    adm = [s.admission for s in streams]
+    assert [(a["wave"], a["row"]) for a in adm[:2]] == [(0, 0), (0, 1)]
+    assert all(a["mode"] == "admit" and a["row"] == 0 for a in adm[2:])
+    assert [a["wave"] for a in adm] == sorted(a["wave"] for a in adm)
+    assert adm[3]["wave"] > adm[2]["wave"] > 0
+
+
 def test_pool_growth_and_threaded_loop(pair):
     """autostart=True: the scheduler thread serves a burst that grows the
     pool 1 -> 2 -> 4; every stream equals the port's kv_generate."""

@@ -15,7 +15,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "mxnet_tpu_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "decode_ab.py", REPO / "rtc_ab.py",
      REPO / "resnet_ab.py", REPO / "serve_grow_ab.py",
-     REPO / "tests" / "_torch_rtc_sources.py"]
+     REPO / "tests" / "_torch_rtc_sources.py",
+     REPO / "tests" / "_torch_nn_cases.py",
+     REPO / "tests" / "_torch_hybrid_models.py"]
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
 
 
@@ -62,6 +64,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         get_model("resnet18_v1")
     with pytest.raises(MXNetError, match="CUDA is not available"):
         nn.Conv2D(8, 3, in_channels=4)
+    # the hybrid_forward layers create their known parameters at once too
+    for make in (lambda: nn.LayerNorm(in_channels=4),
+                 lambda: nn.Embedding(5, 3),
+                 lambda: nn.Conv1D(4, 3, in_channels=2),
+                 lambda: nn.Conv2DTranspose(4, 3, in_channels=2)):
+        with pytest.raises(MXNetError, match="CUDA is not available"):
+            make()
     import mxnet_tpu_torch as mx
 
     # the imperative core: the default context is gpu(0)
