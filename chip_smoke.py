@@ -345,7 +345,37 @@ Phases (each fails the run by raising; there is no CPU path):
    and ``F.Activation``, NHWC bf16 128 x 56 x 56 x 64 with
    ``MXNET_FUSED_CONV_BWD=1``: K6 exactly 7 a backward, output and every
    gradient equal bit for bit to the model zoo's stage;
-21. one ``{"kernels": [...]}`` line, the card line, and as the last line
+21. the eighteenth slice, Gluon data and ``mx.io``: (1) an indexed
+   RecordIO file of 1,536 raw 256 x 256 x 3 uint8 images from a seed
+   (labels in [0, 1000)), about 300 MB in a temporary directory, read
+   back through the port byte for byte; (2) phase 16's ResNet-50 (NHWC,
+   bf16, SGD with momentum and multi-precision, ``MXNET_FUSED_CONV_BWD=1``)
+   through ``gluon.Trainer.fused_step`` for one epoch of 12 steps fed by
+   ``DataLoader(RecordFileDataset(rec).transform(...), batch_size=128,
+   sampler=RandomSampler(1536, seed=21), last_batch="discard",
+   num_workers=4, pin_memory=True, device=mx.gpu(), device_prefetch=2)``,
+   each sample ``RandomCropAug(224)``, ``HorizontalFlipAug(0.5)``,
+   ``CastAug``, ``ColorNormalizeAug`` (ImageNet's mean and std) on the
+   host, the batch NHWC f32 cast to bf16 in the step: 30 K6 nodes in the
+   step graph, one capture while the ring runs, losses finite, the first
+   within 1.0 of ln(1000); (3) with centre crops, the ring's batches on
+   the card equal the same loader's with ``device=mx.cpu()`` and
+   ``num_workers=0`` bit for bit, and three fused steps fed from the ring
+   equal three fed the same batches copied synchronously, losses and
+   weights; (4) not gated: ms a step fed by the loader (steps 3-12)
+   beside one resident batch, the loader alone in ms a batch,
+   ``data_prefetch_stalls_total`` and the stall seconds, the device's
+   busy share over fed steps (profiled), the ring's pinned and device
+   bytes; (5) ``NDArrayIter`` over host arrays in
+   ``PrefetchingIter(device=mx.gpu())``: batches on ``cuda:0`` bit for
+   bit, ``pad`` and ``roll_over``, across a ``reset()``; (6) a worker past
+   ``timeout`` raises naming the batch, ``MXNET_FAULT_INJECT`` at
+   ``data.next`` raises through the ring, a loader closed midway leaves
+   no live thread and drops its ledger entry, ``iter_from(3)`` after
+   ``set_epoch(1)`` gives the rest of the epoch bit for bit, and
+   ``mx.image.imdecode`` raises the reference's error where neither cv2
+   nor PIL is installed (the backends found are printed);
+22. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -7109,6 +7139,554 @@ def check_hybrid(cfg, train_row):
     return row
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: Gluon data and mx.io feeding ResNet-50, the eighteenth slice
+# --------------------------------------------------------------------------- #
+
+DATA_RECORDS = 1536          # 12 batches of 128
+DATA_SIDE = 256              # raw HWC uint8 records, cropped to 224
+DATA_CROP = 224
+DATA_STEPS = DATA_RECORDS // RESNET_B
+DATA_WORKERS = 4
+DATA_MEAN = [123.68, 116.28, 103.53]
+DATA_STD = [58.395, 57.12, 57.375]
+
+
+def _record_image(rs):
+    return rs.randint(0, 256, (DATA_SIDE, DATA_SIDE, 3), dtype="uint8")
+
+
+def write_records(d):
+    """21.1: an indexed RecordIO file of ``n`` raw 256x256x3 uint8 images
+    from a seed, each with an ``IRHeader`` label in [0, 1000), written and
+    read back through the port, byte for byte."""
+    import numpy as np
+    from mxnet_tpu_torch import recordio as rio
+
+    n = DATA_RECORDS
+    rec = os.path.join(d, "train.rec")
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(21)
+    w = rio.MXIndexedRecordIO(rec[:-4] + ".idx", rec, "w")
+    for i in range(n):
+        w.write_idx(i, rio.pack(rio.IRHeader(0, float(rs.randint(1000)), i,
+                                             0), _record_image(rs).tobytes()))
+    w.close()
+    t1 = time.perf_counter()
+    rs = np.random.RandomState(21)
+    r = rio.MXIndexedRecordIO(rec[:-4] + ".idx", rec, "r")
+    bad = 0
+    for i in range(n):
+        label = float(rs.randint(1000))
+        h, payload = rio.unpack(r.read_idx(i))
+        if payload != _record_image(rs).tobytes() or h.label != label or \
+                h.id != i:
+            bad += 1
+    r.close()
+    t2 = time.perf_counter()
+    size = os.path.getsize(rec)
+    print(f"data records: {n} raw {DATA_SIDE}x{DATA_SIDE}x3 uint8 records, "
+          f"{size} bytes, written in {t1 - t0:.3f} s, read back through "
+          f"the port in {t2 - t1:.3f} s; {bad} differ", flush=True)
+    if bad or len(r.keys) != n:
+        fail(f"data records: {bad} of {n} records read back differ")
+    return rec, dict(records=n, bytes=size, write_s=t1 - t0,
+                     read_s=t2 - t1)
+
+
+def _raw_transform(mx, augs):
+    """The sample: the record's raw HWC bytes as a host NDArray, through
+    ``augs`` (``mx.image`` augmenters), with its label."""
+    import numpy as np
+    from mxnet_tpu_torch import recordio as rio
+
+    def unpack_raw_then_augment(record):
+        header, payload = rio.unpack(record)
+        img = mx.nd.array(np.frombuffer(payload, np.uint8).reshape(
+            DATA_SIDE, DATA_SIDE, 3), dtype="uint8", ctx=mx.cpu())
+        for a in augs:
+            img = a(img)
+        return img, header.label
+    return unpack_raw_then_augment
+
+
+def _augs(mx, train):
+    crop = (mx.image.RandomCropAug((DATA_CROP, DATA_CROP)),
+            mx.image.HorizontalFlipAug(0.5)) if train else \
+        (mx.image.CenterCropAug((DATA_CROP, DATA_CROP)),)
+    return list(crop) + [mx.image.CastAug(),
+                         mx.image.ColorNormalizeAug(DATA_MEAN, DATA_STD)]
+
+
+def data_loader(mx, rec, train, seed, device, num_workers=DATA_WORKERS,
+                batch_size=None, take=None):
+    """Phase 21's loader: ``RecordFileDataset(rec).transform(...)``, a
+    seeded ``RandomSampler``, ``last_batch="discard"``, pinned staging and
+    the device ring of depth 2."""
+    from mxnet_tpu_torch.gluon.data import (DataLoader, RandomSampler,
+                                            RecordFileDataset)
+
+    ds = RecordFileDataset(rec)
+    if take is not None:
+        ds = ds.take(take)
+    ds = ds.transform(_raw_transform(mx, _augs(mx, train)))
+    return DataLoader(ds, batch_size=batch_size or RESNET_B,
+                      sampler=RandomSampler(len(ds), seed=seed),
+                      last_batch="discard", num_workers=num_workers,
+                      pin_memory=True, device=device, device_prefetch=2)
+
+
+def _data_loss(net, loss_l):
+    """The step's loss: NHWC f32 batches to the net's NCHW contract (a
+    view; the net runs channels-last), cast to bf16 in the step."""
+    def loss_fn(x, y):
+        return loss_l(net(x.transpose(0, 3, 1, 2).astype("bfloat16")), y)
+    return loss_fn
+
+
+def _ring_counters():
+    from mxnet_tpu_torch.gluon.data import dataloader as dl
+
+    tele = dl._ring_tele()
+    return tele["stalls"].value, tele["stall_s"].sum
+
+
+def data_fed_resnet(rec):
+    """21.2 and 21.4: phase 16's ResNet-50 (NHWC, bf16, SGD with momentum
+    and multi-precision, ``MXNET_FUSED_CONV_BWD=1``) through
+    ``gluon.Trainer.fused_step`` for one epoch of 12 steps fed by the
+    loader (4 worker threads, pinned staging, the ring on the card): 30
+    K6 nodes in the step graph, one capture, no phase-by-phase step,
+    losses finite, the first within 1.0 of ln(1000).  Then, not gated: ms
+    a step over steps 3-12 beside the same step fed one resident batch,
+    the same over a second fed epoch (the graph captured, the ring
+    started empty) with its stalls, host ms a batch of the loader alone,
+    the ring's stalls, the device's busy share over fed steps (another
+    epoch, profiled), the ring's pinned and device bytes."""
+    import math
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+    from mxnet_tpu_torch.gluon.block import _GraphProgram
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    net = _gluon_resnet50(mx)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            dict(RESNET_OPT, multi_precision=True))
+    loss_fn = _data_loss(net, gluon.loss.SoftmaxCrossEntropyLoss())
+    loader = data_loader(mx, rec, True, 21, mx.gpu())
+
+    def step(x, y):
+        return trainer.fused_step(loss_fn, x, y)._data.float().mean()
+
+    torch.cuda.synchronize()
+    fsm.reset_step_counters()
+    cf.conv1x1_bwd_pair.launches = 0
+    stalls0, stall_s0 = _ring_counters()
+    losses, shapes = [], None
+    _GraphProgram.debug = True
+    try:
+        t0 = time.perf_counter()
+        it = iter(loader)
+        for k, (x, y) in enumerate(it):
+            if k == 2:
+                _GraphProgram.debug = False
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            shapes = shapes or (x.shape, str(x.dtype), x.context,
+                                y.shape, str(y.dtype))
+            losses.append(step(x, y))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        _GraphProgram.debug = False
+    counters = dict(fsm.step_counters)
+    fs, prog = _apply_program(trainer)
+    host_launches = cf.conv1x1_bwd_pair.launches
+    k6_runs = host_launches - prog.launches.get("conv1x1_bwd", 0) + \
+        fs.launches().get("conv1x1_bwd", 0)
+    stalls1, stall_s1 = _ring_counters()
+    pinned, device = it.pinned_bytes, it.device_bytes
+    counts, every = _graph_nodes(prog, ("conv1x1_bwd",))
+    _print_nodes("data resnet graph", every)
+    losses = [float(v) for v in losses]
+    fed_ms = (t3 - t2) / (DATA_STEPS - 2) * 1e3
+    # the same step fed one resident batch (the last one, kept on the card)
+    x, y = x.copy(), y.copy()
+    for _ in range(2):
+        step(x, y)
+    torch.cuda.synchronize()
+    r0 = time.perf_counter()
+    for _ in range(DATA_STEPS - 2):
+        step(x, y)
+    torch.cuda.synchronize()
+    resident_ms = (time.perf_counter() - r0) / (DATA_STEPS - 2) * 1e3
+    # a second fed epoch, the graph captured: the steady state, timed from
+    # the epoch's start (the ring and the workers start empty)
+    loader.set_epoch(1)
+    e_stalls0, e_stall_s0 = _ring_counters()
+    torch.cuda.synchronize()
+    e0 = time.perf_counter()
+    waits, ei = [], iter(loader)
+    for k in range(DATA_STEPS):
+        if k == 2:
+            torch.cuda.synchronize()
+            e2 = time.perf_counter()
+        w0 = time.perf_counter()
+        xb, yb = next(ei)
+        waits.append(time.perf_counter() - w0)
+        step(xb, yb)
+    torch.cuda.synchronize()
+    e3 = time.perf_counter()
+    del ei
+    e_stalls1, e_stall_s1 = _ring_counters()
+    steady_ms = (e3 - e2) / (DATA_STEPS - 2) * 1e3
+    epoch_ms = (e3 - e0) / DATA_STEPS * 1e3
+    # the loader alone: an epoch of batches on the card, no step
+    loader.set_epoch(3)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    n = 0
+    for xb, yb in loader:
+        n += 1
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) / n * 1e3
+    # the device's busy share over fed steps 3-12 of another epoch
+    loader.set_epoch(2)
+    it2 = iter(loader)
+    for _ in range(2):
+        step(*next(it2))
+
+    def fed_rest():
+        for xb, yb in it2:
+            step(xb, yb)
+
+    by_name, busy, wall_us = _profiled(fed_rest)
+    prof = report_profile("data resnet fed steps 3-12", by_name, busy,
+                          wall_us)
+    row = dict(losses=losses, fed_ms_per_step=fed_ms,
+               resident_ms_per_step=resident_ms,
+               fed_images_per_s=RESNET_B / fed_ms * 1e3,
+               loader_alone_ms_per_batch=host_ms,
+               stalls=stalls1 - stalls0, stall_s=stall_s1 - stall_s0,
+               second_epoch=dict(ms_per_step=steady_ms,
+                                 ms_per_step_over_epoch=epoch_ms,
+                                 next_ms=[w * 1e3 for w in waits],
+                                 stalls=e_stalls1 - e_stalls0,
+                                 stall_s=e_stall_s1 - e_stall_s0),
+               busy_share=busy / wall_us if busy > 0 else None,
+               profile=prof, pinned_bytes=pinned, device_bytes=device,
+               step_counters=counters, k6_nodes=counts["conv1x1_bwd"],
+               launches_a_replay=prog.launches,
+               launches=dict(conv1x1_bwd=k6_runs),
+               epoch_s=t3 - t0, batch=[str(s) for s in shapes])
+    print(f"data resnet: resnet50_v1 NHWC bf16 through Trainer.fused_step "
+          f"fed by DataLoader(RecordFileDataset(rec).transform(...), "
+          f"batch_size={RESNET_B}, num_workers={DATA_WORKERS}, "
+          f"pin_memory=True, device=mx.gpu(), device_prefetch=2), one epoch "
+          f"of {len(losses)} steps; batch {shapes}; losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    print(f"data resnet: fed {fed_ms:.3f} ms/step (steps 3-{DATA_STEPS}, "
+          f"{row['fed_images_per_s']:.2f} images/s) beside {resident_ms:.3f}"
+          f" ms/step fed one resident batch; the loader alone "
+          f"{host_ms:.3f} ms a batch (an epoch, batches on the card, no "
+          f"step); data_prefetch_stalls_total +{row['stalls']}, "
+          f"data_prefetch_stall_seconds +{row['stall_s']:.4f} s over the "
+          f"fed epoch; ring pinned {pinned} B, device {device} B; epoch "
+          f"{row['epoch_s']:.3f} s", flush=True)
+    print(f"data resnet: a second fed epoch (captured, the ring started "
+          f"empty): {steady_ms:.3f} ms/step over steps 3-{DATA_STEPS}, "
+          f"{epoch_ms:.3f} ms/step over the whole epoch; host ms in "
+          f"next() a step {[round(w * 1e3, 2) for w in waits]}; stalls "
+          f"+{e_stalls1 - e_stalls0}, stall seconds "
+          f"+{e_stall_s1 - e_stall_s0:.4f}", flush=True)
+    print(f"data resnet: step_counters {counters}; K6 nodes {counts} "
+          f"(expected {K6_PER_STEP}); launches a replay {prog.launches}; K6 "
+          f"ran {k6_runs} times", flush=True)
+    if counts["conv1x1_bwd"] != K6_PER_STEP:
+        fail(f"data resnet: {counts['conv1x1_bwd']} K6 nodes in the step "
+             f"graph, expected {K6_PER_STEP}")
+    if counters["legacy_steps"] or counters["compiles"] != 1 or \
+            counters["apply_dispatches"] != DATA_STEPS or \
+            len(losses) != DATA_STEPS:
+        fail(f"data resnet: expected {DATA_STEPS} fused steps with one "
+             f"capture and no phase-by-phase step, got {counters}")
+    if not all(math.isfinite(v) for v in losses) or \
+            abs(losses[0] - math.log(1000)) > 1.0:
+        fail(f"data resnet: losses {losses} (first must be within 1.0 of "
+             f"ln(1000) = {math.log(1000):.4f})")
+    if shapes[0] != (RESNET_B, DATA_CROP, DATA_CROP, 3) or \
+            shapes[2] != mx.gpu(0):
+        fail(f"data resnet: batches arrived as {shapes}")
+    del it, it2, trainer, net, loss_fn, prog, fs
+    torch.cuda.empty_cache()
+    return row
+
+
+def _fresh_resnet_steps(mx, init_state, batches):
+    """A fresh ResNet-50 (weights drawn from generator state
+    ``init_state``) through ``fused_step`` on ``batches()``; returns the
+    losses and every parameter, on the host."""
+    import torch
+    from mxnet_tpu_torch import gluon, random
+
+    gen = random.generator("cuda")
+    keep = gen.get_state()
+    # deferred layers draw their weights at the first step: the state is
+    # put back after the run
+    gen.set_state(init_state)
+    try:
+        net = _gluon_resnet50(mx)
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                dict(RESNET_OPT, multi_precision=True))
+        loss_fn = _data_loss(net, gluon.loss.SoftmaxCrossEntropyLoss())
+        losses = []
+        for x, y in batches():
+            losses.append(trainer.fused_step(loss_fn, x, y)._data.float()
+                          .cpu())
+        params = [p.data()._data.float().cpu()
+                  for p in net.collect_params().values()]
+    finally:
+        gen.set_state(keep)
+    del trainer, net
+    torch.cuda.empty_cache()
+    return losses, params
+
+
+def data_bits(rec):
+    """21.3, deterministic augmentation (centre crop, no flip): the ring's
+    batches on the card equal the same loader's with ``device=mx.cpu()``
+    and ``num_workers=0`` bit for bit, over an epoch; three fused steps
+    (eager, capture and replay, replay) fed from the ring equal three fed
+    the same batches copied synchronously, losses and every weight bit
+    for bit, from the same initial weights."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import random
+
+    cpu_loader = data_loader(mx, rec, False, 5, mx.cpu(), num_workers=0)
+    card_loader = data_loader(mx, rec, False, 5, mx.gpu())
+    t0 = time.perf_counter()
+    host = [(x.asnumpy(), y.asnumpy()) for x, y in cpu_loader]
+    t1 = time.perf_counter()
+    differ = 0
+    for (hx, hy), (x, y) in zip(host, card_loader):
+        if x.context != mx.gpu(0) or not (
+                (x.asnumpy() == hx).all() and (y.asnumpy() == hy).all()):
+            differ += 1
+    t2 = time.perf_counter()
+    print(f"data bits: {len(host)} batches of the ring on the card against "
+          f"the same loader with device=mx.cpu(), num_workers=0: {differ} "
+          f"differ (cpu loader {t1 - t0:.3f} s, ring {t2 - t1:.3f} s)",
+          flush=True)
+    if differ or len(host) != DATA_STEPS:
+        fail(f"data bits: {differ} of {len(host)} ring batches differ from "
+             "the CPU loader's")
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    init_state = random.generator("cuda").get_state()
+
+    def from_ring():
+        card_loader.set_epoch(0)            # the epoch ``host`` holds
+        for k, b in enumerate(card_loader):
+            if k == 3:
+                break
+            yield b
+
+    def copied():
+        for hx, hy in host[:3]:
+            yield (mx.nd.array(hx, ctx=mx.gpu()),
+                   mx.nd.array(hy, ctx=mx.gpu()))
+
+    la, pa = _fresh_resnet_steps(mx, init_state, from_ring)
+    lb, pb = _fresh_resnet_steps(mx, init_state, copied)
+    same_loss = all(torch.equal(a, b) for a, b in zip(la, lb))
+    same_w = sum(not torch.equal(a, b) for a, b in zip(pa, pb))
+    print(f"data bits: 3 fused steps fed from the ring against 3 fed the "
+          f"same batches copied synchronously: losses "
+          f"{[round(float(v.mean()), 5) for v in la]} vs "
+          f"{[round(float(v.mean()), 5) for v in lb]}, equal {same_loss}; "
+          f"{same_w} of {len(pa)} parameters differ", flush=True)
+    if not same_loss or same_w:
+        fail("data bits: the ring-fed fused steps differ from the "
+             "synchronously fed ones")
+    return dict(batches=len(host), differ=differ, cpu_loader_s=t1 - t0,
+                ring_s=t2 - t1, steps_equal=True)
+
+
+def data_io():
+    """21.5: ``NDArrayIter`` over host arrays wrapped in
+    ``PrefetchingIter(device=mx.gpu())``: every batch's data and label on
+    ``cuda:0`` and equal to the host iterator's bit for bit, with
+    ``last_batch_handle`` ``pad`` and ``roll_over``, across a ``reset()``."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+
+    rs = np.random.RandomState(5)
+    data = rs.rand(1000, 3, 32, 32).astype("float32")
+    label = rs.randint(0, 10, 1000).astype("float32")
+    out = {}
+    for handle in ("pad", "roll_over"):
+        with mx.cpu():
+            ref = mx.io.NDArrayIter(data, label, batch_size=RESNET_B,
+                                    last_batch_handle=handle)
+            inner = mx.io.NDArrayIter(data, label, batch_size=RESNET_B,
+                                      last_batch_handle=handle)
+        p = mx.io.PrefetchingIter(inner, device=mx.gpu())
+        n = bad = 0
+        for _ in range(2):
+            for a, b in zip(ref, p):
+                n += 1
+                on = all(t.context == mx.gpu(0) for t in b.data + b.label)
+                if not on or a.pad != b.pad or not all(
+                        (u.asnumpy() == v.asnumpy()).all()
+                        for u, v in zip(a.data + a.label,
+                                        b.data + b.label)):
+                    bad += 1
+            ref.reset()
+            p.reset()
+        out[handle] = dict(batches=n, bad=bad)
+    print(f"data io: NDArrayIter(1000 x 3 x 32 x 32, batch {RESNET_B}) in "
+          f"PrefetchingIter(device=mx.gpu()), two epochs around a reset: "
+          f"{out}", flush=True)
+    if any(v["bad"] or not v["batches"] for v in out.values()):
+        fail(f"data io: PrefetchingIter batches wrong: {out}")
+    return out
+
+
+def data_faults(rec):
+    """21.6 on the card: a worker past ``timeout`` raises naming the
+    batch; ``MXNET_FAULT_INJECT`` at ``data.next`` raises through the
+    ring; a loader closed midway leaves no live loader thread and drops
+    its ledger entry; ``iter_from(3)`` after ``set_epoch(1)`` gives the
+    uninterrupted epoch's remaining batches bit for bit (centre crops, so
+    the worker threads draw nothing); ``imdecode`` raises the
+    reference's error where no decoder is installed (else a PNG round
+    trip)."""
+    import threading
+
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon.data import DataLoader, SimpleDataset
+    from mxnet_tpu_torch.telemetry.memory import ACCOUNTANT
+
+    out = {}
+
+    class Slow(SimpleDataset):
+        def __getitem__(self, idx):
+            time.sleep(1.0)
+            return super().__getitem__(idx)
+
+    try:
+        next(iter(DataLoader(Slow([np.zeros(4, "float32")] * 8),
+                             batch_size=2, num_workers=1, timeout=0.2,
+                             device=mx.gpu())))
+        fail("data faults: a worker past its timeout did not raise")
+    except MXNetError as e:
+        out["timeout"] = str(e)[:80]
+        if "batch 0" not in str(e):
+            fail(f"data faults: the timeout error does not name the batch: "
+                 f"{e}")
+    os.environ["MXNET_FAULT_INJECT"] = "data.next:raise:3"
+    telemetry.reset_faults()
+    got = 0
+    try:
+        for _ in data_loader(mx, rec, False, 1, mx.gpu(), batch_size=16,
+                             take=128):
+            got += 1
+        fail("data faults: the injected data.next fault did not raise")
+    except MXNetError as e:
+        out["fault"] = str(e)[:80]
+        if "injected fault at data.next" not in str(e):
+            raise
+    finally:
+        del os.environ["MXNET_FAULT_INJECT"]
+        telemetry.reset_faults()
+    out["fault_batches_before"] = got
+    it = iter(data_loader(mx, rec, True, 2, mx.gpu()))
+    next(it)
+    next(it)
+    key, inner = it._mem_key, it._source
+    held = ACCOUNTANT.bytes("data.prefetch_ring", key)
+    it.close()
+    for t in list(inner._executor._threads):
+        t.join(timeout=30)
+
+    def loader_threads():
+        return [t.name for t in threading.enumerate()
+                if t.name.startswith(("mx-data-worker",
+                                      "mx-device-prefetch"))]
+
+    deadline = time.time() + 30
+    while loader_threads() and time.time() < deadline:
+        time.sleep(0.01)
+    live = loader_threads()
+    dropped = ACCOUNTANT.bytes("data.prefetch_ring", key)
+    out["close"] = dict(held=held, after=dropped, live=live)
+    if live or dropped or not held:
+        fail(f"data faults: closed midway: ledger {held} -> {dropped} B, "
+             f"live threads {live}")
+    def epoch(start):
+        loader = data_loader(mx, rec, False, 7, mx.gpu(), batch_size=32,
+                             take=256)
+        loader.set_epoch(1)
+        batches = loader if start == 0 else loader.iter_from(start)
+        return [(x.asnumpy(), y.asnumpy()) for x, y in batches]
+
+    whole, rest = epoch(0), epoch(3)
+    differ = sum(not ((a[0] == b[0]).all() and (a[1] == b[1]).all())
+                 for a, b in zip(whole[3:], rest))
+    out["iter_from"] = dict(epoch=len(whole), resumed=len(rest),
+                            differ=differ)
+    if len(rest) != len(whole) - 3 or differ:
+        fail(f"data faults: iter_from(3) gave {len(rest)} batches, {differ} "
+             f"differing from the uninterrupted epoch's {len(whole) - 3}")
+    backends = mx.image.backends()
+    out["backends"] = backends
+    if not backends:
+        try:
+            mx.image.imdecode(b"\xff\xd8\xff\xe0" + bytes(64))
+            fail("data faults: imdecode without a decoder did not raise")
+        except MXNetError as e:
+            out["imdecode"] = str(e)
+            if str(e) != "imdecode needs cv2 or PIL":
+                fail(f"data faults: imdecode raised {e!r}")
+    else:
+        img = np.arange(48, dtype="uint8").reshape(4, 4, 3)
+        same_img = (mx.image.imdecode(mx.image.imencode(
+            img, img_fmt=".png")).asnumpy() == img).all()
+        out["imdecode"] = f"round trip equal {bool(same_img)}"
+        if not same_img:
+            fail("data faults: imdecode round trip differs")
+    print(f"data faults: {out}", flush=True)
+    return out
+
+
+def check_data():
+    """Phase 21: the record file, ResNet-50 fed by the loader, the bit
+    checks, mx.io and the faults."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        rec, records = write_records(d)
+        row = dict(records=records, resnet=data_fed_resnet(rec),
+                   bits=data_bits(rec), io=data_io())
+        faults = data_faults(rec)
+    row["faults"] = faults
+    torch.cuda.synchronize()
+    row["launches"] = row["resnet"]["launches"]["conv1x1_bwd"]
+    row["seconds"] = time.perf_counter() - t0
+    print(f"phase 21: {row['seconds']:.2f} s", flush=True)
+    return row
+
+
 def main():
     try:
         import torch
@@ -7215,6 +7793,7 @@ def main():
     fused_train = check_fused(gelu_op, vision["fused"], gluon["resnet"], mlp)
     opt19 = check_optimizers(cfg, gelu_op, train)
     hybrid = check_hybrid(cfg, train)
+    data = check_data()
     gelu = next(c for c in rtc["cases"]
                 if c["name"] == "gelu_fwd<__nv_bfloat16>")
 
@@ -7289,7 +7868,8 @@ def main():
         # launches are those of the four ResNet-50 arms (SPMDTrainer,
         # phase 14, gluon.Trainer, phase 16, Trainer.fused_step, phase
         # 18, and LARS through fused_step, phase 19.2; replays count by
-        # the graph's launches) and of phase 20.4's hybrid_forward stage
+        # the graph's launches), of phase 20.4's hybrid_forward stage and
+        # of phase 21's loader-fed epoch
         dict(name="conv1x1_bwd", route="cuda",
              source="mxnet_tpu_torch/csrc/conv1x1_bwd.cu",
              replaces="mxnet_tpu/ops/conv_fused.py:134",
@@ -7297,7 +7877,7 @@ def main():
              gluon["resnet"]["launches"]["conv1x1_bwd"] +
              fused_train["resnet"]["launches"]["conv1x1_bwd"] +
              opt19["lars_resnet"]["launches"]["conv1x1_bwd"] +
-             hybrid["launches"]["conv1x1_bwd"],
+             hybrid["launches"]["conv1x1_bwd"] + data["launches"],
              max_abs_err=k6["max_abs_err"], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
@@ -7338,7 +7918,7 @@ def main():
                        fused=fused, k6=k6, vision=vision, gluon=gluon,
                        rtc=rtc,
                        mlp=mlp, fused_train=fused_train, optimizers=opt19,
-                       hybrid=hybrid, kernels=kernels),
+                       hybrid=hybrid, data=data, kernels=kernels),
                   fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -28,7 +28,9 @@ mx``.  The tenth is Gluon's parameter layer: ``gluon.Parameter``,
 and out of every block, loss and ``gluon.Trainer``.  The sixteenth is
 ``telemetry`` (metrics, events, fault injection, memory accounting, the
 capture watch) and the server's deadlines, cancellation, watchdog, HBM
-budget and synchronous mode.
+budget and synchronous mode.  The eighteenth is data and I/O:
+``gluon.data`` (datasets, samplers, batchify functions, the DataLoader
+and its device ring), ``recordio``, ``io`` and ``image``.
 """
 __version__ = "0.1.0"
 
@@ -39,11 +41,13 @@ from .device import resolve_device
 
 _SUBPACKAGES = ("ops", "models", "serve", "gluon", "optimizer", "parallel",
                 "random", "initializer", "ndarray", "autograd", "context",
-                "operator", "rtc", "telemetry")
+                "operator", "rtc", "telemetry", "io", "recordio", "image")
 # names of the imperative core, taken from the module that holds them
 _FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
          "cpu": ("context", "cpu"),
          "gpu": ("context", "gpu"), "Context": ("context", "Context"),
+         "cpu_pinned": ("context", "cpu_pinned"),
+         "cpu_shared": ("context", "cpu_shared"),
          "current_context": ("context", "current_context"),
          "num_gpus": ("context", "num_gpus"),
          "lr_scheduler": ("optimizer.lr_scheduler", None)}

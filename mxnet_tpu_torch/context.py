@@ -9,6 +9,13 @@ array made on them raise ``MXNetError``; the host is reached only by
 asking for it (``mx.cpu()``, ``with mx.cpu():``).  There is no quiet
 degrade to the host as in the reference, and ``tpu()`` raises: this
 build targets the card.
+
+``cpu_pinned()`` is page-locked host memory (an array made on it is
+pinned, so its copy to the card can run beside the card's work; pinning
+needs CUDA, so it raises without it).  ``cpu_shared()`` is plain host
+memory: the reference meant memory shared between data-loading
+processes, and the port's loader workers are threads of one process
+(``gluon/data/dataloader.py``), so there is no boundary to share across.
 """
 from __future__ import annotations
 
@@ -19,16 +26,17 @@ import torch
 from .base import MXNetError
 from .device import resolve_device
 
-__all__ = ["Context", "cpu", "gpu", "tpu", "num_gpus", "current_context",
-           "gpu_memory_info"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "cpu_pinned", "cpu_shared",
+           "num_gpus", "current_context", "gpu_memory_info"]
 
 
 class Context:
-    """A device context: ``device_type`` is ``"cpu"`` or ``"gpu"``."""
+    """A device context: ``device_type`` is ``"cpu"``, ``"gpu"``,
+    ``"cpu_pinned"`` or ``"cpu_shared"``."""
 
     _default_ctx = threading.local()
 
-    devtype2id = {"cpu": 1, "gpu": 2}
+    devtype2id = {"cpu": 1, "gpu": 2, "cpu_pinned": 3, "cpu_shared": 5}
     devid2type = {v: k for k, v in devtype2id.items()}
 
     def __init__(self, device_type: str, device_id: int = 0):
@@ -58,8 +66,14 @@ class Context:
 
     def torch_device(self) -> torch.device:
         """The torch device of this context; a GPU context raises
-        ``MXNetError`` on a host without CUDA or past the last card."""
-        if self.device_type == "cpu":
+        ``MXNetError`` on a host without CUDA or past the last card, and
+        so does ``cpu_pinned`` without CUDA (pinning needs CUDA)."""
+        if self.device_type == "cpu_pinned" and \
+                not torch.cuda.is_available():
+            raise MXNetError(
+                "cpu_pinned() is page-locked host memory, which needs "
+                "CUDA: CUDA is not available on this host")
+        if self.device_type != "gpu":
             return resolve_device("cpu")
         dev = resolve_device(f"cuda:{self.device_id}")
         if self.device_id >= torch.cuda.device_count():
@@ -103,6 +117,17 @@ def from_torch_device(dev: torch.device) -> Context:
 
 def cpu(device_id: int = 0) -> Context:
     return Context("cpu", device_id)
+
+
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Page-locked host memory (reference ``mx.cpu_pinned``)."""
+    return Context("cpu_pinned", device_id)
+
+
+def cpu_shared(device_id: int = 0) -> Context:
+    """Plain host memory: no process boundary exists to share it across
+    (reference ``mx.cpu_shared``)."""
+    return Context("cpu_shared", device_id)
 
 
 def gpu(device_id: int = 0) -> Context:

@@ -189,12 +189,16 @@ class _GraphProgram:
     do not see replays).  With ``debug`` set before the capture the
     graph keeps its nodes for ``graph.debug_dump`` (``kernel_nodes``
     reads them).  ``recorded`` holds what every capture (kept, failed
-    or read for its nodes) added to the counters.  ``error_mode`` is
-    ``torch.cuda.graph``'s ``capture_error_mode``: ``"thread_local"``
-    lets other threads use the card while this one captures (a server's
-    scheduler thread).  A capture that fails leaves no graph, restores
-    the caller's stream and hands its memory pool to the next capture,
-    so a caller may run ``run()`` instead and capture again later.
+    or read for its nodes) added to the counters.  Every capture is in
+    ``torch.cuda.graph``'s ``"thread_local"`` error mode: other threads
+    may use the card while this one captures (a server's scheduler
+    thread; a data loader's workers and ring, which allocate page-locked
+    memory, wait on copy events and copy on their own stream during a
+    training step's capture), where ``"global"`` would fail the capture
+    on such a call from any thread.  A capture that fails leaves no
+    graph, restores the caller's stream and hands its memory pool to the
+    next capture, so a caller may run ``run()`` instead and capture
+    again later.
     ``stream`` is the side stream of the warm-up and the captures
     (default: a new one at the first call); programs that share one
     share what is kept per stream (K4's scratch, the allocator's cached
@@ -204,14 +208,12 @@ class _GraphProgram:
 
     debug = False
 
-    def __init__(self, fn, device, pool, inputs, key=None,
-                 error_mode="global", stream=None):
+    def __init__(self, fn, device, pool, inputs, key=None, stream=None):
         self.fn = fn
         self.on_card = torch.device(device).type == "cuda"
         self.pool = pool
         self.inputs = inputs
         self.key = key
-        self.error_mode = error_mode
         self.generators: list = []
         self.draws = None
         self.is_seq = False
@@ -309,7 +311,7 @@ class _GraphProgram:
         try:
             with _no_collection(), torch.cuda.graph(
                     g, pool=self.pool, stream=self.stream,
-                    capture_error_mode=self.error_mode):
+                    capture_error_mode="thread_local"):
                 outs = self.run(capturing=True)
         except BaseException:
             # an invalidated capture raises at its end, before the graph

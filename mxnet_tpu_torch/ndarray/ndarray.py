@@ -37,7 +37,8 @@ import torch
 from ..base import MXNetError, dtype_name, numeric_types, torch_dtype
 from ..context import Context, current_context, from_torch_device
 
-__all__ = ["NDArray", "array", "empty", "waitall", "from_torch"]
+__all__ = ["NDArray", "array", "empty", "waitall", "from_torch",
+           "to_device"]
 
 
 def _ops():
@@ -617,11 +618,47 @@ def array(source, ctx: Context = None, dtype=None) -> NDArray:
         dev = ctx.torch_device() if ctx is not None else source.device
         dt = torch_dtype(dtype) if dtype is not None else source.dtype
         return NDArray(source.to(device=dev, dtype=dt, copy=True))
-    dev = (ctx if ctx is not None else current_context()).torch_device()
+    ctx = ctx if ctx is not None else current_context()
+    dev = ctx.torch_device()
     host = np.asarray(source)
     dt = torch_dtype(dtype) if dtype is not None else _default_dtype(host)
     t = torch.from_numpy(np.array(host, order="C"))
-    return NDArray(t.to(device=dev, dtype=dt, copy=True))
+    t = t.to(device=dev, dtype=dt, copy=True)
+    if ctx.device_type == "cpu_pinned":
+        t = t.pin_memory()
+    return NDArray(t)
+
+
+# the reference keeps JAX's 32-bit defaults even where a 64-bit dtype is
+# asked for by name (``nd.array(x, dtype=str(x.dtype))``)
+_HOST_32 = {np.dtype(np.float64): np.dtype(np.float32),
+            np.dtype(np.int64): np.dtype(np.int32)}
+
+
+def _host(a, dtype=None) -> NDArray:
+    """A host (CPU) NDArray holding a copy of ``a`` (numpy, list,
+    NDArray, tensor), whatever the current context: the data pipeline's
+    samples and transforms live on the host, and a batch reaches the card
+    once (``gluon.data.DataLoader``).  64-bit dtypes become 32-bit, as in
+    the reference."""
+    a = _as_np(a)
+    dt = np.dtype(dtype) if dtype is not None else a.dtype
+    dt = _HOST_32.get(dt, dt)
+    return NDArray(torch.from_numpy(np.array(a, dtype=dt, order="C")))
+
+
+def _as_np(x) -> np.ndarray:
+    """``x`` as numpy for reading: a view of a host tensor's memory (the
+    caller must not write it), a copy of a card's (bfloat16 as float32)."""
+    if isinstance(x, NDArray):
+        x = x._data
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.device.type == "cpu" and x.dtype != torch.bfloat16:
+            return x.numpy()
+        return x.float().cpu().numpy() if x.dtype == torch.bfloat16 \
+            else x.cpu().numpy()
+    return np.asarray(x)
 
 
 def empty(shape, ctx=None, dtype=None):
@@ -636,3 +673,70 @@ def waitall():
     """Reference ``mx.nd.waitall``: wait for all work on the card."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------- #
+# device placement (the data loader's host-to-device stage)
+# ---------------------------------------------------------------------- #
+
+_ONE_CARD = ("the port runs on one card: a batch is placed on one "
+             "device, and placement across several (a sharding, a list "
+             "of more than one device) is not ported")
+
+
+def _placement_target(device):
+    """The torch device a placement spec names: a ``Context``, a
+    ``torch.device`` or a device string, or a one-element list of one.
+    ``None`` stays ``None`` (no placement).  A sharding or a list of
+    more than one device raises ``MXNetError``: the reference lands such
+    a batch pre-sharded across a mesh in one ``device_put``, and the
+    port has one card (the reference's ``ring_attention`` is refused
+    the same way)."""
+    if device is None:
+        return None
+    if isinstance(device, Context):
+        return device.torch_device()
+    if isinstance(device, (torch.device, str)):
+        return from_torch_device(torch.device(device)).torch_device()
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise MXNetError("empty device list")
+        if len(device) > 1:
+            raise MXNetError(f"{len(device)} devices given: {_ONE_CARD}")
+        return _placement_target(device[0])
+    if hasattr(device, "device_set") or "Sharding" in type(device).__name__:
+        raise MXNetError(f"a sharding was given: {_ONE_CARD}")
+    raise MXNetError(
+        f"cannot interpret {device!r} as a Context, a torch device or a "
+        "one-element list of one")
+
+
+def to_device(data, device):
+    """Place a batch on a device: ``data`` is an ``NDArray``, a numpy
+    array, a torch tensor, or a nested list/tuple/dict of them (what a
+    batchify function gives); ``device`` is what :func:`_placement_target`
+    reads.  Returns the same structure with every array leaf an
+    ``NDArray`` on the device.  Each copy is issued ``non_blocking`` on
+    the current stream, so a copy from page-locked memory is in flight
+    when this returns (the loader's ring issues it on its copy stream and
+    records an event after it); a leaf already on the device is kept."""
+    target = _placement_target(device)
+    if target is None:
+        return data
+    return _place_tree(data, target)
+
+
+def _place_tree(x, target):
+    if isinstance(x, NDArray):
+        return NDArray(x._data.detach().to(target, non_blocking=True))
+    if isinstance(x, torch.Tensor):
+        return NDArray(x.detach().to(target, non_blocking=True))
+    if isinstance(x, np.ndarray):
+        return array(x, ctx=from_torch_device(target))
+    if isinstance(x, tuple) and hasattr(x, "_fields"):   # namedtuple
+        return type(x)(*(_place_tree(v, target) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_place_tree(v, target) for v in x)
+    if isinstance(x, dict):
+        return {k: _place_tree(v, target) for k, v in x.items()}
+    return x

@@ -242,7 +242,7 @@ class _Program:
         self.operands = operands            # [(static tensor, _HostTable)]
         self.graph = telemetry.instrument_program(
             _GraphProgram(fn, device, None, [t for t, _ in operands],
-                          error_mode="thread_local", stream=stream),
+                          stream=stream),
             site, key=key, fields=fields)
         self.capture_failures = 0
 

@@ -5,6 +5,7 @@ asked for the CPU, and its kernels are built for sm_90a."""
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,6 +16,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "mxnet_tpu_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "decode_ab.py", REPO / "rtc_ab.py",
      REPO / "resnet_ab.py", REPO / "serve_grow_ab.py",
+     REPO / "loader_ab.py",
      REPO / "tests" / "_torch_rtc_sources.py",
      REPO / "tests" / "_torch_nn_cases.py",
      REPO / "tests" / "_torch_hybrid_models.py"]
@@ -87,14 +89,28 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert mx.nd.load(params, ctx=mx.cpu())[0].context == mx.cpu()
     with pytest.raises(MXNetError, match="needs a CUDA card"):
         mx.rtc.CudaModule('extern "C" __global__ void k() {}')
+    # the data slice: a loader or iterator meant for the card raises
+    ds = mx.gluon.data.ArrayDataset(np.zeros((4, 2), np.float32))
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.gluon.data.DataLoader(ds, batch_size=2, device=mx.Context("gpu"))
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        iter(mx.gluon.data.DataLoader(ds, batch_size=2))
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.io.NDArrayIter(np.zeros((4, 2)), batch_size=2)
+    with mx.cpu():
+        inner = mx.io.NDArrayIter(np.zeros((4, 2)), batch_size=2)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.io.PrefetchingIter(inner, device=mx.Context("gpu"))
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        mx.nd.array([1.0], ctx=mx.cpu_pinned())
     assert resolve_device("cpu").type == "cpu"
     assert mx.nd.zeros((2,), ctx=mx.cpu()).context == mx.cpu()
 
 
 def test_new_modules_are_covered():
     """The structure checks above reach the fused decode, the vision,
-    the imperative, the fused-train-step and the telemetry slices'
-    modules and kernel sources."""
+    the imperative, the fused-train-step, the telemetry and the data
+    slices' modules and kernel sources."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"mxnet_tpu_torch/context.py",
             "mxnet_tpu_torch/ndarray/ndarray.py",
@@ -123,6 +139,21 @@ def test_new_modules_are_covered():
             "mxnet_tpu_torch/telemetry/memory.py",
             "mxnet_tpu_torch/telemetry/compile.py",
             "mxnet_tpu_torch/serve/schema.py"} <= names
+    # the data and I/O slice
+    assert {"mxnet_tpu_torch/recordio.py",
+            "mxnet_tpu_torch/io/__init__.py",
+            "mxnet_tpu_torch/io/io.py",
+            "mxnet_tpu_torch/image/__init__.py",
+            "mxnet_tpu_torch/image/image.py",
+            "mxnet_tpu_torch/image/detection.py",
+            "mxnet_tpu_torch/gluon/data/__init__.py",
+            "mxnet_tpu_torch/gluon/data/dataset.py",
+            "mxnet_tpu_torch/gluon/data/sampler.py",
+            "mxnet_tpu_torch/gluon/data/batchify.py",
+            "mxnet_tpu_torch/gluon/data/dataloader.py",
+            "mxnet_tpu_torch/gluon/data/vision/__init__.py",
+            "mxnet_tpu_torch/gluon/data/vision/datasets.py",
+            "mxnet_tpu_torch/gluon/data/vision/transforms.py"} <= names
     assert {"decode_fused", "conv1x1_bwd"} <= set(_build.KERNELS)
 
 
