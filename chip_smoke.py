@@ -375,7 +375,31 @@ Phases (each fails the run by raising; there is no CPU path):
    ``set_epoch(1)`` gives the rest of the epoch bit for bit, and
    ``mx.image.imdecode`` raises the reference's error where neither cv2
    nor PIL is installed (the backends found are printed);
-22. one ``{"kernels": [...]}`` line, the card line, and as the last line
+22. the nineteenth slice, the detection and sampling ops, ``mx.nd.image``,
+   ``mx.nd.contrib`` and the int8 quantization ops, with greedy NMS as
+   one launch of ``csrc/box_nms.cu``: (1) GluonCV's
+   ``ssd_512_resnet50_v1_voc`` (``tests/_torch_ssd_models.py``: ResNet-50
+   v1 NHWC bf16, four extra stages, 6,132 anchors) trained from a
+   256-image detection RecordIO file through ``image.ImageDetIter`` and
+   8 ``Trainer.fused_step`` calls of 32 x 512 x 512 (SGD with momentum,
+   multi-precision, ``MXNET_FUSED_CONV_BWD=1``), anchors, targets and
+   loss inside the step: one capture, 34 K6 nodes, losses finite, the
+   first class loss within 1.0 of ln 21, the step's targets equal to
+   ``MultiBoxTarget`` run eagerly bit for bit and on the CPU; (2) its
+   hybridized detection (softmax, ``MultiBoxDetection(threshold=0.01,
+   nms_threshold=0.45, nms_topk=400)``) as one replay with the kernel a
+   node of the graph, its rows equal to the plain ``box_nms`` on the same
+   inputs bit for bit, again at ``nms_topk=-1``; ms a call, the kernel's
+   ms, its bound; (3) Faster R-CNN's proposal head at 600 x 1000 (C4
+   feature (1, 1024, 38, 63), RPN with A = 9, ``Proposal`` 6000 -> 0.7 ->
+   300), ``ROIAlign`` 14 x 14 and ``ROIPooling`` 7 x 7 at 1/16: ROIs
+   equal to the CPU's bit for bit in order, pooled outputs and data
+   gradients within 1e-5 of the CPU's, peak memory printed; (4) the
+   rest at full size card against CPU (spatial transformer, deformable
+   convolution at G = 1 and 4, FlowNetC's correlation, fft/ifft, every
+   ``mx.nd.image`` op on 32 x 512 x 512 x 3 uint8, the int8 products
+   exactly);
+23. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -6657,6 +6681,11 @@ OP_FAMILIES = {
                   "_contrib_interleaved_matmul_selfatt_qk",
                   "_contrib_interleaved_matmul_selfatt_valatt"),
     "resize": ("UpSampling", "_contrib_BilinearResize2D"),
+    "detection": ("_contrib_ROIAlign", "ROIPooling", "_contrib_box_nms",
+                  "GridGenerator", "BilinearSampler", "_contrib_MultiBoxPrior",
+                  "_contrib_MultiBoxTarget", "_contrib_MultiBoxDetection",
+                  "fft", "ifft", "_contrib_Proposal",
+                  "_contrib_DeformableConvolution", "Correlation"),
 }
 HF_V, HF_U, HF_H, HF_T, HF_B = 50257, 768, 12, 1024, 8   # GPT-2 small
 HF_STEPS = 3                # 20.2: phase-by-phase steps
@@ -6721,9 +6750,11 @@ def op_sweep():
         arrays = [_input(rs, s) for s in specs]
         outs, _ = _op_run(mx, name, arrays, kwargs, mx.cpu())
         heads = [rs.standard_normal(o.shape).astype(np.float32)
-                 for o in outs]
+                 for o in outs] if OPS[name].differentiable else None
         c_out, c_grad = _op_run(mx, name, arrays, kwargs, mx.cpu(), heads)
         g_out, g_grad = _op_run(mx, name, arrays, kwargs, mx.gpu(0), heads)
+        if heads is None:
+            c_grad = g_grad = []
         tol = OP_CTC_TOL if name == "CTCLoss" else OP_TOL
         err = 0.0
         for i, (g, c) in enumerate(zip(g_out + g_grad, c_out + c_grad)):
@@ -7687,6 +7718,717 @@ def check_data():
     return row
 
 
+# --------------------------------------------------------------------------- #
+# phase 22: the detection and sampling ops, mx.nd.image, mx.nd.contrib and the
+# int8 quantization ops, with greedy NMS as one CUDA launch, the nineteenth
+# slice
+# --------------------------------------------------------------------------- #
+
+SSD_B, SSD_SIDE, SSD_CLASSES = 32, 512, 20   # ssd_512_resnet50_v1_voc
+SSD_RECORDS = 256                            # 8 batches
+SSD_STEPS = SSD_RECORDS // SSD_B
+SSD_OBJECTS = 20                             # 1-20 boxes an image, padded
+SSD_ANCHORS = 6132
+SSD_K6 = 30 + 4      # ResNet-50's stride-1 1x1s and the extras' four
+SSD_OPT = {"learning_rate": 0.001, "momentum": 0.9, "wd": 5e-4,
+           "multi_precision": True}
+RCNN_H, RCNN_W = 600, 1000                   # Ren et al. 2015, example/rcnn
+RCNN_PROPOSAL = dict(scales=(8, 16, 32), ratios=(0.5, 1, 2),
+                     feature_stride=16, rpn_pre_nms_top_n=6000,
+                     rpn_post_nms_top_n=300, threshold=0.7, rpn_min_size=16)
+RCNN_CPU_CHANNELS = 256     # the CPU repeats the pooling on these channels
+IOU_OPS = 15                # f32 operations of one IoU and its test
+H100_F32_FLOPS = 67e12      # H100 SXM CUDA-core f32 peak, data sheet
+H100_BYTES_S = 3.35e12
+GRAPH_KERNELS["box_nms"] = r"box_nms_kernel"
+
+
+def _ssd_models():
+    _tests_path()
+    import _torch_ssd_models as sm
+    return sm
+
+
+def _ssd_image(rs, boxes):
+    """A 512x512x3 uint8 image from a seed: a smooth background and each
+    box filled with its class's colour."""
+    import numpy as np
+
+    low = rs.randint(0, 256, (8, 8, 3)).astype(np.float32)
+    img = np.kron(low, np.ones((64, 64, 1), np.float32))
+    for c, x1, y1, x2, y2 in boxes:
+        img[int(y1 * SSD_SIDE):int(y2 * SSD_SIDE),
+            int(x1 * SSD_SIDE):int(x2 * SSD_SIDE)] = \
+            (37 * c) % 256, (91 * c) % 256, (53 * c) % 256
+    return img.astype(np.uint8)
+
+
+def ssd_records(d):
+    """22.0: an indexed detection RecordIO file of ``SSD_RECORDS`` JPEG
+    images, 512x512, each with 1-20 boxes of the 20 VOC classes in the
+    reference's label layout ([2, 5, cls, x1, y1, x2, y2, ...])."""
+    import numpy as np
+    from mxnet_tpu_torch import recordio as rio
+
+    rec = os.path.join(d, "voc.rec")
+    rs = np.random.RandomState(22)
+    t0 = time.perf_counter()
+    w = rio.MXIndexedRecordIO(rec[:-4] + ".idx", rec, "w")
+    objects = 0
+    for i in range(SSD_RECORDS):
+        n = rs.randint(1, SSD_OBJECTS + 1)
+        xy = rs.uniform(0.0, 0.7, (n, 2))
+        wh = rs.uniform(0.05, 0.3, (n, 2))
+        boxes = np.concatenate([rs.randint(0, SSD_CLASSES, (n, 1)), xy,
+                                np.minimum(xy + wh, 1.0)], 1)
+        label = np.concatenate([[2, 5], boxes.reshape(-1)]).astype(
+            np.float32)
+        w.write_idx(i, rio.pack_img(rio.IRHeader(0, label, i, 0),
+                                    _ssd_image(rs, boxes), quality=90))
+        objects += n
+    w.close()
+    size = os.path.getsize(rec)
+    print(f"ssd records: {SSD_RECORDS} JPEG {SSD_SIDE}x{SSD_SIDE} images, "
+          f"{objects} boxes, {size} bytes, written in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return rec, dict(records=SSD_RECORDS, objects=objects, bytes=size)
+
+
+def ssd_batches(mx, rec):
+    """The epoch's batches through ``mx.image.ImageDetIter`` (decode,
+    force-resize, mean and std), on the card; labels padded to
+    ``SSD_OBJECTS`` rows so that every step has one shape."""
+    import torch
+
+    t0 = time.perf_counter()
+    with mx.gpu(0):
+        it = mx.image.ImageDetIter(SSD_B, (3, SSD_SIDE, SSD_SIDE),
+                                   path_imgrec=rec, mean=True, std=True)
+    out = []
+    for batch in it:
+        x, y = batch.data[0], batch.label[0]
+        full = torch.full((SSD_B, SSD_OBJECTS, 5), -1.0, device="cuda")
+        full[:, :y.shape[1]] = y._data
+        out.append((x, mx.nd.NDArray(full)))
+    torch.cuda.synchronize()
+    print(f"ssd data: ImageDetIter {len(out)} batches of {SSD_B} in "
+          f"{time.perf_counter() - t0:.3f} s; data {tuple(out[0][0].shape)} "
+          f"{out[0][0].dtype} on {out[0][0].context}, labels padded to "
+          f"{tuple(out[0][1].shape)}", flush=True)
+    return out
+
+
+def _ssd_anchors(sm, device):
+    """SSD-512's anchors made eagerly, map by map (32 ... 1)."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as pnn
+
+    maps = [SSD_SIDE // 16 >> i for i in range(6)]
+    return torch.cat([pnn.MultiBoxPrior(
+        torch.empty((1, 1, m, m), device=device), sizes=s, ratios=r,
+        steps=(st, st)) for m, s, r, st in zip(
+            maps, sm.SSD512_SIZES, sm.SSD512_RATIOS, sm.SSD512_STEPS)], 1)
+
+
+def ssd_train(batches):
+    """22.1: SSD-512 on ResNet-50 v1 (GluonCV's ssd_512_resnet50_v1_voc,
+    NHWC, bf16), 8 ``Trainer.fused_step`` calls of 32 images, anchors,
+    targets and loss inside the captured step, ``MXNET_FUSED_CONV_BWD=1``:
+    one capture, ``SSD_K6`` K6 nodes, 6,132 anchors, losses finite, the
+    first class loss within 1.0 of ln 21; the targets of the last replay
+    equal ``MultiBoxTarget`` run eagerly on its batch bit for bit, and on
+    the CPU (cls_target and loc_mask exact, loc_target within 1e-5).
+    Printed: ms a step over steps 3-8."""
+    import math
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+    from mxnet_tpu_torch.gluon.block import _GraphProgram
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.ops import conv_fused as cf
+    from mxnet_tpu_torch.ops import nn as pnn
+
+    sm = _ssd_models()
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    net = sm.ssd(mx, get_model("resnet50_v1", classes=1000, layout="NHWC"))
+    net.initialize(mx.init.Xavier(rnd_type="uniform", factor_type="avg",
+                                  magnitude=3), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    loss_blk = sm.ssd_loss(mx, net, "bfloat16")
+    trainer = gluon.Trainer(net.collect_params(), "sgd", SSD_OPT)
+
+    def loss_fn(x, y):
+        return loss_blk(x, y)
+
+    fsm.reset_step_counters()
+    cf.conv1x1_bwd_pair.launches = 0
+    losses, cls_losses, stamps = [], [], []
+    _GraphProgram.debug = True
+    try:
+        for k, (x, y) in enumerate(batches):
+            if k == 1:
+                _GraphProgram.debug = False
+            if k == 2:
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+            out = trainer.fused_step(loss_fn, x, y)
+            losses.append(out[0]._data.float().mean())
+            cls_losses.append(out[1]._data.float().mean())
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    finally:
+        _GraphProgram.debug = False
+    counters = dict(fsm.step_counters)
+    fs, prog = _apply_program(trainer)
+    k6_runs = cf.conv1x1_bwd_pair.launches - prog.launches.get(
+        "conv1x1_bwd", 0) + fs.launches().get("conv1x1_bwd", 0)
+    counts, every = _graph_nodes(prog, ("conv1x1_bwd",))
+    _print_nodes("ssd train graph", every)
+    ms = (stamps[1] - stamps[0]) / (len(batches) - 2) * 1e3
+    losses = [float(v) for v in losses]
+    cls_losses = [float(v) for v in cls_losses]
+    # the last replay's targets against MultiBoxTarget run eagerly
+    loc_t, mask, cls_t = (o._data for o in out[2:5])
+    anchors = _ssd_anchors(sm, "cuda")
+    eager = pnn.MultiBoxTarget(anchors, y._data, None,
+                               overlap_threshold=0.5)
+    in_graph = all(torch.equal(a, b) for a, b in zip((loc_t, mask, cls_t),
+                                                     eager))
+    cpu = pnn.MultiBoxTarget(anchors.cpu(), y._data.cpu(), None,
+                             overlap_threshold=0.5)
+    loc_err = float((loc_t.cpu() - cpu[0]).abs().max())
+    cpu_exact = torch.equal(mask.cpu(), cpu[1]) and \
+        torch.equal(cls_t.cpu(), cpu[2])
+    positives = int((cls_t > 0).sum())
+    row = dict(losses=losses, cls_losses=cls_losses, ms_per_step=ms,
+               images_per_s=SSD_B / ms * 1e3, anchors=anchors.shape[1],
+               step_counters=counters, k6_nodes=counts["conv1x1_bwd"],
+               launches_a_replay=prog.launches,
+               launches=dict(conv1x1_bwd=k6_runs),
+               targets_in_graph_equal=in_graph,
+               targets_cpu_exact=cpu_exact, loc_target_cpu_err=loc_err,
+               positives=positives)
+    print(f"ssd train: ssd_512_resnet50_v1_voc NHWC bf16, batch {SSD_B} of "
+          f"{SSD_SIDE}x{SSD_SIDE}, {anchors.shape[1]} anchors, "
+          f"Trainer.fused_step x{len(losses)}; losses "
+          f"{[round(v, 4) for v in losses]}; class losses "
+          f"{[round(v, 4) for v in cls_losses]} (ln 21 = "
+          f"{math.log(21):.4f}); {ms:.3f} ms a step over steps 3-"
+          f"{len(losses)} ({row['images_per_s']:.2f} images/s, "
+          f"{card_line()})", flush=True)
+    print(f"ssd train: step_counters {counters}; K6 nodes {counts} "
+          f"(expected {SSD_K6}); launches a replay {prog.launches}; K6 ran "
+          f"{k6_runs} times; targets of the last replay == eager "
+          f"MultiBoxTarget: {in_graph}; vs the CPU: cls_target/loc_mask "
+          f"exact {cpu_exact}, loc_target max err {loc_err:.3e}; "
+          f"{positives} positive anchors", flush=True)
+    if anchors.shape[1] != SSD_ANCHORS:
+        fail(f"ssd train: {anchors.shape[1]} anchors, expected "
+             f"{SSD_ANCHORS}")
+    if counts["conv1x1_bwd"] != SSD_K6:
+        fail(f"ssd train: {counts['conv1x1_bwd']} K6 nodes in the step "
+             f"graph, expected {SSD_K6}")
+    if counters["legacy_steps"] or counters["compiles"] != 1 or \
+            counters["apply_dispatches"] != len(batches):
+        fail(f"ssd train: expected {len(batches)} fused steps with one "
+             f"capture, got {counters}")
+    if not all(math.isfinite(v) for v in losses + cls_losses) or \
+            abs(cls_losses[0] - math.log(21)) > 1.0:
+        fail(f"ssd train: losses {losses}, class losses {cls_losses} (the "
+             f"first within 1.0 of ln 21)")
+    if not in_graph or not cpu_exact or loc_err > 1e-5:
+        fail("ssd train: the step's targets disagree with MultiBoxTarget "
+             "run eagerly or on the CPU")
+    del prog, fs, trainer, loss_blk, loss_fn
+    return net, row
+
+
+def _nms_bound(rows, keep_lim, out):
+    """The least time of greedy NMS over ``rows`` (R, n, 6) on an H100:
+    the rows read and the scores written once, against the IoUs this
+    data needs (each kept row among the first ``keep_lim`` tests every
+    later row), ``IOU_OPS`` f32 operations each."""
+    import torch
+    from mxnet_tpu_torch.ops import box_nms as bn
+
+    r, n = rows.shape[:2]
+    order = bn.score_order(out[..., 1])
+    ranked = out[..., 1].gather(1, order)
+    pos = torch.arange(n, device=rows.device)
+    live = (ranked != -1) & (pos < keep_lim)
+    ious = float(((n - 1 - pos) * live).sum())
+    nbytes = r * n * (6 + 1) * 4
+    t_ops, t_bytes = ious * IOU_OPS / H100_F32_FLOPS, nbytes / H100_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, \
+        ("operations" if t_ops > t_bytes else "bytes"), ious
+
+
+def _plain_nms(rows, keep_lim, thresh, ids=True):
+    """``box_nms``'s result on ``rows`` through the plain version."""
+    from mxnet_tpu_torch.ops import box_nms as bn
+
+    s = rows[..., 1]
+    new = bn.nms_scores_plain(s, rows[..., 2:6],
+                              rows[..., 0] if ids else None,
+                              bn.score_order(s), keep_lim, thresh, 0.0)
+    out = rows.clone()
+    out[..., 1] = new
+    return out
+
+
+def ssd_detection(net, batches):
+    """22.2: the trained net's ``hybridize()`` forward, softmax and
+    ``MultiBoxDetection(threshold=0.01, nms_threshold=0.45,
+    nms_topk=400)`` as one replayed forward with the box_nms kernel a node
+    of its graph; its rows equal the plain box_nms on the same inputs on
+    the card bit for bit, and again at nms_topk=-1 (all 6,132).  Printed:
+    ms a detection call, the kernel's ms alone, its bound."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.block import _GraphProgram
+    from mxnet_tpu_torch.ops import box_nms as bn
+    from mxnet_tpu_torch.ops import nn as pnn
+
+    sm = _ssd_models()
+    detect = sm.ssd_detect(mx, net, "bfloat16", threshold=0.01,
+                           nms_threshold=0.45, nms_topk=400)
+    detect.hybridize()
+    x = batches[0][0]
+    bn.nms_scores.launches = 0
+    _GraphProgram.debug = True
+    try:
+        outs = [[o._data.clone() for o in detect(x)] for _ in range(3)]
+    finally:
+        _GraphProgram.debug = False
+    op = detect._cached_op
+    prog = next(p for p in op._programs.values() if p.graph is not None)
+    # the eager call's launch and the replays' (the capture records one)
+    launches = bn.nms_scores.launches - prog.launches.get("box_nms", 0) + \
+        prog.replays * prog.launches.get("box_nms", 0)
+    counts, every = _graph_nodes(prog, ("box_nms",))
+    _print_nodes("ssd detect graph", every)
+    rows, prob, loc, anchors = outs[2]
+    pre = pnn.multibox_rows(prob, loc, anchors, threshold=0.01)
+    plain = _plain_nms(pre, 400, 0.45)
+    bits = torch.equal(rows, plain) and torch.equal(outs[1][0], rows)
+    everything = pnn.box_nms(pre, overlap_thresh=0.45, topk=-1,
+                             coord_start=2, score_index=1, id_index=0)
+    plain_all = _plain_nms(pre, SSD_ANCHORS, 0.45)
+    bits_all = torch.equal(everything, plain_all)
+    det_ms = cuda_ms(lambda i: detect(x), 5)
+    s, b, ids = pre[..., 1], pre[..., 2:6], pre[..., 0]
+    order = bn.score_order(s)
+
+    def kernel(keep):
+        return lambda i: bn.nms_scores(s, b, ids, order, keep, 0.45, 0.0)
+
+    k_ms = cuda_ms(kernel(400), 20)
+    k_all_ms = cuda_ms(kernel(SSD_ANCHORS), 5)
+    p_ms = cuda_ms(lambda i: bn.nms_scores_plain(s, b, ids, order, 400,
+                                                 0.45, 0.0), 1, warm=1)
+    bound, by, ious = _nms_bound(pre, 400, rows)
+    bound_all, by_all, ious_all = _nms_bound(pre, SSD_ANCHORS, everything)
+    kept = int((rows[..., 1] != -1).sum())
+    row = dict(graph_box_nms_nodes=counts["box_nms"], bit_equal=bits,
+               bit_equal_all=bits_all, det_ms=det_ms, ms=k_ms,
+               ms_all=k_all_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+               ious=ious, bound_ms_all=bound_all, bound_by_all=by_all,
+               ious_all=ious_all, kept=kept, launches=launches,
+               max_abs_err=float((rows - plain).abs().max()))
+    print(f"ssd detect: hybridized forward + softmax + MultiBoxDetection("
+          f"threshold=0.01, nms_threshold=0.45, nms_topk=400) at batch "
+          f"{SSD_B}: {det_ms:.3f} ms a call (replay, {card_line()}); "
+          f"box_nms nodes in the graph {counts['box_nms']}; {kept} rows "
+          f"kept; rows == plain box_nms on the card: {bits}; at "
+          f"nms_topk=-1: {bits_all}", flush=True)
+    print(f"ssd detect: box_nms kernel {k_ms:.4f} ms (keep_lim 400) and "
+          f"{k_all_ms:.4f} ms (all {SSD_ANCHORS}) for {SSD_B} rows; plain "
+          f"{p_ms:.3f} ms (keep_lim 400); bound {bound:.6f} ms ({by}, "
+          f"{ious:.0f} IoUs) and {bound_all:.6f} ms ({by_all}, "
+          f"{ious_all:.0f} IoUs)", flush=True)
+    if counts["box_nms"] < 1 or not bits or not bits_all:
+        fail("ssd detect: the box_nms kernel is not in the graph or its "
+             "rows differ from the plain version's")
+    del detect, op, prog, outs
+    return row
+
+
+def _peak(fn):
+    """``fn()``'s result and its peak device bytes above the bytes
+    allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _roi_run(mx, name, feat, rois, head, ctx, kw):
+    x = mx.nd.array(feat, ctx=ctx)
+    r = mx.nd.array(rois, ctx=ctx)
+    x.attach_grad()
+    with mx.autograd.record():
+        out = getattr(mx.nd, name)(x, r, **kw)
+    out.backward(mx.nd.array(head, ctx=ctx))
+    return out.asnumpy(), x.grad.asnumpy()
+
+
+def rcnn_proposals():
+    """22.3: Faster R-CNN's proposal head at the published settings: one
+    600x1000 image, ResNet-50's C4 feature (1, 1024, 38, 63), the RPN head
+    (A = 9), ``Proposal`` (6000 before NMS at 0.7, 300 after), then
+    ``ROIAlign`` (14x14, 1/16, sample_ratio 2) and ``ROIPooling`` (7x7,
+    1/16) on its ROIs: the ROIs equal the same code on the CPU bit for bit
+    in order, pooled outputs and data gradients within 1e-5 of the CPU's
+    (f32, TF32 off; the CPU pools the first ``RCNN_CPU_CHANNELS`` of the
+    1024 channels, each channel's result its own, to keep the script's
+    time); peak memory of each op printed."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.ops import box_nms as bn
+    from mxnet_tpu_torch.ops import nn as pnn
+
+    sm = _ssd_models()
+    base = get_model("resnet50_v1", classes=1000)
+    c4 = gluon.nn.HybridSequential(prefix="")
+    for i in range(7):
+        c4.add(base.features[i])
+    head = sm.rpn(mx, 9)
+    c4.initialize(mx.init.Xavier(magnitude=2), ctx=mx.gpu(0))
+    head.initialize(ctx=mx.gpu(0))
+    rs = np.random.RandomState(23)
+    img = mx.nd.array(rs.standard_normal((1, 3, RCNN_H, RCNN_W)).astype(
+        np.float32), ctx=mx.gpu(0))
+    feat = c4(img)
+    cls_prob, bbox_pred = head(feat)
+    info = mx.nd.array(np.array([[RCNN_H, RCNN_W, 1.0]], np.float32),
+                       ctx=mx.gpu(0))
+    if list(feat.shape) != [1, 1024, 38, 63]:
+        fail(f"rcnn: C4 feature {list(feat.shape)}, expected [1, 1024, 38, "
+             f"63]")
+    bn.nms_scores.launches = 0
+    (rois, scores), prop_peak = _peak(lambda: mx.nd.Proposal(
+        cls_prob, bbox_pred, info, output_score=True, **RCNN_PROPOSAL))
+    launches = bn.nms_scores.launches
+    with mx.cpu():
+        c_rois, c_scores = mx.nd.Proposal(
+            mx.nd.array(cls_prob.asnumpy()), mx.nd.array(bbox_pred.asnumpy()),
+            mx.nd.array(info.asnumpy()), output_score=True, **RCNN_PROPOSAL)
+    g_rois = rois.asnumpy()
+    rois_equal = np.array_equal(g_rois, c_rois.asnumpy()) and \
+        np.array_equal(scores.asnumpy(), c_scores.asnumpy())
+    prop_ms = cuda_ms(lambda i: mx.nd.Proposal(cls_prob, bbox_pred, info,
+                                               **RCNN_PROPOSAL), 5)
+    # the NMS of that call alone, at 6,000 rows
+    kw = {k: RCNN_PROPOSAL[k] for k in ("rpn_pre_nms_top_n", "rpn_min_size",
+                                         "scales", "ratios",
+                                         "feature_stride")}
+    pre_rows = pnn.proposal_rows(cls_prob._data, bbox_pred._data, info._data,
+                                 **kw)
+    s, b = pre_rows[..., 1], pre_rows[..., 2:6]
+    order = bn.score_order(s)
+    k_ms = cuda_ms(lambda i: bn.nms_scores(s, b, None, order, s.shape[1],
+                                           0.7, 0.0), 5)
+    k_out = pre_rows.clone()
+    k_out[..., 1] = bn.nms_scores(s, b, None, order, s.shape[1], 0.7, 0.0)
+    p_ms = cuda_ms(lambda i: bn.nms_scores_plain(s, b, None, order,
+                                                 s.shape[1], 0.7, 0.0), 1,
+                   warm=0)
+    bound, by, ious = _nms_bound(pre_rows, s.shape[1], k_out)
+    f = feat.asnumpy()
+    row = dict(feature=list(f.shape), rois=list(g_rois.shape),
+               rois_equal_cpu=rois_equal, proposal_ms=prop_ms,
+               proposal_peak_bytes=prop_peak, nms_ms=k_ms, nms_plain_ms=p_ms,
+               nms_bound_ms=bound, nms_bound_by=by, nms_ious=ious,
+               launches=launches)
+    pooled = {}
+    for name, kw in (("ROIAlign", dict(pooled_size=(14, 14),
+                                       spatial_scale=1 / 16,
+                                       sample_ratio=2)),
+                     ("ROIPooling", dict(pooled_size=(7, 7),
+                                         spatial_scale=1 / 16))):
+        ph, pw = kw["pooled_size"]
+        grad_head = rs.standard_normal((g_rois.shape[0], f.shape[1], ph,
+                                        pw)).astype(np.float32)
+        (g_out, g_grad), peak = _peak(lambda: _roi_run(
+            mx, name, f, g_rois, grad_head, mx.gpu(0), kw))
+        x = mx.nd.array(f, ctx=mx.gpu(0))
+        r = mx.nd.array(g_rois, ctx=mx.gpu(0))
+        fwd_ms = cuda_ms(lambda i: getattr(mx.nd, name)(x, r, **kw), 3)
+        t0 = time.perf_counter()
+        k = RCNN_CPU_CHANNELS
+        c_out, c_grad = _roi_run(mx, name, f[:, :k], g_rois,
+                                 grad_head[:, :k], mx.cpu(), kw)
+        cpu_s = time.perf_counter() - t0
+        g_out, g_grad = g_out[:, :k], g_grad[:, :k]
+        ok = np.allclose(g_out, c_out, rtol=OP_TOL, atol=OP_TOL) and \
+            np.allclose(g_grad, c_grad, rtol=OP_TOL, atol=OP_TOL)
+        pooled[name] = dict(ok=ok, out_err=float(np.abs(g_out - c_out).max()),
+                            grad_err=float(np.abs(g_grad - c_grad).max()),
+                            peak_bytes=peak, fwd_ms=fwd_ms, cpu_s=cpu_s,
+                            shape=list(g_out.shape))
+    row["pooled"] = pooled
+    print(f"rcnn: C4 feature {list(f.shape)}, Proposal(scales=(8, 16, 32), "
+          f"ratios=(0.5, 1, 2), 6000 -> NMS 0.7 -> 300, min size 16) "
+          f"{prop_ms:.3f} ms a call, peak {prop_peak} B above its inputs "
+          f"({card_line()}); ROIs {list(g_rois.shape)} == the CPU's bit for "
+          f"bit in order: {rois_equal}; its NMS at 6000 rows: kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bound:.6f} ms ({by}, "
+          f"{ious:.0f} IoUs)", flush=True)
+    for name, p in pooled.items():
+        print(f"rcnn: {name} {p['shape']}: forward {p['fwd_ms']:.3f} ms, "
+              f"forward+backward peak {p['peak_bytes']} B; card vs CPU "
+              f"out err {p['out_err']:.3e}, data grad err "
+              f"{p['grad_err']:.3e} (tol {OP_TOL}, the first "
+              f"{RCNN_CPU_CHANNELS} channels); the CPU took {p['cpu_s']:.2f} "
+              f"s", flush=True)
+    if not rois_equal or not all(p["ok"] for p in pooled.values()):
+        fail("rcnn: the ROIs or the pooled outputs disagree with the CPU")
+    return row
+
+
+SWEEP_FAMILIES = ("spatial transformer", "deformable", "correlation", "fft",
+                  "image", "quantization")
+# values that are long sums (by index into outputs + input gradients): the
+# deformable convolution's gradients (a GEMM over 8,192 rows or 4,608
+# columns; the bias's over 8,192 positions), the correlation's (441
+# displacements of 256 channels), the sampler's grid gradient (64
+# channels, times (w - 1) / 2), fft/ifft (1,024 terms, cuFFT against
+# pocketfft): the card sums them in another order (split-K, atomics, its
+# own FFT), so each is held to OP_WGRAD_TOL of its largest magnitude, as
+# phase 20.1 holds a convolution's weight gradient
+SWEEP_SUMMED = {"DeformableConvolution": (1, 2, 3, 4), "Correlation": (1, 2),
+                "BilinearSampler": (2,), "fft": (0,), "ifft": (0,)}
+
+
+def _sweep_cases(np):
+    rs = np.random.RandomState(24)
+    n = np.float32
+    theta = (np.eye(2, 3)[None] + rs.uniform(-0.1, 0.1, (32, 2, 3))).astype(n)
+    cases = [
+        ("spatial transformer", "GridGenerator",
+         [theta.reshape(32, 6)], dict(transform_type="affine",
+                                      target_shape=(64, 64))),
+    ]
+    grid = np.concatenate([
+        np.stack(np.meshgrid(np.linspace(-1, 1, 64), np.linspace(-1, 1, 64))
+                 )[None]] * 32) + rs.uniform(-0.05, 0.05, (32, 2, 64, 64))
+    cases.append(("spatial transformer", "BilinearSampler",
+                  [rs.standard_normal((32, 64, 64, 64)).astype(n),
+                   grid.astype(n)], {}))
+    for g in (1, 4):
+        cases.append(("deformable", "DeformableConvolution",
+                      [rs.standard_normal((8, 512, 32, 32)).astype(n),
+                       (rs.standard_normal((8, 2 * g * 9, 32, 32)) *
+                        2).astype(n),
+                       (rs.standard_normal((512, 512, 3, 3)) * 0.02).astype(n),
+                       rs.standard_normal(512).astype(n)],
+                      dict(kernel=(3, 3), pad=(1, 1), num_filter=512,
+                           num_deformable_group=g)))
+    cases.append(("correlation", "Correlation",
+                  [rs.standard_normal((4, 256, 48, 64)).astype(n),
+                   rs.standard_normal((4, 256, 48, 64)).astype(n)],
+                  dict(pad_size=20, kernel_size=1, max_displacement=20,
+                       stride1=1, stride2=2)))
+    cases.append(("fft", "fft", [rs.standard_normal((64, 1024)).astype(n)],
+                  {}))
+    cases.append(("fft", "ifft", [rs.standard_normal((64, 2048)).astype(n)],
+                  {}))
+    return cases
+
+
+def _image_sweep(mx, np, bad, errs):
+    """Every ``mx.nd.image`` op on a 32x512x512x3 uint8 batch, card vs CPU:
+    the deterministic ones equal (f32 within ``OP_TOL``, a resized uint8
+    within one step where the sums round across an integer), the random
+    ones by their rules and, from the same seed, equal."""
+    imgs = np.random.RandomState(25).randint(0, 256, (32, 512, 512, 3)) \
+        .astype(np.uint8)
+
+    def run(ctx, short, data, kw, seed=None):
+        with ctx:
+            if seed is not None:
+                mx.random.seed(seed)
+            x = mx.nd.array(data, ctx=ctx, dtype=str(data.dtype))
+            return getattr(mx.nd.image, short)(x, **kw).asnumpy()
+
+    tensor = run(mx.cpu(), "to_tensor", imgs, {})
+    cases = [("to_tensor", imgs, {}),
+             ("normalize", tensor, dict(mean=(0.485, 0.456, 0.406),
+                                        std=(0.229, 0.224, 0.225))),
+             ("resize", imgs, dict(size=(300, 300), interp=1)),
+             ("resize", imgs, dict(size=(300, 300), interp=0)),
+             ("resize", imgs[:4], dict(size=(700, 600), interp=1)),
+             ("resize", imgs[:4].astype(np.float32), dict(size=(300, 300))),
+             ("crop", imgs, dict(x=10, y=20, width=300, height=200)),
+             ("flip_left_right", imgs, {}), ("flip_top_bottom", imgs, {})]
+    resize_off = 0
+    for short, data, kw in cases:
+        g, c = run(mx.gpu(0), short, data, kw), run(mx.cpu(), short, data, kw)
+        if g.dtype == np.uint8:
+            d = np.abs(g.astype(int) - c.astype(int))
+            resize_off += int((d > 0).sum())
+            ok, e = bool((d <= 1).all()), float(d.max())
+        else:
+            ok = np.allclose(g, c, rtol=OP_TOL, atol=OP_TOL)
+            e = float(np.abs(g - c).max())
+        key = f"image.{short}" + (f"{kw['size']}/{kw.get('interp', 1)}/"
+                                  f"{data.dtype}" if short == "resize"
+                                  else "")
+        errs[key] = e
+        if not ok:
+            bad.append((f"image.{short}", e))
+    for short, axis in (("random_flip_left_right", 2),
+                        ("random_flip_top_bottom", 1)):
+        g = run(mx.gpu(0), short, imgs, {}, seed=5)
+        c = run(mx.cpu(), short, imgs, {}, seed=5)
+        same = (g == imgs).all(axis=(1, 2, 3))
+        flip = (g == np.flip(imgs, axis)).all(axis=(1, 2, 3))
+        if not ((same | flip).all() and np.array_equal(g, c)):
+            bad.append((f"image.{short}", "rules"))
+    for short in ("random_brightness", "random_contrast",
+                  "random_saturation"):
+        g = run(mx.gpu(0), short, imgs, dict(min_factor=0.7,
+                                             max_factor=1.3), seed=6)
+        c = run(mx.cpu(), short, imgs, dict(min_factor=0.7,
+                                            max_factor=1.3), seed=6)
+        with mx.cpu():
+            mx.random.seed(6)
+            f = 0.7 + 0.6 * mx.random.key_uniform(32).numpy()
+        ok = np.allclose(g, c, rtol=OP_TOL, atol=1e-3) and \
+            ((f >= 0.7) & (f <= 1.3)).all()
+        errs[f"image.{short}"] = float(np.abs(g - c).max())
+        if not ok:
+            bad.append((f"image.{short}", errs[f"image.{short}"]))
+    return len(cases) + 5, resize_off
+
+
+def _quant_sweep(mx, np, bad):
+    rs = np.random.RandomState(26)
+    a = rs.randint(-127, 128, (4096, 768)).astype(np.int8)
+    b = rs.randint(-127, 128, (768, 3072)).astype(np.int8)
+    x = rs.randint(-127, 128, (32, 256, 14, 14)).astype(np.int8)
+    w = rs.randint(-127, 128, (256, 256, 3, 3)).astype(np.int8)
+    out = {}
+    for name, arrays, kw in (("quantized_matmul_int8", (a, b), {}),
+                             ("quantized_conv_int8", (x, w),
+                              dict(pad=(1, 1)))):
+        res = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            nds = [mx.nd.array(v, ctx=ctx, dtype="int8") for v in arrays]
+            res.append(getattr(mx.nd, name)(*nds, **kw).asnumpy())
+        exact = res[0].dtype == np.int32 and np.array_equal(*res)
+        out[name] = dict(exact=exact, largest=int(np.abs(res[1]).max()))
+        if not exact:
+            bad.append((name, "not exact"))
+    g_ms = cuda_ms(lambda i: mx.nd.quantized_matmul_int8(
+        mx.nd.array(a, ctx=mx.gpu(0), dtype="int8"),
+        mx.nd.array(b, ctx=mx.gpu(0), dtype="int8")), 3)
+    out["matmul_ms"] = g_ms
+    return out
+
+
+def detection_sweep():
+    """22.4: the rest of the slice at full size, card vs CPU in f32,
+    outputs and every float input's gradient within ``OP_TOL`` (the long
+    sums of ``SWEEP_SUMMED`` within ``OP_WGRAD_TOL`` of their largest
+    magnitude), counted by family;
+    every ``mx.nd.image`` op on a 32x512x512x3 uint8 batch; the int8
+    products exactly equal to the CPU's int32."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.registry import OPS
+
+    counts = {f: 0 for f in SWEEP_FAMILIES}
+    bad, errs = [], {}
+    for family, name, arrays, kw in _sweep_cases(np):
+        differentiable = OPS[getattr(mx.nd, name)._op.name].differentiable
+        rs = np.random.RandomState(len(errs))
+        outs, _ = _op_run(mx, name, arrays, kw, mx.cpu())
+        heads = [rs.standard_normal(o.shape).astype(np.float32)
+                 for o in outs] if differentiable else None
+        c_out, c_grad = _op_run(mx, name, arrays, kw, mx.cpu(), heads)
+        g_out, g_grad = _op_run(mx, name, arrays, kw, mx.gpu(0), heads)
+        if heads is None:
+            c_grad = g_grad = []
+        err = 0.0
+        for i, (g, c) in enumerate(zip(g_out + g_grad, c_out + c_grad)):
+            if c is None:
+                continue
+            if i in SWEEP_SUMMED.get(name, ()):
+                e = float(np.abs(g - c).max()) / max(float(np.abs(c).max()),
+                                                     1e-30)
+                ok = e <= OP_WGRAD_TOL
+            else:
+                e = float(np.abs(g - c).max())
+                ok = np.allclose(g, c, rtol=OP_TOL, atol=OP_TOL)
+            err = max(err, e)
+            if not ok:
+                bad.append((name, i, e))
+        key = f"{name}{kw.get('num_deformable_group', '')}"
+        errs[key] = err
+        counts[family] += 1
+    n_img, resize_off = _image_sweep(mx, np, bad, errs)
+    counts["image"] += n_img
+    quant = _quant_sweep(mx, np, bad)
+    counts["quantization"] += 2
+    row = dict(families=counts, errors=errs, quant=quant,
+               resized_uint8_off_by_one=resize_off, bad=bad)
+    print(f"detection sweep: card vs CPU, f32, TF32 off: by family "
+          f"{counts}; max errors (of the largest magnitude for the long "
+          f"sums) "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tol {OP_TOL}, "
+          f"long sums {OP_WGRAD_TOL} of the largest; "
+          f"uint8 resizes within 1, {resize_off} pixels off by one); int8 "
+          f"products {quant}", flush=True)
+    if bad:
+        fail(f"detection sweep: disagreeing {bad[:6]}")
+    return row
+
+
+def check_detection():
+    """Phase 22: SSD-512 trained and run, Faster R-CNN's proposals and
+    region pooling, and the sweep of the slice's other ops."""
+    import tempfile
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import box_nms as bn
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        rec, records = ssd_records(d)
+        batches = ssd_batches(mx, rec)
+    net, train = ssd_train(batches)
+    detect = ssd_detection(net, batches)
+    del net, batches
+    torch.cuda.empty_cache()
+    rcnn = rcnn_proposals()
+    launches = detect["launches"] + rcnn["launches"]
+    torch.cuda.empty_cache()
+    sweep = detection_sweep()
+    torch.cuda.synchronize()
+    row = dict(records=records, train=train, detect=detect, rcnn=rcnn,
+               sweep=sweep, launches=dict(box_nms=launches,
+                                          conv1x1_bwd=train["launches"][
+                                              "conv1x1_bwd"]),
+               seconds=time.perf_counter() - t0)
+    print(f"phase 22: box_nms launched {launches} times on the path (the "
+          f"detection call's eager run and its replays, the Proposal "
+          f"call); {row['seconds']:.2f} s", flush=True)
+    if launches < 1:
+        fail("phase 22: the box_nms kernel was never launched on the path")
+    return row
+
+
 def main():
     try:
         import torch
@@ -7794,6 +8536,9 @@ def main():
     opt19 = check_optimizers(cfg, gelu_op, train)
     hybrid = check_hybrid(cfg, train)
     data = check_data()
+    det = check_detection()
+
+    # phase 23: the kernels line, the card's line and the result
     gelu = next(c for c in rtc["cases"]
                 if c["name"] == "gelu_fwd<__nv_bfloat16>")
 
@@ -7877,7 +8622,8 @@ def main():
              gluon["resnet"]["launches"]["conv1x1_bwd"] +
              fused_train["resnet"]["launches"]["conv1x1_bwd"] +
              opt19["lars_resnet"]["launches"]["conv1x1_bwd"] +
-             hybrid["launches"]["conv1x1_bwd"] + data["launches"],
+             hybrid["launches"]["conv1x1_bwd"] + data["launches"] +
+             det["launches"]["conv1x1_bwd"],
              max_abs_err=k6["max_abs_err"], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
@@ -7904,6 +8650,25 @@ def main():
              library_queued_ms=gelu["library_queued_ms"],
              host_us=rtc["launch_us"], host_floor_us=rtc["host_floor_us"],
              torch_launch_us=rtc["torch_launch_us"]),
+        # box_nms: the port's own kernel, with no Pallas counterpart (it
+        # replaces the reference's lax.fori_loop); its launches those of
+        # phase 22.2's replayed SSD detection and 22.3's Proposal; its
+        # times at SSD-512's 32 x 6,132 rows and nms_topk 400 (the
+        # Faster R-CNN row of 6,000 beside them); no PyTorch call computes
+        # greedy NMS, so library_ms is null
+        dict(name="box_nms", route="cuda",
+             source="mxnet_tpu_torch/csrc/box_nms.cu",
+             replaces="mxnet_tpu/ops/nn.py:883",
+             launches=det["launches"]["box_nms"],
+             max_abs_err=det["detect"]["max_abs_err"],
+             ms=det["detect"]["ms"], plain_ms=det["detect"]["plain_ms"],
+             bound_ms=det["detect"]["bound_ms"],
+             bound_by=det["detect"]["bound_by"], library_ms=None,
+             all_rows_ms=det["detect"]["ms_all"],
+             all_rows_bound_ms=det["detect"]["bound_ms_all"],
+             rpn_ms=det["rcnn"]["nms_ms"],
+             rpn_plain_ms=det["rcnn"]["nms_plain_ms"],
+             rpn_bound_ms=det["rcnn"]["nms_bound_ms"]),
     ]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
@@ -7918,7 +8683,8 @@ def main():
                        fused=fused, k6=k6, vision=vision, gluon=gluon,
                        rtc=rtc,
                        mlp=mlp, fused_train=fused_train, optimizers=opt19,
-                       hybrid=hybrid, data=data, kernels=kernels),
+                       hybrid=hybrid, data=data, detection=det,
+                       kernels=kernels),
                   fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -29,7 +29,7 @@ __all__ = ["KERNELS", "nvcc_command", "build", "load", "check"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 KERNELS = ("q8_matvec", "flash_fwd", "flash_bwd", "decode_fused",
-           "conv1x1_bwd", "rtc_launch")
+           "conv1x1_bwd", "rtc_launch", "box_nms")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()

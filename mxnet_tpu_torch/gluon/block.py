@@ -128,11 +128,12 @@ def trace_scope(training):
 
 
 def _launch_counts():
-    """The launch counts of the port's kernel wrappers (K1-K6) and of the
-    runtime-compiled kernels (K7); host counters, raised at a launch, so
-    a graph's capture raises them and its replays do not."""
+    """The launch counts of the port's kernel wrappers (K1-K6, box_nms)
+    and of the runtime-compiled kernels (K7); host counters, raised at a
+    launch, so a graph's capture raises them and its replays do not."""
     from .. import rtc
     from ..ops.attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from ..ops.box_nms import nms_scores
     from ..ops.conv_fused import conv1x1_bwd_pair
     from ..ops.decode_fused import decode_step
     from ..ops.q8_matvec import q8_matvec
@@ -143,6 +144,7 @@ def _launch_counts():
             "q8_matvec": q8_matvec.launches,
             "decode_fused": decode_step.launches,
             "conv1x1_bwd": conv1x1_bwd_pair.launches,
+            "box_nms": nms_scores.launches,
             "rtc": rtc.launch_total()}
 
 

@@ -2,19 +2,25 @@
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``: the NDArray class plus
 one wrapper per op of the registry, generated from every ported op
-module (``ops/defs.py``, ``ops/nn.py``, ``ops/attention.py``) under the
-op's name (and ``ops/defs.py``'s Python names), with the reference's
-alias names, and ``save``, ``load``, ``concatenate``, ``BatchNorm``,
-``Dropout`` and ``Custom``.  ``ring_attention`` raises ``MXNetError``
-(``ops.registry.NOT_PORTED``).  ``mx.nd.random``, ``image``,
-``sparse``, ``contrib`` and the ops of the other op modules are not
+module (``ops/defs.py``, ``ops/nn.py``, ``ops/attention.py``,
+``ops/image_ops.py``, ``ops/quantization.py``) under the op's name (and
+``ops/defs.py``'s Python names), with the reference's alias names, and
+``save``, ``load``, ``concatenate``, ``BatchNorm``, ``Dropout`` and
+``Custom``; ``mx.nd.image`` (the eleven ``_image_*`` ops under their
+short names) and ``mx.nd.contrib``.  ``ring_attention`` raises
+``MXNetError`` (``ops.registry.NOT_PORTED``).  ``mx.nd.random``,
+``sparse``, ``linalg`` and the ops of the other op modules are not
 ported yet.
 """
+import types as _types
+
 from .ndarray import NDArray, array, empty, from_torch, waitall
 from ..ops.defs import arange, eye, full, linspace, ones, zeros
 from ..ops import attention as _attention
 from ..ops import defs as _defs
+from ..ops import image_ops as _image_ops  # noqa: F401 (registers its ops)
 from ..ops import nn as _nn
+from ..ops import quantization as _quantization  # noqa: F401
 from ..ops.registry import OPS as _OPS
 from ..ops.registry import _ALIASES as _alias_map
 from .serialization import load, save
@@ -36,6 +42,17 @@ ring_attention = _attention.ring_attention
 for _new, _target in _alias_map.items():
     if _target in _by_opname and _new not in globals():
         globals()[_new] = _by_opname[_target]
+
+
+# mx.nd.image: the reference's short names over the _image_* ops
+image = _types.ModuleType(__name__ + ".image")
+for _short in ("to_tensor", "normalize", "resize", "crop", "flip_left_right",
+               "flip_top_bottom", "random_flip_left_right",
+               "random_flip_top_bottom", "random_brightness",
+               "random_contrast", "random_saturation"):
+    setattr(image, _short, _by_opname["_image_" + _short])
+
+from . import contrib  # noqa: E402  (its names are this module's)
 
 
 def concatenate(arrays, axis=0):

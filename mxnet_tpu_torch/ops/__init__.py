@@ -1,6 +1,7 @@
 """Ops of the port: plain PyTorch, plus the hand-written kernels K1
 (flash-attention forward), K2/K3 (its backward), K4 (int8 matvec), K5
-(the fused decode step) and K6 (the fused 1x1-convolution backward)."""
+(the fused decode step), K6 (the fused 1x1-convolution backward) and
+the port's own greedy NMS (``box_nms``, no Pallas counterpart)."""
 from .attention import (flash_attention, flash_bwd_dkv, flash_bwd_dkv_plain,
                         flash_bwd_dq, flash_bwd_dq_plain, flash_fwd,
                         flash_fwd_plain, rope)

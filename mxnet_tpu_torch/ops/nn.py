@@ -10,8 +10,9 @@ cross-entropy do their math in f32 and return the input's dtype.
 Every op here is registered with ``@op(..., wrap=False)``: the module
 keeps the tensor function (the models call it on tensors) and ``mx.nd``
 exports the op's NDArray wrapper under the reference's name.  The
-reference's detection and sampling ops (``ROIAlign``, ``box_nms``, the
-``MultiBox`` family, ...) are not registered yet.
+detection and sampling ops (``ROIAlign``, ``ROIPooling``, ``box_nms``,
+the ``MultiBox`` family, ``Proposal``, ...) are at the end; ``box_nms``
+runs its loop in ``ops/box_nms.py`` (one kernel launch on the card).
 
 The vision ops keep the reference's layouts at their interface: data
 channels-first (``layout`` None or "NC...") or channels-last, at 1, 2 or
@@ -916,3 +917,645 @@ def hard_sigmoid(data, *, alpha=0.2, beta=0.5):
 @op("mish", wrap=False)
 def mish(data):
     return activation(data, "mish")
+
+
+# ----------------------------------------------------------------------- #
+# detection and sampling (reference ops/nn.py:746-1333): region pooling,
+# box_nms, the spatial transformer's grid and sampler, the SSD MultiBox
+# family, fft/ifft, the RPN's Proposal, deformable convolution and the
+# FlowNet correlation.  Constants are made on the device by fills (no
+# host-to-device copy), and a division by a Python number divides by a
+# tensor (the CUDA kernel of ``x / 0.1`` multiplies by the reciprocal), so
+# MultiBoxPrior, MultiBoxTarget and MultiBoxDetection run inside a CUDA
+# graph capture and give the CPU's values on the card.
+# ----------------------------------------------------------------------- #
+
+_CHUNK_BYTES = 1 << 30      # the largest temporary a chunk of ROIs makes
+
+
+def _full(v, like, dtype=None):
+    return torch.full((), v, dtype=dtype or like.dtype, device=like.device)
+
+
+def _fdiv(x, v):
+    """``x / v`` for a Python number ``v``, rounded as one division."""
+    return x / _full(v, x)
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: a maximum then a minimum, so a value at a bound takes
+    half its gradient, as the reference's does."""
+    return torch.minimum(torch.maximum(x, _full(lo, x)), _full(hi, x))
+
+
+def _exact(fn, x):
+    """``fn`` (``torch.exp``, ``torch.log``) of ``x`` taken in f64 and
+    rounded once to ``x``'s dtype: the correctly rounded value, so the
+    card and the CPU agree on it (each library's f32 ``exp`` misses it in
+    the last ulp on some inputs: PyTorch's CPU one on ~1 %, XLA's on
+    ~9 % of a million uniform draws in [-10, 10])."""
+    return fn(x.double()).to(x.dtype)
+
+
+def _chunks(total, per_item):
+    """Slices of ``range(total)`` whose temporaries stay under
+    ``_CHUNK_BYTES`` at ``per_item`` bytes an item."""
+    step = max(1, _CHUNK_BYTES // max(per_item, 1))
+    return [slice(i, min(i + step, total)) for i in range(0, total, step)]
+
+
+def _roi_align_chunk(data, bidx, ys, xs, ph, pw, s):
+    """ROIAlign of one chunk of ROIs (the reference's ``per_roi``,
+    vectorized): ``ys`` (R, ph*s) and ``xs`` (R, pw*s) sample points."""
+    c, h, w = data.shape[1:]
+    r, p, q = bidx.shape[0], ys.shape[1], xs.shape[1]
+    yy = _clip(ys, 0, h - 1)
+    xx = _clip(xs, 0, w - 1)
+    y0 = torch.floor(yy).long()
+    x0 = torch.floor(xx).long()
+    y1 = (y0 + 1).clamp_max(h - 1)
+    x1 = (x0 + 1).clamp_max(w - 1)
+    wy = (yy - y0.to(yy.dtype))[:, None, :, None]
+    wx = (xx - x0.to(xx.dtype))[:, None, None, :]
+    rows = [data[bidx[:, None], :, y] for y in (y0, y1)]   # (R, P, c, w)
+
+    def at(row, x):
+        return row.gather(3, x[:, None, None, :].expand(r, p, c, q)) \
+            .transpose(1, 2)                                  # (R, c, P, Q)
+
+    v00, v01 = at(rows[0], x0), at(rows[0], x1)
+    v10, v11 = at(rows[1], x0), at(rows[1], x1)
+    out = (v00 * (1 - wy) * (1 - wx) + v01 * (1 - wy) * wx +
+           v10 * wy * (1 - wx) + v11 * wy * wx)
+    return out.reshape(r, c, ph, s, pw, s).mean(dim=(3, 5))
+
+
+@op("_contrib_ROIAlign", wrap=False)
+def ROIAlign(data, rois, *, pooled_size=(7, 7), spatial_scale=1.0,
+             sample_ratio=2, position_sensitive=False, aligned=False):
+    """``rois`` (R, 5) [batch_idx, x1, y1, x2, y2] in image coordinates ->
+    (R, c, ph, pw): bilinear samples on a (ph*s, pw*s) grid a ROI, averaged
+    over each bin's s x s.  The ROIs go in chunks whose temporaries stay
+    under ``_CHUNK_BYTES``; each ROI's result is its own, so chunking
+    changes no value.  Under autograd a chunk is checkpointed (its forward
+    runs again in the backward), so what is kept for the backward is the
+    inputs, not every chunk's samples."""
+    from torch.utils.checkpoint import checkpoint
+
+    n, c, h, w = data.shape
+    ph, pw = pooled_size
+    rois = rois.float()
+    bidx = rois[:, 0].long()
+    offset = 0.5 if aligned else 0.0
+    x1 = rois[:, 1] * spatial_scale - offset
+    y1 = rois[:, 2] * spatial_scale - offset
+    x2 = rois[:, 3] * spatial_scale - offset
+    y2 = rois[:, 4] * spatial_scale - offset
+    least = _full(1.0 if not aligned else 1e-6, x1)
+    bin_h = _fdiv(torch.maximum(y2 - y1, least), ph)
+    bin_w = _fdiv(torch.maximum(x2 - x1, least), pw)
+    s = max(int(sample_ratio), 1)
+    iy = _fdiv(torch.arange(ph * s, device=data.device).float() + 0.5, s)
+    ix = _fdiv(torch.arange(pw * s, device=data.device).float() + 0.5, s)
+    ys = y1[:, None] + bin_h[:, None] * iy[None, :]
+    xs = x1[:, None] + bin_w[:, None] * ix[None, :]
+    out_dtype = torch.promote_types(data.dtype, torch.float32)
+    if rois.shape[0] == 0:
+        return torch.zeros((0, c, ph, pw), dtype=out_dtype,
+                           device=data.device)
+    per_roi = c * (2 * ph * s * w + 8 * ph * s * pw * s) * 4
+    grad = torch.is_grad_enabled() and (data.requires_grad or
+                                        rois.requires_grad)
+    parts = []
+    for sl in _chunks(rois.shape[0], per_roi):
+        args = (data, bidx[sl], ys[sl], xs[sl], ph, pw, s)
+        parts.append(checkpoint(_roi_align_chunk, *args, use_reentrant=False)
+                     if grad else _roi_align_chunk(*args))
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+alias("ROIAlign", "_contrib_ROIAlign")
+
+
+def _roi_pool_bins(rois, spatial_scale, h, w, ph, pw):
+    """Each ROI's bin index of every pixel row and column, -1 outside it
+    (the reference's ``ybin``/``xbin``): (R, h), (R, w) and the batch
+    indices."""
+    rois = rois.float()
+    bidx = rois[:, 0].long()
+    x1, y1, x2, y2 = (torch.round(rois[:, i] * spatial_scale).long()[:, None]
+                      for i in (1, 2, 3, 4))
+    ys = torch.arange(h, device=rois.device)[None, :]
+    xs = torch.arange(w, device=rois.device)[None, :]
+    roi_h = (y2 - y1 + 1).clamp_min(1)
+    roi_w = (x2 - x1 + 1).clamp_min(1)
+    ybin = torch.where((ys >= y1) & (ys <= y2), ((ys - y1) * ph) // roi_h,
+                       torch.full_like(ys, -1))
+    xbin = torch.where((xs >= x1) & (xs <= x2), ((xs - x1) * pw) // roi_w,
+                       torch.full_like(xs, -1))
+    return bidx, ybin, xbin
+
+
+def _roi_pool_max(img, ybin, xbin, ph, pw):
+    """Each bin's max over its pixels, -inf for an empty bin: the max over
+    x within each column bin, then over y within each row bin (max is
+    exact, so the values are the reference's joint max bit for bit)."""
+    ninf = _full(float("-inf"), img)
+    cols = torch.stack([torch.where((xbin == j)[:, None, None, :], img,
+                                    ninf).amax(-1) for j in range(pw)], -1)
+    return torch.stack([torch.where((ybin == i)[:, None, :, None], cols,
+                                    ninf).amax(2) for i in range(ph)], 2)
+
+
+def _to_pixels(t, ybin, xbin):
+    """(R, c, ph, pw) bin values at every pixel of (R, c, h, w)."""
+    r, c = t.shape[:2]
+    h, w = ybin.shape[1], xbin.shape[1]
+    t = t.gather(2, ybin.clamp_min(0)[:, None, :, None].expand(
+        r, c, h, t.shape[3]))
+    return t.gather(3, xbin.clamp_min(0)[:, None, None, :].expand(r, c, h, w))
+
+
+class _ROIPooling(torch.autograd.Function):
+    """ROIPooling with the reference's gradient: ``reduce_max``'s VJP
+    splits a bin's cotangent equally among the pixels that tie for its
+    max (nested maxima would not: 2 ties in one row and 1 in another give
+    1/4, 1/4, 1/2).  Forward and backward go over chunks of ROIs."""
+
+    @staticmethod
+    def forward(ctx, data, rois, spatial_scale, ph, pw):
+        n, c, h, w = data.shape
+        bidx, ybin, xbin = _roi_pool_bins(rois, spatial_scale, h, w, ph, pw)
+        per_roi = 4 * c * h * w * data.element_size()
+        raw = torch.cat([_roi_pool_max(data[bidx[sl]], ybin[sl], xbin[sl],
+                                       ph, pw)
+                         for sl in _chunks(bidx.shape[0], per_roi)]) \
+            if bidx.shape[0] else data.new_zeros((0, c, ph, pw))
+        ctx.save_for_backward(data, bidx, ybin, xbin, raw)
+        ctx.ph_pw = (ph, pw)
+        return torch.where(torch.isfinite(raw), raw, torch.zeros_like(raw))
+
+    @staticmethod
+    def backward(ctx, g):
+        data, bidx, ybin, xbin, raw = ctx.saved_tensors
+        ph, pw = ctx.ph_pw
+        grad = torch.zeros_like(data)
+        c, h, w = data.shape[1:]
+        binsy = torch.arange(ph, device=data.device)[None, :, None]
+        binsx = torch.arange(pw, device=data.device)[None, :, None]
+        per_roi = 6 * c * h * w * 4
+        for sl in _chunks(bidx.shape[0], per_roi):
+            img, yb, xb, top = data[bidx[sl]], ybin[sl], xbin[sl], raw[sl]
+            inbin = ((yb >= 0)[:, :, None] & (xb >= 0)[:, None, :])[:, None]
+            ties = inbin & (img == _to_pixels(top, yb, xb))
+            count = torch.einsum("rcyx,riy,rjx->rcij", ties.to(g.dtype),
+                                 (yb[:, None, :] == binsy).to(g.dtype),
+                                 (xb[:, None, :] == binsx).to(g.dtype))
+            share = torch.where(torch.isfinite(top) & (count > 0),
+                                g[sl] / count.clamp_min(1),
+                                torch.zeros_like(g[sl]))
+            part = torch.where(ties, _to_pixels(share, yb, xb),
+                               torch.zeros_like(img))
+            grad.index_add_(0, bidx[sl], part.to(grad.dtype))
+        return grad, None, None, None, None
+
+
+@op("ROIPooling", wrap=False)
+def ROIPooling(data, rois, *, pooled_size=(7, 7), spatial_scale=1.0):
+    """Max pooling of each ROI (R, 5) [batch_idx, x1, y1, x2, y2] over a
+    (ph, pw) grid of bins -> (R, c, ph, pw), 0 for an empty bin: the
+    reference's masked max computed separably, in chunks of ROIs."""
+    ph, pw = pooled_size
+    return _ROIPooling.apply(data, rois.detach(), spatial_scale, ph, pw)
+
+
+@op("_contrib_box_nms", differentiable=False, wrap=False)
+def box_nms(data, *, overlap_thresh=0.5, valid_thresh=0.0, topk=-1,
+            coord_start=2, score_index=1, id_index=-1, force_suppress=False,
+            in_format="corner", out_format="corner"):
+    """Greedy NMS over rows ``(..., n, K)`` [id?, score, x1, y1, x2, y2,
+    ...]: every suppressed row, every row under ``valid_thresh`` and every
+    row past the ``topk`` best gets score -1; nothing else changes.  The
+    loop runs in ``ops.box_nms.nms_scores``: on the card one launch of
+    ``csrc/box_nms.cu``, on the CPU the reference's loop."""
+    from .box_nms import nms_scores, score_order
+
+    shape = data.shape
+    n = shape[-2]
+    flat = data.reshape((-1,) + tuple(shape[-2:]))
+    scores = flat[..., score_index]
+    start = max(0, min(coord_start, shape[-1] - 4))     # dynamic_slice's
+    boxes = flat[..., start:start + 4]
+    ids = flat[..., id_index] if id_index >= 0 and not force_suppress \
+        else None
+    keep_lim = n if topk < 0 else min(topk, n)
+    new = nms_scores(scores, boxes, ids, score_order(scores), keep_lim,
+                     overlap_thresh, valid_thresh)
+    out = flat.clone()
+    out[..., score_index] = new
+    return out.reshape(shape)
+
+
+alias("box_nms", "_contrib_box_nms")
+
+
+def _linspace(start, stop, num, device):
+    """``jnp.linspace(start, stop, num)`` in f32, its formula: ``start *
+    (1 - t) + stop * t`` at ``t = i / (num - 1)``, the end point appended
+    (``torch.linspace`` fills from both ends and may differ in the last
+    ulp)."""
+    if num < 2:
+        return torch.full((num,), start, dtype=torch.float32, device=device)
+    t = _fdiv(torch.arange(num - 1, device=device).float(), num - 1)
+    out = start * (1 - t) + stop * t
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32,
+                                      device=device)])
+
+
+@op("GridGenerator", wrap=False)
+def GridGenerator(data, *, transform_type="affine", target_shape=(0, 0)):
+    """Affine (N, 6) -> sampling grid (N, 2, H, W) in [-1, 1] coordinates
+    (the spatial transformer's grid; pairs with BilinearSampler)."""
+    h, w = target_shape
+    theta = data.reshape(-1, 2, 3)
+    gy, gx = torch.meshgrid(_linspace(-1.0, 1.0, h, data.device),
+                            _linspace(-1.0, 1.0, w, data.device),
+                            indexing="ij")
+    coords = torch.stack([gx, gy, torch.ones_like(gx)]).reshape(3, -1)
+    out = torch.einsum("nij,jk->nik", theta.float(), coords)
+    return out.reshape(-1, 2, h, w)
+
+
+def _bilinear_at(flat, yy, xx, h, w):
+    """The reference's four-corner bilinear sample with zeros outside:
+    ``flat`` (B, c, h*w), ``yy``/``xx`` (B, ...) -> (B, c, ...)."""
+    b, c = flat.shape[:2]
+    y0 = torch.floor(yy).long()
+    x0 = torch.floor(xx).long()
+    wy = (yy - y0.to(yy.dtype))[:, None]
+    wx = (xx - x0.to(xx.dtype))[:, None]
+
+    def at(yi, xi):
+        inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, 1, -1)
+        v = flat.gather(2, idx.expand(b, c, idx.shape[2])).reshape(
+            (b, c) + tuple(yi.shape[1:]))
+        return torch.where(inside[:, None], v, torch.zeros_like(v))
+
+    return (at(y0, x0) * (1 - wy) * (1 - wx) +
+            at(y0, x0 + 1) * (1 - wy) * wx +
+            at(y0 + 1, x0) * wy * (1 - wx) +
+            at(y0 + 1, x0 + 1) * wy * wx)
+
+
+@op("BilinearSampler", wrap=False)
+def BilinearSampler(data, grid, *, cudnn_off=False):
+    """Sample NCHW ``data`` at ``grid`` (N, 2, H', W') of [-1, 1] (x, y)
+    coordinates, zeros outside -> (N, C, H', W')."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1.0) * (w - 1) / 2.0
+    gy = (grid[:, 1] + 1.0) * (h - 1) / 2.0
+    return _bilinear_at(data.reshape(n, c, h * w), gy, gx, h, w)
+
+
+@op("_contrib_MultiBoxPrior", differentiable=False, wrap=False)
+def MultiBoxPrior(data, *, sizes=(1.0,), ratios=(1.0,), clip=False,
+                  steps=(-1.0, -1.0), offsets=(0.5, 0.5)):
+    """Anchor boxes for one feature map: data (N, C, H, W) -> (1,
+    H*W*(len(sizes)+len(ratios)-1), 4) corner boxes in [0, 1], f32."""
+    h, w = data.shape[2], data.shape[3]
+    dev = data.device
+    step_y = steps[0] if steps[0] > 0 else 1.0 / h
+    step_x = steps[1] if steps[1] > 0 else 1.0 / w
+    cy = (torch.arange(h, device=dev).float() + offsets[0]) * step_y
+    cx = (torch.arange(w, device=dev).float() + offsets[1]) * step_x
+    whs = [(s * (ratios[0] ** 0.5), s / (ratios[0] ** 0.5)) for s in sizes]
+    whs += [(sizes[0] * (r ** 0.5), sizes[0] / (r ** 0.5))
+            for r in ratios[1:]]
+    whs = torch.stack([torch.full((), v, device=dev)
+                       for pair in whs for v in pair]).reshape(-1, 2)
+    gy, gx = torch.meshgrid(cy, cx, indexing="ij")
+    centers = torch.stack([gx, gy], -1).reshape(-1, 1, 2)
+    half = whs.reshape(1, -1, 2) / 2.0
+    boxes = torch.cat([centers - half, centers + half], -1).reshape(1, -1, 4)
+    return boxes.clamp(0.0, 1.0) if clip else boxes
+
+
+alias("MultiBoxPrior", "_contrib_MultiBoxPrior")
+
+
+def _iou_matrix(a, b):
+    """a (A, 4), b (..., B, 4) corner boxes -> (..., A, B) IoU, the
+    reference's ``_iou_matrix`` expression."""
+    ax1, ay1, ax2, ay2 = (a[:, i, None] for i in range(4))
+    bx1, by1, bx2, by2 = (b[..., None, :, i] for i in range(4))
+    iw = (torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1)).clamp_min(0.0)
+    ih = (torch.minimum(ay2, by2) - torch.maximum(ay1, by1)).clamp_min(0.0)
+    inter = iw * ih
+    area_a = (ax2 - ax1).clamp_min(0) * (ay2 - ay1).clamp_min(0)
+    area_b = (bx2 - bx1).clamp_min(0) * (by2 - by1).clamp_min(0)
+    return inter / (area_a + area_b - inter).clamp_min(1e-12)
+
+
+def _anchor_frame(anchor):
+    a = anchor.shape[1]
+    anc = anchor.reshape(a, 4)
+    acx = (anc[:, 0] + anc[:, 2]) / 2
+    acy = (anc[:, 1] + anc[:, 3]) / 2
+    aw = (anc[:, 2] - anc[:, 0]).clamp_min(1e-12)
+    ah = (anc[:, 3] - anc[:, 1]).clamp_min(1e-12)
+    return anc, acx, acy, aw, ah
+
+
+@op("_contrib_MultiBoxTarget", differentiable=False, wrap=False)
+def MultiBoxTarget(anchor, label, cls_pred, *, overlap_threshold=0.5,
+                   ignore_label=-1.0, negative_mining_ratio=-1.0,
+                   negative_mining_thresh=0.5, minimum_negative_samples=0,
+                   variances=(0.1, 0.1, 0.2, 0.2)):
+    """SSD training targets: anchors (1, A, 4), labels (N, O, 5) [cls, x1,
+    y1, x2, y2] (class -1 pads) -> (loc_target (N, A*4), loc_mask (N,
+    A*4), cls_target (N, A)).  An anchor is positive at IoU >=
+    ``overlap_threshold`` with its best object, or when some valid object
+    has it as its best anchor (the reference scatters these with
+    duplicate indices, where a padded row's pick can undo a valid one;
+    ROADMAP §3).  The negative-mining arguments are accepted and
+    ignored, as the reference's are."""
+    anc, acx, acy, aw, ah = _anchor_frame(anchor)
+    a = anc.shape[0]
+    n, o = label.shape[:2]
+    vx, vy, vw, vh = variances
+    valid = label[..., 0] >= 0                                  # (N, O)
+    boxes = label[..., 1:5]
+    iou = torch.where(valid[:, None, :], _iou_matrix(anc, boxes),
+                      _full(-1.0, label))                       # (N, A, O)
+    best_obj = iou.argmax(2)                                    # (N, A)
+    best_iou = iou.gather(2, best_obj[..., None])[..., 0]
+    best_anchor = iou.argmax(1)                                 # (N, O)
+    forced = ((best_anchor[:, :, None] ==
+               torch.arange(a, device=anc.device)) &
+              valid[:, :, None]).any(1)                         # (N, A)
+    pos = (best_iou >= overlap_threshold) | forced
+    gt = boxes.gather(1, best_obj[..., None].expand(n, a, 4))
+    gcx = (gt[..., 0] + gt[..., 2]) / 2
+    gcy = (gt[..., 1] + gt[..., 3]) / 2
+    gw = (gt[..., 2] - gt[..., 0]).clamp_min(1e-12)
+    gh = (gt[..., 3] - gt[..., 1]).clamp_min(1e-12)
+    loc = torch.stack([_fdiv((gcx - acx) / aw, vx),
+                       _fdiv((gcy - acy) / ah, vy),
+                       _fdiv(_exact(torch.log, gw / aw), vw),
+                       _fdiv(_exact(torch.log, gh / ah), vh)], -1)
+    loc = torch.where(pos[..., None], loc, torch.zeros_like(loc))
+    mask = pos.to(loc.dtype).repeat_interleave(4, dim=1)
+    cls = torch.where(pos, label[..., 0].gather(1, best_obj) + 1.0,
+                      torch.zeros_like(best_iou))
+    return loc.reshape(n, -1), mask, cls
+
+
+alias("MultiBoxTarget", "_contrib_MultiBoxTarget")
+
+
+def multibox_rows(cls_prob, loc_pred, anchor, clip=True, threshold=0.01,
+                  variances=(0.1, 0.1, 0.2, 0.2)):
+    """MultiBoxDetection's rows before NMS: (N, A, 6) [cls_id, score, x1,
+    y1, x2, y2], the decoded boxes and each anchor's best class (-1 and
+    score -1 under ``threshold``)."""
+    n, c, a = cls_prob.shape
+    anc, acx, acy, aw, ah = _anchor_frame(anchor)
+    vx, vy, vw, vh = variances
+    loc = loc_pred.reshape(n, a, 4)
+    cx = loc[..., 0] * vx * aw + acx
+    cy = loc[..., 1] * vy * ah + acy
+    w = _exact(torch.exp, loc[..., 2] * vw) * aw
+    h = _exact(torch.exp, loc[..., 3] * vh) * ah
+    boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    if clip:
+        boxes = boxes.clamp(0.0, 1.0)
+    fg = cls_prob[:, 1:]
+    best = fg.argmax(1)                                         # (N, A)
+    score = fg.gather(1, best[:, None])[:, 0]
+    keep = score > threshold
+    cls_id = torch.where(keep, best.float(), _full(-1.0, score, torch.float32))
+    score = torch.where(keep, score, _full(-1.0, score))
+    return torch.cat([cls_id[..., None], score[..., None], boxes], -1)
+
+
+@op("_contrib_MultiBoxDetection", differentiable=False, wrap=False)
+def MultiBoxDetection(cls_prob, loc_pred, anchor, *, clip=True,
+                      threshold=0.01, nms_threshold=0.5, force_suppress=False,
+                      variances=(0.1, 0.1, 0.2, 0.2), nms_topk=-1):
+    """SSD inference decode: class probabilities (N, C, A), offsets (N,
+    A*4), anchors (1, A, 4) -> (N, A, 6) rows [cls_id, score, x1, y1, x2,
+    y2] (cls_id -1: background or under ``threshold``), then ``box_nms``
+    per class (one kernel launch on the card)."""
+    rows = multibox_rows(cls_prob, loc_pred, anchor, clip, threshold,
+                         variances)
+    return box_nms(rows, overlap_thresh=nms_threshold, valid_thresh=0.0,
+                   topk=nms_topk, coord_start=2, score_index=1, id_index=0,
+                   force_suppress=force_suppress)
+
+
+alias("MultiBoxDetection", "_contrib_MultiBoxDetection")
+
+
+@op("fft", differentiable=False, wrap=False)
+def fft(data, *, compute_size=128):
+    """Real input -> interleaved [real, imag] along the last axis."""
+    out = torch.fft.fft(data.to(torch.complex64), dim=-1)
+    inter = torch.stack([out.real, out.imag], -1)
+    return inter.reshape(tuple(data.shape[:-1]) + (data.shape[-1] * 2,))
+
+
+@op("ifft", differentiable=False, wrap=False)
+def ifft(data, *, compute_size=128):
+    """Inverse of ``fft`` (interleaved input), times the length."""
+    n = data.shape[-1] // 2
+    pairs = data.reshape(tuple(data.shape[:-1]) + (n, 2)).float()
+    comp = torch.complex(pairs[..., 0], pairs[..., 1])
+    return torch.fft.ifft(comp, dim=-1).real * n
+
+
+alias("_contrib_fft", "fft")
+alias("_contrib_ifft", "ifft")
+
+
+def _proposal_base(scales, ratios, fs, device):
+    """The RPN's base anchors, (A, 4) f32, computed as the reference's:
+    ``sqrt(size / r)`` of the f32-rounded quotient, in f32."""
+    base = []
+    for r in ratios:
+        for s in scales:
+            size = fs * fs * float(s) * float(s)
+            w = torch.sqrt(torch.tensor(size / r, dtype=torch.float32))
+            h = w * r
+            cx = cy = (fs - 1) / 2.0
+            base.append(torch.stack([cx - (w - 1) / 2, cy - (h - 1) / 2,
+                                     cx + (w - 1) / 2, cy + (h - 1) / 2]))
+    return torch.stack(base).to(device)
+
+
+def proposal_rows(cls_prob, bbox_pred, im_info, rpn_pre_nms_top_n=6000,
+                  rpn_min_size=16, scales=(4, 8, 16, 32), ratios=(0.5, 1, 2),
+                  feature_stride=16):
+    """Proposal's rows before NMS: (N, pre, 6) [0, score, x1, y1, x2, y2],
+    the ``rpn_pre_nms_top_n`` best anchors' decoded, clipped boxes in
+    descending score order (a stable sort), under-``rpn_min_size`` boxes
+    scored -1."""
+    from .box_nms import score_order
+
+    n, two_a, hh, ww = cls_prob.shape
+    a = two_a // 2
+    dev = cls_prob.device
+    fs = float(feature_stride)
+    base = _proposal_base(scales, ratios, fs, dev)
+    sx = torch.arange(ww, device=dev).float() * fs
+    sy = torch.arange(hh, device=dev).float() * fs
+    gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+    shifts = torch.stack([gx, gy, gx, gy], -1).reshape(-1, 1, 4)
+    anchors = (shifts + base[None]).reshape(-1, 4)
+    score = cls_prob[:, a:].permute(0, 2, 3, 1).reshape(n, -1)
+    d = bbox_pred.permute(0, 2, 3, 1).reshape(n, -1, 4)
+    aw = anchors[:, 2] - anchors[:, 0] + 1.0
+    ah = anchors[:, 3] - anchors[:, 1] + 1.0
+    acx = anchors[:, 0] + 0.5 * (aw - 1)
+    acy = anchors[:, 1] + 0.5 * (ah - 1)
+    cx = d[..., 0] * aw + acx
+    cy = d[..., 1] * ah + acy
+    w = _exact(torch.exp, d[..., 2].clamp(-10, 10)) * aw
+    h = _exact(torch.exp, d[..., 3].clamp(-10, 10)) * ah
+    info = im_info[:, :, None]
+    x1 = (cx - 0.5 * (w - 1)).clamp_min(0).minimum(info[:, 1] - 1)
+    y1 = (cy - 0.5 * (h - 1)).clamp_min(0).minimum(info[:, 0] - 1)
+    x2 = (cx + 0.5 * (w - 1)).clamp_min(0).minimum(info[:, 1] - 1)
+    y2 = (cy + 0.5 * (h - 1)).clamp_min(0).minimum(info[:, 0] - 1)
+    min_sz = rpn_min_size * info[:, 2]
+    ok = ((x2 - x1 + 1) >= min_sz) & ((y2 - y1 + 1) >= min_sz)
+    score = torch.where(ok, score, _full(-1.0, score))
+    order = score_order(score)[:, :min(rpn_pre_nms_top_n, anchors.shape[0])]
+    return torch.stack([torch.zeros_like(order, dtype=score.dtype)] +
+                       [t.gather(1, order) for t in (score, x1, y1, x2, y2)],
+                       -1)
+
+
+@op("_contrib_Proposal", differentiable=False, wrap=False)
+def Proposal(cls_prob, bbox_pred, im_info, *, rpn_pre_nms_top_n=6000,
+             rpn_post_nms_top_n=300, threshold=0.7, rpn_min_size=16,
+             scales=(4, 8, 16, 32), ratios=(0.5, 1, 2),
+             feature_stride=16, output_score=False, iou_loss=False):
+    """The RPN's proposals: ``proposal_rows`` (anchors over the feature
+    grid, decoded deltas, clipped, small boxes scored -1, the best
+    ``rpn_pre_nms_top_n``), ``box_nms`` at ``threshold``, the
+    ``rpn_post_nms_top_n`` best -> rois (N*post, 5) [batch_idx, x1, y1,
+    x2, y2] (and scores (N*post, 1))."""
+    from .box_nms import score_order
+
+    rows = proposal_rows(cls_prob, bbox_pred, im_info, rpn_pre_nms_top_n,
+                         rpn_min_size, scales, ratios, feature_stride)
+    n, pre = rows.shape[:2]
+    kept = box_nms(rows, overlap_thresh=threshold, valid_thresh=0.0, topk=-1,
+                   coord_start=2, score_index=1, id_index=0,
+                   force_suppress=True)
+    post = min(rpn_post_nms_top_n, pre)
+    order2 = score_order(kept[..., 1])[:, :post]
+    sel = kept.gather(1, order2[..., None].expand(n, post, 6))
+    batch_idx = torch.arange(n, device=rows.device).float() \
+        .repeat_interleave(post)
+    rois = torch.cat([batch_idx[:, None], sel[..., 2:6].reshape(-1, 4)], -1)
+    if output_score:
+        return rois, sel[..., 1:2].reshape(-1, 1)
+    return rois
+
+
+alias("Proposal", "_contrib_Proposal")
+
+
+@op("_contrib_DeformableConvolution", wrap=False)
+def DeformableConvolution(data, offset, weight, bias=None, *, kernel=(),
+                          stride=(), dilate=(), pad=(), num_filter=0,
+                          num_group=1, num_deformable_group=1, no_bias=False,
+                          layout="NCHW", workspace=1024):
+    """Deformable convolution v1: ``data`` (N, C, H, W) sampled
+    bilinearly at each tap's offset point (``offset`` (N, 2*G*kh*kw, Ho,
+    Wo), (dy, dx) pairs a deformable group G and tap), then one (N*Ho*Wo,
+    C*kh*kw) x (C*kh*kw, F) product.  Each channel group is sampled only
+    at its own group's offsets (the reference samples every group for
+    every channel and keeps the diagonal: the same values with G times the
+    memory)."""
+    kh, kw = kernel
+    sh, sw = _pair(stride or 1, 2)
+    dh, dw = _pair(dilate or 1, 2)
+    ph, pw = _pair(pad or 0, 2)
+    n, c, hh, ww = data.shape
+    ho = (hh + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    wo = (ww + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    g = num_deformable_group
+    k = kh * kw
+    dev = data.device
+    oy = torch.arange(ho, device=dev) * sh - ph
+    ox = torch.arange(wo, device=dev) * sw - pw
+    ky = torch.arange(kh, device=dev) * dh
+    kx = torch.arange(kw, device=dev) * dw
+    base_y = (oy[:, None, None, None] + ky[None, None, :, None]).expand(
+        ho, wo, kh, kw).reshape(ho, wo, k)
+    base_x = (ox[None, :, None, None] + kx[None, None, None, :]).expand(
+        ho, wo, kh, kw).reshape(ho, wo, k)
+    off = offset.reshape(n, g, k, 2, ho, wo)
+    sy = base_y.permute(2, 0, 1)[None, None] + off[:, :, :, 0]
+    sx = base_x.permute(2, 0, 1)[None, None] + off[:, :, :, 1]
+    # (N, G, K, Ho, Wo) -> (N*G, Ho, Wo, K): the reference's tap order
+    sy = sy.permute(0, 1, 3, 4, 2).reshape(n * g, ho, wo, k)
+    sx = sx.permute(0, 1, 3, 4, 2).reshape(n * g, ho, wo, k)
+    cg = c // g
+    cols = _bilinear_at(data.reshape(n * g, cg, hh * ww), sy, sx, hh, ww)
+    cols = cols.reshape(n, c, ho, wo, k)
+    cols2 = cols.permute(0, 2, 3, 1, 4).reshape(n * ho * wo, c * k)
+    wmat = weight.reshape(num_filter, c * k).t()
+    out = torch.matmul(cols2, wmat).reshape(n, ho, wo, num_filter)
+    out = out.permute(0, 3, 1, 2)
+    if not no_bias and bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1)
+    return out
+
+
+alias("DeformableConvolution", "_contrib_DeformableConvolution")
+
+
+@op("Correlation", wrap=False)
+def Correlation(data1, data2, *, kernel_size=1, max_displacement=1,
+                stride1=1, stride2=1, pad_size=0, is_multiply=True):
+    """FlowNet's correlation: for each displacement (dy, dx) within
+    ``max_displacement`` (step ``stride2``) the channel mean of ``data1``
+    times ``data2`` shifted by it, 0 where the shift leaves the padded
+    grid, box-summed over ``kernel_size`` ("SAME") and divided by its
+    area, cropped by ``max_displacement`` + the kernel radius, every
+    ``stride1``-th position -> (N, D*D, Ho, Wo).  Each displacement
+    multiplies two slices of the padded inputs (views), so autograd keeps
+    no shifted copy (the reference rolls a whole copy each time)."""
+    n, c, h, w = data1.shape
+    p = pad_size
+    a = F.pad(data1, (p, p, p, p))
+    b = F.pad(data2, (p, p, p, p))
+    hp, wp = h + 2 * p, w + 2 * p
+    steps = max_displacement // stride2
+    disps = [d * stride2 for d in range(-steps, steps + 1)]
+    ksz = kernel_size
+    border = max_displacement + (ksz - 1) // 2
+    outs = []
+    for dy in disps:
+        for dx in disps:
+            y0, y1 = max(0, -dy), hp - max(0, dy)
+            x0, x1 = max(0, -dx), wp - max(0, dx)
+            if y1 <= y0 or x1 <= x0:
+                corr = a.new_zeros((n, hp, wp))
+            else:
+                sa = a[:, :, y0:y1, x0:x1]
+                sb = b[:, :, y0 + dy:y1 + dy, x0 + dx:x1 + dx]
+                prod = sa * sb if is_multiply else (sa - sb).abs()
+                corr = F.pad(prod.mean(1), (x0, wp - x1, y0, hp - y1))
+            if ksz > 1:
+                lo, hi = (ksz - 1) // 2, ksz // 2
+                corr = F.avg_pool2d(F.pad(corr, (lo, hi, lo, hi))[:, None],
+                                    ksz, stride=1, divisor_override=1)[:, 0]
+                corr = _fdiv(corr, ksz * ksz)
+            outs.append(corr)
+    out = torch.stack(outs, 1)
+    return out[:, :, border:hp - border:stride1, border:wp - border:stride1]

@@ -15,6 +15,10 @@ a compiled program takes a fresh key as an operand at every call.
   generator it registered.
 - ``next_key()``: outside a trace, a uint32 from a host generator of its
   own, returned as a Python int: the key a program gets as an operand.
+- ``key_uniform(n, device)``: ``n`` uniform f32 draws in [0, 1) from
+  one fresh ``next_key()``, counter-based (draw ``i`` hashes the key with
+  ``i``), so the same key gives the same draws on any device and under
+  a trace (the ``mx.nd.image`` random ops, one draw an image).
 - ``attention_seed(device)``: outside a trace, a uint32 from the
   attention host generator (the same values as before the traced key
   existed), handed to the kernels as a one-element int64 device word
@@ -44,7 +48,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["seed", "generator", "attention_seed", "next_key",
-           "push_trace_key", "pop_trace_key", "trace"]
+           "key_uniform", "push_trace_key", "pop_trace_key", "trace"]
 
 _M32 = 0xFFFFFFFF
 _state = threading.local()
@@ -214,6 +218,19 @@ def next_key():
     _refuse_capture("next_key")
     return int(torch.randint(0, 2 ** 32, (1,), generator=_gen("key", "cpu"),
                              dtype=torch.int64).item())
+
+
+def key_uniform(n: int, device="cpu"):
+    """``n`` f32 draws in [0, 1) from one ``next_key()``: the top 24 bits
+    of the key's hash with each draw's index (``_derive``), times
+    2**-24."""
+    key = next_key()
+    if isinstance(key, torch.Tensor):
+        word = key.to(device=device, dtype=torch.int64)
+    else:
+        word = torch.full((1,), key, dtype=torch.int64, device=device)
+    bits = _derive(word, torch.arange(n, dtype=torch.int64, device=device))
+    return (bits >> 8).to(torch.float32) * (2.0 ** -24)
 
 
 def attention_seed(device="cpu"):

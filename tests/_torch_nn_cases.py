@@ -18,11 +18,18 @@ def _input(rs, spec):
         return rs.randint(lo, hi, shape).astype(onp.int32)
     if kind == "v":                     # a fixed value
         return onp.asarray(rest[0], dtype=onp.float32)
+    if kind == "z":                     # ReLU of a normal: ties at 0
+        return onp.maximum(rs.standard_normal(rest[0]), 0).astype(
+            onp.float32)
     raise ValueError(kind)
 
 
 def N(*shape):
     return ("n", shape)
+
+
+def Z(*shape):
+    return ("z", shape)
 
 
 def P(*shape):
@@ -182,4 +189,119 @@ CASES += [
      {}),
     ("rope_offset", "rope", [N(2, 2, 6, 8)],
      dict(base=500.0, position_offset=3)),
+]
+
+
+# --------------------------------------------------------------------------- #
+# detection and sampling: structured inputs (boxes, ROIs, anchors, labels)
+# made once from a seed
+# --------------------------------------------------------------------------- #
+
+def box_rows(rs, batch, n, classes=3, ties=True):
+    """(batch, n, 6) rows [id, score, x1, y1, x2, y2] in the unit square;
+    with ``ties``, scores drawn from a few values, a third of them -1."""
+    xy = rs.uniform(0.0, 0.7, (batch, n, 2))
+    wh = rs.uniform(0.05, 0.4, (batch, n, 2))
+    if ties:
+        score = rs.choice([-1.0, -1.0, 0.3, 0.5, 0.5, 0.9], (batch, n))
+    else:
+        score = rs.uniform(0.0, 1.0, (batch, n))
+    ids = rs.randint(0, classes, (batch, n))
+    return onp.concatenate([ids[..., None], score[..., None], xy, xy + wh],
+                           -1).astype(onp.float32)
+
+
+def prior(h, w, sizes, ratios):
+    """MultiBoxPrior's anchors in numpy (its f32 formula), (1, h*w*A, 4)."""
+    cy = (onp.arange(h, dtype=onp.float32) + onp.float32(0.5)) * \
+        onp.float32(1.0 / h)
+    cx = (onp.arange(w, dtype=onp.float32) + onp.float32(0.5)) * \
+        onp.float32(1.0 / w)
+    whs = [(s * ratios[0] ** 0.5, s / ratios[0] ** 0.5) for s in sizes]
+    whs += [(sizes[0] * r ** 0.5, sizes[0] / r ** 0.5) for r in ratios[1:]]
+    half = onp.asarray(whs, onp.float32) / onp.float32(2)
+    gy, gx = onp.meshgrid(cy, cx, indexing="ij")
+    c = onp.stack([gx, gy], -1).reshape(-1, 1, 2)
+    return onp.concatenate([c - half, c + half], -1).reshape(1, -1, 4)
+
+
+def det_labels(rs, batch, objects, pad):
+    """(batch, objects + pad, 5) labels [cls, x1, y1, x2, y2], the last
+    ``pad`` rows padding (class -1); the objects keep off the top-left
+    corner, so no valid object's best anchor is anchor 0 (where the
+    reference's forced-match scatter drops it, ROADMAP §3)."""
+    xy = rs.uniform(0.3, 0.6, (batch, objects, 2))
+    wh = rs.uniform(0.1, 0.4, (batch, objects, 2))
+    cls = rs.randint(0, 4, (batch, objects, 1))
+    lab = onp.concatenate([cls, xy, xy + wh], -1)
+    padrows = onp.tile([[-1.0, 0, 0, 0, 0]], (batch, pad, 1))
+    return onp.concatenate([lab, padrows], 1).astype(onp.float32)
+
+
+def _softmaxed(rs, shape, axis):
+    e = onp.exp(rs.standard_normal(shape) * 2)
+    return (e / e.sum(axis, keepdims=True)).astype(onp.float32)
+
+
+_RS = onp.random.RandomState(19)
+_ROIS = onp.array([[0, 0.5, 0.5, 6.2, 6.7], [1, 1, 1, 7, 5],
+                   [0, 2.5, 1.2, 5.3, 7.9], [1, 3, 2, 3, 2]], onp.float32)
+_ANCHORS = prior(3, 4, (0.5, 0.25), (1.0, 2.0, 0.5))          # A = 48
+_A = _ANCHORS.shape[1]
+CASES += [
+    ("ROIAlign", "_contrib_ROIAlign", [N(2, 3, 8, 8), ("v", _ROIS)],
+     dict(pooled_size=(2, 2))),
+    ("ROIAlign_aligned_scaled", "_contrib_ROIAlign",
+     [N(2, 2, 6, 7), ("v", _ROIS)],
+     dict(pooled_size=(3, 2), spatial_scale=0.5, sample_ratio=3,
+          aligned=True)),
+    ("ROIPooling", "ROIPooling", [N(2, 3, 8, 8), ("v", _ROIS)],
+     dict(pooled_size=(2, 3))),
+    ("ROIPooling_relu_ties", "ROIPooling", [Z(2, 3, 8, 8), ("v", _ROIS)],
+     dict(pooled_size=(3, 2), spatial_scale=0.8)),
+    ("box_nms_per_class", "_contrib_box_nms",
+     [("v", box_rows(_RS, 2, 24))], dict(overlap_thresh=0.3, id_index=0)),
+    ("box_nms_force_topk", "_contrib_box_nms",
+     [("v", box_rows(_RS, 2, 24))],
+     dict(overlap_thresh=0.2, id_index=0, force_suppress=True, topk=7,
+          valid_thresh=0.4)),
+    ("GridGenerator", "GridGenerator", [N(2, 6)], dict(target_shape=(5, 7))),
+    ("BilinearSampler", "BilinearSampler",
+     [N(2, 3, 6, 5), ("v", _RS.uniform(-1.2, 1.2, (2, 2, 4, 7)))], {}),
+    ("MultiBoxPrior", "_contrib_MultiBoxPrior", [N(1, 3, 3, 4)],
+     dict(sizes=(0.5, 0.25), ratios=(1.0, 2.0, 0.5))),
+    ("MultiBoxPrior_steps_clip", "_contrib_MultiBoxPrior", [N(2, 1, 2, 5)],
+     dict(sizes=(0.9,), ratios=(1.0, 3.0), clip=True, steps=(0.4, 0.2),
+          offsets=(0.25, 0.5))),
+    ("MultiBoxTarget", "_contrib_MultiBoxTarget",
+     [("v", _ANCHORS), ("v", det_labels(_RS, 2, 3, 2)), N(2, 5, _A)],
+     dict(overlap_threshold=0.4)),
+    ("MultiBoxDetection", "_contrib_MultiBoxDetection",
+     [("v", _softmaxed(_RS, (2, 5, _A), 1)),
+      ("v", _RS.standard_normal((2, _A * 4)) * 0.2), ("v", _ANCHORS)],
+     dict(nms_threshold=0.45, threshold=0.3)),
+    ("MultiBoxDetection_topk_force", "_contrib_MultiBoxDetection",
+     [("v", _softmaxed(_RS, (1, 3, _A), 1)),
+      ("v", _RS.standard_normal((1, _A * 4)) * 0.2), ("v", _ANCHORS)],
+     dict(nms_threshold=0.3, nms_topk=10, force_suppress=True)),
+    ("fft", "fft", [N(3, 16)], {}),
+    ("ifft", "ifft", [N(2, 3, 32)], {}),
+    ("Proposal", "_contrib_Proposal",
+     [("v", _softmaxed(_RS, (1, 12, 5, 6), 1)),
+      ("v", _RS.standard_normal((1, 24, 5, 6)) * 0.1),
+      ("v", [[80, 96, 1.0]])],
+     dict(scales=(2, 4), ratios=(0.5, 1, 2), rpn_pre_nms_top_n=60,
+          rpn_post_nms_top_n=20, rpn_min_size=4, threshold=0.6)),
+    ("DeformableConvolution_groups", "_contrib_DeformableConvolution",
+     [N(2, 4, 7, 6), N(2, 36, 7, 6), N(5, 4, 3, 3), N(5)],
+     dict(kernel=(3, 3), pad=(1, 1), num_filter=5, num_deformable_group=2)),
+    ("DeformableConvolution_stride_dilate", "_contrib_DeformableConvolution",
+     [N(1, 3, 9, 8), N(1, 8, 4, 3), N(2, 3, 2, 2)],
+     dict(kernel=(2, 2), stride=(2, 2), dilate=(2, 2), num_filter=2,
+          no_bias=True)),
+    ("Correlation", "Correlation", [N(1, 3, 8, 9), N(1, 3, 8, 9)],
+     dict(max_displacement=2, pad_size=2, kernel_size=3)),
+    ("Correlation_abs_strided", "Correlation", [N(2, 2, 8, 9), N(2, 2, 8, 9)],
+     dict(max_displacement=2, stride2=2, pad_size=1, kernel_size=2,
+          stride1=2, is_multiply=False)),
 ]

@@ -645,7 +645,7 @@ def test_launch_counts_read_every_kernel_wrapper():
 
     assert set(_launch_counts()) == {
         "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "q8_matvec",
-        "decode_fused", "conv1x1_bwd", "rtc"}
+        "decode_fused", "conv1x1_bwd", "box_nms", "rtc"}
 
 
 # --------------------------------------------------------------------------- #

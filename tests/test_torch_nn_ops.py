@@ -37,13 +37,9 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 LONG_TOL = dict(rtol=1e-4, atol=1e-4)
 CTC_TOL = dict(rtol=2e-5, atol=2e-5)
 
-# the reference's ops/nn.py ops this slice leaves out, queued in ROADMAP
-# (detection and sampling, held against tests/test_vision_ops.py there)
-QUEUED = {"_contrib_ROIAlign", "ROIPooling", "_contrib_box_nms",
-          "GridGenerator", "BilinearSampler", "_contrib_MultiBoxPrior",
-          "_contrib_MultiBoxTarget", "_contrib_MultiBoxDetection", "fft",
-          "ifft", "_contrib_Proposal", "_contrib_DeformableConvolution",
-          "Correlation"}
+# the reference's ops/nn.py ops still to port, queued in ROADMAP: none
+# since the detection and sampling family was ported
+QUEUED: set = set()
 
 
 DIFFERENT_MASKS = {"_DropoutImpl"}     # held to a mask's rules instead
@@ -363,10 +359,9 @@ def test_every_ported_op_has_a_case():
 
 
 def test_unported_reference_nn_ops_are_the_queued_detection_set():
-    """The reference's ops/nn.py names missing from the port are exactly
-    the detection and sampling set ROADMAP queues next, and ROADMAP
-    names each of them; ring_attention is the one attention op left
-    out, with its reason."""
+    """No reference ops/nn.py name is missing from the port (``QUEUED``
+    is empty; any name queued again must stand in ROADMAP);
+    ring_attention is the one attention op left out, with its reason."""
     from mxnet_tpu.ops.registry import OPS as ROPS
 
     ref_nn = {n for n, o in ROPS.items()
@@ -381,3 +376,51 @@ def test_unported_reference_nn_ops_are_the_queued_detection_set():
     ref_attn = {n for n, o in ROPS.items()
                 if o.fn.__module__ == "mxnet_tpu.ops.attention"}
     assert ref_attn - set(OPS) == set(NOT_PORTED) == {"ring_attention"}
+
+
+@pytest.mark.parametrize("module", ["image_ops", "quantization"])
+def test_reference_op_module_is_ported_whole(module):
+    """Every op that ``mxnet_tpu/ops/<module>.py`` registers is registered
+    by the port's ``ops/<module>.py`` under the same name, and is
+    ``mx.nd.<name>``."""
+    import importlib
+
+    from mxnet_tpu.ops.registry import OPS as ROPS
+
+    mod = importlib.import_module(f"mxnet_tpu_torch.ops.{module}")
+    ref = {n for n, o in ROPS.items()
+           if o.fn.__module__ == f"mxnet_tpu.ops.{module}"}
+    here = {n for n, o in OPS.items() if o.fn.__module__ == mod.__name__}
+    assert ref == here and len(ref) == {"image_ops": 11,
+                                        "quantization": 5}[module]
+    for name in ref:
+        assert getattr(mx.nd, name) is OPS[name].wrapper
+
+
+@pytest.mark.parametrize("space", ["contrib", "image"])
+def test_nd_namespaces_expose_the_reference_names(space):
+    """``mx.nd.contrib`` and ``mx.nd.image`` expose the reference's names,
+    each the wrapper of the op the reference's name stands for."""
+    ref_ns, port_ns = getattr(rmx.nd, space), getattr(mx.nd, space)
+    names = [n for n in (ref_ns.__all__ if space == "contrib"
+                         else vars(ref_ns)) if not n.startswith("_")]
+    assert len(names) == 11
+    for name in names:
+        ref_fn, port_fn = getattr(ref_ns, name), getattr(port_ns, name)
+        want = getattr(ref_fn, "_op", None)
+        if want is None:
+            assert port_fn is getattr(mx.nd, name)
+        else:
+            assert port_fn is OPS[want.name].wrapper, name
+
+
+def test_registered_op_count():
+    """165 registered names before the detection, image and quantization
+    ops, 13 + 11 + 5 after them, and every alias of the reference's
+    that names a registered op."""
+    from mxnet_tpu.ops.registry import _ALIASES as RALIASES
+    from mxnet_tpu_torch.ops.registry import _ALIASES
+
+    assert len(OPS) == 165 + 13 + 11 + 5
+    assert {k: v for k, v in RALIASES.items() if v in OPS} == \
+        {k: v for k, v in _ALIASES.items() if v in OPS}

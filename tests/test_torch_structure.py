@@ -19,7 +19,8 @@ PORT_FILES = sorted((REPO / "mxnet_tpu_torch").rglob("*.py")) + \
      REPO / "loader_ab.py",
      REPO / "tests" / "_torch_rtc_sources.py",
      REPO / "tests" / "_torch_nn_cases.py",
-     REPO / "tests" / "_torch_hybrid_models.py"]
+     REPO / "tests" / "_torch_hybrid_models.py",
+     REPO / "tests" / "_torch_ssd_models.py"]
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
 
 
@@ -109,8 +110,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 def test_new_modules_are_covered():
     """The structure checks above reach the fused decode, the vision,
-    the imperative, the fused-train-step, the telemetry and the data
-    slices' modules and kernel sources."""
+    the imperative, the fused-train-step, the telemetry, the data and
+    the detection slices' modules and kernel sources."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"mxnet_tpu_torch/context.py",
             "mxnet_tpu_torch/ndarray/ndarray.py",
@@ -154,7 +155,13 @@ def test_new_modules_are_covered():
             "mxnet_tpu_torch/gluon/data/vision/__init__.py",
             "mxnet_tpu_torch/gluon/data/vision/datasets.py",
             "mxnet_tpu_torch/gluon/data/vision/transforms.py"} <= names
-    assert {"decode_fused", "conv1x1_bwd"} <= set(_build.KERNELS)
+    # the detection, image and quantization slice
+    assert {"mxnet_tpu_torch/ops/box_nms.py",
+            "mxnet_tpu_torch/ops/image_ops.py",
+            "mxnet_tpu_torch/ops/quantization.py",
+            "mxnet_tpu_torch/ndarray/contrib.py",
+            "tests/_torch_ssd_models.py"} <= names
+    assert {"decode_fused", "conv1x1_bwd", "box_nms"} <= set(_build.KERNELS)
 
 
 def test_nvcc_command_targets_sm90a():
