@@ -30,14 +30,17 @@ Phases (each fails the run by raising; there is no CPU path):
    1024 tokens, head dim 64, causal), once more with a key mask and
    dropout, at Llama-7B's admission shape (4 x 32 heads x 1024, head
    dim 128, causal), and at the training shape with dropout 0.1, the seed a
-   device word, with kernel, plain, library
+   device word, and at phase 23.2's cross-attention (8 x 16 heads, 768
+   queries over 1024 keys, ragged key mask, dropout 0 and 0.3), with
+   kernel, plain, library
    (``scaled_dot_product_attention``) and bound times; two launches
    must agree bit for bit; first the design tag of the bf16 tensor-core
    kernel and its registers and spills from this run's ptxas report;
 5. K2 and K3 (flash backward: dq; dk, dv, dbias) against their plain
    versions in bf16 at the training shape, and at 2 x 12 x 640 with a
    key mask, dbias and dropout 0.1, and at the training shape with
-   dropout 0.1, with kernel, plain and bound times, and K1+K2+K3 forward
+   dropout 0.1, and at phase 23.2's cross-attention (as in 4), with
+   kernel, plain and bound times, and K1+K2+K3 forward
    and backward beside ``scaled_dot_product_attention`` forward and
    backward (the library's backward alone is K2's and K3's library
    time); two launches must agree bit for bit; first K2's and K3's
@@ -399,7 +402,31 @@ Phases (each fails the run by raising; there is no CPU path):
    convolution at G = 1 and 4, FlowNetC's correlation, fft/ifft, every
    ``mx.nd.image`` op on 32 x 512 x 512 x 3 uint8, the int8 products
    exactly);
-23. one ``{"kernels": [...]}`` line, the card line, and as the last line
+23. the twentieth slice, sequence models: (1) Transformer-big on WMT14
+   En-De widths (Vaswani et al. 2017 "big": 1024 units, FFN 4096, 16
+   heads, 6 + 6 layers, a shared 37,000-token vocabulary, tied output,
+   dropout 0.3, bf16 with f32 masters, Xavier from a seed) through
+   ``Trainer.fused_step`` with Adam (0.9, 0.98, 1e-9) at the paper's
+   warm-up rate set every step: 64 pairs of 16-128 tokens padded to 128,
+   12 calls (one capture), the first loss a target token near ln 37000,
+   K1-K3 launched 0 times (every product at most 512² scores); then 2 +
+   2 layers at dropout 0, fused steps bit for bit with phase-by-phase
+   ones; (2) the same model at 8 pairs of 640-1024 / 512-768 tokens
+   padded to 1024 / 768: every attention through K1-K3, exactly 18 each
+   a step, eager and replayed (the cross-attention's 768 x 1024 key-
+   masked shape held in phases 4-5); (3) at 2 + 2 layers in f32 one
+   step against the CPU and ``greedy_decode`` of 16 sources (16-64
+   tokens, ``max_len`` 64) token for token, the 6 + 6 model's decode
+   speed; (4) GluonNLP's ``standard_lstm_lm_650`` (``tests/
+   _torch_lstm_models.py``: WikiText-2's 33,278 words, 650, 2 x LSTM
+   650, dropout 0.5, tied) at 20 x 35: the recipe's eager loop (SGD lr
+   20, ``clip_global_norm`` 0.25) and ``fused_step`` with
+   ``clip_gradient`` 0.25, first losses near ln 33278, fused steps bit
+   for bit with phase-by-phase ones at dropout 0, a 1-layer step against
+   the CPU; (5) the ``linalg`` and ``legacy`` ops card against CPU at
+   64 x 256² matrices, ResNet-50's first convolution and 8,192 x 37,000
+   logits;
+24. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -709,6 +736,18 @@ def check_k4(cfg):
 # phase 4: K1
 # --------------------------------------------------------------------------- #
 
+def _kmask(b, Lk):
+    """A (b, 1, Lk) f32 key mask: row i masks its last 50 * i + 7 keys
+    (rows 0 and 1 as the first slices' cases: the last 50 and 7)."""
+    import torch
+
+    km = torch.zeros((b, 1, Lk), device="cuda")
+    for i in range(b):
+        km[i, 0, Lk - (50 if i == 0 else 7 if i == 1 else 50 * i + 7):] = \
+            -1e30
+    return km
+
+
 def check_k1(cfg, B):
     import torch
     import torch.nn.functional as F
@@ -727,15 +766,15 @@ def check_k1(cfg, B):
              # Llama-7B's first admission wave in phase 12b: 3 prompts
              # (7, 100, 552 tokens) in the A=4 bucket at P=1024
              ("llama7b_prefill_causal", 4, 32, 128, 1024, 1024, True,
-              False, 0.0)]
+              False, 0.0)] + [
+             # phase 23.2's cross-attention (Transformer-big, 16 heads):
+             # 768 target queries over 1024 padded source keys
+             (f"cross_kmask_dropout{r}", *S2S_CROSS, False, True, r)
+             for r in (0.0, S2S_BIG["dropout"])]
     for name, b, H, D, L, Lk, causal, masked, rate in cases:
         q, k, v = (torch.randn((b, H, n, D), generator=gen, device="cuda")
                    .bfloat16() for n in (L, Lk, Lk))
-        km = None
-        if masked:
-            km = torch.zeros((b, 1, Lk), device="cuda")
-            km[0, 0, Lk - 50:] = -1e30
-            km[1, 0, Lk - 7:] = -1e30
+        km = _kmask(b, Lk) if masked else None
         scale = D ** -0.5
         out, lse = flash_fwd(q, k, v, scale, causal, km, word, rate)
         ro, rl = flash_fwd_plain(q, k, v, scale, causal, km, word, rate)
@@ -799,19 +838,19 @@ def check_k23(cfg, B):
     gen = torch.Generator(device="cuda").manual_seed(7)
     results = []
     word = torch.full((1,), 1234, dtype=torch.int64, device="cuda")
-    cases = [("train_causal", B, 1024, 1024, True, False, 0.0),
-             ("ragged_kmask_dropout", 2, 640, 640, False, True, 0.1),
-             ("train_causal_dropout", B, 1024, 1024, True, False, 0.1)]
-    for name, b, L, Lk, causal, masked, rate in cases:
+    cases = [("train_causal", B, H, D, 1024, 1024, True, False, 0.0),
+             ("ragged_kmask_dropout", 2, H, D, 640, 640, False, True, 0.1),
+             ("train_causal_dropout", B, H, D, 1024, 1024, True, False,
+              0.1)] + [
+             # phase 23.2's cross-attention, as in check_k1
+             (f"cross_kmask_dropout{r}", *S2S_CROSS, False, True, r)
+             for r in (0.0, S2S_BIG["dropout"])]
+    for name, b, H, D, L, Lk, causal, masked, rate in cases:
         q, k, v = (torch.randn((b, H, n, D), generator=gen, device="cuda")
                    .bfloat16() for n in (L, Lk, Lk))
         g = torch.randn((b, H, L, D), generator=gen,
                         device="cuda").bfloat16()
-        km = None
-        if masked:
-            km = torch.zeros((b, 1, Lk), device="cuda")
-            km[0, 0, Lk - 50:] = -1e30
-            km[1, 0, Lk - 7:] = -1e30
+        km = _kmask(b, Lk) if masked else None
         scale = D ** -0.5
         out, lse = pa.flash_fwd(q, k, v, scale, causal, km, word, rate)
         delta = (out.float() * g.float()).sum(-1)
@@ -1338,6 +1377,10 @@ def serving_arms(model, scenario, what, **kw):
     return row
 
 
+# substrings of the library GEMM kernels' names (cuBLAS, cuBLASLt, CUTLASS)
+GEMM_KEYS = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "sm90_")
+
+
 def _profiled(fn):
     """Run ``fn()`` under ``torch.profiler``; returns the device time by
     kernel name (us), the busy sum and the window (us).  The profiler's
@@ -1712,21 +1755,9 @@ def check_training(cfg):
           f"{arms['eager_tokens_per_s']:.2f}", flush=True)
     # where a step's device time goes: two more steps, profiled, with the
     # kernel time grouped into attention (K1/K2/K3), GEMMs and the rest
-    by_name, busy, wall_us = _profiled(lambda: trainer.run_steps(
-        data[None].expand(2, -1, -1), label[None].expand(2, -1, -1)))
-    prof = report_profile("train profile", by_name, busy, wall_us, top=10)
-    groups = {"attention kernels": ("flash_",),
-              "GEMMs": ("gemm", "gemv", "xmma", "cutlass", "nvjet",
-                        "sm90_")}
-    shares = {g: sum(us for n, us in by_name.items()
-                     if any(k in n for k in keys))
-              for g, keys in groups.items()}
-    shares["other"] = busy - sum(shares.values())
-    if busy > 0:
-        print("train profile: by group " + ", ".join(
-            f"{g} {us / busy:.4f} ({us / 2e3:.3f} ms/step)"
-            for g, us in shares.items()), flush=True)
-    prof["groups_us"] = shares
+    prof = _grouped_profile("train", lambda: trainer.run_steps(
+        data[None].expand(2, -1, -1), label[None].expand(2, -1, -1)), 2,
+        top=10)
     del trainer, model
     torch.cuda.empty_cache()
     return dict(losses=losses, tokens_per_s=tok_s, ms_per_step=step_ms,
@@ -5304,21 +5335,9 @@ def check_imperative_mlp(op):
             all(b <= a for a, b in zip(losses, losses[1:]))):
         fail(f"mlp: losses did not fall: {losses}")
     n_prof = 3
-    by_name, busy, wall_us = _profiled(
-        lambda: [_mlp_step(mx, p) for _ in range(n_prof)])
-    prof = report_profile("mlp profile", by_name, busy, wall_us, top=10)
-    groups = {"rtc kernels": ("gelu_",),
-              "GEMMs": ("gemm", "gemv", "xmma", "cutlass", "nvjet",
-                        "sm90_")}
-    shares = {g: sum(us for n, us in by_name.items()
-                     if any(k in n for k in keys))
-              for g, keys in groups.items()}
-    shares["other"] = busy - sum(shares.values())
-    if busy > 0:
-        print("mlp profile: by group " + ", ".join(
-            f"{g} {us / busy:.4f} ({us / n_prof / 1e3:.3f} ms/step)"
-            for g, us in shares.items()), flush=True)
-    prof["groups_us"] = shares
+    prof = _grouped_profile(
+        "mlp", lambda: [_mlp_step(mx, p) for _ in range(n_prof)], n_prof,
+        top=10, groups={"rtc kernels": ("gelu_",), "GEMMs": GEMM_KEYS})
     del p
     torch.cuda.empty_cache()
     return dict(losses=losses, ms_per_step=step_ms, rows_per_s=rows_s,
@@ -8429,6 +8448,781 @@ def check_detection():
     return row
 
 
+# --------------------------------------------------------------------------- #
+# phase 23: sequence models, the twentieth slice: Transformer-big on WMT14
+# En-De widths, GluonNLP's standard_lstm_lm_650, the linalg and legacy ops
+# --------------------------------------------------------------------------- #
+
+# Vaswani et al. 2017, Table 3 "big" (WMT14 En-De, a shared BPE vocabulary
+# of 37,000 tokens, section 5.1); bf16 weights with f32 masters
+S2S_BIG = dict(vocab_size=37000, units=1024, hidden_size=4096, num_heads=16,
+               num_enc_layers=6, num_dec_layers=6, max_length=1024,
+               dropout=0.3, tie_embeddings=True)
+S2S_ADAM = {"learning_rate": 0.0, "beta1": 0.9, "beta2": 0.98,
+            "epsilon": 1e-9, "multi_precision": True}
+S2S_WARMUP = 4000            # the paper's warm-up steps (section 5.3)
+S2S_STEPS = 12               # eager, capture, 10 replays
+# (pairs, source lengths, target lengths, padded source, padded target)
+S2S_SHORT = (64, (16, 128), (16, 128), 128, 128)
+S2S_LONG = (8, (640, 1024), (512, 768), 1024, 768)
+# 23.2's cross-attention as K1-K3 see it: (B, H, D, Lq, Lk)
+S2S_CROSS = (8, 16, 64, 768, 1024)
+# the first loss's distance from ln(37000) allowed: Xavier on the tied
+# (37000, 1024) embedding gives weights of variance 2 / 38024 = 5.26e-5;
+# the decoder's final LayerNorm gives unit-variance features, so a logit
+# has variance 1024 x 5.26e-5 = 0.054 and the expected loss is ln(37000) +
+# 0.054 / 2 = 10.546; 0.2 leaves room for the batch's spread
+S2S_LOSS_BOUND = 0.2
+S2S_BITS = 3                 # fused against phase by phase, 2 + 2 layers
+S2S_DECODE = (16, (16, 64), 64)   # sources, their lengths, max_len
+LM_V = 33278                 # WikiText-2's vocabulary
+LM_B, LM_T = 20, 35          # batch, bptt
+LM_LR, LM_CLIP = 20.0, 0.25  # word_language_model.py's SGD and clip
+LM_STEPS = 20                # the recipe arm (eager, as the reference's)
+LM_FUSED = 12                # the fused arm: eager, capture, 10 replays
+LM_BITS = 3
+# Xavier on the tied (33278, 650) embedding: weight variance 2 / 33928 =
+# 5.9e-5; the LSTM's output is tanh-bounded and small at the start
+# (|h| rms ~0.1 or less), so a logit has variance at most ~650 x 5.9e-5 x
+# 0.01 = 3.8e-4 and the loss is ln(33278) = 10.41 within ~0.01; 0.1
+LM_LOSS_BOUND = 0.1
+LM_E = LM_H = 650            # embedding and LSTM widths
+LINALG_B, LINALG_N = 64, 256
+SWEEP_IMG = (32, 3, 224, 224)      # ResNet-50's first convolution's input
+SWEEP_CE = (8192, 37000)           # 23.1's target tokens x vocabulary
+
+
+def _s2s_kernels():
+    """K1 (and K2, K3) launches a step when every attention takes the
+    kernels: encoder self, decoder self and cross, one each a layer."""
+    return S2S_BIG["num_enc_layers"] + 2 * S2S_BIG["num_dec_layers"]
+
+
+def _grouped_profile(what, fn, steps, top=6, groups=None):
+    """``fn()`` (``steps`` steps) under ``torch.profiler``: the top
+    kernels and the device time by group of kernel names (by default
+    K1-K3, library GEMMs, the rest), ms a step each."""
+    by_name, busy, wall_us = _profiled(fn)
+    prof = report_profile(f"{what} profile", by_name, busy, wall_us, top=top)
+    groups = groups or {"attention kernels": ("flash_",), "GEMMs": GEMM_KEYS}
+    shares = {g: sum(us for n, us in by_name.items()
+                     if any(k in n for k in keys))
+              for g, keys in groups.items()}
+    shares["other"] = busy - sum(shares.values())
+    if busy > 0:
+        print(f"{what} profile: by group " + ", ".join(
+            f"{g} {us / busy:.4f} ({us / steps / 1e3:.3f} ms/step)"
+            for g, us in shares.items()), flush=True)
+    prof["groups_us"] = shares
+    return prof
+
+
+def _noam(step, units=1024, warmup=S2S_WARMUP):
+    """The paper's learning rate at ``step`` (1-based)."""
+    return units ** -0.5 * min(step ** -0.5, step * warmup ** -1.5)
+
+
+def s2s_batch(mx, ctx, shape, vocab, seed):
+    """Source and target token streams drawn with numpy from ``seed``:
+    lengths from their ranges, tokens 3..vocab-1, padding 0; the
+    teacher-forced input (``bos`` = 1, then the target shifted), the
+    labels, per-token weights (0 at padding) and the (B, 1, 1, Ls)
+    additive source mask."""
+    import numpy as np
+
+    B, (s0, s1), (t0, t1), Ls, Lt = shape
+    rs = np.random.RandomState(seed)
+    sl = rs.randint(s0, s1 + 1, B)
+    tl = rs.randint(t0, t1 + 1, B)
+    src = rs.randint(3, vocab, (B, Ls))
+    src[np.arange(Ls)[None] >= sl[:, None]] = 0
+    tgt = rs.randint(3, vocab, (B, Lt))
+    tgt[np.arange(Lt)[None] >= tl[:, None]] = 0
+    tgt_in = np.concatenate([np.ones((B, 1), np.int64), tgt[:, :-1]], 1)
+    w = (np.arange(Lt)[None] < tl[:, None]).astype(np.float32)
+    mask = np.where(np.arange(Ls)[None] >= sl[:, None], -1e30, 0.0) \
+        .astype(np.float32).reshape(B, 1, 1, Ls)
+    arr = functools.partial(mx.nd.array, ctx=ctx)
+    return dict(src=arr(src, dtype="int32"), tgt_in=arr(tgt_in, dtype="int32"),
+                tgt_out=arr(tgt, dtype="int32"), w=arr(w[..., None]),
+                mask=arr(mask), tokens=int(tl.sum()), Lt=Lt, B=B)
+
+
+def _s2s_net(mx, ctx, seed, dtype="bfloat16", **over):
+    from mxnet_tpu_torch.models import Seq2SeqConfig
+
+    with ctx:
+        net = Seq2SeqConfig(**{**S2S_BIG, **over}, dtype=dtype).make()
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=seed)
+    return net
+
+
+def _s2s_loss(mx, net):
+    loss_l = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(src, tgt_in, tgt_out, w, mask):
+        return loss_l(net(src, tgt_in, mask), tgt_out, w)
+    return loss_fn
+
+
+def _token_loss(per_sample, batch):
+    """The per-sample losses (each a mean over the padded target) as the
+    mean over the batch's real target tokens."""
+    return float(per_sample.detach().float().sum()) * batch["Lt"] / \
+        batch["tokens"]
+
+
+def s2s_run(mx, net, shape, what, seed, kernels_per_step):
+    """``S2S_STEPS`` ``Trainer.fused_step`` calls of ``net`` on one batch
+    of ``shape``: Adam (beta2 0.98, eps 1e-9) multi-precision, the
+    paper's warm-up/inverse-square-root rate written through
+    ``set_learning_rate`` before every call (a device operand: one
+    capture).  K1-K3 counted from 0: after the eager call and by what
+    the replay's capture recorded, each gated at ``kernels_per_step``."""
+    import math
+
+    import torch
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+
+    gpu = mx.gpu(0)
+    batch = s2s_batch(mx, gpu, shape, S2S_BIG["vocab_size"], seed)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", dict(S2S_ADAM))
+    loss_fn = _s2s_loss(mx, net)
+    args = [batch[k] for k in ("src", "tgt_in", "tgt_out", "w", "mask")]
+    fsm.reset_step_counters()
+    _reset_attention_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, eager_counts, t0 = [], None, None
+    for i in range(S2S_STEPS):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        trainer.set_learning_rate(_noam(i + 1))
+        out = trainer.fused_step(loss_fn, *args, batch_size=batch["B"])
+        losses.append(out._data)
+        if i == 0:
+            torch.cuda.synchronize()
+            eager_counts = _attention_counts()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (S2S_STEPS - 2) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    losses = [_token_loss(v, batch) for v in losses]
+    fs, prog = _apply_program(trainer)
+    launches = _fused_attention_launches(trainer)
+    counters = dict(fsm.step_counters)
+    tok_s = batch["tokens"] / ms * 1e3
+    print(f"seq2seq {what}: Transformer-big 6 + 6 bf16, dropout 0.3, tied, "
+          f"B={batch['B']} Ls={shape[3]} Lt={shape[4]} ({batch['tokens']} "
+          f"target tokens), Adam multi-precision with the warm-up rate "
+          f"({_noam(1):.3e} .. {_noam(S2S_STEPS):.3e}): {S2S_STEPS} "
+          f"fused_step calls, losses a target token "
+          f"{[round(v, 4) for v in losses]} (ln 37000 = "
+          f"{math.log(37000):.4f}); K1/K2/K3 the eager step {eager_counts}, "
+          f"a replay {prog.launches}, all {launches} (expected "
+          f"{kernels_per_step} a step); step_counters {counters}", flush=True)
+    print(f"seq2seq {what}: {ms:.3f} ms a step (replays 3-{S2S_STEPS}), "
+          f"{tok_s:.1f} trained target tokens/s, peak {peak} B allocated; "
+          f"{card_line()}", flush=True)
+    if counters["compiles"] != 1 or counters["legacy_steps"]:
+        fail(f"seq2seq {what}: step counters {counters}, expected one "
+             "capture")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"seq2seq {what}: a loss is not finite: {losses}")
+    if any(eager_counts[n] != kernels_per_step or
+           prog.launches.get(n, 0) != kernels_per_step or
+           launches[n] != kernels_per_step * S2S_STEPS
+           for n in ATTN_KERNELS):
+        fail(f"seq2seq {what}: K1/K2/K3 launched {eager_counts} in the "
+             f"eager step and {prog.launches} a replay; expected "
+             f"{kernels_per_step} each")
+    # where a step's device time goes: two more replays, profiled (after
+    # the gates, which count the 12 steps above)
+    prof = _grouped_profile(f"seq2seq {what}", lambda: [
+        trainer.fused_step(loss_fn, *args, batch_size=batch["B"])
+        for _ in range(2)], 2)
+    # the kernels line counts the profiled replays' launches too
+    row = dict(B=batch["B"], Ls=shape[3], Lt=shape[4],
+               tokens=batch["tokens"], losses=losses, ms_per_step=ms,
+               tokens_per_s=tok_s, peak_bytes=peak,
+               eager_launches=eager_counts, replay_launches=prog.launches,
+               gated_launches=launches,
+               launches=_fused_attention_launches(trainer),
+               step_counters=counters, profile=prof)
+    del fs, prog, trainer, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def s2s_bits(mx):
+    """23.1, bit check: two Transformer-big-width models at 2 + 2 layers,
+    dropout 0, bf16, from one seed; ``S2S_BITS`` ``fused_step`` calls on
+    one (eager, capture and replay, replay) against as many phase-by-
+    phase steps on the other, the same rate each step: the losses and
+    every parameter bit for bit."""
+    import torch
+
+    gpu = mx.gpu(0)
+    nets = [_s2s_net(mx, gpu, 11, num_enc_layers=2, num_dec_layers=2,
+                     dropout=0.0) for _ in range(2)]
+    batch = s2s_batch(mx, gpu, S2S_SHORT, S2S_BIG["vocab_size"], 12)
+    args = [batch[k] for k in ("src", "tgt_in", "tgt_out", "w", "mask")]
+    trainers = [mx.gluon.Trainer(n.collect_params(), "adam", dict(S2S_ADAM))
+                for n in nets]
+    loss_fn = _s2s_loss(mx, nets[0])
+    loss_b = _s2s_loss(mx, nets[1])
+    fused, phase = [], []
+    for i in range(S2S_BITS):
+        trainers[0].set_learning_rate(_noam(i + 1))
+        fused.append(trainers[0].fused_step(loss_fn, *args,
+                                            batch_size=batch["B"])
+                     ._data.clone())
+    for i in range(S2S_BITS):
+        trainers[1].set_learning_rate(_noam(i + 1))
+        with mx.autograd.record():
+            loss = loss_b(*args)
+        loss.backward()
+        trainers[1].step(batch["B"])
+        phase.append(loss._data.clone())
+    del loss
+    same = all(torch.equal(a, b) for a, b in zip(fused, phase))
+    pa, pb = (n._collect_params_with_prefix() for n in nets)
+    differ = [k for k in pa if not torch.equal(pa[k].data()._data,
+                                               pb[k].data()._data)]
+    print(f"seq2seq bits: 2 + 2 layers at Transformer-big width, dropout 0, "
+          f"bf16, B={batch['B']} x {S2S_SHORT[3]}: {S2S_BITS} fused steps "
+          f"against {S2S_BITS} "
+          f"phase by phase: losses equal {same}, parameters that differ "
+          f"{differ[:4]} ({len(differ)} of {len(pa)})", flush=True)
+    if not same or differ:
+        fail("seq2seq bits: the fused steps differ from the phase-by-phase "
+             "steps")
+    del nets, trainers, fused, phase
+    torch.cuda.empty_cache()
+    return dict(steps=S2S_BITS, losses_equal=same, params=len(pa),
+                params_differing=differ)
+
+
+def _decode_sources(mx, ctx, seed=21):
+    import numpy as np
+
+    n, (l0, l1), _ = S2S_DECODE
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(l0, l1 + 1, n)
+    src = rs.randint(3, S2S_BIG["vocab_size"], (n, l1))
+    src[np.arange(l1)[None] >= lens[:, None]] = 0
+    return mx.nd.array(src, ctx=ctx, dtype="int32")
+
+
+def s2s_decode(mx, net, ctx, what):
+    """``greedy_decode`` of the 16 sources at ``max_len`` 64: the tokens,
+    the seconds, and ms a generated token."""
+    import torch
+
+    src = _decode_sources(mx, ctx)
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ctx:
+        toks = net.greedy_decode(src, max_len=S2S_DECODE[2], bos=1, eos=2)
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    gen = toks.shape[0] * (toks.shape[1] - 1)
+    print(f"seq2seq decode {what}: {toks.shape[0]} sources, max_len "
+          f"{S2S_DECODE[2]}: {toks.shape[1] - 1} steps, {s:.3f} s, "
+          f"{s / gen * 1e3:.4f} ms a generated token "
+          f"({gen / s:.1f} tokens/s)", flush=True)
+    return toks, dict(seconds=s, generated=gen, ms_per_token=s / gen * 1e3,
+                      tokens_per_s=gen / s)
+
+
+def s2s_vs_cpu(mx):
+    """23.3: Transformer-big widths at 2 + 2 layers in f32, dropout 0, the
+    same weights on the card (TF32 off) and the CPU: one step (4 pairs of
+    48 / 40 tokens with a source mask): the loss within 1e-4 relative
+    (phase 8), every gradient within ``GLUON_GRAD_TOL`` of its array's
+    largest magnitude (phase 20.3), the card's loss, gradients and
+    weights finite, and after one Adam step at most 1% of the weights
+    more than lr / 100 apart (phase 8's share).  The weights' largest
+    difference is printed beside Adam's step bound, not gated: one step
+    moves an element by at most lr, so two finite runs are always within
+    2 lr.  Then ``greedy_decode`` of the 16 sources, tokens equal."""
+    import numpy as np
+
+    over = dict(num_enc_layers=2, num_dec_layers=2, dropout=0.0)
+    cpu_net = _s2s_net(mx, mx.cpu(), 13, dtype="float32", **over)
+    card_net = _s2s_net(mx, mx.gpu(0), 14, dtype="float32", **over)
+    src = cpu_net._collect_params_with_prefix()
+    for k, p in card_net._collect_params_with_prefix().items():
+        p.set_data(src[k].data())
+    res = {}
+    for name, net, ctx in (("card", card_net, mx.gpu(0)),
+                           ("cpu", cpu_net, mx.cpu())):
+        batch = s2s_batch(mx, ctx, (4, (20, 48), (10, 40), 48, 40),
+                          S2S_BIG["vocab_size"], 15)
+        args = [batch[k] for k in ("src", "tgt_in", "tgt_out", "w", "mask")]
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": CPU_LR, "beta1": 0.9,
+                                    "beta2": 0.98, "epsilon": 1e-9})
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = _s2s_loss(mx, net)(*args)
+        loss.backward()
+        params = net._collect_params_with_prefix()
+        grads = {k: p.grad().asnumpy() for k, p in params.items()}
+        trainer.step(batch["B"])
+        res[name] = dict(loss=_token_loss(loss._data, batch), grads=grads,
+                         w={k: p.data().asnumpy() for k, p in params.items()},
+                         s=time.perf_counter() - t0)
+    c, g = res["cpu"], res["card"]
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    errs = sorted(((float(np.abs(g["grads"][k] - v).max()) /
+                    max(float(np.abs(v).max()), 1e-30), k)
+                   for k, v in c["grads"].items()), reverse=True)
+    worst, n_far, n_all = 0.0, 0, 0
+    for k, v in c["w"].items():
+        d = np.abs(g["w"][k] - v)
+        worst = max(worst, float(d.max()))
+        n_far += int((d > CPU_LR / 100).sum())
+        n_all += d.size
+    share = n_far / n_all
+    finite = bool(np.isfinite(g["loss"])) and all(
+        np.isfinite(v).all() for d in (g["grads"], g["w"])
+        for v in d.values())
+    print(f"seq2seq vs cpu: 2 + 2 layers f32 at Transformer-big width: loss "
+          f"card {g['loss']:.6f} cpu {c['loss']:.6f} (rel {loss_rel:.3e}, "
+          f"tol 1e-4); worst gradients "
+          f"{[(f'{e:.3e}', k) for e, k in errs[:3]]} of each array's largest "
+          f"magnitude (tol {GLUON_GRAD_TOL}); card finite {finite}; after "
+          f"one Adam step weights max_abs_diff {worst:.3e} (Adam's bound "
+          f"{2 * CPU_LR:.1e}, not a gate), share beyond lr/100 {share:.3e} "
+          f"(tol 1e-2); seconds card {g['s']:.2f}, cpu {c['s']:.2f}",
+          flush=True)
+    if not finite or loss_rel > 1e-4 or errs[0][0] > GLUON_GRAD_TOL or \
+            share > 1e-2:
+        fail("seq2seq vs cpu: the card's step disagrees with the CPU's")
+    card_toks, card_dec = s2s_decode(mx, card_net, mx.gpu(0), "f32 card")
+    cpu_toks, cpu_dec = s2s_decode(mx, cpu_net, mx.cpu(), "f32 cpu")
+    same = np.array_equal(card_toks, cpu_toks)
+    print(f"seq2seq decode: f32 tokens card == cpu: {same} "
+          f"({card_toks.shape})", flush=True)
+    if not same:
+        fail("seq2seq decode: the card's greedy tokens differ from the "
+             "CPU's")
+    return dict(loss_card=g["loss"], loss_cpu=c["loss"], loss_rel=loss_rel,
+                grad_rel=errs[0][0], worst=errs[:3],
+                weight_max_abs_diff=worst, share_beyond_lr_100=share,
+                decode_card=card_dec, decode_cpu=cpu_dec,
+                decode_tokens_equal=same)
+
+
+def check_seq2seq():
+    """23.1-23.3: Transformer-big on WMT14 En-De widths."""
+    import math
+
+    import torch
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    mx.random.seed(0)
+    net = _s2s_net(mx, mx.gpu(0), 0)
+    n_params = sum(p.data()._data.numel()
+                   for p in net.collect_params().values())
+    print(f"seq2seq: Transformer-big (WMT14 En-De), {n_params} parameters, "
+          f"bf16, Xavier from seed 0, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    short = s2s_run(mx, net, S2S_SHORT, "23.1", 1, 0)
+    print("seq2seq 23.1: K1/K2/K3 launched 0 times: every attention "
+          "product is at most 128 x 128 <= 512^2 scores, so "
+          "ops/attention.py's flash_attention takes _plain_attn there, "
+          "as the reference does", flush=True)
+    first = short["losses"][0]
+    if abs(first - math.log(S2S_BIG["vocab_size"])) > S2S_LOSS_BOUND:
+        fail(f"seq2seq 23.1: first loss {first} is not within "
+             f"{S2S_LOSS_BOUND} of ln 37000")
+    long = s2s_run(mx, net, S2S_LONG, "23.2", 2, _s2s_kernels())
+    bf16_toks, bf16_dec = s2s_decode(mx, net, mx.gpu(0), "bf16 6 + 6")
+    del net
+    torch.cuda.empty_cache()
+    bits = s2s_bits(mx)
+    vs_cpu = s2s_vs_cpu(mx)
+    torch.cuda.empty_cache()
+    return dict(parameters=n_params, short=short, long=long, bits=bits,
+                vs_cpu=vs_cpu, decode_bf16=bf16_dec,
+                launches={n: long["launches"][n] for n in ATTN_KERNELS},
+                seconds=time.perf_counter() - t0)
+
+
+def _lm_net(mx, ctx, seed, layers=2, dropout=0.5):
+    _tests_path()
+    from _torch_lstm_models import standard_lstm_lm
+
+    with ctx:
+        net = standard_lstm_lm(mx, LM_V, LM_E, LM_H, layers, dropout)
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=seed)
+    return net
+
+
+def _lm_stream(mx, ctx, steps, seed=31):
+    """A token stream drawn with numpy, cut into ``steps`` (T, N) batches
+    and their next-token targets, the reference's ``batchify`` layout."""
+    import numpy as np
+
+    data = np.random.RandomState(seed).randint(0, LM_V,
+                                               (steps * LM_T + 1, LM_B))
+    return [(mx.nd.array(data[i * LM_T:(i + 1) * LM_T], ctx=ctx,
+                         dtype="int32"),
+             mx.nd.array(data[i * LM_T + 1:(i + 1) * LM_T + 1], ctx=ctx,
+                         dtype="int32")) for i in range(steps)]
+
+
+def lm_recipe(mx):
+    """23.4, the recipe arm: ``word_language_model.py``'s loop, eager as
+    the reference's (``clip_global_norm`` reads the norm back): the
+    per-word loss over X.size, ``backward``, ``allreduce_grads``,
+    ``clip_global_norm(grads, 0.25)``, ``update(1)``, SGD lr 20; the
+    hidden state carried and detached between batches."""
+    import math
+
+    import torch
+
+    gpu = mx.gpu(0)
+    net = _lm_net(mx, gpu, 0)
+    loss = _lm_fused_loss(mx, net)
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": LM_LR})
+    h, c = net.begin_state(LM_B, ctx=gpu)
+    losses, norms, t0 = [], [], None
+    for i, (x, y) in enumerate(_lm_stream(mx, gpu, LM_STEPS)):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        h, c = h.detach(), c.detach()
+        with mx.autograd.record():
+            L, h, c = loss(x, y, h, c)
+            L = L / (LM_T * LM_B)
+        L.backward()
+        trainer.allreduce_grads()
+        norms.append(mx.gluon.utils.clip_global_norm(
+            [p.grad() for p in params], LM_CLIP))
+        trainer.update(1)
+        losses.append(float(L._data.detach().sum()))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (LM_STEPS - 2) * 1e3
+    print(f"lstm lm recipe: standard_lstm_lm_650 (WikiText-2 vocabulary "
+          f"{LM_V}, {LM_E} / 2 x LSTM {LM_H}, dropout 0.5, tied) f32, "
+          f"{LM_B} x "
+          f"bptt {LM_T}, SGD lr {LM_LR}, clip_global_norm {LM_CLIP}: "
+          f"{LM_STEPS} eager steps, losses a word "
+          f"{[round(v, 4) for v in losses]} (ln {LM_V} = "
+          f"{math.log(LM_V):.4f}), global norms before clipping "
+          f"{[round(v, 3) for v in norms[:4]]}...; {ms:.3f} ms a step "
+          f"(steps 3-{LM_STEPS}), {LM_B * LM_T / ms * 1e3:.1f} words/s; "
+          f"{card_line()}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or \
+            abs(losses[0] - math.log(LM_V)) > LM_LOSS_BOUND:
+        fail(f"lstm lm recipe: losses not finite or the first not within "
+             f"{LM_LOSS_BOUND} of ln {LM_V}: {losses}")
+    del net, trainer, params
+    torch.cuda.empty_cache()
+    return dict(losses=losses, norms=norms, ms_per_step=ms,
+                words_per_s=LM_B * LM_T / ms * 1e3)
+
+
+def _lm_fused_loss(mx, net):
+    """The user's per-word loss of ``net`` (``lm_loss``): ``(loss, h,
+    c)``."""
+    _tests_path()
+    from _torch_lstm_models import lm_loss
+
+    return lm_loss(mx, net)
+
+
+def lm_fused(mx):
+    """23.4, the fused arm: the same model through ``Trainer.fused_step``
+    with the optimizer's elementwise ``clip_gradient=0.25`` instead of
+    the global norm, one replay a step, the carried state a static
+    input (the step's new state is its output)."""
+    import math
+
+    import torch
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+
+    gpu = mx.gpu(0)
+    net = _lm_net(mx, gpu, 0)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": LM_LR,
+                                "clip_gradient": LM_CLIP})
+    loss_fn = _lm_fused_loss(mx, net)
+    h, c = net.begin_state(LM_B, ctx=gpu)
+    fsm.reset_step_counters()
+    losses, t0 = [], None
+    for i, (x, y) in enumerate(_lm_stream(mx, gpu, LM_FUSED)):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        L, h, c = trainer.fused_step(loss_fn, x, y, h, c,
+                                     batch_size=LM_B * LM_T)
+        losses.append(L._data)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (LM_FUSED - 2) * 1e3
+    losses = [float(v.mean()) for v in losses]
+    counters = dict(fsm.step_counters)
+    print(f"lstm lm fused: the same model through fused_step, "
+          f"clip_gradient {LM_CLIP}: {LM_FUSED} calls, losses a word "
+          f"{[round(v, 4) for v in losses]}; {ms:.3f} ms a step (replays "
+          f"3-{LM_FUSED}), {LM_B * LM_T / ms * 1e3:.1f} words/s; "
+          f"step_counters {counters}", flush=True)
+    if counters["compiles"] != 1 or counters["legacy_steps"] or \
+            not all(math.isfinite(v) for v in losses) or \
+            abs(losses[0] - math.log(LM_V)) > LM_LOSS_BOUND:
+        fail(f"lstm lm fused: counters {counters} or losses {losses}")
+    state = [h, c]
+    batches = _lm_stream(mx, gpu, 2, seed=34)
+
+    def two_replays():
+        for x, y in batches:
+            _, state[0], state[1] = trainer.fused_step(
+                loss_fn, x, y, *state, batch_size=LM_B * LM_T)
+    prof = _grouped_profile("lstm lm fused", two_replays, 2)
+    del net, trainer
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms_per_step=ms, step_counters=counters,
+                words_per_s=LM_B * LM_T / ms * 1e3, profile=prof)
+
+
+def lm_bits(mx):
+    """23.4, bit check: two copies at full width, dropout 0, from one
+    seed; ``LM_BITS`` fused steps (eager, capture and replay, replay)
+    against as many phase-by-phase ones (``record``, ``backward``,
+    ``step``, the same elementwise clip), the state carried in each:
+    losses, states and every parameter bit for bit."""
+    import torch
+
+    gpu = mx.gpu(0)
+    nets = [_lm_net(mx, gpu, 3, dropout=0.0) for _ in range(2)]
+    opt = {"learning_rate": LM_LR, "clip_gradient": LM_CLIP}
+    trainers = [mx.gluon.Trainer(n.collect_params(), "sgd", dict(opt))
+                for n in nets]
+    fused_fn = _lm_fused_loss(mx, nets[0])
+    phase_fn = _lm_fused_loss(mx, nets[1])
+    batches = _lm_stream(mx, gpu, LM_BITS, seed=32)
+    res = []
+    for k in range(2):
+        h, c = nets[k].begin_state(LM_B, ctx=gpu)
+        out = []
+        for x, y in batches:
+            if k == 0:
+                L, h, c = trainers[0].fused_step(fused_fn, x, y, h, c,
+                                                 batch_size=LM_B * LM_T)
+            else:
+                with mx.autograd.record():
+                    L, h, c = phase_fn(x, y, h.detach(), c.detach())
+                L.backward()
+                trainers[1].step(LM_B * LM_T)
+            out.append((L._data.clone(), h._data.clone(), c._data.clone()))
+        res.append(out)
+    del L
+    same = all(torch.equal(a, b) for ra, rb in zip(*res)
+               for a, b in zip(ra, rb))
+    pa, pb = (n._collect_params_with_prefix() for n in nets)
+    differ = [k for k in pa if not torch.equal(pa[k].data()._data,
+                                               pb[k].data()._data)]
+    print(f"lstm lm bits: full width, dropout 0: {LM_BITS} fused steps "
+          f"against {LM_BITS} phase by phase: losses and states equal "
+          f"{same}, parameters that differ {differ} of {len(pa)}",
+          flush=True)
+    if not same or differ:
+        fail("lstm lm bits: the fused steps differ from the phase-by-phase "
+             "steps")
+    del nets, trainers
+    torch.cuda.empty_cache()
+    return dict(steps=LM_BITS, equal=same, params_differing=differ)
+
+
+def lm_vs_cpu(mx):
+    """23.4: a 1-layer copy at full width, f32, dropout 0, on the card
+    (TF32 off) and the CPU from the same weights: the per-word loss
+    within 1e-5 relative and every gradient within 1e-5 of its array's
+    largest magnitude."""
+    import numpy as np
+
+    cpu_net = _lm_net(mx, mx.cpu(), 4, layers=1, dropout=0.0)
+    card_net = _lm_net(mx, mx.gpu(0), 5, layers=1, dropout=0.0)
+    src = cpu_net._collect_params_with_prefix()
+    for k, p in card_net._collect_params_with_prefix().items():
+        p.set_data(src[k].data())
+    res = {}
+    for name, net, ctx in (("card", card_net, mx.gpu(0)),
+                           ("cpu", cpu_net, mx.cpu())):
+        (x, y), = _lm_stream(mx, ctx, 1, seed=33)
+        h, c = net.begin_state(LM_B, ctx=ctx)
+        with mx.autograd.record():
+            L, h, c = _lm_fused_loss(mx, net)(x, y, h, c)
+        L.backward()
+        res[name] = dict(loss=L.asnumpy(), grads={
+            k: p.grad().asnumpy()
+            for k, p in net._collect_params_with_prefix().items()})
+    c, g = res["cpu"], res["card"]
+    loss_rel = float(np.abs(g["loss"] - c["loss"]).max() /
+                     np.abs(c["loss"]).max())
+    errs = sorted(((float(np.abs(g["grads"][k] - v).max()) /
+                    max(float(np.abs(v).max()), 1e-30), k)
+                   for k, v in c["grads"].items()), reverse=True)
+    print(f"lstm lm vs cpu: 1 layer f32 at full width: per-word losses rel "
+          f"{loss_rel:.3e} (tol {GLUON_TOL}); worst gradients "
+          f"{[(f'{e:.3e}', k) for e, k in errs[:3]]} of each array's "
+          f"largest magnitude (tol {GLUON_TOL})", flush=True)
+    if loss_rel > GLUON_TOL or errs[0][0] > GLUON_TOL:
+        fail("lstm lm vs cpu: the card disagrees with the CPU")
+    return dict(loss_rel=loss_rel, grad_rel=errs[0][0], worst=errs[:3])
+
+
+def check_lstm_lm():
+    """23.4: GluonNLP's standard_lstm_lm_650."""
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    mx.random.seed(0)
+    row = dict(recipe=lm_recipe(mx), fused=lm_fused(mx), bits=lm_bits(mx),
+               vs_cpu=lm_vs_cpu(mx))
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def _spd_batch(np, rs, b, n):
+    """``b`` SPD matrices I + 0.1 A A^T / n (eigenvalues in [1, 1.4]), so
+    det stays in f32's range at n = 256."""
+    a = rs.standard_normal((b, n, n))
+    return (np.eye(n) + 0.1 * a @ a.swapaxes(-1, -2) / n).astype(np.float32)
+
+
+def seq_ops_sweep():
+    """23.5: the linalg and legacy ops, card against CPU in f32 at the
+    sizes users run them: 64 SPD 256 x 256 matrices (potri, inverse,
+    det, slogdet, sumlogdiag), syevd and gelqf held by reconstruction and
+    their invariants, gemm and trmm at 64 x 256²; im2col/col2im at
+    ResNet-50's first convolution (32 x 3 x 224², 7 x 7, stride 2, pad
+    3), softmax_cross_entropy at 8,192 x 37,000.  Each output is a long
+    sum on one side or both, so each is held to ``OP_WGRAD_TOL`` of its
+    largest magnitude (phase 20.1's rule); the gathers (im2col, the
+    diagonal) to ``OP_TOL``."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+
+    rs = np.random.RandomState(41)
+    b, n = LINALG_B, LINALG_N
+    M = _spd_batch(np, rs, b, n)
+    L = np.linalg.cholesky(M.astype(np.float64)).astype(np.float32)
+    A = rs.standard_normal((b, n, n)).astype(np.float32)
+    B_ = rs.standard_normal((b, n, n)).astype(np.float32)
+    C = rs.standard_normal((b, n, n)).astype(np.float32)
+    img = rs.standard_normal(SWEEP_IMG).astype(np.float32)
+    logits = rs.standard_normal(SWEEP_CE).astype(np.float32)
+    labels = rs.randint(0, SWEEP_CE[1], SWEEP_CE[0]).astype(np.float32)
+    conv = dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3))
+    cases = [("linalg_potri", [L], {}, "sum"),
+             ("linalg_inverse", [M], {}, "sum"),
+             ("linalg_det", [M], {}, "sum"),
+             ("linalg_slogdet", [M], {}, "sum"),
+             ("linalg_sumlogdiag", [L], {}, "sum"),
+             ("linalg_gemm", [A, B_, C], dict(alpha=0.5, beta=2.0), "sum"),
+             ("linalg_trmm", [A, B_], dict(alpha=1.5), "sum"),
+             ("linalg_extractdiag", [A], {}, "gather"),
+             ("im2col", [img], conv, "gather"),
+             ("softmax_cross_entropy", [logits, labels], {}, "sum")]
+    bad, errs, times = [], {}, {}
+    for name, arrays, kw, kind in cases:
+        res = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            with ctx:
+                nds = [mx.nd.array(a) for a in arrays]
+                outs = getattr(mx.nd, name)(*nds, **kw)
+                outs = outs if isinstance(outs, list) else [outs]
+                res.append([o.asnumpy() for o in outs])
+                if ctx.device_type == "gpu":
+                    times[name] = cuda_ms(
+                        lambda i: getattr(mx.nd, name)(*nds, **kw), 5)
+        err = 0.0
+        for g, c in zip(*res):
+            if kind == "sum":
+                e = float(np.abs(g - c).max()) / max(float(np.abs(c).max()),
+                                                     1e-30)
+                ok = e <= OP_WGRAD_TOL
+            else:
+                e = float(np.abs(g - c).max())
+                ok = np.allclose(g, c, rtol=OP_TOL, atol=OP_TOL)
+            err = max(err, e)
+            if not ok or not np.isfinite(g).all():
+                bad.append((name, e))
+        errs[name] = err
+    # col2im of the card's patch matrix, back to the image's shape
+    cols = None
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            cols = mx.nd.im2col(mx.nd.array(img), **conv)
+            res.append(mx.nd.col2im(cols, output_size=SWEEP_IMG[2:],
+                                    **conv).asnumpy())
+    e = float(np.abs(res[0] - res[1]).max()) / float(np.abs(res[1]).max())
+    errs["col2im"] = e
+    if e > OP_WGRAD_TOL:
+        bad.append(("col2im", e))
+    # syevd and gelqf: their signs are the solvers' own (ROADMAP §3), so
+    # they are held by reconstruction and invariants on the card
+    with mx.gpu(0):
+        U, w = (o.asnumpy().astype(np.float64)
+                for o in mx.nd.linalg_syevd(mx.nd.array(M)))
+        Q, Lq = (o.asnumpy().astype(np.float64)
+                 for o in mx.nd.linalg_gelqf(mx.nd.array(A)))
+        times["linalg_syevd"] = cuda_ms(
+            lambda i: mx.nd.linalg_syevd(mx.nd.array(M)), 2, warm=1)
+        times["linalg_gelqf"] = cuda_ms(
+            lambda i: mx.nd.linalg_gelqf(mx.nd.array(A)), 2, warm=1)
+    eye = np.eye(n)
+    w_cpu = np.linalg.eigvalsh(M.astype(np.float64))
+    rec = {"syevd": np.abs(U.swapaxes(-1, -2) @ (w[..., :, None] * U) -
+                           M).max() / np.abs(M).max(),
+           "syevd_orth": np.abs(U @ U.swapaxes(-1, -2) - eye).max(),
+           "syevd_values": np.abs(w - w_cpu).max() / np.abs(w_cpu).max(),
+           "gelqf": np.abs(Lq @ Q - A).max() / np.abs(A).max(),
+           "gelqf_orth": np.abs(Q @ Q.swapaxes(-1, -2) - eye).max(),
+           "gelqf_lower": np.abs(np.triu(Lq, 1)).max()}
+    for k, v in rec.items():
+        errs[k] = float(v)
+        if v > OP_WGRAD_TOL:
+            bad.append((k, float(v)))
+    print(f"seq ops sweep: card vs CPU, f32, TF32 off: max errors (of the "
+          f"largest magnitude for the long sums) "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tol {OP_TOL}, "
+          f"long sums {OP_WGRAD_TOL}); card ms "
+          f"{ {k: round(v, 4) for k, v in times.items()} }; {card_line()}",
+          flush=True)
+    if bad:
+        fail(f"seq ops sweep: disagreeing {bad[:6]}")
+    del cols
+    torch.cuda.empty_cache()
+    return dict(errors=errs, ms=times)
+
+
+def check_sequence():
+    """Phase 23: the sequence slice."""
+    t0 = time.perf_counter()
+    row = dict(seq2seq=check_seq2seq(), lstm_lm=check_lstm_lm(),
+               ops=seq_ops_sweep())
+    row["seconds"] = time.perf_counter() - t0
+    row["launches"] = row["seq2seq"]["launches"]
+    print(f"phase 23: K1/K2/K3 launched {row['launches']} times on the path "
+          f"(23.2's {S2S_STEPS} gated and 2 profiled steps, "
+          f"{_s2s_kernels()} each a step); {row['seconds']:.2f} s",
+          flush=True)
+    return row
+
+
 def main():
     try:
         import torch
@@ -8537,8 +9331,9 @@ def main():
     hybrid = check_hybrid(cfg, train)
     data = check_data()
     det = check_detection()
+    seq = check_sequence()
 
-    # phase 23: the kernels line, the card's line and the result
+    # phase 24: the kernels line, the card's line and the result
     gelu = next(c for c in rtc["cases"]
                 if c["name"] == "gelu_fwd<__nv_bfloat16>")
 
@@ -8549,7 +9344,7 @@ def main():
                     replaces=replaces,
                     launches=train["launches"][name] +
                     opt19["lamb_gpt2"]["launches"][name] +
-                    hybrid["launches"][name],
+                    hybrid["launches"][name] + seq["launches"][name],
                     max_abs_err=max(e for r in k23
                                     for w, e in r["max_abs_err"].items()
                                     if w in outputs),
@@ -8580,7 +9375,7 @@ def main():
              replaces="mxnet_tpu/ops/attention.py:226",
              launches=train["launches"]["flash_fwd"] +
              opt19["lamb_gpt2"]["launches"]["flash_fwd"] +
-             hybrid["launches"]["flash_fwd"] +
+             hybrid["launches"]["flash_fwd"] + seq["launches"]["flash_fwd"] +
              srv["launches"]["flash_fwd"] + served["launches"]["flash_fwd"] +
              served["spec"]["launches"]["flash_fwd"] +
              served["faults"]["launches"]["flash_fwd"] +
@@ -8684,7 +9479,7 @@ def main():
                        rtc=rtc,
                        mlp=mlp, fused_train=fused_train, optimizers=opt19,
                        hybrid=hybrid, data=data, detection=det,
-                       kernels=kernels),
+                       sequence=seq, kernels=kernels),
                   fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

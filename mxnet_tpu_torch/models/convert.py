@@ -1,5 +1,6 @@
-"""Carry weights between an ``mxnet_tpu`` GPT, BERT, Llama or Gluon
-vision net (the ResNet family) and the port.
+"""Carry weights between an ``mxnet_tpu`` GPT, BERT, Llama, Transformer
+seq2seq, Gluon vision net (the ResNet family) or ``gluon.rnn`` layer or
+cell and the port.
 
 ``arrays`` is ``{name: numpy array}`` as ``net.collect_params()`` names
 the reference's parameters (``gpt0_h0_attn_qkv_weight``,
@@ -27,12 +28,16 @@ from ..gluon.model_zoo.vision import get_resnet
 from .bert import BERTModel
 from .gpt import GPT
 from .llama import Llama
+from .seq2seq import Seq2SeqConfig
 
 __all__ = ["gpt_from_mxnet_tpu", "bert_from_mxnet_tpu",
            "llama_from_mxnet_tpu", "resnet_from_mxnet_tpu",
-           "load_mxnet_tpu_arrays", "arrays_from_port"]
+           "seq2seq_from_mxnet_tpu", "load_mxnet_tpu_arrays",
+           "arrays_from_port"]
 
-_PREFIX = re.compile(r"^[a-z]+\d+_")
+# a model's prefix: its class name in lower case (digits allowed, as in
+# ``transformerseq2seq0_``) and its instance count
+_PREFIX = re.compile(r"^[a-z][a-z0-9]*?\d+_")
 _SUBLAYER = {"ln1": "ln1", "ln2": "ln2", "attn_qkv": "attn.qkv",
              "attn_out": "attn.proj", "ffn_fc1": "ffn.fc1",
              "ffn_fc2": "ffn.fc2"}
@@ -111,10 +116,14 @@ def _load(model, arrays):
     gluon = isinstance(model, Block)
     params = model._collect_params_with_prefix() if gluon else \
         dict(model.named_parameters())
+    # a Gluon net's parameters also match by their full name, whatever
+    # the prefix (``a_i2h_weight`` of a cell built with ``prefix="a_"``)
+    full = {p.name: k for k, p in params.items()} if gluon else {}
     seen = set()
     with torch.no_grad():
         for name, arr in arrays.items():
-            target = to_port.get(_PREFIX.sub("", name, count=1))
+            target = full.get(name) or to_port.get(
+                _PREFIX.sub("", name, count=1))
             if target is None:
                 raise MXNetError(f"no port parameter for reference "
                                  f"parameter {name!r}")
@@ -128,8 +137,9 @@ def _load(model, arrays):
                                  f"{tuple(p.shape)}")
             else:
                 p.copy_(t)
-            seen.add(target)
-    missing = sorted(set(params) - seen)
+            seen.add(id(p))
+    # a parameter shared by two blocks (a tied decoder) loads once
+    missing = sorted(k for k, p in params.items() if id(p) not in seen)
     if missing:
         raise MXNetError(f"reference arrays lack port parameters {missing}")
     return model
@@ -154,6 +164,20 @@ def llama_from_mxnet_tpu(cfg, arrays, device=None, dtype=None) -> Llama:
     return _load(Llama(cfg, device=device, dtype=dtype), arrays)
 
 
+def seq2seq_from_mxnet_tpu(cfg, arrays, device=None):
+    """A port ``TransformerSeq2Seq`` of config ``cfg`` (a
+    ``Seq2SeqConfig`` or a dict of its fields) holding the reference's
+    weights, on ``device`` (default: the current context)."""
+    if isinstance(cfg, dict):
+        cfg = Seq2SeqConfig(**cfg)
+    if device is None:
+        return _load(cfg.make(), arrays)
+    from ..context import cpu, gpu
+    dev = torch.device(device)
+    with cpu() if dev.type == "cpu" else gpu(dev.index or 0):
+        return _load(cfg.make(), arrays)
+
+
 def resnet_from_mxnet_tpu(version, num_layers, arrays, **kwargs):
     """A port ``get_resnet(version, num_layers, **kwargs)`` holding the
     reference's weights and running statistics."""
@@ -162,8 +186,10 @@ def resnet_from_mxnet_tpu(version, num_layers, arrays, **kwargs):
 
 def load_mxnet_tpu_arrays(model, arrays):
     """Copy the reference's ``arrays`` into the port ``model`` (any of
-    the nets above, e.g. a ResNet built from its classes); returns
-    ``model``."""
+    the nets above, e.g. a ResNet built from its classes, or any block
+    built from ``gluon`` layers: ``gluon.rnn``'s layers and cells load
+    by the reference's names, ``lstm0_l0_i2h_weight``, an input size
+    still to infer taken from the array); returns ``model``."""
     return _load(model, arrays)
 
 

@@ -24,7 +24,7 @@ from ..ops.nn import (activation, dropout, embedding, fully_connected,
 
 __all__ = ["Dense", "LayerNorm", "RMSNorm", "Embedding", "Dropout",
            "MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
-           "TransformerDecoderCell", "initialize"]
+           "TransformerDecoderCell", "attend", "initialize"]
 
 
 def _empty(shape, device, dtype):
@@ -108,6 +108,27 @@ class Dropout(nn.Module):
         return dropout(x, self.rate, self.training)
 
 
+def attend(q, k, v, mask, causal, dropout, training):
+    """(B, H, Lq, D) queries against (B, H, Lk, D) keys and values
+    through ``flash_attention`` (``mask`` an additive bias, e.g. a
+    (B, 1, 1, Lk) key mask); the heads merged back, (B, Lq, H * D)."""
+    out = flash_attention(q, k, v, mask, causal=causal, dropout=dropout,
+                          training=training)
+    B, H, L, D = out.shape
+    return out.permute(0, 2, 1, 3).reshape(B, L, H * D)
+
+
+def self_attention(x, qkv, proj, heads, mask, causal, dropout, training):
+    """Fused-QKV self-attention over (B, L, units): ``qkv`` projects to
+    3 * units, split as (3, H, D), and ``proj`` maps the merged heads
+    back.  ``MultiHeadAttention`` here and the Gluon self-attention of
+    ``models/seq2seq.py`` both call it."""
+    B, L, U = x.shape
+    qkv = qkv(x).reshape(B, L, 3, heads, U // heads).permute(2, 0, 3, 1, 4)
+    return proj(attend(qkv[0], qkv[1], qkv[2], mask, causal, dropout,
+                       training))
+
+
 class MultiHeadAttention(nn.Module):
     """Fused-QKV multi-head self-attention over (batch, seq, units)."""
 
@@ -124,13 +145,8 @@ class MultiHeadAttention(nn.Module):
         self.drop = Dropout(dropout) if dropout else None
 
     def forward(self, x, mask=None):
-        B, L, U = x.shape
-        H, D = self.heads, self.units // self.heads
-        qkv = self.qkv(x).reshape(B, L, 3, H, D).permute(2, 0, 3, 1, 4)
-        out = flash_attention(qkv[0], qkv[1], qkv[2], mask,
-                              causal=self.causal, dropout=self.attn_dropout,
-                              training=self.training)
-        out = self.proj(out.permute(0, 2, 1, 3).reshape(B, L, U))
+        out = self_attention(x, self.qkv, self.proj, self.heads, mask,
+                             self.causal, self.attn_dropout, self.training)
         return self.drop(out) if self.drop is not None else out
 
 

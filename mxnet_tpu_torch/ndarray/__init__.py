@@ -3,14 +3,15 @@
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``: the NDArray class plus
 one wrapper per op of the registry, generated from every ported op
 module (``ops/defs.py``, ``ops/nn.py``, ``ops/attention.py``,
-``ops/image_ops.py``, ``ops/quantization.py``) under the op's name (and
+``ops/image_ops.py``, ``ops/quantization.py``, ``ops/rnn.py``,
+``ops/linalg.py``, ``ops/legacy.py``) under the op's name (and
 ``ops/defs.py``'s Python names), with the reference's alias names, and
 ``save``, ``load``, ``concatenate``, ``BatchNorm``, ``Dropout`` and
 ``Custom``; ``mx.nd.image`` (the eleven ``_image_*`` ops under their
 short names) and ``mx.nd.contrib``.  ``ring_attention`` raises
 ``MXNetError`` (``ops.registry.NOT_PORTED``).  ``mx.nd.random``,
-``sparse``, ``linalg`` and the ops of the other op modules are not
-ported yet.
+``sparse`` and the ops of ``extended``, ``optimizer_ops`` and
+``samplers`` are not ported yet.
 """
 import types as _types
 
@@ -19,8 +20,11 @@ from ..ops.defs import arange, eye, full, linspace, ones, zeros
 from ..ops import attention as _attention
 from ..ops import defs as _defs
 from ..ops import image_ops as _image_ops  # noqa: F401 (registers its ops)
+from ..ops import legacy as _legacy  # noqa: F401
+from ..ops import linalg as _linalg  # noqa: F401
 from ..ops import nn as _nn
 from ..ops import quantization as _quantization  # noqa: F401
+from ..ops import rnn as _rnn  # noqa: F401
 from ..ops.registry import OPS as _OPS
 from ..ops.registry import _ALIASES as _alias_map
 from .serialization import load, save

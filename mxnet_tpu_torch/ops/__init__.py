@@ -1,7 +1,11 @@
 """Ops of the port: plain PyTorch, plus the hand-written kernels K1
 (flash-attention forward), K2/K3 (its backward), K4 (int8 matvec), K5
 (the fused decode step), K6 (the fused 1x1-convolution backward) and
-the port's own greedy NMS (``box_nms``, no Pallas counterpart)."""
+the port's own greedy NMS (``box_nms``, no Pallas counterpart).
+Importing the package registers the op modules' ops, ``rnn``
+(``fused_rnn``), ``linalg`` and ``legacy`` among them, as the
+reference's does."""
+from . import legacy, linalg, rnn  # noqa: F401 (registers their ops)
 from .attention import (flash_attention, flash_bwd_dkv, flash_bwd_dkv_plain,
                         flash_bwd_dq, flash_bwd_dq_plain, flash_fwd,
                         flash_fwd_plain, rope)
@@ -14,6 +18,7 @@ from .nn import (activation, batch_norm, convolution, dropout, embedding,
                  flatten, fully_connected, layer_norm, log_softmax, pick,
                  pooling, rms_norm, sparse_softmax_ce)
 from .q8_matvec import q8_matvec, q8_matvec_plain
+from .rnn import fused_rnn
 
 __all__ = ["flash_attention", "flash_fwd", "flash_fwd_plain",
            "flash_bwd_dq", "flash_bwd_dq_plain", "flash_bwd_dkv",
@@ -24,4 +29,5 @@ __all__ = ["flash_attention", "flash_fwd", "flash_fwd_plain",
            "fused_decode_supported", "pack_gpt_weights",
            "pack_llama_weights", "convolution", "pooling", "batch_norm",
            "flatten", "conv1x1_nhwc", "conv1x1_bwd_pair",
-           "conv1x1_bwd_pair_plain", "fused_bwd_supported"]
+           "conv1x1_bwd_pair_plain", "fused_bwd_supported", "fused_rnn",
+           "legacy", "linalg", "rnn"]

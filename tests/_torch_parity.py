@@ -52,6 +52,17 @@ def t(a):
     return torch.from_numpy(onp.ascontiguousarray(a))
 
 
+class LazyReference:
+    """``mxnet_tpu`` imported at first use, so a test file that holds the
+    port against it can also hold ``cuda``-marked tests that run on the
+    card's machine, which has no JAX."""
+
+    def __getattr__(self, name):
+        import mxnet_tpu
+
+        return getattr(mxnet_tpu, name)
+
+
 def need_cuda():
     """Skip unless a card is present — decided inside the test, never at
     import or collection time."""

@@ -664,17 +664,21 @@ def test_ring_telemetry_and_accounting():
     assert ACCOUNTANT.bytes("data.prefetch_ring", it._mem_key) == 0
 
 
-def _live(prefixes):
+def _live(prefixes, before=()):
+    """Live threads named by ``prefixes`` that are not in ``before``: the
+    reference's loader names its producer ``mx-device-prefetch`` too, and
+    an earlier test in the same process may leave one running."""
     return [t for t in threading.enumerate()
-            if t.name.startswith(prefixes)]
+            if t.name.startswith(prefixes) and t not in before]
 
 
 def test_loader_closed_midway_leaves_no_thread():
     """Breaking out of an epoch mid-way unwinds the ring and the worker
-    pool: no live worker or producer thread, the executor shut down, the
-    ledger entry dropped."""
+    pool: no live worker or producer thread of this test's loaders, the
+    executor shut down, the ledger entry dropped."""
     from mxnet_tpu_torch.telemetry.memory import ACCOUNTANT
 
+    before = set(threading.enumerate())
     ds = pdata.SimpleDataset(list(range(48)))
     for nw in (0, 2):
         it = iter(pdata.DataLoader(ds, batch_size=4, num_workers=nw,
@@ -689,10 +693,10 @@ def test_loader_closed_midway_leaves_no_thread():
                 t.join(timeout=10)
         assert ACCOUNTANT.bytes("data.prefetch_ring", it._mem_key) == 0
     deadline = time.time() + 10
-    while _live(("mx-data-worker", "mx-device-prefetch")) and \
-            time.time() < deadline:
+    names = ("mx-data-worker", "mx-device-prefetch")
+    while _live(names, before) and time.time() < deadline:
         time.sleep(0.01)
-    assert not _live(("mx-data-worker", "mx-device-prefetch"))
+    assert not _live(names, before)
     # an abandoned epoch's pool goes with its iterator
     it = iter(pdata.DataLoader(ds, batch_size=2, num_workers=2,
                                device=pmx.cpu()))

@@ -20,7 +20,8 @@ PORT_FILES = sorted((REPO / "mxnet_tpu_torch").rglob("*.py")) + \
      REPO / "tests" / "_torch_rtc_sources.py",
      REPO / "tests" / "_torch_nn_cases.py",
      REPO / "tests" / "_torch_hybrid_models.py",
-     REPO / "tests" / "_torch_ssd_models.py"]
+     REPO / "tests" / "_torch_ssd_models.py",
+     REPO / "tests" / "_torch_lstm_models.py"]
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
 
 
@@ -106,12 +107,25 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         mx.nd.array([1.0], ctx=mx.cpu_pinned())
     assert resolve_device("cpu").type == "cpu"
     assert mx.nd.zeros((2,), ctx=mx.cpu()).context == mx.cpu()
+    # the sequence slice: the seq2seq model, the recurrent layers and
+    # cells with known sizes, a layer's begin_state on the default context
+    from mxnet_tpu_torch.models import Seq2SeqConfig
+
+    for make in (lambda: Seq2SeqConfig(vocab_size=11, units=8,
+                                       hidden_size=8, num_heads=2,
+                                       num_enc_layers=1, num_dec_layers=1,
+                                       max_length=8).make(),
+                 lambda: mx.gluon.rnn.LSTM(4, input_size=3),
+                 lambda: mx.gluon.rnn.GRUCell(4, input_size=3),
+                 lambda: mx.gluon.rnn.LSTM(4).begin_state(2)):
+        with pytest.raises(MXNetError, match="CUDA is not available"):
+            make()
 
 
 def test_new_modules_are_covered():
     """The structure checks above reach the fused decode, the vision,
-    the imperative, the fused-train-step, the telemetry, the data and
-    the detection slices' modules and kernel sources."""
+    the imperative, the fused-train-step, the telemetry, the data, the
+    detection and the sequence slices' modules and kernel sources."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"mxnet_tpu_torch/context.py",
             "mxnet_tpu_torch/ndarray/ndarray.py",
@@ -161,6 +175,15 @@ def test_new_modules_are_covered():
             "mxnet_tpu_torch/ops/quantization.py",
             "mxnet_tpu_torch/ndarray/contrib.py",
             "tests/_torch_ssd_models.py"} <= names
+    # the sequence slice
+    assert {"mxnet_tpu_torch/ops/rnn.py",
+            "mxnet_tpu_torch/ops/linalg.py",
+            "mxnet_tpu_torch/ops/legacy.py",
+            "mxnet_tpu_torch/gluon/rnn/__init__.py",
+            "mxnet_tpu_torch/gluon/rnn/rnn_cell.py",
+            "mxnet_tpu_torch/gluon/rnn/rnn_layer.py",
+            "mxnet_tpu_torch/models/seq2seq.py",
+            "tests/_torch_lstm_models.py"} <= names
     assert {"decode_fused", "conv1x1_bwd", "box_nms"} <= set(_build.KERNELS)
 
 
