@@ -426,7 +426,26 @@ Phases (each fails the run by raising; there is no CPU path):
    the CPU; (5) the ``linalg`` and ``legacy`` ops card against CPU at
    64 x 256² matrices, ResNet-50's first convolution and 8,192 x 37,000
    logits;
-24. one ``{"kernels": [...]}`` line, the card line, and as the last line
+24. the twenty-first slice, the op corpus: (1) phase 14's ResNet-50
+   (bf16, f32 master copies, ``MXNET_FUSED_CONV_BWD=1``) trained 10 steps
+   as MXNet 1.x user code, ``record``/``backward`` then
+   ``mx.nd.multi_mp_sgd_mom_update`` over the parameters in chunks of 4:
+   K6 exactly 30 times a step and no other kernel, the first loss near
+   ln 1000, three steps bit for bit with the per-parameter
+   ``mx.nd.mp_sgd_mom_update`` loop; ms a step beside phase 18's
+   ``fused_step`` arm; (2) every ``_random_*``/``sample_*`` op at 2**24
+   f32 draws: moments within 6 standard errors, KS or chi-square at p >=
+   1e-6, one seed the same draws, uniform and randint equal to the CPU's
+   bit for bit; ``sample_multinomial(get_prob=True)`` at GPT-2's 50,257
+   tokens (8 rows x 4,096 draws) beside ``torch.multinomial``; a
+   hybridized reparameterization drawing ``mx.nd.random.normal``, fresh
+   per key and equal under one; (3) every op of ``ops/extended.py``,
+   ``ops/optimizer_ops.py`` and ``ops/samplers.py`` at the tier-1 cases
+   card against CPU within 1e-5; ``multi_adamw_update`` and
+   ``multi_lamb_update`` over GPT-2 small's parameters in f32;
+   ``preloaded_multi_sgd_mom_update`` replayed in a CUDA graph after its
+   ``lrs`` change, equal to the eager call;
+25. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -4384,10 +4403,10 @@ def reference_gluon_sgd(p, g, m, lr, momentum, wd, rescale):
     m.copy_(mom)
 
 
-def _witness_sgd():
-    """20 SGD steps (``RESNET_OPT``) of a fresh ResNet-50 of phase 14's
-    seed on its batch, independent of the port's optimizer and trainer:
-    the net's forward in training mode, the mean loss,
+def _witness_sgd(steps=RESNET_STEPS):
+    """``steps`` SGD steps (``RESNET_OPT``) of a fresh ResNet-50 of phase
+    14's seed on its batch, independent of the port's optimizer and
+    trainer: the net's forward in training mode, the mean loss,
     ``torch.autograd.grad``, then ``reference_sgd``.  Returns the losses
     and the net's parameters after the steps."""
     import torch
@@ -4398,7 +4417,7 @@ def _witness_sgd():
     lr, momentum, wd = (RESNET_OPT[k] for k in
                         ("learning_rate", "momentum", "wd"))
     losses, params = [], None
-    for _ in range(RESNET_STEPS):
+    for _ in range(steps):
         net.train()
         loss = loss_fn(net(data), label).mean()
         if params is None:
@@ -9223,6 +9242,526 @@ def check_sequence():
     return row
 
 
+# --------------------------------------------------------------------------- #
+# phase 24: the op corpus, the twenty-first slice: mx.random's user API with
+# mx.nd.random, ops/samplers.py, ops/optimizer_ops.py and ops/extended.py,
+# driven by ResNet-50 trained with MXNet 1.x's aggregated
+# multi_mp_sgd_mom_update loop and by the samplers at GPT-2's vocabulary
+# --------------------------------------------------------------------------- #
+
+CORPUS_STEPS = 10            # 24.1: aggregated-update steps
+CORPUS_BITS = 3              # 24.1: steps held to the per-parameter loop
+CORPUS_AGG = 4               # MXNet's default aggregation size
+CORPUS_DRAWS = 1 << 24       # 24.2: f32 draws an op
+MULTI_V = 50257              # 24.2: GPT-2's vocabulary
+MULTI_ROWS = 8
+MULTI_N = 4096               # draws a row
+MULTI_TOP = 64               # the chi-square's tokens a row
+VAE_SHAPE = (128, 512)
+CORPUS_TOL = 1e-5            # 24.3: card vs CPU, relative and absolute
+CORPUS_TIMED = 10            # 24.3: timed calls of the fused updates
+
+
+def agg_resnet(steps, aggregated, snap_at=None):
+    """ResNet-50 (``train_resnet``'s model, batch and constants: bf16,
+    NHWC, phase 14's seeded batch, ``RESNET_OPT``) trained as MXNet 1.x
+    user code with ``MXNET_FUSED_CONV_BWD=1``: ``autograd.record()``, the
+    softmax cross-entropy, ``backward()``, then with ``aggregated``
+    ``mx.nd.multi_mp_sgd_mom_update`` over the trainable parameters in
+    chunks of ``CORPUS_AGG`` (f32 master copies and momenta, ``rescale_grad
+    = 1 / B``), else ``mx.nd.mp_sgd_mom_update`` a parameter; the new
+    weights are written back with ``set_data``.  With ``aggregated`` the
+    last step's update runs under ``torch.profiler`` (its device time)
+    and the timed window is steps 2..``steps - 1``.  Returns the row
+    (losses, ms a step, the update's ms a step by CUDA events around the
+    update loop, its device ms, kernel launches) and the parameters after
+    step ``snap_at`` (module order)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    net, data, label = _resnet50()
+    x, y = mx.nd.NDArray(data), mx.nd.NDArray(label)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    lr, momentum, wd = (RESNET_OPT[k] for k in
+                        ("learning_rate", "momentum", "wd"))
+    params = moms = w32 = None
+
+    def update():
+        if not aggregated:
+            for j, p in enumerate(params):
+                w, moms[j], w32[j] = mx.nd.mp_sgd_mom_update(
+                    p.data(), p.grad(), moms[j], w32[j], lr=lr * p.lr_mult,
+                    momentum=momentum, wd=wd * p.wd_mult,
+                    rescale_grad=1.0 / RESNET_B)
+                p.set_data(w)
+            return
+        for i in range(0, len(params), CORPUS_AGG):
+            chunk = range(i, min(i + CORPUS_AGG, len(params)))
+            args = []
+            for j in chunk:
+                args += [params[j].data(), params[j].grad(), moms[j], w32[j]]
+            outs = mx.nd.multi_mp_sgd_mom_update(
+                *args, lrs=[lr * params[j].lr_mult for j in chunk],
+                wds=[wd * params[j].wd_mult for j in chunk],
+                momentum=momentum, rescale_grad=1.0 / RESNET_B,
+                num_weights=len(chunk))
+            for k, j in enumerate(chunk):
+                params[j].set_data(outs[3 * k])
+                moms[j], w32[j] = outs[3 * k + 1], outs[3 * k + 2]
+
+    losses, events, snap, device_us = [], [], None, None
+    torch.cuda.synchronize()
+    _reset_counts()
+    cf.conv1x1_bwd_pair.launches = 0
+    t1 = t2 = None
+    for step in range(steps):
+        profiled = aggregated and step == steps - 1
+        if step == 1 or profiled:
+            torch.cuda.synchronize()
+            if step == 1:
+                t1 = time.perf_counter()
+            else:
+                t2 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        if params is None:          # BatchNorm's gamma and beta now exist
+            params = [p for p in net.collect_params().values()
+                      if p.grad_req != "null"]
+            moms = [mx.nd.zeros(p.shape, ctx=mx.gpu(0)) for p in params]
+            w32 = [p.data().astype("float32") for p in params]
+        if profiled:
+            torch.cuda.synchronize()
+            device_us = _profiled(update)[1]
+        else:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            update()
+            ev[1].record()
+            events.append(ev)
+        losses.append(loss._data.detach().float().mean())
+        if snap_at == step + 1:
+            snap = [p.detach().clone() for p in net.parameters()]
+    torch.cuda.synchronize()
+    t2 = t2 or time.perf_counter()
+    timed = (steps - 2) if aggregated else (steps - 1)
+    launches = dict(_counts(), conv1x1_bwd=cf.conv1x1_bwd_pair.launches)
+    update_ms = [a.elapsed_time(b) for a, b in events[1:]]
+    row = dict(losses=[float(v) for v in losses], launches=launches,
+               ms_per_step=(t2 - t1) / timed * 1e3 if timed > 0 else None,
+               images_per_s=timed * RESNET_B / (t2 - t1) if timed > 0
+               else None,
+               update_ms_per_step=sum(update_ms) / len(update_ms)
+               if update_ms else None,
+               update_device_ms=device_us / 1e3 if device_us else None,
+               parameters=len(params), chunks=-(-len(params) // CORPUS_AGG))
+    del net, params, moms, w32, x, y, data, label, loss
+    torch.cuda.empty_cache()
+    return row, snap
+
+
+def corpus_resnet(fused_row):
+    """24.1: 10 steps of ``agg_resnet`` (aggregated): K6 exactly 30
+    times a step and no other kernel; losses finite, the first within 1.0
+    of ln(1000); three steps of the per-parameter ``mp_sgd_mom_update``
+    loop from a fresh net equal the aggregated run's first three bit for
+    bit (losses and every parameter).  ms a step, images/s and the
+    update's ms beside phase 18's ``fused_step`` ResNet-50 arm; the
+    weights' largest difference after three steps from
+    ``_resnet_witness``'s plain loop (its update has no master copy: not a
+    gate)."""
+    import math
+
+    import torch
+
+    row, snap = agg_resnet(CORPUS_STEPS, True, snap_at=CORPUS_BITS)
+    losses, launches = row["losses"], row["launches"]
+    expect = K6_PER_STEP * CORPUS_STEPS
+    print(f"corpus resnet: resnet50_v1 NHWC bf16 as MXNet 1.x user code, "
+          f"B={RESNET_B}, {CORPUS_STEPS} steps of record/backward then "
+          f"mx.nd.multi_mp_sgd_mom_update over {row['parameters']} "
+          f"parameters in {row['chunks']} chunks of {CORPUS_AGG}; losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    dev = row["update_device_ms"]
+    print(f"corpus resnet: ms/step={row['ms_per_step']:.3f} images/s="
+          f"{row['images_per_s']:.2f} (steps 2-{CORPUS_STEPS - 1}), the "
+          f"update {row['update_ms_per_step']:.3f} ms a step (CUDA events "
+          f"around the update loop, steps 2-{CORPUS_STEPS - 1}), its device "
+          f"time " + (f"{dev:.3f} ms" if dev else "not measured (the "
+                      "profiler saw no device time)")
+          + f" (step {CORPUS_STEPS} profiled), beside phase 18's "
+          f"Trainer.fused_step arm "
+          f"{fused_row['ms_per_step']:.3f} ms/step "
+          f"({fused_row['images_per_s']:.2f} images/s); launches "
+          f"{launches}; {card_line()}", flush=True)
+    if launches["conv1x1_bwd"] != expect:
+        fail(f"corpus resnet: K6 launched {launches['conv1x1_bwd']} times, "
+             f"expected {expect}")
+    if any(n for k, n in launches.items() if k != "conv1x1_bwd"):
+        fail(f"corpus resnet: other kernels launched: {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"corpus resnet: losses not finite: {losses}")
+    if abs(losses[0] - math.log(1000)) > 1.0:
+        fail(f"corpus resnet: first loss {losses[0]} is not within 1.0 of "
+             "ln(1000)")
+    single, snap1 = agg_resnet(CORPUS_BITS, False, snap_at=CORPUS_BITS)
+    differ = sum(not torch.equal(a, b) for a, b in zip(snap, snap1))
+    same_losses = single["losses"] == losses[:CORPUS_BITS]
+    print(f"corpus resnet: {CORPUS_BITS} steps of the per-parameter "
+          f"mx.nd.mp_sgd_mom_update loop from a fresh net: losses equal bit "
+          f"for bit {same_losses}, parameters differing {differ} of "
+          f"{len(snap)}", flush=True)
+    if differ or not same_losses:
+        fail("corpus resnet: the aggregated update departs from the "
+             "per-parameter loop")
+    del snap1
+    torch.cuda.empty_cache()
+    plain_losses, plain = _witness_sgd(CORPUS_BITS)
+    gap = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(snap, plain))
+    print(f"corpus resnet: after {CORPUS_BITS} steps, the weights' largest "
+          f"difference from _resnet_witness's plain loop (reference_sgd, no "
+          f"master copy, the mean loss's gradient) is {gap!r}: zero "
+          f"{gap == 0.0} (not a gate); plain losses "
+          f"{[round(v, 4) for v in plain_losses]}", flush=True)
+    del snap, plain
+    torch.cuda.empty_cache()
+    row.update(bits_equal=True, witness_max_abs_diff=gap,
+               fused_step_ms_per_step=fused_row["ms_per_step"])
+    return row
+
+
+def _draw(mx, name, arrays, kwargs, n, ctx):
+    with ctx:
+        args = [mx.nd.array(a) for a in arrays]
+        return getattr(mx.nd, name)(*args, shape=(n,), **kwargs)._data
+
+
+def corpus_draws():
+    """24.2 (the samplers): every ``_random_*`` and ``sample_*`` op of
+    ``tests/_torch_draws.py`` at 2**24 f32 draws on the card: each row's
+    mean and variance within 6 standard errors and its KS or chi-square
+    statistic at p >= 1e-6 (``check_draws``, on the card); the same
+    seed the same draws; the card's uniform and randint equal the CPU's
+    bit for bit."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import random
+
+    _tests_path()
+    from _torch_draws import DRAW_CASES, check_draws
+
+    rows, bad = {}, []
+    for cid, name, arrays, kwargs, specs in DRAW_CASES:
+        n = CORPUS_DRAWS // len(specs)
+        random.seed(24)
+        x = _draw(mx, name, arrays, kwargs, n, mx.gpu(0))
+        random.seed(24)
+        again = _draw(mx, name, arrays, kwargs, n, mx.gpu(0))
+        same = bool(torch.equal(x, again))
+        del again
+        ms = cuda_ms(lambda i: _draw(mx, name, arrays, kwargs, n,
+                                     mx.gpu(0)), 3, warm=1)
+        try:
+            res = check_draws(x, specs)
+            ok = True
+        except AssertionError as e:
+            res, ok = [str(e)], False
+        row = dict(op=name, draws=n * len(specs), ms=ms, reproducible=same,
+                   rows=res, ok=ok)
+        if name in ("_random_uniform", "_random_randint"):
+            random.seed(24)
+            cpu = _draw(mx, name, arrays, kwargs, n, mx.cpu())
+            row["equals_cpu"] = bool(torch.equal(x.cpu(), cpu))
+            ok = ok and row["equals_cpu"]
+        rows[cid] = row
+        print(f"corpus draws: {cid} ({name}) {n * len(specs)} draws "
+              f"{ms:.3f} ms; same seed same draws {same}"
+              + (f"; equal to the CPU's bit for bit {row['equals_cpu']}"
+                 if "equals_cpu" in row else "") + "; "
+              + "; ".join(f"{r['dist']}: mean {r['mean_z']:+.2f} se, var "
+                          f"{r['var_z']:+.2f} se, stat {r['stat']:.6g} p "
+                          f"{r['p']:.3g}" if isinstance(r, dict) else r
+                          for r in res), flush=True)
+        if not (ok and same):
+            bad.append(cid)
+        del x
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"corpus draws: {bad} failed their gates")
+    return rows
+
+
+def corpus_multinomial():
+    """24.2 (GPT-2's vocabulary): ``sample_multinomial(get_prob=True)``
+    over 8 rows of seeded softmax probabilities at 50,257 tokens, 4,096
+    draws a row: the log-probabilities equal ``log p[drawn]`` bit for
+    bit; a chi-square over each row's 64 most likely tokens (the rest
+    pooled) at p >= 1e-6; ms beside ``torch.multinomial``'s."""
+    import numpy as np
+    import torch
+    from scipy import stats
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import random
+    from mxnet_tpu_torch.ops.registry import OPS
+
+    rs = np.random.RandomState(24)
+    logits = torch.as_tensor(rs.standard_normal((MULTI_ROWS, MULTI_V))
+                             .astype(np.float32) * 2.0,
+                             device=mx.gpu(0).torch_device())
+    p = torch.softmax(logits, -1)
+    data = mx.nd.NDArray(p)
+    op = OPS["sample_multinomial"].wrapper
+    random.seed(25)
+    idx, logp = op(data, shape=(MULTI_N,), get_prob=True)
+    i = idx._data.long()
+    exact = bool(torch.equal(logp._data, torch.log(torch.gather(p, 1, i))))
+    stat, dof = 0.0, 0
+    for r in range(MULTI_ROWS):
+        top = torch.topk(p[r], MULTI_TOP).indices
+        counts = torch.bincount(i[r], minlength=MULTI_V)
+        obs = counts[top].double()
+        exp = p[r, top].double() * MULTI_N
+        obs = torch.cat([obs, (MULTI_N - obs.sum()).reshape(1)])
+        exp = torch.cat([exp, (MULTI_N - exp.sum()).reshape(1)])
+        stat += float(((obs - exp) ** 2 / exp).sum())
+        dof += MULTI_TOP
+    pval = float(stats.chi2.sf(stat, dof))
+    def ours(k=0):
+        return op(data, shape=(MULTI_N,), get_prob=True)
+
+    def lib(k=0):
+        return torch.multinomial(p, MULTI_N, replacement=True)
+
+    ms, lib_ms = cuda_ms(ours, 5), cuda_ms(lib, 5)
+    dev_us, lib_dev_us = _profiled(ours)[1], _profiled(lib)[1]
+    row = dict(logp_exact=exact, chi2=stat, dof=dof, p=pval, ms=ms,
+               torch_multinomial_ms=lib_ms, device_us=dev_us,
+               torch_multinomial_device_us=lib_dev_us)
+    print(f"corpus multinomial: sample_multinomial(get_prob=True), "
+          f"{MULTI_ROWS} rows x {MULTI_V} tokens, {MULTI_N} draws a row: "
+          f"log-probabilities equal log p[drawn] bit for bit {exact}; "
+          f"chi-square over the {MULTI_TOP} most likely tokens a row "
+          f"{stat:.2f} on {dof} dof, p {pval:.3g}; {ms:.3f} ms a call "
+          f"(device {dev_us / 1e3:.3f} ms, profiler) beside "
+          f"torch.multinomial {lib_ms:.3f} ms (device "
+          f"{lib_dev_us / 1e3:.3f}); {card_line()}", flush=True)
+    if not exact or pval < 1e-6:
+        fail("corpus multinomial: the draws or their log-probabilities are "
+             "wrong")
+    return row
+
+
+def corpus_hybrid():
+    """24.2 (a traced draw): a ``hybridize()``d VAE reparameterization,
+    ``mu + exp(logvar / 2) * mx.nd.random.normal(shape=mu.shape)`` at
+    128 x 512 on the card: its program is captured; the eager first call,
+    the capture's replay and two more replays, under keys k1, k2, k1, k2
+    (``random.seed`` rewinds the key stream): one key, the same numbers
+    (the eager call equals a replay under its key), the next key,
+    others."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, random
+
+    class Reparam(gluon.HybridBlock):
+        def hybrid_forward(self, F, mu, logvar):
+            return mu + F.exp(logvar * 0.5) * F.random.normal(
+                shape=mu.shape)
+
+    net = Reparam()
+    net.hybridize()
+    rs = np.random.RandomState(40)
+    mu = mx.nd.array(rs.standard_normal(VAE_SHAPE), ctx=mx.gpu(0))
+    logvar = mx.nd.array(rs.standard_normal(VAE_SHAPE) * 0.1, ctx=mx.gpu(0))
+    random.seed(40)
+    out = [net(mu, logvar)._data.clone() for _ in range(2)]
+    random.seed(40)
+    out += [net(mu, logvar)._data.clone() for _ in range(2)]
+    prog = next(iter(net._cached_op._programs.values()))
+    captured = prog is not None and prog.graph is not None
+    row = dict(captured=captured, draws=prog.draws if prog else None,
+               eager_equals_replay=bool(torch.equal(out[0], out[2])),
+               replays_equal_under_one_key=bool(torch.equal(out[1],
+                                                            out[3])),
+               fresh=not bool(torch.equal(out[0], out[1])))
+    print(f"corpus hybrid: hybridized reparameterization "
+          f"{VAE_SHAPE[0]}x{VAE_SHAPE[1]} with mx.nd.random.normal: "
+          f"captured {captured} ({row['draws']} keyed draw), eager call "
+          f"equals the replay under its key {row['eager_equals_replay']}, "
+          f"replays under one key equal {row['replays_equal_under_one_key']}"
+          f", the next key draws other numbers {row['fresh']}", flush=True)
+    if not (captured and row["eager_equals_replay"] and row["fresh"] and
+            row["replays_equal_under_one_key"]):
+        fail("corpus hybrid: the traced draw is not fresh per key or not "
+             "equal under one key")
+    return row
+
+
+def corpus_sweep():
+    """24.3 (the op sweep): every op that ``ops/extended.py``,
+    ``ops/optimizer_ops.py`` and ``ops/samplers.py`` register, at the
+    tier-1 cases (``tests/_torch_corpus_cases.py``), on the card and on
+    the CPU with the same head gradients: outputs and input gradients
+    within ``CORPUS_TOL`` (the exact class exactly, the draws by shape
+    and dtype)."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import extended, optimizer_ops, samplers
+    from mxnet_tpu_torch.ops.registry import OPS
+
+    _tests_path()
+    from _torch_corpus_cases import (DRAWS, NO_GRAD, assert_same,
+                                     make_inputs, module_cases, op_class,
+                                     port)
+
+    mods = {m.__name__ for m in (extended, optimizer_ops, samplers)}
+    names = sorted(n for n, o in OPS.items() if o.fn.__module__ in mods)
+    cases = module_cases(names, OPS)
+    worst, bad = {}, []
+    for cid, name, specs, kwargs in cases:
+        arrays = make_inputs(specs)
+        seed = None if cid in NO_GRAD else sum(map(ord, cid))
+        c_out, c_grad = port(name, arrays, kwargs, seed)
+        g_out, g_grad = port(name, arrays, kwargs, seed, device="cuda")
+        cls = op_class(name)
+        try:
+            assert_same(name, g_out, c_out,
+                        cls if cls in ("draw", "exact") else "reduction")
+            for g, c in zip(g_grad, c_grad):
+                np.testing.assert_allclose(g, c, rtol=CORPUS_TOL,
+                                           atol=CORPUS_TOL)
+        except AssertionError as e:
+            bad.append((cid, str(e).splitlines()[:3]))
+        if cls != "draw":
+            with np.errstate(invalid="ignore"):
+                worst[cid] = max([float(np.nanmax(np.abs(
+                    g.astype(np.float64) - c.astype(np.float64))))
+                    if c.size and np.isfinite(c).any() else 0.0
+                    for g, c in zip(g_out + g_grad, c_out + c_grad)]
+                    or [0.0])
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print(f"corpus sweep: {len(cases)} cases of {len(names)} ops "
+          f"(extended, optimizer_ops, samplers; {len(DRAWS)} draws by shape "
+          f"and dtype) card vs CPU, f32, TF32 off: worst "
+          f"{[(k, f'{v:.2e}') for k, v in top]} (tol {CORPUS_TOL})",
+          flush=True)
+    if bad or len(names) != 148:
+        fail(f"corpus sweep: {len(names)} ops, disagreeing {bad[:5]}")
+    return dict(cases=len(cases), ops=len(names), worst=dict(top))
+
+
+def corpus_fused_updates(opt19):
+    """24.3 (the fused updates): ``multi_adamw_update`` and
+    ``multi_lamb_update`` over GPT-2 small's parameters in f32 (one call
+    over every tensor), ms a call beside phase 19's fused LAMB apply
+    (19.1, GPT-2 small bf16 with master copies) and its fused AdamW and
+    LAMB applies on the MLP (19.3); then ``preloaded_multi_sgd_mom_update``
+    captured in a CUDA graph and replayed after its ``lrs`` change in
+    place, against the eager call, bit for bit."""
+    import torch
+    from mxnet_tpu_torch.models import gpt2_small
+    from mxnet_tpu_torch.ops.registry import OPS
+
+    model, _ = gpt2_small(dtype=torch.float32)
+    model.initialize(0.02, seed=0)
+    ws = [p.detach() for p in model.parameters()]
+    n = sum(w.numel() for w in ws)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    gs = [torch.randn(w.shape, generator=gen, device="cuda") * 1e-2
+          for w in ws]
+    ms_ = [torch.zeros_like(w) for w in ws]
+    vs = [torch.zeros_like(w) for w in ws]
+    args = [t for group in zip(ws, gs, ms_, vs) for t in group]
+    k = len(ws)
+    adamw = OPS["multi_adamw_update"].fn
+    lamb = OPS["multi_lamb_update"].fn
+    def run_adamw(i=0):
+        return adamw(*args, lrs=[1e-4] * k, etas=[1.0] * k, wds=[0.01] * k,
+                     step_count=i + 1)
+
+    def run_lamb(i=0):
+        return lamb(*args, learning_rates=[1e-3] * k, wds=[0.01] * k,
+                    step_count=i + 1)
+
+    with torch.no_grad():
+        adamw_ms = cuda_ms(run_adamw, CORPUS_TIMED)
+        lamb_ms = cuda_ms(run_lamb, CORPUS_TIMED)
+        adamw_dev = _profiled(run_adamw)[1] / 1e3
+        lamb_dev = _profiled(run_lamb)[1] / 1e3
+    lamb19 = opt19["lamb_gpt2"]["optimizer_device_us"]
+    mlp19 = {key: r.get("optimizer_device_us") for key, r in
+             opt19["all"]["rows"].items()
+             if key.startswith(("adamw", "lamb"))}
+    print(f"corpus fused updates: GPT-2 small f32, {k} tensors, {n} "
+          f"parameters, one call each: multi_adamw_update {adamw_ms:.3f} ms "
+          f"(device {adamw_dev:.3f} ms, profiler), multi_lamb_update "
+          f"{lamb_ms:.3f} ms (device {lamb_dev:.3f}) a call, beside phase "
+          f"19.1's fused LAMB apply on GPT-2 small bf16 (master copies) "
+          + (f"{lamb19 / 1e3:.3f} ms" if lamb19 else "not measured")
+          + f" and 19.3's fused applies on the MLP (us) {mlp19}; "
+          f"{card_line()}", flush=True)
+    del model, ws, gs, ms_, vs, args
+    torch.cuda.empty_cache()
+    # the preloaded update in a graph, its lrs changed in place
+    rs = torch.Generator(device="cuda").manual_seed(25)
+    shapes = [(1024, 768), (768,), (3072, 768), (3,)]
+    flat = []
+    for s in shapes:
+        flat += [torch.randn(s, generator=rs, device="cuda"),
+                 torch.randn(s, generator=rs, device="cuda"),
+                 torch.randn(s, generator=rs, device="cuda") * 0.1]
+    lrs = torch.full((len(shapes),), 0.1, device="cuda")
+    wds = torch.full((len(shapes),), 1e-4, device="cuda")
+    fn = OPS["preloaded_multi_sgd_mom_update"].fn
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*flat, lrs, wds, momentum=0.9, rescale_grad=0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn(*flat, lrs, wds, momentum=0.9, rescale_grad=0.5)
+    lrs.copy_(torch.linspace(0.01, 0.3, len(shapes), device="cuda"))
+    graph.replay()
+    eager = fn(*flat, lrs, wds, momentum=0.9, rescale_grad=0.5)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(outs, eager))
+    print(f"corpus fused updates: preloaded_multi_sgd_mom_update captured "
+          f"in a CUDA graph, replayed after its lrs changed in place: equal "
+          f"to the eager call bit for bit {same}", flush=True)
+    if not same:
+        fail("corpus fused updates: the replayed preloaded update departs "
+             "from the eager call")
+    return dict(parameters=n, tensors=k, multi_adamw_ms=adamw_ms,
+                multi_lamb_ms=lamb_ms, multi_adamw_device_ms=adamw_dev,
+                multi_lamb_device_ms=lamb_dev,
+                lamb19_optimizer_device_us=lamb19,
+                mlp19_optimizer_device_us=mlp19, preloaded_replay_equal=same)
+
+
+def check_corpus(fused_row, opt19):
+    """Phase 24: the aggregated-update ResNet-50, the samplers at
+    realistic size, the op sweep and the fused updates."""
+    import torch
+
+    t0 = time.perf_counter()
+    row = dict(resnet=corpus_resnet(fused_row))
+    torch.cuda.empty_cache()
+    row["draws"] = corpus_draws()
+    row["multinomial"] = corpus_multinomial()
+    row["hybrid"] = corpus_hybrid()
+    row["sweep"] = corpus_sweep()
+    row["fused_updates"] = corpus_fused_updates(opt19)
+    row["seconds"] = time.perf_counter() - t0
+    row["launches"] = row["resnet"]["launches"]
+    print(f"phase 24: {row['seconds']:.2f} s", flush=True)
+    return row
+
+
 def main():
     try:
         import torch
@@ -9332,8 +9871,9 @@ def main():
     data = check_data()
     det = check_detection()
     seq = check_sequence()
+    corpus = check_corpus(fused_train["resnet"], opt19)
 
-    # phase 24: the kernels line, the card's line and the result
+    # the kernels line, the card's line and the result
     gelu = next(c for c in rtc["cases"]
                 if c["name"] == "gelu_fwd<__nv_bfloat16>")
 
@@ -9408,8 +9948,9 @@ def main():
         # launches are those of the four ResNet-50 arms (SPMDTrainer,
         # phase 14, gluon.Trainer, phase 16, Trainer.fused_step, phase
         # 18, and LARS through fused_step, phase 19.2; replays count by
-        # the graph's launches), of phase 20.4's hybrid_forward stage and
-        # of phase 21's loader-fed epoch
+        # the graph's launches), of phase 20.4's hybrid_forward stage, of
+        # phase 21's loader-fed epoch, of phase 22's SSD and of phase
+        # 24.1's aggregated-update loop
         dict(name="conv1x1_bwd", route="cuda",
              source="mxnet_tpu_torch/csrc/conv1x1_bwd.cu",
              replaces="mxnet_tpu/ops/conv_fused.py:134",
@@ -9418,7 +9959,8 @@ def main():
              fused_train["resnet"]["launches"]["conv1x1_bwd"] +
              opt19["lars_resnet"]["launches"]["conv1x1_bwd"] +
              hybrid["launches"]["conv1x1_bwd"] + data["launches"] +
-             det["launches"]["conv1x1_bwd"],
+             det["launches"]["conv1x1_bwd"] +
+             corpus["launches"]["conv1x1_bwd"],
              max_abs_err=k6["max_abs_err"], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
@@ -9479,7 +10021,7 @@ def main():
                        rtc=rtc,
                        mlp=mlp, fused_train=fused_train, optimizers=opt19,
                        hybrid=hybrid, data=data, detection=det,
-                       sequence=seq, kernels=kernels),
+                       sequence=seq, corpus=corpus, kernels=kernels),
                   fh, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,10 +9,9 @@ import hashlib
 import math
 import os
 
-import torch
-
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, array
+from ..ops.extended import global_norm_sq
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm",
            "check_sha1", "download", "shape_is_known"]
@@ -54,8 +53,7 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
     ``clip_global_norm``)."""
     if not arrays:
         raise MXNetError("clip_global_norm: empty array list")
-    total = torch.stack([a._data.detach().float().square().sum()
-                         for a in arrays]).sum()
+    total = global_norm_sq([a._data for a in arrays])
     norm = math.sqrt(float(total))      # the one read back to the host
     if check_isfinite and not math.isfinite(norm):
         raise MXNetError(f"global norm is not finite ({norm}); gradients "

@@ -3,9 +3,10 @@
 (the fused decode step), K6 (the fused 1x1-convolution backward) and
 the port's own greedy NMS (``box_nms``, no Pallas counterpart).
 Importing the package registers the op modules' ops, ``rnn``
-(``fused_rnn``), ``linalg`` and ``legacy`` among them, as the
-reference's does."""
+(``fused_rnn``), ``linalg``, ``legacy``, ``optimizer_ops``,
+``extended`` and ``samplers`` among them, as the reference's does."""
 from . import legacy, linalg, rnn  # noqa: F401 (registers their ops)
+from . import extended, optimizer_ops, samplers  # noqa: F401
 from .attention import (flash_attention, flash_bwd_dkv, flash_bwd_dkv_plain,
                         flash_bwd_dq, flash_bwd_dq_plain, flash_fwd,
                         flash_fwd_plain, rope)
@@ -30,4 +31,5 @@ __all__ = ["flash_attention", "flash_fwd", "flash_fwd_plain",
            "pack_llama_weights", "convolution", "pooling", "batch_norm",
            "flatten", "conv1x1_nhwc", "conv1x1_bwd_pair",
            "conv1x1_bwd_pair_plain", "fused_bwd_supported", "fused_rnn",
-           "legacy", "linalg", "rnn"]
+           "legacy", "linalg", "rnn", "extended", "optimizer_ops",
+           "samplers"]

@@ -1,11 +1,26 @@
 """Random state of the port: ``seed``, one ``torch.Generator`` per
-device, and a program's traced key.
+device, a program's traced key, and ``mx.random``'s user functions.
 
-Counterpart of ``mxnet_tpu/random.py`` (``seed``, ``push_trace_key``,
-``pop_trace_key``, ``next_key``).  JAX's threefry keys have no torch
-equivalent, so the streams differ from the reference's; what is shared
-is the contract that one ``seed(n)`` fixes every draw after it, and that
-a compiled program takes a fresh key as an operand at every call.
+Counterpart of ``mxnet_tpu/random.py`` (``seed``, ``current_seed``,
+``get_state``/``set_state``, ``push_trace_key``, ``pop_trace_key``,
+``next_key`` and the draws ``uniform`` ... ``shuffle``).  JAX's threefry
+keys have no torch equivalent, so the streams differ from the
+reference's; what is shared is the contract that one ``seed(n)`` fixes
+every draw after it, that ``set_state(get_state())`` resumes every
+stream where it was, and that a compiled program takes a fresh key as
+an operand at every call.
+
+The user draws (``uniform``, ``normal``, ``randn``, ``randint``,
+``gamma``, ``exponential``, ``poisson``, ``bernoulli``, ``multinomial``,
+``shuffle``) call the registered ops of ``ops/samplers.py``, as the
+reference's do, and keep its ``ctx=``/``out=``/``dtype=`` rules: a draw
+with scalar parameters is made on ``ctx`` (default: the current
+context), one with NDArray parameters on their device.  Every draw takes
+one ``next_key()`` and is counter-based: value ``i`` of sub-stream ``s``
+is a hash of the key and ``i`` (``key_bits``), so a draw under a trace
+derives from the program's key (fresh at every replay, equal to the
+eager call under the same key) and the same seed gives the same bits on
+the CPU and on the card.
 
 - ``generator(device)``: the generator ``Dropout`` draws its masks from,
   one per device, on that device.  A CUDA graph that draws from it
@@ -47,8 +62,11 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["seed", "generator", "attention_seed", "next_key",
-           "key_uniform", "push_trace_key", "pop_trace_key", "trace"]
+__all__ = ["seed", "current_seed", "get_state", "set_state", "generator",
+           "attention_seed", "next_key", "key_bits", "key_uniform",
+           "push_trace_key", "pop_trace_key", "trace", "uniform",
+           "normal", "randn", "randint", "gamma", "exponential",
+           "poisson", "bernoulli", "multinomial", "shuffle"]
 
 _M32 = 0xFFFFFFFF
 _state = threading.local()
@@ -57,7 +75,8 @@ _state = threading.local()
 def _root():
     if not hasattr(_state, "seed"):
         # unseeded: a per-process draw, as the reference's lazy root key
-        seed(int(np.random.randint(0, 2 ** 31 - 1)))
+        _reseed(int(np.random.randint(0, 2 ** 31 - 1)))
+        _state.seed_val = None
     return _state
 
 
@@ -75,14 +94,60 @@ def _seed_of(name):
     return (_state.seed * 1000003 + _salt(name)) & 0x7FFFFFFFFFFFFFFF
 
 
-def seed(seed_state) -> None:
-    """``mx.random.seed``: every generator restarts from ``seed_state``
-    (the device generators in place, so the graphs that registered them
-    follow)."""
-    _state.seed = int(seed_state)
+def _reseed(root):
+    _state.seed = int(root)
     gens = _state.__dict__.setdefault("gens", {})
     for name, g in gens.items():
         g.manual_seed(_seed_of(name))
+
+
+def seed(seed_state, ctx="all") -> None:
+    """``mx.random.seed``: every generator restarts from ``seed_state``
+    (the device generators in place, so the graphs that registered them
+    follow).  ``ctx`` is accepted and, as in the reference, every
+    device's streams are reseeded."""
+    _reseed(seed_state)
+    _state.seed_val = int(seed_state)
+
+
+def current_seed():
+    """The last ``seed()`` value; None before any (the lazy root)."""
+    return _root().seed_val
+
+
+def _gen_key(text):
+    return text if text in ("attention", "key") else torch.device(text)
+
+
+def get_state():
+    """A snapshot of the calling thread's streams (the ``mx.checkpoint``
+    RNG capture): the seed, the root every stream derives from and each
+    generator's state (a CUDA generator's holds its seed and offset).
+    The trace-key stack is left out, as in the reference: it exists only
+    while a program runs, and traced draws read the program's key."""
+    st = _root()
+    return {"seed": st.seed_val, "root": st.seed,
+            "generators": {str(k): g.get_state().clone()
+                           for k, g in st.gens.items()}}
+
+
+def set_state(state):
+    """Restore a :func:`get_state` snapshot: the key stream, the device
+    generators (in place, so the graphs that registered them follow) and
+    the seed continue exactly where the snapshot was taken.  A generator
+    made after the snapshot restarts as it would have at its first use."""
+    st = _root()
+    st.seed = int(state["root"])
+    st.seed_val = state.get("seed")
+    saved = {_gen_key(k): v for k, v in state["generators"].items()}
+    for name in saved:
+        if name not in st.gens:
+            _gen(name, "cpu" if isinstance(name, str) else name)
+    for name, g in st.gens.items():
+        if name in saved:
+            g.set_state(saved[name])
+        else:
+            g.manual_seed(_seed_of(name))
 
 
 def _gen(name, device):
@@ -220,17 +285,171 @@ def next_key():
                              dtype=torch.int64).item())
 
 
+def key_bits(key, n: int, device="cpu", stream: int = 0):
+    """``n`` uint32 values (held in int64) of sub-stream ``stream`` of
+    ``key`` (a ``next_key()``: a Python int or a device word): value
+    ``i`` is ``_derive(word, i)``, where sub-stream 0's word is the key
+    and sub-stream ``s``'s is ``_derive(key, 2**32 - s)``, an index no
+    draw reaches.  Integer ops only: the same on every device."""
+    if isinstance(key, torch.Tensor):
+        word = key.reshape(1).to(device=device, dtype=torch.int64)
+    else:
+        word = torch.full((1,), int(key) & _M32, dtype=torch.int64,
+                          device=device)
+    if stream:
+        word = _derive(word, _M32 + 1 - stream)
+    return _derive(word, torch.arange(n, dtype=torch.int64, device=device))
+
+
 def key_uniform(n: int, device="cpu"):
     """``n`` f32 draws in [0, 1) from one ``next_key()``: the top 24 bits
     of the key's hash with each draw's index (``_derive``), times
     2**-24."""
-    key = next_key()
-    if isinstance(key, torch.Tensor):
-        word = key.to(device=device, dtype=torch.int64)
-    else:
-        word = torch.full((1,), key, dtype=torch.int64, device=device)
-    bits = _derive(word, torch.arange(n, dtype=torch.int64, device=device))
+    bits = key_bits(next_key(), n, device)
     return (bits >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+# --------------------------------------------------------------------------- #
+# mx.random's user functions (reference ``random.py:120-240``): each calls
+# the registered op of ops/samplers.py the reference's calls
+# --------------------------------------------------------------------------- #
+
+def _is_nd(x):
+    from .ndarray.ndarray import NDArray
+    return isinstance(x, NDArray)
+
+
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def _on(ctx):
+    """The context a scalar-parameter draw is made on."""
+    from .context import current_context
+    return ctx if ctx is not None else current_context()
+
+
+def _out(r, out):
+    if out is not None:
+        return out._rebind(r._data)
+    return r
+
+
+def _draw(op_name, nd_name, nd_args, scalars, shape, dtype, ctx, out):
+    from .ops import samplers as _s
+
+    if any(_is_nd(a) for a in nd_args):
+        r = getattr(_s, nd_name)(*nd_args, shape=_shape(shape),
+                                 dtype=dtype or "float32")
+        if ctx is not None:
+            r = r.as_in_context(ctx)
+    else:
+        with _on(ctx):
+            r = getattr(_s, op_name)(shape=_shape(shape),
+                                     dtype=dtype or "float32", **scalars)
+    return _out(r, out)
+
+
+def uniform(low=0.0, high=1.0, shape=(1,), dtype="float32", ctx=None,
+            out=None):
+    return _draw("_random_uniform", "sample_uniform", (low, high),
+                 dict(low=_f(low), high=_f(high)), shape, dtype, ctx, out)
+
+
+def normal(loc=0.0, scale=1.0, shape=(1,), dtype="float32", ctx=None,
+           out=None):
+    return _draw("_random_normal", "sample_normal", (loc, scale),
+                 dict(loc=_f(loc), scale=_f(scale)), shape, dtype, ctx, out)
+
+
+def randn(*shape, dtype="float32", ctx=None):
+    return normal(0.0, 1.0, shape or (1,), dtype=dtype, ctx=ctx)
+
+
+def randint(low, high, shape=(1,), dtype="int32", ctx=None, out=None):
+    from .ops import samplers as _s
+
+    with _on(ctx):
+        r = _s._random_randint(low=int(low), high=int(high),
+                               shape=_shape(shape), dtype=dtype or "int32")
+    return _out(r, out)
+
+
+def gamma(alpha=1.0, beta=1.0, shape=(1,), dtype="float32", ctx=None,
+          out=None):
+    return _draw("_random_gamma", "sample_gamma", (alpha, beta),
+                 dict(alpha=_f(alpha), beta=_f(beta)), shape, dtype, ctx,
+                 out)
+
+
+def exponential(scale=1.0, shape=(1,), dtype="float32", ctx=None,
+                out=None):
+    """Draws with mean ``scale``: the ops take the rate, ``1 / scale``
+    (reference ``random.py:164-176``)."""
+    rate = 1.0 / scale if _is_nd(scale) else None
+    return _draw("_random_exponential", "sample_exponential", (rate,),
+                 dict(lam=None if rate is not None else 1.0 / float(scale)),
+                 shape, dtype, ctx, out)
+
+
+def poisson(lam=1.0, shape=(1,), dtype="float32", ctx=None, out=None):
+    return _draw("_random_poisson", "sample_poisson", (lam,),
+                 dict(lam=_f(lam)), shape, dtype, ctx, out)
+
+
+def _f(x):
+    return None if _is_nd(x) else float(x)
+
+
+def bernoulli(prob=0.5, shape=(1,), dtype="float32", ctx=None, out=None):
+    """1 with probability ``prob``: key bit word ``i`` below
+    ``prob * 2**32`` (exact integer compare, the same on every
+    device)."""
+    from .base import torch_dtype
+    from .ndarray.ndarray import NDArray
+
+    dev = _on(ctx).torch_device()
+    n = int(np.prod(_shape(shape)))
+    bits = key_bits(next_key(), n, dev)
+    limit = min(max(int(round(float(prob) * 2.0 ** 32)), 0), 2 ** 32)
+    r = NDArray((bits < limit).to(torch_dtype(dtype or "float32"))
+                .reshape(_shape(shape)))
+    return _out(r, out)
+
+
+def multinomial(data, shape=1, get_prob=False, dtype="int32"):
+    """Draws from the categorical distributions in the last axis of
+    ``data`` (probabilities): ``shape`` draws a row (an int, or a tuple
+    whose product is the count), the draw axis squeezed for ``shape=1``.
+    With ``get_prob`` also the log of each drawn entry's probability."""
+    from .base import torch_dtype
+    from .ndarray.ndarray import NDArray
+    from .ops.samplers import categorical
+
+    n = shape if isinstance(shape, int) else int(np.prod(shape))
+    p = data._data
+    s = categorical(next_key(), p, n)
+    logp = torch.log(torch.gather(
+        p.reshape(-1, p.shape[-1]), 1,
+        s.reshape(-1, n))).reshape(s.shape) if get_prob else None
+    if shape == 1 and s.shape[-1] == 1:
+        s = s[..., 0]
+        logp = logp[..., 0] if logp is not None else None
+    samp = NDArray(s.to(torch_dtype(dtype)))
+    return (samp, NDArray(logp)) if get_prob else samp
+
+
+def shuffle(data, **kwargs):
+    """``data`` with its first axis permuted: the permutation sorts
+    ``bits * n + i`` (distinct keys, so the same order on every
+    device)."""
+    from .ndarray.ndarray import NDArray
+
+    x = data._data
+    n = x.shape[0]
+    bits = key_bits(next_key(), n, x.device)
+    order = torch.argsort(bits * n + torch.arange(n, device=x.device))
+    return NDArray(x[order])
 
 
 def attention_seed(device="cpu"):

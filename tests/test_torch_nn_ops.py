@@ -417,11 +417,12 @@ def test_nd_namespaces_expose_the_reference_names(space):
 def test_registered_op_count():
     """165 registered names before the detection, image and quantization
     ops, 13 + 11 + 5 after them, 1 + 13 + 18 more with ``rnn``, ``linalg``
-    and ``legacy``, and every alias of the reference's that names a
+    and ``legacy``, 97 + 23 + 28 with ``extended``, ``optimizer_ops`` and
+    ``samplers``, and every alias of the reference's that names a
     registered op."""
     from mxnet_tpu.ops.registry import _ALIASES as RALIASES
     from mxnet_tpu_torch.ops.registry import _ALIASES
 
-    assert len(OPS) == 165 + 13 + 11 + 5 + 1 + 13 + 18
+    assert len(OPS) == 165 + 13 + 11 + 5 + 1 + 13 + 18 + 97 + 23 + 28
     assert {k: v for k, v in RALIASES.items() if v in OPS} == \
         {k: v for k, v in _ALIASES.items() if v in OPS}

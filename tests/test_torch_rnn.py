@@ -103,7 +103,10 @@ def _ref_arrays(net):
 
 def _pair(kind, H, **kw):
     """A reference layer (Xavier, seeded) and the port's with its
-    weights."""
+    weights, both under one prefix (default ``<kind>0_``): each package
+    counts its own unnamed layers, so names made by layers of earlier
+    tests in the same process would otherwise differ."""
+    kw.setdefault("prefix", f"{kind}0_")
     rmx.random.seed(0)
     ref = _layer(rmx, kind, H, **kw)
     ref.initialize(rmx.init.Xavier())
