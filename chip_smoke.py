@@ -445,7 +445,39 @@ Phases (each fails the run by raising; there is no CPU path):
    ``multi_lamb_update`` over GPT-2 small's parameters in f32;
    ``preloaded_multi_sgd_mom_update`` replayed in a CUDA graph after its
    ``lrs`` change, equal to the eager call;
-25. one ``{"kernels": [...]}`` line, the card line, and as the last line
+25. the twenty-second slice, the training run's services: (1) the
+   user's ``hybrid_forward`` GPT-2 small (12 layers, 768, 12 heads,
+   50,257 tokens, 8 x 1024) in f32 under ``amp.init("float16")``, AdamW
+   through ``amp.init_trainer``, ``amp.scale_loss`` around an eager
+   ``record``/``backward``, every attention through K1-K3's fp16
+   instantiation (12 each a step), in child processes: two uninterrupted
+   12-step runs bit for bit with each other, one of them saving through
+   ``CheckpointManager(async_save=True, max_to_keep=2)`` every 4 steps; a
+   run killed by ``MXNET_FAULT_INJECT=checkpoint.save:kill:2`` inside its
+   second save, and a run that restores the newest verifiable step (4),
+   reports and sweeps the dead save's temp directory
+   (``checkpoint_corrupt``) and runs to step 12: its losses, loss scale,
+   skipped steps and every weight equal the uninterrupted run's bit for
+   bit; (2) the same model in bf16 with f32 masters, dropout 0.1,
+   ``Trainer(update_interval=2)`` through ``fused_step``: saved at
+   micro-batch 5 (mid-window), run on, restored in place (ring, weights,
+   states and generators written, no new program or capture) and
+   replayed bit for bit; a bf16 weight read from the manifest's file
+   with numpy equals the live one; (3) logistic regression at LIBSVM
+   avazu-app's 1,000,000 features on seeded CSR batches of 8,192 rows x
+   24 nonzeros: ``sparse.dot(x, w) + b``, ``SigmoidBinaryCrossEntropyLoss``
+   and SGD through ``gluon.Trainer``, 10 steps, card against CPU within
+   1e-5; ``sparse.dot`` against the dense product at 1,024 x 65,536; the
+   tier-1 csr/row_sparse cases card against CPU; (4) ``mx.profiler``
+   over three 25.1 steps (``flash_attention`` 36 times,
+   ``FullyConnected`` 75) and its device table listing K1-K3's fp16
+   kernels; a ``MXNET_ENGINE_TYPE=NaiveEngine`` child's step 1 equal to
+   the threaded run's bit for bit; K1-K3's fp16 instantiations are also
+   held against their plain versions in phases 4 and 5 (GPT-2's shape,
+   dropout 0 and 0.1), two launches bit for bit, beside
+   ``scaled_dot_product_attention`` in fp16; the phase's seconds and the
+   whole script's;
+26. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -459,6 +491,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12              # f32 on the CUDA cores (no tensor cores)
@@ -789,10 +822,17 @@ def check_k1(cfg, B):
              # phase 23.2's cross-attention (Transformer-big, 16 heads):
              # 768 target queries over 1024 padded source keys
              (f"cross_kmask_dropout{r}", *S2S_CROSS, False, True, r)
-             for r in (0.0, S2S_BIG["dropout"])]
+             for r in (0.0, S2S_BIG["dropout"])] + [
+             # phase 25.1's amp float16 step: the fp16 instantiation at
+             # GPT-2 small's training shape
+             (f"fp16_train_causal{r}", B, H0, D0, 1024, 1024, True, False,
+              r) for r in (0.0, 0.1)]
     for name, b, H, D, L, Lk, causal, masked, rate in cases:
+        dt = torch.float16 if name.startswith("fp16") else torch.bfloat16
+        # one rounding of the output: bf16's 2^-8, fp16's 2^-11
+        tol = 2e-3 if dt == torch.float16 else 2e-2
         q, k, v = (torch.randn((b, H, n, D), generator=gen, device="cuda")
-                   .bfloat16() for n in (L, Lk, Lk))
+                   .to(dt) for n in (L, Lk, Lk))
         km = _kmask(b, Lk) if masked else None
         scale = D ** -0.5
         out, lse = flash_fwd(q, k, v, scale, causal, km, word, rate)
@@ -800,9 +840,9 @@ def check_k1(cfg, B):
         torch.cuda.synchronize()
         err = (out.float() - ro.float()).abs().max().item()
         lerr = (lse - rl).abs().max().item()
-        if not torch.isfinite(out.float()).all() or err > 2e-2 or \
-                lerr > 1e-3:
-            fail(f"K1 {name}: out max_abs_err {err} (tol 2e-2), lse "
+        if out.dtype != dt or not torch.isfinite(out.float()).all() or \
+                err > tol or lerr > 1e-3:
+            fail(f"K1 {name}: out max_abs_err {err} (tol {tol}), lse "
                  f"max_abs_err {lerr} (tol 1e-3)")
         # no atomics: a second launch repeats out and lse bit for bit
         out2, lse2 = flash_fwd(q, k, v, scale, causal, km, word, rate)
@@ -812,7 +852,7 @@ def check_k1(cfg, B):
                                          rate), 20)
         plain = cuda_ms(lambda i: flash_fwd_plain(q, k, v, scale, causal,
                                                   km, word, rate), 5)
-        mask4 = None if km is None else km.reshape(b, 1, 1, Lk).bfloat16()
+        mask4 = None if km is None else km.reshape(b, 1, 1, Lk).to(dt)
         lib = cuda_ms(lambda i: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask4, dropout_p=rate, is_causal=causal),
             20)
@@ -823,11 +863,13 @@ def check_k1(cfg, B):
         nops = 4 * b * H * D * pairs
         bms, by = bound_ms(nbytes, nops)
         print(f"K1 {name} B={b} H={H} L={L} Lk={Lk} D={D} causal={causal} "
-              f"mask={masked} dropout={rate}: out max_abs_err={err:.3e} "
-              f"(tol 2e-2) lse max_abs_err={lerr:.3e} (tol 1e-3) "
+              f"mask={masked} dropout={rate} {str(dt)[6:]}: out "
+              f"max_abs_err={err:.3e} (tol {tol}) lse "
+              f"max_abs_err={lerr:.3e} (tol 1e-3) "
               f"kernel_ms={ms:.5f} plain_ms={plain:.5f} library_ms="
               f"{lib:.5f} bound_ms={bms:.5f} ({by})", flush=True)
         results.append(dict(case=name, B=b, H=H, L=L, Lk=Lk, D=D,
+                            dtype=str(dt)[6:],
                             max_abs_err=err, lse_err=lerr, ms=ms,
                             plain_ms=plain, library_ms=lib, bound_ms=bms,
                             bound_by=by))
@@ -863,12 +905,16 @@ def check_k23(cfg, B):
               0.1)] + [
              # phase 23.2's cross-attention, as in check_k1
              (f"cross_kmask_dropout{r}", *S2S_CROSS, False, True, r)
-             for r in (0.0, S2S_BIG["dropout"])]
+             for r in (0.0, S2S_BIG["dropout"])] + [
+             # phase 25.1's amp float16 step, as in check_k1
+             (f"fp16_train_causal{r}", B, H, D, 1024, 1024, True, False, r)
+             for r in (0.0, 0.1)]
     for name, b, H, D, L, Lk, causal, masked, rate in cases:
+        dt = torch.float16 if name.startswith("fp16") else torch.bfloat16
         q, k, v = (torch.randn((b, H, n, D), generator=gen, device="cuda")
-                   .bfloat16() for n in (L, Lk, Lk))
+                   .to(dt) for n in (L, Lk, Lk))
         g = torch.randn((b, H, L, D), generator=gen,
-                        device="cuda").bfloat16()
+                        device="cuda").to(dt)
         km = _kmask(b, Lk) if masked else None
         scale = D ** -0.5
         out, lse = pa.flash_fwd(q, k, v, scale, causal, km, word, rate)
@@ -915,7 +961,7 @@ def check_k23(cfg, B):
         # backward alone (its dq, dk, dv) is K2's and K3's yardstick
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         bias = None if km is None else km.reshape(b, 1, 1, Lk)
-        mask4 = None if km is None else bias.bfloat16()
+        mask4 = None if km is None else bias.to(dt)
 
         def ours(i):
             o = pa._FlashAttention.apply(*leaves, bias, scale, causal, word,
@@ -935,7 +981,7 @@ def check_k23(cfg, B):
             o_lib, leaves, g, retain_graph=True), 10)
         del o_lib
         row = dict(case=name, B=b, H=H, L=L, Lk=Lk, D=D, causal=causal,
-                   mask=masked, dropout=rate,
+                   mask=masked, dropout=rate, dtype=str(dt)[6:],
                    max_abs_err={w: e for w, (e, _) in errs.items()},
                    tol={w: t for w, (_, t) in errs.items()},
                    k2=dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bms,
@@ -944,7 +990,8 @@ def check_k23(cfg, B):
                            bound_by=k3_by, library_ms=lib_bwd_ms),
                    fwd_bwd_ms=fb_ms, library_fwd_bwd_ms=lib_fb_ms)
         print(f"K2/K3 {name} B={b} H={H} L={L} Lk={Lk} D={D} causal="
-              f"{causal} mask={masked} dropout={rate}: max_abs_err "
+              f"{causal} mask={masked} dropout={rate} {str(dt)[6:]}: "
+              "max_abs_err "
               + " ".join(f"{w}={e:.3e} (tol {t:.3e})"
                          for w, (e, t) in errs.items()), flush=True)
         print(f"K2 {name}: kernel_ms={k2_ms:.5f} plain_ms={k2_plain:.5f} "
@@ -9762,6 +9809,625 @@ def check_corpus(fused_row, opt19):
     return row
 
 
+# --------------------------------------------------------------------------- #
+# phase 25: the training run's services, the twenty-second slice:
+# mx.checkpoint, mx.amp (K1-K3 in fp16), mx.profiler and mx.engine,
+# mx.nd.sparse
+# --------------------------------------------------------------------------- #
+
+P25_STEPS = 12              # 25.1: steps of the fp16 run
+P25_EVERY = 4               # 25.1: a checkpoint every 4 steps
+P25_KILL = "checkpoint.save:kill:2"   # 25.1: dies inside its second save
+P25_PROFILED = (2, 3, 4)    # 25.4: the steps profiled in 25.1's run A
+P25_MICRO = 9               # 25.2: micro-batches (update_interval 2)
+P25_SAVE_AT = 5             # 25.2: the save, mid-window
+AVAZU_FEATURES = 1_000_000  # 25.3: LIBSVM's avazu-app width
+AVAZU_ROWS, AVAZU_NNZ, AVAZU_STEPS = 8192, 24, 10
+FC_CALLS_A_STEP = 2 * 12 + 1   # F.FullyConnected a GPT-2 step: qkv, proj, head
+
+
+def _p25_dir(name):
+    import shutil
+
+    d = os.path.join(HERE, "build", "phase25", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def _digest(net):
+    """sha256 over every parameter's bytes, in ``collect_params`` order:
+    two runs equal bit for bit have equal digests."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for p in net.collect_params().values():
+        t = p.data()._data.detach().contiguous().view(-1)
+        h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _p25_batch(mx, ctx, s):
+    """The (tokens, positions, labels) of step ``s``, seeded by it."""
+    import numpy as np
+
+    rs = np.random.RandomState(1000 + s)
+    tok = mx.nd.array(rs.randint(0, HF_V, (HF_B, HF_T)), ctx=ctx,
+                      dtype="int32")
+    pos = mx.nd.array(np.tile(np.arange(HF_T), (HF_B, 1)), ctx=ctx,
+                      dtype="int32")
+    lab = mx.nd.array(rs.randint(0, HF_V, (HF_B, HF_T)), ctx=ctx,
+                      dtype="int32")
+    return tok, pos, lab
+
+
+def p25_child(cfg):
+    """One run of 25.1 in a process of its own (``amp.init`` patches
+    ``mx.nd`` for the whole process): the user's GPT-2 small in f32 under
+    ``amp.init("float16")``, AdamW through ``amp.init_trainer``,
+    ``amp.scale_loss`` around an eager ``record``/``backward``; with
+    ``cfg["ckdir"]`` a ``CheckpointManager(async_save=True,
+    max_to_keep=2)`` saving every ``P25_EVERY`` steps (and, with
+    ``cfg["resume"]``, restoring first).  Prints one ``P25 {...}`` line:
+    the losses, skipped steps, loss scale, parameter digests, K1-K3's
+    launches a step, the saves and, for the profiled steps, the profiler's
+    tables."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+        False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd, gluon, profiler, telemetry
+
+    gpu = mx.gpu(0)
+    mx.random.seed(0)
+    net = _hf_gpt(mx, 12, 0.0, "float32", gpu, seed=0)
+    amp.init("float16")
+    trainer = gluon.Trainer(net.collect_params(), "adamw", dict(ADAMW_OPT))
+    amp.init_trainer(trainer)
+    scaler = trainer._amp_loss_scaler
+    loss_l = gluon.loss.SoftmaxCrossEntropyLoss()
+    out = dict(start=0, corrupt=[], restore_s=None, snapshot_s=[],
+               profile=None, digest1=None, loss1=None)
+    telemetry.clear_events()
+    mgr = None
+    if cfg.get("ckdir"):
+        mgr = mx.checkpoint.CheckpointManager(cfg["ckdir"], max_to_keep=2,
+                                              async_save=True)
+        if cfg.get("resume"):
+            t0 = time.perf_counter()
+            out["start"] = mgr.restore(net, trainer) or 0
+            out["restore_s"] = time.perf_counter() - t0
+            out["corrupt"] = [e["why"] for e in
+                              telemetry.events(kind="checkpoint_corrupt")]
+    profiled = cfg.get("profile") or ()
+    if profiled:
+        profiler.set_config(filename=os.path.join(
+            HERE, "chiprun_out", "p25_profile.json"), aggregate_stats=True)
+        profiler.dumps(reset=True)
+    _reset_attention_counts()
+    losses, skips, counts, step_ms = [], [], [], []
+    for s in range(out["start"] + 1, cfg["steps"] + 1):
+        tok, pos, lab = _p25_batch(mx, gpu, s)
+        if profiled and s == profiled[0]:
+            torch.cuda.synchronize()
+            profiler.start()
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        before_scale = scaler.loss_scale
+        c0 = _attention_counts()
+        with autograd.record():
+            loss = loss_l(net(tok, pos).astype("float32"), lab)
+            with amp.scale_loss(loss, trainer) as scaled:
+                pass
+        scaled.backward()
+        trainer.step(HF_B)
+        losses.append(float(loss._data.mean()))      # waits for the step
+        step_ms.append((time.perf_counter() - t_step) * 1e3)
+        skips.append(scaler.loss_scale < before_scale)
+        c1 = _attention_counts()
+        counts.append({n: c1[n] - c0[n] for n in ATTN_KERNELS})
+        if profiled and s == profiled[-1]:
+            torch.cuda.synchronize()
+            profiler.stop()
+            out["profile"] = dict(
+                table=profiler.dumps(),
+                device_names=sorted({n for n, _ in
+                                     profiler.device_events()}),
+                by_name=profiler.device_dumps(by="name", limit=12),
+                by_category=profiler.device_dumps(by="category"))
+        if s == 1 and cfg.get("digest1"):
+            out["digest1"], out["loss1"] = _digest(net), losses[-1]
+        if mgr is not None and s % P25_EVERY == 0:
+            t0 = time.perf_counter()
+            mgr.save(s, net, trainer)
+            out["snapshot_s"].append(time.perf_counter() - t0)
+    if mgr is not None:
+        mgr.wait_until_finished()
+        mgr.close()
+    torch.cuda.synchronize()
+    out.update(losses=losses, skips=skips, step_ms=step_ms,
+               loss_scale=scaler.loss_scale, digest=_digest(net),
+               counts=counts, engine=mx.engine.engine_type(),
+               saved=[dict(step=e["step"], bytes=e["bytes"],
+                           write_s=e["write_s"], snapshot_s=e["snapshot_s"])
+                      for e in telemetry.events(kind="checkpoint_saved")])
+    print("P25 " + json.dumps(out), flush=True)
+
+
+def _p25_spawn(cfg, **env):
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--p25-child",
+         json.dumps(cfg)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, **env))
+
+
+def _p25_result(proc, what, expect_rc=0, timeout=900):
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != expect_rc:
+        fail(f"25.1 {what}: exit {proc.returncode} (expected {expect_rc})"
+             f"\n{err[-3000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("P25 ")]
+    if expect_rc != 0:
+        return None
+    if not lines:
+        fail(f"25.1 {what}: no result line\n{err[-3000:]}")
+    return json.loads(lines[-1][4:])
+
+
+def amp_kill_resume():
+    """25.1 and 25.4's children.  Run A (no checkpoint; profiled steps
+    2-4; its digest after step 1), run B (checkpoints at 4, 8, 12), the
+    killed run (``MXNET_FAULT_INJECT=checkpoint.save:kill:2``: SIGKILLed
+    inside its second save, step 8) and the NaiveEngine run (step 1)
+    share the card at once; then the resumed run restores the newest
+    verifiable step of the killed run's directory and runs to step 12.
+    Gates: A and B equal bit for bit (losses, loss scale, skipped steps,
+    every weight); the killed run leaves step 4 committed and step 8 an
+    uncommitted temp directory; the resumed run restores step 4, reports
+    that temp directory (``checkpoint_corrupt``) and sweeps it, and its
+    losses (steps 5-12), loss scale, skipped steps and every weight equal
+    A's bit for bit; every step launches K1-K3 exactly 12 times each, in
+    fp16."""
+    base = dict(steps=P25_STEPS)
+    ck_b, ck_k = _p25_dir("amp_b"), _p25_dir("amp_killed")
+    t0 = time.perf_counter()
+    procs = dict(
+        a=_p25_spawn(dict(base, profile=list(P25_PROFILED), digest1=True)),
+        b=_p25_spawn(dict(base, ckdir=ck_b)),
+        killed=_p25_spawn(dict(base, ckdir=ck_k),
+                          MXNET_FAULT_INJECT=P25_KILL),
+        naive=_p25_spawn(dict(steps=1, digest1=True),
+                         MXNET_ENGINE_TYPE="NaiveEngine"))
+    res = {k: _p25_result(p, k, expect_rc=-9 if k == "killed" else 0)
+           for k, p in procs.items()}
+    left = sorted(os.listdir(ck_k))
+    if "step_00000004" not in left or "step_00000008" in left or not any(
+            n.startswith(".tmp-step_00000008") for n in left):
+        fail(f"25.1 killed run: directory holds {left}; expected step 4 "
+             "committed and step 8 an uncommitted temp directory")
+    res["resumed"] = _p25_result(_p25_spawn(dict(base, ckdir=ck_k,
+                                                 resume=True)), "resumed")
+    wall = time.perf_counter() - t0
+    a, b, r = res["a"], res["b"], res["resumed"]
+    keys = ("losses", "loss_scale", "skips", "digest")
+    if any(a[k] != b[k] for k in keys):
+        fail(f"25.1 two uninterrupted runs differ: A {[a[k] for k in keys]}"
+             f" B {[b[k] for k in keys]}")
+    if r["start"] != 4 or not any("uncommitted .tmp-step_00000008" in w
+                                  for w in r["corrupt"]):
+        fail(f"25.1 resumed run: restored step {r['start']} (expected 4), "
+             f"corrupt events {r['corrupt']}")
+    if any(n.startswith(".tmp-") for n in os.listdir(ck_k)):
+        fail(f"25.1 resumed run left {os.listdir(ck_k)}")
+    if r["losses"] != a["losses"][4:] or r["skips"] != a["skips"][4:] or \
+            r["loss_scale"] != a["loss_scale"] or r["digest"] != a["digest"]:
+        fail(f"25.1 killed and resumed differs from uninterrupted: losses "
+             f"{r['losses']} vs {a['losses'][4:]}, skipped steps "
+             f"{r['skips']} vs {a['skips'][4:]}, loss scale "
+             f"{r['loss_scale']} vs {a['loss_scale']}, digests equal "
+             f"{r['digest'] == a['digest']}")
+    for what, run in (("A", a), ("B", b), ("resumed", r)):
+        bad = [c for c in run["counts"] if any(c[n] != 12
+                                              for n in ATTN_KERNELS)]
+        if bad:
+            fail(f"25.1 run {what}: K1-K3 launches a step {bad}, expected "
+                 "12 each")
+    saves = b["saved"]
+    print(f"25.1 amp fp16 GPT-2 small (12 layers, 768, 12 heads, 50,257 "
+          f"tokens, 8 x 1024), AdamW, loss scaler from 2^16: losses "
+          f"{[round(v, 5) for v in a['losses']]}; skipped steps "
+          f"{[i + 1 for i, k in enumerate(a['skips']) if k]}, final loss "
+          f"scale {a['loss_scale']}; run A = run "
+          f"B bit for bit; killed inside the save of step 8, resumed from "
+          f"step 4 (restore {r['restore_s']:.3f} s, corrupt events "
+          f"{r['corrupt']}), steps 5-12 = A's bit for bit (losses, skips, "
+          f"loss scale, weights); K1-K3 12 each a step in fp16; ms a step "
+          f"of the resumed run (alone on the card) "
+          f"{[round(x, 3) for x in r['step_ms']]}", flush=True)
+    print(f"25.1 checkpoints: snapshot s {[round(x, 4) for x in b['snapshot_s']]}"
+          f" (save() returns), written {[(s['step'], s['bytes'], round(s['write_s'], 3)) for s in saves]}"
+          f" (step, bytes, write s); children {wall:.2f} s wall; "
+          f"{card_line()}", flush=True)
+    launches = {n: sum(c[n] for run in (a, b, r, res["naive"])
+                       for c in run["counts"]) for n in ATTN_KERNELS}
+    return dict(runs=res, launches=launches, wall_s=wall)
+
+
+def _fused_launches_all(fs):
+    """K1-K3's launches through a fused step with several programs since
+    the counts were set to 0: the eager calls by the counts, each replay
+    by what its capture recorded (the captures themselves run nothing)."""
+    host = _attention_counts()
+    captured = {n: sum(p.launches.get(n, 0) for p in fs._programs.values())
+                for n in ATTN_KERNELS}
+    replayed = fs.launches()
+    return {n: host[n] - captured[n] + replayed.get(n, 0)
+            for n in ATTN_KERNELS}
+
+
+def _manifest_bf16_leaf(d):
+    """(name, uint16 bits) of the first bf16 parameter a step directory's
+    manifest lists, read with numpy alone."""
+    import numpy as np
+
+    man = json.load(open(os.path.join(d, "MANIFEST.json")))
+    tree = {k: v for (_, k), v in man["tree"]["@dict"]}
+    for (_, name), node in tree["params"]["@dict"]:
+        meta = man["arrays"][node["@arr"]]
+        if meta["dtype"] == "bfloat16":
+            return name, np.load(os.path.join(d, meta["file"]))
+    fail(f"25.2: no bf16 parameter in {d}")
+
+
+def captured_mid_window():
+    """25.2: the user's GPT-2 small in bf16 with f32 masters, dropout 0.1,
+    ``Trainer(update_interval=2)`` through ``fused_step`` (K1-K3 bf16 in
+    the replays): saved at micro-batch 5 (mid-window), run on to 9,
+    restored in place and replayed from 6.  Gates: no program made and no
+    graph captured after the restore; the ring, weights and states written
+    in place (the ring's addresses kept); the losses and weights of the
+    replay from the save point equal the first run's bit for bit; a bf16
+    weight read back from the manifest's file with numpy equals the
+    restored one."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+
+    gpu = mx.gpu(0)
+    mx.random.seed(1)
+    net = _hf_gpt(mx, 12, 0.1, "bfloat16", gpu, seed=1)
+    loss_l = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adamw", dict(ADAMW_OPT),
+                            update_interval=2)
+
+    def loss_fn(t, p, y):
+        return loss_l(net(t, p), y)
+
+    batches = [_p25_batch(mx, gpu, 100 + s)
+               for s in range(1, P25_MICRO + 1)]
+
+    def call(s):
+        return float(trainer.fused_step(loss_fn, *batches[s - 1])._data
+                     .float().mean())
+
+    fsm.reset_step_counters()
+    _reset_attention_counts()
+    first = [call(s) for s in range(1, P25_SAVE_AT + 1)]
+    if trainer._window_pos != 1:
+        fail(f"25.2: window position {trainer._window_pos} at the save")
+    d = _p25_dir("captured")
+    mgr = mx.checkpoint.CheckpointManager(d, async_save=True)
+    t0 = time.perf_counter()
+    mgr.save(P25_SAVE_AT, net, trainer)
+    snap_s = time.perf_counter() - t0
+    mgr.wait_until_finished()
+    after = [call(s) for s in range(P25_SAVE_AT + 1, P25_MICRO + 1)]
+    dig = _digest(net)
+    (fs,) = trainer._fused_steps.values()
+    graphs = {k[0]: id(p.graph) for k, p in fs._programs.items()}
+    compiles = fsm.step_counters["compiles"]
+    ring = [a.data_ptr() for a in fs._accum]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = mgr.restore(net, trainer)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    mgr.close()
+    name, bits = _manifest_bf16_leaf(os.path.join(d, "step_%08d"
+                                                  % P25_SAVE_AT))
+    live = net._collect_params_with_prefix()[name].data()._data
+    same_bits = live.dtype == torch.bfloat16 and np.array_equal(
+        live.view(torch.int16).cpu().numpy().view(np.uint16), bits)
+    if step != P25_SAVE_AT or trainer._window_pos != 1 or \
+            [a.data_ptr() for a in fs._accum] != ring or not same_bits:
+        fail(f"25.2: restore gave step {step}, window {trainer._window_pos}"
+             f", ring kept {[a.data_ptr() for a in fs._accum] == ring}, "
+             f"bf16 {name} from the manifest equal {same_bits}")
+    again, call_ms = [], []
+    for s in range(P25_SAVE_AT + 1, P25_MICRO + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again.append(call(s))                      # reads the loss back
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    dig2 = _digest(net)
+    now = {k[0]: id(p.graph) for k, p in fs._programs.items()}
+    counters = dict(fsm.step_counters)
+    launches = _fused_launches_all(fs)
+    if counters["compiles"] != compiles or now != graphs or \
+            any(p.graph is None for p in fs._programs.values()):
+        fail(f"25.2: a program or capture after the restore: compiles "
+             f"{compiles} -> {counters['compiles']}, graphs {graphs} -> "
+             f"{now}")
+    if again != after or dig2 != dig:
+        fail(f"25.2: replay after the restore {again} vs {after}, weights "
+             f"equal {dig2 == dig}")
+    print(f"25.2 captured GPT-2 small bf16 (f32 masters, dropout 0.1, "
+          f"update_interval 2): losses {[round(v, 5) for v in first + after]}"
+          f"; saved at micro-batch {P25_SAVE_AT} (snapshot {snap_s:.3f} s), "
+          f"restored in place ({restore_s:.3f} s; ring, weights, states and "
+          f"generators written, no new program or capture: compiles "
+          f"{counters['compiles']}, one graph each of {sorted(graphs)}"
+          f"), micro-batches {P25_SAVE_AT + 1}-{P25_MICRO} replayed bit for "
+          f"bit; bf16 {name} from the manifest = live; launches {launches}; "
+          f"ms a replayed call after the restore (apply, micro, apply, "
+          f"micro) {[round(x, 3) for x in call_ms]}", flush=True)
+    row = dict(losses=first + after, replay=again, call_ms=call_ms,
+               snapshot_s=snap_s,
+               restore_s=restore_s, counters=counters, launches=launches)
+    del fs, trainer, net, batches
+    torch.cuda.empty_cache()
+    return row
+
+
+def _avazu_batch(mx, ctx, s):
+    """A seeded CSR batch at avazu-app's width: ``AVAZU_ROWS`` rows of
+    ``AVAZU_NNZ`` distinct binary features (value 1, ascending columns)
+    and 0/1 click labels."""
+    import numpy as np
+    from mxnet_tpu_torch.ndarray import sparse
+
+    rs = np.random.RandomState(500 + s)
+    cols = np.sort(rs.randint(0, AVAZU_FEATURES - AVAZU_NNZ,
+                              (AVAZU_ROWS, AVAZU_NNZ)), axis=1) + \
+        np.arange(AVAZU_NNZ)
+    indptr = np.arange(AVAZU_ROWS + 1) * AVAZU_NNZ
+    with ctx:
+        x = sparse.csr_matrix((np.ones(cols.size, np.float32), cols.ravel(),
+                               indptr), shape=(AVAZU_ROWS, AVAZU_FEATURES))
+        y = mx.nd.array(rs.randint(0, 2, AVAZU_ROWS).astype(np.float32))
+    return x, y
+
+
+def _avazu_train(mx, ctx):
+    """Logistic regression at avazu-app's width: ``sparse.dot(x, w) + b``,
+    ``SigmoidBinaryCrossEntropyLoss``, SGD through ``gluon.Trainer``."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ndarray import sparse
+
+    w = gluon.Parameter("avazu_w", shape=(AVAZU_FEATURES, 1))
+    b = gluon.Parameter("avazu_b", shape=(1,))
+    w.initialize(ctx=ctx)
+    b.initialize(ctx=ctx)
+    w.set_data(np.random.RandomState(4).normal(
+        0, 0.01, (AVAZU_FEATURES, 1)).astype(np.float32))
+    b.set_data(np.zeros(1, np.float32))
+    trainer = gluon.Trainer([w, b], "sgd", {"learning_rate": 0.5})
+    loss_l = gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    losses, times = [], []
+    for s in range(AVAZU_STEPS):
+        x, y = _avazu_batch(mx, ctx, s)
+        if ctx.device_type == "gpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            L = loss_l(sparse.dot(x, w.data()) + b.data(), y)
+        L.backward()
+        trainer.step(AVAZU_ROWS)
+        losses.append(float(L.mean().asscalar()))
+        times.append(time.perf_counter() - t0)
+    return losses, w.data().asnumpy(), b.data().asnumpy(), times
+
+
+def _sparse_sweep(mx):
+    """The csr/row_sparse cases of the tier-1 tests on the card against
+    the CPU: components of the unions, retain and storage casts exactly,
+    the dots and their gradients within 1e-5."""
+    import numpy as np
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ndarray import sparse
+
+    def case(ctx):
+        rs = np.random.RandomState(9)
+        out = {}
+        with ctx:
+            da = rs.rand(64, 48).astype(np.float32)
+            da[da < 0.7] = 0
+            db = rs.rand(64, 48).astype(np.float32)
+            db[db < 0.7] = 0
+            a = sparse.csr_matrix(da)
+            bb = sparse.csr_matrix(db)
+            ra = sparse.row_sparse_array((rs.rand(5, 8).astype(np.float32),
+                                          [1, 3, 7, 20, 40]), shape=(48, 8))
+            rb = sparse.row_sparse_array((rs.rand(3, 8).astype(np.float32),
+                                          [3, 9, 40]), shape=(48, 8))
+            rhs = mx.nd.array(rs.randn(48, 8).astype(np.float32))
+            rhs_t = mx.nd.array(rs.randn(64, 8).astype(np.float32))
+        for op in ("add", "subtract", "multiply"):
+            for tag, x, y in (("csr", a, bb), ("rs", ra, rb)):
+                r = getattr(sparse, op)(x, y)
+                out[f"{op}_{tag}"] = [r.data.asnumpy(), r.indices.asnumpy()]
+        out["retain"] = [sparse.retain(ra, [3, 40]).data.asnumpy()]
+        out["cast"] = [mx.nd.cast_storage(a, "default").asnumpy(),
+                       mx.nd.cast_storage(a.tostype("default"),
+                                          "row_sparse").indices.asnumpy()]
+        for tag, lhs, r, kw in (("csr", a, rhs_t, dict(transpose_a=True)),
+                                ("csr_n", a, rhs, {}),
+                                ("rs", ra, rhs[:8], {}),
+                                ("rs_t", ra, mx.nd.array(
+                                    rs.randn(48, 4).astype(np.float32),
+                                    ctx=ctx), dict(transpose_a=True))):
+            r.attach_grad()
+            with autograd.record():
+                y = sparse.dot(lhs, r, **kw)
+                L = (y * y).sum()
+            L.backward()
+            out[f"dot_{tag}"] = [y.asnumpy(), r.grad.asnumpy()]
+        return out
+
+    cpu, gpu = case(mx.cpu()), case(mx.gpu(0))
+    worst = 0.0
+    for k in cpu:
+        for c, g in zip(cpu[k], gpu[k]):
+            if c.shape != g.shape:
+                fail(f"25.3 sweep {k}: shapes {g.shape} vs {c.shape}")
+            if k.startswith("dot"):
+                err = float(np.abs(c - g).max()) if c.size else 0.0
+                worst = max(worst, err)
+                if err > 1e-5 * max(1.0, float(np.abs(c).max())):
+                    fail(f"25.3 sweep {k}: max_abs_err {err}")
+            elif not np.array_equal(c, g):
+                fail(f"25.3 sweep {k}: card differs from the CPU")
+    return dict(cases=len(cpu), dot_max_abs_err=worst)
+
+
+def sparse_avazu():
+    """25.3: logistic regression over avazu-app's 1,000,000 features on
+    ``AVAZU_ROWS``-row CSR batches (``AVAZU_NNZ`` nonzeros a row), 10 SGD
+    steps on the card and on the CPU: losses and weights within 1e-5;
+    ``sparse.dot`` against the dense product of the same matrix at 1,024
+    x 65,536 within 1e-5 (times beside ``torch.sparse.mm``); the tier-1
+    sparse cases card against CPU."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import sparse
+
+    g_loss, g_w, g_b, g_t = _avazu_train(mx, mx.gpu(0))
+    c_loss, c_w, c_b, _ = _avazu_train(mx, mx.cpu())
+    l_err = max(abs(a - b) for a, b in zip(g_loss, c_loss))
+    w_err = float(max(np.abs(g_w - c_w).max(), np.abs(g_b - c_b).max()))
+    if not all(np.isfinite(g_loss)) or l_err > 1e-5 or w_err > 1e-5 or \
+            not g_loss[-1] < g_loss[0]:
+        fail(f"25.3 avazu LR: card losses {g_loss} vs CPU {c_loss} "
+             f"(max diff {l_err}), weights max diff {w_err}")
+    # the dot against the dense product at 1,024 x 65,536
+    rs = np.random.RandomState(6)
+    R, C, N = 1024, 65536, 64
+    cols = np.sort(rs.randint(0, C - AVAZU_NNZ, (R, AVAZU_NNZ)), axis=1) + \
+        np.arange(AVAZU_NNZ)
+    with mx.gpu(0):
+        x = sparse.csr_matrix((rs.rand(cols.size).astype(np.float32),
+                               cols.ravel(), np.arange(R + 1) * AVAZU_NNZ),
+                              shape=(R, C))
+        rhs = mx.nd.array(rs.randn(C, N).astype(np.float32))
+    dense = x.tostype("default")._data
+    got = sparse.dot(x, rhs)._data
+    want = dense @ rhs._data
+    d_err = (got - want).abs().max().item()
+    if d_err > 1e-5 * max(1.0, want.abs().max().item()):
+        fail(f"25.3 sparse.dot vs dense at {R} x {C}: max_abs_err {d_err}")
+    lib = torch.sparse_csr_tensor(x._csr_indptr, x._csr_indices,
+                                  x._csr_data, size=(R, C))
+    dot_ms = cuda_ms(lambda i: sparse.dot(x, rhs), 20)
+    dense_ms = cuda_ms(lambda i: dense @ rhs._data, 20)
+    lib_ms = cuda_ms(lambda i: torch.sparse.mm(lib, rhs._data), 20)
+    sweep = _sparse_sweep(mx)
+    print(f"25.3 sparse LR, avazu-app width ({AVAZU_FEATURES} features, "
+          f"{AVAZU_ROWS} rows x {AVAZU_NNZ} nonzeros a batch), "
+          f"{AVAZU_STEPS} SGD steps: card losses "
+          f"{[round(v, 6) for v in g_loss]}, max diff from the CPU's "
+          f"{l_err:.3e}, weights {w_err:.3e} (tol 1e-5); ms a step "
+          f"{sum(g_t[1:]) / (len(g_t) - 1) * 1e3:.3f}; sparse.dot at {R} x "
+          f"{C} x {N}: max_abs_err {d_err:.3e} vs the dense product, ms "
+          f"{dot_ms:.5f} (dense matmul {dense_ms:.5f}, torch.sparse.mm "
+          f"{lib_ms:.5f}); {sweep['cases']} tier-1 cases card = CPU "
+          f"(dots within {sweep['dot_max_abs_err']:.3e}); {card_line()}",
+          flush=True)
+    del x, rhs, dense, lib
+    torch.cuda.empty_cache()
+    return dict(losses=g_loss, cpu_losses=c_loss, loss_err=l_err,
+                weight_err=w_err, step_ms=sum(g_t[1:]) / (len(g_t) - 1) * 1e3,
+                dot_err=d_err, dot_ms=dot_ms, dense_ms=dense_ms,
+                torch_sparse_ms=lib_ms, sweep=sweep)
+
+
+def profiler_engine(amp_row):
+    """25.4, from 25.1's children: ``profiler.dumps()`` over run A's steps
+    2-4 counts ``flash_attention`` 36 times and ``FullyConnected`` as the
+    model calls it (qkv and proj in each of 12 layers and the head: 25 a
+    step); ``device_dumps``/``device_events`` list K1-K3's fp16
+    kernels; the NaiveEngine run's step-1 loss and weights equal run A's
+    bit for bit."""
+    import re
+
+    a, naive = amp_row["runs"]["a"], amp_row["runs"]["naive"]
+    prof = a["profile"]
+    calls = {}
+    for line in prof["table"].splitlines()[2:]:
+        m = re.match(r"^(\S+)\s+(\d+)\s", line)
+        if m:
+            calls[m.group(1)] = int(m.group(2))
+    n = len(P25_PROFILED)
+    if calls.get("flash_attention") != 12 * n or \
+            calls.get("FullyConnected") != FC_CALLS_A_STEP * n:
+        fail(f"25.4 profiler: flash_attention {calls.get('flash_attention')}"
+             f" (expected {12 * n}), FullyConnected "
+             f"{calls.get('FullyConnected')} (expected {FC_CALLS_A_STEP * n})")
+    names = prof["device_names"]
+    missing = [k for k in ("flash_fwd_mma_kernel<__half",
+                           "flash_bwd_dq_mma_kernel<__half",
+                           "flash_bwd_dkv_mma_kernel<__half")
+               if not any(k in x for x in names)]
+    if missing:
+        fail(f"25.4 device_dumps: no {missing} among {len(names)} kernels")
+    if naive["engine"] != "NaiveEngine" or naive["loss1"] != a["loss1"] or \
+            naive["digest1"] != a["digest1"]:
+        fail(f"25.4 NaiveEngine step 1: loss {naive['loss1']} vs "
+             f"{a['loss1']}, weights equal {naive['digest1'] == a['digest1']}")
+    print(f"25.4 profiler over steps {P25_PROFILED}: flash_attention "
+          f"{calls['flash_attention']}, FullyConnected "
+          f"{calls['FullyConnected']}; device kernels by name:\n"
+          f"{prof['by_name']}\nby category:\n{prof['by_category']}\n"
+          f"25.4 NaiveEngine step 1 = threaded bit for bit (loss "
+          f"{naive['loss1']})", flush=True)
+    return dict(calls=calls, device_kernels=len(names))
+
+
+def check_runtime():
+    """Phase 25: 25.1-25.4, with the phase's seconds."""
+    import gc
+
+    import torch
+
+    # 25.1's children share the card: hand back what earlier phases cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    amp_row = amp_kill_resume()
+    captured = captured_mid_window()
+    sp = sparse_avazu()
+    prof = profiler_engine(amp_row)
+    secs = time.perf_counter() - t0
+    print(f"phase 25: {secs:.2f} s", flush=True)
+    launches = {n: amp_row["launches"][n] + captured["launches"][n]
+                for n in ATTN_KERNELS}
+    return dict(amp=amp_row, captured=captured, sparse=sp, profiler=prof,
+                seconds=secs, launches=launches,
+                fp16_launches=amp_row["launches"])
+
+
 def main():
     try:
         import torch
@@ -9872,10 +10538,24 @@ def main():
     det = check_detection()
     seq = check_sequence()
     corpus = check_corpus(fused_train["resnet"], opt19)
+    runtime = check_runtime()
 
     # the kernels line, the card's line and the result
     gelu = next(c for c in rtc["cases"]
                 if c["name"] == "gelu_fwd<__nv_bfloat16>")
+
+    # the fp16 instantiation of K1-K3 (phase 25.1's path) at GPT-2
+    # small's training shape, dropout 0; its launches those of 25.1's
+    # children (runs A, B, resumed, NaiveEngine; the killed run's are not
+    # reported)
+    k1_fp16 = next(r for r in k1 if r["dtype"] == "float16")
+    k23_fp16 = next(r for r in k23 if r["dtype"] == "float16")
+
+    def fp16_row(name, row):
+        return dict(launches=runtime["fp16_launches"][name], ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=row["library_ms"],
+                    max_abs_err=row.get("max_abs_err"))
 
     def backward_row(name, key, outputs, replaces):
         main = k23[0][key]
@@ -9884,13 +10564,19 @@ def main():
                     replaces=replaces,
                     launches=train["launches"][name] +
                     opt19["lamb_gpt2"]["launches"][name] +
-                    hybrid["launches"][name] + seq["launches"][name],
+                    hybrid["launches"][name] + seq["launches"][name] +
+                    runtime["launches"][name],
                     max_abs_err=max(e for r in k23
                                     for w, e in r["max_abs_err"].items()
                                     if w in outputs),
                     ms=main["ms"], plain_ms=main["plain_ms"],
                     bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                    library_ms=main["library_ms"])
+                    library_ms=main["library_ms"],
+                    fp16=dict(fp16_row(name, k23_fp16[key]),
+                              max_abs_err=max(
+                                  e for w, e in
+                                  k23_fp16["max_abs_err"].items()
+                                  if w in outputs)))
 
     kernels = [
         dict(name="q8_matvec", route="cuda",
@@ -9919,10 +10605,12 @@ def main():
              srv["launches"]["flash_fwd"] + served["launches"]["flash_fwd"] +
              served["spec"]["launches"]["flash_fwd"] +
              served["faults"]["launches"]["flash_fwd"] +
-             served["faults"]["sync"]["launches"]["flash_fwd"],
+             served["faults"]["sync"]["launches"]["flash_fwd"] +
+             runtime["launches"]["flash_fwd"],
              max_abs_err=max(r["max_abs_err"] for r in k1), ms=k1[0]["ms"],
              plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
              bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"],
+             fp16=fp16_row("flash_fwd", k1_fp16),
              design=k1_design["design"]),
         dict(backward_row("flash_bwd_dq", "k2", ("dq",),
                           "mxnet_tpu/ops/attention.py:369"),
@@ -10021,8 +10709,11 @@ def main():
                        rtc=rtc,
                        mlp=mlp, fused_train=fused_train, optimizers=opt19,
                        hybrid=hybrid, data=data, detection=det,
-                       sequence=seq, corpus=corpus, kernels=kernels),
+                       sequence=seq, corpus=corpus, runtime=runtime,
+                       kernels=kernels),
                   fh, indent=1, default=str)
+    print(f"chip_smoke: {time.perf_counter() - T_START:.2f} s in all",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -10031,4 +10722,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--p25-child":
+        p25_child(json.loads(sys.argv[2]))
+    else:
+        main()

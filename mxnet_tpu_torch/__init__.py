@@ -30,7 +30,11 @@ and out of every block, loss and ``gluon.Trainer``.  The sixteenth is
 capture watch) and the server's deadlines, cancellation, watchdog, HBM
 budget and synchronous mode.  The eighteenth is data and I/O:
 ``gluon.data`` (datasets, samplers, batchify functions, the DataLoader
-and its device ring), ``recordio``, ``io`` and ``image``.
+and its device ring), ``recordio``, ``io`` and ``image``.  The
+twenty-second is the training run's services: ``checkpoint`` (atomic,
+verified, asynchronous saves and bit-exact resume), ``amp`` (mixed
+precision and the loss scaler), ``profiler`` and ``engine``, with
+``nd.sparse``.
 """
 __version__ = "0.1.0"
 
@@ -41,7 +45,8 @@ from .device import resolve_device
 
 _SUBPACKAGES = ("ops", "models", "serve", "gluon", "optimizer", "parallel",
                 "random", "initializer", "ndarray", "autograd", "context",
-                "operator", "rtc", "telemetry", "io", "recordio", "image")
+                "operator", "rtc", "telemetry", "io", "recordio", "image",
+                "amp", "checkpoint", "engine", "profiler")
 # names of the imperative core, taken from the module that holds them
 _FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
          "cpu": ("context", "cpu"),

@@ -5,11 +5,13 @@ of the JAX package (``mxnet_tpu/base.py`` holds the reference one).
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 __all__ = ["MXNetError", "torch_dtype", "dtype_name", "numeric_types",
-           "parse_seconds"]
+           "parse_seconds", "is_naive_engine"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64,
@@ -59,3 +61,10 @@ def parse_seconds(var, raw):
         return float(raw)
     except (TypeError, ValueError):
         raise MXNetError(f"{var}={raw!r}: expected seconds (a number)")
+
+
+def is_naive_engine() -> bool:
+    """``MXNET_ENGINE_TYPE=NaiveEngine``: every op waits for its result
+    (the reference's synchronous debugging engine, ``base.
+    is_naive_engine``); read at each call, so a test may set it."""
+    return os.environ.get("MXNET_ENGINE_TYPE") == "NaiveEngine"

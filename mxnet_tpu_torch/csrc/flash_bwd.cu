@@ -17,7 +17,7 @@
 // caller.  K2 writes dq = scale * ds @ k in f32; K3 writes dk = scale *
 // ds^T @ q, dv = p_drop^T @ do, both f32, and, when asked, the key-mask
 // gradient dbias[bh, k] = sum_q ds, f32 (BH, Lk).  q/k/v/do are (B, H,
-// L|Lk, D) bf16 or f32, contiguous, D <= 128 a multiple of 8; lse and
+// L|Lk, D) bf16, fp16 or f32, contiguous, D <= 128 a multiple of 8; lse and
 // delta are (B, H, L) f32.  Ragged L and Lk are masked inside: rows past
 // L and keys past Lk contribute nothing and are never written; nothing
 // is padded to 128 (the TPU kernels' block, lane and head-dim padding is
@@ -69,6 +69,14 @@
 // written once in f32.  Three products and the lo half of a fourth
 // against K3's four and two halves.
 //
+// fp16 (K2 and K3 in bf16's kernels instantiated for __half, the path of
+// amp's float16 callers): m16n8k16 with .f16 inputs and f32 sums.  q, k,
+// v and do enter exactly; P_drop and dS go in as fp16 hi/lo pairs, ~22
+// bits of each value in fp16's normal range (the reference's
+// _pallas_bwd_* form dS.k, dS^T.q and P^T.do in f32), at most 2^-25
+// absolute below it.  A |dS| past 65504 overflows to inf, which amp's
+// loss scaler reads as an overflow and answers by halving the scale.
+//
 // f32 (K2 and K3): one block per (b*H + h, 64-row q tile) for K2,
 // looping over 64-key k/v tiles up to the diagonal (the TPU grid's
 // sequential k axis becomes the loop), and per (b*H + h, 64-key tile)
@@ -81,6 +89,7 @@
 // cores.  They stay on CUDA cores on purpose: the f32 callers need 1e-4
 // agreement, which a bf16 or TF32 product cannot give.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,6 +102,8 @@ constexpr int kThreads = 256;  // 4 threads per row (K2) or key (K3)
 constexpr int kCols = kB / 4;  // scores per thread per tile
 constexpr int kP = kB + 1;     // odd stride of the 64x64 tiles
 constexpr float kNegInf = -1e30f;
+// the launch's dtype code (ops/attention.py _DTYPE_CODE)
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
 
 // the reference's dropout hash (mxnet_tpu/ops/attention.py::_hash_bits):
 // uint32 arithmetic wraps exactly as jnp.uint32 does
@@ -351,7 +362,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K3 in bf16: tensor cores
+// K3 in bf16 and fp16: tensor cores
 constexpr int kStages = 2;  // q/do tiles in flight
 
 template <int DP>
@@ -360,12 +371,12 @@ constexpr size_t dkv_mma_smem_bytes() {
          sizeof(float) * 2 * kStages * kB;
 }
 
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(mx_attn::kThreads)
-    flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ g,
+    flash_bwd_dkv_mma_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ g,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              const float* __restrict__ kmask,
@@ -383,10 +394,10 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
   constexpr int NO = DP / 8;   // 8-wide output n-tiles
   constexpr bool kRegs = DP <= 64;  // k/v A fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + kB * SR;
-  __nv_bfloat16* Qs = Vs + kB * SR;             // [kStages][kB][SR]
-  __nv_bfloat16* Gs = Qs + kStages * kB * SR;   // [kStages][kB][SR]
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + kB * SR;
+  T* Qs = Vs + kB * SR;             // [kStages][kB][SR]
+  T* Gs = Qs + kStages * kB * SR;   // [kStages][kB][SR]
   float* Ls = reinterpret_cast<float*>(Gs + kStages * kB * SR);  // [kStages][kB]
   float* Dl = Ls + kStages * kB;                                 // [kStages][kB]
 
@@ -397,8 +408,8 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
   const int gq = lane >> 2, t4 = lane & 3;
   const int kpos[2] = {k0 + rw + gq, k0 + rw + gq + 8};
   const bool key_ok[2] = {kpos[0] < Lk, kpos[1] < Lk};
-  const __nv_bfloat16* qb = q + (size_t)bh * L * D;
-  const __nv_bfloat16* gb = g + (size_t)bh * L * D;
+  const T* qb = q + (size_t)bh * L * D;
+  const T* gb = g + (size_t)bh * L * D;
   const float* lb = lse + (size_t)bh * L;
   const float* db = delta + (size_t)bh * L;
   const float* km =
@@ -450,8 +461,8 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
       cp_async_commit();
     }
     const int b = it % kStages;
-    const __nv_bfloat16* Qt = Qs + b * kB * SR;
-    const __nv_bfloat16* Gt = Gs + b * kB * SR;
+    const T* Qt = Qs + b * kB * SR;
+    const T* Gt = Gs + b * kB * SR;
     const float* Lt = Ls + b * kB;
     const float* Dt = Dl + b * kB;
     const int q0 = qstart + it * kB;
@@ -481,10 +492,10 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
         uint32_t bq[4], bg[4];
         ldmatrix_b<DP>(bq, Qt, np * 16, ks * 16);
         ldmatrix_b<DP>(bg, Gt, np * 16, ks * 16);
-        mma(st[2 * np], ka, bq[0], bq[1]);
-        mma(st[2 * np + 1], ka, bq[2], bq[3]);
-        mma(dpt[2 * np], va, bg[0], bg[1]);
-        mma(dpt[2 * np + 1], va, bg[2], bg[3]);
+        mma_t<T>(st[2 * np], ka, bq[0], bq[1]);
+        mma_t<T>(st[2 * np + 1], ka, bq[2], bq[3]);
+        mma_t<T>(dpt[2 * np], va, bg[0], bg[1]);
+        mma_t<T>(dpt[2 * np + 1], va, bg[2], bg[3]);
       }
     }
 
@@ -520,21 +531,21 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t ph[4], pl[4], sh[4], sl[4];
-      acc_to_a(st[2 * kk], st[2 * kk + 1], ph, pl);
-      acc_to_a(dpt[2 * kk], dpt[2 * kk + 1], sh, sl);
+      acc_to_a<T>(st[2 * kk], st[2 * kk + 1], ph, pl);
+      acc_to_a<T>(dpt[2 * kk], dpt[2 * kk + 1], sh, sl);
 #pragma unroll
       for (int dp = 0; dp < NO / 2; ++dp) {
         uint32_t bg[4], bq[4];
         ldmatrix_b_trans<DP>(bg, Gt, kk * 16, dp * 16);
         ldmatrix_b_trans<DP>(bq, Qt, kk * 16, dp * 16);
-        mma(dva[2 * dp], ph, bg[0], bg[1]);
-        mma(dva[2 * dp], pl, bg[0], bg[1]);
-        mma(dva[2 * dp + 1], ph, bg[2], bg[3]);
-        mma(dva[2 * dp + 1], pl, bg[2], bg[3]);
-        mma(dka[2 * dp], sh, bq[0], bq[1]);
-        mma(dka[2 * dp], sl, bq[0], bq[1]);
-        mma(dka[2 * dp + 1], sh, bq[2], bq[3]);
-        mma(dka[2 * dp + 1], sl, bq[2], bq[3]);
+        mma_t<T>(dva[2 * dp], ph, bg[0], bg[1]);
+        mma_t<T>(dva[2 * dp], pl, bg[0], bg[1]);
+        mma_t<T>(dva[2 * dp + 1], ph, bg[2], bg[3]);
+        mma_t<T>(dva[2 * dp + 1], pl, bg[2], bg[3]);
+        mma_t<T>(dka[2 * dp], sh, bq[0], bq[1]);
+        mma_t<T>(dka[2 * dp], sl, bq[0], bq[1]);
+        mma_t<T>(dka[2 * dp + 1], sh, bq[2], bq[3]);
+        mma_t<T>(dka[2 * dp + 1], sl, bq[2], bq[3]);
       }
     }
   }
@@ -559,18 +570,18 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
   }
 }
 
-// K2 in bf16: tensor cores, K3's design turned around
+// K2 in bf16 and fp16: tensor cores, K3's design turned around
 template <int DP>
 constexpr size_t dq_mma_smem_bytes() {
   return mx_attn::tile_bytes<DP>() * (2 + 2 * kStages);
 }
 
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(mx_attn::kThreads)
-    flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ g,
+    flash_bwd_dq_mma_kernel(const T* __restrict__ q,
+                            const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ g,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             const float* __restrict__ kmask,
@@ -587,10 +598,10 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
   constexpr int NO = DP / 8;   // 8-wide output n-tiles
   constexpr bool kRegs = DP <= 64;  // q/do A fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Gs = Qs + kB * SR;
-  __nv_bfloat16* Ks = Gs + kB * SR;            // [kStages][kB][SR]
-  __nv_bfloat16* Vs = Ks + kStages * kB * SR;  // [kStages][kB][SR]
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Gs = Qs + kB * SR;
+  T* Ks = Gs + kB * SR;            // [kStages][kB][SR]
+  T* Vs = Ks + kStages * kB * SR;  // [kStages][kB][SR]
 
   const int bh = blockIdx.y;
   // under the causal mask the q tiles with the most key tiles go first
@@ -601,8 +612,8 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
   const int gq = lane >> 2, t4 = lane & 3;
   const int qpos[2] = {q0 + rw + gq, q0 + rw + gq + 8};
   const bool row_ok[2] = {qpos[0] < L, qpos[1] < L};
-  const __nv_bfloat16* kb = k + (size_t)bh * Lk * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * Lk * D;
+  const T* kb = k + (size_t)bh * Lk * D;
+  const T* vb = v + (size_t)bh * Lk * D;
   const float* km =
       kmask ? kmask + (size_t)(nb_mask == 1 ? 0 : bh / H) * Lk : nullptr;
   float lse_r[2], dlt_r[2];
@@ -645,8 +656,8 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
       load_tile_async<DP>(Vs + nb * kB * SR, vb, (it + 1) * kB, Lk, D);
       cp_async_commit();
     }
-    const __nv_bfloat16* Kt = Ks + (it % kStages) * kB * SR;
-    const __nv_bfloat16* Vt = Vs + (it % kStages) * kB * SR;
+    const T* Kt = Ks + (it % kStages) * kB * SR;
+    const T* Vt = Vs + (it % kStages) * kB * SR;
     const int k0 = it * kB;
 
     // S = q . k^T and dP = do . v^T: 16 rows x 64 keys a warp
@@ -674,10 +685,10 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
         uint32_t bk[4], bv[4];
         ldmatrix_b<DP>(bk, Kt, np * 16, ks * 16);
         ldmatrix_b<DP>(bv, Vt, np * 16, ks * 16);
-        mma(st[2 * np], qa, bk[0], bk[1]);
-        mma(st[2 * np + 1], qa, bk[2], bk[3]);
-        mma(dpt[2 * np], ga, bv[0], bv[1]);
-        mma(dpt[2 * np + 1], ga, bv[2], bv[3]);
+        mma_t<T>(st[2 * np], qa, bk[0], bk[1]);
+        mma_t<T>(st[2 * np + 1], qa, bk[2], bk[3]);
+        mma_t<T>(dpt[2 * np], ga, bv[0], bv[1]);
+        mma_t<T>(dpt[2 * np + 1], ga, bv[2], bv[3]);
       }
     }
 
@@ -711,15 +722,15 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t sh[4], sl[4];
-      acc_to_a(dpt[2 * kk], dpt[2 * kk + 1], sh, sl);
+      acc_to_a<T>(dpt[2 * kk], dpt[2 * kk + 1], sh, sl);
 #pragma unroll
       for (int dp = 0; dp < NO / 2; ++dp) {
         uint32_t bk[4];
         ldmatrix_b_trans<DP>(bk, Kt, kk * 16, dp * 16);
-        mma(dqa[2 * dp], sh, bk[0], bk[1]);
-        mma(dqa[2 * dp], sl, bk[0], bk[1]);
-        mma(dqa[2 * dp + 1], sh, bk[2], bk[3]);
-        mma(dqa[2 * dp + 1], sl, bk[2], bk[3]);
+        mma_t<T>(dqa[2 * dp], sh, bk[0], bk[1]);
+        mma_t<T>(dqa[2 * dp], sl, bk[0], bk[1]);
+        mma_t<T>(dqa[2 * dp + 1], sh, bk[2], bk[3]);
+        mma_t<T>(dqa[2 * dp + 1], sl, bk[2], bk[3]);
       }
     }
   }
@@ -806,54 +817,52 @@ bool aligned_mma(const Args& a) {
          mx_attn::aligned16(a.v) && mx_attn::aligned16(a.g);
 }
 
-template <int DP>
+template <typename T, int DP>
 int launch_dkv_mma(const Args& a, float* dk, float* dv, float* dbias) {
   constexpr size_t smem = dkv_mma_smem_bytes<DP>();
   static bool attr_set = false;
-  const int e = set_smem(flash_bwd_dkv_mma_kernel<DP>, smem, &attr_set);
+  const int e = set_smem(flash_bwd_dkv_mma_kernel<T, DP>, smem, &attr_set);
   if (e) return e;
   const dim3 grid((a.Lk + kB - 1) / kB, a.B * a.H);
-  flash_bwd_dkv_mma_kernel<DP><<<grid, mx_attn::kThreads, smem, a.st>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.g), a.lse, a.delta, a.kmask, dk,
+  flash_bwd_dkv_mma_kernel<T, DP><<<grid, mx_attn::kThreads, smem, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta, a.kmask, dk,
       dv, dbias, a.H, a.L, a.Lk, a.D, a.nb_mask, a.scale, a.causal, a.seed,
       a.thresh, a.inv_keep, a.dropout);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
 int dispatch_dkv_mma(const Args& a, float* dk, float* dv, float* dbias) {
   if (!aligned_mma(a)) return (int)cudaErrorMisalignedAddress;
-  if (a.D <= 32) return launch_dkv_mma<32>(a, dk, dv, dbias);
-  if (a.D <= 64) return launch_dkv_mma<64>(a, dk, dv, dbias);
-  if (a.D <= 96) return launch_dkv_mma<96>(a, dk, dv, dbias);
-  return launch_dkv_mma<128>(a, dk, dv, dbias);
+  if (a.D <= 32) return launch_dkv_mma<T, 32>(a, dk, dv, dbias);
+  if (a.D <= 64) return launch_dkv_mma<T, 64>(a, dk, dv, dbias);
+  if (a.D <= 96) return launch_dkv_mma<T, 96>(a, dk, dv, dbias);
+  return launch_dkv_mma<T, 128>(a, dk, dv, dbias);
 }
 
-template <int DP>
+template <typename T, int DP>
 int launch_dq_mma(const Args& a, float* dq) {
   constexpr size_t smem = dq_mma_smem_bytes<DP>();
   static bool attr_set = false;
-  const int e = set_smem(flash_bwd_dq_mma_kernel<DP>, smem, &attr_set);
+  const int e = set_smem(flash_bwd_dq_mma_kernel<T, DP>, smem, &attr_set);
   if (e) return e;
   const dim3 grid((a.L + kB - 1) / kB, a.B * a.H);
-  flash_bwd_dq_mma_kernel<DP><<<grid, mx_attn::kThreads, smem, a.st>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.g), a.lse, a.delta, a.kmask, dq,
+  flash_bwd_dq_mma_kernel<T, DP><<<grid, mx_attn::kThreads, smem, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta, a.kmask, dq,
       a.H, a.L, a.Lk, a.D, a.nb_mask, a.scale, a.causal, a.seed, a.thresh,
       a.inv_keep, a.dropout);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
 int dispatch_dq_mma(const Args& a, float* dq) {
   if (!aligned_mma(a)) return (int)cudaErrorMisalignedAddress;
-  if (a.D <= 32) return launch_dq_mma<32>(a, dq);
-  if (a.D <= 64) return launch_dq_mma<64>(a, dq);
-  if (a.D <= 96) return launch_dq_mma<96>(a, dq);
-  return launch_dq_mma<128>(a, dq);
+  if (a.D <= 32) return launch_dq_mma<T, 32>(a, dq);
+  if (a.D <= 64) return launch_dq_mma<T, 64>(a, dq);
+  if (a.D <= 96) return launch_dq_mma<T, 96>(a, dq);
+  return launch_dq_mma<T, 128>(a, dq);
 }
 
 int dispatch_dkv(const Args& a, float* dk, float* dv, float* dbias) {
@@ -880,7 +889,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* g,
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* g,
                                    const void* lse, const void* delta,
-                                   const void* kmask, void* dq, int is_bf16,
+                                   const void* kmask, void* dq, int dtype,
                                    int B, int H, int L, int Lk, int D,
                                    int nb_mask, float scale, int causal,
                                    const void* seed, unsigned thresh,
@@ -891,14 +900,17 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                            nb_mask, scale, causal, seed, thresh, inv_keep,
                            dropout, stream);
   float* out = static_cast<float*>(dq);
-  return is_bf16 ? dispatch_dq_mma(a, out) : dispatch_dq(a, out);
+  if (dtype == kBF16) return dispatch_dq_mma<__nv_bfloat16>(a, out);
+  if (dtype == kF16) return dispatch_dq_mma<__half>(a, out);
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  return dispatch_dq(a, out);
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* g,
                                     const void* lse, const void* delta,
                                     const void* kmask, void* dk, void* dv,
-                                    void* dbias, int is_bf16, int B, int H,
+                                    void* dbias, int dtype, int B, int H,
                                     int L, int Lk, int D, int nb_mask,
                                     float scale, int causal, const void* seed,
                                     unsigned thresh, float inv_keep,
@@ -910,25 +922,31 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
   float* k_out = static_cast<float*>(dk);
   float* v_out = static_cast<float*>(dv);
   float* b_out = static_cast<float*>(dbias);
-  return is_bf16 ? dispatch_dkv_mma(a, k_out, v_out, b_out)
-                 : dispatch_dkv(a, k_out, v_out, b_out);
+  if (dtype == kBF16)
+    return dispatch_dkv_mma<__nv_bfloat16>(a, k_out, v_out, b_out);
+  if (dtype == kF16) return dispatch_dkv_mma<__half>(a, k_out, v_out, b_out);
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  return dispatch_dkv(a, k_out, v_out, b_out);
 }
 
 // the designs K2's and K3's bf16 paths run, for reports
 extern "C" const char* flash_bwd_dq_design() {
-  return "bf16: mma.sync m16n8k16 bf16->f32, 64-row q x 64-key tiles, "
+  return "bf16 and fp16: mma.sync m16n8k16 bf16|f16->f32, 64-row q x "
+         "64-key tiles, "
          "4 warps x 16 rows, q tiles with the most key tiles first, "
          "2-stage cp.async k/v ring, q/do A fragments in registers (head "
-         "dim <= 64), dS as a bf16 hi+lo pair, dq written once; f32: "
+         "dim <= 64), dS as a hi+lo pair of q's type, dq written once; "
+         "f32: "
          "CUDA-core FMAs";
 }
 
 // the design K3's bf16 path runs, for reports
 extern "C" const char* flash_bwd_dkv_design() {
-  return "bf16: mma.sync m16n8k16 bf16->f32, 64-key x 64-q-row tiles, "
+  return "bf16 and fp16: mma.sync m16n8k16 bf16|f16->f32, 64-key x "
+         "64-q-row tiles, "
          "4 warps x 16 keys, 2-stage cp.async q/do/lse/delta ring, k/v A "
-         "fragments in registers (head dim <= 64), P_drop and dS as bf16 "
-         "hi+lo pairs, dbias by quad shuffles; f32: CUDA-core FMAs";
+         "fragments in registers (head dim <= 64), P_drop and dS as hi+lo "
+         "pairs of q's type, dbias by quad shuffles; f32: CUDA-core FMAs";
 }
 
 extern "C" const char* mx_cuda_error_string(int err) {

@@ -14,7 +14,7 @@
 // (the low half of a one-element int64 tensor), read once by each block
 // before its tiles, so a CUDA graph's replay drops what the word holds at
 // that replay.  q/k/v are (B, H, L|Lk, D)
-// bf16 or f32, contiguous, D <= 128 a multiple of 8; out has q's type;
+// bf16, fp16 or f32, contiguous, D <= 128 a multiple of 8; out has q's type;
 // lse is (B, H, L) f32.  Ragged L and Lk are masked inside: rows past L
 // are neither computed into memory nor written, keys past Lk score -1e30.
 //
@@ -46,12 +46,22 @@
 // is written by one thread after a fixed-order loop, so launches repeat
 // bit for bit.
 //
+// fp16 (the same kernel instantiated for __half, the path of amp's
+// float16 callers): the products are m16n8k16 with .f16 inputs and f32
+// sums.  q, k and v enter exactly; P goes in as an fp16 hi/lo pair, which
+// keeps ~22 bits of each p in [2^-14, 1/(1 - rate)] (the reference's
+// _pallas_fwd forms p.v with p in f32, so the pair stands in for f32 as
+// the bf16 pair does) and loses at most 2^-25 absolute on a smaller p.
+// Everything else (masks, hash, seed word, tiles, order) is the bf16
+// kernel's.
+//
 // f32 (flash_fwd_kernel): the CUDA-core kernel, four threads a q row with
 // scalar f32 FMAs over f32 tiles in shared memory.  It stays off the
 // tensor cores on purpose: the f32 callers (the f32 training step held
 // against the CPU, the f32 card tests) need 1e-4 agreement, which a bf16
 // or TF32 product cannot give.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,6 +74,8 @@ constexpr int kBK = 64;        // keys per k/v tile
 constexpr int kThreads = 256;  // 4 threads per q row
 constexpr int kCols = kBK / 4; // scores per thread per tile
 constexpr float kNegInf = -1e30f;
+// the launch's dtype code (ops/attention.py _DTYPE_CODE)
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -217,13 +229,13 @@ constexpr size_t mma_smem_bytes() {
 }
 
 // DP: head dim padded up to 32, 64, 96 or 128 (zeros in shared memory)
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(mx_attn::kThreads)
-    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
+    flash_fwd_mma_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k,
+                         const T* __restrict__ v,
                          const float* __restrict__ kmask,
-                         __nv_bfloat16* __restrict__ out,
+                         T* __restrict__ out,
                          float* __restrict__ lse, int H, int L, int Lk,
                          int D, int nb_mask, float scale, int causal,
                          const uint32_t* __restrict__ seed_word,
@@ -236,9 +248,9 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
   constexpr int KS = DP / 16;  // 16-deep steps over the head dim
   constexpr int NO = DP / 8;   // 8-wide output n-tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBQ * SR;           // [kStages][kBK][SR]
-  __nv_bfloat16* Vs = Ks + kStages * kBK * SR;  // [kStages][kBK][SR]
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + kBQ * SR;           // [kStages][kBK][SR]
+  T* Vs = Ks + kStages * kBK * SR;  // [kStages][kBK][SR]
 
   const int bh = blockIdx.y;
   const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
@@ -247,9 +259,9 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
   const int rw = (threadIdx.x >> 5) * 16;  // this warp's rows in the tile
   const int g = lane >> 2, t4 = lane & 3;
   const int qpos[2] = {q0 + rw + g, q0 + rw + g + 8};
-  const __nv_bfloat16* qb = q + (size_t)bh * L * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * Lk * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * Lk * D;
+  const T* qb = q + (size_t)bh * L * D;
+  const T* kb = k + (size_t)bh * Lk * D;
+  const T* vb = v + (size_t)bh * Lk * D;
   const float* km =
       kmask ? kmask + (size_t)(nb_mask == 1 ? 0 : bh / H) * Lk : nullptr;
 
@@ -281,8 +293,8 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
       load_tile_async<DP>(Vs + nb * kBK * SR, vb, (j + 1) * kBK, Lk, D);
       cp_async_commit();
     }
-    const __nv_bfloat16* Kt = Ks + (j % kStages) * kBK * SR;
-    const __nv_bfloat16* Vt = Vs + (j % kStages) * kBK * SR;
+    const T* Kt = Ks + (j % kStages) * kBK * SR;
+    const T* Vt = Vs + (j % kStages) * kBK * SR;
     const int k0 = j * kBK;
 
     // S = q . k^T: 16 rows x 64 keys a warp, eight 8-key n-tiles
@@ -295,8 +307,8 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
       for (int np = 0; np < 4; ++np) {
         uint32_t b[4];
         ldmatrix_b<DP>(b, Kt, np * 16, ks * 16);
-        mma(s[2 * np], qf[ks], b[0], b[1]);
-        mma(s[2 * np + 1], qf[ks], b[2], b[3]);
+        mma_t<T>(s[2 * np], qf[ks], b[0], b[1]);
+        mma_t<T>(s[2 * np + 1], qf[ks], b[2], b[3]);
       }
     }
 
@@ -352,19 +364,19 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
       o[n][3] *= alpha[1];
     }
 
-    // O += P . v, P as hi + lo bf16 A fragments
+    // O += P . v, P as hi + lo A fragments of q's type
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t ph[4], pl[4];
-      acc_to_a(s[2 * kk], s[2 * kk + 1], ph, pl);
+      acc_to_a<T>(s[2 * kk], s[2 * kk + 1], ph, pl);
 #pragma unroll
       for (int dp = 0; dp < NO / 2; ++dp) {
         uint32_t b[4];
         ldmatrix_b_trans<DP>(b, Vt, kk * 16, dp * 16);
-        mma(o[2 * dp], ph, b[0], b[1]);
-        mma(o[2 * dp], pl, b[0], b[1]);
-        mma(o[2 * dp + 1], ph, b[2], b[3]);
-        mma(o[2 * dp + 1], pl, b[2], b[3]);
+        mma_t<T>(o[2 * dp], ph, b[0], b[1]);
+        mma_t<T>(o[2 * dp], pl, b[0], b[1]);
+        mma_t<T>(o[2 * dp + 1], ph, b[2], b[3]);
+        mma_t<T>(o[2 * dp + 1], pl, b[2], b[3]);
       }
     }
   }
@@ -374,13 +386,13 @@ __global__ void __launch_bounds__(mx_attn::kThreads)
   for (int r = 0; r < 2; ++r) {
     const float lc = fmaxf(quad_sum(l[r]), 1e-30f);  // every lane shuffles
     if (qpos[r] >= L) continue;
-    __nv_bfloat16* orow = out + ((size_t)bh * L + qpos[r]) * D;
+    T* orow = out + ((size_t)bh * L + qpos[r]) * D;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int d = n * 8 + 2 * t4;
       if (d < D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
-            o[n][2 * r] / lc, o[n][2 * r + 1] / lc);
+        *reinterpret_cast<uint32_t*>(orow + d) =
+            pack<T>(o[n][2 * r] / lc, o[n][2 * r + 1] / lc);
     }
     if (t4 == 0) lse[(size_t)bh * L + qpos[r]] = m[r] + logf(lc);
   }
@@ -427,7 +439,7 @@ int dispatch(int D, const void* q, const void* k, const void* v,
 #undef MX_FLASH_CASE
 }
 
-template <int DP>
+template <typename T, int DP>
 int launch_mma(const void* q, const void* k, const void* v,
                const float* kmask, void* out, float* lse, int B, int H,
                int L, int Lk, int D, int nb_mask, float scale, int causal,
@@ -438,21 +450,20 @@ int launch_mma(const void* q, const void* k, const void* v,
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd_mma_kernel<T, DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid((L + kBQ - 1) / kBQ, B * H);
-  flash_fwd_mma_kernel<DP><<<grid, mx_attn::kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), kmask,
-      static_cast<__nv_bfloat16*>(out), lse, H, L, Lk, D, nb_mask, scale,
-      causal, seed, thresh, inv_keep, dropout);
+  flash_fwd_mma_kernel<T, DP><<<grid, mx_attn::kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kmask, static_cast<T*>(out), lse, H, L, Lk,
+      D, nb_mask, scale, causal, seed, thresh, inv_keep, dropout);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
 int dispatch_mma(int D, const void* q, const void* k, const void* v,
                  const float* kmask, void* out, float* lse, int B, int H,
                  int L, int Lk, int nb_mask, float scale, int causal,
@@ -464,8 +475,9 @@ int dispatch_mma(int D, const void* q, const void* k, const void* v,
       !mx_attn::aligned16(v))
     return (int)cudaErrorMisalignedAddress;
 #define MX_FLASH_CASE(DP)                                                   \
-  return launch_mma<DP>(q, k, v, kmask, out, lse, B, H, L, Lk, D, nb_mask,  \
-                        scale, causal, seed, thresh, inv_keep, dropout, st)
+  return launch_mma<T, DP>(q, k, v, kmask, out, lse, B, H, L, Lk, D,       \
+                           nb_mask, scale, causal, seed, thresh, inv_keep, \
+                           dropout, st)
   if (D <= 32) MX_FLASH_CASE(32);
   if (D <= 64) MX_FLASH_CASE(64);
   if (D <= 96) MX_FLASH_CASE(96);
@@ -477,7 +489,7 @@ int dispatch_mma(int D, const void* q, const void* k, const void* v,
 
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* kmask, void* out, void* lse,
-                                int is_bf16, int B, int H, int L, int Lk,
+                                int dtype, int B, int H, int L, int Lk,
                                 int D, int nb_mask, float scale, int causal,
                                 const void* seed, unsigned thresh,
                                 float inv_keep, int dropout, void* stream) {
@@ -486,19 +498,25 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   const float* km = static_cast<const float*>(kmask);
   float* ls = static_cast<float*>(lse);
   const uint32_t* sd = static_cast<const uint32_t*>(seed);
-  if (is_bf16)
-    return dispatch_mma(D, q, k, v, km, out, ls, B, H, L, Lk, nb_mask, scale,
-                        causal, sd, thresh, inv_keep, dropout, st);
+  if (dtype == kBF16)
+    return dispatch_mma<__nv_bfloat16>(D, q, k, v, km, out, ls, B, H, L, Lk,
+                                       nb_mask, scale, causal, sd, thresh,
+                                       inv_keep, dropout, st);
+  if (dtype == kF16)
+    return dispatch_mma<__half>(D, q, k, v, km, out, ls, B, H, L, Lk,
+                                nb_mask, scale, causal, sd, thresh, inv_keep,
+                                dropout, st);
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
   return dispatch<float>(D, q, k, v, km, out, ls, B, H, L, Lk, nb_mask,
                          scale, causal, sd, thresh, inv_keep, dropout, st);
 }
 
 // the design the bf16 path runs, for reports
 extern "C" const char* flash_fwd_design() {
-  return "bf16: mma.sync m16n8k16 bf16->f32, 64 q rows x 64-key tiles, "
-         "4 warps x 16 rows, 2-stage cp.async k/v ring, q in registers, "
-         "P as bf16 hi+lo pair, heaviest causal tiles first; "
-         "f32: CUDA-core FMAs";
+  return "bf16 and fp16: mma.sync m16n8k16 bf16|f16->f32, 64 q rows x "
+         "64-key tiles, 4 warps x 16 rows, 2-stage cp.async k/v ring, q in "
+         "registers, P as a hi+lo pair of q's type, heaviest causal tiles "
+         "first; f32: CUDA-core FMAs";
 }
 
 extern "C" const char* mx_cuda_error_string(int err) {

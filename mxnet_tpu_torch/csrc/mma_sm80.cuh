@@ -11,6 +11,7 @@
 // holds (k 2t..2t+1 | 2t+8..2t+9, col g) in b[0], b[1].
 #pragma once
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace mx_mma {
@@ -71,6 +72,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
 __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
                                     uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same over fp16 A and B tiles (one fragment layout for both types)
+__device__ __forceinline__ void mma_f16(float c[4], const uint32_t a[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -232,8 +232,9 @@ class FusedStep:
         args = [b._data for b in nd_batch]
         N = tr._update_interval
         if N > 1 and self._accum is None:
-            self._accum = [torch.zeros_like(p._data._data)
-                           for p in self._train_params]
+            adopted = self._adopt_pending_accum(tr)
+            self._accum = adopted if adopted is not None else [
+                torch.zeros_like(p._data._data) for p in self._train_params]
         tr._window_pos += 1
         key = [_random.next_key()]
         if tr._window_pos < N:
@@ -259,6 +260,31 @@ class FusedStep:
         step_counters["dispatches"] += 1
         nd = [NDArray(o) for o in outs]
         return tuple(nd) if self._pure.out_struct.get("is_seq") else nd[0]
+
+    def _adopt_pending_accum(self, tr):
+        """A ring that an ``mx.checkpoint`` restore staged on the trainer
+        (``_pending_accum``): the first whose shapes and dtypes match
+        this step's parameters, placed on their device, resumes the
+        window where the save left it.  A restored mid-window position
+        with no matching ring raises: resuming from a zero ring would not
+        be the saved run."""
+        pending = tr._pending_accum
+        if pending is None:
+            return None
+        like = [p._data._data for p in self._train_params]
+        for i, ring in enumerate(pending):
+            if len(ring) == len(like) and all(
+                    tuple(r.shape) == tuple(w.shape) and r.dtype == w.dtype
+                    for r, w in zip(ring, like)):
+                pending.pop(i)
+                return [r.to(w.device).clone() for r, w in zip(ring, like)]
+        if tr._window_pos != 0:
+            raise MXNetError(
+                "fused_step: the trainer was restored mid-accumulation "
+                f"window (micro-batch {tr._window_pos}/"
+                f"{tr._update_interval}) but no saved accumulator ring "
+                "matches this step's parameters")
+        return None
 
     # ------------------------------------------------------------------ #
     def _legacy(self, nd_batch, batch_size):

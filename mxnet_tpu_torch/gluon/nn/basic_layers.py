@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...amp.amp import layer_cast
 from ...ops.nn import (activation, batch_norm, dropout, flatten,
                        fully_connected)
 from ..block import Block, HybridBlock, _nd_call
@@ -112,7 +113,9 @@ class Dense(HybridBlock):
         p = self._parameters
         if self._flatten:
             x = flatten(x)
-        out = fully_connected(x, p["weight"], p.get("bias"))
+        # the reference's F.FullyConnected, cast as amp.init says
+        out = fully_connected(*layer_cast("FullyConnected", x, p["weight"],
+                                          p.get("bias")))
         return self.act(out) if self.act is not None else out
 
 

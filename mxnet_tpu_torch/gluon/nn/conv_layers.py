@@ -14,6 +14,7 @@ takes the fused backward (K6).
 """
 from __future__ import annotations
 
+from ...amp.amp import layer_cast
 from ...ops.nn import convolution, pooling
 from ..block import HybridBlock
 from .basic_layers import Activation
@@ -70,8 +71,10 @@ class Conv2D(HybridBlock):
 
     def forward(self, x):
         p = self._parameters
-        bias = p.get("bias")
-        out = convolution(x, p["weight"], bias, kernel=self._kernel,
+        # the reference's F.Convolution, cast as amp.init says
+        x, weight, bias = layer_cast("Convolution", x, p["weight"],
+                                     p.get("bias"))
+        out = convolution(x, weight, bias, kernel=self._kernel,
                           stride=self._stride, dilate=self._dilate,
                           pad=self._pad, num_filter=self._channels,
                           num_group=self._groups, no_bias=bias is None,

@@ -156,6 +156,12 @@ class Trainer:
         self._accum_managed = False
         # id(loss_fn) -> FusedStep (strong references keep ids unique)
         self._fused_steps = {}
+        # amp.init_trainer's dynamic loss scaler (mx.checkpoint saves it)
+        self._amp_loss_scaler = None
+        # accumulator rings an mx.checkpoint restore staged for the next
+        # fused step that allocates one (FusedStep._adopt_pending_accum);
+        # None when no restore happened
+        self._pending_accum = None
 
     @property
     def learning_rate(self):
@@ -372,17 +378,13 @@ class Trainer:
                        zip(self._states, self._states_created)],
             "created": list(self._states_created)})
 
-    def load_states(self, fname):
-        """Load a states file of either package (reference
-        ``Trainer.load_states``): in place into the states that exist,
-        each checked for structure, shape and dtype; the others are
-        created first.  The accumulation window and the fused steps'
-        rings start afresh."""
-        from ..ndarray import serialization
-
-        self._check_window_boundary("load_states()")
-        payload = serialization.load_states(fname)
-        states, created = payload["states"], list(payload["created"])
+    def _restore_states(self, states, created, num_update,
+                        index_update_count):
+        """Write saved optimizer states and counts into this trainer (by
+        ``load_states`` and ``mx.checkpoint``): in place into the states
+        that exist, each checked for structure, shape and dtype; the
+        others are created first."""
+        created = list(created)
         if len(states) != len(self._params) or \
                 len(created) != len(self._params):
             raise MXNetError(
@@ -398,9 +400,23 @@ class Trainer:
                 saved = self._optimizer.create_state_multi_precision(
                     i, self._weight(i))
             _copy_state(self._states[i], saved, f"state {i}")
-        self._optimizer.num_update = payload["num_update"]
-        self._optimizer._index_update_count = dict(
-            payload["index_update_count"])
+        self._optimizer.num_update = int(num_update)
+        self._optimizer._index_update_count = {
+            int(k): int(v) for k, v in dict(index_update_count).items()}
+
+    def load_states(self, fname):
+        """Load a states file of either package (reference
+        ``Trainer.load_states``): in place into the states that exist,
+        each checked for structure, shape and dtype; the others are
+        created first.  The accumulation window and the fused steps'
+        rings start afresh."""
+        from ..ndarray import serialization
+
+        self._check_window_boundary("load_states()")
+        payload = serialization.load_states(fname)
+        self._restore_states(payload["states"], payload["created"],
+                             payload["num_update"],
+                             payload["index_update_count"])
         self._window_pos = 0
         for fs in self._fused_steps.values():
             if fs._accum is not None:

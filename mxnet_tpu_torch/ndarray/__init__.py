@@ -14,7 +14,8 @@ short names), ``mx.nd.contrib``, and ``mx.nd.random`` (the module
 ``mx.random``) with the legacy ``random_*``/``sample_multinomial``/
 ``shuffle`` names over its functions, as in the reference.
 ``ring_attention`` raises ``MXNetError`` (``ops.registry.NOT_PORTED``).
-``mx.nd.sparse`` is not ported yet.
+``mx.nd.sparse`` (``row_sparse`` and ``csr`` storage, its three
+registered ops) and ``mx.nd.cast_storage``.
 """
 import types as _types
 
@@ -77,6 +78,8 @@ for _short in ("to_tensor", "normalize", "resize", "crop", "flip_left_right",
     setattr(image, _short, _by_opname["_image_" + _short])
 
 from . import contrib  # noqa: E402  (its names are this module's)
+from . import sparse  # noqa: E402
+cast_storage = sparse.cast_storage
 
 
 def concatenate(arrays, axis=0):

@@ -23,7 +23,9 @@ values into that tensor, and its hook hands a gradient to ``.grad`` only
 in a backward of ``autograd``; a PyTorch ``backward`` on the module's
 tensors leaves the gradient in the tensor's ``.grad``, as PyTorch does.
 
-Differences from the reference: sparse storage raises ``MXNetError``;
+Sparse storage (``tostype("row_sparse" | "csr")``) lives in
+``ndarray/sparse.py``; a Python operator with a sparse operand goes
+through its storage-aware dispatch.  Differences from the reference:
 ``asnumpy`` of a bfloat16 array returns float32 (numpy has no bfloat16);
 ``dtype`` is a numpy dtype, or ``torch.bfloat16`` for bfloat16.
 """
@@ -54,6 +56,10 @@ _RECORDED: "weakref.WeakValueDictionary[int, NDArray]" = \
 
 class NDArray:
     __slots__ = ("_data", "_grad", "_grad_req", "_freed", "__weakref__")
+
+    # True on the sparse subclasses (ndarray/sparse.py): one attribute
+    # read keeps sparse dispatch off the dense operators' path
+    _sparse_kind = False
 
     def __init__(self, data: torch.Tensor):
         if not isinstance(data, torch.Tensor):
@@ -196,12 +202,12 @@ class NDArray:
         """Allocate a zero gradient buffer and make this array a variable
         (reference ``NDArray.attach_grad``).  With ``lazy`` (a Gluon
         ``Parameter``'s array) the buffer is allocated at its first use
-        instead (``_grad_buffer``)."""
+        instead (``_grad_buffer``).  ``stype`` is accepted and the buffer
+        is dense, as in the reference."""
         if grad_req not in ("write", "add", "null"):
             raise MXNetError(f"invalid grad_req {grad_req}")
-        if stype not in (None, "default"):
-            raise MXNetError(f"sparse gradient storage {stype!r} is not "
-                             "supported by mxnet_tpu_torch")
+        if stype not in (None, "default", "row_sparse", "csr"):
+            raise MXNetError(f"unknown gradient storage {stype!r}")
         self._grad = None if lazy else self._zeros_grad()
         self._grad_req = grad_req
         self._freed = False
@@ -279,8 +285,8 @@ class NDArray:
     def tostype(self, stype):
         if stype == "default":
             return self
-        raise MXNetError(f"sparse storage {stype!r} is not supported by "
-                         "mxnet_tpu_torch")
+        from .sparse import tostype as _tostype
+        return _tostype(self, stype)
 
     # ------------------------------------------------------------------ #
     # shape ops (through the op registry so autograd sees them)
@@ -437,6 +443,9 @@ class NDArray:
     # python operators
     # ------------------------------------------------------------------ #
     def _binop(self, other, name, reverse=False):
+        if self._sparse_kind or getattr(other, "_sparse_kind", False):
+            from .sparse import binop
+            return binop(self, other, name, reverse)
         fn = getattr(_ops(), name)
         if reverse:
             return fn(_coerce(other, self), self)

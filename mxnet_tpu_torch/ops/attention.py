@@ -90,9 +90,15 @@ def _hash_bits(seed, bh, qpos, kpos):
     return h
 
 
+# the kernels' dtype code (csrc/flash_fwd.cu, flash_bwd.cu: kF32, kBF16,
+# kF16): f32 runs the CUDA-core kernels, bf16 and fp16 the mma.sync ones
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 def _wide(x):
-    """``x`` in the plain versions' arithmetic: f32, or f64 for f64
-    inputs (so ``gradcheck`` can hold the backward in f64)."""
+    """``x`` in the plain versions' arithmetic: f32 (from bf16, fp16 or
+    f32), or f64 for f64 inputs (so ``gradcheck`` can hold the backward
+    in f64)."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
@@ -150,10 +156,10 @@ def _check_fwd(q, k, v, kmask, what="flash_fwd"):
     if k.shape[:2] != (B, H) or v.shape != k.shape or k.shape[3] != D:
         raise MXNetError(f"{what}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} disagree")
-    if q.dtype not in (torch.bfloat16, torch.float32, torch.float64) or \
+    if q.dtype not in (*_DTYPE_CODE, torch.float64) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
-        raise MXNetError(f"{what}: q/k/v must share one dtype, bf16 or "
-                         f"f32 (or f64 on the CPU; got {q.dtype}, "
+        raise MXNetError(f"{what}: q/k/v must share one dtype, bf16, fp16 "
+                         f"or f32 (or f64 on the CPU; got {q.dtype}, "
                          f"{k.dtype}, {v.dtype})")
     if kmask is not None:
         if kmask.dtype != _wide(q).dtype or kmask.dim() != 3 or \
@@ -210,7 +216,7 @@ def _seed_word(seed, device, rate):
 
 def _entry(lib_name, fn_name, n_ptrs):
     """The library ``lib_name`` and its typed C entry point ``fn_name``:
-    ``n_ptrs`` device pointers, then the shared scalar tail (is_bf16, B,
+    ``n_ptrs`` device pointers, then the shared scalar tail (dtype, B,
     H, L, Lk, D, nb_mask, scale, causal, the seed word's pointer,
     thresh, inv_keep, dropout, stream)."""
     lib = _build.load(lib_name)
@@ -230,7 +236,7 @@ def _scalar_tail(q, k, kmask, scale, causal, seed_word, dropout):
     keep threshold and 1/(1-rate)."""
     B, H, L, D = q.shape
     rate = float(dropout)
-    return (int(q.dtype == torch.bfloat16), B, H, L, k.shape[2], D,
+    return (_DTYPE_CODE[q.dtype], B, H, L, k.shape[2], D,
             1 if kmask is None else kmask.shape[0], float(scale),
             int(bool(causal)), _ptr(seed_word),
             _keep_threshold(rate) if rate > 0.0 else 0,

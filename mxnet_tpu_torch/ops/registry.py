@@ -12,8 +12,11 @@ Dispatch (the reference's ``MXImperativeInvokeEx -> Imperative::Invoke``)::
 while ``autograd.is_recording()`` (and the op is differentiable), and
 under ``torch.no_grad()`` otherwise: as in MXNet, only ops inside
 ``record()`` reach the tape, even on arrays with an attached gradient.
-The reference's profiler hooks, symbol capture and ``NaiveEngine`` are
-not ported yet.
+Two hooks of the reference's ``invoke`` are ported: while ``mx.profiler``
+runs with ``aggregate_stats`` each op's host time goes into its aggregate
+table (``profiler._hook``), and under ``MXNET_ENGINE_TYPE=NaiveEngine``
+each op synchronizes the card after it runs (``engine.naive_sync``).
+The third, symbol capture (``_capture_get``), waits for ``symbol/``.
 
 ``@op`` returns the NDArray-facing wrapper (``ops/defs.py``), or with
 ``wrap=False`` the tensor function itself, so the models keep calling
@@ -26,15 +29,20 @@ from __future__ import annotations
 
 import functools
 import inspect
+import time as _time
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
 import torch
 
 from ..base import MXNetError
+from ..engine import naive_sync
 
 __all__ = ["Op", "register", "alias", "get_op", "list_ops", "invoke", "op",
            "OPS", "NOT_PORTED"]
+
+# the profiler module once ``mx.profiler.start()`` has run (its hook)
+_profiler = None
 
 OPS: dict[str, "Op"] = {}
 _ALIASES: dict[str, str] = {}
@@ -98,10 +106,19 @@ def invoke(opref: Op, array_args: Sequence, kwargs: dict, out=None):
     from ..ndarray.ndarray import NDArray
 
     tensors = [_unwrap(a) for a in array_args]
+    # per-op aggregate stats while the profiler runs (the reference's
+    # ProfileOperator around each op)
+    prof = None
+    if _profiler is not None and _profiler._state["running"] and \
+            _profiler._config["aggregate_stats"]:
+        prof = _time.perf_counter()
     recording = autograd.is_recording() and opref.differentiable
     with torch.enable_grad() if recording else torch.no_grad():
         results = opref.fn(*tensors, **kwargs)
+    if prof is not None:
+        _profiler._hook(opref.name, _time.perf_counter() - prof)
     multi = isinstance(results, (tuple, list))
+    naive_sync(results if multi else [results])
     outs = [NDArray(r) for r in (results if multi else [results])]
     if out is not None:
         if multi:

@@ -7,6 +7,10 @@ PyTorch port against the JAX package, float32 on the CPU.
 - ``_plain_attn``, ``rope`` and the ``flash_attention`` op (whose long
   rows take K1 in the port and the blockwise scan in JAX), in inference
   and with ``training=True``;
+- fp16 (amp's float16 target) past 512² scores: the plain K1 vs
+  ``_pallas_fwd`` on fp16 inputs, and the ``flash_attention`` op, within
+  one fp16 rounding of the output (``FP16_TOL``: 2^-10 relative and of
+  the largest magnitude), lse within 1e-5;
 - the CUDA kernel vs its plain version on the card (``cuda`` marker)."""
 import numpy as onp
 import pytest
@@ -36,12 +40,28 @@ def _kmask(Nb, Lk, seed):
     return m
 
 
+# one fp16 rounding of an output both packages compute in f32
+FP16_REL = 2.0 ** -10
+
+
+def _fp16_close(got, ref):
+    ref = onp.asarray(ref).astype(onp.float32)
+    onp.testing.assert_allclose(
+        onp.asarray(got).astype(onp.float32), ref, rtol=FP16_REL,
+        atol=FP16_REL * float(onp.abs(ref).max()))
+
+
 FWD_CASES = {
     "causal": dict(B=1, H=2, L=256, D=16, causal=True),
     "kmask_batch": dict(B=2, H=2, L=128, D=16, causal=False, Nb=2),
     "kmask_causal_bcast": dict(B=2, H=1, L=128, D=32, causal=True, Nb=1),
     "dropout": dict(B=1, H=2, L=128, D=16, causal=True, dropout=0.25,
                     seed=12345),
+    # 640² scores, past the plain path's 512²
+    "fp16_causal_dropout": dict(B=1, H=2, L=640, D=16, causal=True,
+                                dropout=0.1, seed=5, dtype="float16"),
+    "fp16_kmask": dict(B=2, H=1, L=640, D=16, causal=False, Nb=2,
+                       dtype="float16"),
 }
 
 
@@ -51,7 +71,8 @@ def test_plain_k1_matches_pallas_fwd(interpret, name):
     from mxnet_tpu.ops.attention import _pallas_fwd
 
     c = FWD_CASES[name]
-    q, k, v = _qkv(c["B"], c["H"], c["L"], c["L"], c["D"])
+    q, k, v = (a.astype(c.get("dtype", "float32"))
+               for a in _qkv(c["B"], c["H"], c["L"], c["L"], c["D"]))
     km = _kmask(c["Nb"], c["L"], 7) if "Nb" in c else None
     scale = 1.0 / c["D"] ** 0.5
     rate, seed = c.get("dropout", 0.0), c.get("seed", 0)
@@ -64,7 +85,12 @@ def test_plain_k1_matches_pallas_fwd(interpret, name):
                             None if km is None else t(km), seed, rate)
     assert pa.flash_fwd.launches == before
     assert lse.shape == (c["B"], c["H"], c["L"])
-    onp.testing.assert_allclose(out.numpy(), onp.asarray(ro), **KERNEL_TOL)
+    assert out.numpy().dtype == onp.asarray(ro).dtype == q.dtype
+    if q.dtype == onp.float16:
+        _fp16_close(out.numpy(), ro)
+    else:
+        onp.testing.assert_allclose(out.numpy(), onp.asarray(ro),
+                                    **KERNEL_TOL)
     onp.testing.assert_allclose(lse.numpy(), onp.asarray(rl), **KERNEL_TOL)
 
 
@@ -139,6 +165,22 @@ def test_flash_attention_op_matches_jax(L, masked):
     onp.testing.assert_allclose(got.numpy(), onp.asarray(ref), **KERNEL_TOL)
 
 
+def test_flash_attention_fp16_past_512_squared():
+    """Causal q = k = v of (1, 1, 1024, 8) in fp16: the reference's op
+    returns fp16 (its Pallas gate has no dtype clause); the port's, which
+    refused fp16 there, now takes ``_FlashAttention`` and agrees within
+    one fp16 rounding."""
+    import jax.numpy as jnp
+    from mxnet_tpu.ops.attention import flash_attention as jfa
+
+    x = rand(11, 1, 1, 1024, 8).astype(onp.float16)
+    ref = jfa.__wrapped__(jnp.asarray(x), jnp.asarray(x), jnp.asarray(x),
+                          None, causal=True, training=False)
+    got = pa.flash_attention(t(x), t(x), t(x), causal=True)
+    assert got.dtype == torch.float16 and got.shape == (1, 1, 1024, 8)
+    _fp16_close(got.numpy(), ref)
+
+
 def test_training_raises():
     """``training=True`` no longer raises: without dropout it returns the
     inference forward's value, on the plain path and the kernel path."""
@@ -160,7 +202,8 @@ def test_wrapper_rejects_bad_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("L,Lk,D,causal,masked,rate",
                          [(1024, 1024, 64, True, False, 0.0),
                           (300, 333, 40, False, True, 0.1),
@@ -178,7 +221,8 @@ def test_kernel_matches_plain_on_card(dtype, L, Lk, D, causal, masked,
     torch.cuda.synchronize()
     assert pa.flash_fwd.launches == before + 1
     ro, rl = pa.flash_fwd_plain(q, k, v, D ** -0.5, causal, km, 99, rate)
-    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else \
-        dict(rtol=1e-4, atol=1e-4)
+    tol = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
+           torch.float16: dict(rtol=2e-3, atol=2e-3)}.get(
+        dtype, dict(rtol=1e-4, atol=1e-4))
     torch.testing.assert_close(out.float(), ro.float(), **tol)
     torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-4)

@@ -10,6 +10,10 @@ package, float32 on the CPU.
 - ``flash_attention(training=True)`` at L = 640 (the port's kernel path,
   the reference's ``"xla"`` blockwise path) in value and gradients: 1e-4,
   as the blockwise scan sums its tiles in another order;
+- fp16 (amp's float16 target) at 640² scores, past the plain path's
+  512²: the Function's output and gradients vs ``jax.vjp`` of the
+  reference's Pallas VJP on the same fp16 inputs, within one fp16
+  rounding (2^-10 relative and of the largest magnitude);
 - ``gradcheck`` of the Function's backward in f64 at a tiny shape;
 - the CUDA kernels vs their plain versions on the card (``cuda``)."""
 import numpy as onp
@@ -148,6 +152,36 @@ def test_function_grads_match_jax_pallas_vjp(interpret, causal, Nb, rate):
         onp.testing.assert_allclose(a, b, **KERNEL_TOL)
 
 
+@pytest.mark.parametrize("causal,Nb,rate", [(True, None, 0.1),
+                                            (False, 1, 0.0)])
+def test_fp16_function_grads_match_jax_pallas_vjp(interpret, causal, Nb,
+                                                  rate):
+    import jax.numpy as jnp
+    from mxnet_tpu.ops.attention import _flash
+
+    B, H, L, D, seed = 1, 2, 640, 16, 77
+    scale = D ** -0.5
+    q, k, v, g = (a.astype(onp.float16)
+                  for a in _inputs(B, H, L, L, D, seed=20))
+    bias = None if Nb is None else _kmask(Nb, L, 3).reshape(Nb, 1, 1, L)
+    ref_out, ref = _jax_grads(
+        lambda a, b_, c, m: _flash(a, b_, c, m, jnp.uint32(seed), scale,
+                                   causal, rate, "pallas"),
+        q, k, v, bias, g)
+    out, got = _port_grads(q, k, v, bias, g, scale, causal, seed, rate,
+                           pa._FlashAttention.apply)
+    assert out.dtype == ref_out.dtype == onp.float16
+    assert len(got) == len(ref)
+    for a, b in zip([out] + got[:3], [ref_out] + ref[:3]):
+        assert a.dtype == onp.float16
+        b = b.astype(onp.float32)
+        onp.testing.assert_allclose(
+            a.astype(onp.float32), b, rtol=2.0 ** -10,
+            atol=2.0 ** -10 * float(onp.abs(b).max()))
+    if Nb is not None:          # the f32 key mask's gradient
+        onp.testing.assert_allclose(got[3], ref[3], **XLA_TOL)
+
+
 def test_function_returns_no_bias_grad_when_not_needed():
     q, k, v, g = _inputs(1, 2, 64, 64, 16)
     bias = t(_kmask(1, 64, 5).reshape(1, 1, 1, 64))     # no requires_grad
@@ -238,7 +272,8 @@ def test_backward_wrappers_reject_bad_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("L,Lk,D,causal,masked,rate",
                          [(1024, 1024, 64, True, False, 0.0),
                           (300, 333, 40, False, True, 0.1),
@@ -275,13 +310,8 @@ def test_kernels_match_plain_on_card(dtype, L, Lk, D, causal, masked,
         assert (got - ref).abs().max().item() <= tol
 
 
-@pytest.mark.cuda
-def test_bf16_kernels_repeat_bit_for_bit_on_card():
-    """The bf16 tensor-core K1, K2 and K3 use no atomics: two launches on
-    the same inputs give the same out, lse, dq, dk, dv and dbias bit for
-    bit."""
-    need_cuda()
-    q, k, v, g = (t(a).cuda().bfloat16()
+def _repeat_bit_for_bit(dtype):
+    q, k, v, g = (t(a).cuda().to(dtype)
                   for a in _inputs(2, 3, 333, 333, 64))
     km = t(_kmask(2, 333, 4)).cuda()
     args = (q, k, v, 64 ** -0.5, True, km, 99, 0.1)
@@ -296,3 +326,19 @@ def test_bf16_kernels_repeat_bit_for_bit_on_card():
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_repeat_bit_for_bit_on_card():
+    """The bf16 tensor-core K1, K2 and K3 use no atomics: two launches on
+    the same inputs give the same out, lse, dq, dk, dv and dbias bit for
+    bit."""
+    need_cuda()
+    _repeat_bit_for_bit(torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_fp16_kernels_repeat_bit_for_bit_on_card():
+    """The fp16 instantiations of the same kernels repeat bit for bit."""
+    need_cuda()
+    _repeat_bit_for_bit(torch.float16)

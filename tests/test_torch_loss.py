@@ -5,7 +5,11 @@ pred[label]``, sparse labels on log-probabilities, dense labels) on a
 values and gradients with respect to ``pred`` (MXNet's ``backward()``
 on a per-sample loss: a head gradient of ones).  f32 at 1e-5; the bf16
 input of the fused path to one bf16 rounding step in value and four in
-gradient (where the two frameworks round at different places)."""
+gradient (where the two frameworks round at different places).  The ten
+other losses (``SigmoidBinaryCrossEntropyLoss`` through
+``CosineEmbeddingLoss``), each with its flags, ``weight`` and
+``sample_weight``: values and gradients with respect to the first input
+at 1e-5."""
 import numpy as onp
 import pytest
 import torch
@@ -129,3 +133,95 @@ def test_l2_loss_matches_jax(weighted):
     got = _port_loss(ploss.L2Loss(**kw), pred, label, sw)
     for a, b in zip(got, ref):
         onp.testing.assert_allclose(a, b, **KERNEL_TOL)
+
+
+def _inputs(kind, seed=10):
+    """The seeded inputs of one loss case, first the differentiated one."""
+    rs = onp.random.RandomState(seed)
+    x = rs.standard_normal((B, L, 4)).astype(onp.float32) * 2.0
+    if kind == "binary":
+        return [x, (rs.random_sample((B, L, 4)) > 0.5).astype(onp.float32)]
+    if kind == "prob":
+        return [1 / (1 + onp.exp(-x)),
+                (rs.random_sample((B, L, 4)) > 0.5).astype(onp.float32)]
+    if kind == "signed":
+        return [x, onp.where(rs.random_sample((B, L, 4)) > 0.5, 1.0,
+                             -1.0).astype(onp.float32)]
+    if kind == "regress":
+        return [x, rs.standard_normal((B, L * 4)).astype(onp.float32)]
+    if kind == "kl":
+        lab = rs.random_sample((B, L, 4)).astype(onp.float32)
+        return [x, lab / lab.sum(-1, keepdims=True)]
+    if kind == "counts":
+        return [x * 0.5, rs.poisson(2.0, (B, L, 4)).astype(onp.float32)]
+    if kind == "rates":
+        return [onp.exp(x * 0.5), rs.poisson(2.0, (B, L, 4))
+                .astype(onp.float32)]
+    if kind == "triplet":
+        return [x, rs.standard_normal((B, L, 4)).astype(onp.float32),
+                rs.standard_normal((B, L, 4)).astype(onp.float32)]
+    if kind == "cosine":
+        return [x, rs.standard_normal((B, L, 4)).astype(onp.float32),
+                onp.where(rs.random_sample((B, L)) > 0.5, 1.0,
+                          -1.0).astype(onp.float32)]
+    if kind == "ctc":       # (N, T, C) logits, (N, S) labels padded -1
+        lab = onp.array([[1, 2, 2], [3, -1, -1], [0, 4, -1]], onp.float32)
+        return [rs.standard_normal((B, 6, 6)).astype(onp.float32), lab]
+    raise ValueError(kind)
+
+
+LOSS_CASES = {
+    "sigmoid_bce": ("SigmoidBinaryCrossEntropyLoss", {}, "binary"),
+    "sigmoid_bce_weighted": ("SigmoidBinaryCrossEntropyLoss",
+                             dict(weight=0.7), "binary", True),
+    "sigmoid_bce_from_sigmoid": ("SigmoidBinaryCrossEntropyLoss",
+                                 dict(from_sigmoid=True), "prob"),
+    "kl_div": ("KLDivLoss", {}, "kl"),
+    "kl_div_logits": ("KLDivLoss", dict(from_logits=False), "kl"),
+    "ctc": ("CTCLoss", {}, "ctc"),
+    "huber": ("HuberLoss", dict(rho=0.8), "regress", True),
+    "hinge": ("HingeLoss", dict(margin=1.5), "signed"),
+    "squared_hinge": ("SquaredHingeLoss", dict(weight=2.0), "signed"),
+    "logistic": ("LogisticLoss", {}, "signed"),
+    "logistic_binary": ("LogisticLoss", dict(label_format="binary"),
+                        "binary"),
+    "triplet": ("TripletLoss", dict(margin=0.5), "triplet"),
+    "poisson_nll": ("PoissonNLLLoss", {}, "counts"),
+    "poisson_nll_full": ("PoissonNLLLoss",
+                         dict(from_logits=False, compute_full=True),
+                         "rates"),
+    "cosine": ("CosineEmbeddingLoss", dict(margin=0.2), "cosine"),
+}
+
+
+@pytest.mark.parametrize("name", list(LOSS_CASES))
+def test_other_losses_match_jax(name):
+    import mxnet_tpu as mx
+
+    cls, kw, kind, *weighted = LOSS_CASES[name]
+    arrays = _inputs(kind)
+    sw = rand(7, B, 1, 1) if weighted else None
+    rl = getattr(mx.gluon.loss, cls)(**kw)
+    first = mx.nd.array(arrays[0])
+    first.attach_grad()
+    rest = [mx.nd.array(a) for a in arrays[1:]]
+    with mx.autograd.record():
+        out = rl(first, *rest, *([mx.nd.array(sw)] if weighted else []))
+    out.backward()
+    ref = (out.asnumpy(), first.grad.asnumpy())
+    pl = getattr(ploss, cls)(**kw)
+    p = t(arrays[0]).requires_grad_()
+    pout = pl(p, *[t(a) for a in arrays[1:]],
+              *([t(sw)] if weighted else []))
+    pout.backward(torch.ones_like(pout))
+    # asnumpy is at least 1-d in both packages
+    got = (onp.atleast_1d(pout.detach().numpy()), p.grad.numpy())
+    assert got[0].shape == ref[0].shape
+    for a, b in zip(got, ref):
+        onp.testing.assert_allclose(a, b, **KERNEL_TOL)
+
+
+def test_loss_names_match_the_reference():
+    from mxnet_tpu.gluon import loss as rloss
+
+    assert sorted(ploss.__all__) == sorted(rloss.__all__)

@@ -219,13 +219,19 @@ def test_iteration_and_len():
 
 
 def test_sparse_storage_waits():
+    """Sparse storage is ported (``ndarray/sparse.py``; the name keeps the
+    slice before it was): ``tostype`` converts, and ``attach_grad(stype=)``
+    takes a sparse storage type with a dense buffer, as the reference's;
+    an unknown storage type raises."""
     with mx.cpu():
         x = mx.nd.ones((2, 2))
     assert x.tostype("default") is x
-    with pytest.raises(MXNetError, match="sparse"):
-        x.tostype("csr")
-    with pytest.raises(MXNetError, match="sparse"):
-        x.attach_grad(stype="row_sparse")
+    c = x.tostype("csr")
+    assert c.stype == "csr" and (c.asnumpy() == 1).all()
+    x.attach_grad(stype="row_sparse")
+    assert x.grad.stype == "default" and x.grad.shape == (2, 2)
+    with pytest.raises(MXNetError, match="storage"):
+        x.attach_grad(stype="coo")
 
 
 # --------------------------------------------------------------------------- #

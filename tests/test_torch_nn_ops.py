@@ -418,11 +418,13 @@ def test_registered_op_count():
     """165 registered names before the detection, image and quantization
     ops, 13 + 11 + 5 after them, 1 + 13 + 18 more with ``rnn``, ``linalg``
     and ``legacy``, 97 + 23 + 28 with ``extended``, ``optimizer_ops`` and
-    ``samplers``, and every alias of the reference's that names a
-    registered op."""
+    ``samplers``, 3 with ``ndarray/sparse.py``, and every alias of the
+    reference's that names a registered op."""
     from mxnet_tpu.ops.registry import _ALIASES as RALIASES
     from mxnet_tpu_torch.ops.registry import _ALIASES
 
-    assert len(OPS) == 165 + 13 + 11 + 5 + 1 + 13 + 18 + 97 + 23 + 28
+    import mxnet_tpu_torch.ndarray  # noqa: F401  (registers the sparse ops)
+
+    assert len(OPS) == 165 + 13 + 11 + 5 + 1 + 13 + 18 + 97 + 23 + 28 + 3
     assert {k: v for k, v in RALIASES.items() if v in OPS} == \
         {k: v for k, v in _ALIASES.items() if v in OPS}

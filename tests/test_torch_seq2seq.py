@@ -68,7 +68,10 @@ def _forward_grads(pkg, net, src, tgt, mask, head):
         logits = net(*args)
         loss = (logits * pkg.nd.array(head)).sum()
     loss.backward()
-    grads = {k: p.grad().asnumpy() for k, p in net.collect_params().items()}
+    # keyed below ``net.prefix``: each package's name counter moves with
+    # every model the process has built before
+    grads = {k[len(net.prefix):]: p.grad().asnumpy()
+             for k, p in net.collect_params().items()}
     return logits.asnumpy(), grads
 
 

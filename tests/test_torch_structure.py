@@ -122,6 +122,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: mx.gluon.rnn.LSTM(4).begin_state(2)):
         with pytest.raises(MXNetError, match="CUDA is not available"):
             make()
+    # the training-runtime slice: sparse arrays on the default context
+    for make in (lambda: mx.nd.sparse.zeros("csr", (2, 3)),
+                 lambda: mx.nd.sparse.row_sparse_array(
+                     (np.ones((1, 3), np.float32), [1]), shape=(4, 3)),
+                 lambda: mx.nd.sparse.csr_matrix(np.eye(3, dtype=np.float32))):
+        with pytest.raises(MXNetError, match="CUDA is not available"):
+            make()
 
 
 def test_new_modules_are_covered():
@@ -193,6 +200,15 @@ def test_new_modules_are_covered():
             "mxnet_tpu_torch/ops/samplers.py",
             "tests/_torch_corpus_cases.py",
             "tests/_torch_draws.py"} <= names
+    # the training-runtime slice
+    assert {"mxnet_tpu_torch/checkpoint.py",
+            "mxnet_tpu_torch/engine.py",
+            "mxnet_tpu_torch/profiler.py",
+            "mxnet_tpu_torch/amp/__init__.py",
+            "mxnet_tpu_torch/amp/amp.py",
+            "mxnet_tpu_torch/amp/lists.py",
+            "mxnet_tpu_torch/amp/loss_scaler.py",
+            "mxnet_tpu_torch/ndarray/sparse.py"} <= names
     assert {"decode_fused", "conv1x1_bwd", "box_nms"} <= set(_build.KERNELS)
 
 
@@ -224,10 +240,11 @@ CORPUS_ALIASES = [
 
 
 def test_registry_matches_the_reference_but_sparse():
-    """Every op the reference registers is registered by the port, but
-    the three ``ndarray/sparse.py`` ops (the next slice) and
-    ``ring_attention`` (left out, in ``NOT_PORTED``); every alias of the
-    reference resolves in the port's registry and ``mx.nd``."""
+    """Every op the reference registers is registered by the port, the
+    three ``ndarray/sparse.py`` ops included (the name keeps the slice
+    before they were ported), but ``ring_attention`` (left out, in
+    ``NOT_PORTED``); every alias of the reference resolves in the port's
+    registry and ``mx.nd``."""
     import mxnet_tpu.ndarray  # noqa: F401  (registers every op)
     import mxnet_tpu_torch as mx
     import mxnet_tpu_torch.ndarray  # noqa: F401
@@ -236,11 +253,12 @@ def test_registry_matches_the_reference_but_sparse():
     from mxnet_tpu_torch.ops.registry import NOT_PORTED, OPS, get_op
 
     missing = set(ROPS) - set(OPS)
-    assert missing == {"_sparse_rowsparse_dot", "_sparse_rowsparse_dot_t",
-                       "_sparse_segment_dot", "ring_attention"}
+    assert missing == {"ring_attention"}
     assert set(NOT_PORTED) == {"ring_attention"}
-    assert all(ROPS[n].fn.__module__ == "mxnet_tpu.ndarray.sparse"
-               for n in missing - set(NOT_PORTED))
+    sparse_ops = {"_sparse_rowsparse_dot", "_sparse_rowsparse_dot_t",
+                  "_sparse_segment_dot"}
+    assert all(OPS[n].fn.__module__ == "mxnet_tpu_torch.ndarray.sparse"
+               for n in sparse_ops)
     assert set(OPS) <= set(ROPS)
     assert set(CORPUS_ALIASES) <= set(RALIASES)
     for alias, target in RALIASES.items():
