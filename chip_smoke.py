@@ -477,7 +477,34 @@ Phases (each fails the run by raising; there is no CPU path):
    dropout 0 and 0.1), two launches bit for bit, beside
    ``scaled_dot_product_attention`` in fp16; the phase's seconds and the
    whole script's;
-26. one ``{"kernels": [...]}`` line, the card line, and as the last line
+26. the twenty-third slice, vision breadth: (1) one member of each
+   model-zoo family at its published widths and input (``alexnet``,
+   ``vgg16_bn``, ``squeezenet1.1``, ``densenet121``, ``mobilenet1.0``,
+   ``mobilenetv2_1.0`` at 224², ``inceptionv3`` at 299², 1000 classes):
+   (a) in f32 at batch 2 with TF32 off, built on the CPU and carried to
+   the card by ``models.convert``, the predict-mode logits and the
+   weights after one SGD step recorded with ``train_mode=False`` card
+   against CPU within 1e-4 of the largest magnitude; (b) in bf16 with f32
+   masters at batch 64, hybridized, 6 SGD-momentum steps through
+   ``Trainer.fused_step``: ms a step (3-6), images/s, peak bytes, one
+   capture, the replay's kernel nodes, the first loss within 3 of ln
+   1000, every loss finite, and for the MobileNets the grouped
+   convolutions' share of a replay's device time; (2) ResNet-50 v1 NHWC
+   bf16 at 128 x 224² fitted by ``gluon.contrib.estimator.Estimator(...,
+   fused_step=True)`` with ``MXNET_FUSED_CONV_BWD=1`` (K6 30 a step):
+   ``Accuracy`` and ``Loss``, a ``ValidationHandler`` over 2 batches, an
+   ``AtomicCheckpointHandler`` every 4 batches (``build/phase26/``), one
+   epoch of 12 seeded-image batches through a ``DataLoader``; a second
+   estimator resumes from the batch-8 checkpoint and its batches 9-12
+   (loss, predictions, weights, cursor) equal the uninterrupted run's
+   bit for bit; ms a batch beside phase 18's fused step and the metric
+   handlers' host reads a batch; (3) ``Conv2DLSTMCell`` unrolled 10
+   steps at Moving MNIST's ConvLSTM shape (16 x 16 x 16 patches, 64
+   hidden, 5 x 5) card against CPU within 1e-4, ``PixelShuffle2D`` card
+   equal to CPU, ``SyncBatchNorm`` equal to ``BatchNorm`` bit for bit,
+   an ``Orthogonal`` (1024, 1024) with ``W Wᵀ`` within 1e-5 of scale² I;
+   the phase's seconds and the script's;
+27. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -10428,6 +10455,554 @@ def check_runtime():
                 fp16_launches=amp_row["launches"])
 
 
+# --------------------------------------------------------------------------- #
+# phase 26: vision breadth (the model zoo's other families at published
+# widths, the Estimator over ResNet-50 through K6, the contrib layers)
+# --------------------------------------------------------------------------- #
+
+# 26.1: one member of each family, at its published input side
+ZOO = (("alexnet", 224), ("vgg16_bn", 224), ("squeezenet1.1", 224),
+       ("densenet121", 224), ("inceptionv3", 299), ("mobilenet1.0", 224),
+       ("mobilenetv2_1.0", 224))
+ZOO_CPU_B = 2               # 26.1(a): f32, card against CPU
+ZOO_TOL = 1e-4              # 26.1(a): of the largest magnitude
+ZOO_B = 64                  # 26.1(b): bf16 with f32 masters, fused
+ZOO_STEPS = 6
+ZOO_OPT = {"learning_rate": 0.01, "momentum": 0.9, "multi_precision": True}
+# the first loss's distance from ln 1000: Xavier-initialized VGG-16-BN
+# starts with wider logits (8.908 on the CPU in f32 at batch 4, 9.116 on
+# the card at batch 64); the others start within 0.35 of 6.908
+ZOO_LOSS0_TOL = 3.0
+# cuDNN's and PyTorch's grouped and depthwise convolution kernels, by name
+GROUPED_KERNELS = r"(?i)depthwise|grouped|group_conv|dgrad2d_grouped"
+# 26.2: ResNet-50 v1 NHWC bf16 fitted by the Estimator
+EST_BATCHES = 12            # one epoch of 128-image batches
+EST_EVERY = 4               # an atomic checkpoint every 4 batches
+EST_RESUME = 8              # the resumed run starts from this checkpoint
+EST_VAL = 2                 # validation batches
+EST_OPT = dict(RESNET_OPT, multi_precision=False)
+EST_WORKERS = 4
+# 26.3: ConvLSTM at Moving MNIST's shape (Shi et al. 2015: 64 x 64
+# frames as 16 x 16 x 16 patches, 64 hidden channels, 5 x 5 kernels)
+CONVLSTM = dict(batch=16, steps=10, channels=16, side=16, hidden=64,
+                kernel=5)
+CONTRIB_TOL = 1e-4          # 26.3: ConvLSTM card against CPU
+ORTH_N = 1024
+ORTH_TOL = 1e-5             # 26.3: W Wᵀ against scale² I
+
+
+def zoo_vs_cpu(name, side):
+    """26.1(a): the member in f32 at batch 2 (TF32 off), built and
+    initialized on the CPU, its weights carried to the card by
+    ``models.convert``: the predict-mode logits, then the weights after
+    one SGD step (lr 0.1) recorded with ``train_mode=False`` (BatchNorm
+    on its running statistics, no dropout), card against CPU within
+    ``ZOO_TOL`` of the largest magnitude.  A batch-statistics step is
+    not held: at batch 2 its f32 one-pass variance (the reference's
+    formula) leaves VGG-16-BN's first weights 2.4e-3 of the largest
+    magnitude from a float64 step on the CPU alone."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.models import arrays_from_port, load_mxnet_tpu_arrays
+
+    rs = np.random.RandomState(26)
+    x = rs.standard_normal((ZOO_CPU_B, 3, side, side)).astype(np.float32)
+    y = rs.randint(0, 1000, ZOO_CPU_B).astype(np.float32)
+    t0 = time.perf_counter()
+    with mx.cpu():
+        cpu = get_model(name, classes=1000)
+        cpu.initialize(mx.init.Xavier(), ctx=mx.cpu(), seed=0)
+        want = cpu(mx.nd.array(x)).asnumpy()
+    card = get_model(name, classes=1000)
+    load_mxnet_tpu_arrays(card, arrays_from_port(cpu, prefix=card.prefix))
+    got = card(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
+    logit_err = float(np.abs(got - want).max() / np.abs(want).max())
+
+    def step(net, ctx):
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.1})
+        loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        with ctx:
+            xs, ys = mx.nd.array(x), mx.nd.array(y)
+            with mx.autograd.record(train_mode=False):
+                L = loss(net(xs), ys)
+            L.backward()
+            tr.step(ZOO_CPU_B)
+        return arrays_from_port(net)
+
+    a, b = step(cpu, mx.cpu()), step(card, mx.gpu(0))
+    torch.cuda.synchronize()
+    scale = max(float(np.abs(v).max()) for v in a.values())
+    worst = max(a, key=lambda k: float(np.abs(a[k] - b[k]).max()))
+    weight_err = float(np.abs(a[worst] - b[worst]).max()) / scale
+    row = dict(logit_err=logit_err, weight_err=weight_err,
+               worst=worst, seconds=time.perf_counter() - t0)
+    print(f"26.1 {name} f32 vs cpu: batch {ZOO_CPU_B} at {side}x{side}, "
+          f"logits {logit_err:.3e} and weights after one predict-mode SGD "
+          f"step {weight_err:.3e} of the largest magnitude (worst {worst}; tol "
+          f"{ZOO_TOL}); {row['seconds']:.2f} s", flush=True)
+    if not (logit_err <= ZOO_TOL and weight_err <= ZOO_TOL):
+        fail(f"26.1 {name}: card against CPU {logit_err} / {weight_err} "
+             f"> {ZOO_TOL}")
+    del cpu, card
+    return row
+
+
+def zoo_train(name, side):
+    """26.1(b): the member in bf16 with f32 masters at batch 64,
+    hybridized, ``Trainer.fused_step`` with SGD (momentum 0.9), 6 steps:
+    ms a step over steps 3-6, images/s, peak bytes, captures (1 after the
+    first capture), the replay's kernel nodes; the first loss within
+    ``ZOO_LOSS0_TOL`` of ln 1000 and every loss finite; for the
+    MobileNets the grouped convolutions' share of a replay's device
+    time."""
+    import math
+    import re
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+    from mxnet_tpu_torch.gluon.block import _GraphProgram
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    data = torch.rand((ZOO_B, 3, side, side), generator=gen,
+                      device="cuda").bfloat16()
+    label = torch.randint(0, 1000, (ZOO_B,), generator=gen, device="cuda")
+    x, y = mx.nd.NDArray(data), mx.nd.NDArray(label)
+    net = get_model(name, classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0), seed=0)
+    net.cast("bfloat16")
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(ZOO_OPT))
+    loss_l = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(x, y):
+        return loss_l(net(x), y)
+
+    def step():
+        return trainer.fused_step(loss_fn, x, y)._data.float().mean()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fsm.reset_step_counters()
+    _GraphProgram.debug = True
+    try:
+        t0 = time.perf_counter()
+        losses = [step()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        _GraphProgram.debug = False
+    captures_2 = fsm.step_counters["compiles"]
+    for _ in range(ZOO_STEPS - 2):
+        losses.append(step())
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counters = dict(fsm.step_counters)
+    peak = torch.cuda.max_memory_allocated()
+    (fs,) = trainer._fused_steps.values()
+    prog = next(p for k, p in fs._programs.items() if k[0] == "apply")
+    every = prog.kernel_nodes()
+    losses = [float(v) for v in losses]
+    timed = ZOO_STEPS - 2
+    row = dict(losses=losses, ms_per_step=(t3 - t2) / timed * 1e3,
+               images_per_s=timed * ZOO_B / (t3 - t2),
+               eager_step_ms=(t1 - t0) * 1e3,
+               capture_and_replay_ms=(t2 - t1) * 1e3,
+               capture_s=prog.capture_s, max_memory_allocated=peak,
+               memory_above_start=peak - base, captures=counters["compiles"],
+               captures_after_step_2=captures_2,
+               kernel_nodes=sum(every.values()),
+               parameters=sum(int(p.data()._data.numel())
+                              for p in net.collect_params().values()))
+    if name.startswith("mobilenet"):
+        by_name, busy, wall_us = _profiled(step)
+        grouped = sum(us for k, us in by_name.items()
+                      if re.search(GROUPED_KERNELS, k))
+        row["profile"] = report_profile(f"26.1 {name} profile", by_name,
+                                        busy, wall_us, top=6)
+        row["grouped_share"] = grouped / busy if busy > 0 else None
+        row["grouped_kernels"] = sorted(
+            {k[:80] for k in by_name if re.search(GROUPED_KERNELS, k)})
+        print(f"26.1 {name}: grouped convolutions "
+              f"{row['grouped_share']} of a replay's device time "
+              f"({grouped:.0f} us; kernels {row['grouped_kernels'][:4]})",
+              flush=True)
+    print(f"26.1 {name} bf16: B={ZOO_B} {side}x{side}, "
+          f"{row['parameters']} parameters, SGD momentum 0.9 with f32 "
+          f"masters through Trainer.fused_step; losses "
+          f"{[round(v, 4) for v in losses]}; ms/step={row['ms_per_step']:.3f}"
+          f" (steps 3-{ZOO_STEPS}) images/s={row['images_per_s']:.2f}; "
+          f"eager step {row['eager_step_ms']:.1f} ms, capture+replay "
+          f"{row['capture_and_replay_ms']:.1f} ms (capture "
+          f"{row['capture_s']} s); max_memory_allocated={peak} "
+          f"({row['memory_above_start']} above the start); captures "
+          f"{row['captures']} (after step 2: {captures_2}); "
+          f"{row['kernel_nodes']} kernel nodes a replay", flush=True)
+    if counters["legacy_steps"] or captures_2 != 1 or \
+            counters["compiles"] != 1:
+        fail(f"26.1 {name}: step counters {counters}, captures after step "
+             f"2: {captures_2}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"26.1 {name}: losses not finite: {losses}")
+    if abs(losses[0] - math.log(1000)) > ZOO_LOSS0_TOL:
+        fail(f"26.1 {name}: first loss {losses[0]} is not within "
+             f"{ZOO_LOSS0_TOL} of ln(1000)")
+    trainer._fused_steps.clear()
+    del fs, prog, trainer, net, x, y, data, label
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_zoo():
+    """26.1: each family's member, (a) then (b)."""
+    rows = {}
+    for name, side in ZOO:
+        rows[name] = dict(vs_cpu=zoo_vs_cpu(name, side),
+                          train=zoo_train(name, side))
+    return rows
+
+
+def _images_dataset(mx, n, seed):
+    """``n`` seeded random 3 x 224 x 224 f32 images in [0, 1) and their
+    labels, each made from its own seed when it is read (ImageNet is not
+    in the repository)."""
+    import numpy as np
+
+    class Images(mx.gluon.data.Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            rs = np.random.default_rng((seed, i))
+            return (rs.random((3, 224, 224), dtype=np.float32),
+                    np.float32(rs.integers(0, 1000)))
+
+    return Images()
+
+
+class _From:
+    """One epoch of ``loader`` from batch ``done`` on: the data cursor a
+    resumed run starts at (``DataLoader.iter_from``)."""
+
+    def __init__(self, loader, done):
+        self.loader, self.done = loader, done
+
+    def __iter__(self):
+        return self.loader.iter_from(self.done)
+
+
+def _est_net(mx):
+    """ResNet-50 v1 NHWC in bf16, hybridized, behind a block that casts
+    the f32 images to bf16 at its input (inside the captured step)."""
+    import torch
+
+    class Bf16Input(mx.gluon.HybridBlock):
+        def __init__(self, net):
+            super().__init__(prefix="")
+            self.net = net
+
+        def forward(self, x):
+            return self.net(x.to(torch.bfloat16))
+
+    net = Bf16Input(_gluon_resnet50(mx))
+    net.hybridize()
+    return net
+
+
+def _est_run(mx, directory, data, val, resume):
+    """One ``Estimator.fit`` of ResNet-50 through K6 with the atomic
+    handler; returns the estimator, the handler and what each batch's
+    end saw: its loss and predictions (copied to the host), the time and
+    the metric module's host reads."""
+    import torch
+    from mxnet_tpu_torch import gluon, metric
+    from mxnet_tpu_torch.gluon.block import _GraphProgram
+    from mxnet_tpu_torch.gluon.contrib import estimator as E
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    net = _est_net(mx)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(EST_OPT))
+    est = E.Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                      metrics=[metric.Accuracy(), metric.Loss()],
+                      trainer=trainer, fused_step=True)
+    atomic = E.AtomicCheckpointHandler(directory, every_n_batches=EST_EVERY,
+                                       every_n_epochs=None, resume=resume)
+    seen = []
+
+    class Watch(E.BatchEnd):
+        priority = 10000        # after the checkpoint handler's save
+
+        def batch_end(self, est, *a, **k):
+            seen.append(dict(t=time.perf_counter(),
+                             reads=metric.host_reads(),
+                             loss=k["loss"].asnumpy(),
+                             pred=k["pred"].asnumpy()))
+
+    cf.conv1x1_bwd_pair.launches = 0
+    _GraphProgram.debug = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r0 = metric.host_reads()
+    try:
+        est.fit(data, val_data=val, epochs=1,
+                event_handlers=[atomic, Watch()])
+    finally:
+        _GraphProgram.debug = False
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    (fs,) = trainer._fused_steps.values()
+    prog = next(p for k, p in fs._programs.items() if k[0] == "apply")
+    k6 = cf.conv1x1_bwd_pair.launches - prog.launches.get("conv1x1_bwd", 0) \
+        + fs.launches().get("conv1x1_bwd", 0)
+    counts, every = _graph_nodes(prog, ("conv1x1_bwd",))
+    return dict(est=est, atomic=atomic, seen=seen, seconds=secs,
+                reads_start=r0, k6=k6, k6_nodes=counts["conv1x1_bwd"],
+                kernel_nodes=sum(every.values()), fs=fs)
+
+
+def estimator_resnet(fused_row):
+    """26.2: ResNet-50 v1 NHWC bf16 at 128 x 224², hybridized, fitted by
+    ``Estimator(..., fused_step=True)`` with ``MXNET_FUSED_CONV_BWD=1``:
+    ``Accuracy`` and ``Loss``, a ``ValidationHandler`` over 2 batches, an
+    ``AtomicCheckpointHandler`` every 4 batches, one epoch of 12 batches
+    from seeded images through a ``DataLoader``.  Then a second estimator
+    with ``resume=True`` starts from the batch-8 checkpoint (the data
+    from ``iter_from(8)``): its batches 9-12 equal the uninterrupted
+    run's bit for bit (each batch's loss and predictions, so its metric
+    values; the weights and running statistics; the cursor).  K6 runs 30
+    times a step in both.  ms a batch (3-12) beside phase 18's fused
+    step, and the metric handlers' host reads a batch."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    root = os.path.join(HERE, "build", "phase26")
+    shutil.rmtree(root, ignore_errors=True)
+    full_dir = os.path.join(root, "full")
+    resume_dir = os.path.join(root, "resume")
+    loader = mx.gluon.data.DataLoader(
+        _images_dataset(mx, EST_BATCHES * RESNET_B, 26),
+        batch_size=RESNET_B, shuffle=False, num_workers=EST_WORKERS)
+    val = mx.gluon.data.DataLoader(
+        _images_dataset(mx, EST_VAL * RESNET_B, 27), batch_size=RESNET_B,
+        shuffle=False, num_workers=EST_WORKERS)
+    mx.random.seed(26)
+    full = _est_run(mx, full_dir, loader, val, resume=False)
+    after = {k: p.data()._data.clone() for k, p in
+             full["est"].net._collect_params_with_prefix().items()}
+    seen = full["seen"]
+    times = [b["t"] for b in seen]
+    ms = [(b - a) * 1e3 for a, b in zip(times[:-1], times[1:])]
+    saves = {EST_EVERY * i for i in range(1, EST_BATCHES // EST_EVERY + 1)}
+    # batch i+1's interval ends at its batch_end (i 0-based in ms)
+    timed = ms[1:]                       # batches 3..12
+    unsaved = [m for i, m in enumerate(ms, start=2) if i >= 3 and
+               i not in saves]
+    reads = [b["reads"] for b in seen]
+    per_batch_reads = sorted({b - a for a, b in zip(reads[:-1], reads[1:])})
+    steps = [os.path.basename(p) for p in sorted(os.listdir(full_dir))
+             if p.startswith("step_")]
+    os.makedirs(resume_dir)
+    for s in steps:
+        if int(s.split("_")[1]) <= EST_RESUME:
+            shutil.copytree(os.path.join(full_dir, s),
+                            os.path.join(resume_dir, s))
+    hf = full["atomic"]
+    cursor_full = (hf.current_batch, hf.current_epoch)
+    k6_full, nodes_full = full["k6"], full["k6_nodes"]
+    full_s = full["seconds"]
+    full["est"].trainer._fused_steps.clear()
+    del full
+    torch.cuda.empty_cache()
+    mx.random.seed(0)                # other weights than the run's start
+    res = _est_run(mx, resume_dir, _From(loader, EST_RESUME), val,
+                   resume=True)
+    hr = res["atomic"]
+    cursor_res = (hr.current_batch, hr.current_epoch)
+    rest = seen[EST_RESUME:]
+    same_batches = len(res["seen"]) == len(rest) and all(
+        np.array_equal(a["loss"], b["loss"]) and
+        np.array_equal(a["pred"], b["pred"])
+        for a, b in zip(res["seen"], rest))
+    now = res["est"].net._collect_params_with_prefix()
+    differ = [k for k, t in after.items()
+              if not torch.equal(now[k].data()._data, t)]
+    metrics_res = [m.get() for m in res["est"].train_metrics]
+    row = dict(batches=EST_BATCHES, seconds=full_s,
+               resumed_seconds=res["seconds"],
+               ms_per_batch=sum(timed) / len(timed),
+               ms_per_batch_unsaved=sum(unsaved) / max(1, len(unsaved)),
+               ms_batches=ms, saves=sorted(saves), steps_saved=steps,
+               host_reads_a_batch=per_batch_reads,
+               fused_ms_per_step=fused_row["ms_per_step"] if fused_row
+               else None,
+               cursor=cursor_full, resumed_cursor=cursor_res,
+               resumed_step=hr.resumed_step,
+               resumed_metrics=metrics_res,
+               batches_equal=same_batches, weights_differ=differ,
+               k6_full=k6_full, k6_resumed=res["k6"],
+               k6_nodes=[nodes_full, res["k6_nodes"]],
+               kernel_nodes=res["kernel_nodes"],
+               launches=dict(conv1x1_bwd=k6_full + res["k6"]))
+    print(f"26.2 estimator resnet: resnet50_v1 NHWC bf16, B={RESNET_B} "
+          f"224x224, {EST_BATCHES} batches through Estimator(fused_step="
+          f"True) with Accuracy, Loss, a ValidationHandler over {EST_VAL} "
+          f"batches and an AtomicCheckpointHandler every {EST_EVERY}; "
+          f"{full_s:.2f} s; ms a batch {row['ms_per_batch']:.3f} (batches "
+          f"3-{EST_BATCHES}), {row['ms_per_batch_unsaved']:.3f} without "
+          f"a save, beside phase 18's fused step "
+          f"{row['fused_ms_per_step']} ms; host reads a batch by the "
+          f"metric handlers {per_batch_reads}; checkpoints {steps}",
+          flush=True)
+    print(f"26.2 estimator resnet: ms each batch "
+          f"{[round(m, 2) for m in ms]}", flush=True)
+    print(f"26.2 estimator resume: from step {hr.resumed_step}, batches "
+          f"{EST_RESUME + 1}-{EST_BATCHES} equal the uninterrupted run's "
+          f"bit for bit (loss, predictions): {same_batches}; weights and "
+          f"statistics differing: {len(differ)} of {len(after)}; cursor "
+          f"{cursor_res} against {cursor_full}; metrics {metrics_res}; "
+          f"K6 {k6_full} + {res['k6']} launches ({K6_PER_STEP} a step: "
+          f"{K6_PER_STEP * EST_BATCHES} + "
+          f"{K6_PER_STEP * (EST_BATCHES - EST_RESUME)}), graph nodes "
+          f"{row['k6_nodes']}; {res['seconds']:.2f} s", flush=True)
+    if hr.resumed_step != EST_RESUME or not same_batches or differ or \
+            cursor_res != cursor_full or cursor_full != (EST_BATCHES, 1):
+        fail(f"26.2 estimator resume: step {hr.resumed_step}, batches "
+             f"equal {same_batches}, {len(differ)} arrays differ (first "
+             f"{differ[:3]}), cursor {cursor_res} vs {cursor_full}")
+    if k6_full != K6_PER_STEP * EST_BATCHES or \
+            res["k6"] != K6_PER_STEP * (EST_BATCHES - EST_RESUME) or \
+            row["k6_nodes"] != [K6_PER_STEP, K6_PER_STEP]:
+        fail(f"26.2 estimator: K6 launches {k6_full} + {res['k6']}, "
+             f"nodes {row['k6_nodes']}")
+    losses = [float(b["loss"].mean()) for b in seen]
+    if not all(np.isfinite(losses)):
+        fail(f"26.2 estimator: losses not finite: {losses}")
+    row["losses"] = losses
+    res["est"].trainer._fused_steps.clear()
+    del res
+    torch.cuda.empty_cache()
+    return row
+
+
+def contrib_layers():
+    """26.3: ``Conv2DLSTMCell`` unrolled 10 steps at Moving MNIST's
+    ConvLSTM shape in f32, card against CPU within ``CONTRIB_TOL``;
+    ``PixelShuffle2D`` card equal to CPU; ``SyncBatchNorm`` on one card
+    equal to ``BatchNorm`` bit for bit (forward and gradients); an
+    ``Orthogonal`` (1024, 1024) on the card with ``W Wᵀ`` within
+    ``ORTH_TOL`` of scale² I."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.contrib import nn as cnn
+    from mxnet_tpu_torch.gluon.contrib import rnn as crnn
+    from mxnet_tpu_torch.models import arrays_from_port, load_mxnet_tpu_arrays
+
+    c = CONVLSTM
+    rs = np.random.RandomState(263)
+    x = rs.standard_normal((c["batch"], c["steps"], c["channels"],
+                            c["side"], c["side"])).astype(np.float32)
+
+    def cell():
+        return crnn.Conv2DLSTMCell(
+            (c["channels"], c["side"], c["side"]), c["hidden"],
+            i2h_kernel=c["kernel"], h2h_kernel=c["kernel"],
+            i2h_pad=c["kernel"] // 2, prefix="convlstm_")
+
+    with mx.cpu():
+        cpu = cell()
+        cpu.initialize(mx.init.Xavier(), ctx=mx.cpu(), seed=0)
+        want, wstates = cpu.unroll(c["steps"], mx.nd.array(x), layout="NTC",
+                                   merge_outputs=True)
+    card = cell()
+    load_mxnet_tpu_arrays(card, arrays_from_port(cpu, prefix="convlstm_"))
+    xc = mx.nd.array(x, ctx=mx.gpu(0))
+    got, gstates = card.unroll(c["steps"], xc, layout="NTC",
+                               merge_outputs=True)
+    lstm_err = max(float(np.abs(a.asnumpy() - b.asnumpy()).max())
+                   for a, b in zip([got] + gstates, [want] + wstates))
+    lstm_ms = cuda_ms(lambda i: card.unroll(c["steps"], xc, layout="NTC",
+                                            merge_outputs=True), 5, warm=1)
+    y = rs.standard_normal((16, 64, 32, 32)).astype(np.float32)
+    with mx.cpu():
+        ps_cpu = cnn.PixelShuffle2D(2)(mx.nd.array(y)).asnumpy()
+    ps_card = cnn.PixelShuffle2D(2)(mx.nd.array(y, ctx=mx.gpu(0))).asnumpy()
+    ps_equal = bool(np.array_equal(ps_card, ps_cpu))
+    z = rs.standard_normal((32, 64, 28, 28)).astype(np.float32)
+    head = rs.standard_normal(z.shape).astype(np.float32)
+    outs = []
+    for cls in (mx.gluon.nn.BatchNorm, cnn.SyncBatchNorm):
+        bn = cls(in_channels=64) if cls is cnn.SyncBatchNorm else \
+            cls(axis=1, in_channels=64)
+        bn.initialize(ctx=mx.gpu(0))
+        xs = mx.nd.array(z, ctx=mx.gpu(0))
+        xs.attach_grad()
+        with mx.autograd.record():
+            o = bn(xs)
+        o.backward(mx.nd.array(head, ctx=mx.gpu(0)))
+        outs.append([o.asnumpy(), xs.grad.asnumpy(),
+                     bn.gamma.grad().asnumpy(), bn.beta.grad().asnumpy(),
+                     bn.running_mean.data().asnumpy(),
+                     bn.running_var.data().asnumpy()])
+    sync_equal = all(np.array_equal(a, b) for a, b in zip(*outs))
+    w = mx.nd.zeros((ORTH_N, ORTH_N), ctx=mx.gpu(0))
+    scale = 1.414
+    mx.init.Orthogonal(scale=scale)("orth_weight", w)
+    wt = w._data.double()
+    orth_err = float((wt @ wt.T - scale ** 2 * torch.eye(
+        ORTH_N, dtype=torch.float64, device=wt.device)).abs().max())
+    row = dict(convlstm_err=lstm_err, convlstm_ms=lstm_ms,
+               pixel_shuffle_equal=ps_equal, sync_bn_equal=sync_equal,
+               orthogonal_err=orth_err)
+    print(f"26.3 contrib: Conv2DLSTMCell {c['steps']} steps at "
+          f"{c['batch']} x {c['channels']} x {c['side']}² (hidden "
+          f"{c['hidden']}, {c['kernel']}x{c['kernel']}) card vs cpu "
+          f"{lstm_err:.3e} (tol {CONTRIB_TOL}), {lstm_ms:.3f} ms an "
+          f"unroll; PixelShuffle2D card == cpu {ps_equal}; SyncBatchNorm "
+          f"== BatchNorm bit for bit {sync_equal}; Orthogonal "
+          f"({ORTH_N}, {ORTH_N}) |W Wᵀ - {scale}² I| {orth_err:.3e} (tol "
+          f"{ORTH_TOL})", flush=True)
+    if not (lstm_err <= CONTRIB_TOL and ps_equal and sync_equal and
+            orth_err <= ORTH_TOL):
+        fail(f"26.3 contrib: {row}")
+    return row
+
+
+def check_vision_breadth(fused_row):
+    """Phase 26: 26.1-26.3, with the phase's seconds."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zoo = check_zoo()
+    t1 = time.perf_counter()
+    est = estimator_resnet(fused_row)
+    t2 = time.perf_counter()
+    contrib = contrib_layers()
+    secs = time.perf_counter() - t0
+    print(f"phase 26: {secs:.2f} s (26.1 {t1 - t0:.2f}, 26.2 "
+          f"{t2 - t1:.2f}, 26.3 {time.perf_counter() - t2:.2f}); the "
+          f"script so far {time.perf_counter() - T_START:.2f} s", flush=True)
+    return dict(zoo=zoo, estimator=est, contrib=contrib, seconds=secs,
+                launches=est["launches"])
+
+
 def main():
     try:
         import torch
@@ -10539,6 +11114,7 @@ def main():
     seq = check_sequence()
     corpus = check_corpus(fused_train["resnet"], opt19)
     runtime = check_runtime()
+    vision26 = check_vision_breadth(fused_train["resnet"])
 
     # the kernels line, the card's line and the result
     gelu = next(c for c in rtc["cases"]
@@ -10637,8 +11213,8 @@ def main():
         # phase 14, gluon.Trainer, phase 16, Trainer.fused_step, phase
         # 18, and LARS through fused_step, phase 19.2; replays count by
         # the graph's launches), of phase 20.4's hybrid_forward stage, of
-        # phase 21's loader-fed epoch, of phase 22's SSD and of phase
-        # 24.1's aggregated-update loop
+        # phase 21's loader-fed epoch, of phase 22's SSD, of phase 24.1's
+        # aggregated-update loop and of phase 26.2's two Estimator fits
         dict(name="conv1x1_bwd", route="cuda",
              source="mxnet_tpu_torch/csrc/conv1x1_bwd.cu",
              replaces="mxnet_tpu/ops/conv_fused.py:134",
@@ -10648,7 +11224,8 @@ def main():
              opt19["lars_resnet"]["launches"]["conv1x1_bwd"] +
              hybrid["launches"]["conv1x1_bwd"] + data["launches"] +
              det["launches"]["conv1x1_bwd"] +
-             corpus["launches"]["conv1x1_bwd"],
+             corpus["launches"]["conv1x1_bwd"] +
+             vision26["launches"]["conv1x1_bwd"],
              max_abs_err=k6["max_abs_err"], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
@@ -10710,7 +11287,7 @@ def main():
                        mlp=mlp, fused_train=fused_train, optimizers=opt19,
                        hybrid=hybrid, data=data, detection=det,
                        sequence=seq, corpus=corpus, runtime=runtime,
-                       kernels=kernels),
+                       vision_breadth=vision26, kernels=kernels),
                   fh, indent=1, default=str)
     print(f"chip_smoke: {time.perf_counter() - T_START:.2f} s in all",
           flush=True)

@@ -34,7 +34,10 @@ and its device ring), ``recordio``, ``io`` and ``image``.  The
 twenty-second is the training run's services: ``checkpoint`` (atomic,
 verified, asynchronous saves and bit-exact resume), ``amp`` (mixed
 precision and the loss scaler), ``profiler`` and ``engine``, with
-``nd.sparse``.
+``nd.sparse``.  The twenty-third is vision breadth: the model zoo's
+other families, the remaining initializers, ``metric`` and
+``gluon.contrib`` (its layers, the convolutional recurrent cells and the
+``Estimator`` with its event handlers).
 """
 __version__ = "0.1.0"
 
@@ -46,7 +49,7 @@ from .device import resolve_device
 _SUBPACKAGES = ("ops", "models", "serve", "gluon", "optimizer", "parallel",
                 "random", "initializer", "ndarray", "autograd", "context",
                 "operator", "rtc", "telemetry", "io", "recordio", "image",
-                "amp", "checkpoint", "engine", "profiler")
+                "amp", "checkpoint", "engine", "profiler", "metric")
 # names of the imperative core, taken from the module that holds them
 _FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
          "cpu": ("context", "cpu"),

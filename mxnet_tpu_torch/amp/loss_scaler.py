@@ -16,7 +16,7 @@ class LossScaler:
         """True if any parameter gradient is non-finite: one
         ``multi_all_finite`` over every gradient and one host read."""
         from .. import ndarray as nd
-        grads = [p.grad() for p in params
+        grads = [p._data._grad_buffer() for p in params
                  if p.grad_req != "null" and p._data is not None
                  and p._data._grad is not None]
         if not grads:

@@ -304,7 +304,7 @@ class FusedStep:
         if N > 1:
             live = [p for p in tr._params
                     if p.grad_req == "write" and p._data is not None]
-            now = [p.grad()._data for p in live]
+            now = [p._data._grad_buffer()._data for p in live]
             if tr._window_pos == 0 or self._legacy_accum is None:
                 self._legacy_accum = now
             else:
@@ -312,7 +312,7 @@ class FusedStep:
                                       zip(self._legacy_accum, now)]
             if tr._window_pos + 1 >= N:
                 for p, a in zip(live, self._legacy_accum):
-                    p.grad()._rebind(a)
+                    p._data._grad_buffer()._rebind(a)
                 self._legacy_accum = None
         tr._accum_managed = True
         try:

@@ -1,0 +1,46 @@
+"""AlexNet (Krizhevsky et al. 2012), port of
+``mxnet_tpu/gluon/model_zoo/vision/alexnet.py``: the reference's layers
+in its name scopes, so ``collect_params()`` names every parameter as the
+reference does.  NCHW only, as there.  The model store is not ported:
+``pretrained=True`` raises."""
+from __future__ import annotations
+
+from ... import nn
+from ...block import HybridBlock
+from .resnet import _no_store
+
+__all__ = ["AlexNet", "alexnet"]
+
+
+class AlexNet(HybridBlock):
+    def __init__(self, classes=1000, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(nn.Conv2D(64, kernel_size=11, strides=4,
+                                        padding=2, activation="relu"))
+            self.features.add(nn.MaxPool2D(pool_size=3, strides=2))
+            self.features.add(nn.Conv2D(192, kernel_size=5, padding=2,
+                                        activation="relu"))
+            self.features.add(nn.MaxPool2D(pool_size=3, strides=2))
+            self.features.add(nn.Conv2D(384, kernel_size=3, padding=1,
+                                        activation="relu"))
+            self.features.add(nn.Conv2D(256, kernel_size=3, padding=1,
+                                        activation="relu"))
+            self.features.add(nn.Conv2D(256, kernel_size=3, padding=1,
+                                        activation="relu"))
+            self.features.add(nn.MaxPool2D(pool_size=3, strides=2))
+            self.features.add(nn.Flatten())
+            self.features.add(nn.Dense(4096, activation="relu"))
+            self.features.add(nn.Dropout(0.5))
+            self.features.add(nn.Dense(4096, activation="relu"))
+            self.features.add(nn.Dropout(0.5))
+            self.output = nn.Dense(classes)
+
+    def hybrid_forward(self, F, x):
+        return self.output(self.features(x))
+
+
+def alexnet(pretrained=False, ctx=None, **kwargs):
+    _no_store(pretrained)
+    return AlexNet(**kwargs)

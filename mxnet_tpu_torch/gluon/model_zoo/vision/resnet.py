@@ -289,6 +289,13 @@ resnet_block_versions = [
 ]
 
 
+def _no_store(pretrained):
+    """The model store (downloaded weights) is not ported."""
+    if pretrained:
+        raise MXNetError("pretrained weights: the port has no model store; "
+                         "carry weights with models.load_mxnet_tpu_arrays")
+
+
 def get_resnet(version, num_layers, pretrained=False, ctx=None, **kwargs):
     """The reference's ``get_resnet``; ``kwargs`` go to the net
     (``classes``, ``thumbnail``, ``layout``, ``device``, ``dtype``).
@@ -297,9 +304,7 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, **kwargs):
         raise MXNetError(f"invalid resnet depth {num_layers}")
     if version not in (1, 2):
         raise MXNetError("resnet version must be 1 or 2")
-    if pretrained:
-        raise MXNetError("pretrained weights: the port has no model store; "
-                         "carry weights with models.resnet_from_mxnet_tpu")
+    _no_store(pretrained)
     block_type, layers, channels = resnet_spec[num_layers]
     net_cls = resnet_net_versions[version - 1]
     block_cls = resnet_block_versions[version - 1][block_type]

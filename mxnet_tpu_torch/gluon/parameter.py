@@ -9,6 +9,10 @@ block the parameter belongs to (``ndarray._leaf`` adopts it), so
 gradient a backward of ``autograd`` leaves, following ``grad_req``:
 ``write`` replaces it, ``add`` adds to it, ``null`` keeps none (the
 tensor does not require a gradient; BatchNorm's running statistics).
+With ``grad_stype="row_sparse"`` (``gluon.contrib.nn.SparseEmbedding``'s
+weight) ``grad()`` hands that gradient out as a ``RowSparseNDArray`` of
+its nonzero rows; the trainers read the dense buffer, an update equal to
+the reference's dense one.
 
 A parameter is created as soon as its shape is known: when its block is
 built (``Block._place``), else at the block's first forward, after the
@@ -32,6 +36,7 @@ ported: the port runs on one card.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 
 import numpy as np
@@ -44,7 +49,7 @@ from ..context import Context, current_context
 from ..ndarray.ndarray import NDArray
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
-           "DeferredInitializationError", "generation"]
+           "DeferredInitializationError", "params_swapped", "generation"]
 
 
 _GENERATION = [0]
@@ -62,6 +67,34 @@ def _bump():
 
 class DeferredInitializationError(MXNetError):
     """``data()`` was called before the parameter's shape is known."""
+
+
+@contextlib.contextmanager
+def params_swapped(params, vals):
+    """Rebind each ``Parameter`` of ``params`` to the tensor (or
+    ``NDArray``) of ``vals`` for the body of the ``with`` (reference
+    ``params_swapped``): its array and every block that registers it
+    read the new tensor, so a forward runs at those values and a
+    gradient reaches them.  On exit each parameter gets its own tensor
+    back, with its gradient buffer and ``grad_req``.  A captured graph
+    reads the tensors it was captured with, so entry and exit raise the
+    storage generation: a hybridized block captures again."""
+    saved = [(p._data._data, p._data._grad, p._data._grad_req)
+             for p in params]
+    try:
+        for p, v in zip(params, vals):
+            v = v._data if isinstance(v, NDArray) else v
+            p._data._data = v
+            for block, attr in p._owners:
+                block._parameters[attr] = v
+        _bump()
+        yield
+    finally:
+        for p, (t, g, req) in zip(params, saved):
+            p._data._data, p._data._grad, p._data._grad_req = t, g, req
+            for block, attr in p._owners:
+                block._parameters[attr] = t
+        _bump()
 
 
 def _shape_is_known(shape) -> bool:
@@ -92,10 +125,12 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default" or grad_stype != "default":
+        if stype != "default" or grad_stype not in ("default",
+                                                   "row_sparse"):
             raise MXNetError("sparse parameter storage is not supported by "
-                             "mxnet_tpu_torch")
+                             "mxnet_tpu_torch (a row_sparse gradient is)")
         self.name = name
+        self._grad_stype = grad_stype
         self._data = None
         if isinstance(shape, int):
             shape = (shape,)
@@ -273,7 +308,9 @@ class Parameter:
         if self._grad_req == "null" or self._data._grad_req == "null":
             raise MXNetError(
                 f"cannot get grad for {self.name}: grad_req is 'null'")
-        return self._data._grad_buffer()
+        g = self._data._grad_buffer()
+        return g.tostype("row_sparse") if self._grad_stype == "row_sparse" \
+            else g
 
     def list_data(self):
         return [self.data()]

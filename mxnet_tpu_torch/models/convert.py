@@ -1,6 +1,8 @@
 """Carry weights between an ``mxnet_tpu`` GPT, BERT, Llama, Transformer
-seq2seq, Gluon vision net (the ResNet family) or ``gluon.rnn`` layer or
-cell and the port.
+seq2seq, Gluon vision net (every model-zoo family: ResNet, VGG, AlexNet,
+DenseNet, SqueezeNet, Inception, MobileNet v1 and v2), ``gluon.rnn`` or
+``gluon.contrib.rnn`` layer or cell, or any other block built from
+``gluon`` layers, and the port.
 
 ``arrays`` is ``{name: numpy array}`` as ``net.collect_params()`` names
 the reference's parameters (``gpt0_h0_attn_qkv_weight``,
@@ -187,20 +189,26 @@ def resnet_from_mxnet_tpu(version, num_layers, arrays, **kwargs):
 def load_mxnet_tpu_arrays(model, arrays):
     """Copy the reference's ``arrays`` into the port ``model`` (any of
     the nets above, e.g. a ResNet built from its classes, or any block
-    built from ``gluon`` layers: ``gluon.rnn``'s layers and cells load
-    by the reference's names, ``lstm0_l0_i2h_weight``, an input size
-    still to infer taken from the array); returns ``model``."""
+    built from ``gluon`` layers: every model-zoo family from
+    ``get_model``, weights and running statistics, ``gluon.rnn``'s layers
+    and cells and the convolutional cells of ``gluon.contrib.rnn`` load
+    by the reference's names, ``densenet0_stage2_batchnorm3_running_var``
+    or ``lstm0_l0_i2h_weight``; a size still to infer is taken from the
+    array); returns ``model``."""
     return _load(model, arrays)
 
 
 def arrays_from_port(model, prefix="") -> dict:
-    """``{prefix + reference name: f32 numpy array}`` of every parameter
-    of a port GPT, BERT, Llama or ResNet, running statistics included
-    (``prefix`` is the reference model's, e.g. ``"gpt0_"`` or
-    ``"resnetv10_"``)."""
+    """``{prefix + reference name: f32 numpy array}`` (a copy) of every
+    parameter of a port GPT, BERT, Llama, model-zoo net (any family) or
+    other Gluon block, running statistics included (``prefix`` is the
+    reference model's, e.g. ``"gpt0_"``, ``"resnetv10_"`` or
+    ``"mobilenetv20_"``)."""
     names = _names(model)
     params = {k: p.data()._data for k, p in
               model._collect_params_with_prefix().items()} \
         if isinstance(model, Block) else dict(model.named_parameters())
-    return {prefix + names[name]: p.detach().float().cpu().numpy()
+    # copies: a CPU f32 tensor's numpy() would share its storage, and the
+    # arrays would follow the next update of the parameters
+    return {prefix + names[name]: p.detach().float().cpu().numpy().copy()
             for name, p in params.items()}

@@ -232,9 +232,44 @@ def where(condition, x, y):
     return torch.where(condition.bool(), x, y)
 
 
+def _tie(x, bound, above):
+    """d/dx of ``max(x, bound)`` (``above``) or ``min(x, bound)`` as JAX
+    takes it: 1 on the kept side, 0 on the other, 1/2 at a tie."""
+    keep = (x > bound) if above else (x < bound)
+    return keep.to(x.dtype) + (x == bound).to(x.dtype) * 0.5
+
+
+class _Clip(torch.autograd.Function):
+    """``min(max(x, a_min), a_max)`` with the reference's gradient
+    (``jnp.clip``): an element at a bound gets half the incoming
+    gradient, as XLA splits a tie of ``max``/``min``; ``torch.clamp``
+    would pass all of it.  ReLU6 (``clip(x, 0, 6)``) meets such ties
+    wherever a channel is exactly zero."""
+
+    @staticmethod
+    def forward(ctx, x, a_min, a_max):
+        ctx.save_for_backward(x)
+        ctx.bounds = (a_min, a_max)
+        return torch.clamp(x, a_min, a_max)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        a_min, a_max = ctx.bounds
+        w = torch.ones_like(x)
+        if a_min is not None:
+            w = _tie(x, a_min, True)
+            x = torch.clamp(x, min=a_min)
+        if a_max is not None:
+            w = w * _tie(x, a_max, False)
+        return g * w, None, None
+
+
 @op("clip")
 def clip(data, *, a_min, a_max):
-    return torch.clamp(data, a_min, a_max)
+    if not data.is_floating_point():
+        return torch.clamp(data, a_min, a_max)
+    return _Clip.apply(data, a_min, a_max)
 
 
 @op("add_n", variadic=True)

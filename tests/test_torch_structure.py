@@ -129,6 +129,16 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: mx.nd.sparse.csr_matrix(np.eye(3, dtype=np.float32))):
         with pytest.raises(MXNetError, match="CUDA is not available"):
             make()
+    # the vision-breadth slice: a zoo net and the Estimator on the default
+    # context
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        get_model("mobilenetv2_1.0")
+    from mxnet_tpu_torch.gluon.contrib.estimator import Estimator
+
+    with mx.cpu():
+        small = nn.Dense(2, in_units=3)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        Estimator(small, mx.gluon.loss.L2Loss())
 
 
 def test_new_modules_are_covered():
@@ -209,7 +219,52 @@ def test_new_modules_are_covered():
             "mxnet_tpu_torch/amp/lists.py",
             "mxnet_tpu_torch/amp/loss_scaler.py",
             "mxnet_tpu_torch/ndarray/sparse.py"} <= names
+    # the vision-breadth slice
+    assert {"mxnet_tpu_torch/metric.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/alexnet.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/vgg.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/squeezenet.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/densenet.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/inception.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/mobilenet.py",
+            "mxnet_tpu_torch/gluon/contrib/__init__.py",
+            "mxnet_tpu_torch/gluon/contrib/nn/__init__.py",
+            "mxnet_tpu_torch/gluon/contrib/nn/basic_layers.py",
+            "mxnet_tpu_torch/gluon/contrib/rnn/__init__.py",
+            "mxnet_tpu_torch/gluon/contrib/rnn/conv_rnn_cell.py",
+            "mxnet_tpu_torch/gluon/contrib/rnn/rnn_cell.py",
+            "mxnet_tpu_torch/gluon/contrib/estimator/__init__.py",
+            "mxnet_tpu_torch/gluon/contrib/estimator/estimator.py",
+            "mxnet_tpu_torch/gluon/contrib/estimator/event_handler.py"} \
+        <= names
     assert {"decode_fused", "conv1x1_bwd", "box_nms"} <= set(_build.KERNELS)
+
+
+def test_zoo_names_and_module_names_match_the_reference():
+    """``get_model`` knows the reference's 34 names and no other, and
+    the ported modules export the reference's ``__all__``."""
+    import importlib
+
+    import mxnet_tpu.gluon.model_zoo.vision as rvision
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    assert sorted(vision._models) == sorted(rvision._models)
+    assert len(vision._models) == 34 and not hasattr(vision, "_LATER")
+    zoo = "gluon.model_zoo.vision."
+    for mod in ("metric", "initializer", "gluon.contrib.nn.basic_layers",
+                "gluon.contrib.rnn.conv_rnn_cell",
+                "gluon.contrib.rnn.rnn_cell", zoo + "alexnet", zoo + "vgg",
+                zoo + "squeezenet", zoo + "densenet", zoo + "inception",
+                zoo + "mobilenet"):
+        ref = importlib.import_module("mxnet_tpu." + mod)
+        port = importlib.import_module("mxnet_tpu_torch." + mod)
+        assert list(port.__all__) == list(ref.__all__), mod
+        assert all(hasattr(port, n) for n in port.__all__), mod
+    # the reference's gluon.parameter names, params_swapped included
+    import mxnet_tpu.gluon.parameter as rparam
+    import mxnet_tpu_torch.gluon.parameter as pparam
+
+    assert set(rparam.__all__) <= set(pparam.__all__)
 
 
 def test_nvcc_command_targets_sm90a():
