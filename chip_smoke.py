@@ -120,8 +120,10 @@ Phases (each fails the run by raising; there is no CPU path):
    depth; a fused
    token split by CUDA events into the embedding, K5, ln_f + the head
    (K4 with int8) and the argmax, beside the run's ms a token;
-12b. the fourteenth slice: phase 12's Llama-7B (bf16, full width and
-   depth, K5's stream freed) through ``DecodeServer(weights="int8",
+12b. the fourteenth slice: Llama-7B at full width and ``L7_SERVED_LAYERS``
+   of its 32 layers (bf16; cut from the full depth to keep the script
+   inside its time limit; seeded as phase 12's) through
+   ``DecodeServer(weights="int8",
    pool_sizes=(4, 8), max_total_len=2048, prefill_buckets=16...1024)``,
    page 16, greedy, 32 new tokens a request, on its own thread: prompts
    of 7, 100 and 700 tokens (the 700 late: the pool grows), one of 1800
@@ -451,12 +453,12 @@ Phases (each fails the run by raising; there is no CPU path):
    through ``amp.init_trainer``, ``amp.scale_loss`` around an eager
    ``record``/``backward``, every attention through K1-K3's fp16
    instantiation (12 each a step), in child processes: two uninterrupted
-   12-step runs bit for bit with each other, one of them saving through
+   8-step runs bit for bit with each other, one of them saving through
    ``CheckpointManager(async_save=True, max_to_keep=2)`` every 4 steps; a
    run killed by ``MXNET_FAULT_INJECT=checkpoint.save:kill:2`` inside its
    second save, and a run that restores the newest verifiable step (4),
    reports and sweeps the dead save's temp directory
-   (``checkpoint_corrupt``) and runs to step 12: its losses, loss scale,
+   (``checkpoint_corrupt``) and runs to step 8: its losses, loss scale,
    skipped steps and every weight equal the uninterrupted run's bit for
    bit; (2) the same model in bf16 with f32 masters, dropout 0.1,
    ``Trainer(update_interval=2)`` through ``fused_step``: saved at
@@ -485,8 +487,8 @@ Phases (each fails the run by raising; there is no CPU path):
    the card by ``models.convert``, the predict-mode logits and the
    weights after one SGD step recorded with ``train_mode=False`` card
    against CPU within 1e-4 of the largest magnitude; (b) in bf16 with f32
-   masters at batch 64, hybridized, 6 SGD-momentum steps through
-   ``Trainer.fused_step``: ms a step (3-6), images/s, peak bytes, one
+   masters at batch 64, hybridized, 4 SGD-momentum steps through
+   ``Trainer.fused_step``: ms a step (3-4), images/s, peak bytes, one
    capture, the replay's kernel nodes, the first loss within 3 of ln
    1000, every loss finite, and for the MobileNets the grouped
    convolutions' share of a replay's device time; (2) ResNet-50 v1 NHWC
@@ -504,7 +506,33 @@ Phases (each fails the run by raising; there is no CPU path):
    equal to CPU, ``SyncBatchNorm`` equal to ``BatchNorm`` bit for bit,
    an ``Orthogonal`` (1024, 1024) with ``W Wᵀ`` within 1e-5 of scale² I;
    the phase's seconds and the script's;
-27. one ``{"kernels": [...]}`` line, the card line, and as the last line
+27. the twenty-fourth slice, the symbolic surface (``build/phase27/``):
+   (1) ResNet-50 v1 NHWC f32 from the model zoo, exported by
+   ``HybridBlock.export``, read back by ``mx.sym.load``,
+   ``mx.sym.SoftmaxOutput`` appended, fitted by ``mx.mod.Module.fit`` for
+   one epoch of 12 seeded 128 x 224² batches from an ``mx.io.NDArrayIter``
+   (SGD with momentum 0.9, ``MXNET_FUSED_CONV_BWD=1``,
+   ``mx.callback.Speedometer(128, 4)``, ``mx.callback.do_checkpoint``):
+   K6 exactly 30 launches a batch and no other kernel of the port, the
+   first loss within 1 of ln 1000, every loss finite, the first 3
+   batches bit for bit with the same steps run eagerly on the source
+   block, ``Module.load`` restoring the checkpoint bit for bit, ms a
+   batch beside phase 18's, Speedometer's lines, and K6's f32 kernel
+   timed at the nine shapes; (2) the user's ``hybrid_forward`` GPT-2
+   small bf16 at 8 x 1024 exported and read back by
+   ``SymbolBlock.imports``: its predict-mode logits bit for bit with the
+   source block's (K1 12 a forward), and so an ``Executor`` from
+   ``simple_bind``, a ``Predictor`` (eager, capture, replay) and its
+   self-contained file, and ``amp.convert_model`` of the f32 export;
+   ``viz.print_summary``'s total equal to ``collect_params()``'s
+   elements; 3 AdamW ``fused_step``s of the imported block, hybridized
+   (one capture, K1-K3 12 each a step), bit for bit with the source
+   block's; (3) ``mx.mod.BucketingModule`` over sequence lengths 35 and
+   70 of a 2-layer LSTM LM at ``standard_lstm_lm_650``'s widths built
+   with ``mx.sym.RNN``: the buckets share their weights, the losses are
+   finite, ms a step a bucket; (4) the phase's seconds and the
+   script's;
+28. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -527,6 +555,12 @@ F32_OPS_PER_S = 67e12              # f32 on the CUDA cores (no tensor cores)
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def _stamp(what):
+    """The script's seconds so far, after ``what``."""
+    print(f"chip_smoke: {what} done at {time.perf_counter() - T_START:.2f} "
+          f"s", flush=True)
 
 
 def card_line():
@@ -2593,6 +2627,7 @@ def check_llama7b(model, cfg):
 
 L7_BUCKETS = tuple(2 ** i for i in range(4, 11))     # 16 ... 1024
 L7_TOTAL = 2048
+L7_SERVED_LAYERS = 8        # phases 12b-12d: Llama-7B's width, 8 layers
 L7_SYS = 512                # the shared system prompt
 
 
@@ -2936,7 +2971,8 @@ def _ttft_by_kind(run):
 
 
 def check_llama_served(model, cfg):
-    """Phase 12b: Llama-7B (bf16, int8 weights, full width and depth)
+    """Phase 12b: Llama-7B (bf16, int8 weights, full width,
+    ``L7_SERVED_LAYERS`` layers)
     through ``DecodeServer(pool_sizes=(4, 8), max_total_len=2048,
     prefill_buckets=16...1024)``, page 16, greedy, 32 new tokens a
     request: the counted threaded run (tokens/s, TTFT, launches and
@@ -3014,7 +3050,8 @@ def check_llama_served_f32():
 # --------------------------------------------------------------------------- #
 
 SPEC_NEW = 64               # new tokens of each repetitive prompt
-L7_PAGE_INT8 = 2 * 32 * 32 * (16 * 128 + 4)     # one int8 page, K and V
+# one int8 page (16 positions of 32 KV heads of 128), K and V, a layer
+L7_PAGE_INT8 = 2 * L7_SERVED_LAYERS * 32 * (16 * 128 + 4)
 
 
 def spec_extra(vocab):
@@ -3357,7 +3394,8 @@ def spec_program_checks(srv, what, card, gap_bar):
 
 
 def check_llama_spec(model, cfg, base):
-    """Phase 12c: Llama-7B (bf16, int8 weights, full width and depth)
+    """Phase 12c: Llama-7B (bf16, int8 weights, full width,
+    ``L7_SERVED_LAYERS`` layers)
     through ``DecodeServer(kv_dtype="int8")`` with speculation at its
     defaults (depth 4, buckets 1, 2, 4), phase 12b's pools, horizon and
     buckets, phase 12b's requests and two repetitive ones, on its own
@@ -9842,7 +9880,7 @@ def check_corpus(fused_row, opt19):
 # mx.nd.sparse
 # --------------------------------------------------------------------------- #
 
-P25_STEPS = 12              # 25.1: steps of the fp16 run
+P25_STEPS = 8               # 25.1: steps of the fp16 run
 P25_EVERY = 4               # 25.1: a checkpoint every 4 steps
 P25_KILL = "checkpoint.save:kill:2"   # 25.1: dies inside its second save
 P25_PROFILED = (2, 3, 4)    # 25.4: the steps profiled in 25.1's run A
@@ -10011,16 +10049,16 @@ def _p25_result(proc, what, expect_rc=0, timeout=900):
 
 def amp_kill_resume():
     """25.1 and 25.4's children.  Run A (no checkpoint; profiled steps
-    2-4; its digest after step 1), run B (checkpoints at 4, 8, 12), the
+    2-4; its digest after step 1), run B (checkpoints at 4 and 8), the
     killed run (``MXNET_FAULT_INJECT=checkpoint.save:kill:2``: SIGKILLed
     inside its second save, step 8) and the NaiveEngine run (step 1)
     share the card at once; then the resumed run restores the newest
-    verifiable step of the killed run's directory and runs to step 12.
+    verifiable step of the killed run's directory and runs to step 8.
     Gates: A and B equal bit for bit (losses, loss scale, skipped steps,
     every weight); the killed run leaves step 4 committed and step 8 an
     uncommitted temp directory; the resumed run restores step 4, reports
     that temp directory (``checkpoint_corrupt``) and sweeps it, and its
-    losses (steps 5-12), loss scale, skipped steps and every weight equal
+    losses (steps 5-8), loss scale, skipped steps and every weight equal
     A's bit for bit; every step launches K1-K3 exactly 12 times each, in
     fp16."""
     base = dict(steps=P25_STEPS)
@@ -10075,7 +10113,8 @@ def amp_kill_resume():
           f"scale {a['loss_scale']}; run A = run "
           f"B bit for bit; killed inside the save of step 8, resumed from "
           f"step 4 (restore {r['restore_s']:.3f} s, corrupt events "
-          f"{r['corrupt']}), steps 5-12 = A's bit for bit (losses, skips, "
+          f"{r['corrupt']}), steps 5-{P25_STEPS} = A's bit for bit (losses, "
+          f"skips, "
           f"loss scale, weights); K1-K3 12 each a step in fp16; ms a step "
           f"of the resumed run (alone on the card) "
           f"{[round(x, 3) for x in r['step_ms']]}", flush=True)
@@ -10467,7 +10506,7 @@ ZOO = (("alexnet", 224), ("vgg16_bn", 224), ("squeezenet1.1", 224),
 ZOO_CPU_B = 2               # 26.1(a): f32, card against CPU
 ZOO_TOL = 1e-4              # 26.1(a): of the largest magnitude
 ZOO_B = 64                  # 26.1(b): bf16 with f32 masters, fused
-ZOO_STEPS = 6
+ZOO_STEPS = 4
 ZOO_OPT = {"learning_rate": 0.01, "momentum": 0.9, "multi_precision": True}
 # the first loss's distance from ln 1000: Xavier-initialized VGG-16-BN
 # starts with wider logits (8.908 on the CPU in f32 at batch 4, 9.116 on
@@ -10552,8 +10591,8 @@ def zoo_vs_cpu(name, side):
 
 def zoo_train(name, side):
     """26.1(b): the member in bf16 with f32 masters at batch 64,
-    hybridized, ``Trainer.fused_step`` with SGD (momentum 0.9), 6 steps:
-    ms a step over steps 3-6, images/s, peak bytes, captures (1 after the
+    hybridized, ``Trainer.fused_step`` with SGD (momentum 0.9),
+    ``ZOO_STEPS`` steps: ms a step over the replays from step 3, images/s, peak bytes, captures (1 after the
     first capture), the replay's kernel nodes; the first loss within
     ``ZOO_LOSS0_TOL`` of ln 1000 and every loss finite; for the
     MobileNets the grouped convolutions' share of a replay's device
@@ -11003,6 +11042,564 @@ def check_vision_breadth(fused_row):
                 launches=est["launches"])
 
 
+# --------------------------------------------------------------------------- #
+# phase 27: the symbolic surface, the twenty-fourth slice: mx.sym, export
+# and imports, mx.mod.Module and BucketingModule, mx.model, mx.callback,
+# the Predictor
+# --------------------------------------------------------------------------- #
+
+SYM_DIR = os.path.join(HERE, "build", "phase27")   # git-ignored
+SYM_B, SYM_SIDE = 128, 224  # 27.1: ResNet-50 v1 NHWC, f32, 128 x 224^2
+SYM_BATCHES = 12            # one epoch of Module.fit
+SYM_BITS = 3                # batches held bit for bit against eager steps
+SYM_FREQ = 4                # Speedometer(128, 4)
+SYM_OPT = {"learning_rate": 0.1, "momentum": 0.9}
+SYM_GPT_STEPS = 3           # 27.2: AdamW fused steps, imported and source
+LM_SYM_V, LM_SYM_H, LM_SYM_L, LM_SYM_N = 33278, 650, 2, 20
+LM_SYM_BUCKETS = (35, 70)   # 27.3: the default bucket is the longest
+LM_SYM_STEPS = 3            # steps a bucket, the buckets in turn
+LM_SYM_OPT = {"learning_rate": 1.0}
+
+
+def _sym_dir():
+    os.makedirs(SYM_DIR, exist_ok=True)
+    return SYM_DIR
+
+
+def _port_counts():
+    from mxnet_tpu_torch.gluon.block import _launch_counts
+
+    return _launch_counts()
+
+
+def _count_delta(before):
+    return {k: v - before[k] for k, v in _port_counts().items()
+            if v != before[k]}
+
+
+class _LogLines:
+    """The log records of a block (Speedometer's lines)."""
+
+    def __init__(self):
+        import logging
+
+        self.lines = []
+        self._logging = logging
+        self._handler = logging.Handler()
+        self._handler.emit = lambda r: self.lines.append(r.getMessage())
+
+    def __enter__(self):
+        root = self._logging.getLogger()
+        self._level = root.level
+        root.setLevel(self._logging.INFO)
+        root.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *a):
+        root = self._logging.getLogger()
+        root.removeHandler(self._handler)
+        root.setLevel(self._level)
+
+
+def sym_resnet(fused_row):
+    """27.1: MXNet 1.x's symbolic training script.  ResNet-50 v1 NHWC
+    f32 from the model zoo, exported by ``HybridBlock.export``, read back
+    by ``mx.sym.load``, ``SoftmaxOutput`` appended, fitted by
+    ``mx.mod.Module`` for one epoch of ``SYM_BATCHES`` seeded batches
+    (``mx.io.NDArrayIter``, SGD with momentum, ``rescale_grad`` 1/128,
+    ``MXNET_FUSED_CONV_BWD=1``, ``Speedometer`` and ``do_checkpoint``).
+    K6 exactly 30 launches a batch and no other kernel of the port; the
+    first loss near ln 1000, every loss finite; the first ``SYM_BITS``
+    batches bit for bit with the same steps run eagerly on the source
+    block (predict-mode forward, as the exported graph's BatchNorms run,
+    ``SoftmaxOutput``, ``backward``, ``multi_update``); ``Module.load``
+    restores the checkpoint bit for bit.  cuDNN runs its deterministic
+    algorithms here: with its defaults two runs of the same f32 step part
+    by rounding (some weight-gradient algorithms sum with atomics), and
+    the arms could not be held bit for bit."""
+    import math
+
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, initializer
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+
+    gpu = mx.gpu(0)
+    d = _sym_dir()
+    old_env = os.environ.get("MXNET_FUSED_CONV_BWD")
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mx.random.seed(0)
+    with gpu:
+        net = get_resnet(1, 50, classes=1000, layout="NHWC")
+    net.initialize(initializer.Xavier(rnd_type="uniform", factor_type="avg",
+                                      magnitude=3), ctx=gpu, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    n = SYM_B * SYM_BATCHES
+    data = mx.nd.NDArray(torch.rand((n, 3, SYM_SIDE, SYM_SIDE),
+                                    generator=gen, device="cuda"))
+    label = mx.nd.NDArray(torch.randint(0, 1000, (n,), generator=gen,
+                                        device="cuda").float())
+    net(data[:SYM_B])           # the input signature export reads
+    prefix = os.path.join(d, "resnet50_v1")
+    t0 = time.perf_counter()
+    net.export(prefix)
+    export_s = time.perf_counter() - t0
+    sym = mx.sym.load(prefix + "-symbol.json")
+    graph = mx.sym.SoftmaxOutput(sym, mx.sym.var("softmax_label"),
+                                 name="softmax")
+    args0, _ = mx.model.load_params(prefix, 0, ctx=gpu)
+    ops = {}
+    for node in json.loads(graph.tojson())["nodes"]:
+        ops[node["op"]] = ops.get(node["op"], 0) + 1
+
+    it = mx.io.NDArrayIter(data, label, batch_size=SYM_B)
+    mod = mx.mod.Module(graph, context=gpu)
+    outs, losses, marks, k6, snap = [], [], [], [], {}
+    before = _port_counts()
+
+    def on_batch(param):
+        # the metric's host read has waited for the batch
+        marks.append(time.perf_counter())
+        k6.append(_port_counts()["conv1x1_bwd"])
+        prob = mod.get_outputs()[0]._data
+        lab = mod._exec.arg_dict["softmax_label"]._data.long()
+        losses.append(float(-prob.detach().gather(1, lab[:, None]).log()
+                            .mean()))
+        if param.nbatch < SYM_BITS:
+            outs.append(prob.clone())
+        if param.nbatch == SYM_BITS - 1:
+            snap.update({nm: mod._exec.arg_dict[nm]._data.detach().clone()
+                         for nm in mod._param_names})
+
+    ck = os.path.join(d, "resnet50_module")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _LogLines() as log:
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params=tuple(SYM_OPT.items()),
+                arg_params=args0,
+                batch_end_callback=[on_batch,
+                                    mx.callback.Speedometer(SYM_B, SYM_FREQ)],
+                epoch_end_callback=mx.callback.do_checkpoint(ck))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = _count_delta(before)
+    per_batch = [b - a for a, b in zip([before["conv1x1_bwd"]] + k6, k6)]
+    ms_batch = (marks[-1] - marks[SYM_BITS]) / (len(marks) - 1 - SYM_BITS) \
+        * 1e3
+    speed = [ln for ln in log.lines if "samples/sec" in ln]
+
+    # the same first batches, eagerly on the source block
+    opt = mx.optimizer.create("sgd", rescale_grad=1.0 / SYM_B, **SYM_OPT)
+    byname = net.collect_params()
+    names = mod._param_names
+    states = [opt.create_state_multi_precision(i, byname[nm].data()._data)
+              for i, nm in enumerate(names)]
+    eager_equal = []
+    for b in range(SYM_BITS):
+        x = data[b * SYM_B:(b + 1) * SYM_B]
+        y = label[b * SYM_B:(b + 1) * SYM_B]
+        with autograd.record(train_mode=False):
+            prob = mx.nd.SoftmaxOutput(net(x), y)
+        prob.backward()
+        eager_equal.append(bool(torch.equal(prob._data, outs[b])))
+        grads = [byname[nm].grad() if byname[nm].grad_req != "null"
+                 else mx.nd.NDArray(torch.zeros_like(byname[nm].data()._data))
+                 for nm in names]
+        opt.multi_update(list(range(len(names))),
+                         [byname[nm].data() for nm in names], grads, states)
+    diff = [nm for nm in names
+            if not torch.equal(byname[nm].data()._data, snap[nm])]
+    worst = max(((byname[nm].data()._data - snap[nm]).abs().max().item(), nm)
+                for nm in names)
+
+    loaded = mx.mod.Module.load(ck, 1, context=gpu)
+    loaded.bind(it.provide_data, it.provide_label, for_training=False)
+    loaded.init_params()
+    restored = [nm for nm in names
+                if torch.equal(loaded._exec.arg_dict[nm]._data,
+                               mod._exec.arg_dict[nm]._data)]
+    files = sorted(f for f in os.listdir(d) if f.startswith("resnet50"))
+    print(f"27.1 export: resnet50_v1 NHWC f32 exported in {export_s:.2f} s "
+          f"({len(json.loads(graph.tojson())['nodes'])} nodes with "
+          f"SoftmaxOutput: {dict(sorted(ops.items()))}); files {files}",
+          flush=True)
+    print(f"27.1 module: Module.fit over {SYM_BATCHES} batches of {SYM_B} x "
+          f"{SYM_SIDE}^2 f32 (SGD {SYM_OPT}, rescale_grad 1/{SYM_B}, "
+          f"MXNET_FUSED_CONV_BWD=1): losses {[round(v, 4) for v in losses]}; "
+          f"ms a batch {ms_batch:.3f} (batches {SYM_BITS + 2}-{SYM_BATCHES}, "
+          f"host clock at the batch-end callback, after the metric's host "
+          f"read) beside phase 18's Trainer.fused_step "
+          f"{fused_row['ms_per_step']:.3f} and gluon.Trainer "
+          f"{fused_row['gluon_ms_per_step']:.3f} (phase 16; both bf16); "
+          f"cuDNN deterministic; fit "
+          f"{fit_s:.2f} s; launches {launches}, K6 a batch {per_batch}; "
+          f"Speedometer: {speed}; {card_line()}", flush=True)
+    print(f"27.1 bits: the first {SYM_BITS} batches run eagerly on the "
+          f"source block: outputs equal bit for bit {eager_equal}; weights "
+          f"after them differing {len(diff)} of {len(names)} (largest "
+          f"{worst[0]:.3e} at {worst[1]}); Module.load({os.path.basename(ck)}"
+          f", 1) restored {len(restored)} of {len(names)} bit for bit",
+          flush=True)
+    if old_env is None:
+        os.environ.pop("MXNET_FUSED_CONV_BWD", None)
+    else:
+        os.environ["MXNET_FUSED_CONV_BWD"] = old_env
+    torch.backends.cudnn.deterministic = deterministic
+    if any(k != "conv1x1_bwd" for k in launches) or \
+            any(c != K6_PER_STEP for c in per_batch) or \
+            len(per_batch) != SYM_BATCHES:
+        fail(f"27.1: launches {launches}, K6 a batch {per_batch}: expected "
+             f"K6 alone, {K6_PER_STEP} a batch")
+    if not all(math.isfinite(v) for v in losses) or \
+            abs(losses[0] - math.log(1000)) > 1.0:
+        fail(f"27.1: losses not finite or the first not within 1.0 of "
+             f"ln 1000: {losses}")
+    if not all(eager_equal) or diff:
+        fail(f"27.1: eager steps part from the Module's: outputs "
+             f"{eager_equal}, weights {diff[:5]} (largest {worst})")
+    if len(restored) != len(names):
+        fail(f"27.1: Module.load restored {len(restored)} of {len(names)}")
+    if len(speed) != (SYM_BATCHES - 1) // SYM_FREQ:
+        fail(f"27.1: Speedometer logged {speed}")
+    row = dict(losses=losses, ms_per_batch=ms_batch, fit_s=fit_s,
+               export_s=export_s, launches=launches, k6_per_batch=per_batch,
+               speedometer=speed, eager_equal=eager_equal,
+               weights_differing=len(diff), restored=len(restored),
+               params=len(names), ops=ops)
+    del mod, loaded, net, data, label, it, snap, outs, states, opt
+    torch.cuda.empty_cache()
+    row["k6_f32"] = sym_k6_f32()
+    return row
+
+
+def sym_k6_f32():
+    """K6's f32 kernel (the CUDA-core one, which 27.1's f32 path runs)
+    at the nine ResNet-50 shapes, per step of 30 launches."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+    err = 0.0
+    for s, ci, co, n in K6_SHAPES:
+        row = _k6_case(s, ci, co, "float32", gen)
+        err = max(err, row["max_abs_err"])
+        for k in step:
+            step[k] += n * row[k]
+        torch.cuda.empty_cache()
+    step["bound_ms"], step["bound_by"] = bound_ms(step["bytes"], step["ops"],
+                                                  F32_OPS_PER_S)
+    step["max_abs_err"] = err
+    print(f"27.1 K6 f32 per ResNet-50 step ({K6_PER_STEP} launches): "
+          f"kernel_ms={step['ms']:.5f} bound_ms={step['bound_ms']:.5f} "
+          f"({step['bound_by']}) plain_ms={step['plain_ms']:.5f} cudnn_ms="
+          f"{step['library_ms']:.5f}; {card_line()}", flush=True)
+    return step
+
+
+def sym_gpt(cfg):
+    """27.2: the user's ``hybrid_forward`` GPT-2 small, exported and
+    imported.  The f32 net is exported, then cast to bf16 and exported
+    again; ``SymbolBlock.imports(ctx=mx.gpu())`` of the bf16 pair gives
+    the source block's predict-mode logits bit for bit with K1 12
+    launches a forward, and so do ``simple_bind`` + an ``Executor``
+    forward, a ``Predictor`` (eager, capture, a replay) and its
+    self-contained file, and ``amp.convert_model`` of the f32 pair to
+    bf16; ``viz.print_summary`` counts ``collect_params()``'s elements.
+    Then the imported block, hybridized, takes ``SYM_GPT_STEPS`` AdamW
+    ``fused_step``s (one capture, K1-K3 12 each a step), bit for bit with
+    the source block's from the same weights."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+
+    gpu = mx.gpu(0)
+    d = _sym_dir()
+    L = cfg.num_layers
+    mx.random.seed(0)
+    net = _hf_gpt(mx, L, 0.0, "float32", gpu, seed=0)
+    tok, pos, lab = _hf_batch(mx, HF_B, gpu)
+    net(tok, pos)
+    p32 = os.path.join(d, "gpt2_f32")
+    net.export(p32)
+    net.cast("bfloat16")
+    ref = net(tok, pos)._data.clone()
+    p16 = os.path.join(d, "gpt2")
+    t0 = time.perf_counter()
+    sym = net.export(p16)
+    export_s = time.perf_counter() - t0
+    blk = gluon.SymbolBlock.imports(p16 + "-symbol.json", ["data0", "data1"],
+                                    p16 + "-0000.params", ctx=gpu)
+    _reset_attention_counts()
+    before = _port_counts()
+    got = blk(tok, pos)._data.clone()
+    fwd_launches = _count_delta(before)
+    imported_equal = bool(torch.equal(got, ref))
+
+    ex = sym.simple_bind(ctx=gpu, grad_req="null", data0=tuple(tok.shape),
+                         data1=tuple(pos.shape))
+    args16, aux16 = mx.model.load_params(p16, 0, ctx=gpu)
+    ex.copy_params_from(args16, aux16)
+    exec_equal = bool(torch.equal(
+        ex.forward(is_train=False, data0=tok, data1=pos)[0]._data, ref))
+    del ex
+    shapes = {"data0": tuple(tok.shape), "data1": tuple(pos.shape)}
+    pred = mx.predictor.Predictor(p16 + "-symbol.json", p16 + "-0000.params",
+                                  shapes, ctx=gpu)
+    pred_equal = [bool(torch.equal(pred.forward(data0=tok, data1=pos)[0]
+                                   ._data, ref)) for _ in range(3)]
+    replays = pred.replays
+    artifact = os.path.join(d, "gpt2.predictor")
+    pred.export_compiled(artifact)
+    del pred
+    run = mx.predictor.Predictor.load_compiled(artifact, ctx=gpu)
+    file_equal = [bool(torch.equal(run(tok, pos)[0]._data, ref))
+                  for _ in range(2)]
+    del run
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(io.StringIO()) as table:
+        total = mx.viz.print_summary(sym, shape=shapes)
+    elements = sum(p.data().size for p in net.collect_params().values())
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "phase27_summary.txt"),
+              "w") as fh:
+        fh.write(table.getvalue())
+    s32, a32, x32 = mx.model.load_checkpoint(p32, 0, ctx=gpu)
+    s16, a16, x16 = mx.amp.convert_model(s32, a32, x32,
+                                         target_dtype="bfloat16")
+    conv = gluon.SymbolBlock(s16, ["data0", "data1"], params=a16)
+    convert_equal = bool(torch.equal(conv(tok, pos)._data, ref))
+    del conv, a32, x32, a16, x16
+    torch.cuda.empty_cache()
+
+    # training: the imported block and the source block, from the same
+    # weights, the same AdamW fused steps
+    loss_l = gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = {}
+    for what, block in (("imported", blk), ("source", net)):
+        block.hybridize()
+        trainer = gluon.Trainer(block.collect_params(), "adamw",
+                                dict(ADAMW_OPT))
+        fsm.reset_step_counters()
+        _reset_attention_counts()
+        losses = []
+
+        def loss_fn(t, p, y, block=block):
+            return loss_l(block(t, p), y)
+
+        step_ms = []
+        for _ in range(SYM_GPT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.fused_step(loss_fn, tok, pos, lab)
+                          ._data.float().mean())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        runs[what] = dict(
+            losses=[float(v) for v in losses], step_ms=step_ms,
+            launches=_fused_attention_launches(trainer),
+            compiles=fsm.step_counters["compiles"],
+            weights={nm: p.data()._data for nm, p in
+                     block.collect_params().items()})
+        del trainer
+    imp, src = runs["imported"], runs["source"]
+    w_diff = [nm for nm in src["weights"]
+              if not torch.equal(src["weights"][nm], imp["weights"][nm])]
+    print(f"27.2 export: the user's hybrid_forward GPT-2 small ({L} layers, "
+          f"bf16, dropout 0) at {HF_B} x {HF_T}, {len(sym.get_internals())}"
+          f" nodes, exported in {export_s:.2f} s; SymbolBlock.imports "
+          f"logits equal the source block's bit for bit {imported_equal}, "
+          f"launches a forward {fwd_launches}; simple_bind + Executor "
+          f"{exec_equal}; Predictor {pred_equal} ({replays} replays), its "
+          f"self-contained file {file_equal}; amp.convert_model of the f32 "
+          f"pair {convert_equal}; print_summary total {total} beside "
+          f"collect_params {elements} elements", flush=True)
+    print(f"27.2 train: {SYM_GPT_STEPS} AdamW fused steps (eager, capture "
+          f"and replay, replay), imported losses {imp['losses']} (ms each "
+          f"{[round(v, 3) for v in imp['step_ms']]}, launches "
+          f"{imp['launches']}, captures {imp['compiles']}), source "
+          f"{src['losses']} (ms each {[round(v, 3) for v in src['step_ms']]}"
+          f", launches {src['launches']}); weights differing {len(w_diff)} "
+          f"of {len(src['weights'])}; {card_line()}", flush=True)
+    if fwd_launches != {"flash_fwd": L}:
+        fail(f"27.2: an imported forward launched {fwd_launches}, expected "
+             f"K1 {L} alone")
+    if not (imported_equal and exec_equal and all(pred_equal) and
+            all(file_equal) and convert_equal) or replays != 2:
+        fail(f"27.2: logits part from the source block's: imports "
+             f"{imported_equal}, Executor {exec_equal}, Predictor "
+             f"{pred_equal} ({replays} replays), file {file_equal}, "
+             f"convert_model {convert_equal}")
+    if total != elements:
+        fail(f"27.2: print_summary counted {total}, collect_params holds "
+             f"{elements}")
+    for what, r in runs.items():
+        if r["compiles"] != 1 or any(
+                r["launches"][k] != L * SYM_GPT_STEPS for k in ATTN_KERNELS):
+            fail(f"27.2 {what}: captures {r['compiles']}, launches "
+                 f"{r['launches']}, expected 1 and {L} a step")
+        if not all(math.isfinite(v) for v in r["losses"]):
+            fail(f"27.2 {what}: losses {r['losses']}")
+    if imp["losses"] != src["losses"] or w_diff:
+        fail(f"27.2: the imported block's steps part from the source's: "
+             f"losses {imp['losses']} vs {src['losses']}, weights "
+             f"{w_diff[:5]}")
+    launches = {k: imp["launches"][k] + src["launches"][k]
+                for k in ATTN_KERNELS}
+    launches["flash_fwd"] += fwd_launches.get("flash_fwd", 0)
+    row = dict(export_s=export_s, imported_equal=imported_equal,
+               forward_launches=fwd_launches, executor_equal=exec_equal,
+               predictor_equal=pred_equal, predictor_replays=replays,
+               file_equal=file_equal, convert_equal=convert_equal,
+               summary_total=total, elements=elements,
+               imported=dict(losses=imp["losses"], step_ms=imp["step_ms"],
+                             launches=imp["launches"]),
+               source=dict(losses=src["losses"], step_ms=src["step_ms"],
+                           launches=src["launches"]),
+               weights_differing=len(w_diff), launches=launches)
+    del runs, imp, src, blk, net, sym
+    torch.cuda.empty_cache()
+    return row
+
+
+def _lm_sym(mx, seq_len):
+    """``sym_gen`` of the reference's form: an LSTM language model at
+    ``standard_lstm_lm_650``'s widths over ``mx.sym.RNN`` (no dropout: a
+    graph has no dropout op of the reference's registry)."""
+    s = mx.sym
+    V, H, L, N = LM_SYM_V, LM_SYM_H, LM_SYM_L, LM_SYM_N
+    embed = s.Embedding(s.var("data"), s.var("embed_weight", shape=(V, H)),
+                        input_dim=V, output_dim=H, name="embed")
+    weights = []
+    for layer in range(L):
+        for part, shape in (("i2h_weight", (4 * H, H)),
+                            ("h2h_weight", (4 * H, H)),
+                            ("i2h_bias", (4 * H,)), ("h2h_bias", (4 * H,))):
+            weights.append(s.var(f"lstm_l{layer}_{part}", shape=shape))
+    rnn = s.RNN(s.transpose(embed, axes=(1, 0, 2)),
+                s.var("lstm_h0", shape=(L, N, H)),
+                s.var("lstm_c0", shape=(L, N, H)), *weights, mode="lstm",
+                num_layers=L, name="lstm")
+    pred = s.FullyConnected(s.transpose(rnn, axes=(1, 0, 2)),
+                            s.var("decoder_weight"), s.var("decoder_bias"),
+                            num_hidden=V, flatten=False, name="decoder")
+    out = s.SoftmaxOutput(s.reshape(pred, shape=(-1, V)),
+                          s.reshape(s.var("softmax_label"), shape=(-1,)),
+                          name="softmax")
+    return out, ("data",), ("softmax_label",)
+
+
+def sym_buckets():
+    """27.3: ``BucketingModule`` over sequence lengths 35 and 70 of a
+    2-layer LSTM LM at 650 units and 33,278 words (``mx.sym.RNN``, the
+    registry's alias of ``fused_rnn``); no kernel of the port.  The
+    buckets share one set of weights (a step in one is seen by the
+    other); the loss is finite; ms a step in each bucket."""
+    import math
+
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.io import DataBatch
+
+    gpu = mx.gpu(0)
+    mx.random.seed(0)
+    N, H, L = LM_SYM_N, LM_SYM_H, LM_SYM_L
+    top = max(LM_SYM_BUCKETS)
+    bm = mx.mod.BucketingModule(lambda k: _lm_sym(mx, k),
+                                default_bucket_key=top, context=gpu,
+                                fixed_param_names=["lstm_h0", "lstm_c0"])
+    bm.bind([("data", (N, top))], [("softmax_label", (N, top))])
+    zeros = np.zeros((L, N, H), np.float32)
+    bm.init_params(initializer=mx.init.Uniform(0.1),
+                   arg_params={"lstm_h0": zeros, "lstm_c0": zeros},
+                   allow_missing=True)
+    bm.init_optimizer(optimizer="sgd",
+                      optimizer_params=tuple(LM_SYM_OPT.items()))
+    rs = np.random.RandomState(35)
+    before = _port_counts()
+    losses = {k: [] for k in LM_SYM_BUCKETS}
+    times = {k: [] for k in LM_SYM_BUCKETS}
+    seen = []
+    for i in range(LM_SYM_STEPS * len(LM_SYM_BUCKETS)):
+        key = LM_SYM_BUCKETS[i % len(LM_SYM_BUCKETS)]
+        x = mx.nd.array(rs.randint(0, LM_SYM_V, (N, key)), ctx=gpu,
+                        dtype="float32")
+        y = mx.nd.array(rs.randint(0, LM_SYM_V, (N, key)), ctx=gpu,
+                        dtype="float32")
+        batch = DataBatch(data=[x], label=[y], bucket_key=key,
+                          provide_data=[("data", (N, key))],
+                          provide_label=[("softmax_label", (N, key))])
+        other = [m for k, m in bm._buckets.items() if k != key]
+        w_before = bm._buckets[top]._exec.arg_dict["decoder_weight"] \
+            ._data.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bm.forward(batch, is_train=True)
+        bm.backward()
+        bm.update()
+        prob = bm.get_outputs()[0]._data
+        losses[key].append(float(-prob.detach().gather(
+            1, y._data.reshape(-1, 1).long()).log().mean()))
+        times[key].append(time.perf_counter() - t0)
+        if other:
+            # the other bucket's array is this bucket's, moved by the step
+            w = other[0]._exec.arg_dict["decoder_weight"]
+            seen.append(bool(
+                w is bm._curr_module._exec.arg_dict["decoder_weight"]
+                and not torch.equal(w._data, w_before)))
+    launches = _count_delta(before)
+    ms = {k: sum(v[1:]) / max(1, len(v) - 1) * 1e3 for k, v in times.items()}
+    print(f"27.3 buckets: BucketingModule, {L}-layer LSTM LM ({H} units, "
+          f"{LM_SYM_V} words, mx.sym.RNN) at {N} x {LM_SYM_BUCKETS}, SGD "
+          f"{LM_SYM_OPT}: losses {dict((k, [round(v, 4) for v in l]) for k, l in losses.items())}; "
+          f"ms a step {dict((k, round(v, 3)) for k, v in ms.items())} (all "
+          f"but each bucket's first); a step seen by the other bucket "
+          f"{seen}; launches {launches}; {card_line()}", flush=True)
+    flat = [v for l in losses.values() for v in l]
+    if not all(math.isfinite(v) for v in flat):
+        fail(f"27.3: losses {losses}")
+    if not seen or not all(seen):
+        fail(f"27.3: the buckets do not share their weights: {seen}")
+    if launches:
+        fail(f"27.3: launched {launches}: the path reaches no kernel")
+    del bm
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms_per_step=ms, shared=seen)
+
+
+def check_symbolic(cfg, fused_row):
+    """Phase 27: 27.1-27.3, with the phase's seconds (27.4)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resnet = sym_resnet(fused_row)
+    t1 = time.perf_counter()
+    gpt = sym_gpt(cfg)
+    t2 = time.perf_counter()
+    buckets = sym_buckets()
+    secs = time.perf_counter() - t0
+    print(f"phase 27: {secs:.2f} s (27.1 {t1 - t0:.2f}, 27.2 {t2 - t1:.2f}, "
+          f"27.3 {time.perf_counter() - t2:.2f}); the script so far "
+          f"{time.perf_counter() - T_START:.2f} s", flush=True)
+    launches = dict(gpt["launches"])
+    launches["conv1x1_bwd"] = resnet["launches"].get("conv1x1_bwd", 0)
+    return dict(resnet=resnet, gpt=gpt, buckets=buckets, seconds=secs,
+                launches=launches)
+
+
 def main():
     try:
         import torch
@@ -11060,6 +11657,7 @@ def main():
     train["captured_vs_eager"] = check_captured_vs_eager(cfg)
     train["vs_cpu"] = check_training_vs_cpu()
     bert = check_bert()
+    _stamp("phases 1-7 (kernels, serving, training)")
 
     from mxnet_tpu_torch.models import llama_7b
 
@@ -11075,6 +11673,7 @@ def main():
     fused = check_fused_gpt2(gpt2, cfg)
     fused["profile"] = profile_fused(gpt2)
     del gpt2
+    _stamp("phases 8-11 (fused decode)")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     llama, lcfg = llama_7b(dtype=torch.bfloat16)
@@ -11084,6 +11683,15 @@ def main():
           f"parameters, bf16, seeded Normal(0.02), built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     fused["llama_7b"] = check_llama7b(llama, lcfg)
+    # 12b-12d at Llama-7B's width and L7_SERVED_LAYERS of its layers
+    del llama
+    torch.cuda.empty_cache()
+    llama, lcfg = llama_7b(dtype=torch.bfloat16,
+                           num_layers=L7_SERVED_LAYERS)
+    llama.initialize(0.02, seed=0)
+    print(f"llama_7b served model: {lcfg.num_layers} layers at full width, "
+          f"{sum(p.numel() for p in llama.parameters())} parameters",
+          flush=True)
     served = check_llama_served(llama, lcfg)
     served["spec"] = check_llama_spec(llama, lcfg, served)
     served["faults"] = check_llama_faults(llama, lcfg, served)
@@ -11092,6 +11700,7 @@ def main():
     served["faults"]["sync"] = gpt2_sync()
     served["f32"] = check_llama_served_f32()
     served["spec_f32"] = check_llama_spec_f32()
+    _stamp("phase 12 (Llama-7B)")
 
     k6_design = report_design("K6", "conv1x1_bwd", "conv1x1_bwd_design",
                               "conv1x1_bwd_mma_kernel")
@@ -11099,6 +11708,7 @@ def main():
     vision = dict(fused=check_resnet(True), unfused=check_resnet(False),
                   vs_cpu=check_resnet_vs_cpu())
     gluon = check_gluon(vision["fused"])
+    _stamp("phases 13-16 (vision, Gluon)")
 
     import mxnet_tpu_torch as mx
 
@@ -11107,7 +11717,9 @@ def main():
     mlp = check_imperative_mlp(gelu_op)
     mlp["vs_cpu"] = check_imperative_vs_cpu()
     fused_train = check_fused(gelu_op, vision["fused"], gluon["resnet"], mlp)
+    _stamp("phases 17-18 (rtc, MLP, fused steps)")
     opt19 = check_optimizers(cfg, gelu_op, train)
+    _stamp("phase 19 (optimizers)")
     hybrid = check_hybrid(cfg, train)
     data = check_data()
     det = check_detection()
@@ -11115,6 +11727,7 @@ def main():
     corpus = check_corpus(fused_train["resnet"], opt19)
     runtime = check_runtime()
     vision26 = check_vision_breadth(fused_train["resnet"])
+    sym27 = check_symbolic(cfg, fused_train["resnet"])
 
     # the kernels line, the card's line and the result
     gelu = next(c for c in rtc["cases"]
@@ -11141,7 +11754,7 @@ def main():
                     launches=train["launches"][name] +
                     opt19["lamb_gpt2"]["launches"][name] +
                     hybrid["launches"][name] + seq["launches"][name] +
-                    runtime["launches"][name],
+                    runtime["launches"][name] + sym27["launches"][name],
                     max_abs_err=max(e for r in k23
                                     for w, e in r["max_abs_err"].items()
                                     if w in outputs),
@@ -11182,7 +11795,7 @@ def main():
              served["spec"]["launches"]["flash_fwd"] +
              served["faults"]["launches"]["flash_fwd"] +
              served["faults"]["sync"]["launches"]["flash_fwd"] +
-             runtime["launches"]["flash_fwd"],
+             runtime["launches"]["flash_fwd"] + sym27["launches"]["flash_fwd"],
              max_abs_err=max(r["max_abs_err"] for r in k1), ms=k1[0]["ms"],
              plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
              bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"],
@@ -11214,7 +11827,8 @@ def main():
         # 18, and LARS through fused_step, phase 19.2; replays count by
         # the graph's launches), of phase 20.4's hybrid_forward stage, of
         # phase 21's loader-fed epoch, of phase 22's SSD, of phase 24.1's
-        # aggregated-update loop and of phase 26.2's two Estimator fits
+        # aggregated-update loop, of phase 26.2's two Estimator fits and of
+        # phase 27.1's Module.fit (f32)
         dict(name="conv1x1_bwd", route="cuda",
              source="mxnet_tpu_torch/csrc/conv1x1_bwd.cu",
              replaces="mxnet_tpu/ops/conv_fused.py:134",
@@ -11225,7 +11839,8 @@ def main():
              hybrid["launches"]["conv1x1_bwd"] + data["launches"] +
              det["launches"]["conv1x1_bwd"] +
              corpus["launches"]["conv1x1_bwd"] +
-             vision26["launches"]["conv1x1_bwd"],
+             vision26["launches"]["conv1x1_bwd"] +
+             sym27["launches"]["conv1x1_bwd"],
              max_abs_err=k6["max_abs_err"], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
@@ -11287,7 +11902,8 @@ def main():
                        mlp=mlp, fused_train=fused_train, optimizers=opt19,
                        hybrid=hybrid, data=data, detection=det,
                        sequence=seq, corpus=corpus, runtime=runtime,
-                       vision_breadth=vision26, kernels=kernels),
+                       vision_breadth=vision26, symbolic=sym27,
+                       kernels=kernels),
                   fh, indent=1, default=str)
     print(f"chip_smoke: {time.perf_counter() - T_START:.2f} s in all",
           flush=True)

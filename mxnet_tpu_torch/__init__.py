@@ -37,7 +37,12 @@ precision and the loss scaler), ``profiler`` and ``engine``, with
 ``nd.sparse``.  The twenty-third is vision breadth: the model zoo's
 other families, the remaining initializers, ``metric`` and
 ``gluon.contrib`` (its layers, the convolutional recurrent cells and the
-``Estimator`` with its event handlers).
+``Estimator`` with its event handlers).  The twenty-fourth is the
+symbolic surface: ``sym`` (graphs, capture, the ``Executor``),
+``HybridBlock.export`` and ``SymbolBlock.imports``, ``mod`` (MXNet
+1.x's ``Module`` and ``BucketingModule``), ``model``, ``callback``,
+``name`` (with ``AttrScope``), ``viz``, ``test_utils`` and
+``predictor``.
 """
 __version__ = "0.1.0"
 
@@ -49,7 +54,9 @@ from .device import resolve_device
 _SUBPACKAGES = ("ops", "models", "serve", "gluon", "optimizer", "parallel",
                 "random", "initializer", "ndarray", "autograd", "context",
                 "operator", "rtc", "telemetry", "io", "recordio", "image",
-                "amp", "checkpoint", "engine", "profiler", "metric")
+                "amp", "checkpoint", "engine", "profiler", "metric",
+                "symbol", "module", "model", "callback", "name",
+                "visualization", "test_utils", "predictor")
 # names of the imperative core, taken from the module that holds them
 _FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
          "cpu": ("context", "cpu"),
@@ -58,7 +65,10 @@ _FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
          "cpu_shared": ("context", "cpu_shared"),
          "current_context": ("context", "current_context"),
          "num_gpus": ("context", "num_gpus"),
-         "lr_scheduler": ("optimizer.lr_scheduler", None)}
+         "lr_scheduler": ("optimizer.lr_scheduler", None),
+         "sym": ("symbol", None), "mod": ("module", None),
+         "viz": ("visualization", None),
+         "AttrScope": ("name", "AttrScope")}
 
 __all__ = ["MXNetError", "resolve_device", *_SUBPACKAGES, *_FROM]
 

@@ -17,7 +17,7 @@ patches the op namespace by the cast lists (``lists.py``);
 - bfloat16 is the default target; ``float16`` engages the loss scaler's
   dynamic scale (``init_trainer``) as in the reference, and attention
   runs the flash kernels' fp16 instantiations.
-- ``convert_model`` takes a symbol and waits for ``symbol/``: it raises.
+- ``convert_model`` casts a symbol's f32 parameters to the target dtype.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import contextlib
 import functools
 import logging
 
+import numpy as np
 import torch
 
 from ..base import MXNetError, torch_dtype
@@ -207,12 +208,15 @@ def scale_loss(loss, trainer):
 
 def convert_model(sym, arg_params, aux_params, target_dtype="bfloat16",
                   **kwargs):
-    """The reference's offline conversion of a (symbol, params) pair: the
-    port has no ``symbol/`` yet (ROADMAP §1 item 5), so it raises."""
-    raise MXNetError(
-        "amp.convert_model takes a symbol, and symbol/ is not ported yet "
-        "(ROADMAP §1 item 5); for a Gluon block use "
-        "amp.convert_hybrid_block")
+    """Offline conversion of a ``(symbol, params)`` checkpoint for
+    low-precision inference (reference ``amp.convert_model``): every f32
+    array of ``arg_params`` and ``aux_params`` cast to ``target_dtype``;
+    the graph is returned as it is."""
+    new_args = {k: v.astype(target_dtype) if v.dtype == np.float32 else v
+                for k, v in arg_params.items()}
+    new_aux = {k: v.astype(target_dtype) if v.dtype == np.float32 else v
+               for k, v in aux_params.items()}
+    return sym, new_args, new_aux
 
 
 def convert_hybrid_block(block, target_dtype="bfloat16", ctx=None):

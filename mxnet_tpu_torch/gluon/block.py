@@ -36,8 +36,24 @@ graph records it: a hybridized training step is the fused train step's
 whose recorded ``CachedOp`` is one tape node.  A forward that a graph
 replays fires the block's hooks but not its children's.  The
 reference's jit of unhybridized inference (``MXNET_JIT_BY_DEFAULT``) is
-not ported: an unhybridized block stays imperative.  ``export``,
-``optimize_for`` and ``SymbolBlock`` raise ``MXNetError``.
+not ported: an unhybridized block stays imperative.
+
+``export`` writes ``path-symbol.json`` and ``path-%04d.params`` in the
+reference's formats: the graph is captured (``symbol.capture``) from
+one predict-mode forward at the last call's input shapes, so every op
+that runs through ``registry.invoke`` becomes a node.  The port's layers
+whose ``forward`` runs on tensors (``Dense``, ``Conv2D``, ``BatchNorm``,
+``Activation``, ``Flatten``, ``Dropout``, the 2-D pools, the fused RNN
+layers, the ResNet blocks and nets: ``_capture_runs =
+"hybrid_forward"``) run their ``hybrid_forward``, the reference's, under
+a capture, so an exported net's graph is the reference's node for node.
+Any other block that defines its own ``forward`` raises under a capture,
+since its ops would be missing from the graph, unless it is marked as
+running every op through the registry (``_capture_runs = "forward"``:
+the containers, ``Lambda``, the recurrent cells, ``SymbolBlock``).
+``SymbolBlock`` runs a graph as a block (it trains, hybridizes and
+exports again); ``SymbolBlock.imports`` reads an exported pair of either
+package.
 
 ``trace_scope`` is the reference's trace discipline for the fused step:
 recording in the step's training mode, hybridized blocks inlined
@@ -75,18 +91,12 @@ from ..base import MXNetError
 from ..context import current_context
 from ..device import resolve_device
 from ..ndarray.ndarray import NDArray
+from ..ops import registry as _registry
 from ..ops.registry import _unwrap
 from ..optimizer.optimizer import _write
 from .parameter import Parameter, ParameterDict, _load_file, generation
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "trace_scope"]
-
-
-def _later(what):
-    return MXNetError(f"{what} is not ported yet: the port has no symbolic "
-                      "graph; hybridize() runs the forward as a CUDA graph, "
-                      "and a later slice of mxnet_tpu_torch brings the "
-                      "symbolic surface")
 
 
 # --------------------------------------------------------------------------- #
@@ -457,6 +467,12 @@ def _nd_call(block, fn, args, kwargs):
 class Block(nn.Module):
     """Base container (reference ``Block``)."""
 
+    # what a symbol capture runs of a class that defines ``forward``:
+    # "hybrid_forward" (a layer whose forward runs on tensors and that
+    # keeps the reference's hybrid_forward), "forward" (its forward runs
+    # every op through the registry), or None (the capture raises)
+    _capture_runs = None
+
     def __init__(self, prefix=None, params=None):
         super().__init__()
         hint = _classname_hint(type(self).__name__)
@@ -692,14 +708,23 @@ class Block(nn.Module):
         else:
             if not self._ready:
                 self._prepare(args)
-            out = super().__call__(*args, **kwargs)
+            out = self._forward_call(args, kwargs)
         for hook in self._mx_hooks.values():
             hook(self, args, out)
         return out
 
+    def _note_signature(self, args):
+        """Keep the input signature that ``export`` captures the graph
+        at, on a call from outside any block's forward only."""
+        if getattr(_MODE, "training", None) is None and args and \
+                all(isinstance(a, NDArray) for a in args):
+            self.__dict__["_last_input_structs"] = [
+                (tuple(a.shape), a._data.dtype) for a in args]
+
     def _call_nd(self, args, kwargs):
         from .. import autograd
 
+        self._note_signature(args)
         return _wrap(self._run_nd(
             [_unwrap(a) for a in args],
             {k: _unwrap(v) for k, v in kwargs.items()},
@@ -713,10 +738,37 @@ class Block(nn.Module):
             with torch.enable_grad() if recording else torch.no_grad():
                 if not self._ready:
                     self._prepare(tensors)
-                out = nn.Module.__call__(self, *tensors, **kwargs)
+                out = self._forward_call(tensors, kwargs)
         finally:
             _MODE.training = prev
         return out
+
+    def _forward_call(self, args, kwargs):
+        """The forward on tensors.  While a symbol capture is active a
+        layer marked ``"hybrid_forward"`` runs its ``hybrid_forward``, and
+        a forward not marked as running through the registry raises: its
+        ops would be missing from the graph."""
+        if _registry._captures and _registry.current_capture() is not None:
+            runs = _capture_runs(type(self))
+            if runs == "hybrid_forward":
+                return HybridBlock.forward(self, *args, **kwargs)
+            if runs != "forward":
+                raise MXNetError(
+                    f"{type(self).__name__}: a symbol capture (export) "
+                    "cannot record this block: its forward runs outside "
+                    "the op registry; give it a hybrid_forward over F")
+        return nn.Module.__call__(self, *args, **kwargs)
+
+
+def _capture_runs(cls):
+    """``_capture_runs`` of the class in ``cls``'s MRO that defines
+    ``forward`` (a subclass that overrides ``forward`` is not covered by
+    its base's mark); ``HybridBlock.forward`` runs ``hybrid_forward``
+    over ``F``, so through the registry."""
+    owner = next(c for c in cls.__mro__ if "forward" in c.__dict__)
+    if owner.__dict__["forward"] is HybridBlock.forward:
+        return "forward"
+    return owner.__dict__.get("_capture_runs")
 
 
 class HybridBlock(Block):
@@ -768,15 +820,60 @@ class HybridBlock(Block):
         raise NotImplementedError
 
     def _call_cached_op(self, args):
+        self._note_signature(args)
         if self._cached_op is None:
             self._cached_op = _CachedOp(self, self._flags)
         return self._cached_op(args)
 
     def export(self, path, epoch=0, remove_amp_cast=True):
-        raise _later("HybridBlock.export (symbol.json + .params)")
+        """Write ``path-symbol.json`` and ``path-%04d.params`` (reference
+        ``HybridBlock.export``): the graph captured from one predict-mode
+        forward on zeros of the last call's input shapes and dtypes,
+        beside the parameters' device; ``arg:`` the parameters the graph
+        reads, ``aux:`` the constants made inside the forward.  Needs one
+        call first, as in the reference.  Returns the Symbol."""
+        from .. import autograd
+        from ..ndarray import serialization
+        from ..symbol.symbol import capture
+
+        structs = self.__dict__.get("_last_input_structs")
+        if structs is None:
+            raise MXNetError(
+                "export: run the block on real inputs once before export "
+                "(the reference has the same requirement)")
+        params = self.collect_params()
+        device = next((p._data._data.device for p in params.values()
+                       if p._data is not None), None) or \
+            current_context().torch_device()
+        inputs = [torch.zeros(s, dtype=dt, device=device)
+                  for s, dt in structs]
+        in_names = ["data"] if len(inputs) == 1 else \
+            [f"data{i}" for i in range(len(inputs))]
+        with capture() as cap:
+            for name, p in params.items():
+                if p._data is not None:
+                    cap.mark_variable(name, p.data())
+            for nm, x in zip(in_names, inputs):
+                cap.mark_variable(nm, x, shape=x.shape)
+            with autograd.pause(train_mode=False), _no_hybrid():
+                out = self._run_nd(inputs, {}, False, False)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        sym = cap.symbol_for(outs)
+        sym.save(f"{path}-symbol.json", remove_amp_cast=remove_amp_cast)
+        used = set(sym.list_arguments())
+        save_dict = {f"arg:{n}": p.data() for n, p in params.items()
+                     if n in used and p._data is not None}
+        for cname, cval in cap.const_values.items():
+            if cname in used:
+                save_dict[f"aux:{cname}"] = NDArray(cval)
+        serialization.save(f"{path}-{epoch:04d}.params", save_dict)
+        return sym
 
     def optimize_for(self, x, *args, backend=None, **kwargs):
-        raise _later("HybridBlock.optimize_for")
+        """Reference ``optimize_for(backend)``: ``hybridize()`` and one
+        call (the port's one backend is the CUDA graph)."""
+        self.hybridize()
+        return self(x, *args)
 
 
 class _CachedOp:
@@ -860,11 +957,90 @@ class _CachedOp:
 
 
 class SymbolBlock(HybridBlock):
-    """The reference's block over a Symbol graph."""
+    """A Symbol graph as a block (reference ``SymbolBlock``): its forward
+    runs the graph through the op registry, so it trains, hybridizes
+    (one ``_GraphProgram`` capture, as any block) and exports again.
+    Every argument that is not an input is a ``Parameter`` of the
+    block, named as in the graph; the ``aux:`` constants of an imported
+    file are fed as loaded."""
+
+    _capture_runs = "forward"
 
     def __init__(self, outputs, inputs, params=None, prefix=None):
-        raise _later("SymbolBlock (the port has no symbolic graph)")
+        super().__init__(prefix=prefix or "symbolblock_")
+        from ..symbol.symbol import Group, Symbol
+
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(outputs)
+        if not isinstance(outputs, Symbol):
+            raise MXNetError("SymbolBlock: outputs must be Symbol(s)")
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._sym = outputs
+        self._input_names = [s.name if isinstance(s, Symbol) else str(s)
+                             for s in inputs]
+        self._consts = {}
+        arg_names = outputs.list_arguments()
+        for nm in self._input_names:
+            if nm not in arg_names:
+                raise MXNetError(f"SymbolBlock: input {nm} not in graph")
+        for nm in arg_names:
+            if nm in self._input_names:
+                continue
+            p = (params or {}).get(nm)
+            if not isinstance(p, Parameter):
+                newp = Parameter(nm, shape=None, allow_deferred_init=True)
+                if p is not None:
+                    newp._load_init(p, p.context, cast_dtype=True)
+                p = newp
+            self._params._params[nm] = p
+            self._reg_params[nm] = p
+            p._attach(self, nm)
+
+    def forward(self, *args):
+        return _nd_call(self, self._run_graph, args, {})
+
+    def _run_graph(self, *args):
+        from ..symbol.symbol import _execute
+
+        feed = dict(zip(self._input_names, args))
+        for nm, p in self._params.items():
+            if nm in self._consts:
+                feed[nm] = self._consts[nm]
+            elif p._data is not None:
+                feed[nm] = p.data()
+            else:
+                raise MXNetError(f"SymbolBlock: parameter {nm} has no "
+                                 "value; load params first")
+        outs = _execute(self._sym._heads, feed)
+        return outs[0] if len(outs) == 1 else outs
 
     @staticmethod
     def imports(symbol_file, input_names, param_file=None, ctx=None):
-        raise _later("SymbolBlock.imports")
+        """An exported ``(symbol.json, .params)`` pair of either package
+        as a block, its parameters on ``ctx`` (default the current
+        context, ``gpu(0)``; raises without CUDA) in the file's dtypes."""
+        from .. import symbol as sym_mod
+        from ..model import load_params_file
+
+        ctx = ctx if ctx is not None else current_context()
+        ctx.torch_device()
+        sym = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        block = SymbolBlock(sym, input_names)
+        if param_file is not None:
+            block._load(*load_params_file(param_file, ctx=ctx), ctx)
+        return block
+
+    def _load(self, arg_params, aux_params, ctx):
+        """Take the values of ``arg_params`` and ``aux_params`` (the
+        latter also fed as constants) on ``ctx``, in their dtypes."""
+        own = self._params._params
+        for nm, v in arg_params.items():
+            if nm in own:
+                own[nm]._load_init(v, ctx, cast_dtype=True)
+        for nm, v in aux_params.items():
+            if nm in own:
+                self._consts[nm] = v
+                own[nm]._load_init(v, ctx, cast_dtype=True)

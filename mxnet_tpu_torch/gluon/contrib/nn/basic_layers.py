@@ -10,9 +10,7 @@ gradients are dense too).
 """
 from __future__ import annotations
 
-import torch
-
-from ...block import HybridBlock
+from ...block import HybridBlock, _nd_call
 from ...nn import Embedding, HybridSequential, Sequential
 
 __all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
@@ -20,13 +18,20 @@ __all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
 
 
 def _concurrent(block, x):
-    return torch.cat([child(x) for child in block._children.values()],
-                     dim=block.axis)
+    """The children's outputs joined by ``F.concat`` on ``block.axis``,
+    as the reference's (so a symbol capture records a ``concat`` node)."""
+    from .... import ndarray as F
+
+    outs = [child(x) for child in block._children.values()]
+    return _nd_call(block, lambda *o: F.concat(*o, dim=block.axis), outs,
+                    {})
 
 
 class Concurrent(Sequential):
     """Run the children on the same input, concatenate their outputs on
     ``axis``."""
+
+    _capture_runs = "forward"
 
     def __init__(self, axis=-1, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
@@ -37,6 +42,8 @@ class Concurrent(Sequential):
 
 
 class HybridConcurrent(HybridSequential):
+    _capture_runs = "forward"
+
     def __init__(self, axis=-1, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self.axis = axis

@@ -18,6 +18,10 @@ at the first forward (the BatchNorms, the bottlenecks' 1x1
 convolutions, the stem) infer their sizes then, and the others are
 created on the current context; with ``device`` every layer is built
 at once on it, with its size (images have 3 channels), in ``dtype``.
+
+Each block and net runs its ``forward`` on tensors and keeps the
+reference's ``hybrid_forward``, which a symbol capture runs
+(``HybridBlock.export`` writes the reference's graph).
 """
 from __future__ import annotations
 
@@ -67,7 +71,28 @@ def _downsample_v1(channels, stride, in_channels, layout, ax, dev):
     return ds
 
 
-class BasicBlockV1(HybridBlock):
+class _BlockV1(HybridBlock):
+    """v1's residual: ``relu(body(x) + downsample(x))``, the body and the
+    downsample built by the subclass."""
+
+    _capture_runs = "hybrid_forward"
+
+    def forward(self, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return torch.relu(x + residual)
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.relu(x + residual)
+
+
+class BasicBlockV1(_BlockV1):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", device=None, dtype=None, **kwargs):
         super().__init__(**kwargs)
@@ -83,15 +108,8 @@ class BasicBlockV1(HybridBlock):
                                          layout, ax, dev) \
             if downsample else None
 
-    def forward(self, x):
-        residual = x
-        x = self.body(x)
-        if self.downsample is not None:
-            residual = self.downsample(residual)
-        return torch.relu(x + residual)
 
-
-class BottleneckV1(HybridBlock):
+class BottleneckV1(_BlockV1):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  layout="NCHW", device=None, dtype=None, **kwargs):
         super().__init__(**kwargs)
@@ -115,13 +133,6 @@ class BottleneckV1(HybridBlock):
                                          layout, ax, dev) \
             if downsample else None
 
-    def forward(self, x):
-        residual = x
-        x = self.body(x)
-        if self.downsample is not None:
-            residual = self.downsample(residual)
-        return torch.relu(x + residual)
-
 
 class BasicBlockV2(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
@@ -137,6 +148,8 @@ class BasicBlockV2(HybridBlock):
             channels, 1, stride, use_bias=False, in_channels=in_channels,
             layout=layout, **dev) if downsample else None
 
+    _capture_runs = "hybrid_forward"
+
     def forward(self, x):
         residual = x
         x = torch.relu(self.bn1(x))
@@ -144,6 +157,16 @@ class BasicBlockV2(HybridBlock):
             residual = self.downsample(x)
         x = self.conv1(x)
         x = torch.relu(self.bn2(x))
+        x = self.conv2(x)
+        return x + residual
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.relu(self.bn1(x))
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.relu(self.bn2(x))
         x = self.conv2(x)
         return x + residual
 
@@ -169,6 +192,8 @@ class BottleneckV2(HybridBlock):
             channels, 1, stride, use_bias=False, in_channels=in_channels,
             layout=layout, **dev) if downsample else None
 
+    _capture_runs = "hybrid_forward"
+
     def forward(self, x):
         residual = x
         x = torch.relu(self.bn1(x))
@@ -178,6 +203,18 @@ class BottleneckV2(HybridBlock):
         x = torch.relu(self.bn2(x))
         x = self.conv2(x)
         x = torch.relu(self.bn3(x))
+        x = self.conv3(x)
+        return x + residual
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.relu(self.bn1(x))
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.relu(self.bn2(x))
+        x = self.conv2(x)
+        x = F.relu(self.bn3(x))
         x = self.conv3(x)
         return x + residual
 
@@ -235,11 +272,19 @@ class ResNetV1(HybridBlock):
             self.features.add(nn.GlobalAvgPool2D(layout=layout))
             self.output = nn.Dense(classes, in_units=channels[-1], **dev)
 
+    _capture_runs = "hybrid_forward"
+
     def forward(self, x):
         if self._layout == "NHWC":
             x = x.permute(0, 2, 3, 1)
         x = self.features(x)
         return self.output(x.reshape(x.shape[0], -1))
+
+    def hybrid_forward(self, F, x):
+        if self._layout == "NHWC":
+            x = F.transpose(x, axes=(0, 2, 3, 1))
+        x = self.features(x)
+        return self.output(F.flatten(x))
 
 
 class ResNetV2(HybridBlock):
@@ -269,10 +314,18 @@ class ResNetV2(HybridBlock):
             self.features.add(nn.Flatten())
             self.output = nn.Dense(classes, in_units=in_channels, **dev)
 
+    _capture_runs = "hybrid_forward"
+
     def forward(self, x):
         if self._layout == "NHWC":
             x = x.permute(0, 2, 3, 1)
         return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
+        if self._layout == "NHWC":
+            x = F.transpose(x, axes=(0, 2, 3, 1))
+        x = self.features(x)
+        return self.output(x)
 
 
 resnet_spec = {

@@ -3,7 +3,9 @@
 Port of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``,
 ``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``,
 ``Activation``, ``Flatten`` with a ``forward`` on tensors (the models'
-paths); ``LayerNorm``, ``RMSNorm``, ``InstanceNorm``, ``GroupNorm``,
+paths) and the reference's ``hybrid_forward``, which a symbol capture
+runs (``Block._capture_runs``: an exported graph records the
+reference's ops); ``LayerNorm``, ``RMSNorm``, ``InstanceNorm``, ``GroupNorm``,
 ``Embedding``, ``Lambda``, ``HybridLambda``, ``LeakyReLU``, ``PReLU``,
 ``ELU``, ``SELU``, ``GELU``, ``Swish`` and ``SyncBatchNorm`` (BatchNorm
 on one card) written with ``hybrid_forward`` over ``mx.nd`` as the
@@ -43,6 +45,8 @@ __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
 
 class _Stack:
     """Blocks run in order (``Sequential`` and ``HybridSequential``)."""
+
+    _capture_runs = "forward"
 
     def add(self, *blocks):
         for block in blocks:
@@ -85,6 +89,8 @@ class Dense(HybridBlock):
     """``act(x W^T + b)``; weight (units, in_units).  With ``flatten``
     the input is (N, ...) flattened to (N, in_units)."""
 
+    _capture_runs = "hybrid_forward"
+
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
                  bias_initializer="zeros", in_units=0, prefix=None,
@@ -118,12 +124,19 @@ class Dense(HybridBlock):
                                           p.get("bias")))
         return self.act(out) if self.act is not None else out
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                               no_bias=bias is None, flatten=self._flatten)
+        return self.act(out) if self.act is not None else out
+
 
 class Dropout(HybridBlock):
     """Reference ``gluon.nn.Dropout``: ``ops.nn.dropout`` at ``rate``
     (the mask shared along ``axes``) in training mode, the identity
     otherwise.  Its masks come from the device generator, which a
     hybridized or fused step's graph advances at every replay."""
+
+    _capture_runs = "hybrid_forward"
 
     def __init__(self, rate, axes=(), prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
@@ -135,6 +148,11 @@ class Dropout(HybridBlock):
             return x
         return dropout(x, self._rate, self._is_training(), axes=self._axes)
 
+    def hybrid_forward(self, F, x):
+        if self._rate <= 0:
+            return x
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
     def __repr__(self):
         return f"Dropout(p = {self._rate}, axes={self._axes})"
 
@@ -142,6 +160,8 @@ class Dropout(HybridBlock):
 class BatchNorm(HybridBlock):
     """Batch normalization over ``axis`` (1 for NCHW, -1 for NHWC) with
     moving statistics (``ops.nn.batch_norm``)."""
+
+    _capture_runs = "hybrid_forward"
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False,
@@ -184,13 +204,32 @@ class BatchNorm(HybridBlock):
             use_global_stats=self._use_global_stats, axis=self._axis,
             training=training)
         if training and not self._use_global_stats:
-            with torch.no_grad():
-                p["running_mean"].copy_(new_mm)
-                p["running_var"].copy_(new_mv)
+            self._commit(new_mm, new_mv)
+        return out
+
+    def _commit(self, new_mm, new_mv):
+        p = self._parameters
+        with torch.no_grad():
+            p["running_mean"].copy_(new_mm)
+            p["running_var"].copy_(new_mv)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        from ... import autograd
+
+        training = autograd.is_training()
+        out, new_mm, new_mv, _, _ = F._BatchNormStats(
+            x, gamma, beta, running_mean, running_var, eps=self._eps,
+            momentum=self._momentum, fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis,
+            training=training)
+        if training and not self._use_global_stats:
+            self._commit(new_mm._data, new_mv._data)
         return out
 
 
 class Activation(HybridBlock):
+    _capture_runs = "hybrid_forward"
+
     def __init__(self, activation, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._act_type = activation
@@ -198,10 +237,18 @@ class Activation(HybridBlock):
     def forward(self, x):
         return activation(x, self._act_type)
 
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
 
 class Flatten(HybridBlock):
+    _capture_runs = "hybrid_forward"
+
     def forward(self, x):
         return flatten(x)
+
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)
 
 
 class SyncBatchNorm(BatchNorm):
@@ -333,6 +380,8 @@ class Lambda(Block):
             from ... import ndarray as F
             function = getattr(F, function)
         self._func = function
+
+    _capture_runs = "forward"
 
     def forward(self, *args):
         return _nd_call(self, self._func, args, {})

@@ -2,7 +2,8 @@
 
 Port of ``mxnet_tpu/gluon/nn/conv_layers.py``: ``Conv2D``, ``MaxPool2D``,
 ``AvgPool2D``, ``GlobalMaxPool2D`` and ``GlobalAvgPool2D`` with a
-``forward`` on tensors (the ResNet paths); ``Conv1D``, ``Conv3D``,
+``forward`` on tensors (the ResNet paths) and the reference's
+``hybrid_forward``, which a symbol capture runs; ``Conv1D``, ``Conv3D``,
 ``Conv{1,2,3}DTranspose``, the 1-D and 3-D pools and ``ReflectionPad2D``
 written with ``hybrid_forward`` over ``mx.nd`` as the reference writes
 them.  Weights are OI+spatial in every layout (a transposed
@@ -36,6 +37,8 @@ def _tuple(v, n):
 class Conv2D(HybridBlock):
     """``act(conv(x, W) + b)``; ``device`` as in ``Dense``."""
 
+    _capture_runs = "hybrid_forward"
+
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
                  dilation=(1, 1), groups=1, layout="NCHW", activation=None,
                  use_bias=True, weight_initializer=None,
@@ -63,7 +66,7 @@ class Conv2D(HybridBlock):
         self._place(device)
 
     def infer_shape(self, x, *args):
-        c_axis = 1 if self._layout[1] == "C" else x.dim() - 1
+        c_axis = 1 if self._layout[1] == "C" else len(x.shape) - 1
         self._in_channels = x.shape[c_axis]
         self.weight.shape = (self._channels,
                              self._in_channels // self._groups) + \
@@ -79,6 +82,14 @@ class Conv2D(HybridBlock):
                           pad=self._pad, num_filter=self._channels,
                           num_group=self._groups, no_bias=bias is None,
                           layout=self._layout)
+        return self.act(out) if self.act is not None else out
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.Convolution(x, weight, bias, kernel=self._kernel,
+                            stride=self._stride, dilate=self._dilate,
+                            pad=self._pad, num_filter=self._channels,
+                            num_group=self._groups, no_bias=bias is None,
+                            layout=self._layout)
         return self.act(out) if self.act is not None else out
 
     def extra_repr(self):
@@ -218,6 +229,8 @@ class Conv3DTranspose(_ConvTranspose):
 
 
 class _Pooling(HybridBlock):
+    _capture_runs = "hybrid_forward"
+
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
                  pool_type, layout, count_include_pad=None):
         super().__init__()
@@ -242,14 +255,14 @@ class _Pooling(HybridBlock):
     def forward(self, x):
         return pooling(x, **self._kwargs())
 
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, **self._kwargs())
+
 
 class _HybridPooling(_Pooling):
     """The 1-D and 3-D pools: ``F.Pooling`` in ``hybrid_forward``."""
 
     forward = HybridBlock.forward
-
-    def hybrid_forward(self, F, x):
-        return F.Pooling(x, **self._kwargs())
 
     def __repr__(self):
         return (f"{type(self).__name__}(size={self._kernel}, "

@@ -31,8 +31,8 @@ graph reads the tensors it was captured with, so a cached graph compares
 that one integer at each call and is captured again when it moved.
 
 The reference's per-context replicas (``initialize`` on several
-contexts) and its mesh sharding (``set_sharding``, ``var``) are not
-ported: the port runs on one card.
+contexts) and its mesh sharding (``set_sharding``) are not ported: the
+port runs on one card.  ``var()`` gives the parameter's symbol variable.
 """
 from __future__ import annotations
 
@@ -395,13 +395,19 @@ class Parameter:
             self._fresh_grad()
             _bump()
 
-    # -- JAX-only parts of the reference ------------------------------- #
+    # -- sharding (the JAX package's) and the symbol variable --------- #
     def set_sharding(self, sharding):
         raise MXNetError("set_sharding: GSPMD sharding is the JAX package's; "
                          "the port runs one card")
 
     def var(self):
-        raise MXNetError("Parameter.var: the port has no symbolic graph")
+        """The parameter as a symbol variable of its name and shape
+        (MXNet's ``Parameter.var``; the reference returns ``data()``)."""
+        from ..base import dtype_name
+        from ..symbol import var
+
+        return var(self.name, shape=self._shape,
+                   dtype=dtype_name(torch_dtype(self.dtype)))
 
 
 class Constant(Parameter):

@@ -80,6 +80,8 @@ class RecurrentCell(HybridBlock):
         outputs = _merge_sequence(outputs, layout, merge_outputs)
         return outputs, states
 
+    _capture_runs = "forward"
+
     def forward(self, x, states):
         self._counter += 1
         return super().forward(x, states)
@@ -248,6 +250,8 @@ class SequentialRNNCell(RecurrentCell):
 
     def __getitem__(self, i):
         return list(self._children.values())[i]
+
+    _capture_runs = "forward"
 
     def forward(self, x, states):
         self._counter += 1

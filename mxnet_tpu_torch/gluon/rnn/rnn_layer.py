@@ -10,7 +10,10 @@ passed in.  As ``gluon.nn``'s layers, a layer whose sizes are all known
 creates its parameters at once, on ``device`` (a port extension) or the
 current context.  The forward runs on tensors (``states`` as tensors or
 NDArrays); inter-layer dropout applies in training mode
-(``autograd.is_training()`` in a call made with NDArrays).
+(``autograd.is_training()`` in a call made with NDArrays).  A symbol
+capture (``export``) runs the reference's ``hybrid_forward`` instead: zero
+states from ``F.zeros`` (constants of the graph, as in the reference's
+export) and one ``F.fused_rnn`` node.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ _KINDS = ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias")
 
 
 class _RNNLayer(HybridBlock):
+    _capture_runs = "hybrid_forward"
+
     def __init__(self, mode, hidden_size, num_layers=1, layout="TNC",
                  dropout=0.0, bidirectional=False, input_size=0,
                  i2h_weight_initializer=None, h2h_weight_initializer=None,
@@ -86,8 +91,19 @@ class _RNNLayer(HybridBlock):
         return super().__call__(x, *([states] if states is not None else []),
                                 **kwargs)
 
+    def _fused(self, fn, x, states, weights, return_states):
+        """``fn`` (``fused_rnn`` on tensors or ``F.fused_rnn``) over the
+        input, the states and the weights in the op's order."""
+        arrays = [x] + list(states) + [
+            weights[f"{d}{layer}_{kind}"] for layer in range(self._num_layers)
+            for d in ["l", "r"][:self._dir] for kind in _KINDS]
+        out = fn(*arrays, mode=self._mode, num_layers=self._num_layers,
+                 bidirectional=self._dir == 2, dropout=self._dropout,
+                 training=self._is_training(), layout=self._layout)
+        output, new_states = out[0], list(out[1:])
+        return (output, new_states) if return_states else output
+
     def forward(self, x, states=None):
-        p = self._parameters
         return_states = states is not None
         if states is None:
             batch = x.shape[self._layout.find("N")]
@@ -97,17 +113,18 @@ class _RNNLayer(HybridBlock):
         states = _tensors(states)
         if isinstance(states, torch.Tensor):
             states = [states]
-        arrays = [x] + list(states) + [
-            p[f"{d}{layer}_{kind}"] for layer in range(self._num_layers)
-            for d in ["l", "r"][:self._dir] for kind in _KINDS]
-        out = fused_rnn(*arrays, mode=self._mode,
-                        num_layers=self._num_layers,
-                        bidirectional=self._dir == 2, dropout=self._dropout,
-                        training=self._is_training(), layout=self._layout)
-        output, new_states = out[0], list(out[1:])
-        if return_states:
-            return output, new_states
-        return output
+        return self._fused(fused_rnn, x, states, self._parameters,
+                           return_states)
+
+    def hybrid_forward(self, F, x, *args, **params):
+        states = args[0] if args else None
+        return_states = states is not None
+        if states is None:
+            states = self.begin_state(x.shape[self._layout.find("N")],
+                                      ctx=x.context, dtype=x.dtype)
+        if isinstance(states, F.NDArray):
+            states = [states]
+        return self._fused(F.fused_rnn, x, states, params, return_states)
 
     def __repr__(self):
         return (f"{type(self).__name__}({self._hidden_size}, "

@@ -183,10 +183,11 @@ def _check_placed(what, q, **tensors):
 
 
 def _on_card(what, q):
-    """True for a CUDA tensor, False for a CPU one; raises otherwise or
-    for a dtype or head dim the kernels do not take (f64 runs only on the
-    CPU, through the plain versions)."""
-    if q.device.type == "cpu":
+    """True for a CUDA tensor, False for a CPU one (or a ``meta`` one:
+    shapes without data, as ``symbol.infer_shape`` runs a graph); raises
+    otherwise or for a dtype or head dim the kernels do not take (f64
+    runs only on the CPU, through the plain versions)."""
+    if q.device.type in ("cpu", "meta"):
         return False
     if q.device.type != "cuda" or q.dtype == torch.float64:
         raise MXNetError(f"{what}: unsupported {q.dtype} on {q.device}")

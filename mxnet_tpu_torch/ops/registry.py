@@ -12,11 +12,14 @@ Dispatch (the reference's ``MXImperativeInvokeEx -> Imperative::Invoke``)::
 while ``autograd.is_recording()`` (and the op is differentiable), and
 under ``torch.no_grad()`` otherwise: as in MXNet, only ops inside
 ``record()`` reach the tape, even on arrays with an attached gradient.
-Two hooks of the reference's ``invoke`` are ported: while ``mx.profiler``
-runs with ``aggregate_stats`` each op's host time goes into its aggregate
-table (``profiler._hook``), and under ``MXNET_ENGINE_TYPE=NaiveEngine``
-each op synchronizes the card after it runs (``engine.naive_sync``).
-The third, symbol capture (``_capture_get``), waits for ``symbol/``.
+The reference's three hooks of ``invoke`` are ported: while
+``mx.profiler`` runs with ``aggregate_stats`` each op's host time goes
+into its aggregate table (``profiler._hook``); under
+``MXNET_ENGINE_TYPE=NaiveEngine`` each op synchronizes the card after it
+runs (``engine.naive_sync``); and while a ``symbol.capture()`` is active
+on the calling thread each op is recorded as one graph node
+(``_capture_get``, set by ``symbol/``; ``_captures`` counts the active
+captures of every thread, so with none the hook is one integer test).
 
 ``@op`` returns the NDArray-facing wrapper (``ops/defs.py``), or with
 ``wrap=False`` the tensor function itself, so the models keep calling
@@ -43,6 +46,11 @@ __all__ = ["Op", "register", "alias", "get_op", "list_ops", "invoke", "op",
 
 # the profiler module once ``mx.profiler.start()`` has run (its hook)
 _profiler = None
+
+# set by ``symbol/`` at import: () -> the calling thread's active capture
+# or None; ``_captures`` is the number of captures active in any thread
+_capture_get = None
+_captures = 0
 
 OPS: dict[str, "Op"] = {}
 _ALIASES: dict[str, str] = {}
@@ -88,6 +96,11 @@ def list_ops() -> list[str]:
     return sorted(OPS)
 
 
+def current_capture():
+    """The calling thread's active ``symbol.capture()``, or None."""
+    return _capture_get() if _captures else None
+
+
 def _unwrap(x):
     from ..ndarray.ndarray import NDArray
 
@@ -120,6 +133,16 @@ def invoke(opref: Op, array_args: Sequence, kwargs: dict, out=None):
     multi = isinstance(results, (tuple, list))
     naive_sync(results if multi else [results])
     outs = [NDArray(r) for r in (results if multi else [results])]
+    if _captures:
+        cap = _capture_get()
+        if cap is not None:
+            if opref.name not in OPS:
+                raise MXNetError(
+                    f"symbol capture: op {opref.name!r} is not in the "
+                    f"registry and cannot be replayed (hybridized CachedOps "
+                    f"and ad-hoc np lambdas are not capturable; capture the "
+                    f"un-hybridized imperative path)")
+            cap.record(opref, array_args, kwargs, outs)
     if out is not None:
         if multi:
             raise MXNetError("out= not supported for multi-output ops")

@@ -91,8 +91,11 @@ def test_init_rejects_a_bad_dtype_and_uninit_restores():
     assert pmx.nd.FullyConnected is before
     assert layer_cast("FullyConnected", torch.ones(2))[0].dtype == \
         torch.float32
-    with pytest.raises(MXNetError, match="symbol"):
-        pamp.convert_model(None, {}, {})
+    # convert_model casts a checkpoint's f32 arrays (since symbol/)
+    w = pmx.nd.array(onp.ones((2, 2), onp.float32), ctx=pmx.cpu())
+    sym, args, aux = pamp.convert_model("graph", {"w": w}, {"s": w})
+    assert sym == "graph" and args["w"].dtype == torch.bfloat16 and \
+        aux["s"].dtype == torch.bfloat16
 
 
 def test_loss_scaler_dynamic_scale_and_overflow():

@@ -429,30 +429,46 @@ def test_gluon_block_names_follow_the_reference_scopes():
 
 
 # --------------------------------------------------------------------------- #
-# what is not ported raises
+# the hybridize features: the CUDA-graph cached op, and since the symbolic
+# surface export, optimize_for and SymbolBlock (tests/test_torch_symbol.py
+# holds them against the reference)
 # --------------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("what", ["export", "optimize_for", "SymbolBlock",
                                   "_CachedOp", "imports"])
-def test_hybridize_features_not_ported_raise(what):
+def test_hybridize_features_not_ported_raise(what, tmp_path):
+    """Each feature runs, and raises only where the reference does."""
     from mxnet_tpu_torch.gluon import block
 
     net = _one_weight()
+    x = _nd(onp.ones((1, 2)))
+    prefix = str(tmp_path / "m")
     if what == "_CachedOp":
         # ported since the fused train step: on the CPU the cached op is
         # the block's forward itself (a CUDA graph on the card)
-        x = _nd(onp.ones((1, 2)))
         op = block._CachedOp(net)
         onp.testing.assert_array_equal(op([x]).asnumpy(),
                                        net(x).asnumpy())
         assert op.builds == 1
-        return
-    calls = {"export": lambda: net.export("m"),
-             "optimize_for": lambda: net.optimize_for(_nd(onp.ones((1, 2)))),
-             "SymbolBlock": lambda: gluon.SymbolBlock(None, None),
-             "imports": lambda: gluon.SymbolBlock.imports("s.json", "data")}
-    with pytest.raises(MXNetError, match="later slice"):
-        calls[what]()
+    elif what == "export":
+        with pytest.raises(MXNetError, match="run the block"):
+            net.export(prefix)
+        net(x)
+        sym = net.export(prefix)
+        assert sym.list_arguments() == ["data", net.weight.name]
+    elif what == "optimize_for":
+        onp.testing.assert_array_equal(net.optimize_for(x).asnumpy(),
+                                       [[2.0]])
+        assert net._active
+    elif what == "SymbolBlock":
+        with pytest.raises(MXNetError, match="Symbol"):
+            gluon.SymbolBlock(None, None)
+    else:
+        net(x)
+        net.export(prefix)
+        blk = gluon.SymbolBlock.imports(prefix + "-symbol.json", "data",
+                                        prefix + "-0000.params", ctx=CPU)
+        onp.testing.assert_array_equal(blk(x).asnumpy(), [[2.0]])
 
 
 @pytest.mark.parametrize("what", ["initialize", "split_and_load"])

@@ -139,6 +139,28 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         small = nn.Dense(2, in_units=3)
     with pytest.raises(MXNetError, match="CUDA is not available"):
         Estimator(small, mx.gluon.loss.L2Loss())
+    # the symbolic slice: a Module, an Executor, SymbolBlock.imports and a
+    # Predictor on the default context
+    graph = mx.sym.relu(mx.sym.var("data"))
+    small.initialize(ctx=mx.cpu())
+    small(mx.nd.zeros((1, 3), ctx=mx.cpu()))
+    prefix = str(tmp_path / "small")
+    small.export(prefix)
+    for make in (lambda: mx.mod.Module(graph),
+                 lambda: graph.bind(args={"data": np.zeros(2)}),
+                 lambda: graph.simple_bind(data=(2,)),
+                 lambda: mx.gluon.SymbolBlock.imports(
+                     prefix + "-symbol.json", ["data"],
+                     prefix + "-0000.params"),
+                 lambda: mx.predictor.Predictor(
+                     prefix + "-symbol.json", prefix + "-0000.params",
+                     {"data": (1, 3)}),
+                 lambda: mx.predictor.Predictor.load_compiled(prefix)):
+        with pytest.raises(MXNetError, match="CUDA is not available"):
+            make()
+    # given the CPU, each runs there
+    assert mx.mod.Module(graph, context=mx.cpu())._context == mx.cpu()
+    assert graph.bind(mx.cpu(), args={"data": np.zeros(2)})._ctx == mx.cpu()
 
 
 def test_new_modules_are_covered():
@@ -237,6 +259,19 @@ def test_new_modules_are_covered():
             "mxnet_tpu_torch/gluon/contrib/estimator/estimator.py",
             "mxnet_tpu_torch/gluon/contrib/estimator/event_handler.py"} \
         <= names
+    # the symbolic slice
+    assert {"mxnet_tpu_torch/symbol/__init__.py",
+            "mxnet_tpu_torch/symbol/symbol.py",
+            "mxnet_tpu_torch/module/__init__.py",
+            "mxnet_tpu_torch/module/base_module.py",
+            "mxnet_tpu_torch/module/module.py",
+            "mxnet_tpu_torch/module/bucketing_module.py",
+            "mxnet_tpu_torch/model.py",
+            "mxnet_tpu_torch/callback.py",
+            "mxnet_tpu_torch/name.py",
+            "mxnet_tpu_torch/predictor.py",
+            "mxnet_tpu_torch/visualization.py",
+            "mxnet_tpu_torch/test_utils.py"} <= names
     assert {"decode_fused", "conv1x1_bwd", "box_nms"} <= set(_build.KERNELS)
 
 
@@ -260,6 +295,33 @@ def test_zoo_names_and_module_names_match_the_reference():
         port = importlib.import_module("mxnet_tpu_torch." + mod)
         assert list(port.__all__) == list(ref.__all__), mod
         assert all(hasattr(port, n) for n in port.__all__), mod
+    # the symbolic slice: __all__ wherever both packages define one, and
+    # the package's names for the new modules
+    for mod in ("symbol", "symbol.symbol", "module", "module.module",
+                "module.base_module", "module.bucketing_module", "model",
+                "callback", "name", "visualization", "test_utils",
+                "predictor"):
+        ref = importlib.import_module("mxnet_tpu." + mod)
+        port = importlib.import_module("mxnet_tpu_torch." + mod)
+        if hasattr(ref, "__all__") and hasattr(port, "__all__"):
+            assert list(port.__all__) == list(ref.__all__), mod
+        public = [n for n in vars(ref) if not n.startswith("_")
+                  and getattr(getattr(ref, n), "__module__", "").startswith(
+                      "mxnet_tpu." + mod)]
+        assert [n for n in public if not hasattr(port, n)] == [], mod
+    import mxnet_tpu_torch as mx
+
+    for name, mod in (("sym", "symbol"), ("symbol", "symbol"),
+                      ("mod", "module"), ("module", "module"),
+                      ("model", "model"), ("callback", "callback"),
+                      ("name", "name"), ("viz", "visualization"),
+                      ("visualization", "visualization"),
+                      ("test_utils", "test_utils"),
+                      ("predictor", "predictor")):
+        assert getattr(mx, name) is importlib.import_module(
+            "mxnet_tpu_torch." + mod)
+    assert mx.AttrScope is importlib.import_module(
+        "mxnet_tpu_torch.name").AttrScope
     # the reference's gluon.parameter names, params_swapped included
     import mxnet_tpu.gluon.parameter as rparam
     import mxnet_tpu_torch.gluon.parameter as pparam
