@@ -11600,6 +11600,800 @@ def check_symbolic(cfg, fused_row):
                 launches=launches)
 
 
+# --------------------------------------------------------------------------- #
+# phase 28: the NumPy interface, the twenty-fifth slice: mx.np, mx.npx,
+# mx.util, mx.runtime, the trace parser behind device_dumps(by="tf_op"),
+# the training side's telemetry and contrib.quantization's quantize_net
+# --------------------------------------------------------------------------- #
+
+NP_STEPS = 6                # 28.1: SGD steps of each arm
+NP_SIZE = 8                 # 28.2: the case table's scale (32 x 48 arrays)
+NP_TOL, NP_LINALG_TOL, NP_NPX_TOL = 1e-6, 1e-4, 1e-5
+NP_DRAWS = 20000            # 28.2: draws a distribution
+TELE_CALLS = 6              # 28.3: fused_step calls, update_interval 2
+TELE_PROFILE_TRIES = 3      # 28.3: windows tried until one holds K1-K3
+Q_B, Q_BATCHES = 16, 4      # 28.4: calibration batches of 16 at 224^2
+Q_ACC_B = 2                 # 28.4: images the accumulators are held on
+Q_ENTROPY_B = 4             # 28.4: images of the entropy-mode batch
+# 28.4: the quantized logits' largest error, relative to the f32 logits'
+# largest magnitude, that the naive-mode int8 ResNet-50 may show (53
+# convolutions and the Dense layer, per-channel int8 weights, per-tensor
+# int8 activations calibrated on 4 x 16 images): 0.0153 measured on an
+# NVIDIA H100 80GB HBM3 (700 W), the limit about three times that
+Q_REL_ERR = 0.05
+
+
+def _np_case_module():
+    _tests_path()
+    import _torch_np_cases
+    return _torch_np_cases
+
+
+def _np_host(out):
+    import torch
+    import mxnet_tpu_torch as mx
+
+    if isinstance(out, mx.nd.NDArray):
+        t = out._data.detach()
+        a = t.float().cpu().numpy() if t.dtype == torch.bfloat16 \
+            else t.cpu().numpy()
+        return a, str(out.dtype).replace("torch.", ""), tuple(out.shape)
+    return None
+
+
+def np_resnet(gluon_row):
+    """28.1: an ``mx.np`` training script.  ``npx.set_np()``, ResNet-50 v1
+    NHWC bf16 from ``get_resnet(1, 50, classes=1000, layout="NHWC")``,
+    hybridized, a batch of 128 x 224^2 as ``mx.np`` arrays from a seeded
+    NumPy generator, ``gluon.Trainer`` (SGD, momentum 0.9), ``NP_STEPS``
+    steps of ``record``/``backward``/``step(128)`` with
+    ``MXNET_FUSED_CONV_BWD=1``, the accuracy ``mx.np.mean(mx.np.argmax(
+    out, axis=1) == y)``.  K6 exactly 30 launches a step and no other
+    kernel; every output, loss and gradient an ``mx.np.ndarray``; losses
+    and every weight bit for bit with the same steps from the same
+    weights fed ``mx.nd`` arrays without ``set_np`` (cuDNN deterministic
+    in both arms).  ms a step beside phase 16's eager step."""
+    import math
+
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gpu = mx.gpu(0)
+    mx.random.seed(0)
+    net = get_resnet(1, 50, classes=1000, layout="NHWC")
+    net.initialize(mx.init.Xavier(rnd_type="uniform", factor_type="avg",
+                                  magnitude=3), ctx=gpu)
+    net.cast("bfloat16")
+    net.hybridize()
+    rs = onp.random.RandomState(28)
+    data = rs.standard_normal((RESNET_B, 224, 224, 3)).astype(onp.float32)
+    label = rs.randint(0, 1000, RESNET_B).astype(onp.int32)
+    mx.npx.set_np()
+    x = mx.np.array(data, dtype="bfloat16", ctx=gpu)
+    y = mx.np.array(label, ctx=gpu)
+    net(x)                                  # the deferred shapes
+    params = net.collect_params()
+    init = {k: p._data._data.detach().clone() for k, p in params.items()}
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def arm(xs, ys, np_mode):
+        (mx.npx.set_np if np_mode else mx.npx.reset_np)()
+        with torch.no_grad():
+            for k, p in params.items():
+                p._data._data.copy_(init[k])
+        trainer = gluon.Trainer(params, "sgd", dict(RESNET_OPT))
+        trainable = [p for p in params.values() if p.grad_req != "null"]
+        losses, step_ms, acc_us, classes, accs = [], [], [], set(), []
+        torch.cuda.synchronize()
+        before = _port_counts()
+        cf.conv1x1_bwd_pair.launches = 0
+        for _ in range(NP_STEPS):
+            t0 = time.perf_counter()
+            with autograd.record():
+                out = net(xs)
+                loss = loss_fn(out, ys)
+            loss.backward()
+            trainer.step(RESNET_B)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if np_mode:
+                t0 = time.perf_counter()
+                acc = mx.np.mean(mx.np.argmax(out, axis=1) == ys)
+                acc_us.append((time.perf_counter() - t0) * 1e6)
+                accs.append(float(acc))
+                classes |= {type(out).__name__, type(loss).__name__,
+                            type(acc).__name__}
+                classes |= {type(p.grad()).__name__ for p in trainable}
+            losses.append(float(loss._data.float().mean()))
+        launches = _count_delta(before)
+        launches["conv1x1_bwd"] = cf.conv1x1_bwd_pair.launches
+        weights = [p._data._data.detach().clone() for p in params.values()]
+        parts = {}
+        if np_mode:
+            # the accuracy's host us at steady state, and its three ops
+            am = mx.np.argmax(out, axis=1)
+            eq = am == ys
+            parts = dict(
+                all=host_us(lambda: mx.np.mean(mx.np.argmax(
+                    out, axis=1) == ys), iters=50),
+                argmax=host_us(lambda: mx.np.argmax(out, axis=1), iters=50),
+                equal=host_us(lambda: am == ys, iters=50),
+                mean=host_us(lambda: mx.np.mean(eq), iters=50))
+        del trainer
+        return dict(losses=losses, step_ms=step_ms, acc_us=acc_us,
+                    accs=accs, classes=sorted(classes), launches=launches,
+                    weights=weights, acc_parts=parts)
+
+    try:
+        a = arm(x, y, True)
+        b = arm(x.as_nd_ndarray(), y.as_nd_ndarray(), False)
+    finally:
+        mx.npx.reset_np()
+        torch.backends.cudnn.deterministic = deterministic
+    equal = [bool(torch.equal(u, v)) for u, v in zip(a["weights"],
+                                                     b["weights"])]
+    ms = sum(a["step_ms"][1:]) / (NP_STEPS - 1)
+    ms_nd = sum(b["step_ms"][1:]) / (NP_STEPS - 1)
+    acc_us = sorted(a["acc_us"][1:])[(NP_STEPS - 1) // 2]
+    print(f"28.1 np resnet: resnet50_v1 NHWC bf16 under npx.set_np(), "
+          f"B={RESNET_B} 224x224 mx.np arrays, {NP_STEPS} SGD steps; losses "
+          f"{a['losses']}; classes {a['classes']}; accuracy "
+          f"{a['accs']} ({acc_us:.1f} host us in the loop, median; at "
+          f"steady state {a['acc_parts']}); launches {a['launches']}",
+          flush=True)
+    print(f"28.1 np resnet: ms/step {ms:.3f} (steps 2-{NP_STEPS}, cuDNN "
+          f"deterministic) beside the mx.nd arm {ms_nd:.3f} and phase 16's "
+          f"eager gluon step {gluon_row['ms_per_step']:.3f}; mx.nd arm "
+          f"losses equal bit for bit {a['losses'] == b['losses']}, weights "
+          f"equal {sum(equal)} of {len(equal)}; {card_line()}", flush=True)
+    expect = K6_PER_STEP * NP_STEPS
+    for what, r in (("np", a), ("nd", b)):
+        other = {k: n for k, n in r["launches"].items()
+                 if k != "conv1x1_bwd" and n}
+        if r["launches"]["conv1x1_bwd"] != expect or other:
+            fail(f"28.1 {what} arm: launches {r['launches']}, expected K6 "
+                 f"{expect} alone")
+        if not all(math.isfinite(v) for v in r["losses"]):
+            fail(f"28.1 {what} arm: losses {r['losses']}")
+    if a["classes"] != ["ndarray"]:
+        fail(f"28.1: outputs, losses and gradients of classes "
+             f"{a['classes']}, expected mx.np.ndarray alone")
+    if a["losses"] != b["losses"] or not all(equal):
+        fail(f"28.1: the mx.np steps part from the mx.nd steps: losses "
+             f"{a['losses']} vs {b['losses']}, weights equal "
+             f"{sum(equal)} of {len(equal)}")
+    if abs(a["losses"][0] - math.log(1000)) > 1.0:
+        fail(f"28.1: first loss {a['losses'][0]} not within 1.0 of ln 1000")
+    row = dict(losses=a["losses"], nd_losses=b["losses"], ms_per_step=ms,
+               nd_ms_per_step=ms_nd, gluon_ms_per_step=gluon_row[
+                   "ms_per_step"], accuracy_host_us=acc_us,
+               accuracy=a["accs"], classes=a["classes"],
+               launches=a["launches"], nd_launches=b["launches"],
+               weights_equal=sum(equal), weights=len(equal))
+    del a, b, net, init, x, y
+    torch.cuda.empty_cache()
+    return row
+
+
+def _np_run(mod, case, ctx):
+    import torch
+    import mxnet_tpu_torch as mx
+
+    with ctx:
+        return mod.flatten(mod.call(
+            mx, case, lambda v: mx.np.array(v, ctx=ctx),
+            lambda n: getattr(torch, n)), _np_host)
+
+
+def _npx_extras(mx, ctx):
+    """The ``npx`` names the case table leaves out, on ``ctx``: control
+    flow, the fused RNN, SSD's detection (``box_nms``), save/load and the
+    switches; NumPy results to hold the card against the CPU."""
+    import numpy as onp
+
+    rs = onp.random.RandomState(5)
+    out = {}
+    with ctx:
+        arr = lambda v: mx.np.array(v, ctx=ctx)  # noqa: E731
+        data = arr(rs.standard_normal((6, 32)).astype(onp.float32))
+        outs, st = mx.npx.foreach(lambda xx, s: (xx * 2 + s[0], [s[0] + xx]),
+                                  data, [arr(onp.zeros(32, onp.float32))])
+        out["foreach"] = [outs.asnumpy(), st[0].asnumpy()]
+        out["while_loop"] = [v.asnumpy() for v in mx.npx.while_loop(
+            lambda vs: vs[0] < 100.0, lambda vs: [vs[0] * 3, vs[1] + 1],
+            [arr(onp.asarray(1.0, onp.float32)), data], max_iterations=8)]
+        out["cond"] = [v.asnumpy() for v in mx.npx.cond(
+            arr(onp.asarray(True)), lambda vs: [vs[0] + 1],
+            lambda vs: [vs[0] - 1], [data])]
+        cls = rs.rand(2, 4, 64).astype(onp.float32)
+        cls /= cls.sum(1, keepdims=True)
+        anchors = onp.sort(rs.rand(1, 64, 4).astype(onp.float32), axis=-1)
+        out["multibox_detection"] = [mx.npx.multibox_detection(
+            arr(cls), arr((rs.randn(2, 256) * 0.1).astype(onp.float32)),
+            arr(anchors)).asnumpy()]
+        H, I = 16, 8
+        w = lambda *s: arr((rs.standard_normal(s) * 0.1)  # noqa: E731
+                           .astype(onp.float32))
+        out["rnn"] = [v.asnumpy() for v in mx.npx.rnn(
+            w(5, 3, I), arr(onp.zeros((1, 3, H), onp.float32)),
+            arr(onp.zeros((1, 3, H), onp.float32)), w(4 * H, I),
+            w(4 * H, H), w(4 * H), w(4 * H), mode="lstm")]
+        path = os.path.join(HERE, "build", f"npx_{ctx.device_type}.nd")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        mx.npx.save(path, {"d": data})
+        back = mx.npx.load(path)["d"]
+        os.remove(path)
+        out["save_load"] = [back.asnumpy()]
+        mx.npx.seed(3)
+        x = arr(onp.arange(40, dtype=onp.float32))
+        out["shuffle"] = [mx.npx.shuffle(x).asnumpy()]
+        mx.npx.seed(3)
+        out["multinomial"] = [mx.npx.multinomial(
+            arr(onp.asarray([0.2, 0.3, 0.5], onp.float32)),
+            shape=(64,)).asnumpy().sum(-1)]
+        mx.npx.waitall()
+        mx.npx.set_np()
+        ok = mx.npx.is_np_array() and mx.npx.is_np_shape()
+        mx.npx.reset_np()
+        out["switches"] = [onp.asarray([ok, mx.npx.is_np_array(),
+                                        mx.npx.num_gpus() >= 0])]
+    return out
+
+
+def np_surface():
+    """28.2: every function of ``mx.np``, ``mx.np.linalg`` and ``mx.npx``
+    (``tests/_torch_np_cases.py`` at ``NP_SIZE``: arrays of 32 x 48, plus
+    the ``npx`` names the table leaves out) on ``cuda:0`` and on the CPU:
+    dtypes and shapes equal, integers and booleans exact, floats within
+    ``NP_TOL`` of the largest magnitude (``np.linalg`` ``NP_LINALG_TOL``,
+    factorisations by reconstruction; ``npx`` ``NP_NPX_TOL``: cuDNN's
+    convolutions and the norms sum in their own order).  ``mx.np.random``'s
+    draws by support and moments on the card, the integer draws equal on
+    the card and the CPU from one seed.  Host us of ``mx.np.add`` beside
+    ``torch.add``."""
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mx
+
+    mod = _np_case_module()
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    worst = {"np": 0.0, "linalg": 0.0, "npx": 0.0}
+    bad, names = [], set()
+    t0 = time.perf_counter()
+    for case in mod.cases(NP_SIZE):
+        kind = "linalg" if ".linalg." in case[1] else (
+            "npx" if case[1].startswith("npx.") else "np")
+        tol = {"np": NP_TOL, "linalg": NP_LINALG_TOL, "npx": NP_NPX_TOL}[kind]
+        try:
+            ref = _np_run(mod, case, cpu)
+            got = _np_run(mod, case, gpu)
+            ok, err, msg = mod.compare(case, ref, got, tol)
+        except Exception as e:      # reported with the case, then failed
+            ok, err, msg = False, None, f"{type(e).__name__}: {e}"
+        names.add(case[1])
+        if err is not None:
+            worst[kind] = max(worst[kind], err)
+        if not ok:
+            bad.append((case[0], msg))
+    extras_cpu = _npx_extras(mx, cpu)
+    extras_gpu = _npx_extras(mx, gpu)
+    for k in extras_cpu:
+        names.add(f"npx.{k}")
+        for a, b in zip(extras_cpu[k], extras_gpu[k]):
+            a, b = onp.asarray(a), onp.asarray(b)
+            scale = max(float(onp.abs(a).max()), 1e-30) if a.size else 1.0
+            if a.shape != b.shape or a.dtype != b.dtype or (
+                    a.size and float(onp.abs(a.astype(onp.float64) -
+                                             b.astype(onp.float64)).max())
+                    > NP_NPX_TOL * scale):
+                bad.append((f"npx.{k}", f"card {b.shape} {b.dtype} vs CPU "
+                            f"{a.shape} {a.dtype}"))
+    cases_s = time.perf_counter() - t0
+    # mx.np.random on the card: moments; integer draws card = CPU
+    rbad = []
+    for name, draw, mean, var, lo, hi, dtype in mod.random_cases(NP_DRAWS):
+        mx.np.random.seed(11)
+        with gpu:
+            out = draw(mx.np.random)
+        ok, msg = mod.moments_ok(out.asnumpy(), mean, var, lo, hi)
+        if not ok or str(out.dtype) != dtype or out.shape != (NP_DRAWS,) \
+                or out._data.device.type != "cuda":
+            rbad.append((name, msg, str(out.dtype)))
+        names.add(f"np.random.{name}")
+    ints = {}
+    for ctx in (cpu, gpu):
+        mx.np.random.seed(5)
+        with ctx:
+            r = mx.np.random
+            x = mx.np.array(onp.arange(64, dtype=onp.float32), ctx=ctx)
+            r.shuffle(x)
+            ints[ctx.device_type] = [
+                r.randint(0, 1000, size=(4096,)).asnumpy(),
+                r.choice(50, size=(4096,)).asnumpy(),
+                r.choice(100, size=(40,), replace=False).asnumpy(),
+                r.permutation(4096).asnumpy(), x.asnumpy()]
+    ints_equal = all(onp.array_equal(a, b) for a, b in
+                     zip(ints["cpu"], ints["gpu"]))
+    names |= {"np.random.shuffle", "np.random.choice",
+              "np.random.permutation", "np.random.multivariate_normal",
+              "np.random.multinomial", "np.random.seed"}
+    with gpu:
+        mv = mx.np.random.multivariate_normal(
+            mx.np.array([1.0, -1.0]), mx.np.array([[2.0, 0.5], [0.5, 1.0]]),
+            size=(NP_DRAWS,)).asnumpy()
+        mn = mx.np.random.multinomial(10, mx.np.array([0.2, 0.3, 0.5]),
+                                      size=(NP_DRAWS,)).asnumpy()
+    if float(onp.abs(onp.cov(mv.T) - [[2.0, 0.5], [0.5, 1.0]]).max()) > 0.08 \
+            or not (mn.sum(1) == 10).all():
+        rbad.append(("multivariate_normal/multinomial", "moments", ""))
+    a = mx.np.array(onp.ones((64, 64), onp.float32), ctx=gpu)
+    ta = a._data
+    np_add_us = host_us(lambda: mx.np.add(a, a))
+    torch_add_us = host_us(lambda: torch.add(ta, ta))
+    n_np = len([n for n in names if n.startswith("np.") and
+                not n.startswith(("np.linalg.", "np.random."))])
+    n_la = len([n for n in names if n.startswith("np.linalg.")])
+    n_npx = len([n for n in names if n.startswith("npx.")])
+    n_rand = len([n for n in names if n.startswith("np.random.")])
+    print(f"28.2 np surface: {len(names)} names run on cuda:0 and the CPU "
+          f"({n_np} mx.np, {n_la} np.linalg, {n_npx} npx, {n_rand} "
+          f"np.random) in {cases_s:.2f} s; worst error of the largest "
+          f"magnitude: np {worst['np']:.3g} (tol {NP_TOL}), linalg "
+          f"{worst['linalg']:.3g} (tol {NP_LINALG_TOL}), npx "
+          f"{worst['npx']:.3g} (tol {NP_NPX_TOL}); integer draws equal on "
+          f"the card and the CPU {ints_equal}; host us mx.np.add "
+          f"{np_add_us:.2f} beside torch.add {torch_add_us:.2f}; "
+          f"{card_line()}", flush=True)
+    if bad or rbad or not ints_equal:
+        fail(f"28.2: {len(bad)} cases disagree {bad[:8]}; draws {rbad[:5]};"
+             f" integer draws equal {ints_equal}")
+    return dict(names=len(names), np_names=n_np, linalg_names=n_la,
+                npx_names=n_npx, random_names=n_rand, worst=worst,
+                seconds=cases_s, np_add_us=np_add_us,
+                torch_add_us=torch_add_us, ints_equal=ints_equal)
+
+
+def _fs_tele():
+    from mxnet_tpu_torch import telemetry as t
+
+    return {"micro": t.histogram("fused_step_seconds", phase="micro").count,
+            "apply": t.histogram("fused_step_seconds", phase="apply").count,
+            "d_micro": t.counter("fused_step_dispatches_total",
+                                 phase="micro").value,
+            "d_apply": t.counter("fused_step_dispatches_total",
+                                 phase="apply").value,
+            "d_legacy": t.counter("fused_step_dispatches_total",
+                                  phase="legacy").value,
+            "cached_op": t.counter("compiles_total",
+                                   site="gluon.cached_op").value,
+            "fused": t.counter("compiles_total",
+                               site="gluon.fused_step").value}
+
+
+def _programs_launches(before, progs):
+    """K1-K3's launches since ``before`` (``_attention_counts``) through
+    ``progs``: the eager calls by the counts, each replay by what its
+    capture recorded (the captures' own launches taken out)."""
+    now = _attention_counts()
+    return {n: now[n] - before[n]
+            - sum(p.recorded.get(n, 0) for p in progs)
+            + sum(p.launches.get(n, 0) * p.replays for p in progs)
+            for n in ATTN_KERNELS}
+
+
+def _kernel_of(name):
+    for k, pat in (("flash_fwd", "flash_fwd"), ("flash_bwd_dq",
+                                                "flash_bwd_dq"),
+                   ("flash_bwd_dkv", "flash_bwd_dkv")):
+        if pat in name:
+            return k
+    return None
+
+
+def train_telemetry(cfg):
+    """28.3: the training side's telemetry and the trace parser over the
+    user's ``hybrid_forward`` GPT-2 small (12 layers, 768 wide, 12 heads,
+    50,257 tokens, bf16, dropout 0) at 8 x 1024, hybridized: two
+    predict-mode forwards (the program's eager call, its capture and
+    replay: ``compiles_total{site="gluon.cached_op"}`` +1), then
+    ``TELE_CALLS`` AdamW ``Trainer.fused_step`` calls at
+    ``update_interval=2`` (3 micro, 3 apply: three AdamW steps).  The
+    ledger's ``train.params`` and ``train.opt_states`` equal the
+    parameters' and the states' bytes, ``train.grad_accum`` the ring's;
+    the histograms and counters count as the reference's; a profiled
+    window of two replays (micro, apply) and one phase-by-phase step
+    (``MXNET_FUSED_STEP=0``) gives ``device_dumps()`` (``by="tf_op"``)
+    with 12 K1 and 24 K2 + K3 under ``flash_attention`` and the micro
+    replay's kernels under ``mx:fused_step:micro`` (up to
+    ``TELE_PROFILE_TRIES`` windows, the attempt printed beside the gate
+    and kept in the row), and ``by="name"`` keeps K1-K3's names;
+    ``profile_fn`` over the replayed step; ``hlo_op_count`` of a fresh
+    capture of the micro program's function equals the compile event's
+    kernel nodes; ``reconcile()`` while the trainer is accounted covers
+    its bytes with no negative delta; ``release_accounting()`` takes the
+    ``train.*`` bytes to 0 and ``reconcile()`` shows no leak."""
+    import math
+
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, profiler, telemetry
+    from mxnet_tpu_torch import profiler_trace as pt
+    from mxnet_tpu_torch.gluon import fused_step as fsm
+    from mxnet_tpu_torch.telemetry.memory import ACCOUNTANT, nbytes_of
+
+    gpu = mx.gpu(0)
+    L = cfg.num_layers
+    mx.random.seed(0)
+    net = _hf_gpt(mx, L, 0.0, "bfloat16", gpu, seed=0)
+    tok, pos, lab = _hf_batch(mx, HF_B, gpu)
+    net.hybridize()
+    tele0 = _fs_tele()
+    att0 = _attention_counts()
+    net(tok, pos)
+    net(tok, pos)
+    fwd_progs = [p for p in net._cached_op._programs.values()
+                 if p is not None]
+    cached_compiles = _fs_tele()["cached_op"] - tele0["cached_op"]
+    fwd_events = [e for e in telemetry.events("compile")
+                  if e.get("site") == "gluon.cached_op"]
+    loss_l = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adamw", dict(ADAMW_OPT),
+                            update_interval=2)
+
+    def loss_fn(t, p, y):
+        return loss_l(net(t, p), y)
+
+    fsm.reset_step_counters()
+    losses, call_ms = [], []
+    for _ in range(TELE_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.fused_step(loss_fn, tok, pos, lab)
+                            ._data.float().mean()))
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    d = {k: v - tele0[k] for k, v in _fs_tele().items()}
+    (fs,) = trainer._fused_steps.values()
+    progs = {k[0]: p for k, p in fs._programs.items()}
+    label = trainer._mem_label
+    params = list(net.collect_params().values())
+    p_bytes = sum(p._data._data.nbytes for p in params)
+    s_bytes = nbytes_of([s for s, made in zip(trainer._states,
+                                              trainer._states_created)
+                         if made])
+    ring_key = fs._accum_key
+    ledger = {"train.params": ACCOUNTANT.bytes("train.params", key=label),
+              "train.opt_states": ACCOUNTANT.bytes("train.opt_states",
+                                                   key=label),
+              "train.grad_accum": ACCOUNTANT.bytes("train.grad_accum",
+                                                   key=ring_key)}
+    gauge = telemetry.gauge("device_bytes", subsystem="train.params",
+                            device="cuda:0").value
+    ring_bytes = nbytes_of(fs._accum)
+    print(f"28.3 telemetry: user's GPT-2 small ({L} layers, bf16, dropout 0)"
+          f" at {HF_B} x {HF_T}, hybridized, {TELE_CALLS} AdamW fused_step "
+          f"calls at update_interval 2: losses {losses}, ms each "
+          f"{[round(v, 3) for v in call_ms]}; fused_step_seconds micro "
+          f"+{d['micro']} apply +{d['apply']}, dispatches micro "
+          f"+{d['d_micro']} apply +{d['d_apply']} legacy +{d['d_legacy']}; "
+          f"compiles_total gluon.cached_op +{cached_compiles} (kernel nodes "
+          f"{[e.get('kernel_nodes') for e in fwd_events[-1:]]}), "
+          f"gluon.fused_step +{d['fused']}; ledger {ledger} beside "
+          f"parameters {p_bytes}, AdamW states {s_bytes}, ring "
+          f"{ring_bytes} (device_bytes gauge {gauge})", flush=True)
+    if d["micro"] != 3 or d["apply"] != 3 or d["d_micro"] != 3 or \
+            d["d_apply"] != 3 or d["d_legacy"] != 0 or d["fused"] != 2:
+        fail(f"28.3: fused step instruments {d}, expected 3 micro, 3 apply,"
+             " 0 legacy, 2 compiles")
+    if cached_compiles != 1 or len(fwd_progs) != 1:
+        fail(f"28.3: the forward program compiled {cached_compiles} times "
+             f"({len(fwd_progs)} programs), expected 1")
+    if ledger != {"train.params": p_bytes, "train.opt_states": s_bytes,
+                  "train.grad_accum": ring_bytes} or gauge < p_bytes:
+        fail(f"28.3: ledger {ledger}, expected params {p_bytes}, states "
+             f"{s_bytes}, ring {ring_bytes} (gauge {gauge})")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"28.3: losses {losses}")
+
+    # the profiled window: two replays (micro, apply) and one step
+    # phase by phase (the window's first micro-batch)
+    profiler.set_config(aggregate_stats=True)
+    found = None
+    for attempt in range(TELE_PROFILE_TRIES):
+        torch.cuda.synchronize()
+        profiler.start()
+        trainer.fused_step(loss_fn, tok, pos, lab)      # micro replay
+        trainer.fused_step(loss_fn, tok, pos, lab)      # apply replay
+        os.environ["MXNET_FUSED_STEP"] = "0"
+        try:
+            before = _attention_counts()
+            trainer.fused_step(loss_fn, tok, pos, lab)  # phase by phase
+            eager = {n: v - before[n]
+                     for n, v in _attention_counts().items()}
+        finally:
+            os.environ.pop("MXNET_FUSED_STEP")
+        torch.cuda.synchronize()
+        profiler.stop()
+        recs = profiler.device_records()
+        flash = {}
+        for r in recs:
+            k = _kernel_of(r["name"])
+            if k is not None:
+                flash.setdefault(r["tf_op"], {}).setdefault(k, 0)
+                flash[r["tf_op"]][k] += 1
+        under = flash.get("flash_attention", {})
+        # the graph's kernel nodes (its memset and copy nodes, and the
+        # annotation's input copies and output clones, are not kernels)
+        micro = [r for r in recs if r["tf_op"] == "mx:fused_step:micro"
+                 and not r["name"].startswith(("Memcpy", "Memset"))]
+        found = dict(attempt=attempt + 1, eager=eager, flash=flash,
+                     micro_kernels=len(micro), records=len(recs))
+        if under.get("flash_fwd") == L and under.get(
+                "flash_bwd_dq", 0) + under.get("flash_bwd_dkv", 0) == 2 * L:
+            break
+        print(f"28.3 profile attempt {attempt + 1} of {TELE_PROFILE_TRIES}:"
+              f" kernels by tf_op {flash} short of the launches {eager}",
+              flush=True)
+        # the trainer is mid-window now; finish it
+        trainer.fused_step(loss_fn, tok, pos, lab)
+    by_tf_op = profiler.device_dumps(limit=12)
+    by_source = profiler.device_dumps(by="source", limit=8)
+    by_name = profiler.device_dumps(by="name", limit=8)
+    by_name_all = profiler.device_dumps(by="name", limit=1000)
+    by_category = profiler.device_dumps(by="category")
+    micro_nodes = sum(progs["micro"].kernel_nodes().values())
+    print(f"28.3 profile (attempt {found['attempt']} of "
+          f"{TELE_PROFILE_TRIES}): {found['records']} "
+          f"device records; flash kernels by tf_op {found['flash']} (the "
+          f"phase-by-phase step launched {found['eager']}); "
+          f"mx:fused_step:micro holds {found['micro_kernels']} kernels "
+          f"beside the micro graph's {micro_nodes} kernel nodes (not gated:"
+          f" PERF.md section 7)\nby tf_op:\n{by_tf_op}\n"
+          f"by source:\n{by_source}\nby name:\n{by_name}\nby category:\n"
+          f"{by_category}", flush=True)
+    under = found["flash"].get("flash_attention", {})
+    replayed = found["flash"].get("mx:fused_step:micro", {})
+    if under.get("flash_fwd") != L or under.get("flash_bwd_dq", 0) + \
+            under.get("flash_bwd_dkv", 0) != 2 * L:
+        fail(f"28.3 device_dumps (attempt {found['attempt']} of "
+             f"{TELE_PROFILE_TRIES}): flash_attention holds {under}, "
+             f"expected K1 {L} and K2 + K3 {2 * L} of the step's "
+             f"{found['eager']}")
+    missing = [k for k in ("flash_fwd_mma_kernel<", "flash_bwd_dq_mma_kernel<",
+                           "flash_bwd_dkv_mma_kernel<")
+               if k not in by_name_all]
+    if missing:
+        fail(f"28.3 device_dumps(by='name') cuts the kernel names {missing}")
+    if not replayed or set(found["flash"]) - {
+            "flash_attention", "mx:fused_step:micro",
+            "mx:fused_step:apply"}:
+        fail(f"28.3 device_dumps: the replays' flash kernels by tf_op "
+             f"{found['flash']}")
+    if "_torch_hybrid_models.py:" not in by_source:
+        fail("28.3 device_dumps(by='source') names no line of the model "
+             "file")
+    # profile_fn over the replayed step, hlo_op_count of the program
+    rows = pt.aggregate(pt.profile_fn(
+        lambda: trainer.fused_step(loss_fn, tok, pos, lab), iters=2),
+        by="tf_op")
+    # a fresh capture of the micro program's function (its warm-up call
+    # adds one more gradient into the ring: nothing reads it after)
+    launches = _programs_launches(att0, fwd_progs + list(
+        fs._programs.values()))
+    hlo = pt.hlo_op_count(progs["micro"].fn)
+    ev = [e for e in telemetry.events("compile")
+          if e.get("site") == "gluon.fused_step" and
+          e.get("phase") == "micro"]
+    watch_nodes = ev[-1]["kernel_nodes"] if ev else None
+    print(f"28.3 profile_fn over the replayed step (per call):\n"
+          f"{pt.format_table(rows, limit=6)}\n28.3 hlo_op_count(micro "
+          f"step function, a fresh capture) {hlo}, the compile watch's "
+          f"kernel_nodes {watch_nodes}", flush=True)
+    if not rows or hlo != watch_nodes:
+        fail(f"28.3: profile_fn rows {len(rows)}, hlo_op_count {hlo}, "
+             f"watch {watch_nodes}")
+    held = telemetry.memory.reconcile().get("cuda:0", {})
+    trainer.release_accounting()
+    after = {s: ACCOUNTANT.bytes(s, key=label) for s in (
+        "train.params", "train.opt_states")}
+    after["train.grad_accum"] = ACCOUNTANT.bytes("train.grad_accum",
+                                                 key=ring_key)
+    rec = telemetry.memory.reconcile().get("cuda:0", {})
+    print(f"28.3 reconcile while the trainer is accounted {held}; "
+          f"release_accounting: ledger {after}; reconcile {rec}; "
+          f"launches K1-K3 {launches}", flush=True)
+    if held.get("delta", -1) < 0 or not held.get("coverage") or \
+            held.get("accounted", 0) < sum(ledger.values()):
+        fail(f"28.3: reconcile with train.* accounted {held}, ledger "
+             f"{ledger}")
+    if any(after.values()) or rec.get("delta", -1) < 0:
+        fail(f"28.3: after release_accounting {after}, reconcile {rec}")
+    row = dict(losses=losses, call_ms=call_ms, instruments=d,
+               cached_op_compiles=cached_compiles, ledger=ledger,
+               param_bytes=p_bytes, state_bytes=s_bytes,
+               ring_bytes=ring_bytes, profile=found,
+               profile_attempts=found["attempt"], hlo_op_count=hlo,
+               watch_nodes=watch_nodes, launches=launches,
+               reconcile_held=held, released=after, reconcile=rec,
+               profile_fn=rows[:6], by_tf_op=by_tf_op)
+    del trainer, fs, progs, net, fwd_progs
+    torch.cuda.empty_cache()
+    return row
+
+
+def _quantized(net, cls):
+    out = []
+
+    def walk(b):
+        for c in b._children.values():
+            if isinstance(c, cls):
+                out.append(c)
+            walk(c)
+    walk(net)
+    return out
+
+
+def quantize_resnet():
+    """28.4: ``quantize_net`` on ResNet-50 v1 NCHW f32 from the zoo,
+    seeded weights, naive calibration on ``Q_BATCHES`` seeded batches of
+    ``Q_B`` at 224^2: all 53 convolutions and the Dense layer replaced;
+    every ``QuantizedConv2D``'s int32 accumulator on the card equals the
+    CPU's product of the same int8 operands exactly (a batch of
+    ``Q_ACC_B``); the quantized logits within ``Q_REL_ERR`` of the f32
+    logits' largest magnitude; entropy mode on one batch; ms a quantized
+    forward beside the f32 forward."""
+    import math
+
+    import numpy as onp
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    from mxnet_tpu_torch.ops.quantization import (quantize_v2,
+                                                  quantized_conv_int8)
+
+    gpu = mx.gpu(0)
+
+    def fresh():
+        mx.random.seed(28)
+        n = get_resnet(1, 50, classes=1000)
+        n.initialize(mx.init.Xavier(magnitude=2), ctx=gpu)
+        return n
+
+    rs = onp.random.RandomState(30)
+    xs = [mx.nd.array(rs.standard_normal((Q_B, 3, 224, 224))
+                      .astype(onp.float32), ctx=gpu)
+          for _ in range(Q_BATCHES)]
+    net = fresh()
+    f32 = net(xs[0])._data.clone()
+    f32_ms = cuda_ms(lambda i: net(xs[0]), 5, warm=1)
+    t0 = time.perf_counter()
+    q.quantize_net(net, calib_data=xs, calib_mode="naive",
+                   num_calib_batches=Q_BATCHES)
+    calib_s = time.perf_counter() - t0
+    convs = _quantized(net, q.QuantizedConv2D)
+    dense = _quantized(net, q.QuantizedDense)
+    left = [c for c in _quantized(net, (mx.gluon.nn.Conv2D,
+                                        mx.gluon.nn.Dense))]
+    got = net(xs[0])._data
+    rel = float((got - f32).abs().max() / f32.abs().max())
+    top1 = float((got.argmax(1) == f32.argmax(1)).float().mean())
+    q_ms = cuda_ms(lambda i: net(xs[0]), 5, warm=1)
+    # the accumulators: each layer's input read by a pre-hook, quantized as
+    # the layer does, its int8 product on the card against the CPU's
+    acc_equal = []
+
+    def check(layer, args):
+        x = args[0]._data if isinstance(args[0], mx.nd.NDArray) else args[0]
+        qx = quantize_v2(x, min_calib_range=-layer._x_amax,
+                         max_calib_range=layer._x_amax)[0]
+        kw = dict(stride=layer._stride, pad=layer._pad,
+                  dilate=layer._dilate, num_group=layer._groups)
+        card = quantized_conv_int8(qx, layer._qweight._data, **kw)
+        host = quantized_conv_int8(qx.cpu(), layer._qweight._data.cpu(),
+                                   **kw)
+        acc_equal.append(bool(torch.equal(card.cpu(), host)))
+
+    hooks = [c.register_forward_pre_hook(check) for c in convs]
+    try:
+        net(mx.nd.array(xs[0]._data[:Q_ACC_B], ctx=gpu))
+    finally:
+        for h in hooks:
+            h.detach()
+    del net
+    torch.cuda.empty_cache()
+    ent = fresh()
+    t0 = time.perf_counter()
+    q.quantize_net(ent, calib_data=[mx.nd.array(xs[0]._data[:Q_ENTROPY_B],
+                                                ctx=gpu)],
+                   calib_mode="entropy")
+    ent_s = time.perf_counter() - t0
+    ent_out = ent(xs[0])._data
+    ent_rel = float((ent_out - f32).abs().max() / f32.abs().max())
+    print(f"28.4 quantize_net: resnet50_v1 NCHW f32, naive calibration on "
+          f"{Q_BATCHES} x {Q_B} at 224^2 in {calib_s:.2f} s: {len(convs)} "
+          f"QuantizedConv2D, {len(dense)} QuantizedDense, {len(left)} "
+          f"layers left; int32 accumulators equal on the card and the CPU "
+          f"{sum(acc_equal)} of {len(acc_equal)} (batch of {Q_ACC_B}); "
+          f"logits' largest error {rel:.4f} of the f32 logits' largest "
+          f"magnitude (limit {Q_REL_ERR}), top-1 agreement {top1:.4f}; "
+          f"entropy mode on {Q_ENTROPY_B} images in {ent_s:.2f} s, error "
+          f"{ent_rel:.4f}; ms a forward of {Q_B}: quantized {q_ms:.3f} "
+          f"beside f32 {f32_ms:.3f}; {card_line()}", flush=True)
+    if len(convs) != 53 or len(dense) != 1 or left:
+        fail(f"28.4: {len(convs)} convolutions and {len(dense)} Dense "
+             f"replaced, {len(left)} left")
+    if not all(acc_equal):
+        fail(f"28.4: accumulators equal {sum(acc_equal)} of "
+             f"{len(acc_equal)}")
+    if not (rel <= Q_REL_ERR and torch.isfinite(got).all() and
+            math.isfinite(ent_rel)):
+        fail(f"28.4: quantized logits' error {rel} (limit {Q_REL_ERR}), "
+             f"entropy {ent_rel}")
+    row = dict(convs=len(convs), dense=len(dense), acc_equal=sum(acc_equal),
+               rel_err=rel, top1=top1, entropy_rel_err=ent_rel,
+               calib_s=calib_s, entropy_s=ent_s, q_ms=q_ms, f32_ms=f32_ms)
+    del ent, xs, f32, got, ent_out
+    torch.cuda.empty_cache()
+    return row
+
+
+def runtime_util():
+    """28.5: ``Features()`` shows CUDA and CUDNN on, ``get_gpu_count()``
+    is 1, ``get_gpu_memory(0)`` is ``torch.cuda.mem_get_info``'s pair
+    (no allocation between the two reads)."""
+    import torch
+    import mxnet_tpu_torch as mx
+
+    feats = mx.runtime.Features()
+    count = mx.util.get_gpu_count()
+    torch.cuda.synchronize()
+    free, total = mx.util.get_gpu_memory(0)
+    free2, total2 = torch.cuda.mem_get_info(0)
+    print(f"28.5 runtime: {feats}; get_gpu_count {count}; get_gpu_memory "
+          f"(free {free}, total {total}) beside mem_get_info (free {free2},"
+          f" total {total2})", flush=True)
+    if not (feats.is_enabled("CUDA") and feats.is_enabled("CUDNN")) or \
+            count != 1 or total != total2 or abs(free - free2) > 2 ** 21:
+        fail("28.5: runtime features or util's card helpers are wrong")
+    return dict(features=repr(feats), gpu_count=count, free=free,
+                total=total)
+
+
+def check_numpy_interface(cfg, gluon_row):
+    """Phase 28: 28.1-28.5, with the phase's seconds."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    row = dict(resnet=np_resnet(gluon_row))
+    t1 = time.perf_counter()
+    row["surface"] = np_surface()
+    t2 = time.perf_counter()
+    row["telemetry"] = train_telemetry(cfg)
+    t3 = time.perf_counter()
+    row["quantize"] = quantize_resnet()
+    t4 = time.perf_counter()
+    row["runtime"] = runtime_util()
+    row["seconds"] = time.perf_counter() - t0
+    row["launches"] = dict(row["telemetry"]["launches"], conv1x1_bwd=row[
+        "resnet"]["launches"]["conv1x1_bwd"])
+    print(f"phase 28: {row['seconds']:.2f} s (28.1 {t1 - t0:.2f}, 28.2 "
+          f"{t2 - t1:.2f}, 28.3 {t3 - t2:.2f}, 28.4 {t4 - t3:.2f}); the "
+          f"script so far {time.perf_counter() - T_START:.2f} s", flush=True)
+    return row
+
+
 def main():
     try:
         import torch
@@ -11728,6 +12522,7 @@ def main():
     runtime = check_runtime()
     vision26 = check_vision_breadth(fused_train["resnet"])
     sym27 = check_symbolic(cfg, fused_train["resnet"])
+    np28 = check_numpy_interface(cfg, gluon["resnet"])
 
     # the kernels line, the card's line and the result
     gelu = next(c for c in rtc["cases"]
@@ -11754,7 +12549,8 @@ def main():
                     launches=train["launches"][name] +
                     opt19["lamb_gpt2"]["launches"][name] +
                     hybrid["launches"][name] + seq["launches"][name] +
-                    runtime["launches"][name] + sym27["launches"][name],
+                    runtime["launches"][name] + sym27["launches"][name] +
+                    np28["launches"][name],
                     max_abs_err=max(e for r in k23
                                     for w, e in r["max_abs_err"].items()
                                     if w in outputs),
@@ -11795,7 +12591,8 @@ def main():
              served["spec"]["launches"]["flash_fwd"] +
              served["faults"]["launches"]["flash_fwd"] +
              served["faults"]["sync"]["launches"]["flash_fwd"] +
-             runtime["launches"]["flash_fwd"] + sym27["launches"]["flash_fwd"],
+             runtime["launches"]["flash_fwd"] +
+             sym27["launches"]["flash_fwd"] + np28["launches"]["flash_fwd"],
              max_abs_err=max(r["max_abs_err"] for r in k1), ms=k1[0]["ms"],
              plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
              bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"],
@@ -11840,7 +12637,8 @@ def main():
              det["launches"]["conv1x1_bwd"] +
              corpus["launches"]["conv1x1_bwd"] +
              vision26["launches"]["conv1x1_bwd"] +
-             sym27["launches"]["conv1x1_bwd"],
+             sym27["launches"]["conv1x1_bwd"] +
+             np28["launches"]["conv1x1_bwd"],
              max_abs_err=k6["max_abs_err"], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
@@ -11903,6 +12701,7 @@ def main():
                        hybrid=hybrid, data=data, detection=det,
                        sequence=seq, corpus=corpus, runtime=runtime,
                        vision_breadth=vision26, symbolic=sym27,
+                       numpy_interface=np28,
                        kernels=kernels),
                   fh, indent=1, default=str)
     print(f"chip_smoke: {time.perf_counter() - T_START:.2f} s in all",

@@ -42,7 +42,12 @@ symbolic surface: ``sym`` (graphs, capture, the ``Executor``),
 ``HybridBlock.export`` and ``SymbolBlock.imports``, ``mod`` (MXNet
 1.x's ``Module`` and ``BucketingModule``), ``model``, ``callback``,
 ``name`` (with ``AttrScope``), ``viz``, ``test_utils`` and
-``predictor``.
+``predictor``.  The twenty-fifth is the NumPy interface: ``np`` (with
+``np.linalg`` and ``np.random``), ``npx`` and ``util`` (``set_np``),
+with ``runtime``, the trace parser ``profiler_trace`` behind
+``profiler.device_dumps(by="tf_op")``, the trainer's memory ledger and
+the fused step's telemetry, and ``contrib.quantization``'s
+``quantize_net``.
 """
 __version__ = "0.1.0"
 
@@ -56,7 +61,8 @@ _SUBPACKAGES = ("ops", "models", "serve", "gluon", "optimizer", "parallel",
                 "operator", "rtc", "telemetry", "io", "recordio", "image",
                 "amp", "checkpoint", "engine", "profiler", "metric",
                 "symbol", "module", "model", "callback", "name",
-                "visualization", "test_utils", "predictor")
+                "visualization", "test_utils", "predictor", "util",
+                "runtime", "contrib", "profiler_trace", "base")
 # names of the imperative core, taken from the module that holds them
 _FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
          "cpu": ("context", "cpu"),
@@ -68,6 +74,7 @@ _FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
          "lr_scheduler": ("optimizer.lr_scheduler", None),
          "sym": ("symbol", None), "mod": ("module", None),
          "viz": ("visualization", None),
+         "np": ("numpy", None), "npx": ("numpy_extension", None),
          "AttrScope": ("name", "AttrScope")}
 
 __all__ = ["MXNetError", "resolve_device", *_SUBPACKAGES, *_FROM]

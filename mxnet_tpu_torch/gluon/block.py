@@ -87,10 +87,11 @@ import torch
 from torch import nn
 
 from .. import random as _random
+from .. import telemetry
 from ..base import MXNetError
 from ..context import current_context
 from ..device import resolve_device
-from ..ndarray.ndarray import NDArray
+from ..ndarray.ndarray import NDArray, _out_class
 from ..ops import registry as _registry
 from ..ops.registry import _unwrap
 from ..optimizer.optimizer import _write
@@ -428,11 +429,11 @@ class _HookHandle:
 _MODE = threading.local()
 
 
-def _wrap(out):
+def _wrap(out, cls=NDArray):
     if isinstance(out, torch.Tensor):
-        return NDArray(out)
+        return cls(out)
     if isinstance(out, (tuple, list)):
-        return type(out)(_wrap(o) for o in out)
+        return type(out)(_wrap(o, cls) for o in out)
     return out
 
 
@@ -728,7 +729,8 @@ class Block(nn.Module):
         return _wrap(self._run_nd(
             [_unwrap(a) for a in args],
             {k: _unwrap(v) for k, v in kwargs.items()},
-            autograd.is_training(), autograd.is_recording()))
+            autograd.is_training(), autograd.is_recording()),
+            _out_class(args))
 
     def _run_nd(self, tensors, kwargs, training, recording):
         """The forward of a call made with NDArrays, on their tensors."""
@@ -886,12 +888,16 @@ class _CachedOp:
     infers deferred shapes).  Every program reads one key word (the
     reference's per-call key operand), written before a call from
     ``random.next_key()`` while the program draws from it, so a dropout
-    in the forward draws a fresh mask at every replay.  On the CPU the
-    forward runs directly (the keys are still counted in ``builds``).
+    in the forward draws a fresh mask at every replay.  On the CPU a
+    key's program is the forward itself on the call's arrays (nothing
+    is captured; the keys are still counted in ``builds``).
     Under ``record()`` the forward runs imperatively.  A move of the
     parameters' storage generation (``parameter.generation()``:
     ``cast``, ``load_parameters``, ``reset_ctx``, deferred init) drops
-    every program, so the next call captures again."""
+    every program, so the next call captures again.  Each program is
+    watched at the site ``gluon.cached_op`` (a ``compile`` event with its
+    kernel nodes a kept capture; the CPU's first forward of a key), and
+    a replay runs inside the annotation ``mx:cached_op:<block name>``."""
 
     def __init__(self, block, flags=None):
         self._block = block
@@ -900,6 +906,7 @@ class _CachedOp:
         self._generation = None
         self._pool = None
         self._key_word = None
+        self._annotation = f"mx:cached_op:{block.name}"
         self.builds = 0
 
     def _key(self, tensors, training):
@@ -922,38 +929,50 @@ class _CachedOp:
             self._programs[key] = self._program(tensors, training)
             self.builds += 1
         prog = self._programs[key]
-        if prog is None:        # the CPU: the forward itself
-            return block._call_nd(args, {})
+        if not prog.on_card:    # the CPU: the forward itself, on args
+            prog.inputs = args
+            return prog()
         for s, t in zip(prog.inputs, tensors):
             s.copy_(t)
         if prog.draws != 0:     # unknown before the first call
             _write(self._key_word, [], [_random.next_key()])
-        outs = prog()
+        with telemetry.annotation(self._annotation):
+            outs = prog()
         if prog.graph is None:
             # the eager first call may have created deferred parameters;
             # the capture, next, reads them as they now are
             self._generation = generation()
-        return _wrap(list(outs) if prog.is_seq else outs[0])
+        return _wrap(list(outs) if prog.is_seq else outs[0],
+                     _out_class(args))
 
     def _program(self, tensors, training):
+        """The program of one key, watched at the site ``gluon.cached_op``
+        (reference ``CachedOp``'s ``instrument_jit``).  On the CPU its
+        function is the block's forward on the call's arrays, which
+        ``__call__`` sets as its ``inputs``."""
         device = tensors[0].device
-        if device.type != "cuda":
-            return None
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._key_word = torch.zeros(1, device=device)
         block = self._block
-        static = [torch.empty_like(t) for t in tensors]
+        if device.type != "cuda":
+            prog = _GraphProgram(lambda: block._call_nd(prog.inputs, {}),
+                                 device, None, None)
+        else:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+                self._key_word = torch.zeros(1, device=device)
+            static = [torch.empty_like(t) for t in tensors]
 
-        def fn():
-            with _no_hybrid():
-                out = block._run_nd(static, {}, training, False)
-            prog.is_seq = isinstance(out, (tuple, list))
-            return list(out) if prog.is_seq else [out]
+            def fn():
+                with _no_hybrid():
+                    out = block._run_nd(static, {}, training, False)
+                prog.is_seq = isinstance(out, (tuple, list))
+                return list(out) if prog.is_seq else [out]
 
-        prog = _GraphProgram(fn, device, self._pool, static,
-                             key=self._key_word.view(torch.int32))
-        return prog
+            prog = _GraphProgram(fn, device, self._pool, static,
+                                 key=self._key_word.view(torch.int32))
+        return telemetry.instrument_program(
+            prog, "gluon.cached_op",
+            key=(block.name, "train" if training else "eval"),
+            fields={"block": block.name, "training": bool(training)})
 
 
 class SymbolBlock(HybridBlock):

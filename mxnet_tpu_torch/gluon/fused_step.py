@@ -40,13 +40,26 @@ replays.  A move of the parameters' storage generation
 
 ``MXNET_FUSED_STEP=0`` runs the phase-by-phase step instead (record,
 backward, ``Trainer.step``), bit for bit.
+
+Telemetry, as the reference's: the histograms
+``fused_step_seconds{phase=micro|apply}`` time the host's call of each
+replay (no device sync is added), ``fused_step_dispatches_total{phase=
+micro|apply|legacy}`` count the calls and ``fused_step_window_pos`` is
+the accumulation window's position; each replay runs inside the
+annotation ``mx:fused_step:micro`` or ``mx:fused_step:apply``, so the
+trace parser gives its kernels that ``tf_op``; every program is watched
+at the site ``gluon.fused_step`` (a ``compile`` event a capture); the
+accumulator ring is the ledger entry ``train.grad_accum`` of this step,
+dropped by ``release_accounting``.
 """
 from __future__ import annotations
 
 import os
+import time
 
 import torch
 
+from .. import telemetry
 from ..base import MXNetError
 from ..optimizer.optimizer import _write
 
@@ -67,6 +80,30 @@ step_counters = {"dispatches": 0, "micro_dispatches": 0,
 def reset_step_counters():
     for k in step_counters:
         step_counters[k] = 0
+
+
+# the registry's instruments, made at first use (importing the module
+# must not touch the registry)
+_tele = None
+
+
+def _instruments():
+    global _tele
+    if _tele is None:
+        _tele = {
+            "lat_micro": telemetry.histogram("fused_step_seconds",
+                                             phase="micro"),
+            "lat_apply": telemetry.histogram("fused_step_seconds",
+                                             phase="apply"),
+            "d_micro": telemetry.counter("fused_step_dispatches_total",
+                                         phase="micro"),
+            "d_apply": telemetry.counter("fused_step_dispatches_total",
+                                         phase="apply"),
+            "d_legacy": telemetry.counter("fused_step_dispatches_total",
+                                          phase="legacy"),
+            "window": telemetry.gauge("fused_step_window_pos"),
+        }
+    return _tele
 
 
 def fused_step_enabled() -> bool:
@@ -95,6 +132,7 @@ class FusedStep:
         self._pool = None
         self._hyper = None
         self._accum = None
+        self._accum_key = None      # the ring's memory-ledger key
         self._legacy_accum = None
 
     # ------------------------------------------------------------------ #
@@ -198,11 +236,32 @@ class FusedStep:
                             a.zero_()
                 return list(outs)
 
-        prog = self._programs[key] = _GraphProgram(
-            fn, self._device, self._pool, static,
-            key=hyper[3 * n + 1:].view(torch.int32))
+        prog = self._programs[key] = telemetry.instrument_program(
+            _GraphProgram(fn, self._device, self._pool, static,
+                          key=hyper[3 * n + 1:].view(torch.int32)),
+            "gluon.fused_step", key=(phase, key[1]),
+            fields={"phase": phase})
         step_counters["compiles"] += 1
         return prog
+
+    def _account_ring(self):
+        """The accumulator ring in the memory ledger, one entry a fused
+        step (a trainer that drives several loss functions has a ring
+        for each)."""
+        from ..telemetry.memory import ACCOUNTANT
+
+        self._accum_key = f"{self._trainer._mem_label}:fs{id(self):x}"
+        ACCOUNTANT.set("train.grad_accum", self._accum_key, self._accum)
+
+    def release_accounting(self):
+        """Drop this step's ``train.grad_accum`` entry (the trainer's
+        cache evicted it, or the trainer is released); a deferred drop,
+        as ``Trainer.release_accounting``'s."""
+        if self._accum_key is not None:
+            from ..telemetry.memory import ACCOUNTANT
+
+            ACCOUNTANT.drop_deferred("train.grad_accum", self._accum_key)
+            self._accum_key = None
 
     def launches(self):
         """Kernel launches of this step's replays, by kernel: each
@@ -229,18 +288,22 @@ class FusedStep:
             return self._legacy(nd_batch, batch_size)
         if not self._built or self._generation != generation():
             self._build(nd_batch)
+            tr._account_params()
         args = [b._data for b in nd_batch]
         N = tr._update_interval
         if N > 1 and self._accum is None:
             adopted = self._adopt_pending_accum(tr)
             self._accum = adopted if adopted is not None else [
                 torch.zeros_like(p._data._data) for p in self._train_params]
+            self._account_ring()
+        tele = _instruments()
         tr._window_pos += 1
         key = [_random.next_key()]
         if tr._window_pos < N:
             _write(self._hyper[-1:], [], key)
             prog = self._program("micro", args)
             step_counters["micro_dispatches"] += 1
+            phase = "micro"
         else:
             tr._window_pos = 0
             opt = tr._optimizer
@@ -254,9 +317,15 @@ class FusedStep:
                    [tr._scale / (float(batch_size) * N)], key)
             prog = self._program("apply", args)
             step_counters["apply_dispatches"] += 1
-        for s, a in zip(prog.inputs, args):
-            s.copy_(a)
-        outs = prog()
+            phase = "apply"
+        t0 = time.perf_counter()
+        with telemetry.annotation(f"mx:fused_step:{phase}"):
+            for s, a in zip(prog.inputs, args):
+                s.copy_(a)
+            outs = prog()
+        tele["lat_" + phase].observe(time.perf_counter() - t0)
+        tele["d_" + phase].inc()
+        tele["window"].set(tr._window_pos)
         step_counters["dispatches"] += 1
         nd = [NDArray(o) for o in outs]
         return tuple(nd) if self._pure.out_struct.get("is_seq") else nd[0]
@@ -296,6 +365,7 @@ class FusedStep:
 
         tr = self._trainer
         step_counters["legacy_steps"] += 1
+        _instruments()["d_legacy"].inc()
         with autograd.record(train_mode=self._train_mode):
             out = self._loss_fn(*nd_batch)
         loss = out[0] if isinstance(out, (tuple, list)) else out

@@ -47,6 +47,7 @@ from .. import initializer as init_mod
 from ..base import MXNetError, torch_dtype
 from ..context import Context, current_context
 from ..ndarray.ndarray import NDArray
+from ..util import _state as _np_state    # npx.set_np()'s switch
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "params_swapped", "generation"]
@@ -300,7 +301,11 @@ class Parameter:
                          ".initialize() first")
 
     def data(self, ctx=None) -> NDArray:
+        """The parameter's array; after ``npx.set_np()`` an ``mx.np``
+        view of it (one tensor, one gradient buffer)."""
         self._check_initialized()
+        if _np_state.np_array:
+            return self._data.as_np_ndarray()
         return self._data
 
     def grad(self, ctx=None) -> NDArray:
@@ -309,8 +314,9 @@ class Parameter:
             raise MXNetError(
                 f"cannot get grad for {self.name}: grad_req is 'null'")
         g = self._data._grad_buffer()
-        return g.tostype("row_sparse") if self._grad_stype == "row_sparse" \
-            else g
+        if self._grad_stype == "row_sparse":
+            return g.tostype("row_sparse")
+        return g.as_np_ndarray() if _np_state.np_array else g
 
     def list_data(self):
         return [self.data()]

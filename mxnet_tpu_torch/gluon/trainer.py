@@ -46,11 +46,20 @@ from the loaded states), creates the others, and resets the
 accumulation window and every fused step's ring.  Both are refused
 mid-window.
 
+The trainer's device memory is in the telemetry ledger
+(``telemetry.memory.ACCOUNTANT``, the ``device_bytes{subsystem=}``
+gauges): the parameters under ``train.params`` and the optimizer states
+under ``train.opt_states``, set once every parameter and state exists
+(by the first update or fused step), and every fused step's
+accumulator ring under ``train.grad_accum``.  ``release_accounting()``
+drops them all; it runs when the trainer is collected, too.
+
 Kvstores other than the local ones and ``data_sharding`` raise
 ``MXNetError``.
 """
 from __future__ import annotations
 
+import itertools
 import weakref
 
 import numpy as np
@@ -65,6 +74,7 @@ from .parameter import Parameter, ParameterDict
 __all__ = ["Trainer"]
 
 _LOCAL_KVSTORES = (None, "", "device", "local")
+_trainer_seq = itertools.count()
 
 
 def _later(what):
@@ -162,6 +172,53 @@ class Trainer:
         # fused step that allocates one (FusedStep._adopt_pending_accum);
         # None when no restore happened
         self._pending_accum = None
+        # the memory ledger's key, and whether its entries are complete
+        self._mem_label = f"trainer{next(_trainer_seq)}"
+        self._mem_accounted = False
+
+    def _account_params(self):
+        """Put the parameters (``train.params``) and the optimizer states
+        that exist (``train.opt_states``) in the memory ledger; once every
+        parameter and state exists this is one flag test (while deferred
+        parameters remain, each call registers again)."""
+        if self._mem_accounted:
+            return
+        from ..telemetry.memory import ACCOUNTANT
+
+        weights = [self._weight(i) for i, p in enumerate(self._params)
+                   if not self._gluon or p._data is not None]
+        trainable = [i for i, p in enumerate(self._params)
+                     if (p.grad_req != "null" if self._gluon
+                         else p.requires_grad)]
+        self._mem_accounted = len(weights) == len(self._params) and all(
+            self._states_created[i] for i in trainable)
+        ACCOUNTANT.set("train.params", self._mem_label, weights)
+        states = [s for s, made in zip(self._states, self._states_created)
+                  if made]
+        if states:
+            ACCOUNTANT.set("train.opt_states", self._mem_label, states)
+
+    def release_accounting(self):
+        """Drop this trainer's ledger entries: parameters, optimizer
+        states and every cached fused step's accumulator ring.  Runs on
+        garbage collection; call it when a trainer is discarded mid-run so
+        ``device_bytes{subsystem="train.*"}`` and ``reconcile()`` stop
+        counting it.  Uses the ledger's deferred drop, which takes no
+        lock (a collector may run it on a thread that holds the
+        ledger's)."""
+        from ..telemetry.memory import ACCOUNTANT
+
+        ACCOUNTANT.drop_deferred("train.params", self._mem_label)
+        ACCOUNTANT.drop_deferred("train.opt_states", self._mem_label)
+        for fs in self._fused_steps.values():
+            fs.release_accounting()
+        self._mem_accounted = False
+
+    def __del__(self):
+        try:
+            self.release_accounting()
+        except Exception:       # interpreter teardown: imports may be gone
+            pass
 
     @property
     def learning_rate(self):
@@ -238,6 +295,7 @@ class Trainer:
             self._update_params(ignore_stale_grad)
         else:
             self._update_tensors(ignore_stale_grad)
+        self._account_params()
 
     def _ensure_state(self, i):
         """Create parameter ``i``'s optimizer state once (shared by the
@@ -351,7 +409,8 @@ class Trainer:
         fs = self._fused_steps.get(id(loss_fn))
         if fs is None:
             if len(self._fused_steps) >= 16:
-                self._fused_steps.pop(next(iter(self._fused_steps)))
+                self._fused_steps.pop(
+                    next(iter(self._fused_steps))).release_accounting()
                 if not getattr(self, "_fused_evict_warned", False):
                     import warnings
                     warnings.warn(

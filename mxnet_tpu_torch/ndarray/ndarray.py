@@ -250,7 +250,7 @@ class NDArray:
                           train_mode=train_mode)
 
     def detach(self) -> "NDArray":
-        return NDArray(self._data.detach())
+        return _like(self, self._data.detach())
 
     # ------------------------------------------------------------------ #
     # conversion / movement
@@ -259,7 +259,7 @@ class NDArray:
         return _ops().cast(self, dtype=dtype_name(torch_dtype(dtype)))
 
     def copy(self) -> "NDArray":
-        return NDArray(self._data.detach().clone())
+        return _like(self, self._data.detach().clone())
 
     def copyto(self, other):
         if isinstance(other, NDArray):
@@ -278,9 +278,25 @@ class NDArray:
         dev = ctx.torch_device()
         if self._data.device == dev:
             return self
-        return NDArray(self._data.detach().to(dev))
+        return _like(self, self._data.detach().to(dev))
 
     as_in_ctx = as_in_context
+
+    def as_nd_ndarray(self) -> "NDArray":
+        """This array as an ``mx.nd.NDArray``: the same tensor (and so
+        the same recorded graph) and the same gradient buffer."""
+        if type(self) is NDArray:
+            return self
+        return _view_as(self, NDArray)
+
+    def as_np_ndarray(self):
+        """This array as an ``mx.np.ndarray``, sharing the tensor and the
+        gradient buffer (reference ``NDArray.as_np_ndarray``)."""
+        from ..numpy.multiarray import ndarray as np_ndarray
+
+        if type(self) is np_ndarray:
+            return self
+        return _view_as(self, np_ndarray)
 
     def tostype(self, stype):
         if stype == "default":
@@ -548,6 +564,32 @@ class NDArray:
         self._rebind(new)
 
 
+def _out_class(args) -> type:
+    """The array class of a call's outputs (the reference's
+    ``_wrap_like``): its first array argument's, so an ``mx.np`` array
+    stays one, or a dense ``NDArray`` where that one is sparse."""
+    for a in args:
+        if isinstance(a, NDArray):
+            cls = type(a)
+            return NDArray if cls._sparse_kind else cls
+    return NDArray
+
+
+def _like(ref: NDArray, data: torch.Tensor) -> NDArray:
+    """``data`` in the class ``_out_class`` gives ``ref``."""
+    return _out_class((ref,))(data)
+
+
+def _view_as(arr: NDArray, cls) -> NDArray:
+    """``arr`` under another array class: one tensor, one gradient
+    buffer (allocated now, so both handles see the same one)."""
+    out = cls(arr._data)
+    out._grad = arr._grad_buffer()
+    out._grad_req = arr._grad_req
+    out._freed = arr._freed
+    return out
+
+
 def _leaf(data: torch.Tensor, owner: NDArray) -> torch.Tensor:
     """A leaf tensor holding ``data``'s values whose accumulated gradient
     is handed to ``owner``'s ``.grad`` after every backward.  An
@@ -737,7 +779,7 @@ def to_device(data, device):
 
 def _place_tree(x, target):
     if isinstance(x, NDArray):
-        return NDArray(x._data.detach().to(target, non_blocking=True))
+        return _like(x, x._data.detach().to(target, non_blocking=True))
     if isinstance(x, torch.Tensor):
         return NDArray(x.detach().to(target, non_blocking=True))
     if isinstance(x, np.ndarray):

@@ -108,14 +108,18 @@ def optimal_threshold_kl(hist, hist_edges, num_quantized_bins=255):
         p[0] += hist[:lo].sum()
         p[-1] += hist[hi:].sum()
         factor = p.size / num_quantized_bins
-        q = onp.zeros_like(p)
-        for j in range(num_quantized_bins):
-            start = int(round(j * factor))
-            stop = int(round((j + 1) * factor))
-            chunk = p[start:stop]
-            nz = (chunk != 0).sum()
-            if nz:
-                q[start:stop] = onp.where(chunk != 0, chunk.sum() / nz, 0)
+        # the quantized bins' bounds (Python's and NumPy's rounding are
+        # both half to even), each bin's sum and non-zero count from
+        # prefix sums: every count is an integer, so the sums are exact
+        # and ``q`` is the reference's loop's bit for bit
+        bounds = onp.round(onp.arange(num_quantized_bins + 1) * factor) \
+            .astype(onp.int64)
+        nonzero = p != 0
+        sums = onp.concatenate(([0.0], onp.cumsum(p)))
+        counts = onp.concatenate(([0], onp.cumsum(nonzero)))
+        nz = counts[bounds[1:]] - counts[bounds[:-1]]
+        means = (sums[bounds[1:]] - sums[bounds[:-1]]) / onp.maximum(nz, 1)
+        q = onp.where(nonzero, onp.repeat(means, onp.diff(bounds)), 0.0)
         p_sum, q_sum = p.sum(), q.sum()
         if p_sum == 0 or q_sum == 0:
             continue

@@ -13,13 +13,19 @@ while ``autograd.is_recording()`` (and the op is differentiable), and
 under ``torch.no_grad()`` otherwise: as in MXNet, only ops inside
 ``record()`` reach the tape, even on arrays with an attached gradient.
 The reference's three hooks of ``invoke`` are ported: while
-``mx.profiler`` runs with ``aggregate_stats`` each op's host time goes
-into its aggregate table (``profiler._hook``); under
+``mx.profiler`` runs each op runs inside a ``record_function`` range
+named after it and its caller's line (``profiler._run_op``; the trace
+parser ``profiler_trace`` attributes kernels to ops through these), and
+with ``aggregate_stats`` its host time goes into the aggregate table;
+under
 ``MXNET_ENGINE_TYPE=NaiveEngine`` each op synchronizes the card after it
 runs (``engine.naive_sync``); and while a ``symbol.capture()`` is active
 on the calling thread each op is recorded as one graph node
 (``_capture_get``, set by ``symbol/``; ``_captures`` counts the active
 captures of every thread, so with none the hook is one integer test).
+Each output takes the class of the first array argument, so an
+``mx.np`` array stays one through every op (a sparse one's outputs are
+dense ``NDArray``s).
 
 ``@op`` returns the NDArray-facing wrapper (``ops/defs.py``), or with
 ``wrap=False`` the tensor function itself, so the models keep calling
@@ -32,7 +38,6 @@ from __future__ import annotations
 
 import functools
 import inspect
-import time as _time
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
@@ -116,23 +121,21 @@ def invoke(opref: Op, array_args: Sequence, kwargs: dict, out=None):
     ``array_args`` are the tensor inputs, ``kwargs`` the static
     parameters.  With ``out=`` the result is rebound into that array."""
     from .. import autograd
-    from ..ndarray.ndarray import NDArray
+    from ..ndarray.ndarray import _out_class
 
     tensors = [_unwrap(a) for a in array_args]
-    # per-op aggregate stats while the profiler runs (the reference's
-    # ProfileOperator around each op)
-    prof = None
-    if _profiler is not None and _profiler._state["running"] and \
-            _profiler._config["aggregate_stats"]:
-        prof = _time.perf_counter()
     recording = autograd.is_recording() and opref.differentiable
-    with torch.enable_grad() if recording else torch.no_grad():
-        results = opref.fn(*tensors, **kwargs)
-    if prof is not None:
-        _profiler._hook(opref.name, _time.perf_counter() - prof)
+    if _profiler is not None and _profiler._state["running"]:
+        # the op's range on the timeline and its aggregate stats (the
+        # reference's ProfileOperator around each op)
+        results = _profiler._run_op(opref, tensors, kwargs, recording)
+    else:
+        with torch.enable_grad() if recording else torch.no_grad():
+            results = opref.fn(*tensors, **kwargs)
     multi = isinstance(results, (tuple, list))
     naive_sync(results if multi else [results])
-    outs = [NDArray(r) for r in (results if multi else [results])]
+    cls = _out_class(array_args)
+    outs = [cls(r) for r in (results if multi else [results])]
     if _captures:
         cap = _capture_get()
         if cap is not None:

@@ -18,18 +18,23 @@ table (``dumps(reset)``), ``set_state``/``state`` and the user domains
   ranges, so they appear on the timeline; ``Counter`` is a telemetry
   gauge ``profiler_counter{counter=}`` and ``Marker`` a telemetry event
   plus a zero-length range, as in the reference.
-- ``device_dumps(by="name"|"category")`` aggregates the last window's
-  device kernels: CUDA kernels, copies and sets when the window traced the
-  card; the host's operators when it traced the CPU alone.  The
-  reference's ``by="tf_op"``/``"source"`` parse its XLA trace
-  (``profiler_xla.py``), which has no counterpart yet: they raise.
+- While a window is open each ``mx.nd``/``mx.np`` op runs inside a
+  range named after it and its caller's line (``_run_op``).
+- ``device_dumps(by="tf_op"|"name"|"category"|"source")`` aggregates
+  the last window's device kernels, copies and sets (the host's
+  operators when it traced the CPU alone) through the trace parser
+  ``profiler_trace``, the counterpart of the reference's
+  ``profiler_xla.py``; ``"tf_op"``, the op that launched each kernel,
+  is the default, as in the reference.
 """
 from __future__ import annotations
 
 import atexit
 import json
 import os
+import shutil
 import threading
+import time
 from collections import defaultdict
 
 from .base import MXNetError
@@ -103,6 +108,25 @@ def _hook(name, dt):
             st.record(name, dt)
 
 
+def _run_op(opref, tensors, kwargs, recording):
+    """One op of ``invoke`` while the profiler runs: inside a
+    ``record_function`` range ``mx.op:<op>|<file>:<line>`` (the trace
+    parser's ``tf_op`` and ``source``), its host time into the aggregate
+    table with ``aggregate_stats``."""
+    import torch
+
+    from .profiler_trace import OP_RANGE, caller_source
+
+    t0 = time.perf_counter()
+    with torch.profiler.record_function(
+            f"{OP_RANGE}{opref.name}|{caller_source()}"), \
+            torch.enable_grad() if recording else torch.no_grad():
+        results = opref.fn(*tensors, **kwargs)
+    if _config["aggregate_stats"]:
+        _hook(opref.name, time.perf_counter() - t0)
+    return results
+
+
 def _activities():
     import torch
 
@@ -132,6 +156,7 @@ def start():
             profile_memory=bool(_config["profile_memory"]))
         prof.__enter__()
         _state["prof"] = prof
+        _drop_session()
         _state["running"] = True
         if _state["op_stats"] is None or not _state["paused"]:
             _state["op_stats"] = _OpStats()
@@ -196,71 +221,51 @@ def dumps(reset=False):
     return s
 
 
-_CATEGORIES = (("copy", ("memcpy", "memset", "copy")),
-               ("attention", ("flash_",)),
-               ("matmul", ("gemm", "xmma", "cutlass", "matmul", "mma")),
-               ("convolution", ("conv", "cudnn")),
-               ("reduction", ("reduce", "norm", "softmax")),
-               ("elementwise", ("elementwise", "vectorized", "unrolled")))
+def device_events():
+    """``(name, microseconds)`` of each device record of the last closed
+    window (``device_records``), under its kernel's full name."""
+    return [(r["long_name"], r["dur_us"]) for r in device_records()]
 
 
-def _category(name):
-    low = name.lower()
-    for cat, keys in _CATEGORIES:
-        if any(k in low for k in keys):
-            return cat
-    return "other"
+def _drop_session():
+    """Forget the exported trace of the last window (a new one opens)."""
+    d = _state.pop("session", None)
+    if d is not None:
+        shutil.rmtree(d, ignore_errors=True)
 
 
-def device_events(prof=None):
-    """``(name, microseconds)`` of each device event of a closed window
-    (the last one by default): its CUDA kernels, copies and sets when it
-    traced the card, else its top-level host operators."""
-    from torch.autograd import DeviceType
+def device_records():
+    """The last window's device records (``profiler_trace.parse_trace``
+    of its Chrome trace, exported once a window into a temporary
+    directory)."""
+    from . import profiler_trace
 
-    prof = prof if prof is not None else _state["last"]
-    if prof is None:
+    if _state["last"] is None:
         return []
-    evs = list(prof.events())
-    dev = [e for e in evs if e.device_type == DeviceType.CUDA]
-    if not dev:
-        dev = [e for e in evs if e.device_type == DeviceType.CPU and
-               e.cpu_parent is None and e.name.startswith("aten::")]
-    return [(e.name, float(e.time_range.elapsed_us())) for e in dev]
+    if _state.get("session") is None:
+        _state["session"] = profiler_trace.export_trace(_state["last"])
+    return profiler_trace.parse_trace(_state["session"])
 
 
-def device_dumps(by="name", peak_tflops=None, limit=30):
+def device_dumps(by="tf_op", peak_tflops=None, limit=30):
     """Per-kernel device-time table of the last ``start()``/``stop()``
-    window, by kernel ``"name"`` or by ``"category"`` (copy, attention,
-    matmul, convolution, reduction, elementwise, other).  ``"tf_op"`` and
-    ``"source"`` need a counterpart of the reference's XLA trace parser
-    and raise ``MXNetError``; ``peak_tflops`` is accepted and unused (a
-    kernel's operations are not in the trace)."""
-    if by in ("tf_op", "source"):
-        raise MXNetError(
-            f"device_dumps(by={by!r}) is not ported: it reads the "
-            "reference's XLA trace provenance (profiler_xla.py), whose "
-            "torch.profiler counterpart is queued; use by='name' or "
-            "'category'")
-    if by not in ("name", "category"):
-        raise ValueError(f"by={by!r}: expected one of 'name', 'category', "
-                         "'tf_op', 'source'")
-    rows = defaultdict(lambda: [0, 0.0])
-    for name, us in device_events():
-        key = name if by == "name" else _category(name)
-        rows[key][0] += 1
-        rows[key][1] += us
-    if not rows:
+    window (``profiler_trace``): by ``"tf_op"``, the registry op (or the
+    port's annotation around a graph replay) that launched each kernel;
+    ``"name"``, the kernel; ``"category"`` (copy, attention, matmul,
+    convolution, reduction, elementwise, other); ``"source"``, the
+    user's file:line that called the op.  A window that traced no
+    device tabulates the host's top-level operators."""
+    from . import profiler_trace
+
+    if by not in ("tf_op", "name", "category", "source"):
+        raise ValueError(f"by={by!r}: expected one of "
+                         "'tf_op', 'name', 'category', 'source'")
+    records = device_records()
+    if not records:
         return ""
-    tot = sum(v[1] for v in rows.values()) or 1.0
-    lines = [f"{'Op':<60}{'Calls':>8}{'Time(us)':>12}{'%':>7}", "-" * 87]
-    ordered = sorted(rows.items(), key=lambda kv: -kv[1][1])
-    for key, (n, us) in ordered[:limit]:
-        lines.append(f"{key[:59]:<60}{n:>8}{us:>12.1f}"
-                     f"{100.0 * us / tot:>7.1f}")
-    lines.append(f"{'TOTAL':<60}{sum(v[0] for v in rows.values()):>8}"
-                 f"{tot:>12.1f}{100.0:>7.1f}")
-    return "\n".join(lines)
+    return profiler_trace.format_table(
+        profiler_trace.aggregate(records, by=by), peak_tflops=peak_tflops,
+        limit=limit)
 
 
 def set_state(state="stop", profile_process="worker"):

@@ -8,8 +8,8 @@ package's, on the CPU.
 - ``Counter`` (a telemetry gauge shared by name), ``Marker`` (a telemetry
   event), ``Domain``, ``Scope``, ``Task``/``Frame``; ``set_config``
   refusing an unknown key; ``set_state``/``state``;
-- ``device_dumps(by="name"|"category")`` over the last window, and
-  ``by="tf_op"``/``"source"`` refused;
+- ``device_dumps(by="tf_op"|"name"|"category"|"source")`` over the
+  last window;
 - ``MXNET_ENGINE_TYPE=NaiveEngine``: ``engine_type``, and a small MLP's
   forward, loss, gradients and SGD step equal the threaded engine's bit
   for bit; ``bulk``/``set_bulk_size`` as the reference's.
@@ -108,9 +108,10 @@ def test_device_dumps_by_name_and_category(clean_profilers):
     by_name = pmx.profiler.device_dumps(by="name")
     assert "aten::mm" in by_name or "aten::matmul" in by_name
     assert "TOTAL" in pmx.profiler.device_dumps(by="category")
-    for by in ("tf_op", "source"):
-        with pytest.raises(pmx.MXNetError, match="not ported"):
-            pmx.profiler.device_dumps(by=by)
+    # tf_op (the default) names the registry op, source the caller's line
+    assert "dot" in pmx.profiler.device_dumps()
+    assert "test_torch_profiler_engine.py:" in \
+        pmx.profiler.device_dumps(by="source")
     with pytest.raises(ValueError):
         pmx.profiler.device_dumps(by="nope")
 
