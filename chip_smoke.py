@@ -351,13 +351,13 @@ Phases (each fails the run by raising; there is no CPU path):
    ``MXNET_FUSED_CONV_BWD=1``: K6 exactly 7 a backward, output and every
    gradient equal bit for bit to the model zoo's stage;
 21. the eighteenth slice, Gluon data and ``mx.io``: (1) an indexed
-   RecordIO file of 1,536 raw 256 x 256 x 3 uint8 images from a seed
-   (labels in [0, 1000)), about 300 MB in a temporary directory, read
+   RecordIO file of 1,024 raw 256 x 256 x 3 uint8 images from a seed
+   (labels in [0, 1000)), about 200 MB in a temporary directory, read
    back through the port byte for byte; (2) phase 16's ResNet-50 (NHWC,
    bf16, SGD with momentum and multi-precision, ``MXNET_FUSED_CONV_BWD=1``)
-   through ``gluon.Trainer.fused_step`` for one epoch of 12 steps fed by
+   through ``gluon.Trainer.fused_step`` for one epoch of 8 steps fed by
    ``DataLoader(RecordFileDataset(rec).transform(...), batch_size=128,
-   sampler=RandomSampler(1536, seed=21), last_batch="discard",
+   sampler=RandomSampler(1024, seed=21), last_batch="discard",
    num_workers=4, pin_memory=True, device=mx.gpu(), device_prefetch=2)``,
    each sample ``RandomCropAug(224)``, ``HorizontalFlipAug(0.5)``,
    ``CastAug``, ``ColorNormalizeAug`` (ImageNet's mean and std) on the
@@ -532,7 +532,26 @@ Phases (each fails the run by raising; there is no CPU path):
    with ``mx.sym.RNN``: the buckets share their weights, the losses are
    finite, ms a step a bucket; (4) the phase's seconds and the
    script's;
-28. one ``{"kernels": [...]}`` line, the card line, and as the last line
+28. the twenty-fifth slice, the NumPy interface: an ``mx.np`` ResNet-50
+   script, the ``mx.np`` case table card against CPU, the training
+   telemetry and ``quantize_net`` (the ``28.x`` lines);
+29. the twenty-sixth slice (``build/phase29/``): (1) ``mx.nd.cast`` and
+   ``mx.np``'s ``astype`` of f32 values out of range and NaN to int8,
+   uint8, int32 and int64 (they saturate, NaN to 0), and ``mx.np``'s
+   integer divisions by zero, card equal to CPU; (2) the C ABI library
+   (``_build.capi_library()``, g++) and two C hosts compiled at run
+   time: phase 27.2's bf16 GPT-2 small served at 8 x 1024 through
+   ``MXPredCreate(dev_type=2)`` by the C host and by a ctypes host in a
+   child Python process, both logits bit for bit with the in-process
+   ``Predictor`` (K1 12 a forward), ms a forward of each; (3) the C
+   training host (``tests/test_c_api.py``'s MLP) on ``dev_type`` 2, its
+   loss falling and its weights bit for bit with the ctypes host's; (4)
+   ResNet-50 v1 NHWC bf16 through ``gluon.Trainer(kvstore=
+   mx.kv.create("device"), update_on_kvstore=True)``, 3 steps bit for
+   bit with ``update_on_kvstore=False`` (K6 30 a step), the ``tpu`` and
+   ``dist_sync`` stores, and a 2-bit compressed push card equal to CPU;
+   the phase's seconds and the script's;
+30. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without CUDA, and when the package is not beside it.
@@ -5373,12 +5392,11 @@ def rtc_graph_replay(mod):
     return res
 
 
-def _mlp_data(rows, dtype, ctx):
-    """The MLP block's arrays from a seeded numpy Normal(0.02) (x, w1,
-    w2; zero biases) and a fixed random target (a per-column mean plus
-    0.1 noise), made on ``ctx`` in ``dtype``."""
+@functools.lru_cache(maxsize=None)
+def _mlp_host(rows):
+    """The MLP block's host values, drawn once a row count: phase 19.3
+    builds the block 90 times, and each draw took about half a second."""
     import numpy as np
-    import mxnet_tpu_torch as mx
 
     rs = np.random.RandomState(5)
     arrs = dict(x=rs.normal(0, 0.02, (rows, MLP_UNITS)),
@@ -5388,7 +5406,17 @@ def _mlp_data(rows, dtype, ctx):
                 b2=np.zeros(MLP_UNITS))
     arrs["t"] = rs.normal(0, 1, (1, MLP_UNITS)) + \
         0.1 * rs.normal(0, 1, (rows, MLP_UNITS))
-    return {k: mx.nd.array(v, ctx=ctx, dtype=dtype) for k, v in arrs.items()}
+    return arrs
+
+
+def _mlp_data(rows, dtype, ctx):
+    """The MLP block's arrays from a seeded numpy Normal(0.02) (x, w1,
+    w2; zero biases) and a fixed random target (a per-column mean plus
+    0.1 noise), made on ``ctx`` in ``dtype`` (fresh arrays each call)."""
+    import mxnet_tpu_torch as mx
+
+    return {k: mx.nd.array(v, ctx=ctx, dtype=dtype)
+            for k, v in _mlp_host(rows).items()}
 
 
 def _mlp_step(mx, p):
@@ -7324,7 +7352,7 @@ def check_hybrid(cfg, train_row):
 # phase 21: Gluon data and mx.io feeding ResNet-50, the eighteenth slice
 # --------------------------------------------------------------------------- #
 
-DATA_RECORDS = 1536          # 12 batches of 128
+DATA_RECORDS = 1024          # 8 batches of 128
 DATA_SIDE = 256              # raw HWC uint8 records, cropped to 224
 DATA_CROP = 224
 DATA_STEPS = DATA_RECORDS // RESNET_B
@@ -7435,11 +7463,12 @@ def _ring_counters():
 def data_fed_resnet(rec):
     """21.2 and 21.4: phase 16's ResNet-50 (NHWC, bf16, SGD with momentum
     and multi-precision, ``MXNET_FUSED_CONV_BWD=1``) through
-    ``gluon.Trainer.fused_step`` for one epoch of 12 steps fed by the
-    loader (4 worker threads, pinned staging, the ring on the card): 30
-    K6 nodes in the step graph, one capture, no phase-by-phase step,
-    losses finite, the first within 1.0 of ln(1000).  Then, not gated: ms
-    a step over steps 3-12 beside the same step fed one resident batch,
+    ``gluon.Trainer.fused_step`` for one epoch of ``DATA_STEPS`` steps fed
+    by the loader (4 worker threads, pinned staging, the ring on the
+    card): 30 K6 nodes in the step graph, one capture, no phase-by-phase
+    step, losses finite, the first within 1.0 of ln(1000).  Then, not
+    gated: ms a step over steps 3-``DATA_STEPS`` beside the same step fed
+    one resident batch,
     the same over a second fed epoch (the graph captured, the ring
     started empty) with its stalls, host ms a batch of the loader alone,
     the ring's stalls, the device's busy share over fed steps (another
@@ -7546,8 +7575,8 @@ def data_fed_resnet(rec):
             step(xb, yb)
 
     by_name, busy, wall_us = _profiled(fed_rest)
-    prof = report_profile("data resnet fed steps 3-12", by_name, busy,
-                          wall_us)
+    prof = report_profile(f"data resnet fed steps 3-{DATA_STEPS}", by_name,
+                          busy, wall_us)
     row = dict(losses=losses, fed_ms_per_step=fed_ms,
                resident_ms_per_step=resident_ms,
                fed_images_per_s=RESNET_B / fed_ms * 1e3,
@@ -12394,6 +12423,428 @@ def check_numpy_interface(cfg, gluon_row):
     return row
 
 
+# --------------------------------------------------------------------------- #
+# phase 29: the twenty-sixth slice: the parity faults F1 and F3 on the card,
+# the C ABI (capi_shim and its embedded-CPython library) serving GPT-2 small
+# and training the MLP host, and mx.kv with update_on_kvstore on ResNet-50
+# --------------------------------------------------------------------------- #
+
+CAPI_DIR = os.path.join(HERE, "build", "phase29")     # git-ignored
+CAPI_REPEATS = 3            # 29.2: forwards a host (eager, capture, replay)
+CAPI_TRAIN_STEPS = 40       # 29.3: tests/test_c_api.py's MLP loop
+CAPI_DEV_TYPE = 2           # 29.2-29.3: MXNet's device enum, 2 the card
+KV_STEPS = 3                # 29.4: ResNet-50 steps of each arm
+KV_COMP_N = 1 << 20         # 29.4: elements of the compressed push
+CAST_IN = [1.7, -1.7, 3e10, float("nan"), -1.0, 256.0, 300.5]
+DIV_A, DIV_B = [7, -7, 5, 0], [0, 2, 0, 0]
+
+
+def _capi_hosts():
+    """``tests/_torch_capi_hosts.py`` (the C hosts' sources and the
+    ctypes host, JAX-free), loaded from its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_torch_capi_hosts", os.path.join(HERE, "tests",
+                                          "_torch_capi_hosts.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def faults_on_card():
+    """29.1: F1's float-to-integer casts (``mx.nd.cast`` and ``mx.np``'s
+    ``astype``) and F3's integer divisions by zero, card against CPU,
+    equal; the CPU side equals the reference's values (ROADMAP §3)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+
+    x = np.array(CAST_IN, np.float32)
+    a, b = np.array(DIV_A, np.int32), np.array(DIV_B, np.int32)
+    want = {"floor_divide": [-2, -4, -2, -1], "mod": [0, 1, 0, 0],
+            "remainder": [0, 1, 0, 0], "fmod": [0, -1, 0, 0]}
+    rows, bad = [], []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        out = {}
+        for dt in ("int8", "uint8", "int32", "int64"):
+            out[f"cast {dt}"] = mx.nd.cast(mx.nd.array(x, ctx=ctx),
+                                           dtype=dt).asnumpy()
+            out[f"astype {dt}"] = mx.np.array(x, ctx=ctx).astype(dt) \
+                .asnumpy()
+        for fn in want:
+            out[fn] = getattr(mx.np, fn)(mx.np.array(a, ctx=ctx),
+                                         mx.np.array(b, ctx=ctx)).asnumpy()
+        rows.append(out)
+    cpu, gpu = rows
+    for k in cpu:
+        if not (cpu[k].dtype == gpu[k].dtype and
+                np.array_equal(cpu[k], gpu[k])):
+            bad.append(k)
+    for fn, v in want.items():
+        if cpu[fn].tolist() != v:
+            bad.append(f"{fn} (cpu {cpu[fn].tolist()})")
+    print(f"29.1 casts and divisions: {CAST_IN} -> int8 "
+          f"{gpu['cast int8'].tolist()}, uint8 {gpu['cast uint8'].tolist()}, "
+          f"int32 {gpu['cast int32'].tolist()}, int64 "
+          f"{gpu['cast int64'].tolist()} on the card; "
+          f"{DIV_A} // {DIV_B} {gpu['floor_divide'].tolist()}, mod "
+          f"{gpu['mod'].tolist()}, fmod {gpu['fmod'].tolist()}; card equals "
+          f"CPU in {len(cpu) - len(bad)} of {len(cpu)}", flush=True)
+    if bad:
+        fail(f"29.1: the card and the CPU part, or the CPU parts from the "
+             f"reference: {bad}")
+    return dict(card={k: v.tolist() for k, v in gpu.items()}, equal=True)
+
+
+def _gpt2_files(mx, cfg):
+    """Phase 27.2's bf16 GPT-2 small export (``build/phase27/gpt2``),
+    written again the same way where this run has none."""
+    p16 = os.path.join(_sym_dir(), "gpt2")
+    if not os.path.exists(p16 + "-0000.params"):
+        gpu = mx.gpu(0)
+        mx.random.seed(0)
+        net = _hf_gpt(mx, cfg.num_layers, 0.0, "float32", gpu, seed=0)
+        tok, pos, _ = _hf_batch(mx, HF_B, gpu)
+        net(tok, pos)
+        net.cast("bfloat16")
+        net(tok, pos)
+        net.export(p16)
+        del net
+    return p16
+
+
+def _train_symbol(mx, path):
+    """``tests/test_c_api.py``'s training MLP as a symbol file."""
+    hosts = _capi_hosts()
+    data, label = mx.sym.Variable("data"), mx.sym.Variable("label")
+    w1, b1 = mx.sym.Variable("w1"), mx.sym.Variable("b1")
+    w2, b2 = mx.sym.Variable("w2"), mx.sym.Variable("b2")
+    h = mx.sym.Activation(mx.sym.FullyConnected(data, w1, b1,
+                                                num_hidden=hosts.H),
+                          act_type="relu")
+    out = mx.sym.FullyConnected(h, w2, b2, num_hidden=hosts.NC)
+    loss = mx.sym.softmax_cross_entropy(out, label) / float(hosts.B)
+    loss.save(path)
+    return path
+
+
+def capi_gpt2(cfg):
+    """29.2 and 29.3: the port's C ABI library (``_build.capi_library()``,
+    g++), a C program and a ctypes host in a child Python process.
+    29.2: phase 27.2's bf16 GPT-2 small files served at 8 x 1024 through
+    ``MXPredCreate(dev_type=2)``: the C host's logits equal the in-process
+    ``Predictor``'s on the same files and float32 inputs bit for bit, and
+    so do the ctypes host's, whose K1 launches are 12 a forward; ms a
+    forward of each beside the in-process one.  29.3: the C training host
+    (the MLP of ``tests/test_c_api.py``) on ``dev_type`` 2: its loss falls
+    and its weights equal the same calls through ctypes on the card bit
+    for bit.  The hosts see torch's default GEMM settings, so the
+    in-process Predictor runs with them too."""
+    import subprocess as sp
+
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.gluon.block import _launch_counts
+
+    hosts = _capi_hosts()
+    os.makedirs(CAPI_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    lib = _build.capi_library()
+    flags = _build.capi_link_flags()
+    pexe = hosts.compile_host(hosts.PREDICT_HOST,
+                              os.path.join(CAPI_DIR, "predict"), flags)
+    texe = hosts.compile_host(hosts.TRAIN_HOST,
+                              os.path.join(CAPI_DIR, "train"), flags)
+    build_s = time.perf_counter() - t0
+    env = _build.capi_env()
+    gpu = mx.gpu(0)
+    p16 = _gpt2_files(mx, cfg)
+    tok, pos, _ = _hf_batch(mx, HF_B, gpu)
+    ins = [("data0", tok.asnumpy().astype(np.float32)),
+           ("data1", pos.asnumpy().astype(np.float32))]
+    in_path = os.path.join(CAPI_DIR, "gpt2.in")
+    specs, off = [], 0
+    with open(in_path, "wb") as f:
+        for n, a in ins:
+            f.write(a.tobytes())
+            specs.append((n, list(a.shape), off))
+            off += a.nbytes
+    L = cfg.num_layers
+
+    # the in-process Predictor with torch's default bf16 GEMM reduction
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    torch.cuda.empty_cache()
+    try:
+        pred = mx.predictor.Predictor(p16 + "-symbol.json",
+                                      p16 + "-0000.params",
+                                      {n: a.shape for n, a in ins}, ctx=gpu)
+        before = _launch_counts()["flash_fwd"]
+        pred_ms, host_ms = [], []
+        for _ in range(CAPI_REPEATS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = pred.forward(**dict(ins))[0]._data
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ref = out.float().cpu()
+            t3 = time.perf_counter()
+            pred_ms.append((t2 - t1) * 1e3)
+            host_ms.append((t3 - t1) * 1e3)
+        # the capture counted the kernels it recorded; the graph ran
+        # them in each of its replays
+        pred_k1 = _launch_counts()["flash_fwd"] - before + \
+            pred._prog.launches.get("flash_fwd", 0) * (
+                pred._prog.replays - 1)
+        del pred, out
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    torch.cuda.empty_cache()
+
+    # the C host alone (its times), then the ctypes host beside the C
+    # training host
+    c_out = os.path.join(CAPI_DIR, "gpt2.c.out")
+    t1 = time.perf_counter()
+    proc = sp.run([pexe, p16 + "-symbol.json", p16 + "-0000.params",
+                   str(CAPI_DEV_TYPE),
+                   in_path, c_out, str(CAPI_REPEATS),
+                   *[hosts.shape_arg(n, a.shape) for n, a in ins]],
+                  capture_output=True, text=True, env=env, timeout=600)
+    c_s = time.perf_counter() - t1
+    if proc.returncode or "C_PREDICT_OK" not in proc.stdout:
+        fail(f"29.2: the C host failed (rc {proc.returncode}):\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    c_ms = [float(ln.split("=")[1]) for ln in proc.stdout.splitlines()
+            if ln.startswith("forward_ms=")]
+    got = torch.from_numpy(np.fromfile(c_out, np.float32)).reshape(
+        ref.shape)
+    c_equal = bool(torch.equal(got, ref))
+    del got
+    os.remove(c_out)
+    sym_train = _train_symbol(mx, os.path.join(CAPI_DIR,
+                                               "train-symbol.json"))
+    t_out = os.path.join(CAPI_DIR, "train.c.params")
+    k_out = os.path.join(CAPI_DIR, "train.ctypes.params")
+    y_out = os.path.join(CAPI_DIR, "gpt2.ctypes.out")
+    t1 = time.perf_counter()
+    tproc = sp.Popen([texe, sym_train, str(CAPI_DEV_TYPE),
+                      str(CAPI_TRAIN_STEPS), t_out],
+                     stdout=sp.PIPE, stderr=sp.PIPE, text=True, env=env)
+    try:
+        child = hosts.run_child(lib, {"jobs": [
+            dict(kind="predict", name="gpt2", symbol=p16 + "-symbol.json",
+                 params=p16 + "-0000.params", dev_type=CAPI_DEV_TYPE,
+                 inputs=in_path,
+                 specs=specs, out=y_out, repeats=CAPI_REPEATS),
+            dict(kind="train", name="train", symbol=sym_train,
+                 dev_type=CAPI_DEV_TYPE, steps=CAPI_TRAIN_STEPS,
+                 out=k_out)]}, env=env)
+    except Exception as e:              # noqa: BLE001
+        tproc.kill()
+        fail(f"29.2: the ctypes host failed: {e}")
+    tstdout, tstderr = tproc.communicate(timeout=600)
+    pair_s = time.perf_counter() - t1
+    got = torch.from_numpy(np.fromfile(y_out, np.float32)).reshape(
+        ref.shape)
+    y_equal = bool(torch.equal(got, ref))
+    del got, ref
+    os.remove(y_out)
+    y_k1 = child["gpt2"]["launches"].get("flash_fwd", 0)
+    if tproc.returncode or "C_TRAIN_OK" not in tstdout:
+        fail(f"29.3: the C training host failed (rc {tproc.returncode}):\n"
+             f"{tstdout[-2000:]}\n{tstderr[-3000:]}")
+    first = float(tstdout.split("first_loss=")[1].split()[0])
+    last = float(tstdout.split("last_loss=")[1].split()[0])
+    step_ms = float(tstdout.split("step_ms=")[1].split()[0])
+    with mx.cpu():
+        cw = {k: v.asnumpy() for k, v in mx.nd.load(t_out).items()}
+        kw = {k: v.asnumpy() for k, v in mx.nd.load(k_out).items()}
+    w_equal = set(cw) == set(kw) and all(np.array_equal(cw[k], kw[k])
+                                         for k in cw)
+    k_losses = child["train"]["losses"]
+    card = card_line()
+    print(f"29.2 C ABI: libmxtpu_torch_capi and two hosts built by g++ in "
+          f"{build_s:.2f} s; phase 27.2's GPT-2 small (bf16, {L} layers) "
+          f"served at {HF_B} x {HF_T} through MXPredCreate(dev_type=2): the "
+          f"C host's logits equal the in-process Predictor's bit for bit "
+          f"{c_equal}, the ctypes host's {y_equal} (K1 {y_k1} launches in "
+          f"{CAPI_REPEATS} forwards; in-process {pred_k1}); ms a forward "
+          f"(eager, capture, replay): C host {[round(v, 3) for v in c_ms]} "
+          f"(with the f32 logits to the host), ctypes host "
+          f"{[round(v, 3) for v in child['gpt2']['ms']]}, in-process "
+          f"Predictor {[round(v, 3) for v in pred_ms]} (with the logits to "
+          f"the host {[round(v, 3) for v in host_ms]}); the C host's "
+          f"process {c_s:.2f} s; {card}", flush=True)
+    print(f"29.3 C training host: the MLP on dev_type 2, "
+          f"{CAPI_TRAIN_STEPS} SGD steps in C, loss {first:.6f} -> "
+          f"{last:.6f}, {step_ms:.3f} ms a step; weights equal the ctypes "
+          f"host's on the card bit for bit {w_equal} (ctypes losses "
+          f"{k_losses[0]:.6f} -> {k_losses[-1]:.6f}); both hosts "
+          f"{pair_s:.2f} s; {card}", flush=True)
+    if not (c_equal and y_equal):
+        fail(f"29.2: logits part from the in-process Predictor's: C host "
+             f"{c_equal}, ctypes host {y_equal}")
+    if y_k1 != L * CAPI_REPEATS or pred_k1 != L * CAPI_REPEATS:
+        fail(f"29.2: K1 launched {y_k1} (ctypes) and {pred_k1} "
+             f"(in-process) times in {CAPI_REPEATS} forwards, expected "
+             f"{L} a forward")
+    if not (last < first and w_equal and k_losses[-1] < k_losses[0]):
+        fail(f"29.3: the loss did not fall ({first} -> {last}) or the C "
+             f"and ctypes weights differ ({w_equal})")
+    return dict(build_s=build_s, c_equal=c_equal, ctypes_equal=y_equal,
+                c_ms=c_ms, ctypes_ms=child["gpt2"]["ms"],
+                predictor_ms=pred_ms, predictor_host_ms=host_ms,
+                c_process_s=c_s, train=dict(first=first, last=last,
+                                            step_ms=step_ms,
+                                            weights_equal=w_equal,
+                                            ctypes_losses=k_losses),
+                launches={"flash_fwd": y_k1 + pred_k1})
+
+
+def kv_resnet(rows):
+    """29.4: phase 16's ResNet-50 (NHWC, bf16, ``MXNET_FUSED_CONV_BWD=1``)
+    through ``gluon.Trainer(..., "sgd", RESNET_OPT, kvstore=
+    mx.kv.create("device"), update_on_kvstore=True)`` for ``KV_STEPS``
+    steps, its weights and running statistics bit for bit with
+    ``update_on_kvstore=False`` on the same batches from the same seeded
+    weights, K6 30 a step in each arm; ms a step beside phases 16 and 18.
+    Then ``create("tpu")``/``create("dist_sync")`` with one worker, and a
+    2-bit compressed push on the card equal to the CPU's, values and
+    residual."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import conv_fused as cf
+
+    os.environ["MXNET_FUSED_CONV_BWD"] = "1"
+    data, label = _resnet_batch()
+    x, y = mx.nd.NDArray(data), mx.nd.NDArray(label)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    arms = {}
+    for arm, kw in (("kvstore", dict(kvstore=mx.kv.create("device"),
+                                     update_on_kvstore=True)),
+                    ("local", dict(kvstore="device",
+                                   update_on_kvstore=False))):
+        mx.random.seed(29)
+        net = _gluon_resnet50(mx)
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                dict(RESNET_OPT), **kw)
+        cf.conv1x1_bwd_pair.launches = 0
+        losses, marks = [], []
+        for _ in range(KV_STEPS):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(RESNET_B)
+            losses.append(float(loss._data.detach().float().mean()))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        arms[arm] = dict(
+            losses=losses, k6=cf.conv1x1_bwd_pair.launches,
+            ms_per_step=(marks[-1] - marks[1]) / (KV_STEPS - 1) * 1e3,
+            first_step_ms=(marks[1] - marks[0]) * 1e3,
+            store=trainer._kvstore is not None,
+            on_kv=bool(trainer._update_on_kvstore),
+            weights={k: p.data()._data.clone() for k, p in
+                     net._collect_params_with_prefix().items()})
+        del net, trainer, loss
+        torch.cuda.empty_cache()
+    kv, lo = arms["kvstore"], arms["local"]
+    differ = [k for k in kv["weights"]
+              if not torch.equal(kv["weights"][k], lo["weights"][k])]
+    n_w = len(kv["weights"])
+    for a in arms.values():
+        del a["weights"]
+    types = {}
+    for name in ("tpu", "dist_sync"):
+        s = mx.kv.create(name)
+        types[name] = (s.type, s.rank, s.num_workers)
+    g = torch.Generator().manual_seed(29)
+    grads = [torch.randn(KV_COMP_N, generator=g) * 0.6 for _ in range(3)]
+    comp = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        s = mx.kv.create("dist_sync")
+        s.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        s.init(0, mx.nd.zeros((KV_COMP_N,), ctx=ctx))
+        outs = []
+        for gr in grads:
+            o = mx.nd.zeros((KV_COMP_N,), ctx=ctx)
+            s.pushpull(0, mx.nd.NDArray(gr.to(o._data.device)), out=o)
+            outs.append(o._data.cpu())
+        comp[ctx.device_type] = (outs, s._compression._residual["0"].cpu())
+    comp_equal = all(torch.equal(a, b) for a, b in
+                     zip(comp["cpu"][0], comp["gpu"][0])) and \
+        torch.equal(comp["cpu"][1], comp["gpu"][1])
+    levels = sorted(set(torch.cat(comp["gpu"][0]).unique().tolist()))
+    card = card_line()
+    print(f"29.4 kvstore resnet: resnet50_v1 NHWC bf16 B={RESNET_B} through "
+          f"gluon.Trainer(sgd, kvstore=mx.kv.create('device'), "
+          f"update_on_kvstore=True), {KV_STEPS} steps: losses "
+          f"{[round(v, 4) for v in kv['losses']]}, K6 {kv['k6']} "
+          f"({kv['k6'] // KV_STEPS} a step), {kv['ms_per_step']:.3f} ms a "
+          f"step "
+          f"(first {kv['first_step_ms']:.3f}); update_on_kvstore=False "
+          f"{[round(v, 4) for v in lo['losses']]}, K6 {lo['k6']}, "
+          f"{lo['ms_per_step']:.3f} ms a step; weights and running "
+          f"statistics differing {len(differ)} of {n_w}; beside phase 16's "
+          f"Gluon step {rows['gluon'].get('ms_per_step', float('nan')):.3f} "
+          f"and phase 18's fused step "
+          f"{rows['fused'].get('ms_per_step', float('nan')):.3f} ms; {card}",
+          flush=True)
+    print(f"29.4 kvstore types: {types}; a 2-bit compressed push of "
+          f"{KV_COMP_N} elements x {len(grads)} on the card equals the "
+          f"CPU's (values and residual) {comp_equal}, levels {levels}; "
+          f"{card}", flush=True)
+    if not (kv["store"] and kv["on_kv"]) or lo["store"] or lo["on_kv"]:
+        fail(f"29.4: the arms' stores are wrong: {kv['store']} "
+             f"{kv['on_kv']} / {lo['store']} {lo['on_kv']}")
+    if differ or kv["losses"] != lo["losses"]:
+        fail(f"29.4: update_on_kvstore parts from the local update: "
+             f"{len(differ)} arrays ({differ[:4]}), losses {kv['losses']} "
+             f"vs {lo['losses']}")
+    if kv["k6"] != K6_PER_STEP * KV_STEPS or lo["k6"] != kv["k6"]:
+        fail(f"29.4: K6 launched {kv['k6']} / {lo['k6']} times, expected "
+             f"{K6_PER_STEP * KV_STEPS} each")
+    if not all(np.isfinite(kv["losses"])):
+        fail(f"29.4: losses {kv['losses']}")
+    if types != {"tpu": ("tpu", 0, 1), "dist_sync": ("dist_sync", 0, 1)} \
+            or not comp_equal or levels != [-0.5, 0.0, 0.5]:
+        fail(f"29.4: store types {types}, compression equal {comp_equal}, "
+             f"levels {levels}")
+    return dict(arms=arms, differing=len(differ), types=types,
+                compression_equal=comp_equal,
+                launches={"conv1x1_bwd": kv["k6"] + lo["k6"]})
+
+
+def check_slice26(cfg, rows):
+    """Phase 29: 29.1-29.4, with the phase's seconds."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    faults = faults_on_card()
+    t1 = time.perf_counter()
+    capi = capi_gpt2(cfg)
+    t2 = time.perf_counter()
+    kv = kv_resnet(rows)
+    secs = time.perf_counter() - t0
+    print(f"phase 29: {secs:.2f} s (29.1 {t1 - t0:.2f}, 29.2-29.3 "
+          f"{t2 - t1:.2f}, 29.4 {time.perf_counter() - t2:.2f}); the script "
+          f"so far {time.perf_counter() - T_START:.2f} s", flush=True)
+    return dict(faults=faults, capi=capi, kv=kv, seconds=secs,
+                launches=dict(flash_fwd=capi["launches"]["flash_fwd"],
+                              conv1x1_bwd=kv["launches"]["conv1x1_bwd"]))
+
+
 def main():
     try:
         import torch
@@ -12523,6 +12974,8 @@ def main():
     vision26 = check_vision_breadth(fused_train["resnet"])
     sym27 = check_symbolic(cfg, fused_train["resnet"])
     np28 = check_numpy_interface(cfg, gluon["resnet"])
+    s29 = check_slice26(cfg, dict(gluon=gluon["resnet"],
+                                  fused=fused_train["resnet"]))
 
     # the kernels line, the card's line and the result
     gelu = next(c for c in rtc["cases"]
@@ -12581,6 +13034,9 @@ def main():
              verify_library_ms=k4["verify"]["library_ms"],
              verify_bound_ms=k4["verify"]["bound_ms"],
              design=k4["design"]["design"]),
+        # K1: its launches those of every GPT-2 training, serving and
+        # export path, phase 29.2's in-process Predictor and its ctypes
+        # host among them (the C host's own are not observable)
         dict(name="flash_fwd", route="cuda",
              source="mxnet_tpu_torch/csrc/flash_fwd.cu",
              replaces="mxnet_tpu/ops/attention.py:226",
@@ -12592,7 +13048,8 @@ def main():
              served["faults"]["launches"]["flash_fwd"] +
              served["faults"]["sync"]["launches"]["flash_fwd"] +
              runtime["launches"]["flash_fwd"] +
-             sym27["launches"]["flash_fwd"] + np28["launches"]["flash_fwd"],
+             sym27["launches"]["flash_fwd"] + np28["launches"]["flash_fwd"] +
+             s29["launches"]["flash_fwd"],
              max_abs_err=max(r["max_abs_err"] for r in k1), ms=k1[0]["ms"],
              plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
              bound_by=k1[0]["bound_by"], library_ms=k1[0]["library_ms"],
@@ -12624,8 +13081,9 @@ def main():
         # 18, and LARS through fused_step, phase 19.2; replays count by
         # the graph's launches), of phase 20.4's hybrid_forward stage, of
         # phase 21's loader-fed epoch, of phase 22's SSD, of phase 24.1's
-        # aggregated-update loop, of phase 26.2's two Estimator fits and of
-        # phase 27.1's Module.fit (f32)
+        # aggregated-update loop, of phase 26.2's two Estimator fits, of
+        # phase 27.1's Module.fit (f32), of phase 28.1's two arms and of
+        # phase 29.4's two Trainer arms (update_on_kvstore and local)
         dict(name="conv1x1_bwd", route="cuda",
              source="mxnet_tpu_torch/csrc/conv1x1_bwd.cu",
              replaces="mxnet_tpu/ops/conv_fused.py:134",
@@ -12638,7 +13096,8 @@ def main():
              corpus["launches"]["conv1x1_bwd"] +
              vision26["launches"]["conv1x1_bwd"] +
              sym27["launches"]["conv1x1_bwd"] +
-             np28["launches"]["conv1x1_bwd"],
+             np28["launches"]["conv1x1_bwd"] +
+             s29["launches"]["conv1x1_bwd"],
              max_abs_err=k6["max_abs_err"], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], library_ms=k6["library_ms"],
@@ -12701,7 +13160,7 @@ def main():
                        hybrid=hybrid, data=data, detection=det,
                        sequence=seq, corpus=corpus, runtime=runtime,
                        vision_breadth=vision26, symbolic=sym27,
-                       numpy_interface=np28,
+                       numpy_interface=np28, slice26=s29,
                        kernels=kernels),
                   fh, indent=1, default=str)
     print(f"chip_smoke: {time.perf_counter() - T_START:.2f} s in all",

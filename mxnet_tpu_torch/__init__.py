@@ -47,7 +47,10 @@ symbolic surface: ``sym`` (graphs, capture, the ``Executor``),
 with ``runtime``, the trace parser ``profiler_trace`` behind
 ``profiler.device_dumps(by="tf_op")``, the trainer's memory ledger and
 the fused step's telemetry, and ``contrib.quantization``'s
-``quantize_net``.
+``quantize_net``.  The twenty-sixth is ``kv`` (``kvstore`` on one
+process, with ``gluon.Trainer``'s ``update_on_kvstore``) and the C ABI
+(``capi_shim`` and its embedded-CPython library, built by
+``_build.capi_library()``).
 """
 __version__ = "0.1.0"
 
@@ -62,7 +65,8 @@ _SUBPACKAGES = ("ops", "models", "serve", "gluon", "optimizer", "parallel",
                 "amp", "checkpoint", "engine", "profiler", "metric",
                 "symbol", "module", "model", "callback", "name",
                 "visualization", "test_utils", "predictor", "util",
-                "runtime", "contrib", "profiler_trace", "base")
+                "runtime", "contrib", "profiler_trace", "base",
+                "kvstore", "capi_shim")
 # names of the imperative core, taken from the module that holds them
 _FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
          "cpu": ("context", "cpu"),
@@ -75,7 +79,7 @@ _FROM = {"nd": ("ndarray", None), "init": ("initializer", None),
          "sym": ("symbol", None), "mod": ("module", None),
          "viz": ("visualization", None),
          "np": ("numpy", None), "npx": ("numpy_extension", None),
-         "AttrScope": ("name", "AttrScope")}
+         "AttrScope": ("name", "AttrScope"), "kv": ("kvstore", None)}
 
 __all__ = ["MXNetError", "resolve_device", *_SUBPACKAGES, *_FROM]
 

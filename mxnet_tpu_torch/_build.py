@@ -9,6 +9,13 @@ source, so an edited kernel rebuilds and a stale library is never
 loaded.  Nothing here runs at import time: the first wrapper call on a
 CUDA tensor builds (or finds) its library.  A build or load failure
 raises ``MXNetError``; there is no fallback.
+
+``capi_library()`` builds the C ABI (``native/mxtpu_c_api.cc``, host
+C++ that embeds CPython, no CUDA) with ``g++`` and the running
+interpreter's include and link flags into
+``build/capi/<hash>/libmxtpu_torch_capi.so``; ``capi_link_flags()`` and
+``capi_env()`` give a C host the flags it links with and the
+environment its embedded interpreter needs.
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["KERNELS", "nvcc_command", "build", "load", "check"]
+__all__ = ["KERNELS", "nvcc_command", "build", "load", "check",
+           "capi_command", "capi_library", "capi_link_flags", "capi_env"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -134,3 +142,80 @@ def check(lib, err: int, what: str) -> None:
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
         raise MXNetError(f"{what} kernel launch failed: cudaError_t {err} "
                          f"({fn(err).decode(errors='replace')})")
+
+
+# ---------------------------------------------------------------------- #
+# the C ABI library (host C++, built by g++)
+# ---------------------------------------------------------------------- #
+
+CAPI_SRC = Path(__file__).resolve().parent / "native" / "mxtpu_c_api.cc"
+CAPI_NAME = "mxtpu_torch_capi"      # not the reference's libmxtpu_capi
+
+
+def _python_flags():
+    """(compile flags, link flags) of the running interpreter, as the
+    reference's ``native/Makefile`` takes them from ``sysconfig``."""
+    import sysconfig
+
+    libdir = sysconfig.get_config_var("LIBDIR")
+    inc = ["-I" + sysconfig.get_paths()["include"]]
+    link = [f"-L{libdir}", "-lpython" + sysconfig.get_config_var(
+        "LDVERSION"), f"-Wl,-rpath,{libdir}"]
+    return inc, link
+
+
+def capi_command(out):
+    """The ``g++`` line the C ABI library is built with."""
+    inc, link = _python_flags()
+    return ["g++", "-O2", "-fPIC", "-std=c++17", "-Wall", *inc,
+            str(CAPI_SRC), "-o", str(out), "-shared", *link]
+
+
+def capi_library() -> Path:
+    """The C ABI library, built at first use (``g++``, no ``nvcc``) into
+    a directory named by the hash of its source and build line, so an
+    edit rebuilds and a stale library is never linked."""
+    h = hashlib.sha256(CAPI_SRC.read_bytes())
+    h.update(" ".join(capi_command("out")).encode())
+    target = BUILD_DIR.parent / "capi" / h.hexdigest()[:16] / \
+        f"lib{CAPI_NAME}.so"
+    with _lock:
+        if not target.exists():
+            target.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
+            os.close(fd)
+            proc = subprocess.run(capi_command(tmp), capture_output=True,
+                                  text=True)
+            if proc.returncode:
+                os.unlink(tmp)
+                raise MXNetError("g++ failed on the C ABI library:\n"
+                                 + proc.stderr[-4000:])
+            os.replace(tmp, target)
+    return target
+
+
+def capi_link_flags():
+    """The flags a C or C++ host links the C ABI library with."""
+    lib = capi_library()
+    return [f"-L{lib.parent}", f"-l{CAPI_NAME}", f"-Wl,-rpath,{lib.parent}"]
+
+
+def capi_env(base=None) -> dict:
+    """The environment of a standalone C host: its embedded interpreter
+    finds this repository and the running interpreter's packages (torch)
+    on ``PYTHONPATH``, and the standard library under ``PYTHONHOME``
+    where the running interpreter is a venv's."""
+    import site
+    import sys
+
+    env = dict(os.environ if base is None else base)
+    paths = [str(Path(__file__).resolve().parent.parent)]
+    paths += [p for p in site.getsitepackages() + [site.getusersitepackages()]
+              if os.path.isdir(p)]
+    paths += [p for p in sys.path if p.endswith("-packages")
+              and os.path.isdir(p) and p not in paths]
+    old = env.get("PYTHONPATH")
+    env["PYTHONPATH"] = os.pathsep.join(paths + ([old] if old else []))
+    if sys.prefix != sys.base_prefix:
+        env["PYTHONHOME"] = sys.base_prefix
+    return env

@@ -17,12 +17,15 @@ import torch
 
 __all__ = ["MXNetError", "torch_dtype", "dtype_name", "numeric_types",
            "integer_types", "string_types", "mx_real_t", "register_env",
+           "WIDE_UNSIGNED", "int_result_type",
            "get_env", "env_truthy", "parse_seconds", "is_naive_engine"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64,
            "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
            "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+           "uint16": torch.uint16, "uint32": torch.uint32,
+           "uint64": torch.uint64,
            "complex64": torch.complex64, "complex128": torch.complex128}
 _NAMES = {v: k for k, v in _DTYPES.items()}
 
@@ -52,6 +55,27 @@ def torch_dtype(dtype):
     if name not in _DTYPES:
         raise MXNetError(f"unsupported dtype {dtype!r}")
     return _DTYPES[name]
+
+
+# torch keeps these types but computes almost nothing in them
+WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
+_UNSIGNED = (torch.uint8,) + WIDE_UNSIGNED
+
+
+def int_result_type(dtypes):
+    """JAX's promotion of integer types, 64-bit types as 32-bit: mixed
+    signedness takes a signed type wider than the unsigned one (int32 +
+    uint32 is int32), and ``None`` for no integer type."""
+    u = i = 0
+    for d in dtypes:
+        if d in _UNSIGNED:
+            u = max(u, torch.iinfo(d).bits)
+        elif d != torch.bool and not (d.is_floating_point or d.is_complex):
+            i = max(i, torch.iinfo(d).bits)
+    if not (u or i):
+        return None
+    bits = u if not i else (i if i > u else 2 * u)
+    return getattr(torch, f"{'u' if u and not i else ''}int{min(bits, 32)}")
 
 
 def dtype_name(dtype) -> str:

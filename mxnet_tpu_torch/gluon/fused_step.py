@@ -284,7 +284,10 @@ class FusedStep:
                     for b in batch]
         if batch_size is None:
             batch_size = nd_batch[0].shape[0] if nd_batch[0].shape else 1
-        if not (fused_step_enabled() and tr._optimizer._fusable):
+        if not (fused_step_enabled() and tr._optimizer._fusable) or \
+                tr._uses_store():
+            # a kvstore's reduction or its optimizer runs between the
+            # phases: the phase-by-phase step, same semantics
             return self._legacy(nd_batch, batch_size)
         if not self._built or self._generation != generation():
             self._build(nd_batch)

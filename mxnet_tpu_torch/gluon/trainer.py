@@ -54,7 +54,19 @@ under ``train.opt_states``, set once every parameter and state exists
 accumulator ring under ``train.grad_accum``.  ``release_accounting()``
 drops them all; it runs when the trainer is collected, too.
 
-Kvstores other than the local ones and ``data_sharding`` raise
+A kvstore (a type name or a ``kvstore.KVStore``) works as in the
+reference (``_init_kvstore``, at the first step): ``update_on_kvstore``
+defaults to true for the ``dist`` types, whose store then runs the
+optimizer at each push (one wave over every trainable parameter) and
+the step pulls the updated weights back into the parameters in place;
+otherwise a local type skips the store (one card holds one copy of
+each parameter), and a ``KVStore`` object or a ``dist`` type with
+``update_on_kvstore=False`` sums each gradient through ``pushpull``.
+``compression_params`` turn on the store's gradient compression.  With
+``update_on_kvstore``, ``allreduce_grads()`` and ``update()`` raise,
+``save_states``/``load_states`` go through the store, and
+``fused_step`` runs the phase-by-phase step (same semantics).  A
+kvstore needs Gluon ``Parameter``s; ``data_sharding`` raises
 ``MXNetError``.
 """
 from __future__ import annotations
@@ -73,13 +85,7 @@ from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
 
-_LOCAL_KVSTORES = (None, "", "device", "local")
 _trainer_seq = itertools.count()
-
-
-def _later(what):
-    return MXNetError(f"Trainer: {what} is not ported yet; it comes with a "
-                      "later slice of mxnet_tpu_torch")
 
 
 def _param_list(params):
@@ -140,12 +146,21 @@ class Trainer:
         self._update_interval = int(update_interval)
         if self._update_interval < 1:
             raise MXNetError("update_interval must be >= 1")
-        if kvstore not in _LOCAL_KVSTORES or update_on_kvstore or \
-                compression_params:
-            raise _later("a kvstore")
+        self._kv_type = kvstore
+        self._compression_params = compression_params
+        self._update_on_kvstore = update_on_kvstore
+        self._kvstore = None
+        self._kv_initialized = False
+        if not self._gluon and self._wants_store():
+            raise MXNetError(
+                "Trainer: a kvstore needs Gluon Parameters (a block's "
+                "collect_params()); over an nn.Module or tensors pass "
+                "kvstore=None or a local type")
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
+        # the store's keys are strings: both forms carry lr_mult/wd_mult
         param_dict = {i: p for i, p in enumerate(self._params)}
+        param_dict.update({str(i): p for i, p in enumerate(self._params)})
         if isinstance(optimizer, opt_mod.Optimizer):
             if set(optimizer_params) - {"rescale_grad"}:
                 raise MXNetError("optimizer_params must be None when "
@@ -220,6 +235,48 @@ class Trainer:
         except Exception:       # interpreter teardown: imports may be gone
             pass
 
+    # -- kvstore ------------------------------------------------------------ #
+    def _wants_store(self):
+        """Whether ``_init_kvstore`` makes a store: ``update_on_kvstore``
+        (by default true for the ``dist`` types), a ``KVStore`` object
+        or a ``dist`` type; a local type alone skips it."""
+        kv = self._kv_type
+        if kv is None or kv == "":
+            return False
+        return bool(self._update_on_kvstore) or hasattr(kv, "push") or \
+            str(kv).startswith("dist")
+
+    def _init_kvstore(self):
+        """The reference's ``_init_kvstore``, once: make (or adopt) the
+        store, turn on its compression, give it every trainable weight
+        and, with ``update_on_kvstore``, the optimizer."""
+        if self._kv_initialized:
+            return
+        kv = self._kv_type
+        if kv is None or kv == "":
+            self._update_on_kvstore = False
+        else:
+            if self._update_on_kvstore is None:
+                self._update_on_kvstore = str(kv).startswith("dist")
+            if self._wants_store():
+                from .. import kvstore as kv_mod
+
+                self._kvstore = kv if hasattr(kv, "push") else \
+                    kv_mod.create(kv if isinstance(kv, str) else "device")
+                if self._compression_params:
+                    self._kvstore.set_gradient_compression(
+                        self._compression_params)
+                for i, p in enumerate(self._params):
+                    if p.grad_req != "null":
+                        self._kvstore.init(i, p.data())
+                if self._update_on_kvstore:
+                    self._kvstore.set_optimizer(self._optimizer)
+        self._kv_initialized = True
+
+    def _uses_store(self):
+        self._init_kvstore()
+        return self._kvstore is not None or bool(self._update_on_kvstore)
+
     @property
     def learning_rate(self):
         return self._optimizer.learning_rate
@@ -238,6 +295,7 @@ class Trainer:
         the first N-1 calls of a window only count, the Nth rescales once
         by ``1 / (N * batch_size)``, updates and zeroes the ``'add'``
         buffers."""
+        self._init_kvstore()
         N = self._update_interval
         if N > 1:
             self._window_pos += 1
@@ -279,18 +337,67 @@ class Trainer:
 
     def allreduce_grads(self):
         """The reference's explicit allreduce, for the clip-then-update
-        pattern: nothing to reduce on one card, refused mid-window."""
+        pattern: each gradient through the store's ``pushpull`` when
+        there is one (nothing to reduce on one card otherwise); refused
+        under ``update_on_kvstore`` and mid-window."""
+        self._init_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError(
+                "allreduce_grads() is not supported with update_on_kvstore")
         self._check_window_boundary("allreduce_grads()")
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        """The store's phase of a step: with ``update_on_kvstore`` push
+        every gradient in one wave (the store applies the optimizer) and
+        pull the weights back; otherwise ``pushpull`` each gradient."""
+        if self._kvstore is None:
+            return
+        live = [(i, p) for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+        if not live:
+            return
+        if self._update_on_kvstore:
+            for _, p in live:
+                self._take_torch_grad(p)
+            keys = [i for i, _ in live]
+            self._kvstore.push(keys, [p.list_grad() for _, p in live])
+            self._kvstore.pull(keys, [p.list_data() for _, p in live])
+            return
+        for i, p in live:
+            self._take_torch_grad(p)
+            self._kvstore.pushpull(i, p.list_grad(), out=p.list_grad())
+
+    @staticmethod
+    def _take_torch_grad(p):
+        """Move a gradient a PyTorch backward left in the tensor's
+        ``.grad`` into the parameter's gradient buffer."""
+        arr = p._data
+        if arr is not None and arr._data.grad is not None:
+            arr._commit_grad(arr._data.grad)
+            arr._data.grad = None
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The update half of ``step``; with ``update_interval=N`` it
-        rescales by ``1 / (N * batch_size)`` and is refused mid-window."""
+        rescales by ``1 / (N * batch_size)``; refused under
+        ``update_on_kvstore`` and mid-window."""
+        self._init_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError("update() is not supported with "
+                             "update_on_kvstore")
         self._check_window_boundary("update()")
-        self._do_update(batch_size * self._update_interval,
-                        ignore_stale_grad)
+        self._optimizer.rescale_grad = self._scale / float(
+            batch_size * self._update_interval)
+        self._update(ignore_stale_grad)
 
     def _do_update(self, batch_size, ignore_stale_grad):
         self._optimizer.rescale_grad = self._scale / float(batch_size)
+        self._allreduce_grads()
+        self._update(ignore_stale_grad)
+
+    def _update(self, ignore_stale_grad):
+        if self._update_on_kvstore:
+            return      # the push applied the optimizer in the store
         if self._gluon:
             self._update_params(ignore_stale_grad)
         else:
@@ -335,9 +442,7 @@ class Trainer:
                                  "call initialize() and run a forward pass "
                                  "first")
             leaf = arr._data
-            if leaf.grad is not None:       # left by a PyTorch backward
-                arr._commit_grad(leaf.grad)
-                leaf.grad = None
+            self._take_torch_grad(p)
             grad = arr._grad_buffer()._data
             seen = self._consumed[i]
             if seen is not None and seen() is grad:
@@ -429,6 +534,10 @@ class Trainer:
         from ..ndarray import serialization
 
         self._check_window_boundary("save_states()")
+        self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+            return
         opt = self._optimizer
         serialization.save_states(fname, {
             "num_update": opt.num_update,
@@ -472,6 +581,10 @@ class Trainer:
         from ..ndarray import serialization
 
         self._check_window_boundary("load_states()")
+        self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         payload = serialization.load_states(fname)
         self._restore_states(payload["states"], payload["created"],
                              payload["num_update"],

@@ -5,9 +5,10 @@ Port of ``mxnet_tpu/model.py`` (reference ``python/mxnet/model.py``):
 ``prefix-symbol.json`` and ``prefix-%04d.params``, the latter in the
 reference's ``.params`` format (``ndarray/serialization.py``) with its
 ``arg:``/``aux:`` keys, so either package reads the other's checkpoints.
-The reference's ``_create_kvstore`` is not ported: the port has no
-kvstore, and ``Module`` accepts the argument and leaves it unused, as
-the reference's does.
+``_create_kvstore`` turns a kvstore argument into ``(store,
+update_on_kvstore)`` as the reference's does (``MXNET_UPDATE_ON_KVSTORE``,
+default 1); ``Module`` accepts the argument and leaves it unused, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -15,8 +16,11 @@ import logging
 import os
 from collections import namedtuple
 
-from .base import MXNetError
+from .base import MXNetError, get_env, register_env
 from .ndarray import serialization
+
+register_env("MXNET_UPDATE_ON_KVSTORE", 1,
+             "1: a store made by _create_kvstore runs the optimizer")
 
 
 class _BatchEndParam(tuple):
@@ -25,6 +29,27 @@ class _BatchEndParam(tuple):
 
 BatchEndParam = namedtuple("BatchEndParam",
                            ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+def _create_kvstore(kvstore, num_device, arg_params):
+    """A kvstore argument (None, a type name or a ``KVStore``) as
+    ``(store or None, update_on_kvstore)``: a local type on one device
+    needs no store (reference ``_create_kvstore``)."""
+    from .kvstore import KVStore, create as kv_create
+
+    update_on_kvstore = bool(get_env("MXNET_UPDATE_ON_KVSTORE", typ=int))
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        kv = None if num_device == 1 and "dist" not in kvstore \
+            else kv_create(kvstore)
+    else:
+        raise MXNetError(f"invalid kvstore {kvstore!r}")
+    if kv is None:
+        update_on_kvstore = False
+    return kv, update_on_kvstore
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,

@@ -18,7 +18,8 @@ from ..device import resolve_device
 from .transformer import (Dropout, Embedding, LayerNorm,
                           TransformerDecoderCell, initialize)
 
-__all__ = ["GPTConfig", "GPT", "gpt2_small", "gpt2_medium", "gpt2_large"]
+__all__ = ["GPTConfig", "GPT", "gpt2_small", "gpt2_medium", "gpt2_large",
+           "gpt2_774m"]
 
 
 @dataclass
@@ -91,3 +92,4 @@ gpt2_medium = _preset(num_layers=24, units=1024, num_heads=16,
                       hidden_size=4096)
 gpt2_large = _preset(num_layers=36, units=1280, num_heads=20,
                      hidden_size=5120)
+gpt2_774m = gpt2_large      # GPT-2 774M, the name BASELINE.json uses

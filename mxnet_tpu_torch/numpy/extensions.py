@@ -29,9 +29,10 @@ import numpy as onp
 import torch
 
 from ..ndarray.ndarray import NDArray
-from .multiarray import (_CANON, _canon, _coerce_arr, _device_of, _host,
-                         _inexact, _make_binary, _make_unary, _np_dtype,
-                         _promote_all, _real, _run, _run1, _tdt, ndarray)
+from .multiarray import (_CANON, _canon, _coerce_arr, _device_of,
+                         _floor_divide, _host, _inexact, _make_binary,
+                         _make_unary, _np_dtype, _promote_all, _real,
+                         _remainder, _run, _run1, _tdt, ndarray)
 
 __all__: list = []  # populated below
 
@@ -61,8 +62,10 @@ def _export(name, fn):
 # --------------------------------------------------------------------------- #
 
 def _popcount(x):
+    """The set bits of ``|x|`` (NumPy's and ``jnp.bitwise_count``'s
+    rule: -5 counts the bits of 5)."""
     bits = torch.zeros_like(x, dtype=torch.uint8)
-    v = x.to(torch.int64) & ((1 << (8 * x.element_size())) - 1)
+    v = torch.abs(x).to(torch.int64) & ((1 << (8 * x.element_size())) - 1)
     for _ in range(8 * x.element_size()):
         bits = bits + (v & 1).to(torch.uint8)
         v = v >> 1
@@ -369,6 +372,16 @@ def put_along_axis(arr, indices, values, axis):
 _export("put_along_axis", put_along_axis)
 
 
+def _diagonal_values(val, n, like):
+    """``val`` for ``n`` diagonal places: a number, or an array's values
+    repeated in order (NumPy's ``fill_diagonal``)."""
+    v = val._data if isinstance(val, NDArray) else val
+    v = torch.as_tensor(v, device=like.device).to(like.dtype).reshape(-1)
+    if v.numel() <= 1:
+        return v.reshape(())
+    return v.repeat(-(-n // v.numel()))[:n]
+
+
 def _fill_diagonal(x, val, wrap):
     out = x.clone()
     if x.dim() == 2:
@@ -377,12 +390,11 @@ def _fill_diagonal(x, val, wrap):
         end = n * m if wrap else max(0, min(n, m)) * m
         flat = out.reshape(-1)
         idx = torch.arange(0, end, step, device=x.device)
-        flat[idx] = torch.as_tensor(val, dtype=x.dtype, device=x.device)
+        flat[idx] = _diagonal_values(val, idx.numel(), x)
         return flat.reshape(x.shape)
     n = x.shape[0]
     r = torch.arange(n, device=x.device)
-    out[(r,) * x.dim()] = torch.as_tensor(val, dtype=x.dtype,
-                                          device=x.device)
+    out[(r,) * x.dim()] = _diagonal_values(val, n, x)
     return out
 
 
@@ -450,8 +462,8 @@ _export("lexsort", lexsort)
 
 
 def divmod(x1, x2):
-    q = _run("floor_divide", torch.floor_divide, [x1, x2])
-    r = _run("remainder", torch.remainder, [x1, x2])
+    q = _run("floor_divide", _floor_divide, [x1, x2])
+    r = _run("remainder", _remainder, [x1, x2])
     return q, r
 
 
@@ -501,8 +513,13 @@ def _depth(a):
     return 1 + _depth(a[0]) if isinstance(a, list) and a else 0
 
 
+def _leaves(a):
+    return [y for x in a for y in _leaves(x)] if isinstance(a, list) \
+        else [a]
+
+
 def block(arrays):
-    dev = _device_of(())
+    dev = _device_of(_leaves(arrays))
     depth = _depth(arrays)
 
     def tensors(a):

@@ -72,9 +72,17 @@ def svd(a, full_matrices=False, compute_uv=True):
     return svdvals(a)
 
 
+def _cholesky(x):
+    """The lower factor, NaN where a matrix is not positive definite (its
+    lower triangle; the reference's LAPACK call), where torch raises."""
+    low, info = torch.linalg.cholesky_ex(_real(x))
+    failed = (info != 0)[..., None, None]
+    nan = torch.tril(torch.full_like(low, float("nan")))
+    return torch.where(failed, nan, low)
+
+
 def cholesky(a):
-    return _run("linalg_cholesky", lambda x: torch.linalg.cholesky(
-        _real(x)), [a])
+    return _run("linalg_cholesky", _cholesky, [a])
 
 
 def qr(a, mode="reduced"):
@@ -133,11 +141,11 @@ def _lstsq(x, y, rcond):
     sol = vh.transpose(-1, -2) @ (sinv.unsqueeze(-1) * (
         u.transpose(-1, -2) @ yy))
     rank = keep.sum()
-    if int(rank) == n and m > n:
-        r = yy - x @ sol
-        res = torch.sum(r * r, dim=-2)
-    else:
-        res = torch.zeros((0,), dtype=x.dtype, device=x.device)
+    # jnp.linalg.lstsq's residuals: always the squared column norms of
+    # b - a x, one a right-hand side (NumPy's are empty unless m > n at
+    # full rank)
+    r = yy - x @ sol
+    res = torch.sum(r * r, dim=-2)
     return (sol.squeeze(-1) if vec else sol), res, rank, s
 
 
@@ -152,9 +160,15 @@ def eig(a):
         torch.linalg.eig(x))), [a]))
 
 
+def _symmetrized(x):
+    """``(x + x^H) / 2``: ``jnp.linalg.eigh`` symmetrizes its input, so
+    a matrix that is not Hermitian reads both triangles."""
+    return (x + x.transpose(-1, -2).conj()) / 2
+
+
 def eigh(a, UPLO="L"):
     return tuple(_run("linalg_eigh", _f64(lambda x: tuple(
-        torch.linalg.eigh(x, UPLO=UPLO))), [a]))
+        torch.linalg.eigh(_symmetrized(x), UPLO=UPLO))), [a]))
 
 
 def eigvals(a):
@@ -163,7 +177,7 @@ def eigvals(a):
 
 def eigvalsh(a, UPLO="L"):
     return _run("linalg_eigvalsh", _f64(
-        lambda x: torch.linalg.eigvalsh(x, UPLO=UPLO)), [a])
+        lambda x: torch.linalg.eigvalsh(_symmetrized(x), UPLO=UPLO)), [a])
 
 
 def matrix_rank(a, tol=None):
@@ -220,7 +234,9 @@ def matmul(a, b):
 
 def outer(a, b):
     from .multiarray import _mm
-    return _run("linalg_outer", _mm(torch.outer), [a, b])
+    # flattened, as jnp.outer does (torch's takes 1-D operands only)
+    return _run("linalg_outer", _mm(lambda x, y: torch.outer(
+        x.reshape(-1), y.reshape(-1))), [a, b])
 
 
 def trace(a, offset=0, dtype=None):

@@ -31,7 +31,9 @@ import math
 import numpy as onp
 import torch
 
+from ..base import WIDE_UNSIGNED as _WIDE_UNSIGNED
 from ..base import MXNetError, numeric_types
+from ..base import int_result_type as _int_result_type
 from ..ndarray.ndarray import NDArray
 from ..ops.registry import Op, invoke
 
@@ -57,11 +59,13 @@ dtype = onp.dtype
 
 # JAX without 64-bit types: what each wide torch dtype becomes
 _CANON = {torch.float64: torch.float32, torch.int64: torch.int32,
-          torch.complex128: torch.complex64}
+          torch.uint64: torch.uint32, torch.complex128: torch.complex64}
 _NP2T = {"float16": torch.float16, "float32": torch.float32,
          "float64": torch.float32, "int8": torch.int8,
          "int16": torch.int16, "int32": torch.int32, "int64": torch.int32,
-         "uint8": torch.uint8, "bool": torch.bool, "complex64":
+         "uint8": torch.uint8, "uint16": torch.uint16,
+         "uint32": torch.uint32, "uint64": torch.uint32,
+         "bool": torch.bool, "complex64":
          torch.complex64, "complex128": torch.complex64}
 
 
@@ -126,8 +130,10 @@ class ndarray(NDArray):
         return self.asnumpy().tolist()
 
     def astype(self, dtype, copy=True):
+        from ..ops.defs import convert
+
         dt = _tdt(dtype)
-        return _run1("astype", lambda x: x.to(dt), self)
+        return _run1("astype", lambda x: convert(x, dt), self)
 
     def mean(self, axis=None, keepdims=False):
         return mean(self, axis=axis, keepdims=keepdims)
@@ -241,9 +247,48 @@ def _run(name, fn, arrays, static=None):
         if dev is not None and dev.type == "cuda":
             ts = [t.to(dev) if isinstance(t, torch.Tensor) and
                   t.device != dev else t for t in ts]
+        if [t for t in ts if isinstance(t, torch.Tensor) and
+                t.dtype in _WIDE_UNSIGNED]:
+            return _unsigned_run(name, fn, ts)
         return _canon(fn(*ts))
 
     return invoke(Op(name=f"_np_{name}", fn=run), coerced, static or {})
+
+
+# the functions whose integer result takes its operands' promoted type
+_PROMOTING = frozenset((
+    "add", "subtract", "multiply", "floor_divide", "mod", "remainder",
+    "fmod", "power", "maximum", "minimum", "bitwise_and", "bitwise_or",
+    "bitwise_xor", "left_shift", "right_shift", "gcd", "lcm"))
+# the reductions that accumulate in the default integer (uint32 for an
+# unsigned operand)
+_ACCUMULATING = frozenset(("sum", "prod", "nansum", "nanprod", "cumsum",
+                           "cumprod"))
+
+
+def _unsigned_run(name, fn, ts):
+    """``fn`` over operands with an unsigned type wider than 8 bits:
+    they compute as int64, and an integer result takes the type JAX
+    gives it (a Python number is weak: it does not take part)."""
+    dts = [t.dtype for t in ts if isinstance(t, torch.Tensor) and not (
+        t.dtype == torch.bool or t.is_floating_point() or t.is_complex()
+        or t.dim() == 0 and t.dtype == torch.int64)]
+    out = fn(*[t.to(torch.int64) if isinstance(t, torch.Tensor) and
+               t.dtype in _WIDE_UNSIGNED else t for t in ts])
+    back = None
+    if name in _PROMOTING:
+        back = _int_result_type(dts)
+    elif name in _ACCUMULATING and _int_result_type(dts) in (
+            torch.uint8, torch.uint16, torch.uint32):
+        back = torch.uint32
+
+    def cast(r):
+        if back is not None and isinstance(r, torch.Tensor) and \
+                r.dtype == torch.int64:
+            return r.to(back)
+        return _canon(r)
+    return type(out)(cast(r) for r in out) \
+        if isinstance(out, (tuple, list)) else cast(out)
 
 
 def _run1(name, fn, a):
@@ -421,6 +466,11 @@ def ones_like(a, dtype=None):
 
 def full_like(a, fill_value, dtype=None):
     dt = _tdt(dtype)
+    if isinstance(fill_value, (NDArray, onp.ndarray, list, tuple)):
+        # an array fill value broadcasts to a's shape (jnp.full_like)
+        return _run("full_like", lambda x, v: torch.broadcast_to(
+            v.to(x.device), x.shape).to(dt or x.dtype).clone(),
+            [a, fill_value])
     return _run1("full_like",
                  lambda x: torch.full_like(x, fill_value, dtype=dt), a)
 
@@ -479,7 +529,19 @@ def identity(n, dtype=float32, ctx=None):
 def meshgrid(*xi, indexing="xy"):
     dev = _device_of(xi)
     ts = [_coerce_arr(x, dev)._data for x in xi]
-    return [ndarray(r) for r in torch.meshgrid(*ts, indexing=indexing)]
+    # each grid keeps its own input's dtype (torch's meshgrid wants one)
+    axes = list(range(len(ts)))
+    if indexing == "xy" and len(ts) > 1:
+        axes[0], axes[1] = 1, 0
+    shape = [0] * len(ts)
+    for t, ax in zip(ts, axes):
+        shape[ax] = t.numel()
+    grids = []
+    for t, ax in zip(ts, axes):
+        view = [1] * len(ts)
+        view[ax] = t.numel()
+        grids.append(ndarray(_canon(t.reshape(view).expand(shape).clone())))
+    return grids
 
 
 def tril(m, k=0):
@@ -591,6 +653,49 @@ def _multiply(a, b):
         else torch.mul(a, b)
 
 
+def _int_pair(a, b):
+    """Integer operands promoted together and the divisor with 1 where it
+    is 0 (``None`` for floating operands): XLA's integer division by zero
+    gives values where torch's raises, and the functions below reproduce
+    them."""
+    dt = _result(a, b)
+    if dt.is_floating_point or dt.is_complex:
+        return None
+    a, b = a.to(dt), b.to(dt)
+    return a, b, torch.where(b == 0, torch.ones_like(b), b)
+
+
+def _floor_divide(a, b):
+    """``jnp.floor_divide``: on integers, ``x // 0`` is -1 for ``x == 0``
+    and -2 otherwise (XLA's quotient -1, less one where the signs differ
+    and the remainder ``x`` is not 0); unsigned, the type's largest
+    value."""
+    ints = _int_pair(a, b)
+    if ints is None:
+        return torch.floor_divide(a, b)
+    a, b, safe = ints
+    q = torch.floor_divide(a, safe)
+    if a.dtype == torch.uint8:
+        by_zero = torch.full_like(q, 255)
+    else:
+        by_zero = torch.where(a == 0, torch.full_like(q, -1),
+                              torch.full_like(q, -2))
+    return torch.where(b == 0, by_zero, q)
+
+
+def _remainder(a, b):
+    """``jnp.remainder``: an integer remainder by 0 is 0."""
+    ints = _int_pair(a, b)
+    return torch.remainder(a, b) if ints is None else \
+        torch.remainder(ints[0], ints[2])
+
+
+def _fmod(a, b):
+    """``jnp.fmod``: an integer remainder by 0 is 0."""
+    ints = _int_pair(a, b)
+    return torch.fmod(a, b) if ints is None else torch.fmod(ints[0], ints[2])
+
+
 def _float_power(a, b):
     a, b = _inexact(a, b)
     return torch.pow(a.to(torch.float64), b.to(torch.float64)).to(a.dtype)
@@ -600,8 +705,8 @@ _BINARY = {
     "add": _add, "subtract": torch.subtract, "multiply": _multiply,
     "divide": _fbin(torch.true_divide),
     "true_divide": _fbin(torch.true_divide),
-    "floor_divide": torch.floor_divide, "mod": torch.remainder,
-    "remainder": torch.remainder, "fmod": torch.fmod,
+    "floor_divide": _floor_divide, "mod": _remainder,
+    "remainder": _remainder, "fmod": _fmod,
     "power": torch.pow, "float_power": _float_power,
     "maximum": torch.maximum, "minimum": torch.minimum,
     "fmax": torch.fmax, "fmin": torch.fmin,
@@ -981,7 +1086,7 @@ def broadcast_to(a, shape):
 def broadcast_arrays(*args):
     dev = _device_of(args)
     ts = [_coerce_arr(a, dev)._data.to(dev) for a in args]
-    return [ndarray(r.clone()) for r in torch.broadcast_tensors(*ts)]
+    return [ndarray(_canon(r.clone())) for r in torch.broadcast_tensors(*ts)]
 
 
 def _promote_all(xs):
@@ -1281,8 +1386,7 @@ def _take(x, i, axis, mode):
     if axis is None:
         x, axis = x.reshape(-1), 0
     n = x.shape[axis]
-    i = i % n if mode == "wrap" else i.clamp(-n, n - 1)
-    i = torch.where(i < 0, i + n, i)
+    i = i % n if mode == "wrap" else i.clamp(0, n - 1)
     out = torch.index_select(x, axis, i.reshape(-1))
     return out.reshape(x.shape[:axis] + i.shape + x.shape[axis + 1:])
 
@@ -1540,10 +1644,13 @@ def _histogram(x, bins, rng, w):
     else:
         lo = torch.tensor(float(rng[0]), dtype=x.dtype, device=x.device)
         hi = torch.tensor(float(rng[1]), dtype=x.dtype, device=x.device)
-    hi = torch.where(hi == lo, hi + 0.5, hi)
-    lo = torch.where(hi - 0.5 == lo, lo - 0.5, lo) if rng is None else lo
-    steps = torch.arange(bins + 1, dtype=x.dtype, device=x.device) / bins
-    edges = lo + (hi - lo) * steps
+    same = hi == lo
+    lo, hi = torch.where(same, lo - 0.5, lo), torch.where(same, hi + 0.5, hi)
+    # jnp.linspace's formula, start * (1 - t) + stop * t, each step
+    # rounded in x's dtype, and the end point appended
+    t = torch.arange(bins, dtype=x.dtype, device=x.device) / torch.full(
+        (), bins, dtype=x.dtype, device=x.device)
+    edges = torch.cat([lo * (1 - t) + hi * t, hi.reshape(1)])
     idx = torch.searchsorted(edges, x.contiguous(), right=True) - 1
     idx = torch.where(x == edges[-1], torch.full_like(idx, bins - 1), idx)
     inside = (idx >= 0) & (idx < bins)
@@ -1839,7 +1946,7 @@ invert = bitwise_not
 
 
 def _polyval(p, x):
-    p, x = _promote_all([p, x])
+    p, x = _inexact(p, x)
     out = torch.zeros_like(x)
     for i in range(p.shape[0]):
         out = out * x + p[i]

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError, torch_dtype
+from ..base import (WIDE_UNSIGNED, MXNetError, int_result_type,
+                    torch_dtype)
 from .registry import alias, invoke, op
 
 _max = builtins.max
@@ -119,9 +120,27 @@ def size_array(data):
                         device=data.device)
 
 
+def convert(data, dt):
+    """``data.to(dt)`` as XLA's convert does it: a float to an integer
+    type truncates, NaN becomes 0 and a value out of the type's range
+    saturates to its nearest end (``torch`` wraps those); every other
+    conversion, and an in-range value, is ``to``'s."""
+    if not data.is_floating_point() or dt.is_floating_point or \
+            dt.is_complex or dt == torch.bool:
+        return data.to(dt)
+    info = torch.iinfo(dt)
+    wide = data.to(torch.float64)       # holds every integer bound exactly
+    low = wide < info.min
+    high = wide >= float(info.max) + 1.0
+    bad = low | high | torch.isnan(data)
+    out = torch.where(bad, torch.zeros_like(data), data).to(dt)
+    out = torch.where(low, torch.full_like(out, info.min), out)
+    return torch.where(high, torch.full_like(out, info.max), out)
+
+
 @op("cast")
 def cast(data, *, dtype):
-    return data.to(torch_dtype(dtype))
+    return convert(data, torch_dtype(dtype))
 
 
 alias("Cast", "cast")
@@ -161,10 +180,24 @@ _BINARY = {
     "broadcast_hypot": torch.hypot,
     "arctan2": torch.atan2,
 }
+
+
+def _wide_unsigned(f, lhs, rhs):
+    """``f`` over an unsigned operand wider than 8 bits, which torch does
+    not compute in: both as int64, an integer result in JAX's promoted
+    type (int32 + uint32 is int32)."""
+    out = f(lhs.to(torch.int64), rhs.to(torch.int64))
+    back = int_result_type((lhs.dtype, rhs.dtype))
+    return out.to(back) if out.dtype == torch.int64 else out
+
+
 for _name, _fn in _BINARY.items():
     def _makeb(f):
         def impl(lhs, rhs):
-            return f(*_scalar_pair(lhs, rhs))
+            lhs, rhs = _scalar_pair(lhs, rhs)
+            if lhs.dtype in WIDE_UNSIGNED or rhs.dtype in WIDE_UNSIGNED:
+                return _wide_unsigned(f, lhs, rhs)
+            return f(lhs, rhs)
         return impl
     _impl = _makeb(_fn)
     _impl.__name__ = _name

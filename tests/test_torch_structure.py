@@ -327,6 +327,26 @@ def test_zoo_names_and_module_names_match_the_reference():
     import mxnet_tpu_torch.gluon.parameter as pparam
 
     assert set(rparam.__all__) <= set(pparam.__all__)
+    # the C ABI's shim, the kvstore and the models: __all__ where both
+    # define one, and every public function or class of the reference;
+    # the tensor-parallel rules are by design not ported (one card)
+    by_design = {"gpt_tp_rules", "llama_tp_rules"}
+    for mod in ("capi_shim", "kvstore", "kvstore.kvstore",
+                "kvstore.compression", "models"):
+        ref = importlib.import_module("mxnet_tpu." + mod)
+        port = importlib.import_module("mxnet_tpu_torch." + mod)
+        if hasattr(ref, "__all__"):
+            want = [n for n in ref.__all__ if n not in by_design]
+            assert [n for n in want if n not in port.__all__] == [], mod
+        public = [n for n, v in vars(ref).items() if not n.startswith("_")
+                  and n not in by_design and callable(v)
+                  and getattr(v, "__module__", "").startswith(
+                      "mxnet_tpu." + mod)]
+        assert [n for n in public if not hasattr(port, n)] == [], mod
+    assert mx.kv is mx.kvstore is importlib.import_module(
+        "mxnet_tpu_torch.kvstore")
+    import mxnet_tpu_torch.models as pmodels
+    assert pmodels.gpt2_774m is pmodels.gpt2_large
 
 
 def test_nvcc_command_targets_sm90a():
